@@ -1,0 +1,187 @@
+"""Batched attention beam search and greedy CTC.
+
+Counterpart of ``avsr_tpu/decode/beam.py`` (``beam_search_batched`` with
+``shared_src_kv=True`` and ``lazy_reorder=True``, and ``greedy_ctc``). The
+utterances of a batch decode together: beam slots are fixed tensors, the
+decoder runs incrementally over per-layer K|V caches that are never
+reshuffled (each lane's ancestry is resolved at attention time through an
+additive ``lane_bias``), ended hypotheses retire by masking, and the
+reference's end detection (e2e_asr_common.py:18) and forced final eos are
+kept. The step loop is a Python ``while``; its stop test reads one flag
+from the device per step.
+
+Only ``ctc_weight == 0`` (attention-only scoring) is ported: the CTC prefix
+scorer and its kernels come next (ROADMAP A6, B3, B4).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from avsr_tpu_torch.ops.kernels.topk import topk_lastdim
+
+NEG = -1.0e30
+D_END = -10.0  # log(1 * exp(-10)), e2e_asr_common.py:18
+M_END = 3
+
+
+@dataclass(frozen=True)
+class BeamSearchConfig:
+    beam_size: int = 3
+    ctc_weight: float = 0.1
+    sos: int = 5048
+    eos: int = 5048
+    vocab: int = 5049
+    # self-attention KV buffer cap in tokens (None = frame-count-sized)
+    max_decode_tokens: Optional[int] = None
+
+    @property
+    def pre_beam_size(self) -> int:
+        return int(1.5 * self.beam_size)  # the reference's pre_beam_ratio
+
+
+def beam_search_batched(
+    cfg: BeamSearchConfig,
+    decoder_step: Callable,  # (y (N,), pos, cache, mem_mask, lane_bias) -> (logp (N,V), cache)
+    decoder_init: Callable,  # (memory (B,S,D), maxlen, beam) -> cache
+    feats: torch.Tensor,  # (B, S, D) encoder outputs (padded)
+    xlens: torch.Tensor,  # (B,) true frame counts
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decode a batch. Returns (yseqs (B, L), lengths (B,), scores (B,)).
+
+    yseq[:, 0] == sos; yseq[b, 1:length[b]] are the tokens incl. the final
+    eos."""
+    if cfg.ctc_weight > 0:
+        raise NotImplementedError("CTC prefix scoring: ROADMAP A6/B3/B4")
+    dev = feats.device
+    b, s_max = feats.shape[:2]
+    k = cfg.beam_size
+    n = b * k
+    v = cfg.vocab
+    buf_len = s_max + 2
+    eos = cfg.eos
+    kv_len = min(buf_len, cfg.max_decode_tokens) if cfg.max_decode_tokens else buf_len
+    kv_len = -(-kv_len // 64) * 64  # the JAX kernel's aligned buffer length
+    xlens = xlens.to(dev)
+    xlens_host = [int(x) for x in xlens.tolist()]
+    mem_mask = (torch.arange(s_max, device=dev)[None, :] < xlens[:, None])[:, None, :]
+    cache = decoder_init(feats, kv_len, k)
+
+    ar_k = torch.arange(k, device=dev)
+    ar_b = torch.arange(b, device=dev)
+    yseq = torch.full((b, k, buf_len), eos, dtype=torch.int64, device=dev)
+    yseq[..., 0] = cfg.sos
+    score = torch.full((b, k), NEG, device=dev)
+    score[:, 0] = 0.0
+    alive = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    alive[:, 0] = True
+    ended_best = torch.full((b, buf_len), NEG, device=dev)
+    ended_cnt = torch.zeros((b, buf_len), dtype=torch.int64, device=dev)
+    best_score = torch.full((b,), NEG, device=dev)
+    best_yseq = torch.full((b, buf_len), eos, dtype=torch.int64, device=dev)
+    best_len = torch.zeros((b,), dtype=torch.int64, device=dev)
+    stop = torch.zeros((b,), dtype=torch.bool, device=dev)
+    # anc[s, b, k]: the stored lane whose row s belongs to hypothesis (b, k)
+    anc = ar_k.expand(kv_len, b, k).clone()
+    s_idx = torch.arange(kv_len, device=dev)
+    n_pre = cfg.pre_beam_size
+    n_cand = n_pre + 1  # + explicit eos slot
+    eos_col = torch.full((b, k, 1), eos, dtype=torch.int64, device=dev)
+    w_dec = 1.0 - cfg.ctc_weight
+
+    i = 0
+    done = all(x <= 0 for x in xlens_host)
+    while not done:
+        lane_active = ~stop & (i < xlens)  # (B,)
+
+        # 1. attention-decoder scores; this step's row is each lane's own
+        anc[min(i, kv_len - 1)] = ar_k
+        onehot = anc[..., None] == ar_k  # (S, B, K, J)
+        lane_bias = torch.where((s_idx <= i)[:, None, None, None] & onehot,
+                                0.0, NEG).permute(1, 2, 3, 0)  # (B, K, J, S)
+        dec_logp, cache = decoder_step(
+            yseq[..., i].reshape(n), i, cache, mem_mask, lane_bias)
+        dec_logp = dec_logp.view(b, k, v)
+
+        # 2. pre-beam on decoder scores, + eos as an explicit candidate
+        dec_top, part_ids = topk_lastdim(dec_logp, n_pre)  # (B, K, S')
+        cand_tokens = torch.cat([part_ids, eos_col], dim=-1)
+        cand_dec = torch.cat([dec_top, dec_logp[..., eos:eos + 1]], dim=-1)
+        weighted = w_dec * cand_dec  # (B, K, S'+1)
+        # dedup: if eos is among the pre-beam ids, mask the explicit slot
+        eos_dup = (part_ids == eos).any(dim=-1)
+        weighted[..., -1] = torch.where(eos_dup, NEG, weighted[..., -1])
+        weighted = weighted + score[..., None]
+        weighted = torch.where(alive[..., None], weighted, NEG)
+
+        # 3. per-utterance flat top-k over (K, S'+1) candidates
+        top_scores, top_idx = topk_lastdim(weighted.view(b, k * n_cand), k)
+        prev = top_idx // n_cand  # (B, K)
+        token = torch.gather(cand_tokens.view(b, k * n_cand), 1, top_idx)
+
+        # 4. successors: hypotheses and ancestry (the caches stay put)
+        new_yseq = torch.gather(yseq, 1, prev[..., None].expand(b, k, buf_len))
+        new_yseq[..., i + 1] = token
+        anc = torch.gather(anc, 2, prev[None].expand(kv_len, b, k))
+
+        # 5. retire ended hypotheses (natural eos, or forced at the last step)
+        forced = i >= xlens - 1  # (B,)
+        ended = ((token == eos) | forced[:, None]) & lane_active[:, None]
+        # the final step appends eos to every hyp, even after a natural eos
+        new_yseq[..., i + 2] = torch.where(forced[:, None], eos,
+                                           new_yseq[..., i + 2])
+        hyp_len = torch.where(forced, i + 3, i + 2)
+
+        ended_scores = torch.where(ended, top_scores, NEG)
+        step_best = ended_scores.amax(dim=1)
+        best_slot = torch.argmax(ended_scores, dim=1)  # first maximal slot
+        ended_best[:, i] = torch.maximum(ended_best[:, i], step_best)
+        ended_cnt[:, i] += ended.sum(dim=1)
+        better = (step_best > best_score) & lane_active
+        best_score = torch.where(better, step_best, best_score)
+        picked = new_yseq[ar_b, best_slot]
+        best_yseq = torch.where(better[:, None], picked, best_yseq)
+        best_len = torch.where(better, hyp_len, best_len)
+
+        new_alive = ~ended & lane_active[:, None]
+        new_score = torch.where(new_alive, top_scores, NEG)
+        # freeze the small state of finished utterances
+        act = lane_active[:, None]
+        yseq = torch.where(act[..., None], new_yseq, yseq)
+        score = torch.where(act, new_score, score)
+        alive = torch.where(act, new_alive, alive)
+
+        # 6. end detection: M consecutive recent lengths whose best ended
+        # score trails the global best by more than |D_END|
+        count = torch.zeros((b,), dtype=torch.int64, device=dev)
+        for m in range(M_END):
+            j = i - m - 2
+            if j >= 0:
+                count += ((ended_cnt[:, j] > 0)
+                          & (ended_best[:, j] - best_score < D_END))
+        newly_stopped = (count >= M_END) | ~alive.any(dim=1)
+        stop = stop | (newly_stopped & lane_active)
+
+        i += 1
+        # the one host sync of the step
+        done = all(i >= x for x in xlens_host) or bool((stop | (i >= xlens)).all())
+    return best_yseq, best_len, best_score
+
+
+def greedy_ctc(log_probs: torch.Tensor, xlens: torch.Tensor, blank: int = 0):
+    """Batched greedy CTC: argmax, collapse repeats, drop blanks.
+
+    log_probs (B, T, V), xlens (B,). Returns (tokens (B, T) right-padded
+    with ``blank``, lengths (B,))."""
+    b, t, _ = log_probs.shape
+    ids = log_probs.argmax(dim=-1)
+    valid = torch.arange(t, device=ids.device)[None, :] < xlens.to(ids.device)[:, None]
+    prev = torch.cat([torch.full_like(ids[:, :1], -1), ids[:, :-1]], dim=1)
+    keep = (ids != blank) & (ids != prev) & valid
+    pos = torch.where(keep, keep.cumsum(dim=1) - 1, t)
+    out = torch.full((b, t + 1), blank, dtype=ids.dtype, device=ids.device)
+    out.scatter_(1, pos, ids)  # dropped tokens land in the spare column
+    return out[:, :t], keep.sum(dim=1)

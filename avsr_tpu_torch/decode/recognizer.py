@@ -1,0 +1,157 @@
+"""End-to-end recognizer: features -> encoder -> attention beam -> tokens.
+
+Counterpart of ``avsr_tpu/decode/recognizer.py`` on one device. Utterances
+are padded into static (batch, frames) buckets; uint8 crops travel to the
+device delta-coded (``data/wire.py``) and are decoded and normalised there;
+the encoder runs as one batch (in bf16 when ``encode_dtype="bfloat16"``,
+with every float weight and BN statistic cast); the beam decodes all
+utterances of the batch together. ``mode="greedy"`` is greedy CTC.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from avsr_tpu.core.config import AVHubertAVSRConfig
+from avsr_tpu_torch.data import wire
+from avsr_tpu_torch.decode.beam import (
+    BeamSearchConfig,
+    beam_search_batched,
+    greedy_ctc,
+)
+from avsr_tpu_torch.models.e2e import AVSRModel
+from avsr_tpu_torch.ops.masks import make_non_pad_mask
+
+
+def pick_bucket(buckets: Sequence[int], n: int) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"utterance of {n} frames exceeds largest bucket {buckets[-1]}")
+
+
+@dataclass
+class Recognizer:
+    model: AVSRModel
+    cfg: AVHubertAVSRConfig
+    beam_size: int = 3
+    ctc_weight: float = 0.1
+    t_buckets: Sequence[int] = (96, 192, 288, 384)
+    # self-KV buffer cap in tokens (None = frame-count-sized buffer)
+    max_decode_tokens: Optional[int] = None
+    # encoder forward dtype: "float32" or "bfloat16"
+    encode_dtype: str = "float32"
+    # uint8 video transfer codec: "uint8", "delta" or "delta2"
+    video_wire: str = "delta"
+    device: str = "cpu"
+    _enc: torch.nn.Module = field(init=False, repr=False)
+    _ctc: torch.nn.Module = field(init=False, repr=False)
+
+    def __post_init__(self):
+        if self.encode_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"encode_dtype {self.encode_dtype!r}")
+        if self.video_wire not in ("uint8", "delta", "delta2"):
+            raise ValueError(f"video_wire {self.video_wire!r}")
+        self.device = torch.device(self.device)
+        self.model = self.model.to(self.device).eval()
+        self._enc, self._ctc = self.model.encoder, self.model.ctc
+        if self.encode_dtype == "bfloat16":
+            # a bf16 copy of the encoder and CTC head: every float weight
+            # and BN statistic is cast (fp32 statistics would re-promote
+            # the trunk's activations); the decoder keeps the fp32 weights
+            # and casts them itself to decoder_param_dtype
+            self._enc, self._ctc = (copy.deepcopy(m).to(torch.bfloat16)
+                                    for m in (self._enc, self._ctc))
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, **kw) -> "Recognizer":
+        from avsr_tpu_torch.core.weights import load_released
+
+        cfg, model = load_released(model_dir)
+        return cls(model=model, cfg=cfg, **kw)
+
+    # ---------------- stages ----------------
+
+    @torch.inference_mode()
+    def encode(self, aud, vid, lens):
+        """Padded device batch -> (feats (B,T,D) fp32, CTC log-probs fp32)."""
+        if vid.dtype == torch.uint8:
+            if self.video_wire == "delta":
+                vid = wire.delta_decode_video(vid)
+            elif self.video_wire == "delta2":
+                vid = wire.delta2_decode_video(vid)
+            vid = (vid.float() / 255.0 - wire.VIDEO_MEAN) / wire.VIDEO_STD
+        dt = getattr(torch, self.encode_dtype)
+        mask = make_non_pad_mask(lens, vid.shape[1])
+        feats = self._enc(aud.to(dt), vid.to(dt), mask)
+        ctc_logp = torch.log_softmax(self._ctc.ctc_lo(feats).float(), dim=-1)
+        return feats.float(), ctc_logp
+
+    def beam_config(self) -> BeamSearchConfig:
+        return BeamSearchConfig(
+            beam_size=self.beam_size, ctc_weight=self.ctc_weight,
+            sos=self.cfg.sos, eos=self.cfg.eos,
+            vocab=self.cfg.odim, max_decode_tokens=self.max_decode_tokens,
+        )
+
+    @torch.inference_mode()
+    def beam(self, feats, lens):
+        """-> (yseqs (B, L), lengths (B,), scores (B,)) on the device."""
+        m = self.model
+        return beam_search_batched(
+            self.beam_config(), m.decoder_step, m.decoder_init, feats, lens)
+
+    # ---------------- host-side batching ----------------
+
+    def _pad_batch(self, audio_feats: List[np.ndarray],
+                   videos: List[np.ndarray], batch_pad: Optional[int] = None):
+        lengths = np.asarray([len(v) for v in videos], np.int64)
+        t_b = pick_bucket(self.t_buckets, int(lengths.max()))
+        b = batch_pad or len(videos)
+        vdtype = np.uint8 if videos[0].dtype == np.uint8 else np.float32
+        audio_dim = self.cfg.encoder.audio_feat_dim  # fbank, one row a frame
+        aud = np.zeros((b, t_b, audio_dim), np.float32)
+        vid = np.zeros((b, t_b, 88, 88, 1), vdtype)
+        for i, (a, v) in enumerate(zip(audio_feats, videos)):
+            a = a.reshape(-1, audio_dim)
+            aud[i, : len(a)] = a
+            vid[i, : len(v)] = v
+        lens = np.zeros((b,), np.int64)
+        lens[: len(videos)] = lengths
+        lens[len(videos):] = 1  # padded rows decode one dummy frame
+        if vdtype == np.uint8 and self.video_wire == "delta":
+            vid = wire.delta_encode_video(vid)
+        elif vdtype == np.uint8 and self.video_wire == "delta2":
+            vid = wire.delta2_encode_video(vid)
+        aud_t = torch.from_numpy(aud)
+        if self.encode_dtype == "bfloat16":
+            # the encoder casts to bf16 anyway: upload half the bytes
+            aud_t = aud_t.to(torch.bfloat16)
+        dev = self.device
+        return (aud_t.to(dev), torch.from_numpy(vid).to(dev),
+                torch.from_numpy(lens).to(dev), len(videos))
+
+    def transcribe_batch(self, audio_feats: List[np.ndarray],
+                         videos: List[np.ndarray], mode: str = "beam",
+                         batch_pad: Optional[int] = None) -> List[np.ndarray]:
+        """Decode a batch; returns per-utterance token ids (no sos/eos)."""
+        if mode not in ("beam", "greedy"):
+            raise ValueError(f"mode {mode!r}")
+        aud, vid, lens, n = self._pad_batch(audio_feats, videos, batch_pad)
+        feats, ctc_logp = self.encode(aud, vid, lens)
+        if mode == "greedy":
+            toks, tlens = greedy_ctc(ctc_logp, lens, blank=self.cfg.blank)
+            toks, tlens = toks.cpu().numpy(), tlens.cpu().numpy()
+            return [toks[i, : tlens[i]] for i in range(n)]
+        yseqs, ylens, _ = self.beam(feats, lens)
+        yseqs, ylens = yseqs.cpu().numpy(), ylens.cpu().numpy()
+        out = []
+        for i in range(n):
+            seq = yseqs[i, 1: ylens[i]]  # strip sos
+            out.append(seq[seq != self.cfg.eos])  # strip eos
+        return out

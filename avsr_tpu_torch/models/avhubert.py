@@ -1,0 +1,193 @@
+"""AV-HuBERT encoder: modality feature extractors + fusion + transformer.
+
+Counterpart of ``avsr_tpu/models/avhubert.py`` (inference path):
+
+  audio (B,T,104) -> Linear -> (B,T,D)
+  video (B,T,88,88,1) -> ResEncoder -> Linear -> (B,T,D)
+  concat -> LayerNorm(2D) -> Linear(2D->D)
+  -> weight-norm grouped conv positional embedding + N pre-LN layers
+  -> final LayerNorm
+
+Self-attention always runs through the flash-attention wrapper
+(``ops/kernels/flash_attention.mha_flash``): the hand-written kernel on the
+GPU, its plain twin on the CPU. Module names follow the reference checkpoint.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from avsr_tpu.core.config import AVHubertEncoderConfig
+from avsr_tpu_torch.models.resnet import ResEncoder
+from avsr_tpu_torch.ops.kernels.flash_attention import mha_flash
+
+
+class _WeightNormConv1d(nn.Module):
+    """Grouped Conv1d with weight norm over dims (0, 1), stored in torch's
+    weight-norm layout: weight_g (1, 1, K), weight_v (O, I/g, K), bias (O,)."""
+
+    def __init__(self, dim: int, kernel_size: int, groups: int):
+        super().__init__()
+        self.groups = groups
+        self.weight_g = nn.Parameter(torch.ones(1, 1, kernel_size))
+        self.weight_v = nn.Parameter(
+            torch.zeros(dim, dim // groups, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, D, T)
+        v = self.weight_v.float()
+        norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt().clamp_min(1e-12)
+        w = (self.weight_g.float() * v / norm).to(x.dtype)
+        k = w.shape[-1]
+        bias = self.bias.to(x.dtype)
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            # torch's CPU bf16 grouped conv1d returns wrong values for narrow
+            # groups (4-8 channels a group, torch 2.13); run it in fp32 on
+            # the bf16 operands and round, as an fp32-accumulating bf16 conv
+            return F.conv1d(x.float(), w.float(), bias.float(),
+                            padding=k // 2, groups=self.groups).to(x.dtype)
+        return F.conv1d(x, w, bias, padding=k // 2, groups=self.groups)
+
+
+class ConvPositionalEmbedding(nn.Module):
+    def __init__(self, dim: int, kernel_size: int, groups: int):
+        super().__init__()
+        self.conv = _WeightNormConv1d(dim, kernel_size, groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, T, D)
+        y = self.conv(x.transpose(1, 2))
+        if self.conv.weight_v.shape[-1] % 2 == 0:  # SamePad: drop the last
+            y = y[:, :, :-1]
+        return F.gelu(y.transpose(1, 2))
+
+
+class EncoderSelfAttention(nn.Module):
+    """Wav2vec2-style MHA, scores scaled by d_k**-0.5, biased projections."""
+
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        b, t, d = x.shape
+        dk = d // self.heads
+        q, k, v = (p(x).view(b, t, self.heads, dk)
+                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        out = mha_flash(q, k, v, padding_mask, scale=dk ** -0.5)
+        return self.out_proj(out.reshape(b, t, d))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, units: int):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(dim, units)
+        self.output_dense = nn.Linear(units, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN layer: x + attn(LN(x)), then x + FFN(LN(x))."""
+
+    def __init__(self, cfg: AVHubertEncoderConfig):
+        super().__init__()
+        d = cfg.encoder_embed_dim
+        self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.attention = EncoderSelfAttention(d, cfg.num_attention_heads)
+        self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.feed_forward = FeedForward(d, cfg.intermediate_size)
+
+    def forward(self, x, padding_mask):
+        x = x + self.attention(self.layer_norm(x), padding_mask)
+        return x + self.feed_forward(self.final_layer_norm(x))
+
+
+class AVHubertTransformer(nn.Module):
+    """Conv pos-emb + N pre-LN layers + trailing LayerNorm."""
+
+    def __init__(self, cfg: AVHubertEncoderConfig):
+        super().__init__()
+        d = cfg.encoder_embed_dim
+        self.pos_conv_embed = ConvPositionalEmbedding(
+            d, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if padding_mask is not None:
+            x = x * padding_mask[..., None].to(x.dtype)
+        x = x + self.pos_conv_embed(x)
+        for layer in self.layers:
+            x = layer(x, padding_mask)
+        return self.layer_norm(x)
+
+
+class _AudioFeatures(nn.Module):
+    def __init__(self, feat_dim: int, dim: int):
+        super().__init__()
+        self.proj = nn.Linear(feat_dim, dim)
+
+
+class _VideoFeatures(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.resnet = ResEncoder()
+        self.proj = nn.Linear(512, dim)
+
+
+class AVHubertModel(nn.Module):
+    """(audio (B,T,104) | None, video (B,T,88,88,1) | None, padding_mask
+    (B,T) True = valid | None) -> (B, T, D) features."""
+
+    def __init__(self, cfg: AVHubertEncoderConfig):
+        super().__init__()
+        if cfg.resnet_relu_type != "prelu":
+            raise NotImplementedError(
+                f"resnet_relu_type={cfg.resnet_relu_type!r}: only prelu")
+        self.cfg = cfg
+        d = cfg.encoder_embed_dim
+        self.feature_extractor_audio = _AudioFeatures(cfg.audio_feat_dim, d)
+        self.feature_extractor_video = _VideoFeatures(d)
+        self.layer_norm = nn.LayerNorm(cfg.fused_dim, eps=1e-5)
+        if cfg.fused_dim != d:
+            self.post_extract_proj = nn.Linear(cfg.fused_dim, d)
+        self.encoder = AVHubertTransformer(cfg)
+
+    def forward(self, audio: Optional[torch.Tensor],
+                video: Optional[torch.Tensor],
+                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        c = self.cfg
+        feats_a = feats_v = None
+        if audio is not None:
+            feats_a = self.feature_extractor_audio.proj(audio)
+        if video is not None:
+            fv = self.feature_extractor_video
+            feats_v = fv.proj(fv.resnet(video))
+        if feats_a is None:
+            feats_a = torch.zeros_like(feats_v)
+        if feats_v is None:
+            feats_v = torch.zeros_like(feats_a)
+        if c.modality == "audio":
+            feats_v = feats_v * 0
+        elif c.modality == "video":
+            feats_a = feats_a * 0
+        if c.modality_fuse == "concat":
+            feats = torch.cat([feats_a, feats_v], dim=-1)
+        else:
+            feats = feats_a + feats_v
+        feats = self.layer_norm(feats)
+        if c.fused_dim != c.encoder_embed_dim:
+            feats = self.post_extract_proj(feats)
+        return self.encoder(feats, padding_mask)

@@ -1,0 +1,225 @@
+"""Transformer decoder (ESPnet lineage): the incremental decode path.
+
+Counterpart of ``avsr_tpu/models/decoder.py`` as serving uses it: the fused
+decode path (``decode_fused_attention``) with lazy beam reorder and shared
+source K/V. The teacher-forced forward (training) is not ported yet.
+
+Per step and layer: LN -> one concatenated QKV product -> q * d_k**-0.5 ->
+``decode_attention`` (which writes the step's K|V row into the cache) ->
+linear_out; LN -> cross-attention with the beam lanes folded into the query
+axis; LN -> ReLU FFN. Then after_norm (fp32), the output head in the
+decoder parameter dtype, and an fp32 log-softmax. Module names follow the
+reference checkpoint (``embed.0``, ``decoders.{i}.self_attn.linear_q``...).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
+
+LN_EPS = 1e-12
+NEG_INF = torch.finfo(torch.float32).min
+
+
+def sinusoidal_pe(maxlen: int, d_model: int, device=None) -> torch.Tensor:
+    """(maxlen, d) fp32 sin/cos table (reference embedding.py:55)."""
+    position = torch.arange(maxlen, dtype=torch.float32, device=device)[:, None]
+    div_term = torch.exp(
+        torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+        * -(math.log(10000.0) / d_model)
+    )
+    pe = torch.zeros(maxlen, d_model, device=device)
+    pe[:, 0::2] = torch.sin(position * div_term)
+    pe[:, 1::2] = torch.cos(position * div_term)
+    return pe
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.linear_q = nn.Linear(dim, dim)
+        self.linear_k = nn.Linear(dim, dim)
+        self.linear_v = nn.Linear(dim, dim)
+        self.linear_out = nn.Linear(dim, dim)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, dim: int, units: int):
+        super().__init__()
+        self.w_1 = nn.Linear(dim, units)
+        self.w_2 = nn.Linear(units, dim)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, dim: int, heads: int, units: int):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(dim, heads)
+        self.src_attn = MultiHeadAttention(dim, heads)
+        self.feed_forward = _FeedForward(dim, units)
+        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
+
+
+@dataclass
+class LayerParams:
+    """One layer's decode-step weights, cast once to the parameter dtype."""
+
+    norm1: tuple
+    w_qkv: torch.Tensor  # (3C, C): linear_q | linear_k | linear_v
+    b_qkv: torch.Tensor
+    w_out: torch.Tensor
+    b_out: torch.Tensor
+    norm2: tuple
+    w_q_src: torch.Tensor
+    b_q_src: torch.Tensor
+    w_out_src: torch.Tensor
+    b_out_src: torch.Tensor
+    norm3: tuple
+    w_1: torch.Tensor
+    b_1: torch.Tensor
+    w_2: torch.Tensor
+    b_2: torch.Tensor
+
+
+@dataclass
+class DecoderCache:
+    """Decode state over B*K lanes.
+
+    self_kv: per layer one (B*K, S, 2C) K|V buffer in the cache dtype,
+    updated in place by each step; src_k / src_v: per layer the source K/V
+    shared by the K lanes of an utterance, (B, H, S_enc, Dh) in the cache
+    dtype; params: per-layer weights in the parameter dtype; head_w
+    (V, C) in the parameter dtype; pe: the positional table (fp32)."""
+
+    self_kv: List[torch.Tensor]
+    src_k: List[torch.Tensor]
+    src_v: List[torch.Tensor]
+    params: List[LayerParams]
+    head_w: torch.Tensor
+    pe: torch.Tensor
+
+
+def _ln(x, p):
+    return F.layer_norm(x, x.shape[-1:], p[0], p[1], LN_EPS)
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, odim: int, dim: int = 1024, heads: int = 16,
+                 units: int = 3072, layers: int = 6,
+                 max_decode_len: int = 512, cache_dtype: str = "float32",
+                 param_dtype: str = "float32"):
+        super().__init__()
+        self.dim = dim
+        self.heads = heads
+        self.max_decode_len = max_decode_len
+        self.cache_dtype = getattr(torch, cache_dtype)
+        self.param_dtype = getattr(torch, param_dtype)
+        self.embed = nn.Sequential(nn.Embedding(odim, dim))
+        self.decoders = nn.ModuleList(
+            DecoderLayer(dim, heads, units) for _ in range(layers))
+        self.after_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.output_layer = nn.Linear(dim, odim)
+
+    @torch.no_grad()
+    def init_cache(self, memory: torch.Tensor, maxlen: int,
+                   beam: int = 1) -> DecoderCache:
+        """Source K/V from per-utterance memory (B, S_enc, D), zeroed
+        (B*beam, maxlen, 2C) self K|V buffers, weights cast once."""
+        b, s_enc, _ = memory.shape
+        h, dh = self.heads, self.dim // self.heads
+        pd, cd = self.param_dtype, self.cache_dtype
+
+        def cast(*ts):
+            return tuple(t.to(pd) for t in ts)
+
+        def split(x):  # (B, S, C) -> (B, H, S, Dh)
+            return x.view(b, s_enc, h, dh).transpose(1, 2).contiguous()
+
+        self_kv, src_k, src_v, params = [], [], [], []
+        for layer in self.decoders:
+            sa, xa, ff = layer.self_attn, layer.src_attn, layer.feed_forward
+            src_k.append(split(xa.linear_k(memory)).to(cd))
+            src_v.append(split(xa.linear_v(memory)).to(cd))
+            self_kv.append(torch.zeros(b * beam, maxlen, 2 * self.dim,
+                                       dtype=cd, device=memory.device))
+            w_qkv = torch.cat([sa.linear_q.weight, sa.linear_k.weight,
+                               sa.linear_v.weight])
+            b_qkv = torch.cat([sa.linear_q.bias, sa.linear_k.bias,
+                               sa.linear_v.bias])
+            params.append(LayerParams(
+                cast(layer.norm1.weight, layer.norm1.bias),
+                *cast(w_qkv, b_qkv, sa.linear_out.weight, sa.linear_out.bias),
+                cast(layer.norm2.weight, layer.norm2.bias),
+                *cast(xa.linear_q.weight, xa.linear_q.bias,
+                      xa.linear_out.weight, xa.linear_out.bias),
+                cast(layer.norm3.weight, layer.norm3.bias),
+                *cast(ff.w_1.weight, ff.w_1.bias, ff.w_2.weight, ff.w_2.bias),
+            ))
+        return DecoderCache(
+            self_kv, src_k, src_v, params,
+            head_w=self.output_layer.weight.to(pd),
+            pe=sinusoidal_pe(max(self.max_decode_len, maxlen), self.dim,
+                             memory.device),
+        )
+
+    def _cross_attention(self, x, p: LayerParams, k, v, memory_mask):
+        """x (N, C) with N = B*K lanes; k, v (B, H, S, Dh) shared per
+        utterance: lanes fold into the query axis."""
+        b, h, s, dh = k.shape
+        q = F.linear(x, p.w_q_src, p.b_q_src)
+        q = q.view(b, -1, h, dh).transpose(1, 2)  # (B, H, K, Dh)
+        scores = torch.matmul(q, k.transpose(-1, -2).to(q.dtype)) / math.sqrt(dh)
+        if memory_mask is not None:
+            m = memory_mask[:, None]  # (B, 1, 1, S)
+            scores = scores.float().masked_fill(~m, NEG_INF)
+            attn = torch.softmax(scores, dim=-1).to(x.dtype)
+            attn = attn.masked_fill(~m, 0.0)
+        else:
+            attn = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        out = torch.matmul(attn, v.to(x.dtype))  # (B, H, K, Dh)
+        out = out.transpose(1, 2).reshape(x.shape)
+        return F.linear(out, p.w_out_src, p.b_out_src)
+
+    def step(self, y_t: torch.Tensor, pos: int, cache: DecoderCache,
+             memory_mask: Optional[torch.Tensor],
+             lane_bias: torch.Tensor):
+        """One decode step for N = B*K lanes: returns (log-probs (N, V) fp32,
+        cache). ``lane_bias`` (B, K, J, S): 0 where stored lane j at
+        position s is an ancestor of lane k (s <= pos), -1e30 elsewhere.
+        The self K|V buffers in ``cache`` are updated in place."""
+        if lane_bias is None:
+            raise ValueError("the decode step needs the lazy-reorder "
+                             "lane_bias (B, K, J, S)")
+        c, h = self.dim, self.heads
+        lanes = lane_bias.shape[1]
+        bias_ksj = lane_bias.transpose(2, 3).contiguous()  # kernel layout
+        pe = cache.pe[min(pos, cache.pe.shape[0] - 1)]
+        x = self.embed[0](y_t) * math.sqrt(c) + pe
+        x = x.to(self.param_dtype)
+        for i, p in enumerate(cache.params):
+            hn = _ln(x, p.norm1)
+            qkv = F.linear(hn, p.w_qkv, p.b_qkv)  # (N, 3C)
+            q = qkv[:, :c] * (c // h) ** -0.5
+            out, _ = decode_attention(
+                pos, q.contiguous(), cache.self_kv[i], bias_ksj, lanes, h,
+                kv_row=qkv[:, c:].contiguous(),
+            )
+            x = x + F.linear(out.to(hn.dtype), p.w_out, p.b_out)
+            x = x + self._cross_attention(_ln(x, p.norm2), p, cache.src_k[i],
+                                          cache.src_v[i], memory_mask)
+            hf = F.relu(F.linear(_ln(x, p.norm3), p.w_1, p.b_1))
+            x = x + F.linear(hf, p.w_2, p.b_2)
+        y = F.layer_norm(x.float(), (c,), self.after_norm.weight.float(),
+                         self.after_norm.bias.float(), LN_EPS)
+        logits = F.linear(y.to(cache.head_w.dtype), cache.head_w).float()
+        logits = logits + self.output_layer.bias.float()
+        return torch.log_softmax(logits, dim=-1), cache

@@ -1,0 +1,71 @@
+"""Exact small-k top-k over the last axis (descending, lower-index ties).
+
+Counterpart of ``avsr_tpu/ops/pallas/topk.py`` ``topk_lastdim``.
+``topk_lastdim`` dispatches on the tensor's device: on the CPU it runs
+``topk_plain``, on a CUDA device it launches ``csrc/topk.cu``. torch.topk is
+not used: its tie order on CUDA is not documented.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from avsr_tpu_torch.ops.kernels import _build
+
+MAX_K = 32
+
+
+def topk_plain(x, k: int):
+    """k rounds of (max, lowest index holding it, mask it to -inf)."""
+    iota = torch.arange(x.shape[-1], device=x.device)
+    vals, ids = [], []
+    cur = x
+    for _ in range(k):
+        m = cur.amax(dim=-1, keepdim=True)
+        idx = torch.where(cur == m, iota, x.shape[-1]).amin(dim=-1)
+        vals.append(m[..., 0])
+        ids.append(idx)
+        cur = torch.where(iota == idx[..., None], float("-inf"), cur)
+    return torch.stack(vals, -1), torch.stack(ids, -1)
+
+
+def _launch(x2, k):
+    rows, v = x2.shape
+    if x2.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {x2.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    fn = _build.function(
+        "avsr_topk_lastdim",
+        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
+    )
+    vals = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
+    ids = torch.empty((rows, k), dtype=torch.int64, device=x2.device)
+    err = fn(x2.data_ptr(), vals.data_ptr(), ids.data_ptr(), rows, v, k,
+             torch.cuda.current_stream(x2.device).cuda_stream)
+    _build.check("topk_lastdim", err)
+    topk_lastdim.launches += 1
+    return vals, ids
+
+
+def topk_lastdim(x, k: int):
+    """(values, indices) of the k largest entries along the last axis of an
+    fp32 tensor, sorted descending, ties toward the lower index. Indices
+    are int64 (torch's index dtype)."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"topk_lastdim takes fp32, got {x.dtype}")
+    if not 0 < k <= min(MAX_K, x.shape[-1]):
+        raise ValueError(f"k={k} outside [1, min({MAX_K}, {x.shape[-1]})]")
+    if not x.is_contiguous():
+        raise ValueError("input must be contiguous")
+    if x.device.type == "cpu":
+        return topk_plain(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"no topk_lastdim for device {x.device}")
+    lead = x.shape[:-1]
+    vals, ids = _launch(x.reshape(-1, x.shape[-1]), k)
+    return vals.view(*lead, k), ids.view(*lead, k)
+
+
+topk_lastdim.launches = 0

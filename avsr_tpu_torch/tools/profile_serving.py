@@ -1,0 +1,158 @@
+"""Time and trace the full-width serving path on one CUDA card.
+
+    python -m avsr_tpu_torch.tools.profile_serving [--table PATH]
+
+Builds the serving configuration of ``chip_smoke.py`` phase 4: the flagship
+model (24x1024 encoder, 6x1024 decoder, vocab 5049) with seeded random
+weights, bf16 encode, bf16 decoder weights and K|V cache, beam 3, a
+192-token K|V cap, ``ctc_weight=0`` and the delta2 video wire, on a batch of
+8 synthetic 15 s utterances (375 frames). Then, per batch, each in
+``REPEATS`` untraced runs on the device-synchronised host clock:
+
+- host batching: the numpy wire encode alone, and all of ``_pad_batch``
+  (padding, wire encode, upload);
+- greedy CTC on the device, and ``transcribe_batch`` in greedy mode;
+- encode, beam, and ``transcribe_batch`` in beam mode;
+
+and one encode and one beam under ``torch.profiler``: device busy time (the
+union of the CUDA op intervals), op count, and the idle share of the
+traced window and of the median untraced run. The profiler slows the
+host, so wall times come from the untraced runs. The per-kernel table
+(``key_averages``, by device time) is written to ``--table``.
+
+Prints the card's nvidia-smi name and power limit, then one JSON object as
+the last line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+BATCH = 8
+FRAMES = 375
+REPEATS = 3
+KV_CAP = 192
+
+
+def _timed(fn, repeats: int):
+    """(last result, host-clock ms of each run), device-synchronised."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return out, times
+
+
+def _device_busy_ms(prof) -> tuple:
+    """(ms covered by at least one CUDA kernel or copy, number of them)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    total, cur_start, cur_end = 0, None, None
+    for start, end in spans:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        total += cur_end - cur_start
+    return total / 1e3, len(spans)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--table", default=None,
+                    help="file for the profiler's per-kernel tables")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: torch sees no CUDA device")
+
+    from avsr_tpu.core.config import AVHubertAVSRConfig
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.data import wire
+    from avsr_tpu_torch.data.synthetic import synthetic_batch
+    from avsr_tpu_torch.decode.beam import greedy_ctc
+    from avsr_tpu_torch.decode.recognizer import Recognizer
+    from avsr_tpu_torch.models.e2e import AVSRModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    cfg = AVHubertAVSRConfig(decoder_cache_dtype="bfloat16",
+                             decoder_param_dtype="bfloat16",
+                             decode_fused_attention=True)
+    cfg.encoder.use_flash_attention = True
+    with torch.device(dev):
+        model = AVSRModel(cfg)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    rec = Recognizer(model=model, cfg=cfg, device=dev, ctc_weight=0.0,
+                     t_buckets=(FRAMES + 2,), max_decode_tokens=KV_CAP,
+                     encode_dtype="bfloat16", video_wire="delta2")
+    audio, video = synthetic_batch(np.random.RandomState(0), [FRAMES] * BATCH)
+    rec.transcribe_batch(audio, video, mode="beam")  # warm-up
+    rec.transcribe_batch(audio, video, mode="greedy")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    res = {"card": smi, "batch": BATCH, "frames": FRAMES}
+    n = REPEATS
+    padded = np.zeros((BATCH, FRAMES + 2, 88, 88, 1), np.uint8)
+    for i, v in enumerate(video):
+        padded[i, : len(v)] = v
+    _, res["wire_encode_ms"] = _timed(
+        lambda: wire.delta2_encode_video(padded), n)
+    (aud, vid, lens, _), res["pad_batch_ms"] = _timed(
+        lambda: rec._pad_batch(audio, video), n)
+    (feats, ctc), res["encode_ms"] = _timed(
+        lambda: rec.encode(aud, vid, lens), n)
+    _, res["greedy_ctc_ms"] = _timed(lambda: greedy_ctc(ctc, lens), n)
+    _, res["transcribe_greedy_ms"] = _timed(
+        lambda: rec.transcribe_batch(audio, video, mode="greedy"), n)
+    (_, ylen, _), res["beam_ms"] = _timed(lambda: rec.beam(feats, lens), n)
+    res["beam_steps"] = int(ylen.max().item()) - 2
+    _, res["transcribe_beam_ms"] = _timed(
+        lambda: rec.transcribe_batch(audio, video, mode="beam"), n)
+
+    torch.cuda.reset_peak_memory_stats()
+    tables = []
+    for name, fn in (("encode", lambda: rec.encode(aud, vid, lens)),
+                     ("beam", lambda: rec.beam(feats, lens))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, (wall,) = _timed(fn, 1)
+        busy, count = _device_busy_ms(prof)
+        res[f"{name}_traced_wall_ms"] = wall
+        res[f"{name}_device_busy_ms"] = busy
+        res[f"{name}_device_ops"] = count
+        res[f"{name}_idle_share_traced"] = 1 - busy / wall
+        res[f"{name}_idle_share_untraced"] = (
+            1 - busy / statistics.median(res[f"{name}_ms"]))
+        tables.append(f"==== {name}: traced wall {wall:.3f} ms, device busy "
+                      f"{busy:.3f} ms, {count} device ops ({smi})\n"
+                      + prof.key_averages().table(
+                          sort_by="self_device_time_total", row_limit=30))
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write("\n\n".join(tables) + "\n")
+    print(smi)
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -41,3 +41,9 @@ def has_reference() -> bool:
 requires_reference = pytest.mark.skipif(
     not has_reference(), reason="upstream reference assets not mounted"
 )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none"
+    )

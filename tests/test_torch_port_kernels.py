@@ -1,0 +1,180 @@
+"""The port's kernel twins vs the JAX Pallas kernels (interpret mode, CPU).
+
+On a CPU tensor each wrapper runs its plain twin; the CUDA kernels
+themselves are held against the same twins on the card
+(tests/test_torch_port_cuda.py, chip_smoke.py).
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from avsr_tpu_torch.ops.kernels import decode_attention as pda  # noqa: E402
+from avsr_tpu_torch.ops.kernels import flash_attention as pfa  # noqa: E402
+from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
+from tests.torch_port_common import setup_torch, t  # noqa: E402
+
+NEG = -1.0e30
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch():
+    setup_torch()
+
+
+# ---------------------------------------------------------------- flash
+
+
+@pytest.mark.parametrize("tt,d", [(100, 16), (128, 64), (200, 32)])
+def test_flash_plain_matches_jax(tt, d):
+    """Padding bias on a ragged tail; T not a multiple of 128 included."""
+    from avsr_tpu.ops.pallas.flash_attention import flash_attention
+
+    rng = np.random.RandomState(tt)
+    n = 3
+    q, k, v = (rng.randn(n, tt, d).astype(np.float32) for _ in range(3))
+    lens = np.asarray([tt, tt - 17, tt // 2])
+    bias = np.where(np.arange(tt)[None, :] < lens[:, None], 0.0, NEG)
+    bias = bias.astype(np.float32)
+    scale = d ** -0.5
+    want = flash_attention(*(jnp.asarray(x) for x in (q, k, v, bias)),
+                           scale=scale)
+    got, lse = pfa.flash_attention_fwd(t(q), t(k), t(v), t(bias), scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    # lse is the row normaliser of the same scores
+    s = np.einsum("ntd,nsd->nts", q, k) * scale + bias[:, None, :]
+    m = s.max(-1)
+    ref_lse = m + np.log(np.exp(s - m[..., None]).sum(-1))
+    np.testing.assert_allclose(lse.numpy(), ref_lse, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_mha_flash_matches_jax(masked):
+    from avsr_tpu.ops.pallas.flash_attention import mha_flash
+
+    rng = np.random.RandomState(11)
+    b, tt, h, dh = 2, 37, 2, 16
+    q, k, v = (rng.randn(b, tt, h, dh).astype(np.float32) for _ in range(3))
+    mask = (np.arange(tt)[None, :] < np.asarray([37, 20])[:, None]) if masked else None
+    want = mha_flash(*(jnp.asarray(x) for x in (q, k, v)),
+                     None if mask is None else jnp.asarray(mask), scale=0.25)
+    got = pfa.mha_flash(t(q), t(k), t(v), None if mask is None else t(mask),
+                        scale=0.25)
+    assert got.shape == (b, tt, h, dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+# ---------------------------------------------------------------- decode
+
+
+def _decode_case(seed, b=3, k=3, s_max=64, heads=4, dh=32, pos=11):
+    rng = np.random.RandomState(seed)
+    n, c = b * k, heads * dh
+    q = rng.randn(n, c).astype(np.float32)
+    kv = rng.randn(n, s_max, 2 * c).astype(np.float32)
+    row = rng.randn(n, 2 * c).astype(np.float32)
+    anc = rng.randint(0, k, size=(s_max, b, k))
+    anc[min(pos, s_max - 1)] = np.arange(k)  # the step's row: own lane
+    valid = (np.arange(s_max) <= pos)[:, None, None, None] & (
+        anc[..., None] == np.arange(k))
+    bias = np.where(np.transpose(valid, (1, 2, 0, 3)), 0.0, NEG)  # (B,K,S,J)
+    return q, kv, row, bias.astype(np.float32)
+
+
+@pytest.mark.parametrize("pos", [0, 11, 63, 64, 90])
+def test_decode_attention_plain_matches_jax(pos):
+    """Resident v3 with the in-kernel row write; pos >= S clamps the
+    write to the last row (S = 64); B = 3 utterances, K = 3 lanes."""
+    from avsr_tpu.ops.pallas.decode_attention import decode_attention
+
+    q, kv, row, bias = _decode_case(pos, pos=pos)
+    want, want_kv = decode_attention(
+        jnp.asarray(pos), jnp.asarray(q), jnp.asarray(kv), jnp.asarray(bias),
+        lanes=3, heads=4, kv_row=jnp.asarray(row), resident=True)
+    cache = t(kv)
+    got, got_kv = pda.decode_attention(pos, t(q), cache, t(bias), 3, 4, t(row))
+    assert got_kv is cache  # updated in place
+    np.testing.assert_array_equal(got_kv.numpy(), np.asarray(want_kv))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+
+def test_decode_attention_plain_bf16_cache_rounding():
+    """q and probabilities round to the cache dtype as in the TPU kernel.
+    At these inputs the twin equals the JAX kernel bit for bit (measured);
+    1e-4 abs leaves fp32 summation-order room, while a twin that skipped
+    the rounding of p would be ~4e-3 off."""
+    from avsr_tpu.ops.pallas.decode_attention import decode_attention
+
+    q, kv, row, bias = _decode_case(7, b=1, pos=20)
+    kv16 = jnp.asarray(kv).astype(jnp.bfloat16)
+    want, want_kv = decode_attention(
+        jnp.asarray(20), jnp.asarray(q), kv16, jnp.asarray(bias),
+        lanes=3, heads=4, kv_row=jnp.asarray(row), resident=True)
+    cache = t(kv).to(torch.bfloat16)
+    got, got_kv = pda.decode_attention(20, t(q), cache, t(bias), 3, 4, t(row))
+    np.testing.assert_array_equal(
+        got_kv.float().numpy(), np.asarray(want_kv.astype(jnp.float32)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------- topk
+
+
+@pytest.mark.parametrize("rows,v,k", [(9, 61, 4), (24, 5049, 4), (8, 15, 3)])
+def test_topk_plain_matches_jax_with_ties(rows, v, k):
+    from avsr_tpu.ops.pallas.topk import topk_lastdim
+
+    rng = np.random.RandomState(v)
+    x = rng.randn(rows, v).astype(np.float32)
+    # ties: repeat each row's max at later columns, and a block of equal
+    # values; a row of -1e30 sentinels with one live entry
+    x[:, v // 2] = x.max(axis=1)
+    x[:, -1] = x.max(axis=1)
+    x[1, :] = 0.5
+    x[2, :] = NEG
+    x[2, 5] = -2.0
+    want_v, want_i = topk_lastdim(jnp.asarray(x), k)
+    got_v, got_i = ptk.topk_lastdim(t(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def test_topk_leading_axes():
+    x = np.random.RandomState(3).randn(2, 3, 40).astype(np.float32)
+    vals, ids = ptk.topk_lastdim(t(x), 4)
+    assert vals.shape == ids.shape == (2, 3, 4)
+    np.testing.assert_array_equal(ids.numpy(), np.argsort(-x, axis=-1)[..., :4])
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def test_cpu_dispatch_launches_no_kernel():
+    before = (pfa.flash_attention_fwd.launches, pda.decode_attention.launches,
+              ptk.topk_lastdim.launches)
+    x = torch.randn(2, 8, 16)
+    pfa.flash_attention(x, x, x, torch.zeros(2, 8))
+    q, kv, row, bias = _decode_case(1, b=1)
+    pda.decode_attention(3, t(q), t(kv), t(bias), 3, 4, t(row))
+    ptk.topk_lastdim(torch.randn(4, 10), 2)
+    assert (pfa.flash_attention_fwd.launches, pda.decode_attention.launches,
+            ptk.topk_lastdim.launches) == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k"])
+def test_wrappers_reject_bad_inputs(case):
+    x = torch.randn(2, 8, 16)
+    with pytest.raises((TypeError, ValueError)):
+        if case == "dtype":
+            ptk.topk_lastdim(torch.randn(4, 10, dtype=torch.float64), 2)
+        elif case == "shape":
+            pfa.flash_attention(x, x, x, torch.zeros(2, 9))
+        elif case == "contiguity":
+            q, kv, row, b = _decode_case(2, b=1)
+            pda.decode_attention(3, t(q).t().contiguous().t(), t(kv), t(b),
+                                 3, 4, t(row))
+        else:
+            ptk.topk_lastdim(torch.randn(4, 10), 11)
