@@ -1,11 +1,9 @@
 """Weight bridge: JAX variables, released checkpoints and seeded weights.
 
 The port's module names are the reference checkpoint's key names (the torch
-side of ``avsr_tpu.core.checkpoint.avsr_mapping(cfg, prefix="")``), so every
-source of weights ends in ``load_state_dict(strict=True)``. The two loaders
-reuse that numpy-only module, imported when they are called; seeded weights
-(``init_weights``) need nothing of the JAX package beyond its stdlib-only
-config.
+side of ``core/checkpoint.avsr_mapping(cfg, prefix="")``, the port's copy of
+the JAX package's mapping), so every source of weights ends in
+``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -19,14 +17,19 @@ import numpy as np
 import torch
 from torch import nn
 
-from avsr_tpu.core.config import AVHubertAVSRConfig
+from avsr_tpu_torch.core.checkpoint import (
+    _IGNORABLE_SUFFIXES,
+    avsr_mapping,
+    flax_to_torch,
+    load_torch_state_dict,
+    normalize_torch_keys,
+)
+from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 
 
 def torch_state_from_jax(variables_np, cfg: AVHubertAVSRConfig
                          ) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy or JAX arrays) -> the port's state dict."""
-    from avsr_tpu.core.checkpoint import avsr_mapping, flax_to_torch
-
     state = flax_to_torch(variables_np, avsr_mapping(cfg, prefix=""))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in state.items()}
@@ -36,11 +39,6 @@ def load_released(model_dir: str):
     """(cfg, AVSRModel) from an HF-style directory: ``config.json`` plus
     ``model.safetensors`` or ``pytorch_model.bin`` with ``avsr.``-prefixed
     keys, loaded strictly."""
-    from avsr_tpu.core.checkpoint import (
-        _IGNORABLE_SUFFIXES,
-        load_torch_state_dict,
-        normalize_torch_keys,
-    )
     from avsr_tpu_torch.models.e2e import AVSRModel
 
     cfg_path = os.path.join(model_dir, "config.json")

@@ -1,4 +1,4 @@
-"""Batched attention beam search and greedy CTC.
+"""Batched joint CTC/attention beam search and greedy CTC.
 
 Counterpart of ``avsr_tpu/decode/beam.py`` (``beam_search_batched`` with
 ``shared_src_kv=True`` and ``lazy_reorder=True``, and ``greedy_ctc``). The
@@ -10,8 +10,11 @@ reference's end detection (e2e_asr_common.py:18) and forced final eos are
 kept. The step loop is a Python ``while``; its stop test reads one flag
 from the device per step.
 
-Only ``ctc_weight == 0`` (attention-only scoring) is ported: the CTC prefix
-scorer and its kernels come next (ROADMAP A6, B3, B4).
+Scoring follows the reference's get_beam_search_decoder: decoder weight
+1 - ctc_weight, CTC prefix score (``decode/ctc_prefix.py``) weight
+ctc_weight, pre-beam of 1.5 x beam on the decoder scores, length bonus 0.
+With ``fused_bookkeeping`` the step's bookkeeping after scoring runs as one
+kernel (``ops/kernels/beam_update.py``), bit-identical to the unfused ops.
 """
 
 from __future__ import annotations
@@ -20,7 +23,11 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.nn import functional as F
 
+from avsr_tpu_torch.decode import ctc_prefix
+from avsr_tpu_torch.ops.kernels.beam_update import beam_update
+from avsr_tpu_torch.ops.kernels.row_gather import row_gather
 from avsr_tpu_torch.ops.kernels.topk import topk_lastdim
 
 NEG = -1.0e30
@@ -34,9 +41,13 @@ class BeamSearchConfig:
     ctc_weight: float = 0.1
     sos: int = 5048
     eos: int = 5048
+    blank: int = 0
     vocab: int = 5049
-    # self-attention KV buffer cap in tokens (None = frame-count-sized)
+    # self-KV buffer cap in tokens (None = frame-count-sized)
     max_decode_tokens: Optional[int] = None
+    # the bookkeeping after scoring as one beam_update kernel launch a step
+    # instead of ~100 small ops; the same results bit for bit
+    fused_bookkeeping: bool = False
 
     @property
     def pre_beam_size(self) -> int:
@@ -45,17 +56,17 @@ class BeamSearchConfig:
 
 def beam_search_batched(
     cfg: BeamSearchConfig,
-    decoder_step: Callable,  # (y (N,), pos, cache, mem_mask, lane_bias) -> (logp (N,V), cache)
+    decoder_step: Callable,  # (y (N,), pos, cache, mem_mask, lane_bias)
+    #                          -> (logp (N, V), cache)
     decoder_init: Callable,  # (memory (B,S,D), maxlen, beam) -> cache
     feats: torch.Tensor,  # (B, S, D) encoder outputs (padded)
+    ctc_log_probs: torch.Tensor,  # (B, S, V) CTC log-softmax (padded)
     xlens: torch.Tensor,  # (B,) true frame counts
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode a batch. Returns (yseqs (B, L), lengths (B,), scores (B,)).
 
     yseq[:, 0] == sos; yseq[b, 1:length[b]] are the tokens incl. the final
     eos."""
-    if cfg.ctc_weight > 0:
-        raise NotImplementedError("CTC prefix scoring: ROADMAP A6/B3/B4")
     dev = feats.device
     b, s_max = feats.shape[:2]
     k = cfg.beam_size
@@ -63,11 +74,16 @@ def beam_search_batched(
     v = cfg.vocab
     buf_len = s_max + 2
     eos = cfg.eos
-    kv_len = min(buf_len, cfg.max_decode_tokens) if cfg.max_decode_tokens else buf_len
+    w_ctc = cfg.ctc_weight
+    w_dec = 1.0 - w_ctc
+    use_ctc = w_ctc > 0
+    kv_len = (min(buf_len, cfg.max_decode_tokens) if cfg.max_decode_tokens
+              else buf_len)
     kv_len = -(-kv_len // 64) * 64  # the JAX kernel's aligned buffer length
     xlens = xlens.to(dev)
     xlens_host = [int(x) for x in xlens.tolist()]
-    mem_mask = (torch.arange(s_max, device=dev)[None, :] < xlens[:, None])[:, None, :]
+    mem_mask = (torch.arange(s_max, device=dev)[None, :]
+                < xlens[:, None])[:, None, :]
     cache = decoder_init(feats, kv_len, k)
 
     ar_k = torch.arange(k, device=dev)
@@ -90,7 +106,21 @@ def beam_search_batched(
     n_pre = cfg.pre_beam_size
     n_cand = n_pre + 1  # + explicit eos slot
     eos_col = torch.full((b, k, 1), eos, dtype=torch.int64, device=dev)
-    w_dec = 1.0 - cfg.ctc_weight
+
+    if use_ctc:
+        # pad the CTC time axis to a multiple of 128, then apply the
+        # reference padding, as the JAX package does: the extra frames are
+        # ordinary padded frames (blank 0, LOG_ZERO elsewhere)
+        t_pad = -(-s_max // 128) * 128
+        log_probs = ctc_prefix.pad_log_probs(
+            F.pad(ctc_log_probs.float(), (0, 0, 0, t_pad - s_max)), xlens,
+            cfg.blank)
+        # loop-invariant scorer inputs: the transposed table whose rows the
+        # step gathers (one row per candidate token), and the blank cumsum
+        logp_rows = log_probs.transpose(1, 2).reshape(b * v, t_pad)
+        cum_b_all = torch.cumsum(log_probs[:, :, cfg.blank], dim=1)
+        ctc_state = ctc_prefix.init_state(log_probs, k, cfg.sos, cfg.blank)
+        row_base = (ar_b * v)[:, None, None]
 
     i = 0
     done = all(x <= 0 for x in xlens_host)
@@ -106,68 +136,115 @@ def beam_search_batched(
             yseq[..., i].reshape(n), i, cache, mem_mask, lane_bias)
         dec_logp = dec_logp.view(b, k, v)
 
-        # 2. pre-beam on decoder scores, + eos as an explicit candidate
+        # 2. pre-beam on decoder scores, then CTC prefix scores of the
+        # candidates (+ eos, which CTC always scores)
         dec_top, part_ids = topk_lastdim(dec_logp, n_pre)  # (B, K, S')
-        cand_tokens = torch.cat([part_ids, eos_col], dim=-1)
-        cand_dec = torch.cat([dec_top, dec_logp[..., eos:eos + 1]], dim=-1)
-        weighted = w_dec * cand_dec  # (B, K, S'+1)
-        # dedup: if eos is among the pre-beam ids, mask the explicit slot
-        eos_dup = (part_ids == eos).any(dim=-1)
-        weighted[..., -1] = torch.where(eos_dup, NEG, weighted[..., -1])
-        weighted = weighted + score[..., None]
-        weighted = torch.where(alive[..., None], weighted, NEG)
+        if use_ctc:
+            xs_rows = row_gather(logp_rows, (part_ids + row_base).view(-1))
+            xs = xs_rows.view(b, k, n_pre, t_pad).permute(3, 0, 1, 2)
+            psi_cand, psi_eos, r_cands = (
+                ctc_prefix.score_candidates_cols_batched(
+                    xs, cum_b_all, xlens, ctc_state, part_ids, eos,
+                    cfg.blank))
 
-        # 3. per-utterance flat top-k over (K, S'+1) candidates
-        top_scores, top_idx = topk_lastdim(weighted.view(b, k * n_cand), k)
-        prev = top_idx // n_cand  # (B, K)
-        token = torch.gather(cand_tokens.view(b, k * n_cand), 1, top_idx)
+        if cfg.fused_bookkeeping:
+            # 3-6 in one kernel launch
+            upd = beam_update(
+                i, xlens, dec_top, dec_logp[..., eos].contiguous(),
+                psi_cand if use_ctc else None,
+                psi_eos if use_ctc else None,
+                ctc_state.s if use_ctc else None,
+                part_ids, score, alive, stop, yseq, anc, ended_best,
+                ended_cnt, best_score, best_yseq, best_len,
+                w_dec=w_dec, w_ctc=w_ctc, eos=eos, neg=NEG, d_end=D_END,
+                m_end=M_END)
+            if use_ctc:
+                ctc_state = ctc_prefix.select_candidates(
+                    ctc_state, upd["psi_sel"], r_cands, upd["prev"],
+                    upd["slot"], upd["token"])
+            yseq, score, alive, anc = (upd["yseq"], upd["score"],
+                                       upd["alive"], upd["anc"])
+            ended_best, ended_cnt = upd["ended_best"], upd["ended_cnt"]
+            best_score, best_yseq = upd["best_score"], upd["best_yseq"]
+            best_len, stop = upd["best_len"], upd["stop"]
+        else:
+            cand_tokens = torch.cat([part_ids, eos_col], dim=-1)
+            cand_dec = torch.cat([dec_top, dec_logp[..., eos:eos + 1]],
+                                 dim=-1)
+            weighted = w_dec * cand_dec  # (B, K, S'+1)
+            if use_ctc:
+                psi_all = torch.cat([psi_cand, psi_eos[..., None]], dim=-1)
+                gain = psi_all - ctc_state.s[..., None]
+                weighted = weighted + w_ctc * gain
+            # dedup: if eos is among the pre-beam ids, mask the explicit slot
+            eos_dup = (part_ids == eos).any(dim=-1)
+            weighted[..., -1] = torch.where(eos_dup, NEG, weighted[..., -1])
+            weighted = weighted + score[..., None]
+            weighted = torch.where(alive[..., None], weighted, NEG)
 
-        # 4. successors: hypotheses and ancestry (the caches stay put)
-        new_yseq = torch.gather(yseq, 1, prev[..., None].expand(b, k, buf_len))
-        new_yseq[..., i + 1] = token
-        anc = torch.gather(anc, 2, prev[None].expand(kv_len, b, k))
+            # 3. per-utterance flat top-k over (K, S'+1) candidates
+            top_scores, top_idx = topk_lastdim(weighted.view(b, k * n_cand),
+                                               k)
+            prev = top_idx // n_cand  # (B, K)
+            token = torch.gather(cand_tokens.view(b, k * n_cand), 1, top_idx)
 
-        # 5. retire ended hypotheses (natural eos, or forced at the last step)
-        forced = i >= xlens - 1  # (B,)
-        ended = ((token == eos) | forced[:, None]) & lane_active[:, None]
-        # the final step appends eos to every hyp, even after a natural eos
-        new_yseq[..., i + 2] = torch.where(forced[:, None], eos,
-                                           new_yseq[..., i + 2])
-        hyp_len = torch.where(forced, i + 3, i + 2)
+            # 4. successors: hypotheses, ancestry (the caches stay put) and
+            # the CTC state
+            new_yseq = torch.gather(yseq, 1,
+                                    prev[..., None].expand(b, k, buf_len))
+            new_yseq[..., i + 1] = token
+            anc = torch.gather(anc, 2, prev[None].expand(kv_len, b, k))
+            if use_ctc:
+                psi_sel = torch.gather(psi_all.view(b, k * n_cand), 1,
+                                       top_idx)
+                ctc_state = ctc_prefix.select_candidates(
+                    ctc_state, psi_sel, r_cands, prev, top_idx % n_cand,
+                    token)
 
-        ended_scores = torch.where(ended, top_scores, NEG)
-        step_best = ended_scores.amax(dim=1)
-        best_slot = torch.argmax(ended_scores, dim=1)  # first maximal slot
-        ended_best[:, i] = torch.maximum(ended_best[:, i], step_best)
-        ended_cnt[:, i] += ended.sum(dim=1)
-        better = (step_best > best_score) & lane_active
-        best_score = torch.where(better, step_best, best_score)
-        picked = new_yseq[ar_b, best_slot]
-        best_yseq = torch.where(better[:, None], picked, best_yseq)
-        best_len = torch.where(better, hyp_len, best_len)
+            # 5. retire ended hypotheses (natural eos, or forced at the
+            # last step)
+            forced = i >= xlens - 1  # (B,)
+            ended = ((token == eos) | forced[:, None]) & lane_active[:, None]
+            # the final step appends eos to every hyp, even after a
+            # natural eos
+            new_yseq[..., i + 2] = torch.where(forced[:, None], eos,
+                                               new_yseq[..., i + 2])
+            hyp_len = torch.where(forced, i + 3, i + 2)
 
-        new_alive = ~ended & lane_active[:, None]
-        new_score = torch.where(new_alive, top_scores, NEG)
-        # freeze the small state of finished utterances
-        act = lane_active[:, None]
-        yseq = torch.where(act[..., None], new_yseq, yseq)
-        score = torch.where(act, new_score, score)
-        alive = torch.where(act, new_alive, alive)
+            ended_scores = torch.where(ended, top_scores, NEG)
+            step_best = ended_scores.amax(dim=1)
+            best_slot = torch.argmax(ended_scores, dim=1)  # first maximal
+            ended_best[:, i] = torch.maximum(ended_best[:, i], step_best)
+            ended_cnt[:, i] += ended.sum(dim=1)
+            better = (step_best > best_score) & lane_active
+            best_score = torch.where(better, step_best, best_score)
+            picked = new_yseq[ar_b, best_slot]
+            best_yseq = torch.where(better[:, None], picked, best_yseq)
+            best_len = torch.where(better, hyp_len, best_len)
 
-        # 6. end detection: M consecutive recent lengths whose best ended
-        # score trails the global best by more than |D_END|
-        count = torch.zeros((b,), dtype=torch.int64, device=dev)
-        for m in range(M_END):
-            j = i - m - 2
-            if j >= 0:
-                count += ((ended_cnt[:, j] > 0)
-                          & (ended_best[:, j] - best_score < D_END))
-        newly_stopped = (count >= M_END) | ~alive.any(dim=1)
-        stop = stop | (newly_stopped & lane_active)
+            new_alive = ~ended & lane_active[:, None]
+            new_score = torch.where(new_alive, top_scores, NEG)
+            # freeze the small state of finished utterances
+            act = lane_active[:, None]
+            yseq = torch.where(act[..., None], new_yseq, yseq)
+            score = torch.where(act, new_score, score)
+            alive = torch.where(act, new_alive, alive)
+
+            # 6. end detection: M consecutive recent lengths whose best
+            # ended score trails the global best by more than |D_END|
+            count = torch.zeros((b,), dtype=torch.int64, device=dev)
+            for m in range(M_END):
+                j = i - m - 2
+                if j >= 0:
+                    count += ((ended_cnt[:, j] > 0)
+                              & (ended_best[:, j] - best_score < D_END))
+            newly_stopped = (count >= M_END) | ~alive.any(dim=1)
+            stop = stop | (newly_stopped & lane_active)
 
         i += 1
         # the one host sync of the step
-        done = all(i >= x for x in xlens_host) or bool((stop | (i >= xlens)).all())
+        done = (all(i >= x for x in xlens_host)
+                or bool((stop | (i >= xlens)).all()))
     return best_yseq, best_len, best_score
 
 

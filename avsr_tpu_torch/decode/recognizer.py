@@ -1,11 +1,14 @@
-"""End-to-end recognizer: features -> encoder -> attention beam -> tokens.
+"""End-to-end recognizer: features -> encoder -> joint CTC/attention beam
+-> tokens.
 
-Counterpart of ``avsr_tpu/decode/recognizer.py`` on one device. Utterances
+Counterpart of ``avsr_tpu/decode/recognizer.py`` on one device, with the
+same defaults (beam 3, ``ctc_weight=0.1``, unfused bookkeeping). Utterances
 are padded into static (batch, frames) buckets; uint8 crops travel to the
 device delta-coded (``data/wire.py``) and are decoded and normalised there;
 the encoder runs as one batch (in bf16 when ``encode_dtype="bfloat16"``,
 with every float weight and BN statistic cast); the beam decodes all
-utterances of the batch together. ``mode="greedy"`` is greedy CTC.
+utterances of the batch together. ``mode="greedy"`` is greedy CTC. It runs
+on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from avsr_tpu.core.config import AVHubertAVSRConfig
+from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data import wire
 from avsr_tpu_torch.decode.beam import (
     BeamSearchConfig,
@@ -48,7 +51,9 @@ class Recognizer:
     encode_dtype: str = "float32"
     # uint8 video transfer codec: "uint8", "delta" or "delta2"
     video_wire: str = "delta"
-    device: str = "cpu"
+    # the beam step's bookkeeping as one beam_update kernel launch
+    fused_bookkeeping: bool = False
+    device: str = "cuda"
     _enc: torch.nn.Module = field(init=False, repr=False)
     _ctc: torch.nn.Module = field(init=False, repr=False)
 
@@ -95,16 +100,18 @@ class Recognizer:
     def beam_config(self) -> BeamSearchConfig:
         return BeamSearchConfig(
             beam_size=self.beam_size, ctc_weight=self.ctc_weight,
-            sos=self.cfg.sos, eos=self.cfg.eos,
+            sos=self.cfg.sos, eos=self.cfg.eos, blank=self.cfg.blank,
             vocab=self.cfg.odim, max_decode_tokens=self.max_decode_tokens,
+            fused_bookkeeping=self.fused_bookkeeping,
         )
 
     @torch.inference_mode()
-    def beam(self, feats, lens):
-        """-> (yseqs (B, L), lengths (B,), scores (B,)) on the device."""
+    def beam(self, feats, ctc_logp, lens):
+        """Encoder features and CTC log-probs (``encode``'s outputs) ->
+        (yseqs (B, L), lengths (B,), scores (B,)) on the device."""
         m = self.model
-        return beam_search_batched(
-            self.beam_config(), m.decoder_step, m.decoder_init, feats, lens)
+        return beam_search_batched(self.beam_config(), m.decoder_step,
+                                   m.decoder_init, feats, ctc_logp, lens)
 
     # ---------------- host-side batching ----------------
 
@@ -148,7 +155,7 @@ class Recognizer:
             toks, tlens = greedy_ctc(ctc_logp, lens, blank=self.cfg.blank)
             toks, tlens = toks.cpu().numpy(), tlens.cpu().numpy()
             return [toks[i, : tlens[i]] for i in range(n)]
-        yseqs, ylens, _ = self.beam(feats, lens)
+        yseqs, ylens, _ = self.beam(feats, ctc_logp, lens)
         yseqs, ylens = yseqs.cpu().numpy(), ylens.cpu().numpy()
         out = []
         for i in range(n):

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from avsr_tpu.core.config import AVHubertEncoderConfig
+from avsr_tpu_torch.core.config import AVHubertEncoderConfig
 from avsr_tpu_torch.models.resnet import ResEncoder
 from avsr_tpu_torch.ops.kernels.flash_attention import mha_flash
 

@@ -13,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from avsr_tpu.core.config import AVHubertAVSRConfig
+from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.models.avhubert import AVHubertModel
 from avsr_tpu_torch.models.decoder import DecoderCache, TransformerDecoder
 from avsr_tpu_torch.ops.masks import make_non_pad_mask

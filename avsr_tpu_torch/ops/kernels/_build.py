@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``avsr_tpu_torch/csrc/*.cu``).
 
-All sources compile, with ``nvcc`` for ``sm_90a``, into one shared library
-with a plain C interface, which is loaded with ``ctypes``; no source includes
-PyTorch's headers, so a build takes seconds. The library lands in
+Every source compiles, with one ``nvcc`` for each, all started together,
+for ``sm_90a``; the objects link into one shared library with a plain C
+interface, which is loaded with ``ctypes``. No source includes PyTorch's
+headers, so a build takes seconds. The library lands in
 ``build/avsr_tpu_torch/`` under the checkout at first use, named by a hash
 of the sources and flags, so an edited source rebuilds and an unchanged one
 is loaded as it is. The compiler's ``-Xptxas -v`` report (registers, shared
@@ -29,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "avsr_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -72,18 +73,38 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC_DIR.glob("*.cu")))]
+    stem = out.with_name(f"{out.stem}.{os.getpid()}")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = Path(f"{stem}.{src.stem}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    report, failed = [], []
+    for src, _, proc in jobs:
+        text, _ = proc.communicate()
+        report.append(f"==== {src.name} (rc {proc.returncode})\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name}:\n{text[-4000:]}")
+    tmp = Path(f"{stem}.tmp.so")
+    if not failed:
+        proc = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)],
+            capture_output=True, text=True)
+        report.append(f"==== link (rc {proc.returncode})\n"
+                      f"{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link:\n{proc.stderr[-4000:]}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    out.with_suffix(".log").write_text("\n".join(report))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-        )
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out, seconds
 

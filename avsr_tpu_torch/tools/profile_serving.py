@@ -5,20 +5,23 @@
 Builds the serving configuration of ``chip_smoke.py`` phase 4: the flagship
 model (24x1024 encoder, 6x1024 decoder, vocab 5049) with seeded random
 weights, bf16 encode, bf16 decoder weights and K|V cache, beam 3, a
-192-token K|V cap, ``ctc_weight=0`` and the delta2 video wire, on a batch of
-8 synthetic 15 s utterances (375 frames). Then, per batch, each in
-``REPEATS`` untraced runs on the device-synchronised host clock:
+192-token K|V cap, the joint CTC/attention beam at the default
+``ctc_weight=0.1`` and the delta2 video wire, on a batch of 8 synthetic
+15 s utterances (375 frames). Then, per batch, each in ``REPEATS``
+untraced runs on the device-synchronised host clock:
 
 - host batching: the numpy wire encode alone, and all of ``_pad_batch``
   (padding, wire encode, upload);
 - greedy CTC on the device, and ``transcribe_batch`` in greedy mode;
-- encode, beam, and ``transcribe_batch`` in beam mode;
+- encode; the beam with its bookkeeping unfused (the default) and fused
+  (``fused_bookkeeping``, one ``beam_update`` launch a step); and
+  ``transcribe_batch`` in beam mode, unfused;
 
-and one encode and one beam under ``torch.profiler``: device busy time (the
-union of the CUDA op intervals), op count, and the idle share of the
-traced window and of the median untraced run. The profiler slows the
-host, so wall times come from the untraced runs. The per-kernel table
-(``key_averages``, by device time) is written to ``--table``.
+and one encode and one beam of each kind under ``torch.profiler``: device
+busy time (the union of the CUDA op intervals), op count, and the idle
+share of the traced window and of the median untraced run. The profiler
+slows the host, so wall times come from the untraced runs. The per-kernel
+table (``key_averages``, by device time) is written to ``--table``.
 
 Prints the card's nvidia-smi name and power limit, then one JSON object as
 the last line.
@@ -80,7 +83,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: torch sees no CUDA device")
 
-    from avsr_tpu.core.config import AVHubertAVSRConfig
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data import wire
     from avsr_tpu_torch.data.synthetic import synthetic_batch
@@ -98,9 +101,10 @@ def main() -> None:
     with torch.device(dev):
         model = AVSRModel(cfg)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
-    rec = Recognizer(model=model, cfg=cfg, device=dev, ctc_weight=0.0,
+    rec = Recognizer(model=model, cfg=cfg, device=dev,
                      t_buckets=(FRAMES + 2,), max_decode_tokens=KV_CAP,
                      encode_dtype="bfloat16", video_wire="delta2")
+
     audio, video = synthetic_batch(np.random.RandomState(0), [FRAMES] * BATCH)
     rec.transcribe_batch(audio, video, mode="beam")  # warm-up
     rec.transcribe_batch(audio, video, mode="greedy")
@@ -122,15 +126,24 @@ def main() -> None:
     _, res["greedy_ctc_ms"] = _timed(lambda: greedy_ctc(ctc, lens), n)
     _, res["transcribe_greedy_ms"] = _timed(
         lambda: rec.transcribe_batch(audio, video, mode="greedy"), n)
-    (_, ylen, _), res["beam_ms"] = _timed(lambda: rec.beam(feats, lens), n)
+
+    def beam(fused: bool):
+        rec.fused_bookkeeping = fused
+        return rec.beam(feats, ctc, lens)
+
+    beam(True)  # warm-up
+    (_, ylen, _), res["beam_ms"] = _timed(lambda: beam(False), n)
+    _, res["beam_fused_ms"] = _timed(lambda: beam(True), n)
     res["beam_steps"] = int(ylen.max().item()) - 2
+    rec.fused_bookkeeping = False
     _, res["transcribe_beam_ms"] = _timed(
         lambda: rec.transcribe_batch(audio, video, mode="beam"), n)
 
     torch.cuda.reset_peak_memory_stats()
     tables = []
     for name, fn in (("encode", lambda: rec.encode(aud, vid, lens)),
-                     ("beam", lambda: rec.beam(feats, lens))):
+                     ("beam", lambda: beam(False)),
+                     ("beam_fused", lambda: beam(True))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -145,7 +158,7 @@ def main() -> None:
         tables.append(f"==== {name}: traced wall {wall:.3f} ms, device busy "
                       f"{busy:.3f} ms, {count} device ops ({smi})\n"
                       + prof.key_averages().table(
-                          sort_by="self_device_time_total", row_limit=30))
+                          sort_by="self_device_time_total", row_limit=60))
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if args.table:
         with open(args.table, "w") as f:

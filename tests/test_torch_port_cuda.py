@@ -1,7 +1,7 @@
 """The port's CUDA kernels vs their plain twins, on an NVIDIA GPU.
 
 Marked ``cuda``; every test skips where torch sees no CUDA device. Imports
-torch only, so it runs on a machine without JAX:
+torch and numpy only, so it runs on a machine without JAX:
 
     python -m pytest tests/test_torch_port_cuda.py -q --noconftest
 """
@@ -9,9 +9,15 @@ torch only, so it runs on a machine without JAX:
 import pytest
 import torch
 
+from avsr_tpu_torch.ops.kernels import beam_update as pbu
 from avsr_tpu_torch.ops.kernels import decode_attention as pda
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+from avsr_tpu_torch.ops.kernels import row_gather as prg
+from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
 from avsr_tpu_torch.ops.kernels import topk as ptk
+# pytest puts tests/ itself on sys.path; the card's machine may have a
+# top-level package named `tests` of its own
+from torch_port_common import beam_step_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 NEG = -1.0e30
@@ -84,3 +90,57 @@ def test_topk_kernel_matches_plain(dev, rows, v, k):
     torch.cuda.synchronize()
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_v.cpu(), want_v)
+
+
+@pytest.mark.parametrize("tt,c", [(384, 96), (375, 7), (1, 5), (64, 300)])
+def test_cumlogsumexp_kernel_matches_plain(dev, tt, c):
+    """Drifting columns, -inf prefixes and an all -inf column. The kernel
+    sums in sequential order, the twin as a tree: within 1e-4 + 1e-6|x|
+    (T rescale-and-add steps of a few ulps each), -inf exactly."""
+    g = _gen(tt + c)
+    x = torch.randn(tt, c, generator=g) * 3.0
+    x = x - 8.5 * torch.arange(tt)[:, None].flip(0)
+    x[: tt // 2, : c // 3] = float("-inf")
+    x[:, -1] = float("-inf")
+    want = psl.cumlogsumexp_plain(x)
+    got = psl.cumlogsumexp(x.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert not torch.isnan(got).any()
+    fin = torch.isfinite(want)
+    assert ((got[fin] - want[fin]).abs()
+            <= 1e-4 + 1e-6 * want[fin].abs()).all()
+
+
+@pytest.mark.parametrize("r,c,n", [(8 * 5049, 384, 96), (50, 37, 9)])
+def test_row_gather_kernel_matches_plain(dev, r, c, n):
+    """Exact, with 16-byte copies (c % 4 == 0) and without; an index out
+    of range gives a NaN row."""
+    src = torch.randn(r, c, generator=_gen(c))
+    idx = torch.randint(0, r, (n,), generator=_gen(n))
+    idx[0] = r - 1
+    got = prg.row_gather(src.to(dev), idx.to(dev)).cpu()
+    assert torch.equal(got, prg.row_gather_plain(src, idx))
+    bad = prg.row_gather(src.to(dev), torch.tensor([r], device=dev)).cpu()
+    assert torch.isnan(bad).all()
+
+
+@pytest.mark.parametrize("use_ctc,dyadic", [(True, False), (False, False),
+                                            (True, True)])
+@pytest.mark.parametrize("seed,i", [(0, 4), (1, 9), (2, 17)])
+def test_beam_update_kernel_matches_plain(dev, seed, i, use_ctc, dyadic):
+    """Every output bit-identical to the twin on the same step states
+    (forced step, stopped lane, ties, eos among the pre-beam ids)."""
+    w_ctc = 0.1 if use_ctc else 0.0
+    kw = dict(w_dec=1.0 - w_ctc, w_ctc=w_ctc, eos=49, neg=-1.0e30,
+              d_end=-10.0, m_end=3)
+    args = [None if x is None else torch.from_numpy(x)
+            for x in beam_step_case(seed, i, use_ctc=use_ctc,
+                                    dyadic=dyadic).values()]
+    want = pbu.beam_update_plain(i, *args, **kw)
+    got = pbu.beam_update(i, *(None if x is None else x.to(dev)
+                               for x in args), **kw)
+    torch.cuda.synchronize()
+    for name, w in want.items():
+        assert got[name].dtype == w.dtype, name
+        assert torch.equal(got[name].cpu(), w), name

@@ -12,10 +12,13 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from avsr_tpu_torch.ops.kernels import beam_update as pbu  # noqa: E402
 from avsr_tpu_torch.ops.kernels import decode_attention as pda  # noqa: E402
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa  # noqa: E402
+from avsr_tpu_torch.ops.kernels import row_gather as prg  # noqa: E402
+from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl  # noqa: E402
 from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
-from tests.torch_port_common import setup_torch, t  # noqa: E402
+from tests.torch_port_common import beam_step_case, setup_torch, t  # noqa: E402
 
 NEG = -1.0e30
 
@@ -152,19 +155,33 @@ def test_topk_leading_axes():
 # ---------------------------------------------------------------- wrappers
 
 
+def _step_args(i=5, **kw):
+    return [None if x is None else t(x)
+            for x in beam_step_case(0, i, **kw).values()]
+
+
+BU_KW = dict(w_dec=0.9, w_ctc=0.1, eos=49, neg=-1.0e30, d_end=-10.0, m_end=3)
+COUNTERS = (pfa.flash_attention_fwd, pda.decode_attention, ptk.topk_lastdim,
+            psl.cumlogsumexp, prg.row_gather, pbu.beam_update)
+
+
 def test_cpu_dispatch_launches_no_kernel():
-    before = (pfa.flash_attention_fwd.launches, pda.decode_attention.launches,
-              ptk.topk_lastdim.launches)
+    before = [fn.launches for fn in COUNTERS]
     x = torch.randn(2, 8, 16)
     pfa.flash_attention(x, x, x, torch.zeros(2, 8))
     q, kv, row, bias = _decode_case(1, b=1)
     pda.decode_attention(3, t(q), t(kv), t(bias), 3, 4, t(row))
     ptk.topk_lastdim(torch.randn(4, 10), 2)
-    assert (pfa.flash_attention_fwd.launches, pda.decode_attention.launches,
-            ptk.topk_lastdim.launches) == before
+    psl.cumlogsumexp(torch.randn(6, 4))
+    prg.row_gather(torch.randn(6, 4), torch.tensor([5, 0]))
+    pbu.beam_update(5, *_step_args(), **BU_KW)
+    assert [fn.launches for fn in COUNTERS] == before
 
 
-@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k"])
+@pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k",
+                                  "scan_dtype", "gather_index_dtype",
+                                  "gather_rank", "update_shape",
+                                  "update_ctc_operands"])
 def test_wrappers_reject_bad_inputs(case):
     x = torch.randn(2, 8, 16)
     with pytest.raises((TypeError, ValueError)):
@@ -176,5 +193,19 @@ def test_wrappers_reject_bad_inputs(case):
             q, kv, row, b = _decode_case(2, b=1)
             pda.decode_attention(3, t(q).t().contiguous().t(), t(kv), t(b),
                                  3, 4, t(row))
-        else:
+        elif case == "k":
             ptk.topk_lastdim(torch.randn(4, 10), 11)
+        elif case == "scan_dtype":
+            psl.cumlogsumexp(torch.randn(6, 4, dtype=torch.float64))
+        elif case == "gather_index_dtype":
+            prg.row_gather(torch.randn(6, 4), torch.tensor([1], dtype=torch.int32))
+        elif case == "gather_rank":
+            prg.row_gather(torch.randn(6, 4, 2), torch.tensor([1]))
+        elif case == "update_shape":
+            args = _step_args()
+            args[10] = args[10][:, :, :-1]  # yseq one column short
+            pbu.beam_update(5, *args, **BU_KW)
+        else:
+            args = _step_args()
+            args[4] = None  # psi_eos without psi_cand's partners
+            pbu.beam_update(5, *args, **BU_KW)

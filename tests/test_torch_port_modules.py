@@ -14,6 +14,7 @@ import torch  # noqa: E402
 from avsr_tpu.core.checkpoint import avsr_mapping  # noqa: E402
 from tests.torch_port_common import (  # noqa: E402
     jax_tiny_model,
+    port_cfg,
     port_model,
     setup_torch,
     t,
@@ -60,8 +61,9 @@ def test_from_pretrained_loads_released_layout(models, tmp_path):
 
     cfg, _, variables, pmodel = models
     save_pretrained(str(tmp_path), cfg, variables)
-    rec = Recognizer.from_pretrained(str(tmp_path), ctc_weight=0.0)
-    assert rec.cfg == cfg
+    rec = Recognizer.from_pretrained(str(tmp_path), ctc_weight=0.0,
+                                     device="cpu")
+    assert rec.cfg == port_cfg(cfg)
     state = rec.model.state_dict()
     for k, v in pmodel.state_dict().items():
         assert torch.equal(state[k], v), k

@@ -2,7 +2,9 @@
 
 Weights come from the JAX side: the tiny config of ``tests/torch_ref.py``,
 ``model.init`` with ``PRNGKey(0)``, BN statistics randomised with numpy so
-eval-mode BN is a real test, then ``flax_to_torch`` into the port.
+eval-mode BN is a real test, then ``flax_to_torch`` into the port. The JAX
+side keeps the JAX package's config; the port gets its own copy of it
+(``port_cfg``), as a user of the port would.
 """
 
 from __future__ import annotations
@@ -59,15 +61,92 @@ def jax_tiny_model(cfg, seed: int = 0):
     return model, {"params": variables["params"], "batch_stats": stats}
 
 
+def port_cfg(cfg):
+    """The port's config equal to a JAX package config."""
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
+
+    return AVHubertAVSRConfig.from_dict(cfg.to_dict())
+
+
 def port_model(cfg, variables):
-    """The port's model with the JAX variables."""
+    """The port's model, on its own config, with the JAX variables."""
     from avsr_tpu_torch.core.weights import torch_state_from_jax
     from avsr_tpu_torch.models.e2e import AVSRModel
 
-    model = AVSRModel(cfg)
-    model.load_state_dict(torch_state_from_jax(variables, cfg), strict=True)
+    pcfg = port_cfg(cfg)
+    model = AVSRModel(pcfg)
+    model.load_state_dict(torch_state_from_jax(variables, pcfg), strict=True)
     return model.eval()
 
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def beam_step_case(seed: int, i: int, *, use_ctc: bool = True,
+                   dyadic: bool = False, b: int = 6, k: int = 3, sp: int = 4,
+                   ll: int = 24, s_rows: int = 16, eos: int = 49):
+    """Random inputs of one beam bookkeeping step (``beam_update``) at step
+    ``i`` as numpy arrays in the port's dtypes (int64 ids and counts, bool
+    masks, fp32 scores). Lanes: 0 takes its forced last step, 1 is
+    stopped, 2 is past its length (i >= 1), 3 has eos among its pre-beam
+    ids and a history that triggers end detection, 4 has two hypotheses
+    with equal scores (ties across the beam), 5 has a dead hypothesis and
+    ends one on its own eos.
+    ``dyadic`` draws every score on a 1/64 grid, where any order of fp32
+    multiply-adds with weights 0.75/0.25 is exact."""
+    assert b >= 6 and i >= 4
+    rng = np.random.RandomState(seed)
+
+    def scores(*shape, scale=3.0, shift=0.0):
+        x = rng.randn(*shape) * scale + shift
+        if dyadic:
+            x = np.round(x * 64) / 64
+        return x.astype(np.float32)
+
+    xlens = rng.randint(i + 2, ll - 2, size=b).astype(np.int64)
+    xlens[0] = i + 1  # forced: i >= xlen - 1
+    xlens[2] = i  # past its length
+    stop = np.zeros(b, bool)
+    stop[1] = True
+    dec_top = -np.sort(-scores(b, k, sp, shift=-4.0), axis=-1)
+    dec_eos = scores(b, k, shift=-6.0)
+    part_ids = np.stack([np.stack([rng.choice(np.arange(1, eos), sp,
+                                              replace=False)
+                                   for _ in range(k)]) for _ in range(b)])
+    part_ids[3, 1, 2] = eos  # eos among the pre-beam ids: slot S' masked
+    score = scores(b, k, scale=5.0, shift=-20.0)
+    alive = np.ones((b, k), bool)
+    alive[5, 2] = False
+    psi_cand = scores(b, k, sp, scale=10.0, shift=-30.0) if use_ctc else None
+    psi_eos = scores(b, k, scale=10.0, shift=-40.0) if use_ctc else None
+    ctc_s = scores(b, k, scale=10.0, shift=-25.0) if use_ctc else None
+    # lane 5: hypothesis 0's explicit eos slot wins (a natural end)
+    dec_eos[5, 0] = 10.0
+    if use_ctc:
+        psi_eos[5, 0] = ctc_s[5, 0] + 5.0
+    # lane 4: hypotheses 0 and 1 identical, so their candidates tie
+    for arr in (dec_top, part_ids, psi_cand):
+        if arr is not None:
+            arr[4, 1] = arr[4, 0]
+    for arr in (dec_eos, score, psi_eos, ctc_s):
+        if arr is not None:
+            arr[4, 1] = arr[4, 0]
+    yseq = rng.randint(1, eos, size=(b, k, ll)).astype(np.int64)
+    anc = rng.randint(0, k, size=(s_rows, b, k)).astype(np.int64)
+    ended_best = scores(b, ll, scale=5.0, shift=-30.0)
+    ended_cnt = rng.randint(0, 3, size=(b, ll)).astype(np.int64)
+    ended_best[:, i:] = -1.0e30
+    ended_cnt[:, i:] = 0
+    best_score = scores(b, scale=5.0, shift=-15.0)
+    # lane 3: the three recent lengths trail the best by more than 10
+    ended_best[3, i - 4:i - 1] = best_score[3] - 20.0
+    ended_cnt[3, i - 4:i - 1] = 1
+    best_yseq = rng.randint(1, eos, size=(b, ll)).astype(np.int64)
+    best_len = rng.randint(2, i + 2, size=b).astype(np.int64)
+    return dict(xlens=xlens, dec_top=dec_top, dec_eos=dec_eos,
+                psi_cand=psi_cand, psi_eos=psi_eos, ctc_s=ctc_s,
+                part_ids=part_ids, score=score, alive=alive, stop=stop,
+                yseq=yseq, anc=anc, ended_best=ended_best,
+                ended_cnt=ended_cnt, best_score=best_score,
+                best_yseq=best_yseq, best_len=best_len)
