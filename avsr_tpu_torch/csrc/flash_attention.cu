@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels avsr_tpu/ops/pallas/flash_attention.py
 // `_resident_fwd_kernel` (T <= 512) and `_flash_fwd_kernel` (streaming):
 // out = softmax(q k^T * scale + key_bias) v per row n of (N = B*H, T, D),
-// plus the per-query logsumexp `lse` that a backward pass needs.
+// plus the per-query logsumexp `lse` that the backward pass needs, with
+// optional attention-prob dropout drawn inside the kernel (philox.cuh).
 //
 // What bounds it on the card: at the serving shape (N = 8*16, T = 384,
 // D = 64) one layer is ~4.8 GFLOP of score and value products against
@@ -21,7 +22,14 @@
 // (T, T) score matrix never exists and any T works with one kernel. The
 // probabilities are not rounded to v's dtype before the value product
 // (the TPU kernel rounds them); the difference is within bf16 tolerance.
+//
+// Dropout (kDrop): the block draws the keep bits of its 64 x 32 tile into
+// shared memory (two Philox calls a thread) while the K/V tile loads. As
+// in the TPU kernel, the normaliser l sums the undropped p and only the
+// value product sees p * mask / keep, which equals softmax -> dropout ->
+// matmul. Without dropout the kernel is the same code as before it had any.
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -30,18 +38,19 @@ constexpr int kBlockK = 32;   // keys per shared-memory tile
 constexpr int kSub = 4;       // threads per query row
 constexpr int kThreads = kBlockQ * kSub;
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, float* __restrict__ lse, int t_len,
-                     float scale) {
+                     float scale, avsr::DropArgs drop) {
   static_assert(D % kSub == 0, "head dim must split over the sub-lanes");
   constexpr int kDimsPerThread = D / kSub;
   constexpr int kKeysPerThread = kBlockK / kSub;
   __shared__ float ks[kBlockK][D + 1];
   __shared__ float vs[kBlockK][D + 1];
   __shared__ float ps[kBlockQ][kBlockK + 1];
+  __shared__ uint8_t keep[kDrop ? kBlockQ : 1][kBlockK];
 
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
@@ -77,6 +86,9 @@ __global__ void __launch_bounds__(kThreads)
       ks[j][d] = kv;
       vs[j][d] = vv;
     }
+    if (kDrop)
+      avsr::fill_keep_tile(&keep[0][0], kBlockK, kBlockQ, kBlockK, n,
+                           blockIdx.x * kBlockQ, k0, drop);
     __syncthreads();
 
     float s[kKeysPerThread];
@@ -102,7 +114,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < kKeysPerThread; ++i) {
       const float p = expf(s[i] - shift);
-      ps[r][c + kSub * i] = p;
+      if (kDrop)
+        ps[r][c + kSub * i] = keep[r][c + kSub * i] ? p * drop.inv_keep : 0.f;
+      else
+        ps[r][c + kSub * i] = p;
       rsum += p;
     }
     rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
@@ -134,10 +149,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, int D>
+void launch_dim(dim3 grid, cudaStream_t stream, const T* q, const T* k,
+                const T* v, const float* bias, T* out, float* lse, int t,
+                float scale, bool dropout, const avsr::DropArgs& drop) {
+  if (dropout)
+    flash_fwd_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
+        q, k, v, bias, out, lse, t, scale, drop);
+  else
+    flash_fwd_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
+        q, k, v, bias, out, lse, t, scale, drop);
+}
+
 template <typename T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const float* bias, void* out, float* lse, int n,
-                         int t, int d, float scale, cudaStream_t stream) {
+                         int t, int d, float scale, bool dropout,
+                         const avsr::DropArgs& drop, cudaStream_t stream) {
   const dim3 grid((t + kBlockQ - 1) / kBlockQ, n);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -145,20 +173,20 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
   T* op = static_cast<T*>(out);
   switch (d) {
     case 16:
-      flash_fwd_kernel<T, 16><<<grid, kThreads, 0, stream>>>(qp, kp, vp, bias,
-                                                             op, lse, t, scale);
+      launch_dim<T, 16>(grid, stream, qp, kp, vp, bias, op, lse, t, scale,
+                        dropout, drop);
       break;
     case 32:
-      flash_fwd_kernel<T, 32><<<grid, kThreads, 0, stream>>>(qp, kp, vp, bias,
-                                                             op, lse, t, scale);
+      launch_dim<T, 32>(grid, stream, qp, kp, vp, bias, op, lse, t, scale,
+                        dropout, drop);
       break;
     case 64:
-      flash_fwd_kernel<T, 64><<<grid, kThreads, 0, stream>>>(qp, kp, vp, bias,
-                                                             op, lse, t, scale);
+      launch_dim<T, 64>(grid, stream, qp, kp, vp, bias, op, lse, t, scale,
+                        dropout, drop);
       break;
     case 128:
-      flash_fwd_kernel<T, 128><<<grid, kThreads, 0, stream>>>(
-          qp, kp, vp, bias, op, lse, t, scale);
+      launch_dim<T, 128>(grid, stream, qp, kp, vp, bias, op, lse, t, scale,
+                         dropout, drop);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -169,19 +197,26 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, k, v, out: (n, t, d) contiguous, dtype `dtype`; bias, lse: (n, t) fp32.
+// dropout != 0: drop at the Philox draw of (seed0, seed1), keeping an
+// element iff its bits are below `threshold`, and scale kept ones by
+// `inv_keep`.
 extern "C" int avsr_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const float* bias,
                                         void* out, float* lse, int n, int t,
-                                        int d, float scale, int dtype,
-                                        void* stream) {
+                                        int d, float scale, int dropout,
+                                        uint32_t threshold, float inv_keep,
+                                        uint32_t seed0, uint32_t seed1,
+                                        int dtype, void* stream) {
   if (n <= 0 || t <= 0 || n > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const avsr::DropArgs drop{threshold, inv_keep, seed0, seed1};
   cudaError_t err;
   if (dtype == avsr::kFloat32)
-    err = launch_typed<float>(q, k, v, bias, out, lse, n, t, d, scale, s);
+    err = launch_typed<float>(q, k, v, bias, out, lse, n, t, d, scale,
+                              dropout != 0, drop, s);
   else if (dtype == avsr::kBFloat16)
     err = launch_typed<__nv_bfloat16>(q, k, v, bias, out, lse, n, t, d, scale,
-                                      s);
+                                      dropout != 0, drop, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -1,16 +1,20 @@
 """AV-HuBERT encoder: modality feature extractors + fusion + transformer.
 
-Counterpart of ``avsr_tpu/models/avhubert.py`` (inference path):
+Counterpart of ``avsr_tpu/models/avhubert.py``:
 
   audio (B,T,104) -> Linear -> (B,T,D)
   video (B,T,88,88,1) -> ResEncoder -> Linear -> (B,T,D)
-  concat -> LayerNorm(2D) -> Linear(2D->D)
-  -> weight-norm grouped conv positional embedding + N pre-LN layers
-  -> final LayerNorm
+  [train: whole-batch modality dropout]
+  concat -> LayerNorm(2D) -> Linear(2D->D) -> dropout
+  -> weight-norm grouped conv positional embedding -> dropout
+  -> N pre-LN layers -> final LayerNorm
 
 Self-attention always runs through the flash-attention wrapper
-(``ops/kernels/flash_attention.mha_flash``): the hand-written kernel on the
-GPU, its plain twin on the CPU. Module names follow the reference checkpoint.
+(``ops/kernels/flash_attention.mha_flash``): the hand-written kernels on the
+GPU, their plain twins on the CPU; in training its attention-prob dropout
+is drawn inside the kernels. ``train=True`` takes a ``DropoutRng`` for every
+dropout and switches the frontend's BatchNorms to batch statistics. Module
+names follow the reference checkpoint.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch.nn import functional as F
 
 from avsr_tpu_torch.core.config import AVHubertEncoderConfig
 from avsr_tpu_torch.models.resnet import ResEncoder
+from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels.flash_attention import mha_flash
 
 
@@ -66,50 +71,64 @@ class ConvPositionalEmbedding(nn.Module):
 
 
 class EncoderSelfAttention(nn.Module):
-    """Wav2vec2-style MHA, scores scaled by d_k**-0.5, biased projections."""
+    """Wav2vec2-style MHA, scores scaled by d_k**-0.5, biased projections;
+    attention-prob dropout at ``dropout`` inside the flash kernels."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, t, d = x.shape
         dk = d // self.heads
         q, k, v = (p(x).view(b, t, self.heads, dk)
                    for p in (self.q_proj, self.k_proj, self.v_proj))
-        out = mha_flash(q, k, v, padding_mask, scale=dk ** -0.5)
+        rate, seed = 0.0, None
+        if rng is not None and self.dropout > 0.0:
+            rate, seed = self.dropout, rng.flash_seed()
+        out = mha_flash(q, k, v, padding_mask, scale=dk ** -0.5,
+                        dropout_rate=rate, dropout_seed=seed)
         return self.out_proj(out.reshape(b, t, d))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, units: int):
+    def __init__(self, dim: int, units: int, activation_dropout: float = 0.0):
         super().__init__()
+        self.activation_dropout = activation_dropout
         self.intermediate_dense = nn.Linear(dim, units)
         self.output_dense = nn.Linear(units, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.output_dense(F.gelu(self.intermediate_dense(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        h = F.gelu(self.intermediate_dense(x))
+        return self.output_dense(dropout(h, self.activation_dropout, rng))
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN layer: x + attn(LN(x)), then x + FFN(LN(x))."""
+    """Pre-LN layer: x + drop(attn(LN(x))), then x + drop(FFN(LN(x)))."""
 
     def __init__(self, cfg: AVHubertEncoderConfig):
         super().__init__()
         d = cfg.encoder_embed_dim
+        self.hidden_dropout = cfg.hidden_dropout
         self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.attention = EncoderSelfAttention(d, cfg.num_attention_heads)
+        self.attention = EncoderSelfAttention(d, cfg.num_attention_heads,
+                                              cfg.attention_dropout)
         self.final_layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
-        self.feed_forward = FeedForward(d, cfg.intermediate_size)
+        self.feed_forward = FeedForward(d, cfg.intermediate_size,
+                                        cfg.activation_dropout)
 
-    def forward(self, x, padding_mask):
-        x = x + self.attention(self.layer_norm(x), padding_mask)
-        return x + self.feed_forward(self.final_layer_norm(x))
+    def forward(self, x, padding_mask, rng: Optional[DropoutRng] = None):
+        h = self.attention(self.layer_norm(x), padding_mask, rng)
+        x = x + dropout(h, self.hidden_dropout, rng)
+        h = self.feed_forward(self.final_layer_norm(x), rng)
+        return x + dropout(h, self.hidden_dropout, rng)
 
 
 class AVHubertTransformer(nn.Module):
@@ -123,14 +142,16 @@ class AVHubertTransformer(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.layer_norm = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.hidden_dropout = cfg.hidden_dropout
 
     def forward(self, x: torch.Tensor,
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                padding_mask: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         if padding_mask is not None:
             x = x * padding_mask[..., None].to(x.dtype)
-        x = x + self.pos_conv_embed(x)
+        x = dropout(x + self.pos_conv_embed(x), self.hidden_dropout, rng)
         for layer in self.layers:
-            x = layer(x, padding_mask)
+            x = layer(x, padding_mask, rng)
         return self.layer_norm(x)
 
 
@@ -149,7 +170,10 @@ class _VideoFeatures(nn.Module):
 
 class AVHubertModel(nn.Module):
     """(audio (B,T,104) | None, video (B,T,88,88,1) | None, padding_mask
-    (B,T) True = valid | None) -> (B, T, D) features."""
+    (B,T) True = valid | None) -> (B, T, D) features. ``train=True`` needs
+    ``rng``: batch-statistics BatchNorm in the frontend, every dropout of
+    the config, and the whole-batch modality dropout (one draw per call, so
+    the whole batch drops a modality together, as the reference does)."""
 
     def __init__(self, cfg: AVHubertEncoderConfig):
         super().__init__()
@@ -167,14 +191,19 @@ class AVHubertModel(nn.Module):
 
     def forward(self, audio: Optional[torch.Tensor],
                 video: Optional[torch.Tensor],
-                padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                padding_mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         c = self.cfg
+        if train and rng is None:
+            raise ValueError("train=True needs a DropoutRng")
+        rng = rng if train else None
         feats_a = feats_v = None
         if audio is not None:
             feats_a = self.feature_extractor_audio.proj(audio)
         if video is not None:
             fv = self.feature_extractor_video
-            feats_v = fv.proj(fv.resnet(video))
+            feats_v = fv.proj(fv.resnet(video, train))
         if feats_a is None:
             feats_a = torch.zeros_like(feats_v)
         if feats_v is None:
@@ -183,6 +212,13 @@ class AVHubertModel(nn.Module):
             feats_v = feats_v * 0
         elif c.modality == "video":
             feats_a = feats_a * 0
+        elif train and c.modality_dropout > 0:
+            p_mod, p_aud = rng.uniform(2)
+            if p_mod < c.modality_dropout:
+                if p_aud < c.audio_dropout:
+                    feats_a = torch.zeros_like(feats_a)
+                else:
+                    feats_v = torch.zeros_like(feats_v)
         if c.modality_fuse == "concat":
             feats = torch.cat([feats_a, feats_v], dim=-1)
         else:
@@ -190,4 +226,5 @@ class AVHubertModel(nn.Module):
         feats = self.layer_norm(feats)
         if c.fused_dim != c.encoder_embed_dim:
             feats = self.post_extract_proj(feats)
-        return self.encoder(feats, padding_mask)
+        feats = dropout(feats, c.dropout_input, rng)
+        return self.encoder(feats, padding_mask, rng)

@@ -1,8 +1,13 @@
-"""Transformer decoder (ESPnet lineage): the incremental decode path.
+"""Transformer decoder (ESPnet lineage): teacher-forced forward and the
+incremental decode path.
 
-Counterpart of ``avsr_tpu/models/decoder.py`` as serving uses it: the fused
-decode path (``decode_fused_attention``) with lazy beam reorder and shared
-source K/V. The teacher-forced forward (training) is not ported yet.
+Counterpart of ``avsr_tpu/models/decoder.py``. ``forward`` is the training
+path (reference decoder.py:39): embedding x sqrt(d) + sinusoidal positions,
+dropout, N pre-LN layers (self-attention, source attention, ReLU FFN; LN
+eps 1e-12), after_norm and the output layer; masked attention weights are
+set back to 0 after the softmax. ``init_cache``/``step`` are the serving
+path: the fused decode path (``decode_fused_attention``) with lazy beam
+reorder and shared source K/V.
 
 Per step and layer: LN -> one concatenated QKV product -> q * d_k**-0.5 ->
 ``decode_attention`` (which writes the step's K|V row into the cache) ->
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
 
 LN_EPS = 1e-12
@@ -42,13 +48,42 @@ def sinusoidal_pe(maxlen: int, d_model: int, device=None) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    """ESPnet MHA: scores / sqrt(d_k), biased projections, masked weights
+    zeroed after the softmax, attention dropout."""
+
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
+        self.dropout = dropout
         self.linear_q = nn.Linear(dim, dim)
         self.linear_k = nn.Linear(dim, dim)
         self.linear_v = nn.Linear(dim, dim)
         self.linear_out = nn.Linear(dim, dim)
+
+    def forward(self, query, key, value, mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        """query (B, Tq, D), key/value (B, Tk, D), mask (B, Tq | 1, Tk)
+        True = keep."""
+        b, tq, d = query.shape
+        h, dk = self.heads, d // self.heads
+
+        def split(x):  # (B, T, D) -> (B, H, T, Dh)
+            return x.view(b, -1, h, dk).transpose(1, 2)
+
+        q = split(self.linear_q(query))
+        k = split(self.linear_k(key))
+        v = split(self.linear_v(value))
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
+        if mask is not None:
+            m = mask[:, None]  # (B, 1, Tq | 1, Tk)
+            scores = scores.float().masked_fill(~m, NEG_INF)
+            attn = torch.softmax(scores, dim=-1).to(query.dtype)
+            attn = attn.masked_fill(~m, 0.0)
+        else:
+            attn = torch.softmax(scores.float(), dim=-1).to(query.dtype)
+        attn = dropout(attn, self.dropout, rng)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, tq, d)
+        return self.linear_out(out)
 
 
 class _FeedForward(nn.Module):
@@ -59,14 +94,31 @@ class _FeedForward(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, dim: int, heads: int, units: int):
+    """Pre-LN block (reference decoder_layer.py:16): self-attention, source
+    attention and a ReLU FFN, each with dropout before its residual."""
+
+    def __init__(self, dim: int, heads: int, units: int, dropout: float = 0.0,
+                 attn_dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiHeadAttention(dim, heads)
-        self.src_attn = MultiHeadAttention(dim, heads)
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(dim, heads, attn_dropout)
+        self.src_attn = MultiHeadAttention(dim, heads, attn_dropout)
         self.feed_forward = _FeedForward(dim, units)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, x, tgt_mask, memory, memory_mask,
+                rng: Optional[DropoutRng] = None):
+        h = self.norm1(x)
+        x = x + dropout(self.self_attn(h, h, h, tgt_mask, rng), self.dropout,
+                        rng)
+        h = self.norm2(x)
+        x = x + dropout(self.src_attn(h, memory, memory, memory_mask, rng),
+                        self.dropout, rng)
+        ff = self.feed_forward
+        h = dropout(F.relu(ff.w_1(self.norm3(x))), self.dropout, rng)
+        return x + dropout(ff.w_2(h), self.dropout, rng)
 
 
 @dataclass
@@ -114,20 +166,35 @@ def _ln(x, p):
 
 class TransformerDecoder(nn.Module):
     def __init__(self, odim: int, dim: int = 1024, heads: int = 16,
-                 units: int = 3072, layers: int = 6,
-                 max_decode_len: int = 512, cache_dtype: str = "float32",
-                 param_dtype: str = "float32"):
+                 units: int = 3072, layers: int = 6, dropout: float = 0.0,
+                 attn_dropout: float = 0.0, max_decode_len: int = 512,
+                 cache_dtype: str = "float32", param_dtype: str = "float32"):
         super().__init__()
         self.dim = dim
         self.heads = heads
+        self.dropout = dropout
         self.max_decode_len = max_decode_len
         self.cache_dtype = getattr(torch, cache_dtype)
         self.param_dtype = getattr(torch, param_dtype)
         self.embed = nn.Sequential(nn.Embedding(odim, dim))
         self.decoders = nn.ModuleList(
-            DecoderLayer(dim, heads, units) for _ in range(layers))
+            DecoderLayer(dim, heads, units, dropout, attn_dropout)
+            for _ in range(layers))
         self.after_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.output_layer = nn.Linear(dim, odim)
+
+    def forward(self, ys_in: torch.Tensor, ys_mask: Optional[torch.Tensor],
+                memory: torch.Tensor, memory_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        """Teacher-forced logits (B, L, V) for ys_in (B, L), its mask
+        (B, L, L), memory (B, S, D) and memory_mask (B, 1, S); ``rng``
+        turns on the dropouts (training)."""
+        x = self.embed[0](ys_in) * math.sqrt(self.dim)
+        pe = sinusoidal_pe(ys_in.shape[-1], self.dim, ys_in.device)
+        x = dropout(x + pe.to(x.dtype), self.dropout, rng)
+        for layer in self.decoders:
+            x = layer(x, ys_mask, memory, memory_mask, rng)
+        return self.output_layer(self.after_norm(x))
 
     @torch.no_grad()
     def init_cache(self, memory: torch.Tensor, maxlen: int,

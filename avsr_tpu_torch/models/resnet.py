@@ -1,4 +1,4 @@
-"""Lip-reading video frontend: 3D conv stem + per-frame ResNet-18 (eval).
+"""Lip-reading video frontend: 3D conv stem + per-frame ResNet-18.
 
 Counterpart of ``avsr_tpu/models/resnet.py``. Module names follow the
 reference checkpoint (``frontend3D.{0,1,2}``, ``trunk.layer{s}.{b}``), so
@@ -11,7 +11,8 @@ its state dict loads with ``load_state_dict(strict=True)``.
 The JAX package folds the temporal taps of the stem into input channels of
 a 2-D conv (a TPU layout workaround, exact since the temporal stride is 1);
 here the stem is the plain Conv3d. The stem tail follows the JAX default
-``stem_fuse.lean_reference``.
+``stem_fuse.lean_reference``; the trunk's BatchNorms follow flax
+``nn.BatchNorm`` in training (``train=True``).
 """
 
 from __future__ import annotations
@@ -21,28 +22,69 @@ from torch import nn
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over dim 1 as an explicit scale and shift.
+    """BatchNorm over dim 1. Buffers keep torch's BatchNorm names, without
+    ``num_batches_tracked``.
 
-    rstd is computed in fp32 from the running statistics; the folded scale
-    and shift are applied in the activation dtype (``lean_reference``).
-    Buffers keep torch's BatchNorm names, without ``num_batches_tracked``.
+    Eval: rstd in fp32 from the running statistics, read at the activation
+    dtype (the JAX package casts batch statistics to the compute dtype);
+    the folded scale and shift are applied in the activation dtype
+    (``lean_reference``).
+
+    Train: batch statistics in fp32 over (N, H, W) with the biased
+    variance mean(x^2) - mean^2, differentiated through; ``folded`` (the
+    stem, ``stem_fuse.lean_reference(train=True)``) applies them as a
+    scale and shift in the activation dtype, otherwise (the trunk, flax
+    ``nn.BatchNorm``) the variance is clipped at 0 and the normalisation
+    runs in fp32 before the cast. The running averages are then updated
+    without gradient as flax does with momentum 0.9 (torch's 0.1),
+    ``0.9 * running + 0.1 * batch``, the variance with the biased batch
+    variance (torch's ``nn.BatchNorm`` uses the unbiased one), the old
+    statistics read at the activation dtype, the result kept in fp32.
     """
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    momentum = 0.9  # flax convention: weight of the old running average
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 folded: bool = False):
         super().__init__()
         self.eps = eps
+        self.folded = folded
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = self.running_mean.float()
-        rstd = torch.rsqrt(self.running_var.float() + self.eps)
-        scale = rstd * self.weight.float()
-        shift = self.bias.float() - mean * scale
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+        if not train:
+            mean = self.running_mean.to(x.dtype).float()
+            rstd = torch.rsqrt(self.running_var.to(x.dtype).float() + self.eps)
+            scale = rstd * self.weight.float()
+            shift = self.bias.float() - mean * scale
+            return (x * scale.to(x.dtype).view(shape)
+                    + shift.to(x.dtype).view(shape))
+        axes = [0] + list(range(2, x.dim()))
+        xa = x.float()
+        mean = xa.mean(dim=axes)
+        var = (xa * xa).mean(dim=axes) - mean * mean
+        if not self.folded:
+            var = var.clamp_min(0.0)
+        self._update(x.dtype, mean.detach(), var.detach())
+        rstd = torch.rsqrt(var + self.eps)
+        if self.folded:
+            scale = self.weight.float()
+            w = rstd * scale
+            b = self.bias.float() - mean * rstd * scale
+            return x * w.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+        mul = rstd * self.weight.float()
+        y = (xa - mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.float().view(shape)).to(x.dtype)
+
+    @torch.no_grad()
+    def _update(self, dtype, mean, var):
+        m = self.momentum
+        for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
+            buf.copy_((m * buf.to(dtype)).float() + (1.0 - m) * stat)
 
 
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
@@ -69,10 +111,13 @@ class BasicBlock(nn.Module):
             if downsample else None
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.relu1(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        residual = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        out = self.relu1(self.bn1(self.conv1(x), train))
+        out = self.bn2(self.conv2(out), train)
+        residual = x
+        if self.downsample is not None:
+            conv, bn = self.downsample
+            residual = bn(conv(x), train)
         return self.relu2(out + residual)
 
 
@@ -94,9 +139,10 @@ class ResNetTrunk(nn.Module):
                 inplanes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for stage in range(1, 5):
-            x = getattr(self, f"layer{stage}")(x)
+            for block in getattr(self, f"layer{stage}"):
+                x = block(x, train)
         return x.mean(dim=(2, 3))
 
 
@@ -108,17 +154,19 @@ class ResEncoder(nn.Module):
         self.frontend3D = nn.ModuleList([
             nn.Conv3d(1, 64, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3),
                       bias=False),
-            BatchNorm(64),
+            BatchNorm(64, folded=True),
             nn.PReLU(64),
         ])
         self.trunk = ResNetTrunk()
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         b, t = video.shape[:2]
         conv, bn, prelu = self.frontend3D
         x = conv(video.permute(0, 4, 1, 2, 3))  # (B, 64, T, H/2, W/2)
         c, h, w = x.shape[1], x.shape[3], x.shape[4]
         # fold time into batch (pure relayout: pooling never mixes frames)
         x = x.transpose(1, 2).reshape(b * t, c, h, w)
-        x = nn.functional.max_pool2d(prelu(bn(x)), 3, stride=2, padding=1)
-        return self.trunk(x).view(b, t, -1)
+        x = nn.functional.max_pool2d(prelu(bn(x, train)), 3, stride=2,
+                                     padding=1)
+        return self.trunk(x, train).view(b, t, -1)

@@ -1,0 +1,54 @@
+"""Training-time randomness: dropout masks, flash-attention seeds, the
+modality draw.
+
+Every draw of a training step comes from one ``DropoutRng``, which the
+trainer creates from a seed and owns: masks from a generator on the
+activations' device, and the few scalars (the two seed words of each
+flash-attention call, the whole-batch modality draw) from a host
+generator, so that no draw makes the host wait for the card. The JAX
+package draws from ``jax.random`` keys; the two never give the same
+numbers, so the parity tests run with every rate at 0 or hand both sides
+the same explicit mask.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+class DropoutRng:
+    def __init__(self, seed: int, device="cpu"):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.host = torch.Generator().manual_seed(seed + 1)
+
+    def flash_seed(self) -> tuple[int, int]:
+        """Two uint32 words keying one flash-attention call's dropout."""
+        s0, s1 = torch.randint(0, 2**32, (2,), generator=self.host).tolist()
+        return s0, s1
+
+    def uniform(self, n: int) -> list[float]:
+        """n uniforms in [0, 1) on the host."""
+        return torch.rand(n, generator=self.host, dtype=torch.float64).tolist()
+
+    def state(self) -> dict:
+        return {"gen": self.gen.get_state(), "host": self.host.get_state()}
+
+    def load_state(self, state: dict) -> None:
+        self.gen.set_state(state["gen"])
+        self.host.set_state(state["host"])
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[DropoutRng]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate and scale the kept
+    entries by 1 / (1 - rate) in x's dtype; the identity without ``rng``
+    (eval) or at rate 0."""
+    if rng is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng.gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))

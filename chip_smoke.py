@@ -7,11 +7,15 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the kernels (one nvcc per source, all at once), with the time;
-3. holds each of the six kernels against its plain PyTorch twin at the
-   serving path's shapes (B=8, T=375 padded to 384, beam 3, pre-beam 4),
-   with a stated limit, and times the kernel, the twin and, where one
-   PyTorch call computes the same function, that call; computes each
-   kernel's bound from the bytes and operations of its inputs;
+3. holds each of the eight kernels against its plain PyTorch twin, with a
+   stated limit, and times the kernel, the twin and, where one PyTorch
+   call computes the same function, that call; computes each kernel's
+   bound from the bytes and operations of its inputs. The serving kernels
+   at the serving path's shapes (B=8, T=375 padded to 384, beam 3,
+   pre-beam 4); the flash forward with dropout and the two backward
+   kernels at the training shapes (N = 6*16 heads, T=384, D=64, bf16 and
+   fp32, ragged key bias), the forward's dropout mask read out and held
+   bit for bit against the twin's;
 4. serves the full-width flagship configuration (24x1024 AV-HuBERT encoder,
    6x1024 decoder, vocab 5049; seeded random weights) through
    ``Recognizer.transcribe_batch``, B=8 utterances of 375 frames: the
@@ -22,20 +26,33 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 5. runs the same full-width weights through the CUDA path (bookkeeping
    fused) and the CPU path (which uses the plain twins, unfused) at
    ``ctc_weight=0.1``, in fp32 and in the serving precision, and compares
-   them.
+   them;
+6. trains the full-width flagship through ``avsr_tpu_torch.tools.
+   bench_train`` at its defaults (B=6, T=384, L=48, bf16 compute over fp32
+   masters, the config's dropouts, attention dropout 0.1 in the kernels):
+   2 warm-up steps and 5 timed ones, launch counts set to 0 just before
+   the timed steps and read just after (24 a step for each of the three
+   flash kernels, no plain twin called), finite loss and gradient norm,
+   parameters changed; prints s/step, samples/s, MFU and peak memory;
+7. takes one fp32 ``train_step`` of the same full-width weights on the
+   card (kernels) and on the CPU (twins), B=2, T=32 with one utterance
+   shorter, dropout off, TF32 off, and compares the losses, the gradient
+   norm and the per-module gradient norms.
 
 Any failure exits non-zero before the last line. The line before the last
-holds the per-kernel JSON record: ``launches`` is the count from the
-default beam run of phase 4 (``ctc_weight=0.1``, unfused), and for
-``beam_update``, which only the fused bookkeeping runs, from the fused run.
-The last line is ``{"ok": true, "device": {...}}``. Without CUDA it exits
-non-zero at once.
+holds the per-kernel JSON record: ``launches`` is the count from the run of
+the kernel's main path: the default beam run of phase 4 (``ctc_weight=0.1``,
+unfused) for the serving kernels, the fused run for ``beam_update``, which
+only the fused bookkeeping runs, and phase 6's timed steps for the three
+flash kernels. The last line is ``{"ok": true, "device": {...}}``. Without
+CUDA it exits non-zero at once.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +69,8 @@ VOCAB = 5049
 EOS = VOCAB - 1
 BEAM, PRE_BEAM = 3, 4
 T_PAD = 384  # FRAMES + 2 rounded up to 128, the CTC scorer's time axis
+TRAIN_BATCH = 6  # bench_train's default batch
+TRAIN_HEADS = TRAIN_BATCH * 16  # the encoder's attention rows in training
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and operations/s by operand type (dense tensor-core bf16, fp32
@@ -100,6 +119,30 @@ def cuda_ms(fn, iters: int = 4, warmup: int = 2, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def ptxas_report(text: str):
+    """(kernel, registers, spill-store bytes) of each kernel in nvcc's
+    ``-Xptxas -v`` report; the kernel as its mangled name from the
+    function's name to its template arguments (e.g.
+    ``flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb1E``)."""
+    rows, name, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            short = re.search(r"([a-z][a-z_]*_kernel)(I.*?E)E", m.group(1))
+            name = short.group(1) + short.group(2) if short else m.group(1)
+            spill = 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -382,6 +425,163 @@ def phase_kernels(dev):
     return records
 
 
+def _attention_inputs(g, dev, dtype, n, t, d):
+    """q, k, v, dO (n, t, d) in ``dtype`` and a ragged fp32 key bias: every
+    fifth row 200 valid keys, every seventh 377, the rest all t."""
+    q, k, v, do = (torch.randn(n, t, d, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    lens = torch.full((n,), t, device=dev)
+    lens[::5] = min(200, t)
+    lens[1::7] = min(377, t)
+    bias = torch.where(torch.arange(t, device=dev)[None] < lens[:, None],
+                       0.0, -1.0e30).contiguous()
+    return q, k, v, do, bias
+
+
+def phase_train_kernels(dev):
+    """The flash forward with in-kernel dropout and the two backward
+    kernels at the training shapes (N = 6*16, T=384, D=64); returns their
+    records (the forward's replaces the serving-shape one)."""
+    from torch.nn import functional as F
+
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    n, t, d = TRAIN_HEADS, T_PAD, 64
+    rate, seed = 0.1, (20261016, 3)
+    scale = d ** -0.5
+    records = {}
+
+    # the forward's keep mask, read out: with q = k = 0 and a zero bias
+    # the attention is uniform, so out = (1/T) M V, and V = T x identity
+    # blocks puts M's columns j0..j0+63 into the output; held bit for bit
+    # against the twin's Philox draw, in both operand types
+    for dtype in (torch.bfloat16, torch.float32):
+        z = torch.zeros(n, t, d, device=dev, dtype=dtype)
+        zb = torch.zeros(n, t, device=dev)
+        cols = []
+        for j0 in range(0, t, d):
+            w = min(d, t - j0)
+            vb = torch.zeros(n, t, d, device=dev)
+            vb[:, j0:j0 + w, :w] = torch.eye(w, device=dev) * t
+            out = pfa.flash_attention_fwd(z, z, vb.to(dtype), zb, 1.0, rate,
+                                          seed)[0]
+            cols.append(out[..., :w].float())
+        kept = torch.cat(cols, dim=2) > 0.5
+        want = pfa.dropout_keep_mask_plain(seed, n, t, rate, dev)
+        frac = kept.float().mean().item()
+        print(f"# flash dropout mask ({dtype}): kernel == twin "
+              f"{torch.equal(kept, want)}, keep fraction {frac:.5f}")
+        check(torch.equal(kept, want), f"flash dropout mask differs ({dtype})")
+        check(abs(frac - (1 - rate)) <= 0.01, "flash keep fraction off")
+
+    # forward with dropout, dQ/dK/dV with and without: against the twins
+    # on the same inputs and seed, each within a limit relative to the
+    # output's largest entry: fp32 1e-4 (sums in another order), bf16 2e-2
+    # (the same roundings of P~ and dS; two ulps at the top; the forward's
+    # unrounded P, C10)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, k, v, do, bias = _attention_inputs(g, dev, dtype, n, t, d)
+        for r, sd in ((0.0, None), (rate, seed)):
+            out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, r, sd)
+            if r:
+                o2, _ = pfa.flash_attention_fwd(q, k, v, bias, scale, r, sd)
+                o3, _ = pfa.flash_attention_fwd(q, k, 2 * v, bias, scale, r,
+                                                sd)
+                check(torch.equal(out, o2), "flash forward not deterministic")
+                lin = ((o3.float() - 2 * out.float()).abs().max().item()
+                       / out.float().abs().max().item())
+                check(lin <= (1e-6 if dtype == torch.float32 else 1e-2),
+                      f"flash forward not linear in V ({lin:.2e})")
+            dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do,
+                                                   lse, scale, r, sd)
+            dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse,
+                                                 delta, scale, r, sd)
+            w_out, _ = pfa.flash_attention_plain(q, k, v, bias, scale,
+                                                 dropout_rate=r,
+                                                 dropout_seed=sd)
+            wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do,
+                                                  lse, scale, dropout_rate=r,
+                                                  dropout_seed=sd)
+            torch.cuda.synchronize()
+            for name, got, want in (("out", out, w_out), ("dq", dq, wants[0]),
+                                    ("dk", dk, wants[1]),
+                                    ("dv", dv, wants[2])):
+                e = (got.float() - want.float()).abs().max().item()
+                m = want.float().abs().max().item()
+                errs[(dtype, r, name)] = e
+                print(f"# flash {name} {str(dtype)[6:]} rate={r}: max_abs_err"
+                      f"={e:.3e} (limit {tol:g} x {m:.3f})")
+                check(e <= tol * m, f"flash {name} {dtype} rate={r} disagrees")
+
+    # times at the training precision, bf16, with dropout
+    q, k, v, do, bias = _attention_inputs(g, dev, torch.bfloat16, n, t,
+                                          d)
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, rate, seed)
+    dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse, scale,
+                                           rate, seed)
+    dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale,
+                                         rate, seed)
+    mask = bias[:, None, :].to(torch.bfloat16)
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                             scale=scale)
+    bf16 = torch.bfloat16
+    flops = 2 * n * t * t * d  # one (T x T x D) product
+    records["flash_attention_fwd"] = dict(
+        source="avsr_tpu_torch/csrc/flash_attention.cu",
+        replaces="avsr_tpu/ops/pallas/flash_attention.py:296",
+        max_abs_err=errs[(bf16, rate, "out")],
+        ms=cuda_ms(lambda: pfa.flash_attention_fwd(q, k, v, bias, scale,
+                                                   rate, seed)),
+        plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(
+            q, k, v, bias, scale, dropout_rate=rate, dropout_seed=seed)),
+        # SDPA with the bias as its mask and dropout_p at the same rate
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)),
+        # q.k and p.v; q, k, v, bias read once, out and lse written once
+        bound=bound(nbytes(q, k, v, bias, out, lse), 2 * flops, "bf16"),
+    )
+    records["flash_attention_bwd_dq"] = dict(
+        source="avsr_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="avsr_tpu/ops/pallas/flash_attention.py:335",
+        max_abs_err=errs[(bf16, rate, "dq")],
+        ms=cuda_ms(lambda: pfa.flash_attention_bwd_dq(
+            q, k, v, bias, out, do, lse, scale, rate, seed)),
+        # the twin computes dQ, dK and dV in one pass
+        plain_ms=cuda_ms(lambda: pfa.flash_attention_bwd_plain(
+            q, k, v, bias, out, do, lse, scale, dropout_rate=rate,
+            dropout_seed=seed)),
+        # SDPA's backward (no dropout), all three gradients in one call
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), do, retain_graph=True)),
+        # S and dP recomputed, dS K; q, k, v, O, dO, bias, lse read,
+        # dq and delta written
+        bound=bound(nbytes(q, k, v, out, do, bias, lse, dq, delta),
+                    3 * flops, "bf16"),
+    )
+    records["flash_attention_bwd_dkv"] = dict(
+        source="avsr_tpu_torch/csrc/flash_attention_bwd.cu",
+        replaces="avsr_tpu/ops/pallas/flash_attention.py:335",
+        max_abs_err=max(errs[(bf16, rate, "dk")], errs[(bf16, rate, "dv")]),
+        ms=cuda_ms(lambda: pfa.flash_attention_bwd_dkv(
+            q, k, v, bias, do, lse, delta, scale, rate, seed)),
+        plain_ms=records["flash_attention_bwd_dq"]["plain_ms"],
+        library_ms=records["flash_attention_bwd_dq"]["library_ms"],
+        # S and dP recomputed, P~^T dO and dS^T Q; q, k, v, dO, bias, lse,
+        # delta read, dk and dv written
+        bound=bound(nbytes(q, k, v, do, bias, lse, delta, dk, dv),
+                    4 * flops, "bf16"),
+    )
+    for name, r in records.items():
+        print(f"# {name} (training shape, bf16, dropout {rate}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]})")
+    return records
+
+
 def flagship_config(dtype: str):
     """The flagship configuration with the serving switches on."""
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
@@ -555,6 +755,126 @@ def phase_parity(dev):
             check(same_beam and same_greedy, "fp32 tokens: cuda vs cpu")
 
 
+TWINS = ("flash_attention_plain", "flash_attention_bwd_plain",
+         "_bwd_from_delta", "dropout_keep_mask_plain")
+
+
+def phase_training(dev, smi: str):
+    """Full-width bf16 training through bench_train at its defaults:
+    its 2 warm-up steps, then 5 timed ones between which it sets the
+    flash kernels' counts to 0 and reads them. Returns the timed run's
+    launches of each kernel."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.tools import bench_train
+
+    args = bench_train.parse_args(["--steps", "5"])
+    state, batch = bench_train.setup(args)
+    layers = state.model.cfg.encoder.num_hidden_layers
+    watched = {n: p.detach().clone()
+               for n, p in state.model.named_parameters()
+               if n.endswith(("frontend3D.0.weight", "layers.0.attention"
+                              ".q_proj.weight", "output_layer.weight"))}
+    # every call of a plain twin is counted: none may run on this path
+    calls = {name: 0 for name in TWINS}
+    originals = {name: getattr(pfa, name) for name in TWINS}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in originals.items():
+        setattr(pfa, name, counted(name, fn))
+    try:
+        res = bench_train.measure(state, batch, args)
+    finally:
+        for name, fn in originals.items():
+            setattr(pfa, name, fn)
+    per_step = res["launches_per_step"]
+    print(f"# {smi}: train step {res['sec_per_step'] * 1e3:.1f} ms -> "
+          f"{res['samples_per_sec']:.2f} samples/s, {res['step_tflops']:.2f} "
+          f"TFLOP a step, MFU {res['mfu']:.4f}, peak memory "
+          f"{res['peak_mem_gb']:.2f} GB; loss {res['loss']:.4f}, grad_norm "
+          f"{res['grad_norm']:.4f}; launches a step {per_step}; twin calls "
+          f"{calls}")
+    print("# bench_train " + json.dumps(res))
+    check(np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"]),
+          "training loss or gradient norm not finite")
+    for name, before in watched.items():
+        check(not torch.equal(before, dict(state.model.named_parameters())
+                              [name].detach()),
+              f"{name} did not change in training")
+    for name, n in per_step.items():
+        check(n == layers, f"{name}: {n} launches a step, not {layers}")
+    check(not any(calls.values()), f"a plain twin ran on the card: {calls}")
+    return {name: int(round(n * args.steps)) for name, n in per_step.items()}
+
+
+def phase_train_parity(dev):
+    """One fp32 train_step of the same full-width weights on the card
+    (kernels) and on the CPU (twins): B=2, T=32 with the second utterance
+    25 frames, 12 and 9 labels, every dropout off. Losses within 1e-4
+    relative; gradient norms before clipping, global and per module,
+    within 1e-3, the video frontend's within 2e-2 (fp32 conditioning of
+    its gradient, ROADMAP C16)."""
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.data.synthetic import synthetic_train_batch
+    from avsr_tpu_torch.models.e2e import AVSRModel
+    from avsr_tpu_torch.train import trainer as T
+
+    cfg = AVHubertAVSRConfig(dropout_rate=0.0,
+                             transformer_attn_dropout_rate=0.0)
+    e = cfg.encoder
+    e.hidden_dropout = e.attention_dropout = e.activation_dropout = 0.0
+    e.dropout_input = e.modality_dropout = 0.0
+    cpu_model = AVSRModel(cfg)
+    init_weights(cpu_model, torch.Generator().manual_seed(2))
+    batch = synthetic_train_batch(np.random.RandomState(2), 2, 32, 12,
+                                  video_lengths=[32, 25],
+                                  label_lengths=[12, 9],
+                                  vocab=min(5000, cfg.odim - 1))
+
+    def group(name):  # the video frontend, its projection, the audio
+        # projection, the fusion, the transformer, the CTC head, the decoder
+        parts = name.split(".")
+        if parts[0] != "encoder":
+            return parts[0]
+        if parts[1].startswith("feature_extractor"):
+            return ".".join(parts[1:3])
+        return "transformer" if parts[1] == "encoder" else "fusion"
+
+    out = {}
+    for where in (dev, "cpu"):
+        model = copy.deepcopy(cpu_model)
+        state = T.init_state(cfg, T.TrainConfig(), device=where, model=model)
+        t0 = time.perf_counter()
+        m = {k: v.item() for k, v in
+             T.train_step(state, T.to_device(batch, where)).items()}
+        # train_step clipped the gradients in place: undo its factor
+        clip = max(m["grad_norm"] / state.cfg.max_grad_norm, 1.0)
+        sq = {}
+        for name, p in state.model.named_parameters():
+            sq[group(name)] = sq.get(group(name), 0.0) + float(
+                p.grad.double().pow(2).sum())
+        out[str(where)] = (m, {k: v ** 0.5 * clip for k, v in sq.items()})
+        print(f"# train_step on {where}: {time.perf_counter() - t0:.1f} s")
+    (cm, cn), (pm, pn) = out[str(dev)], out["cpu"]
+    for k in ("loss", "loss_ctc", "loss_att", "grad_norm"):
+        rel = abs(cm[k] - pm[k]) / abs(pm[k])
+        lim = 1e-3 if k == "grad_norm" else 1e-4
+        print(f"# train parity {k}: cuda {cm[k]:.6f} cpu {pm[k]:.6f} "
+              f"rel_err {rel:.2e} (limit {lim:g})")
+        check(rel <= lim, f"train parity: {k} cuda vs cpu")
+    check(cm["acc"] == pm["acc"], "train parity: accuracy cuda vs cpu")
+    for k in sorted(pn):
+        rel = abs(cn[k] - pn[k]) / pn[k]
+        lim = 2e-2 if k == "feature_extractor_video.resnet" else 1e-3
+        print(f"# train parity |grad| {k}: {rel:.2e} (limit {lim:g})")
+        check(rel <= lim, f"train parity: gradient norm of {k}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -582,20 +902,36 @@ def main() -> int:
     log = path.with_suffix(".log")
     print(f"# phase 2: kernels built in {seconds:.1f} s -> {path.name}")
     if log.exists():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"#   ptxas {line.strip()}")
+        rows = ptxas_report(log.read_text())
+        print(f"#   ptxas: {len(rows)} kernels, at most "
+              f"{max(r for _, r, _ in rows)} registers; spilling:")
+        for name, regs, spill in rows:
+            if spill:
+                print(f"#   ptxas {name}: {regs} registers, {spill} bytes "
+                      f"spill stores")
 
-    print("# phase 3: kernels vs plain twins at the serving shapes")
+    print("# phase 3: kernels vs plain twins at the serving and training "
+          "shapes")
     records = phase_kernels(dev)
+    serving_fwd = records["flash_attention_fwd"]
+    print(f"# flash_attention_fwd at the serving shape (B=8, no dropout): "
+          f"kernel {serving_fwd['ms']:.4f} ms, plain "
+          f"{serving_fwd['plain_ms']:.4f} ms, library "
+          f"{serving_fwd['library_ms']:.4f} ms")
+    records.update(phase_train_kernels(dev))
     print("# phase 4: full-width serving, bf16, B=8, 375 frames")
     runs = phase_serving(dev, smi)
     print("# phase 5: full-width slice parity, cuda vs cpu")
     phase_parity(dev)
+    print("# phase 6: full-width training, bf16, B=6, 384 frames")
+    train_launches = phase_training(dev, smi)
+    print("# phase 7: full-width train-step parity, cuda vs cpu")
+    phase_train_parity(dev)
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     main_path = runs["beam ctc_weight=0.1"]
     main_path["beam_update"] = runs["beam ctc_weight=0.1 fused"]["beam_update"]
+    main_path.update(train_launches)
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=main_path[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

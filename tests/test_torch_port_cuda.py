@@ -144,3 +144,96 @@ def test_beam_update_kernel_matches_plain(dev, seed, i, use_ctc, dyadic):
     for name, w in want.items():
         assert got[name].dtype == w.dtype, name
         assert torch.equal(got[name].cpu(), w), name
+
+
+def _attn_case(dev, n, tt, d, dtype, seed):
+    g = _gen(seed)
+    q, k, v, do = (torch.randn(n, tt, d, generator=g).to(dtype)
+                   for _ in range(4))
+    lens = torch.tensor([tt, tt - 9, tt // 2, 1, tt, 7])[:n].clamp_min(1)
+    bias = torch.where(torch.arange(tt)[None] < lens[:, None], 0.0, NEG)
+    return [x.to(dev) for x in (q, k, v, bias, do)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tt,d", [(100, 16), (77, 32), (384, 64), (130, 128)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bwd_kernels_match_plain(dev, dtype, tol, tt, d, rate):
+    """The forward with and without dropout, and the dq (with delta) and
+    dkv kernels against the plain twins on the same inputs and seed:
+    within ``tol`` of each output's largest entry (fp32 sums in another
+    order; bf16: the same roundings of P~ and dS, two ulps at the top)."""
+    q, k, v, bias, do = _attn_case(dev, 6, tt, d, dtype, tt + d)
+    seed = (11, 22) if rate else None
+    sc = d ** -0.5
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, sc, rate, seed)
+    dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse, sc,
+                                           rate, seed)
+    dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, sc,
+                                         rate, seed)
+    w_out, w_lse = pfa.flash_attention_plain(q, k, v, bias, sc,
+                                             dropout_rate=rate,
+                                             dropout_seed=seed)
+    wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do, lse, sc,
+                                          dropout_rate=rate,
+                                          dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert (lse - w_lse).abs().max() <= 1e-3
+    assert (delta - pfa.attention_delta_plain(out, do)).abs().max() <= 1e-3
+    for got, want in zip((out, dq, dk, dv), (w_out, *wants)):
+        scale = want.float().abs().max()
+        assert (got.float() - want.float()).abs().max() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_mask_is_the_twins(dev, dtype):
+    """The forward kernel's keep mask, read out with uniform attention
+    (q = k = 0) and V = T x identity blocks, is dropout_keep_mask_plain's
+    bit for bit; two calls agree; the output is linear in V."""
+    n, tt, d, rate, seed = 4, 160, 32, 0.1, (5, 6)
+    z = torch.zeros(n, tt, d, device=dev, dtype=dtype)
+    bias = torch.zeros(n, tt, device=dev)
+    cols = []
+    for j0 in range(0, tt, d):
+        vb = torch.zeros(n, tt, d, device=dev)
+        vb[:, j0:j0 + d] = torch.eye(d, device=dev) * tt
+        cols.append(pfa.flash_attention_fwd(z, z, vb.to(dtype), bias, 1.0,
+                                            rate, seed)[0].float())
+    got = torch.cat(cols, dim=2) > 0.5
+    want = pfa.dropout_keep_mask_plain(seed, n, tt, rate, dev)
+    assert torch.equal(got, want)
+    q, k, v, bias, _ = _attn_case(dev, 4, tt, d, torch.float32, 3)
+    a = pfa.flash_attention_fwd(q, k, v, bias, 0.2, rate, seed)[0]
+    b = pfa.flash_attention_fwd(q, k, v, bias, 0.2, rate, seed)[0]
+    c = pfa.flash_attention_fwd(q, k, 2 * v, bias, 0.2, rate, seed)[0]
+    assert torch.equal(a, b)
+    assert (c - 2 * a).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_flash_fn_grads_cuda_match_cpu(dev, rate):
+    """FlashAttentionFn through mha_flash on the card (kernels) against the
+    same call on the CPU (twins), fp32, with padding and dropout at the
+    same seed: out and dQ/dK/dV within 1e-4; the kernels counted."""
+    g = _gen(9)
+    b, tt, h, dh = 2, 70, 4, 16
+    x = [torch.randn(b, tt, h, dh, generator=g) for _ in range(4)]
+    mask = torch.arange(tt)[None] < torch.tensor([[tt], [50]])
+    res = {}
+    before = (pfa.flash_attention_fwd.launches,
+              pfa.flash_attention_bwd_dq.launches,
+              pfa.flash_attention_bwd_dkv.launches)
+    for where in ("cpu", dev):
+        q, k, v = (y.to(where, copy=True).requires_grad_() for y in x[:3])
+        out = pfa.mha_flash(q, k, v, mask.to(where), 0.25, dropout_rate=rate,
+                            dropout_seed=(3, 4) if rate else None)
+        out.backward(x[3].to(where))
+        res[str(where)] = [y.detach().cpu() for y in (out, q.grad, k.grad,
+                                                      v.grad)]
+    torch.cuda.synchronize()
+    for a, c in zip(res["cpu"], res[str(dev)]):
+        assert (a - c).abs().max() <= 1e-4
+    assert (pfa.flash_attention_fwd.launches - before[0],
+            pfa.flash_attention_bwd_dq.launches - before[1],
+            pfa.flash_attention_bwd_dkv.launches - before[2]) == (1, 1, 1)
