@@ -3,9 +3,11 @@
 - CTC: torch.nn.CTCLoss(reduction='sum', zero_infinity=True) divided by the
   batch size (reference ctc.py:64-73): the mean of the per-sample NLL with
   non-finite samples zeroed. The per-sample NLL comes from
-  ``F.ctc_loss(reduction="none")``; as in the JAX package, a sample whose
-  alignment is infeasible (T < L + repeats) is zeroed by an explicit rule,
-  so both packages zero the same samples.
+  ``F.ctc_loss(reduction="none", zero_infinity=True)``, which also gives an
+  infeasible sample a zero gradient (without it that gradient is NaN); as
+  in the JAX package, a sample whose alignment is infeasible
+  (T < L + repeats) is zeroed by an explicit rule as well, so both packages
+  zero the same samples.
 - Label smoothing: KLDiv(log_softmax(x), smoothed one-hot) summed over
   non-padding positions, normalised by the batch size (reference
   label_smoothing_loss.py:13-62, normalize_length=False).
@@ -33,7 +35,7 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
     logp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
     per_seq = F.ctc_loss(logp, labels, logit_lengths, label_lengths,
                          blank=blank_id, reduction="none",
-                         zero_infinity=False)
+                         zero_infinity=True)
     valid = pos[:, : l - 1] < (label_lengths[:, None] - 1)
     repeats = ((labels[:, 1:] == labels[:, :-1]) & valid).sum(-1)
     feasible = logit_lengths >= label_lengths + repeats

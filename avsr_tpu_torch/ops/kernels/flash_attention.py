@@ -17,9 +17,9 @@ absolute (head, query row, key column), so the forward and both backward
 kernels draw the same bits whatever their tiling, and nothing of size
 (N, T, T) is stored. ``dropout_keep_mask_plain`` computes the same bits in
 torch integer ops; on the CPU the twins use it, so the CPU and the card
-drop the same entries for one seed. An explicit pre-scaled mask
-(``dropout_mask``, entries 0 or 1/keep) is the JAX CPU path's contract and
-is taken by the twins only.
+drop the same entries for one seed. The plain twins also take an
+explicit pre-scaled mask (``dropout_mask``, entries 0 or 1/keep), the JAX
+CPU path's contract.
 """
 
 from __future__ import annotations
@@ -231,20 +231,17 @@ def _stream(x):
 
 def flash_attention_fwd(q, k, v, key_bias, scale: float = 1.0,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[Sequence[int]] = None,
-                        dropout_mask: Optional[torch.Tensor] = None):
+                        dropout_seed: Optional[Sequence[int]] = None):
     """(out (N, T, D) in q's dtype, lse (N, T) fp32) for q, k, v (N, T, D)
     in fp32 or bf16 and an fp32 additive key_bias (N, T). With
     ``dropout_rate`` > 0 the normalised probabilities are dropped at the
     seeded draw and rescaled by 1/keep; lse stays the undropped
-    normaliser's. ``dropout_mask`` (CPU only) gives the mask explicitly."""
+    normaliser's."""
     _check(q, k, v, key_bias)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, key_bias, scale, dropout_mask,
-                                     dropout_rate, dropout_seed)
-    if dropout_mask is not None:
-        raise ValueError("the kernel draws its dropout mask itself: pass "
-                         "dropout_rate and dropout_seed")
+        return flash_attention_plain(q, k, v, key_bias, scale,
+                                     dropout_rate=dropout_rate,
+                                     dropout_seed=dropout_seed)
     drop = _kernel_args(q, dropout_rate, dropout_seed)
     n, t, d = q.shape
     fn = _build.function(
@@ -331,19 +328,10 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_bwd(q, k, v, key_bias, out, do, lse, scale: float = 1.0,
                         dropout_rate: float = 0.0,
-                        dropout_seed: Optional[Sequence[int]] = None,
-                        dropout_mask: Optional[torch.Tensor] = None):
-    """(dq, dk, dv). CPU: one pass of ``flash_attention_bwd_plain``. Card:
-    the dq kernel (which also writes delta), then the dk/dv kernel. Two
-    kernels, so dQ is written by one block per query tile and dK/dV by
-    one block per key tile: no atomics, deterministic sums."""
-    if q.device.type == "cpu":
-        _check(q, k, v, key_bias, out, do, lse)
-        return flash_attention_bwd_plain(q, k, v, key_bias, out, do, lse,
-                                         scale, dropout_mask, dropout_rate,
-                                         dropout_seed)
-    if dropout_mask is not None:
-        raise ValueError("the kernels draw their dropout mask themselves")
+                        dropout_seed: Optional[Sequence[int]] = None):
+    """(dq, dk, dv): the dq pass (which also writes delta), then the dk/dv
+    pass. Two kernels, so dQ is written by one block per query tile and
+    dK/dV by one block per key tile: no atomics, deterministic sums."""
     dq, delta = flash_attention_bwd_dq(q, k, v, key_bias, out, do, lse,
                                        scale, dropout_rate, dropout_seed)
     dk, dv = flash_attention_bwd_dkv(q, k, v, key_bias, do, lse, delta,
@@ -352,40 +340,38 @@ def flash_attention_bwd(q, k, v, key_bias, out, do, lse, scale: float = 1.0,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """Differentiable flash attention over (N, T, D) rows; the key bias,
-    the dropout arguments and the mask take no gradient. Saves q, k, v,
-    out and lse (O(N T D)); the backward recomputes P from lse."""
+    """Differentiable flash attention over (N, T, D) rows; the key bias and
+    the dropout arguments take no gradient. Saves q, k, v, out and lse
+    (O(N T D)); the backward recomputes P from lse."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_bias, scale, dropout_rate=0.0,
-                dropout_seed=None, dropout_mask=None):
+                dropout_seed=None):
         out, lse = flash_attention_fwd(q, k, v, key_bias, scale,
-                                       dropout_rate, dropout_seed,
-                                       dropout_mask)
-        ctx.save_for_backward(q, k, v, key_bias, out, lse, dropout_mask)
+                                       dropout_rate, dropout_seed)
+        ctx.save_for_backward(q, k, v, key_bias, out, lse)
         ctx.scale, ctx.rate, ctx.seed = scale, dropout_rate, dropout_seed
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, key_bias, out, lse, mask = ctx.saved_tensors
+        q, k, v, key_bias, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, key_bias, out,
                                          do.contiguous(), lse, ctx.scale,
-                                         ctx.rate, ctx.seed, mask)
-        return dq, dk, dv, None, None, None, None, None
+                                         ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, key_bias, scale: float = 1.0,
                     dropout_rate: float = 0.0,
-                    dropout_seed: Optional[Sequence[int]] = None,
-                    dropout_mask: Optional[torch.Tensor] = None):
+                    dropout_seed: Optional[Sequence[int]] = None):
     """Attention output only, as the JAX ``flash_attention`` returns;
     differentiable in q, k and v."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, key_bias, scale, dropout_rate,
-                                      dropout_seed, dropout_mask)
+                                      dropout_seed)
     return flash_attention_fwd(q, k, v, key_bias, scale, dropout_rate,
-                               dropout_seed, dropout_mask)[0]
+                               dropout_seed)[0]
 
 
 def mha_flash(q, k, v, padding_mask: Optional[torch.Tensor], scale: float,

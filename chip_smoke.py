@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import copy
 import json
-import re
 import statistics
 import subprocess
 import sys
@@ -119,30 +118,6 @@ def cuda_ms(fn, iters: int = 4, warmup: int = 2, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
-
-
-def ptxas_report(text: str):
-    """(kernel, registers, spill-store bytes) of each kernel in nvcc's
-    ``-Xptxas -v`` report; the kernel as its mangled name from the
-    function's name to its template arguments (e.g.
-    ``flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb1E``)."""
-    rows, name, spill = [], None, 0
-    for line in text.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
-        if m:
-            short = re.search(r"([a-z][a-z_]*_kernel)(I.*?E)E", m.group(1))
-            name = short.group(1) + short.group(2) if short else m.group(1)
-            spill = 0
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-            continue
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            rows.append((name, int(m.group(1)), spill))
-            name = None
-    return rows
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -902,13 +877,10 @@ def main() -> int:
     log = path.with_suffix(".log")
     print(f"# phase 2: kernels built in {seconds:.1f} s -> {path.name}")
     if log.exists():
-        rows = ptxas_report(log.read_text())
-        print(f"#   ptxas: {len(rows)} kernels, at most "
-              f"{max(r for _, r, _ in rows)} registers; spilling:")
-        for name, regs, spill in rows:
-            if spill:
-                print(f"#   ptxas {name}: {regs} registers, {spill} bytes "
-                      f"spill stores")
+        lines = log.read_text().splitlines()
+        for prev, line in zip([""] + lines, lines):
+            if "spill" in line and ", 0 bytes spill stores" not in line:
+                print(f"#   ptxas {prev.strip()}: {line.strip()}")
 
     print("# phase 3: kernels vs plain twins at the serving and training "
           "shapes")

@@ -61,6 +61,9 @@ def _ctc_case():
 
 
 def test_ctc_loss_matches_jax():
+    """The loss, and d loss / d logits against jax.grad of the JAX
+    ctc_loss: finite everywhere, exactly 0 on the infeasible sample,
+    within 1e-5 of the largest entry elsewhere."""
     from avsr_tpu.ops.ctc import ctc_loss
 
     logits, llen, labels, lablen = _ctc_case()
@@ -72,6 +75,16 @@ def test_ctc_loss_matches_jax():
     part = pctc.ctc_loss(t(logits[:2]), t(llen[:2]), t(labels[:2]),
                          t(lablen[:2]))
     np.testing.assert_allclose(got.item() * 3, part.item() * 2, rtol=1e-6)
+    want_g = np.asarray(jax.grad(lambda x: ctc_loss(
+        x, jnp.asarray(llen), jnp.asarray(labels), jnp.asarray(lablen)))(
+        jnp.asarray(logits)))
+    x = t(logits).requires_grad_()
+    (got_g,) = torch.autograd.grad(
+        pctc.ctc_loss(x, t(llen), t(labels), t(lablen)), x)
+    got_g = got_g.numpy()
+    assert np.isfinite(got_g).all()
+    assert not got_g[2].any() and not want_g[2].any()
+    _assert_close_rel(got_g, want_g, 1e-5, "dlogits")
 
 
 def test_label_smoothing_and_accuracy_match_jax():
@@ -107,14 +120,14 @@ def test_add_sos_eos_and_target_mask_match_jax():
 # ---------------------------------------------------------------- flash
 
 
-@pytest.mark.parametrize("use_mask", [False, True])
+@pytest.mark.parametrize("dropout", [False, True])
 @pytest.mark.parametrize("n,tt,d", [(2, 128, 16), (2, 256, 32), (1, 640, 16)])
-def test_flash_fn_grads_match_jax(n, tt, d, use_mask):
+def test_flash_fn_grads_match_jax(n, tt, d, dropout):
     """FlashAttentionFn forward and dQ/dK/dV against jax.vjp of the Pallas
     kernel in interpret mode: T=128 and 256 run the JAX resident kernels,
     T=640 the streaming dq/dkv pair. A padding bias on every case; with
-    ``use_mask`` the same explicit pre-scaled dropout mask on both sides.
-    Within 2e-6 (fp32, |values| ~ 1)."""
+    ``dropout`` the port draws its seeded mask (rate 0.1) and JAX is given
+    that same pre-scaled mask explicitly. Within 2e-6 (fp32, |values| ~ 1)."""
     from avsr_tpu.ops.pallas.flash_attention import flash_attention
 
     rng = np.random.RandomState(tt + d)
@@ -122,9 +135,10 @@ def test_flash_fn_grads_match_jax(n, tt, d, use_mask):
     lens = np.asarray([tt, tt - 37])[:n]
     bias = np.where(np.arange(tt)[None] < lens[:, None], 0.0, NEG)
     bias = bias.astype(np.float32)
+    rate, seed = (0.1, (tt, d)) if dropout else (0.0, None)
     mask = None
-    if use_mask:
-        mask = ((rng.rand(n, tt, tt) < 0.9) / 0.9).astype(np.float32)
+    if dropout:
+        mask = pfa._seeded_mask(rate, seed, n, tt, "cpu").numpy()
     scale = d ** -0.5
 
     def f(q, k, v):
@@ -135,12 +149,13 @@ def test_flash_fn_grads_match_jax(n, tt, d, use_mask):
     want, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
     wants = vjp(jnp.asarray(w))
     tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
-    out = pfa.FlashAttentionFn.apply(tq, tk, tv, t(bias), scale, 0.0, None,
-                                     None if mask is None else t(mask))
+    out = pfa.FlashAttentionFn.apply(tq, tk, tv, t(bias), scale, rate, seed)
     out.backward(t(w))
-    for got, ref in zip((out, tq.grad, tk.grad, tv.grad), (want, *wants)):
+    for name, got, ref in zip(("out", "dq", "dk", "dv"),
+                              (out, tq.grad, tk.grad, tv.grad),
+                              (want, *wants)):
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
-                                   atol=2e-6, rtol=0)
+                                   atol=2e-6, rtol=0, err_msg=name)
 
 
 def test_dropout_keep_mask_plain():
@@ -176,9 +191,10 @@ def test_philox_known_answers():
 
 
 def test_seeded_dropout_equals_its_explicit_mask():
-    """The seeded path (rate, seed) on the CPU is the explicit-mask path
-    with the kernels' Philox mask, forward and backward; the split
-    backward wrappers equal the one-pass twin and launch nothing."""
+    """The seeded path (rate, seed) through FlashAttentionFn on the CPU is
+    the plain twins' explicit-mask path with the kernels' Philox mask,
+    forward and backward; the split backward wrappers run the twins and
+    launch nothing."""
     rng = np.random.RandomState(3)
     n, tt, d = 3, 70, 16
     q, k, v, w = (t(rng.randn(n, tt, d).astype(np.float32)) for _ in range(4))
@@ -186,24 +202,19 @@ def test_seeded_dropout_equals_its_explicit_mask():
     seed, rate = (99, 5), 0.2
     _, inv_keep = pfa.dropout_threshold(rate)
     mask = pfa.dropout_keep_mask_plain(seed, n, tt, rate).float() * inv_keep
-    grads = []
-    for kw in (dict(dropout_rate=rate, dropout_seed=seed),
-               dict(dropout_mask=mask)):
-        xs = [x.clone().requires_grad_() for x in (q, k, v)]
-        out = pfa.flash_attention(*xs, bias, 0.25, **kw)
-        out.backward(w)
-        grads.append([out.detach()] + [x.grad for x in xs])
-    for a, b in zip(*grads):
-        assert torch.equal(a, b)
     before = (pfa.flash_attention_bwd_dq.launches,
               pfa.flash_attention_bwd_dkv.launches)
-    out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.25, rate, seed)
-    dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, w, lse, 0.25,
-                                           rate, seed)
-    dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, w, lse, delta, 0.25,
-                                         rate, seed)
-    for a, b in zip((dq, dk, dv), grads[0][1:]):
-        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = pfa.flash_attention(*xs, bias, 0.25, dropout_rate=rate,
+                              dropout_seed=seed)
+    out.backward(w)
+    ref, lse = pfa.flash_attention_plain(q, k, v, bias, 0.25,
+                                         dropout_mask=mask)
+    assert torch.equal(out.detach(), ref)
+    grads = pfa.flash_attention_bwd_plain(q, k, v, bias, ref, w, lse, 0.25,
+                                          dropout_mask=mask)
+    for x, g in zip(xs, grads):
+        torch.testing.assert_close(x.grad, g, atol=1e-6, rtol=0)
     assert (pfa.flash_attention_bwd_dq.launches,
             pfa.flash_attention_bwd_dkv.launches) == before
 
