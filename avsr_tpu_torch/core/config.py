@@ -8,8 +8,9 @@ checkpoints' ``config.json`` files load directly:
   - decoder/CTC dims:   nets/backend/e2e_asr_avhubert.py:24
 Only fields that affect the computation graph are kept; unknown json fields
 are ignored on load. The Pallas, scan and remat switches are kept so that a
-config round-trips through ``to_dict``/``from_dict`` unchanged; the port's
-modules read none of them (they always take their kernel paths).
+config round-trips through ``to_dict``/``from_dict`` unchanged; of them the
+port reads only ``decode_fused_layer`` (its other modules always take their
+kernel paths).
 """
 
 from __future__ import annotations
@@ -81,9 +82,10 @@ class AVHubertAVSRConfig:
     # decode-path weight/activation dtype (bfloat16 for fast serving;
     # softmax and log-softmax stay fp32)
     decoder_param_dtype: str = "float32"
-    # switches of the JAX package's decode step (fused self-attention, fused
-    # decoder layer); the port's decoder always runs its decode_attention
-    # kernel
+    # switches of the JAX package's decode step: fused self-attention (the
+    # port's unfused step always runs its decode_attention kernel) and the
+    # fused decoder layer (the port runs decoder_layer_step, one launch per
+    # layer and step, when it is set)
     decode_fused_attention: bool = False
     decode_fused_layer: bool = False
     encoder: AVHubertEncoderConfig = field(default_factory=AVHubertEncoderConfig)

@@ -12,9 +12,12 @@ reorder and shared source K/V.
 Per step and layer: LN -> one concatenated QKV product -> q * d_k**-0.5 ->
 ``decode_attention`` (which writes the step's K|V row into the cache) ->
 linear_out; LN -> cross-attention with the beam lanes folded into the query
-axis; LN -> ReLU FFN. Then after_norm (fp32), the output head in the
-decoder parameter dtype, and an fp32 log-softmax. Module names follow the
-reference checkpoint (``embed.0``, ``decoders.{i}.self_attn.linear_q``...).
+axis; LN -> ReLU FFN. With ``fused_layer`` (the config's
+``decode_fused_layer``) each layer is instead one ``decoder_layer_step``
+launch with the TPU kernel's semantics (``ops/kernels/decoder_layer.py``).
+Then after_norm (fp32), the output head in the decoder parameter dtype, and
+an fp32 log-softmax. Module names follow the reference checkpoint
+(``embed.0``, ``decoders.{i}.self_attn.linear_q``...).
 """
 
 from __future__ import annotations
@@ -29,6 +32,12 @@ from torch.nn import functional as F
 
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
+from avsr_tpu_torch.ops.kernels.decoder_layer import NEG_INF as PAD_BIAS
+from avsr_tpu_torch.ops.kernels.decoder_layer import (
+    PackedLayer,
+    decoder_layer_step,
+    pack_layer_params,
+)
 
 LN_EPS = 1e-12
 NEG_INF = torch.finfo(torch.float32).min
@@ -149,13 +158,15 @@ class DecoderCache:
     self_kv: per layer one (B*K, S, 2C) K|V buffer in the cache dtype,
     updated in place by each step; src_k / src_v: per layer the source K/V
     shared by the K lanes of an utterance, (B, H, S_enc, Dh) in the cache
-    dtype; params: per-layer weights in the parameter dtype; head_w
-    (V, C) in the parameter dtype; pe: the positional table (fp32)."""
+    dtype, or (B, S_enc, C) with the heads packed on the fused-layer path;
+    params: per-layer weights in the parameter dtype (``PackedLayer`` on
+    the fused-layer path); head_w (V, C) in the parameter dtype; pe: the
+    positional table (fp32)."""
 
     self_kv: List[torch.Tensor]
     src_k: List[torch.Tensor]
     src_v: List[torch.Tensor]
-    params: List[LayerParams]
+    params: List[LayerParams | PackedLayer]
     head_w: torch.Tensor
     pe: torch.Tensor
 
@@ -168,11 +179,13 @@ class TransformerDecoder(nn.Module):
     def __init__(self, odim: int, dim: int = 1024, heads: int = 16,
                  units: int = 3072, layers: int = 6, dropout: float = 0.0,
                  attn_dropout: float = 0.0, max_decode_len: int = 512,
-                 cache_dtype: str = "float32", param_dtype: str = "float32"):
+                 cache_dtype: str = "float32", param_dtype: str = "float32",
+                 fused_layer: bool = False):
         super().__init__()
         self.dim = dim
         self.heads = heads
         self.dropout = dropout
+        self.fused_layer = fused_layer
         self.max_decode_len = max_decode_len
         self.cache_dtype = getattr(torch, cache_dtype)
         self.param_dtype = getattr(torch, param_dtype)
@@ -200,7 +213,8 @@ class TransformerDecoder(nn.Module):
     def init_cache(self, memory: torch.Tensor, maxlen: int,
                    beam: int = 1) -> DecoderCache:
         """Source K/V from per-utterance memory (B, S_enc, D), zeroed
-        (B*beam, maxlen, 2C) self K|V buffers, weights cast once."""
+        (B*beam, maxlen, 2C) self K|V buffers, weights cast (or, on the
+        fused-layer path, packed) once."""
         b, s_enc, _ = memory.shape
         h, dh = self.heads, self.dim // self.heads
         pd, cd = self.param_dtype, self.cache_dtype
@@ -209,6 +223,8 @@ class TransformerDecoder(nn.Module):
             return tuple(t.to(pd) for t in ts)
 
         def split(x):  # (B, S, C) -> (B, H, S, Dh)
+            if self.fused_layer:  # the kernel reads the heads packed
+                return x.contiguous()
             return x.view(b, s_enc, h, dh).transpose(1, 2).contiguous()
 
         self_kv, src_k, src_v, params = [], [], [], []
@@ -218,6 +234,9 @@ class TransformerDecoder(nn.Module):
             src_v.append(split(xa.linear_v(memory)).to(cd))
             self_kv.append(torch.zeros(b * beam, maxlen, 2 * self.dim,
                                        dtype=cd, device=memory.device))
+            if self.fused_layer:
+                params.append(pack_layer_params(layer, pd))
+                continue
             w_qkv = torch.cat([sa.linear_q.weight, sa.linear_k.weight,
                                sa.linear_v.weight])
             b_qkv = torch.cat([sa.linear_q.bias, sa.linear_k.bias,
@@ -256,6 +275,41 @@ class TransformerDecoder(nn.Module):
         out = out.transpose(1, 2).reshape(x.shape)
         return F.linear(out, p.w_out_src, p.b_out_src)
 
+    def layer_step(self, i: int, x, pos: int, cache: DecoderCache,
+                   memory_mask, bias_ksj, lanes: int):
+        """Layer i of the unfused step: LN, QKV, ``decode_attention``
+        (which writes the row), out-projection, cross-attention, FFN."""
+        c, h = self.dim, self.heads
+        p = cache.params[i]
+        hn = _ln(x, p.norm1)
+        qkv = F.linear(hn, p.w_qkv, p.b_qkv)  # (N, 3C)
+        q = qkv[:, :c] * (c // h) ** -0.5
+        out, _ = decode_attention(
+            pos, q.contiguous(), cache.self_kv[i], bias_ksj, lanes, h,
+            kv_row=qkv[:, c:].contiguous(),
+        )
+        x = x + F.linear(out.to(hn.dtype), p.w_out, p.b_out)
+        x = x + self._cross_attention(_ln(x, p.norm2), p, cache.src_k[i],
+                                      cache.src_v[i], memory_mask)
+        hf = F.relu(F.linear(_ln(x, p.norm3), p.w_1, p.b_1))
+        return x + F.linear(hf, p.w_2, p.b_2)
+
+    def _fused_layers(self, x, pos: int, cache: DecoderCache, memory_mask,
+                      bias_ksj, lanes: int):
+        """Every layer as one ``decoder_layer_step`` launch; padded source
+        rows get the additive -1e30 bias."""
+        b, s_enc = cache.src_k[0].shape[:2]
+        if memory_mask is None:
+            mem_bias = torch.zeros(b, s_enc, device=x.device)
+        else:
+            mem_bias = torch.where(memory_mask[:, 0], 0.0, PAD_BIAS)
+        for i, p in enumerate(cache.params):
+            x, _ = decoder_layer_step(pos, x, cache.self_kv[i],
+                                      cache.src_k[i], cache.src_v[i],
+                                      mem_bias, bias_ksj, p, lanes,
+                                      self.heads)
+        return x
+
     def step(self, y_t: torch.Tensor, pos: int, cache: DecoderCache,
              memory_mask: Optional[torch.Tensor],
              lane_bias: torch.Tensor):
@@ -266,25 +320,19 @@ class TransformerDecoder(nn.Module):
         if lane_bias is None:
             raise ValueError("the decode step needs the lazy-reorder "
                              "lane_bias (B, K, J, S)")
-        c, h = self.dim, self.heads
+        c = self.dim
         lanes = lane_bias.shape[1]
         bias_ksj = lane_bias.transpose(2, 3).contiguous()  # kernel layout
         pe = cache.pe[min(pos, cache.pe.shape[0] - 1)]
         x = self.embed[0](y_t) * math.sqrt(c) + pe
         x = x.to(self.param_dtype)
-        for i, p in enumerate(cache.params):
-            hn = _ln(x, p.norm1)
-            qkv = F.linear(hn, p.w_qkv, p.b_qkv)  # (N, 3C)
-            q = qkv[:, :c] * (c // h) ** -0.5
-            out, _ = decode_attention(
-                pos, q.contiguous(), cache.self_kv[i], bias_ksj, lanes, h,
-                kv_row=qkv[:, c:].contiguous(),
-            )
-            x = x + F.linear(out.to(hn.dtype), p.w_out, p.b_out)
-            x = x + self._cross_attention(_ln(x, p.norm2), p, cache.src_k[i],
-                                          cache.src_v[i], memory_mask)
-            hf = F.relu(F.linear(_ln(x, p.norm3), p.w_1, p.b_1))
-            x = x + F.linear(hf, p.w_2, p.b_2)
+        if self.fused_layer:
+            x = self._fused_layers(x, pos, cache, memory_mask, bias_ksj,
+                                   lanes)
+        else:
+            for i in range(len(cache.params)):
+                x = self.layer_step(i, x, pos, cache, memory_mask, bias_ksj,
+                                    lanes)
         y = F.layer_norm(x.float(), (c,), self.after_norm.weight.float(),
                          self.after_norm.bias.float(), LN_EPS)
         logits = F.linear(y.to(cache.head_w.dtype), cache.head_w).float()

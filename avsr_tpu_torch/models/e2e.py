@@ -51,6 +51,7 @@ class AVSRModel(nn.Module):
                 attn_dropout=cfg.transformer_attn_dropout_rate,
                 cache_dtype=cfg.decoder_cache_dtype,
                 param_dtype=cfg.decoder_param_dtype,
+                fused_layer=cfg.decode_fused_layer,
             )
         if cfg.adim != cfg.ddim:
             # part of the checkpoint; applied by the training forward only,

@@ -11,14 +11,21 @@ its state dict loads with ``load_state_dict(strict=True)``.
 The JAX package folds the temporal taps of the stem into input channels of
 a 2-D conv (a TPU layout workaround, exact since the temporal stride is 1);
 here the stem is the plain Conv3d. The stem tail follows the JAX default
-``stem_fuse.lean_reference``; the trunk's BatchNorms follow flax
-``nn.BatchNorm`` in training (``train=True``).
+``stem_fuse.lean_reference``; with the JAX package's switches
+(``AVSR_FUSED_STEM=1`` in training, ``AVSR_FUSED_STEM_EVAL=1`` in eval) it
+runs the fused ``bn_prelu_pool`` (``ops/kernels/stem_fuse.py``) instead.
+The trunk's BatchNorms follow flax ``nn.BatchNorm`` in training
+(``train=True``).
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
+
+from avsr_tpu_torch.ops.kernels.stem_fuse import bn_prelu_pool
 
 
 class BatchNorm(nn.Module):
@@ -167,6 +174,26 @@ class ResEncoder(nn.Module):
         c, h, w = x.shape[1], x.shape[3], x.shape[4]
         # fold time into batch (pure relayout: pooling never mixes frames)
         x = x.transpose(1, 2).reshape(b * t, c, h, w)
-        x = nn.functional.max_pool2d(prelu(bn(x, train)), 3, stride=2,
-                                     padding=1)
+        # the JAX package's switches of its fused stem tail
+        switch = "AVSR_FUSED_STEM" if train else "AVSR_FUSED_STEM_EVAL"
+        if os.environ.get(switch, "0") == "1":
+            x = self._fused_tail(x, bn, prelu, train)
+        else:
+            x = nn.functional.max_pool2d(prelu(bn(x, train)), 3, stride=2,
+                                         padding=1)
         return self.trunk(x, train).view(b, t, -1)
+
+    @staticmethod
+    def _fused_tail(x, bn: BatchNorm, prelu: nn.PReLU, train: bool):
+        """BN + PReLU + max-pool as ``bn_prelu_pool`` (the TPU kernel's
+        semantics: z in fp32, cast once after the pool); the running
+        averages update as in ``BatchNorm``."""
+        if not train:
+            return bn_prelu_pool(x, bn.weight, bn.bias, prelu.weight,
+                                 eps=bn.eps, train=False,
+                                 running_mean=bn.running_mean,
+                                 running_var=bn.running_var)
+        out, mean, var = bn_prelu_pool(x, bn.weight, bn.bias, prelu.weight,
+                                       eps=bn.eps, train=True)
+        bn._update(x.dtype, mean, var)
+        return out

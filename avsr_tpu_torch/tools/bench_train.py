@@ -22,7 +22,9 @@ step: the counter's, plus the flash kernels', which it cannot see, at 4 N
 T^2 D a forward call and 2.5 times that a backward), ``mfu`` (those FLOPs
 over the step time and the H100 SXM dense bf16 peak, 989 TFLOP/s; null on
 the CPU), ``loss``, ``grad_norm`` (of the last step), ``peak_mem_gb``
-(null on the CPU) and the kernels' launches per timed step. With
+(null on the CPU) and the kernels' launches per timed step (the three
+flash kernels, and the four of the fused stem tail, which run when
+``AVSR_FUSED_STEM=1`` is set, the JAX package's switch). With
 ``--trace`` (card only) one more step runs under ``torch.profiler``: the
 record gains the device's busy time (the union of the CUDA op intervals),
 its idle share of the traced step and of the untraced step time, and the
@@ -42,13 +44,17 @@ import torch
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data.synthetic import synthetic_train_batch
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+from avsr_tpu_torch.ops.kernels import stem_fuse as psf
 from avsr_tpu_torch.train import trainer as T
 
 H100_PEAK_BF16 = 989e12  # dense bf16 FLOP/s of one H100 SXM (data sheet)
 WARMUP = 2  # untimed steps: allocator and cuDNN engine choice settle
 SEED = 0
-KERNELS = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
-           pfa.flash_attention_bwd_dkv)
+FLASH = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+         pfa.flash_attention_bwd_dkv)
+STEM = (psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
+        psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2)
+KERNELS = FLASH + STEM
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -112,7 +118,7 @@ def measure(state: T.TrainState, batch, args) -> dict:
     fwd, bwd = flash_flops(state.model.cfg, args)
     # kernels are invisible to the counter; the CPU twins are not
     step_flops = (counter.get_total_flops()
-                  + KERNELS[0].launches * fwd + KERNELS[1].launches * bwd)
+                  + FLASH[0].launches * fwd + FLASH[1].launches * bwd)
     for _ in range(WARMUP - 1):
         T.train_step(state, batch)
     _sync(dev)

@@ -7,26 +7,33 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the kernels (one nvcc per source, all at once), with the time;
-3. holds each of the eight kernels against its plain PyTorch twin, with a
-   stated limit, and times the kernel, the twin and, where one PyTorch
+3. holds each of the thirteen kernels against its plain PyTorch twin, with
+   a stated limit, and times the kernel, the twin and, where one PyTorch
    call computes the same function, that call; computes each kernel's
    bound from the bytes and operations of its inputs. The serving kernels
    at the serving path's shapes (B=8, T=375 padded to 384, beam 3,
    pre-beam 4); the flash forward with dropout and the two backward
    kernels at the training shapes (N = 6*16 heads, T=384, D=64, bf16 and
    fp32, ragged key bias), the forward's dropout mask read out and held
-   bit for bit against the twin's;
+   bit for bit against the twin's; the fused stem tail's four kernels at
+   the training shape (N = 6*384 frames of (64, 44, 44), bf16), plus fp32
+   and tied-maxima cases and the eval apply at the serving shape (N =
+   8*377); the one-launch decoder layer at the serving shape (24 lanes,
+   C=1024, a 192-row cache, 377 source rows) at pos 0, 100, 191 and 250;
+   as information, the eager compositions those two replace;
 4. serves the full-width flagship configuration (24x1024 AV-HuBERT encoder,
    6x1024 decoder, vocab 5049; seeded random weights) through
    ``Recognizer.transcribe_batch``, B=8 utterances of 375 frames: the
    joint CTC/attention beam at the default ``ctc_weight=0.1`` with the
    bookkeeping unfused (the default) and fused, the attention-only beam
-   (``ctc_weight=0``), and greedy CTC. Each run starts with every launch
-   count at 0 and is checked for the kernels of its path;
+   (``ctc_weight=0``), and greedy CTC; then the same weights with
+   ``decode_fused_layer`` and ``AVSR_FUSED_STEM_EVAL=1``. Each run starts
+   with every launch count at 0 and is checked for the kernels of its
+   path (with the switches off, no fused-path kernel runs);
 5. runs the same full-width weights through the CUDA path (bookkeeping
    fused) and the CPU path (which uses the plain twins, unfused) at
-   ``ctc_weight=0.1``, in fp32 and in the serving precision, and compares
-   them;
+   ``ctc_weight=0.1``, in fp32, in the serving precision, and in fp32 with
+   the fused layer and stem, and compares them;
 6. trains the full-width flagship through ``avsr_tpu_torch.tools.
    bench_train`` at its defaults (B=6, T=384, L=48, bf16 compute over fp32
    masters, the config's dropouts, attention dropout 0.1 in the kernels):
@@ -34,17 +41,21 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    the timed steps and read just after (24 a step for each of the three
    flash kernels, no plain twin called), finite loss and gradient norm,
    parameters changed; prints s/step, samples/s, MFU and peak memory;
+   then again with ``AVSR_FUSED_STEM=1`` (each stem kernel once a step);
 7. takes one fp32 ``train_step`` of the same full-width weights on the
    card (kernels) and on the CPU (twins), B=2, T=32 with one utterance
    shorter, dropout off, TF32 off, and compares the losses, the gradient
-   norm and the per-module gradient norms.
+   norm and the per-module gradient norms; then again with
+   ``AVSR_FUSED_STEM=1`` on both sides.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
 the kernel's main path: the default beam run of phase 4 (``ctc_weight=0.1``,
 unfused) for the serving kernels, the fused run for ``beam_update``, which
-only the fused bookkeeping runs, and phase 6's timed steps for the three
-flash kernels. The last line is ``{"ok": true, "device": {...}}``. Without
+only the fused bookkeeping runs, the fused-layer run for
+``decoder_layer_step``, phase 6's timed steps for the three flash kernels
+and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels. The last
+line is ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero at once.
 """
 
@@ -52,6 +63,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -557,6 +569,286 @@ def phase_train_kernels(dev):
     return records
 
 
+def _stem_inputs(g, dev, n, dtype, ties=False):
+    """The stem tail's input (n, 64, 44, 44) in ``dtype``, its fp32 scale,
+    bias and alpha, and a cotangent (n, 64, 22, 22); ``ties`` repeats
+    every value over a 2x2 block, so pooling windows hold equal maxima."""
+    c = 64
+    if ties:
+        x = torch.randn(n, c, 22, 22, generator=g, device=dev)
+        x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    else:
+        x = torch.randn(n, c, 44, 44, generator=g, device=dev) * 2.0 + 0.3
+    params = (1.0 + 0.1 * torch.randn(c, generator=g, device=dev),
+              0.1 * torch.randn(c, generator=g, device=dev),
+              0.25 + 0.05 * torch.randn(c, generator=g, device=dev))
+    dout = torch.randn(n, c, 22, 22, generator=g, device=dev)
+    return x.to(dtype), params, dout.to(dtype)
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_fuse_kernels(dev):
+    """The fused stem tail's four kernels (B7) and the one-launch decoder
+    layer (B9) against their twins at the training and serving shapes;
+    returns their records."""
+    from torch.nn import functional as F
+
+    from avsr_tpu_torch.models.decoder import DecoderLayer, TransformerDecoder
+    from avsr_tpu_torch.models.resnet import BatchNorm
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+    from avsr_tpu_torch.ops.kernels import stem_fuse as psf
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf16 = torch.bfloat16
+    records = {}
+
+    # B7 forward and backward: the kernels (statistics from the stats
+    # kernel) against the twins on the same inputs. Limits relative to the
+    # largest entry: bf16 2e-2 (two bf16 ulps; the sums' order moves mean
+    # and rstd by ~1e-7, which can flip a rounding), fp32 2e-5 (the
+    # output), 1e-4 (dx, through dbeta/M and dgamma/M); batch mean and var
+    # and the three parameter gradients 1e-4 of their largest entry.
+    def stem_case(n, dtype, ties, tol):
+        x, (scale, bias, alpha), dout = _stem_inputs(g, dev, n, dtype, ties)
+        s, q = psf.bn_prelu_pool_stats(x)
+        m = float(x.numel() // x.shape[1])
+        mean, var = s / m, q / m - (s / m) ** 2
+        rstd = torch.rsqrt(var + 1e-5)
+        p = psf._pack(mean, rstd, scale, bias, alpha)
+        out = psf.bn_prelu_pool_apply(x, p)
+        w_out, w_mean, w_var = psf.bn_prelu_pool_plain(x, scale, bias, alpha,
+                                                       train=True)
+        dz, red = psf.bn_prelu_pool_bwd1(x, p, dout)
+        p2 = psf._pack(mean, rstd, scale * rstd, red[0] / m, red[1] / m)
+        dx = psf.bn_prelu_pool_bwd2(x, p2, dz)
+        wants = psf.bn_prelu_pool_bwd_plain(x, scale, bias, alpha, mean, rstd,
+                                            dout)
+        again = psf.bn_prelu_pool_bwd1(x, p, dout)
+        torch.cuda.synchronize()
+        errs = {"out": _rel_err(out, w_out), "mean": _rel_err(mean, w_mean),
+                "var": _rel_err(var, w_var), "dx": _rel_err(dx, wants[0]),
+                "dscale": _rel_err(red[1], wants[1]),
+                "dbias": _rel_err(red[0], wants[2]),
+                "dalpha": _rel_err(red[2], wants[3])}
+        lims = {"out": tol, "dx": tol if dtype == bf16 else 1e-4}
+        print(f"# stem tail N={n} {str(dtype)[6:]}{' ties' if ties else ''}: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (limits {tol:g} out/dx, 1e-4 others)")
+        for k, v in errs.items():
+            check(v <= lims.get(k, 1e-4), f"stem tail {k} disagrees at N={n} "
+                  f"{dtype}{' ties' if ties else ''}")
+        check(torch.equal(again[0], dz) and torch.equal(again[1], red),
+              "bn_prelu_pool_bwd1 not deterministic")
+        abs_errs = {
+            "bn_prelu_pool_stats": max((mean - w_mean).abs().max().item(),
+                                       (var - w_var).abs().max().item()),
+            "bn_prelu_pool_apply": (out.float() - w_out.float()).abs().max()
+            .item(),
+            "bn_prelu_pool_bwd1": (red[[1, 0, 2]] - torch.stack(wants[1:]))
+            .abs().max().item(),
+            "bn_prelu_pool_bwd2": (dx.float() - wants[0].float()).abs().max()
+            .item()}
+        return x, (scale, bias, alpha), dout, p, p2, dz, mean, var, abs_errs
+
+    for n, dtype, ties, tol in ((256, torch.float32, False, 2e-5),
+                                (256, torch.float32, True, 2e-5),
+                                (256, bf16, True, 2e-2)):
+        stem_case(n, dtype, ties, tol)
+    n_train = TRAIN_BATCH * T_PAD
+    x, (scale, bias, alpha), dout, p, p2, dz, mean, var, abs_errs = (
+        stem_case(n_train, bf16, False, 2e-2))
+    rstd = torch.rsqrt(var + 1e-5)
+
+    # eval at the serving shape: running statistics, the same p for both
+    n_eval = B * (FRAMES + 2)
+    xe = _stem_inputs(g, dev, n_eval, bf16)[0]
+    rm = 0.1 * torch.randn(64, generator=g, device=dev)
+    rv = 1.0 + torch.rand(64, generator=g, device=dev)
+    pe = psf._pack(rm, torch.rsqrt(rv + 1e-5), scale, bias, alpha)
+    eval_out = psf.bn_prelu_pool_apply(xe, pe)
+    eval_want = psf.bn_prelu_pool_plain(xe, scale, bias, alpha, train=False,
+                                        running_mean=rm, running_var=rv)
+    torch.cuda.synchronize()
+    eval_err = _rel_err(eval_out, eval_want)
+    print(f"# stem tail eval N={n_eval} bf16: out {eval_err:.2e} (limit 2e-2)")
+    check(eval_err <= 2e-2, "bn_prelu_pool_apply (eval) disagrees")
+    eval_ms = cuda_ms(lambda: psf.bn_prelu_pool_apply(xe, pe))
+    eval_bound = bound(nbytes(xe, eval_out), 5 * xe.numel(), "fp32")
+    print(f"# bn_prelu_pool_apply eval (N={n_eval}, bf16): kernel "
+          f"{eval_ms:.4f} ms, bound {eval_bound[0]:.6f} ms ({eval_bound[1]})")
+
+    # times at the training shape (N = 6 * 384, bf16). The twin of stats
+    # is the fp32 sums, of apply the eval-form forward twin, of bwd1 and
+    # bwd2 the whole backward twin (one call computes both passes)
+    sums = psf.bn_prelu_pool_stats(x)
+    out = psf.bn_prelu_pool_apply(x, p)
+    dz2, red = psf.bn_prelu_pool_bwd1(x, p, dout)
+    dx = psf.bn_prelu_pool_bwd2(x, p2, dz)
+    bwd_plain_ms = cuda_ms(lambda: psf.bn_prelu_pool_bwd_plain(
+        x, scale, bias, alpha, mean, rstd, dout))
+    src = "avsr_tpu_torch/csrc/stem_fuse.cu"
+    base = "avsr_tpu/ops/pallas/stem_fuse.py"
+    # operations: the sums 3 an element; normalise, PReLU 4 an element and
+    # the 9-way max 8 an output; the backward ~20 and 6 an element
+    records["bn_prelu_pool_stats"] = dict(
+        source=src, replaces=f"{base}:138",
+        ms=cuda_ms(lambda: psf.bn_prelu_pool_stats(x)),
+        plain_ms=cuda_ms(lambda: psf._batch_stats_plain(x.float())),
+        library_ms=None,
+        bound=bound(nbytes(x, *sums), 3 * x.numel(), "fp32"))
+    records["bn_prelu_pool_apply"] = dict(
+        source=src, replaces=f"{base}:163",
+        ms=cuda_ms(lambda: psf.bn_prelu_pool_apply(x, p)),
+        plain_ms=cuda_ms(lambda: psf.bn_prelu_pool_plain(
+            x, scale, bias, alpha, train=False, running_mean=mean,
+            running_var=var)),
+        library_ms=None,
+        bound=bound(nbytes(x, out), 4 * x.numel() + 8 * out.numel(),
+                    "fp32"))
+    records["bn_prelu_pool_bwd1"] = dict(
+        source=src, replaces=f"{base}:179",
+        ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd1(x, p, dout)),
+        plain_ms=bwd_plain_ms, library_ms=None,
+        bound=bound(nbytes(x, dout, dz2, red), 20 * x.numel(), "fp32"))
+    records["bn_prelu_pool_bwd2"] = dict(
+        source=src, replaces=f"{base}:217",
+        ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd2(x, p2, dz)),
+        plain_ms=bwd_plain_ms, library_ms=None,
+        bound=bound(nbytes(x, dz, dx), 6 * x.numel(), "fp32"))
+    for name, e in abs_errs.items():
+        records[name]["max_abs_err"] = e
+
+    # as information: the eager composition the kernels replace (the
+    # port's unfused stem tail in training: folded BN, PReLU, max_pool2d),
+    # forward, and forward + backward against the fused autograd function
+    bn = BatchNorm(64, folded=True).to(dev)
+    prelu = torch.nn.PReLU(64).to(dev, bf16)
+    xr = x.detach().requires_grad_()
+    sp = [v.to(bf16).requires_grad_() for v in (scale, bias, alpha)]
+
+    def composed():
+        return F.max_pool2d(prelu(bn(xr, True)), 3, stride=2, padding=1)
+
+    def fused():
+        return psf.bn_prelu_pool(xr, *sp, train=True)[0]
+
+    comp = {name: (cuda_ms(lambda: fn().detach()),
+                   cuda_ms(lambda: torch.autograd.grad(fn(), xr, dout)))
+            for name, fn in (("composition", composed), ("fused", fused))}
+    print(f"# stem tail at N={n_train} bf16, forward / forward+backward: "
+          f"eager composition {comp['composition'][0]:.4f} / "
+          f"{comp['composition'][1]:.4f} ms, fused kernels "
+          f"{comp['fused'][0]:.4f} / {comp['fused'][1]:.4f} ms")
+    del x, xr, dout, dz, dz2, dx, out, xe, eval_out, eval_want
+
+    # B9 at the serving shape: B=8 x beam 3 lanes, C=1024, 16 heads,
+    # F=3072, a 192-row bf16 cache, 377 source rows (the last 10 of
+    # utterance 1 padded), bf16 weights; pos 0, 100, 191 and 250 (past the
+    # cap: all rows plus the fresh one, row 191 written). x_out and the
+    # written row within 2e-2 of their largest entry (bf16 roundings of
+    # the same operands; fp32 sums in other orders); the rest of the cache
+    # untouched
+    lanes, heads, c, f, s_max, s_enc = BEAM, 16, 1024, 3072, KV_CAP, FRAMES + 2
+    nl = B * lanes
+    layer = DecoderLayer(c, heads, f).to(dev)
+    with torch.no_grad():
+        for norm in (layer.norm1, layer.norm2, layer.norm3):
+            norm.weight.normal_(1.0, 0.1, generator=g)
+            norm.bias.normal_(0.0, 0.1, generator=g)
+    packed = pdl.pack_layer_params(layer, bf16)
+    mem_bias = torch.zeros(B, s_enc, device=dev)
+    mem_bias[1, -10:] = -1.0e30
+    src_k, src_v = (torch.randn(B, s_enc, c, generator=g, device=dev).to(bf16)
+                    for _ in range(2))
+    errs = []
+    for pos in (0, 100, s_max - 1, 250):
+        xq = torch.randn(nl, c, generator=g, device=dev).to(bf16)
+        kv = torch.randn(nl, s_max, 2 * c, generator=g, device=dev).to(bf16)
+        anc = torch.randint(0, lanes, (s_max, B, lanes), generator=g,
+                            device=dev)
+        anc[min(pos, s_max - 1)] = torch.arange(lanes, device=dev)
+        past = torch.arange(s_max, device=dev) <= pos
+        valid = past[:, None, None, None] & (
+            anc[..., None] == torch.arange(lanes, device=dev))
+        lb = torch.where(valid.permute(1, 2, 0, 3), 0.0, -1.0e30).contiguous()
+        kv_plain = kv.clone()
+        got, got_kv = pdl.decoder_layer_step(pos, xq, kv, src_k, src_v,
+                                             mem_bias, lb, packed, lanes,
+                                             heads)
+        want, want_kv = pdl.decoder_layer_step_plain(
+            pos, xq, kv_plain, src_k, src_v, mem_bias, lb, packed, lanes,
+            heads)
+        torch.cuda.synchronize()
+        row = min(pos, s_max - 1)
+        rest = torch.arange(s_max, device=dev) != row
+        check(got_kv is kv and torch.equal(kv[:, rest], kv_plain[:, rest]),
+              f"decoder_layer_step touched other cache rows at pos={pos}")
+        e_x, e_row = _rel_err(got, want), _rel_err(kv[:, row],
+                                                   kv_plain[:, row])
+        errs.append((got.float() - want.float()).abs().max().item())
+        print(f"# decoder_layer_step pos={pos}: x_out {e_x:.2e}, row "
+              f"{e_row:.2e} of their largest entry (limit 2e-2)")
+        check(e_x <= 2e-2 and e_row <= 2e-2,
+              f"decoder_layer_step disagrees at pos={pos}")
+    # timed at pos=250: every cache row read
+    weights = sum(nbytes(t) for t in packed)
+    records["decoder_layer_step"] = dict(
+        source="avsr_tpu_torch/csrc/decoder_layer.cu",
+        replaces="avsr_tpu/ops/pallas/decoder_layer.py:81",
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: pdl.decoder_layer_step(
+            pos, xq, kv, src_k, src_v, mem_bias, lb, packed, lanes, heads)),
+        plain_ms=cuda_ms(lambda: pdl.decoder_layer_step_plain(
+            pos, xq, kv, src_k, src_v, mem_bias, lb, packed, lanes, heads)),
+        library_ms=None,  # no one call runs a decoder layer's step
+        # the weights, x, the whole cache, the source K/V and the biases
+        # read once; x_out and the row written. Products: 2 N FLOPs a
+        # weight element, and q.k, p.v over the cache and the source rows
+        bound=bound(weights + nbytes(xq, kv, src_k, src_v, mem_bias, lb, got,
+                                     kv[:, 0]),
+                    2 * nl * 12 * c * c + 4 * nl * c * (lanes * s_max + s_enc),
+                    "bf16"),
+    )
+    # as information: the unfused step of the same layer (decode_attention
+    # and ~15 eager ops), on the decoder's own cache
+    dec = TransformerDecoder(VOCAB, c, heads, f, layers=1,
+                             cache_dtype="bfloat16",
+                             param_dtype="bfloat16").to(dev)
+    dec.decoders[0].load_state_dict(layer.state_dict())
+    cache = dec.init_cache(torch.randn(B, s_enc, c, generator=g, device=dev),
+                           s_max, lanes)
+    mask = (mem_bias == 0)[:, None, :]
+    with torch.inference_mode():
+        unfused_ms = cuda_ms(lambda: dec.layer_step(0, xq, pos, cache, mask,
+                                                    lb, lanes))
+    # where the kernel's time goes: its eight phases, from the card's clock
+    # as block 0 passes each grid sync (mean of 20 launches)
+    stamps = torch.zeros(9, dtype=torch.int64, device=dev)
+    phase_us = torch.zeros(8, dtype=torch.float64)
+    for _ in range(20):
+        pdl.decoder_layer_step(pos, xq, kv, src_k, src_v, mem_bias, lb,
+                               packed, lanes, heads, stamps=stamps)
+        phase_us += stamps.diff().double().cpu() / 1e3 / 20
+    names = ("LN1+QKV", "self-attn", "out-proj", "LN2+q2", "cross-attn",
+             "out2", "LN3+W1", "W2+row")
+    print("# decoder_layer_step phases at pos=250 (us, with stamps): "
+          + ", ".join(f"{n} {u:.1f}" for n, u in zip(names, phase_us)))
+    print(f"# one decoder layer step at pos={pos} (B=8, beam 3, bf16): "
+          f"decoder_layer_step {records['decoder_layer_step']['ms']:.4f} ms, "
+          f"the unfused step {unfused_ms:.4f} ms")
+    for name, r in records.items():
+        print(f"# {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, library n/a, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]})")
+    return records
+
+
 def flagship_config(dtype: str):
     """The flagship configuration with the serving switches on."""
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
@@ -578,9 +870,11 @@ def phase_serving(dev, gpu_name: str):
     from avsr_tpu_torch.models.e2e import AVSRModel
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
     from avsr_tpu_torch.ops.kernels import row_gather as prg
     from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+    from avsr_tpu_torch.ops.kernels import stem_fuse as psf
     from avsr_tpu_torch.ops.kernels import topk as ptk
 
     cfg = flagship_config("bfloat16")
@@ -595,11 +889,12 @@ def phase_serving(dev, gpu_name: str):
     audio, video = synthetic_batch(np.random.RandomState(0), [FRAMES] * B)
     counters = (pfa.flash_attention_fwd, pda.decode_attention,
                 ptk.topk_lastdim, prg.row_gather, psl.cumlogsumexp,
-                pbu.beam_update)
+                pbu.beam_update, pdl.decoder_layer_step,
+                psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply)
     layers = cfg.encoder.num_hidden_layers
     audio_s = B * SEGMENT_SECONDS
 
-    def serve(name, mode, ctc_weight, fused):
+    def serve(name, mode, ctc_weight, fused, rec=rec):
         rec.ctc_weight, rec.fused_bookkeeping = ctc_weight, fused
         rec.transcribe_batch(audio, video, mode=mode)  # warm-up
         torch.cuda.synchronize()
@@ -617,13 +912,18 @@ def phase_serving(dev, gpu_name: str):
               f"{audio_s / wall:.1f} audio-s/s; launches {launches}")
         check(launches["flash_attention_fwd"] >= layers,
               f"{name}: flash_attention_fwd not launched once per layer")
-        return launches
+        return launches, wall
 
-    runs = {}
+    runs, walls = {}, {}
     for name, ctc_weight, fused in (("beam ctc_weight=0.1", 0.1, False),
                                     ("beam ctc_weight=0.1 fused", 0.1, True),
                                     ("beam ctc_weight=0", 0.0, False)):
-        n = runs[name] = serve(name, "beam", ctc_weight, fused)
+        n, walls[name] = serve(name, "beam", ctc_weight, fused)
+        runs[name] = n
+        # with both switches off, the paths launch the kernels they did
+        check(n["decoder_layer_step"] == 0 and n["bn_prelu_pool_apply"] == 0
+              and n["bn_prelu_pool_stats"] == 0,
+              f"{name}: a fused-path kernel ran with the switches off")
         steps = n["decode_attention"] // cfg.dlayers
         check(steps >= 1 and n["decode_attention"] == steps * cfg.dlayers,
               f"{name}: decode_attention not launched per layer and step")
@@ -637,10 +937,70 @@ def phase_serving(dev, gpu_name: str):
         check((n["beam_update"] >= steps) if fused
               else n["beam_update"] == 0,
               f"{name}: beam_update launches {n['beam_update']}")
-    runs["greedy"] = serve("greedy", "greedy", 0.1, False)
+    runs["greedy"], _ = serve("greedy", "greedy", 0.1, False)
+
+    # the same weights with decode_fused_layer and AVSR_FUSED_STEM_EVAL=1:
+    # one decoder_layer_step per layer and step (steps past 192 run the
+    # capped-cache case, C22), no decode_attention, one stem apply an
+    # encode
+    fcfg = copy.deepcopy(cfg)
+    fcfg.decode_fused_layer = True
+    with torch.device(dev):
+        fmodel = AVSRModel(fcfg)
+    fmodel.load_state_dict(model.state_dict())
+    frec = Recognizer(model=fmodel, cfg=fcfg, device=dev,
+                      t_buckets=(FRAMES + 2,), max_decode_tokens=KV_CAP,
+                      encode_dtype="bfloat16", video_wire="delta2")
+    fused_name = "beam ctc_weight=0.1, fused layer and stem"
+    os.environ["AVSR_FUSED_STEM_EVAL"] = "1"
+    try:
+        n, walls[fused_name] = serve(fused_name, "beam", 0.1, False, frec)
+        fy, fl, fs, f_enc, f_beam = _stage_times(frec, audio, video)[:5]
+    finally:
+        del os.environ["AVSR_FUSED_STEM_EVAL"]
+    runs[fused_name] = n
+    steps = n["decoder_layer_step"] // cfg.dlayers
+    check(steps >= 1 and n["decoder_layer_step"] == steps * cfg.dlayers
+          and n["decode_attention"] == 0,
+          f"{fused_name}: decoder_layer_step not once per layer and step")
+    check(n["bn_prelu_pool_apply"] == 1 and n["bn_prelu_pool_stats"] == 0,
+          f"{fused_name}: not one stem apply per encode")
+    check(n["row_gather"] >= steps and n["cumlogsumexp"] >= 2 * steps,
+          f"{fused_name}: the CTC scorer's kernels not launched every step")
+    check(torch.isfinite(fs).all().item(), "fused-layer beam scores")
 
     # stage times (device-synchronised host clock) at the defaults
     rec.ctc_weight, rec.fused_bookkeeping = 0.1, False
+    yseqs, ylens, scores, enc_ms, beam_ms, feats, ctc, lens = _stage_times(
+        rec, audio, video)
+    rec.fused_bookkeeping = True
+    s2 = time.perf_counter()
+    by, bl, bs = rec.beam(feats, ctc, lens)
+    torch.cuda.synchronize()
+    fused_beam_ms = 1e3 * (time.perf_counter() - s2)
+    check(torch.isfinite(scores).all().item(), "beam scores not finite")
+    check(torch.equal(yseqs, by) and torch.equal(ylens, bl)
+          and torch.equal(scores, bs),
+          "fused bookkeeping differs from unfused on the card")
+    print(f"# {gpu_name}: encode {enc_ms:.1f} ms, beam ctc_weight=0.1 "
+          f"{beam_ms:.1f} ms unfused, {fused_beam_ms:.1f} ms fused "
+          f"(bit-identical; longest hypothesis {int(ylens.max().item())} "
+          f"tokens with sos/eos; B={B}, T={FRAMES})")
+    default = "beam ctc_weight=0.1"
+    print(f"# {gpu_name}: fused layer and stem vs the default: "
+          f"{audio_s / walls[fused_name]:.1f} vs "
+          f"{audio_s / walls[default]:.1f} audio-s/s; encode {f_enc:.1f} vs "
+          f"{enc_ms:.1f} ms, beam {f_beam:.1f} vs {beam_ms:.1f} ms; "
+          f"{steps} vs {runs[default]['decode_attention'] // cfg.dlayers} "
+          f"steps; tokens equal to the default's: "
+          f"{torch.equal(fy, yseqs) and torch.equal(fl, ylens)}")
+    return runs
+
+
+def _stage_times(rec, audio, video):
+    """(yseqs, lengths, scores, encode ms, beam ms, feats, CTC log-probs,
+    lengths of the frames): host clock around device-synchronised stages;
+    the CTC log-probs checked."""
     aud, vid, lens, _ = rec._pad_batch(audio, video)
     torch.cuda.synchronize()
     s0 = time.perf_counter()
@@ -650,29 +1010,19 @@ def phase_serving(dev, gpu_name: str):
     yseqs, ylens, scores = rec.beam(feats, ctc, lens)
     torch.cuda.synchronize()
     s2 = time.perf_counter()
-    rec.fused_bookkeeping = True
-    fy, fl, fs = rec.beam(feats, ctc, lens)
-    torch.cuda.synchronize()
-    s3 = time.perf_counter()
     check(torch.isfinite(ctc).all().item() and tuple(ctc.shape) ==
-          (B, FRAMES + 2, cfg.odim), "CTC log-probs malformed")
-    check(torch.isfinite(scores).all().item(), "beam scores not finite")
-    check(torch.equal(yseqs, fy) and torch.equal(ylens, fl)
-          and torch.equal(scores, fs),
-          "fused bookkeeping differs from unfused on the card")
-    print(f"# {gpu_name}: encode {1e3 * (s1 - s0):.1f} ms, beam "
-          f"ctc_weight=0.1 {1e3 * (s2 - s1):.1f} ms unfused, "
-          f"{1e3 * (s3 - s2):.1f} ms fused (bit-identical; longest "
-          f"hypothesis {int(ylens.max().item())} tokens with sos/eos; "
-          f"B={B}, T={FRAMES})")
-    return runs
+          (B, FRAMES + 2, rec.cfg.odim), "CTC log-probs malformed")
+    return (yseqs, ylens, scores, 1e3 * (s1 - s0), 1e3 * (s2 - s1), feats,
+            ctc, lens)
 
 
 def phase_parity(dev):
     """Full width, B=2, T=64, joint CTC/attention beam at ctc_weight=0.1:
     the CUDA path with its bookkeeping fused (beam_update) vs the CPU path
     (the plain twins, unfused), in fp32 and at the serving precision (bf16
-    encode, bf16 decoder weights and K|V cache)."""
+    encode, bf16 decoder weights and K|V cache); then in fp32 with
+    decode_fused_layer and AVSR_FUSED_STEM_EVAL=1 on both sides (the
+    kernels on the card, their twins on the CPU)."""
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import synthetic_batch
     from avsr_tpu_torch.decode.recognizer import Recognizer
@@ -686,9 +1036,13 @@ def phase_parity(dev):
     # differ and are reported, not required (the CPU tests hold the bf16
     # port token-exact against the JAX package)
     ctc_fp32 = None
-    for dtype, ctc_tol, score_tol in (("float32", 1e-3, 1e-4),
-                                      ("bfloat16", 0.2, 2e-2)):
+    for dtype, fused, ctc_tol, score_tol in (
+            ("float32", False, 1e-3, 1e-4), ("bfloat16", False, 0.2, 2e-2),
+            ("float32", True, 1e-3, 1e-4)):
         cfg = flagship_config(dtype)
+        cfg.decode_fused_layer = fused
+        if fused:
+            os.environ["AVSR_FUSED_STEM_EVAL"] = "1"
         cpu_model = AVSRModel(cfg)
         init_weights(cpu_model, torch.Generator().manual_seed(1))
         kw = dict(cfg=cfg, ctc_weight=0.1, t_buckets=(64,),
@@ -706,6 +1060,7 @@ def phase_parity(dev):
                 ctc=ctc.cpu(), yseq=yseq.cpu(), ylen=ylen.cpu(),
                 score=score.cpu(),
                 greedy=rec.transcribe_batch(audio, video, mode="greedy"))
+        os.environ.pop("AVSR_FUSED_STEM_EVAL", None)
         cu, cp = out["cuda"], out["cpu"]
         err = (cu["ctc"] - cp["ctc"]).abs().max().item()
         score_err = ((cu["score"] - cp["score"]).abs()
@@ -717,32 +1072,43 @@ def phase_parity(dev):
         if ctc_fp32 is None:
             ctc_fp32 = cu["ctc"]
         gap = (cu["ctc"] - ctc_fp32).abs().max().item()
+        what = ", fused layer and stem" if fused else ""
         print(f"# slice parity cuda (fused) vs cpu (unfused), "
-              f"ctc_weight=0.1 ({dtype}, B=2, T=64): ctc "
+              f"ctc_weight=0.1 ({dtype}{what}, B=2, T=64): ctc "
               f"max_abs_err={err:.3e} (limit {ctc_tol:g}; {dtype} vs "
               f"float32 on cuda {gap:.3e}); beam score "
               f"rel_err={score_err:.3e} (limit {score_tol:g}); beam tokens "
               f"equal={same_beam} (lengths {cu['ylen'].tolist()}); greedy "
               f"tokens equal={same_greedy}")
-        check(err <= ctc_tol, f"{dtype} CTC log-probs: cuda vs cpu")
-        check(score_err <= score_tol, f"{dtype} beam scores: cuda vs cpu")
+        check(err <= ctc_tol, f"{dtype}{what} CTC log-probs: cuda vs cpu")
+        check(score_err <= score_tol,
+              f"{dtype}{what} beam scores: cuda vs cpu")
         if dtype == "float32":
-            check(same_beam and same_greedy, "fp32 tokens: cuda vs cpu")
+            check(same_beam and same_greedy,
+                  f"fp32{what} tokens: cuda vs cpu")
 
 
-TWINS = ("flash_attention_plain", "flash_attention_bwd_plain",
-         "_bwd_from_delta", "dropout_keep_mask_plain")
+TWINS = {"flash_attention": ("flash_attention_plain",
+                             "flash_attention_bwd_plain", "_bwd_from_delta",
+                             "dropout_keep_mask_plain"),
+         "stem_fuse": ("bn_prelu_pool_plain", "bn_prelu_pool_bwd_plain",
+                       "pool_bwd_plain", "_batch_stats_plain")}
 
 
-def phase_training(dev, smi: str):
+def phase_training(dev, smi: str, fused_stem: bool = False):
     """Full-width bf16 training through bench_train at its defaults:
     its 2 warm-up steps, then 5 timed ones between which it sets the
-    flash kernels' counts to 0 and reads them. Returns the timed run's
-    launches of each kernel."""
-    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    kernels' counts to 0 and reads them: 24 a step for each flash kernel,
+    and with ``fused_stem`` (AVSR_FUSED_STEM=1) one a step for each of the
+    four stem-tail kernels, none without. Returns the timed run's launches
+    of each kernel and its record."""
+    import importlib
+
     from avsr_tpu_torch.tools import bench_train
 
     args = bench_train.parse_args(["--steps", "5"])
+    if fused_stem:
+        os.environ["AVSR_FUSED_STEM"] = "1"
     state, batch = bench_train.setup(args)
     layers = state.model.cfg.encoder.num_hidden_layers
     watched = {n: p.detach().clone()
@@ -750,8 +1116,11 @@ def phase_training(dev, smi: str):
                if n.endswith(("frontend3D.0.weight", "layers.0.attention"
                               ".q_proj.weight", "output_layer.weight"))}
     # every call of a plain twin is counted: none may run on this path
-    calls = {name: 0 for name in TWINS}
-    originals = {name: getattr(pfa, name) for name in TWINS}
+    mods = {m: importlib.import_module(f"avsr_tpu_torch.ops.kernels.{m}")
+            for m in TWINS}
+    calls = {name: 0 for names in TWINS.values() for name in names}
+    originals = {(m, name): getattr(mods[m], name)
+                 for m, names in TWINS.items() for name in names}
 
     def counted(name, fn):
         def call(*a, **kw):
@@ -759,15 +1128,17 @@ def phase_training(dev, smi: str):
             return fn(*a, **kw)
         return call
 
-    for name, fn in originals.items():
-        setattr(pfa, name, counted(name, fn))
+    for (m, name), fn in originals.items():
+        setattr(mods[m], name, counted(name, fn))
     try:
         res = bench_train.measure(state, batch, args)
     finally:
-        for name, fn in originals.items():
-            setattr(pfa, name, fn)
+        for (m, name), fn in originals.items():
+            setattr(mods[m], name, fn)
+        os.environ.pop("AVSR_FUSED_STEM", None)
     per_step = res["launches_per_step"]
-    print(f"# {smi}: train step {res['sec_per_step'] * 1e3:.1f} ms -> "
+    what = " (AVSR_FUSED_STEM=1)" if fused_stem else ""
+    print(f"# {smi}: train step{what} {res['sec_per_step'] * 1e3:.1f} ms -> "
           f"{res['samples_per_sec']:.2f} samples/s, {res['step_tflops']:.2f} "
           f"TFLOP a step, MFU {res['mfu']:.4f}, peak memory "
           f"{res['peak_mem_gb']:.2f} GB; loss {res['loss']:.4f}, grad_norm "
@@ -780,19 +1151,36 @@ def phase_training(dev, smi: str):
         check(not torch.equal(before, dict(state.model.named_parameters())
                               [name].detach()),
               f"{name} did not change in training")
-    for name, n in per_step.items():
-        check(n == layers, f"{name}: {n} launches a step, not {layers}")
+    # the flash kernels run every step; the stem's forward kernels once a
+    # step with the switch, its backward in the steps that keep the video
+    # (whole-batch modality dropout zeroes the video features of a step,
+    # and with them the frontend's gradient)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(per_step[name] == layers,
+              f"{name}: {per_step[name]} launches a step, not {layers}")
+    fwd = per_step["bn_prelu_pool_stats"], per_step["bn_prelu_pool_apply"]
+    bwd = per_step["bn_prelu_pool_bwd1"], per_step["bn_prelu_pool_bwd2"]
+    if fused_stem:
+        check(fwd == (1.0, 1.0) and bwd[0] == bwd[1] and 0 < bwd[0] <= 1,
+              f"stem kernels: {fwd} forward and {bwd} backward launches a "
+              f"step{what}")
+    else:
+        check(fwd + bwd == (0.0,) * 4, "stem kernels ran without the switch")
     check(not any(calls.values()), f"a plain twin ran on the card: {calls}")
-    return {name: int(round(n * args.steps)) for name, n in per_step.items()}
+    launches = {name: int(round(n * args.steps))
+                for name, n in per_step.items()}
+    return launches, res
 
 
-def phase_train_parity(dev):
+def phase_train_parity(dev, fused_stem: bool = False):
     """One fp32 train_step of the same full-width weights on the card
     (kernels) and on the CPU (twins): B=2, T=32 with the second utterance
     25 frames, 12 and 9 labels, every dropout off. Losses within 1e-4
     relative; gradient norms before clipping, global and per module,
     within 1e-3, the video frontend's within 2e-2 (fp32 conditioning of
-    its gradient, ROADMAP C16)."""
+    its gradient, ROADMAP C16). With ``fused_stem`` both sides run the
+    stem tail as bn_prelu_pool (AVSR_FUSED_STEM=1)."""
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import synthetic_train_batch
@@ -821,6 +1209,8 @@ def phase_train_parity(dev):
         return "transformer" if parts[1] == "encoder" else "fusion"
 
     out = {}
+    if fused_stem:
+        os.environ["AVSR_FUSED_STEM"] = "1"
     for where in (dev, "cpu"):
         model = copy.deepcopy(cpu_model)
         state = T.init_state(cfg, T.TrainConfig(), device=where, model=model)
@@ -835,18 +1225,21 @@ def phase_train_parity(dev):
                 p.grad.double().pow(2).sum())
         out[str(where)] = (m, {k: v ** 0.5 * clip for k, v in sq.items()})
         print(f"# train_step on {where}: {time.perf_counter() - t0:.1f} s")
+    os.environ.pop("AVSR_FUSED_STEM", None)
+    what = " (AVSR_FUSED_STEM=1)" if fused_stem else ""
     (cm, cn), (pm, pn) = out[str(dev)], out["cpu"]
     for k in ("loss", "loss_ctc", "loss_att", "grad_norm"):
         rel = abs(cm[k] - pm[k]) / abs(pm[k])
         lim = 1e-3 if k == "grad_norm" else 1e-4
-        print(f"# train parity {k}: cuda {cm[k]:.6f} cpu {pm[k]:.6f} "
+        print(f"# train parity{what} {k}: cuda {cm[k]:.6f} cpu {pm[k]:.6f} "
               f"rel_err {rel:.2e} (limit {lim:g})")
         check(rel <= lim, f"train parity: {k} cuda vs cpu")
     check(cm["acc"] == pm["acc"], "train parity: accuracy cuda vs cpu")
     for k in sorted(pn):
         rel = abs(cn[k] - pn[k]) / pn[k]
         lim = 2e-2 if k == "feature_extractor_video.resnet" else 1e-3
-        print(f"# train parity |grad| {k}: {rel:.2e} (limit {lim:g})")
+        print(f"# train parity{what} |grad| {k}: {rel:.2e} (limit "
+              f"{lim:g})")
         check(rel <= lim, f"train parity: gradient norm of {k}")
 
 
@@ -891,19 +1284,34 @@ def main() -> int:
           f"{serving_fwd['plain_ms']:.4f} ms, library "
           f"{serving_fwd['library_ms']:.4f} ms")
     records.update(phase_train_kernels(dev))
+    records.update(phase_fuse_kernels(dev))
     print("# phase 4: full-width serving, bf16, B=8, 375 frames")
     runs = phase_serving(dev, smi)
     print("# phase 5: full-width slice parity, cuda vs cpu")
     phase_parity(dev)
     print("# phase 6: full-width training, bf16, B=6, 384 frames")
-    train_launches = phase_training(dev, smi)
+    train_launches, plain_res = phase_training(dev, smi)
+    stem_launches, stem_res = phase_training(dev, smi, fused_stem=True)
+    print(f"# {smi}: training with AVSR_FUSED_STEM=1 vs without: "
+          f"{stem_res['sec_per_step'] * 1e3:.1f} vs "
+          f"{plain_res['sec_per_step'] * 1e3:.1f} ms a step, peak memory "
+          f"{stem_res['peak_mem_gb']:.2f} vs {plain_res['peak_mem_gb']:.2f} "
+          f"GB")
     print("# phase 7: full-width train-step parity, cuda vs cpu")
     phase_train_parity(dev)
+    phase_train_parity(dev, fused_stem=True)
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
+    # launches: each kernel's count in the run of its path (the fused
+    # stem's four from the AVSR_FUSED_STEM=1 training run, the fused
+    # layer's from the fused-layer beam run)
     main_path = runs["beam ctc_weight=0.1"]
     main_path["beam_update"] = runs["beam ctc_weight=0.1 fused"]["beam_update"]
+    main_path["decoder_layer_step"] = runs[
+        "beam ctc_weight=0.1, fused layer and stem"]["decoder_layer_step"]
     main_path.update(train_launches)
+    main_path.update({k: v for k, v in stem_launches.items()
+                      if k.startswith("bn_prelu_pool")})
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=main_path[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -11,9 +11,11 @@ import torch
 
 from avsr_tpu_torch.ops.kernels import beam_update as pbu
 from avsr_tpu_torch.ops.kernels import decode_attention as pda
+from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 from avsr_tpu_torch.ops.kernels import row_gather as prg
 from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+from avsr_tpu_torch.ops.kernels import stem_fuse as psf
 from avsr_tpu_torch.ops.kernels import topk as ptk
 # pytest puts tests/ itself on sys.path; the card's machine may have a
 # top-level package named `tests` of its own
@@ -237,3 +239,126 @@ def test_flash_fn_grads_cuda_match_cpu(dev, rate):
     assert (pfa.flash_attention_fwd.launches - before[0],
             pfa.flash_attention_bwd_dq.launches - before[1],
             pfa.flash_attention_bwd_dkv.launches - before[2]) == (1, 1, 1)
+
+
+def _stem_case(dtype, n, c, h, w, ties, seed):
+    g = _gen(seed)
+    if ties:  # every value repeated over a 2x2 block: windows tie
+        x = torch.randn(n, c, h // 2, w // 2, generator=g)
+        x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    else:
+        x = torch.randn(n, c, h, w, generator=g) * 2.0 + 0.3
+    params = [1.0 + 0.1 * torch.randn(c, generator=g),
+              0.1 * torch.randn(c, generator=g),
+              0.25 + 0.05 * torch.randn(c, generator=g)]
+    dout = torch.randn(n, c, h // 2, w // 2, generator=g)
+    return x.to(dtype), params, dout.to(dtype)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n,c,h,w", [(7, 16, 8, 12), (6, 64, 44, 44),
+                                     (3, 5, 6, 2)])
+def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties):
+    """The four bn_prelu_pool kernels through the autograd function on the
+    card against the twins on the CPU, training: pooled output within tol
+    x |max|, batch mean and var within 1e-5 relative, dx and the three
+    parameter gradients within tol x |max| (bf16: x and dz are rounded
+    where the twins round them; sums run in other orders); eval within
+    tol x |max|. Each kernel launches once; a second run is bit-identical
+    (no float atomics). The 3 x 5 x 6 x 2 case takes the scalar loads."""
+    x, params, dout = _stem_case(dtype, n, c, h, w, ties, n * c + h)
+    res = {}
+    counts = [psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
+              psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2]
+    before = [f.launches for f in counts]
+    for where in ("cpu", dev, dev):
+        xs = [x.to(where, copy=True).requires_grad_()] + [
+            p.to(where, copy=True).requires_grad_() for p in params]
+        out, mean, var = psf.bn_prelu_pool(*xs, train=True)
+        out.backward(dout.to(where))
+        res.setdefault(str(where), []).append(
+            [y.detach().cpu() for y in (out, mean, var, *(v.grad for v in
+                                                          xs))])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counts, before)] == [2] * 4
+    want, (got, again) = res["cpu"][0], res[str(dev)]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for name, g, r in zip(("out", "mean", "var", "dx", "dscale", "dbias",
+                           "dalpha"), got, want):
+        lim = (1e-5 if name in ("mean", "var") else tol) * r.float().abs(
+        ).max()
+        assert (g.float() - r.float()).abs().max() <= lim, name
+    rm, rv = 0.1 * torch.randn(c, generator=_gen(1)), 1.0 + torch.rand(
+        c, generator=_gen(2))
+    evals = [psf.bn_prelu_pool(*(y.to(where) for y in (x, *params)),
+                               train=False, running_mean=rm.to(where),
+                               running_var=rv.to(where)).cpu()
+             for where in ("cpu", dev)]
+    assert (evals[1].float() - evals[0].float()).abs().max() <= (
+        tol * evals[0].float().abs().max())
+
+
+def _layer(c, heads, f, seed):
+    from avsr_tpu_torch.models.decoder import DecoderLayer
+
+    torch.manual_seed(seed)
+    layer = DecoderLayer(c, heads, f)
+    with torch.no_grad():
+        for norm in (layer.norm1, layer.norm2, layer.norm3):
+            norm.weight.normal_(1.0, 0.1)
+            norm.bias.normal_(0.0, 0.1)
+    return layer
+
+
+@pytest.mark.parametrize("pos", [0, 7, 15, 19])
+@pytest.mark.parametrize("pdtype,cdtype,tol", [
+    (torch.float32, torch.float32, 2e-5),
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,k,c,heads,f", [(3, 3, 128, 2, 256),
+                                           (8, 3, 1024, 16, 3072),
+                                           (2, 5, 32, 4, 64),
+                                           (13, 3, 64, 1, 128)])
+def test_decoder_layer_kernel_matches_plain(dev, pos, pdtype, cdtype, tol, b,
+                                            k, c, heads, f):
+    """decoder_layer_step (one cooperative launch) against its twin on the
+    same inputs, S=16 rows of cache, 11 source rows with the last 3 of
+    utterance 1 padded, a random ancestry with the beam's contract (rows
+    past pos masked on every lane): x_out and the written row within tol x
+    |max|; the rest of the cache untouched; at pos >= S row S-1 is the one
+    written. 13 x 3 = 39 lanes run as two launches (30 + 9 lanes)."""
+    s, s_enc = 16, 11
+    n = b * k
+    g = _gen(pos + c)
+    packed = pdl.pack_layer_params(_layer(c, heads, f, pos), pdtype)
+    x = torch.randn(n, c, generator=g).to(pdtype)
+    kv = torch.randn(n, s, 2 * c, generator=g).to(cdtype)
+    src_k, src_v = (torch.randn(b, s_enc, c, generator=g).to(cdtype)
+                    for _ in range(2))
+    mem_bias = torch.zeros(b, s_enc)
+    mem_bias[1 % b, -3:] = NEG
+    anc = torch.randint(0, k, (s, b, k), generator=g)
+    anc[min(pos, s - 1)] = torch.arange(k)
+    valid = (torch.arange(s) <= pos)[:, None, None, None] & (
+        anc[..., None] == torch.arange(k))
+    lane_bias = torch.where(valid.permute(1, 2, 0, 3), 0.0, NEG).contiguous()
+    args = (x, kv, src_k, src_v, mem_bias, lane_bias)
+    want_x, want_kv = pdl.decoder_layer_step(pos, *(a.clone() for a in args),
+                                             packed, k, heads)
+    before = pdl.decoder_layer_step.launches
+    dargs = [a.to(dev) for a in args]
+    got_x, got_kv = pdl.decoder_layer_step(
+        pos, *dargs, pdl.PackedLayer(*(p.to(dev) for p in packed)), k, heads)
+    torch.cuda.synchronize()
+    assert pdl.decoder_layer_step.launches == before + -(-b // (32 // k))
+    assert got_kv is dargs[1]
+    row = min(pos, s - 1)
+    rest = [i for i in range(s) if i != row]
+    assert torch.equal(got_kv[:, rest].cpu(), kv[:, rest])
+    for name, a, r in (("x_out", got_x, want_x),
+                       ("row", got_kv[:, row], want_kv[:, row])):
+        r = r.float()
+        assert (a.float().cpu() - r).abs().max() <= tol * r.abs().max(), name

@@ -196,14 +196,17 @@ def test_recognizer_defaults_match_jax():
 
 
 def test_port_imports_no_jax():
-    """The serving path, the CTC scorer, the kernel wrappers, the trainer,
-    bench_train and chip_smoke.py import nothing of the JAX package, JAX,
-    flax or ml_dtypes."""
+    """The serving path, the CTC scorer, the kernel wrappers (the fused stem
+    and decoder layer included), the trainer, bench_train and
+    chip_smoke.py import nothing of the JAX package, JAX, flax or
+    ml_dtypes."""
     code = ("import sys, avsr_tpu_torch.decode.recognizer, "
             "avsr_tpu_torch.core.weights, avsr_tpu_torch.decode.ctc_prefix, "
             "avsr_tpu_torch.ops.kernels.scan_logsumexp, "
             "avsr_tpu_torch.ops.kernels.row_gather, "
             "avsr_tpu_torch.ops.kernels.beam_update, "
+            "avsr_tpu_torch.ops.kernels.stem_fuse, "
+            "avsr_tpu_torch.ops.kernels.decoder_layer, "
             "avsr_tpu_torch.train.trainer, "
             "avsr_tpu_torch.tools.bench_train, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

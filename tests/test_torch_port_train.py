@@ -127,7 +127,9 @@ def test_flash_fn_grads_match_jax(n, tt, d, dropout):
     kernel in interpret mode: T=128 and 256 run the JAX resident kernels,
     T=640 the streaming dq/dkv pair. A padding bias on every case; with
     ``dropout`` the port draws its seeded mask (rate 0.1) and JAX is given
-    that same pre-scaled mask explicitly. Within 2e-6 (fp32, |values| ~ 1)."""
+    that same pre-scaled mask explicitly. Each side within 2e-6 of a
+    float64 evaluation of the same function, then of each other (fp32,
+    |values| ~ 1)."""
     from avsr_tpu.ops.pallas.flash_attention import flash_attention
 
     rng = np.random.RandomState(tt + d)
@@ -151,11 +153,35 @@ def test_flash_fn_grads_match_jax(n, tt, d, dropout):
     tq, tk, tv = (t(x).requires_grad_() for x in (q, k, v))
     out = pfa.FlashAttentionFn.apply(tq, tk, tv, t(bias), scale, rate, seed)
     out.backward(t(w))
-    for name, got, ref in zip(("out", "dq", "dk", "dv"),
-                              (out, tq.grad, tk.grad, tv.grad),
-                              (want, *wants)):
-        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
-                                   atol=2e-6, rtol=0, err_msg=name)
+    exact = _attention_f64(q, k, v, bias, scale, mask, w)
+    for name, got, ref, f64 in zip(("out", "dq", "dk", "dv"),
+                                   (out, tq.grad, tk.grad, tv.grad),
+                                   (want, *wants), exact):
+        got, ref = got.detach().numpy(), np.asarray(ref)
+        # each side against float64 first, so a drift names its side
+        # (ROADMAP C21): fp32 sums of <= 640 terms of |x| ~ 1 stay within
+        # 4.4e-7 of float64 (measured on both sides); 2e-6 as below
+        e_port, e_jax = (float(np.abs(x - f64).max()) for x in (got, ref))
+        assert max(e_port, e_jax) <= 2e-6, (
+            f"{name}: the port is {e_port:.2e} and JAX {e_jax:.2e} off the "
+            f"float64 evaluation; the drifting side is "
+            f"{'the port' if e_port > e_jax else 'JAX'}")
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0, err_msg=name)
+
+
+def _attention_f64(q, k, v, bias, scale, mask, w):
+    """out and dQ, dK, dV of softmax(q k^T scale + bias) [* mask] v with
+    cotangent w, in float64 (torch autograd on the CPU)."""
+    q, k, v = (torch.tensor(x, dtype=torch.float64, requires_grad=True)
+               for x in (q, k, v))
+    s = q @ k.transpose(1, 2) * scale + torch.tensor(
+        bias, dtype=torch.float64)[:, None, :]
+    p = torch.softmax(s, dim=-1)
+    if mask is not None:
+        p = p * torch.tensor(mask, dtype=torch.float64)
+    out = p @ v
+    out.backward(torch.tensor(w, dtype=torch.float64))
+    return [x.detach().numpy() for x in (out, q.grad, k.grad, v.grad)]
 
 
 def test_dropout_keep_mask_plain():
@@ -343,6 +369,45 @@ def test_train_forward_grads_and_stats_match_jax(tiny, jax_grads):
     assert not np.allclose(buffers[FRONTEND + "frontend3D.1.running_mean"],
                            variables["batch_stats"]["encoder"]["video_resnet"]
                            ["frontend_bn"]["mean"])
+
+
+def test_train_forward_grads_and_stats_match_jax_fused_stem(
+        tiny, jax_grads, monkeypatch):
+    """The same with AVSR_FUSED_STEM=1: the port's stem tail runs the
+    autograd function of ``bn_prelu_pool`` (its plain twins here, forward
+    and backward). In float64, as C16 requires: the loss and its parts
+    within 1e-5 of JAX's, every gradient within 1e-3 of JAX's float64
+    gradient (the attention twin and the CTC loss stay fp32), the running
+    statistics within 1e-5. The JAX package takes its ``lean_reference``
+    on the CPU whatever the switch; in float64 the two forms agree."""
+    from avsr_tpu_torch.models import resnet
+
+    cfg, _, variables, batch = tiny
+    metrics, stats, _, g64 = jax_grads
+    want = _torch_tree(cfg, g64, stats)
+    calls = []
+    real = resnet.bn_prelu_pool
+
+    def counted(*a, **kw):
+        calls.append(kw["train"])
+        return real(*a, **kw)
+
+    monkeypatch.setenv("AVSR_FUSED_STEM", "1")
+    monkeypatch.setattr(resnet, "bn_prelu_pool", counted)
+    model = port_model(cfg, variables).double()
+    out = model(*(t(batch[k]).double() if batch[k].dtype.kind == "f"
+                  else t(batch[k]) for k in BATCH_KEYS),
+                train=True, rng=DropoutRng(0))
+    out.loss.backward()
+    assert calls == [True]
+    for k in ("loss", "loss_ctc", "loss_att", "acc"):
+        np.testing.assert_allclose(getattr(out, k).item(), float(metrics[k]),
+                                   rtol=1e-5, err_msg=k)
+    for name, p in model.named_parameters():
+        _assert_close_rel(p.grad.numpy(), want[name], 1e-3, name)
+    for name, buf in model.named_buffers():
+        np.testing.assert_allclose(buf.numpy(), want[name], rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
 
 
 def test_bf16_loss_matches_jax(tiny):
