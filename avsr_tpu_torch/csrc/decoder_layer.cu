@@ -42,6 +42,9 @@
 #include <cooperative_groups.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -82,23 +85,9 @@ struct Args {
   float* q2;            // (N, C) fp32, scaled
   float* act;           // (N, max(C, F)) GEMV operands, rounded to TW
   TW* out;              // (N, C)
-  // nullable: the %globaltimer (ns) at the kernel's start and at the end
-  // of each phase, written by block 0 (kPhases + 1 stamps)
-  unsigned long long* stamps;
   int n, lanes, heads, dh, c, f, s_dec, s_enc, pos;
   float scale;  // dh^-0.5 rounded to fp32
 };
-
-constexpr int kPhases = 8;
-
-// block 0 records the time at the end of a phase (after its grid sync)
-__device__ __forceinline__ void stamp(unsigned long long* stamps, int i) {
-  if (stamps != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    stamps[i] = t;
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -364,7 +353,6 @@ __global__ void __launch_bounds__(kThreads)
   float* red = cur + kMaxLanes;
   float* sc = red + kWarps * kMaxLanes * dh;
 
-  stamp(a.stamps, 0);
   // 1. LN1 + QKV; the residual stream starts as x in fp32
   for (size_t e = gtid; e < static_cast<size_t>(n) * c; e += gstride)
     a.xres[e] = avsr::to_float(a.x[e]);
@@ -374,7 +362,6 @@ __global__ void __launch_bounds__(kThreads)
              [&](int r, int o, float v) { a.qkv[r * c3 + o] = v; });
   }
   grid.sync();
-  stamp(a.stamps, 1);
 
   // 2. self-attention, one block per (utterance, head): the cache rows
   // s < min(pos, S) (rows past pos carry -1e30 on every lane, the caller's
@@ -419,14 +406,12 @@ __global__ void __launch_bounds__(kThreads)
         });
   }
   grid.sync();
-  stamp(a.stamps, 2);
 
   // 3. out-projection + residual
   if (gemv_c)
     gemv<TW>(a.w_out, a.b_out, c, c, n, smem, c, a.act, c,
              [&](int r, int o, float v) { a.xres[r * c + o] += v; });
   grid.sync();
-  stamp(a.stamps, 3);
 
   // 4. LN2 + source-attention query, scaled by dh^-0.5
   if (gemv_c) {
@@ -435,7 +420,6 @@ __global__ void __launch_bounds__(kThreads)
              [&](int r, int o, float v) { a.q2[r * c + o] = v * scale; });
   }
   grid.sync();
-  stamp(a.stamps, 4);
 
   // 5. cross-attention over the utterance's source rows
   for (int item = blockIdx.x; item < n_utt * a.heads; item += gridDim.x) {
@@ -458,14 +442,12 @@ __global__ void __launch_bounds__(kThreads)
         });
   }
   grid.sync();
-  stamp(a.stamps, 5);
 
   // 6. source out-projection + residual
   if (gemv_c)
     gemv<TW>(a.w_out2, a.b_out2, c, c, n, smem, c, a.act, c,
              [&](int r, int o, float v) { a.xres[r * c + o] += v; });
   grid.sync();
-  stamp(a.stamps, 6);
 
   // 7. LN3 + W1 + ReLU, rounded to the weight dtype (W2's operand)
   if (blockIdx.x * kWarps < f) {
@@ -476,7 +458,6 @@ __global__ void __launch_bounds__(kThreads)
              });
   }
   grid.sync();
-  stamp(a.stamps, 7);
 
   // 8. W2 + residual, the layer's output; the fresh K|V row (every block
   // finished reading the cache before the sync after phase 2)
@@ -493,10 +474,62 @@ __global__ void __launch_bounds__(kThreads)
     a.kv[(lane * s_dec + row_c) * c2 + col] =
         avsr::from_float<TC>(a.qkv[lane * c3 + c + col]);
   }
-  if (a.stamps != nullptr) {
-    grid.sync();
-    stamp(a.stamps, kPhases);
+}
+
+// The grid of a cooperative launch: as many blocks as fit on the card at
+// once. The occupancy query is made once per device and shared-memory size,
+// and the kernel's shared-memory limit is only ever raised (it is one value
+// per device, which launches of every size share), so neither is repeated
+// at every launch (the beam launches the kernel thousands of times a
+// batch).
+template <typename K>
+cudaError_t cooperative_grid(K kernel, size_t smem, int* grid) {
+  struct Grid {
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  struct Limit {
+    int dev;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Grid> known;
+  static std::vector<Limit> limits;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Grid& e : known) {
+    if (e.dev == dev && e.smem == smem) {
+      *grid = e.blocks;
+      return cudaSuccess;
+    }
   }
+  Limit* limit = nullptr;
+  for (Limit& e : limits)
+    if (e.dev == dev) limit = &e;
+  if (limit == nullptr || limit->smem < smem) {
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    if (limit == nullptr)
+      limits.push_back({dev, smem});
+    else
+      limit->smem = smem;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  known.push_back({dev, smem, sms * per_sm});
+  *grid = sms * per_sm;
+  return cudaSuccess;
 }
 
 template <typename TW, typename TC>
@@ -518,7 +551,6 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   a.q2 = static_cast<float*>(ptrs[22]);
   a.act = static_cast<float*>(ptrs[23]);
   a.out = static_cast<TW*>(ptrs[24]);
-  a.stamps = static_cast<unsigned long long*>(ptrs[25]);
   a.n = dims[0];
   a.lanes = dims[1];
   a.heads = dims[2];
@@ -548,32 +580,22 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   const size_t smem =
       sizeof(float) * max(static_cast<size_t>(a.n) * a.c, attn);
   auto kernel = decoder_layer_kernel<TW, TC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  int grid = 0;
+  cudaError_t err = cooperative_grid(kernel, smem, &grid);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(sms * per_sm), dim3(kThreads),
-                                     args, smem, stream);
+                                     dim3(grid), dim3(kThreads), args, smem,
+                                     stream);
 }
 
 }  // namespace
 
-// ptrs (host array of 26 device pointers): x, kv, src_k, src_v, mem_bias,
+// ptrs (host array of 25 device pointers): x, kv, src_k, src_v, mem_bias,
 // lane_bias, the 14 packed parameters (ln_w, ln_b, w_qkv, b_qkv, w_out,
 // b_out, w_q2, b_q2, w_out2, b_out2, w_1, b_1, w_2, b_2), then the fp32
-// scratch xres (N*C), qkv (N*3C), q2 (N*C), act (N*max(C,F)), the output
-// (N, C), and a nullable uint64 (9,) for the phase stamps. dims: n, lanes,
+// scratch xres (N*C), qkv (N*3C), q2 (N*C), act (N*max(C,F)) and the output
+// (N, C). dims: n, lanes,
 // heads, dh, c, f, s_dec, s_enc, pos; scale: dh^-0.5 in fp32. x, the
 // parameters and the output are in param_dtype; kv, src_k and src_v in
 // cache_dtype.

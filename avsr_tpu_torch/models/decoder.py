@@ -35,7 +35,9 @@ from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
 from avsr_tpu_torch.ops.kernels.decoder_layer import NEG_INF as PAD_BIAS
 from avsr_tpu_torch.ops.kernels.decoder_layer import (
     PackedLayer,
+    Scratch,
     decoder_layer_step,
+    layer_scratch,
     pack_layer_params,
 )
 
@@ -161,7 +163,10 @@ class DecoderCache:
     dtype, or (B, S_enc, C) with the heads packed on the fused-layer path;
     params: per-layer weights in the parameter dtype (``PackedLayer`` on
     the fused-layer path); head_w (V, C) in the parameter dtype; pe: the
-    positional table (fp32)."""
+    positional table (fp32). The fused-layer path also keeps the kernel's
+    fp32 scratch, made at init, and the additive source-padding bias
+    (B, S_enc), made at the first step from its memory_mask (the mask it
+    came from kept beside it)."""
 
     self_kv: List[torch.Tensor]
     src_k: List[torch.Tensor]
@@ -169,6 +174,9 @@ class DecoderCache:
     params: List[LayerParams | PackedLayer]
     head_w: torch.Tensor
     pe: torch.Tensor
+    scratch: Optional[Scratch] = None
+    mem_bias: Optional[torch.Tensor] = None
+    mem_mask: Optional[torch.Tensor] = None
 
 
 def _ln(x, p):
@@ -250,11 +258,14 @@ class TransformerDecoder(nn.Module):
                 cast(layer.norm3.weight, layer.norm3.bias),
                 *cast(ff.w_1.weight, ff.w_1.bias, ff.w_2.weight, ff.w_2.bias),
             ))
+        units = self.decoders[0].feed_forward.w_1.out_features
         return DecoderCache(
             self_kv, src_k, src_v, params,
             head_w=self.output_layer.weight.to(pd),
             pe=sinusoidal_pe(max(self.max_decode_len, maxlen), self.dim,
                              memory.device),
+            scratch=(layer_scratch(b * beam, self.dim, units, memory.device)
+                     if self.fused_layer and memory.is_cuda else None),
         )
 
     def _cross_attention(self, x, p: LayerParams, k, v, memory_mask):
@@ -298,16 +309,17 @@ class TransformerDecoder(nn.Module):
                       bias_ksj, lanes: int):
         """Every layer as one ``decoder_layer_step`` launch; padded source
         rows get the additive -1e30 bias."""
-        b, s_enc = cache.src_k[0].shape[:2]
-        if memory_mask is None:
-            mem_bias = torch.zeros(b, s_enc, device=x.device)
-        else:
-            mem_bias = torch.where(memory_mask[:, 0], 0.0, PAD_BIAS)
+        if cache.mem_bias is None or cache.mem_mask is not memory_mask:
+            b, s_enc = cache.src_k[0].shape[:2]
+            cache.mem_mask = memory_mask
+            cache.mem_bias = (
+                torch.zeros(b, s_enc, device=x.device) if memory_mask is None
+                else torch.where(memory_mask[:, 0], 0.0, PAD_BIAS))
         for i, p in enumerate(cache.params):
             x, _ = decoder_layer_step(pos, x, cache.self_kv[i],
                                       cache.src_k[i], cache.src_v[i],
-                                      mem_bias, bias_ksj, p, lanes,
-                                      self.heads)
+                                      cache.mem_bias, bias_ksj, p, lanes,
+                                      self.heads, scratch=cache.scratch)
         return x
 
     def step(self, y_t: torch.Tensor, pos: int, cache: DecoderCache,

@@ -187,8 +187,29 @@ def _check(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
 MAX_ROWS = 32  # lanes a launch holds in its GEMV registers (csrc)
 
 
+class Scratch(NamedTuple):
+    """The kernel's fp32 working rows for up to MAX_ROWS lanes."""
+
+    xres: torch.Tensor  # (R, C) the residual stream
+    qkv: torch.Tensor  # (R, 3C)
+    q2: torch.Tensor  # (R, C)
+    act: torch.Tensor  # (R, max(C, F)) the GEMV operands
+
+
+def _scratch_shapes(n, c, f):
+    rows = min(n, MAX_ROWS)
+    return [(rows, width) for width in (c, 3 * c, c, max(c, f))]
+
+
+def layer_scratch(n: int, c: int, f: int, device) -> Scratch:
+    """Scratch for ``decoder_layer_step`` over n lanes: made once per decode
+    and shared by its layers and steps, which run one after another."""
+    return Scratch(*(torch.empty(shape, dtype=torch.float32, device=device)
+                     for shape in _scratch_shapes(n, c, f)))
+
+
 def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-            packed: PackedLayer, lanes, heads, stamps=None):
+            packed: PackedLayer, lanes, heads, scratch):
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     f = packed.w_1.shape[0]
@@ -204,29 +225,28 @@ def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p),
     )
+    if scratch is None:
+        scratch = layer_scratch(n, c, f, dev)
+    if any(t.shape != shape or t.dtype != torch.float32 or t.device != dev
+           or not t.is_contiguous()
+           for t, shape in zip(scratch, _scratch_shapes(n, c, f))):
+        raise ValueError(f"scratch must be layer_scratch({n}, {c}, {f}) on "
+                         f"{dev}")
     # one launch holds up to MAX_ROWS lanes: whole utterances, so a larger
     # batch runs as consecutive launches over utterance groups (one at
     # B*K <= 32, the serving batch)
     group = max(1, MAX_ROWS // lanes) * lanes
-    rows = min(n, group)
-
-    def scratch(*shape):
-        return torch.empty(*shape, dtype=torch.float32, device=dev)
-
-    xres, qkv, q2, act = (scratch(rows, c), scratch(rows, 3 * c),
-                          scratch(rows, c), scratch(rows, max(c, f)))
     out = torch.empty_like(x)
-    scale = float(torch.tensor((c // heads) ** -0.5, dtype=torch.float32))
+    scale = (c // heads) ** -0.5  # ctypes.c_float rounds it to fp32
     stream = torch.cuda.current_stream(dev).cuda_stream
     for n0 in range(0, n, group):
         m = min(group, n - n0)
         b0, b1 = n0 // lanes, (n0 + m) // lanes
         tensors = (x[n0:n0 + m], kv_cache[n0:n0 + m], src_k[b0:b1],
                    src_v[b0:b1], mem_bias[b0:b1], lane_bias[b0:b1], *packed,
-                   xres, qkv, q2, act, out[n0:n0 + m])
-        ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
-            *(t.data_ptr() for t in tensors),
-            None if stamps is None else stamps.data_ptr())
+                   *scratch, out[n0:n0 + m])
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *(t.data_ptr() for t in tensors))
         dims = (ctypes.c_int * 9)(m, lanes, heads, c // heads, c, f, s_max,
                                   src_k.shape[1], int(pos))
         err = fn(ctypes.addressof(ptrs), ctypes.addressof(dims), scale,
@@ -239,7 +259,7 @@ def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
 
 def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
                        lane_bias, packed: PackedLayer, lanes: int,
-                       heads: int, stamps=None):
+                       heads: int, scratch: Scratch | None = None):
     """One decoder layer's decode step for all N = B*lanes beam lanes.
 
     pos: the step's position; x (N, C) the residual stream in the
@@ -249,14 +269,13 @@ def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
     source row and -1e30 for padding; lane_bias (B, K, S, J) fp32, 0 where
     stored lane j at row s is an ancestor of lane k, -1e30 elsewhere,
     including every row s > pos on every lane (the kernel skips those
-    rows); packed: ``pack_layer_params``.
+    rows); packed: ``pack_layer_params``; scratch: ``layer_scratch(N, C,
+    F, device)`` to reuse (the card only; made per call without it).
 
     Returns (x_out (N, C) in x's dtype, kv_cache) with this step's K|V row
     written at min(pos, S-1) IN PLACE. On the card one cooperative launch
     takes up to 32 lanes (whole utterances); more run as consecutive
-    launches. ``stamps``, a CUDA int64 tensor of 9, receives the card's
-    ns clock at the kernel's start and at the end of each of its eight
-    phases (of the last launch)."""
+    launches."""
     _check(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias, packed,
            lanes, heads)
     if x.device.type == "cpu":
@@ -265,11 +284,8 @@ def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
                                         heads)
     if x.device.type != "cuda":
         raise ValueError(f"no decoder_layer_step for device {x.device}")
-    if stamps is not None and (stamps.device != x.device or stamps.dtype
-                               != torch.int64 or stamps.numel() != 9):
-        raise ValueError("stamps must be an int64 tensor of 9 on x's device")
     return _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-                   packed, lanes, heads, stamps)
+                   packed, lanes, heads, scratch)
 
 
 decoder_layer_step.launches = 0

@@ -1,10 +1,13 @@
 """The lip stem's tail fused: BatchNorm + PReLU + 3x3/s2/p1 max-pool.
 
 Counterpart of ``avsr_tpu/ops/pallas/stem_fuse.py`` (``bn_prelu_pool``)
-over the port's (N, C, H, W) layout, H and W even. ``bn_prelu_pool``
-dispatches on the device: CPU tensors run the plain twins
-(``bn_prelu_pool_plain``, ``bn_prelu_pool_bwd_plain``), CUDA tensors launch
-the four kernels of ``csrc/stem_fuse.cu``, each counting its launches:
+over (N, C, H, W) frames, H and W even. ``bn_prelu_pool`` dispatches on the
+device: CPU tensors run the plain twins (``bn_prelu_pool_plain``,
+``bn_prelu_pool_bwd_plain``), CUDA tensors launch the four kernels of
+``csrc/stem_fuse.cu``, each counting its launches. The kernels read and
+write channels-last frames (``torch.channels_last``): the layout of the
+stem's Conv3d output on the card, which ``ResEncoder`` folds into frames as
+a view, and the TPU kernel's NHWC.
 
 - ``bn_prelu_pool_stats``: per-channel sum and sum of squares (training);
 - ``bn_prelu_pool_apply``: z = x * g + b in fp32 (g = scale * rstd,
@@ -103,32 +106,48 @@ def pool_bwd_plain(y, dout):
     return dyp[:, :, 1:h + 1, 1:w + 1]
 
 
-def bn_prelu_pool_bwd_plain(x, scale, bias, alpha, mean, rstd, dout):
-    """Plain torch twin of the backward: (dx in x's dtype, dscale, dbias,
-    dalpha in the compute dtype), dout already in x's dtype; mean and rstd
-    fp32. dz is stored in x's dtype between the two passes, as the kernels
-    store it."""
+def bn_prelu_pool_bwd1_plain(x, scale, bias, alpha, mean, rstd, dout):
+    """Plain torch twin of ``bn_prelu_pool_bwd1``: (dz in x's dtype, dgamma,
+    dbeta, dalpha in the compute dtype), dout already in x's dtype; mean
+    and rstd fp32."""
     cd = _compute_dtype(x)
-    n, _, h, w = x.shape
     xa = x.to(cd)
     g, b = _affine(mean, rstd, scale.float(), bias.float())
     z = xa * _ch(g, cd) + _ch(b, cd)
-    mean, rstd, sc = mean.to(cd), rstd.to(cd), scale.to(cd)
     neg = z < 0
     al = _ch(alpha, cd)
     y = torch.where(neg, al * z, z)
     dy = pool_bwd_plain(y, dout.to(cd))
     dz = torch.where(neg, al * dy, dy)
-    xhat = (xa - mean.view(1, -1, 1, 1)) * rstd.view(1, -1, 1, 1)
+    xhat = (xa - _ch(mean, cd)) * _ch(rstd, cd)
     dbeta = dz.sum(dim=(0, 2, 3))
     dgamma = (dz * xhat).sum(dim=(0, 2, 3))
     dalpha = torch.where(neg, dy * z, 0.0).sum(dim=(0, 2, 3))
+    return dz.to(x.dtype), dgamma, dbeta, dalpha
+
+
+def bn_prelu_pool_bwd2_plain(x, scale, mean, rstd, dz, dgamma, dbeta):
+    """Plain torch twin of ``bn_prelu_pool_bwd2``: dx = scale * rstd *
+    (dz - dbeta/M - xhat dgamma/M) in x's dtype, dz in x's dtype."""
+    cd = _compute_dtype(x)
+    n, _, h, w = x.shape
     m = float(n * h * w)
-    dzs = dz.to(x.dtype).to(cd)
-    dx = (sc * rstd).view(1, -1, 1, 1) * (
-        dzs - (dbeta / m).view(1, -1, 1, 1)
-        - xhat * (dgamma / m).view(1, -1, 1, 1))
-    return dx.to(x.dtype), dgamma, dbeta, dalpha
+    rstd = _ch(rstd, cd)
+    xhat = (x.to(cd) - _ch(mean, cd)) * rstd
+    dx = _ch(scale, cd) * rstd * (
+        dz.to(cd) - _ch(dbeta / m, cd) - xhat * _ch(dgamma / m, cd))
+    return dx.to(x.dtype)
+
+
+def bn_prelu_pool_bwd_plain(x, scale, bias, alpha, mean, rstd, dout):
+    """Plain torch twin of the backward: (dx in x's dtype, dscale, dbias,
+    dalpha in the compute dtype), dout already in x's dtype; mean and rstd
+    fp32. dz is stored in x's dtype between the two passes, as the kernels
+    store it."""
+    dz, dgamma, dbeta, dalpha = bn_prelu_pool_bwd1_plain(
+        x, scale, bias, alpha, mean, rstd, dout)
+    dx = bn_prelu_pool_bwd2_plain(x, scale, mean, rstd, dz, dgamma, dbeta)
+    return dx, dgamma, dbeta, dalpha
 
 
 # ---------------------------------------------------------------- kernels
@@ -143,13 +162,33 @@ def _pack(*rows):
     return torch.stack([r.float() for r in rows]).contiguous()
 
 
+MAX_BLOCKS = 1024  # blocks of the reducing kernels (csrc), a partial row each
+CL = torch.channels_last
+
+
+def _frames(*tensors):
+    """The kernels' tensors must be channels-last (N, C, H, W)."""
+    for t in tensors:
+        if t.dim() != 4 or not t.is_contiguous(memory_format=CL):
+            raise ValueError(f"the stem kernels take channels_last (N, C, H, "
+                             f"W) tensors, got {tuple(t.shape)} with strides "
+                             f"{t.stride()}")
+
+
+def _sum_scratch(x, k):
+    """The partials and the zeroed block counter of a reducing kernel."""
+    return (torch.empty(MAX_BLOCKS * k * x.shape[1], dtype=torch.float32,
+                        device=x.device),
+            torch.zeros(1, dtype=torch.int32, device=x.device))
+
+
 def bn_prelu_pool_stats(x):
     """(sum, sum of squares), each (C,) fp32, over (N, H, W)."""
+    _frames(x)
     n, c, h, w = x.shape
     fn = _build.function("avsr_bn_stats", (ctypes.c_void_p,) * 4
                          + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-    partial = torch.empty(c * n * 2, dtype=torch.float32, device=x.device)
-    counter = torch.zeros(c, dtype=torch.int32, device=x.device)
+    partial, counter = _sum_scratch(x, 2)
     sums = torch.empty(2, c, dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), partial.data_ptr(), counter.data_ptr(),
              sums.data_ptr(), n, c, h, w, _build.dtype_code(x.dtype),
@@ -163,12 +202,14 @@ bn_prelu_pool_stats.launches = 0
 
 
 def bn_prelu_pool_apply(x, p):
-    """The pooled (N, C, H/2, W/2) output in x's dtype; p (5, C) fp32 rows
-    mean, rstd, scale, bias, alpha."""
+    """The pooled (N, C, H/2, W/2) output in x's dtype, channels-last; p
+    (5, C) fp32 rows mean, rstd, scale, bias, alpha."""
+    _frames(x)
     n, c, h, w = x.shape
     fn = _build.function("avsr_bn_apply", (ctypes.c_void_p,) * 3
                          + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-    out = torch.empty(n, c, h // 2, w // 2, dtype=x.dtype, device=x.device)
+    out = torch.empty(n, c, h // 2, w // 2, dtype=x.dtype, device=x.device,
+                      memory_format=CL)
     err = fn(x.data_ptr(), p.data_ptr(), out.data_ptr(), n, c, h, w,
              _build.dtype_code(x.dtype), _stream(x))
     _build.check("bn_prelu_pool_apply", err)
@@ -180,14 +221,14 @@ bn_prelu_pool_apply.launches = 0
 
 
 def bn_prelu_pool_bwd1(x, p, dout):
-    """(dz (N, C, H, W) in x's dtype, red (3, C) fp32: the sums of dz,
-    dz * xhat and where(z < 0, dy * z, 0)); dout in x's dtype."""
+    """(dz (N, C, H, W) in x's dtype, channels-last, red (3, C) fp32: the
+    sums of dz, dz * xhat and where(z < 0, dy * z, 0)); dout in x's dtype."""
+    _frames(x, dout)
     n, c, h, w = x.shape
     fn = _build.function("avsr_bn_bwd1", (ctypes.c_void_p,) * 7
                          + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-    dz = torch.empty_like(x)
-    partial = torch.empty(c * n * 3, dtype=torch.float32, device=x.device)
-    counter = torch.zeros(c, dtype=torch.int32, device=x.device)
+    dz = torch.empty_like(x, memory_format=CL)
+    partial, counter = _sum_scratch(x, 3)
     red = torch.empty(3, c, dtype=torch.float32, device=x.device)
     err = fn(x.data_ptr(), p.data_ptr(), dout.data_ptr(), dz.data_ptr(),
              partial.data_ptr(), counter.data_ptr(), red.data_ptr(), n, c, h,
@@ -201,12 +242,13 @@ bn_prelu_pool_bwd1.launches = 0
 
 
 def bn_prelu_pool_bwd2(x, p2, dz):
-    """dx (N, C, H, W) in x's dtype; p2 (5, C) fp32 rows mean, rstd,
-    scale * rstd, dbeta / M, dgamma / M."""
+    """dx (N, C, H, W) in x's dtype, channels-last; p2 (5, C) fp32 rows
+    mean, rstd, scale * rstd, dbeta / M, dgamma / M."""
+    _frames(x, dz)
     n, c, h, w = x.shape
     fn = _build.function("avsr_bn_bwd2", (ctypes.c_void_p,) * 4
                          + (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x, memory_format=CL)
     err = fn(x.data_ptr(), p2.data_ptr(), dz.data_ptr(), dx.data_ptr(), n, c,
              h, w, _build.dtype_code(x.dtype), _stream(x))
     _build.check("bn_prelu_pool_bwd2", err)
@@ -268,7 +310,7 @@ class BnPreluPoolFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, _dmean, _dvar):
         x, scale, bias, alpha, mean, rstd = ctx.saved_tensors
-        dout = dout.to(x.dtype).contiguous()
+        dout = dout.to(x.dtype)
         if x.device.type == "cpu":
             dx, dgamma, dbeta, dalpha = bn_prelu_pool_bwd_plain(
                 x, scale, bias, alpha, mean, rstd, dout)
@@ -276,7 +318,8 @@ class BnPreluPoolFn(torch.autograd.Function):
             n, _, h, w = x.shape
             m = float(n * h * w)
             dz, red = bn_prelu_pool_bwd1(
-                x, _pack(mean, rstd, scale, bias, alpha), dout)
+                x, _pack(mean, rstd, scale, bias, alpha),
+                dout.contiguous(memory_format=CL))
             dbeta, dgamma, dalpha = red[0], red[1], red[2]
             p2 = _pack(mean, rstd, scale.float() * rstd, dbeta / m,
                        dgamma / m)
@@ -292,10 +335,11 @@ def bn_prelu_pool(x, scale, bias, alpha, *, eps: float = 1e-5, train: bool,
     train=True: normalises with the batch statistics and returns (pooled,
     batch_mean, batch_var), differentiable in x, scale, bias and alpha.
     train=False: normalises with running_mean / running_var and returns the
-    pooled output (not differentiable; the serving path). A
-    non-contiguous x (a convolution's output in another memory format) is
-    copied to the contiguous layout first."""
-    x = x.contiguous()
+    pooled output (not differentiable; the serving path). On the card an x
+    that is not channels-last is copied to that layout first (the stem's
+    own x already is); the output is channels-last."""
+    if x.device.type == "cuda":
+        x = x.contiguous(memory_format=CL)
     if train:
         _check(x, scale, bias, alpha)
         return BnPreluPoolFn.apply(x, scale, bias, alpha, eps)

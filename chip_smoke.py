@@ -16,11 +16,14 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    kernels at the training shapes (N = 6*16 heads, T=384, D=64, bf16 and
    fp32, ragged key bias), the forward's dropout mask read out and held
    bit for bit against the twin's; the fused stem tail's four kernels at
-   the training shape (N = 6*384 frames of (64, 44, 44), bf16), plus fp32
-   and tied-maxima cases and the eval apply at the serving shape (N =
-   8*377); the one-launch decoder layer at the serving shape (24 lanes,
-   C=1024, a 192-row cache, 377 source rows) at pos 0, 100, 191 and 250;
-   as information, the eager compositions those two replace;
+   the training shape (N = 6*384 channels-last frames of (64, 44, 44),
+   bf16), plus fp32 and tied-maxima cases and the eval apply at the
+   serving shape (N = 8*377), with torch's own BatchNorm passes
+   (``batch_norm_stats``, ``batch_norm_backward_elemt``) as the library
+   calls of stats and bwd2; the one-launch decoder layer at the serving
+   shape (24 lanes, C=1024, a 192-row cache, 377 source rows) at pos 0,
+   100, 191 and 250; as information, the eager compositions those two
+   replace, and ``bn_prelu_pool`` on channels-last and on NCHW x;
 4. serves the full-width flagship configuration (24x1024 AV-HuBERT encoder,
    6x1024 decoder, vocab 5049; seeded random weights) through
    ``Recognizer.transcribe_batch``, B=8 utterances of 375 frames: the
@@ -29,7 +32,9 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    (``ctc_weight=0``), and greedy CTC; then the same weights with
    ``decode_fused_layer`` and ``AVSR_FUSED_STEM_EVAL=1``. Each run starts
    with every launch count at 0 and is checked for the kernels of its
-   path (with the switches off, no fused-path kernel runs);
+   path (with the switches off, no fused-path kernel runs; with them on,
+   the stem hands the fused tail channels-last frames, so nothing is
+   copied);
 5. runs the same full-width weights through the CUDA path (bookkeeping
    fused) and the CPU path (which uses the plain twins, unfused) at
    ``ctc_weight=0.1``, in fp32, in the serving precision, and in fp32 with
@@ -61,6 +66,7 @@ CUDA it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -571,8 +577,9 @@ def phase_train_kernels(dev):
 
 def _stem_inputs(g, dev, n, dtype, ties=False):
     """The stem tail's input (n, 64, 44, 44) in ``dtype``, its fp32 scale,
-    bias and alpha, and a cotangent (n, 64, 22, 22); ``ties`` repeats
-    every value over a 2x2 block, so pooling windows hold equal maxima."""
+    bias and alpha, and a cotangent (n, 64, 22, 22), both channels-last as
+    the stem gives them; ``ties`` repeats every value over a 2x2 block, so
+    pooling windows hold equal maxima."""
     c = 64
     if ties:
         x = torch.randn(n, c, 22, 22, generator=g, device=dev)
@@ -583,7 +590,9 @@ def _stem_inputs(g, dev, n, dtype, ties=False):
               0.1 * torch.randn(c, generator=g, device=dev),
               0.25 + 0.05 * torch.randn(c, generator=g, device=dev))
     dout = torch.randn(n, c, 22, 22, generator=g, device=dev)
-    return x.to(dtype), params, dout.to(dtype)
+    cl = torch.channels_last
+    return (x.to(dtype, memory_format=cl), params,
+            dout.to(dtype, memory_format=cl))
 
 
 def _rel_err(got, want) -> float:
@@ -680,18 +689,44 @@ def phase_fuse_kernels(dev):
     check(eval_err <= 2e-2, "bn_prelu_pool_apply (eval) disagrees")
     eval_ms = cuda_ms(lambda: psf.bn_prelu_pool_apply(xe, pe))
     eval_bound = bound(nbytes(xe, eval_out), 5 * xe.numel(), "fp32")
-    print(f"# bn_prelu_pool_apply eval (N={n_eval}, bf16): kernel "
-          f"{eval_ms:.4f} ms, bound {eval_bound[0]:.6f} ms ({eval_bound[1]})")
+    # the serving entry point on the stem's channels-last x (no copy), and
+    # on an NCHW copy of it (which the wrapper copies back first)
+    xe_nchw = xe.contiguous()
 
-    # times at the training shape (N = 6 * 384, bf16). The twin of stats
-    # is the fp32 sums, of apply the eval-form forward twin, of bwd1 and
-    # bwd2 the whole backward twin (one call computes both passes)
+    def serve_stem(v):
+        return psf.bn_prelu_pool(v, scale, bias, alpha, train=False,
+                                 running_mean=rm, running_var=rv)
+
+    wrap_ms, nchw_ms = cuda_ms(lambda: serve_stem(xe)), cuda_ms(
+        lambda: serve_stem(xe_nchw))
+    print(f"# bn_prelu_pool_apply eval (N={n_eval}, bf16): kernel "
+          f"{eval_ms:.4f} ms, bound {eval_bound[0]:.6f} ms ({eval_bound[1]}); "
+          f"bn_prelu_pool(train=False) {wrap_ms:.4f} ms on channels-last x, "
+          f"{nchw_ms:.4f} ms on NCHW x (copied first)")
+    del xe_nchw
+
+    # times at the training shape (N = 6 * 384, bf16, channels-last). Each
+    # kernel's twin is its own plain pass: the fp32 sums, the eval-form
+    # forward, the backward up to dz and the sums, the dx expression. One
+    # PyTorch call computes two of them (torch's own CUDA BatchNorm passes):
+    # batch_norm_stats (mean and invstd) and batch_norm_backward_elemt (dx
+    # from dz, the sums and the statistics)
     sums = psf.bn_prelu_pool_stats(x)
     out = psf.bn_prelu_pool_apply(x, p)
     dz2, red = psf.bn_prelu_pool_bwd1(x, p, dout)
     dx = psf.bn_prelu_pool_bwd2(x, p2, dz)
-    bwd_plain_ms = cuda_ms(lambda: psf.bn_prelu_pool_bwd_plain(
-        x, scale, bias, alpha, mean, rstd, dout))
+    dgamma, dbeta = red[1], red[0]
+    count = torch.full((1,), x.numel() // x.shape[1], dtype=torch.int32,
+                       device=dev)
+
+    def library_dx():
+        return torch.batch_norm_backward_elemt(dz, x, mean, rstd, scale,
+                                               dbeta, dgamma / rstd, count)
+
+    lib_err = _rel_err(library_dx(), dx)
+    print(f"# batch_norm_backward_elemt vs bn_prelu_pool_bwd2: {lib_err:.2e} "
+          f"of the largest entry")
+    check(lib_err <= 2e-2, "the library call of bwd2 computes another dx")
     src = "avsr_tpu_torch/csrc/stem_fuse.cu"
     base = "avsr_tpu/ops/pallas/stem_fuse.py"
     # operations: the sums 3 an element; normalise, PReLU 4 an element and
@@ -700,7 +735,7 @@ def phase_fuse_kernels(dev):
         source=src, replaces=f"{base}:138",
         ms=cuda_ms(lambda: psf.bn_prelu_pool_stats(x)),
         plain_ms=cuda_ms(lambda: psf._batch_stats_plain(x.float())),
-        library_ms=None,
+        library_ms=cuda_ms(lambda: torch.batch_norm_stats(x, 1e-5)),
         bound=bound(nbytes(x, *sums), 3 * x.numel(), "fp32"))
     records["bn_prelu_pool_apply"] = dict(
         source=src, replaces=f"{base}:163",
@@ -708,18 +743,22 @@ def phase_fuse_kernels(dev):
         plain_ms=cuda_ms(lambda: psf.bn_prelu_pool_plain(
             x, scale, bias, alpha, train=False, running_mean=mean,
             running_var=var)),
-        library_ms=None,
+        library_ms=None,  # no one call normalises, activates and pools
         bound=bound(nbytes(x, out), 4 * x.numel() + 8 * out.numel(),
                     "fp32"))
     records["bn_prelu_pool_bwd1"] = dict(
         source=src, replaces=f"{base}:179",
         ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd1(x, p, dout)),
-        plain_ms=bwd_plain_ms, library_ms=None,
+        plain_ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd1_plain(
+            x, scale, bias, alpha, mean, rstd, dout)),
+        library_ms=None,  # no one call routes the pool's gradient and sums
         bound=bound(nbytes(x, dout, dz2, red), 20 * x.numel(), "fp32"))
     records["bn_prelu_pool_bwd2"] = dict(
         source=src, replaces=f"{base}:217",
         ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd2(x, p2, dz)),
-        plain_ms=bwd_plain_ms, library_ms=None,
+        plain_ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd2_plain(
+            x, scale, mean, rstd, dz, dgamma, dbeta)),
+        library_ms=cuda_ms(library_dx),
         bound=bound(nbytes(x, dz, dx), 6 * x.numel(), "fp32"))
     for name, e in abs_errs.items():
         records[name]["max_abs_err"] = e
@@ -741,10 +780,11 @@ def phase_fuse_kernels(dev):
     comp = {name: (cuda_ms(lambda: fn().detach()),
                    cuda_ms(lambda: torch.autograd.grad(fn(), xr, dout)))
             for name, fn in (("composition", composed), ("fused", fused))}
-    print(f"# stem tail at N={n_train} bf16, forward / forward+backward: "
-          f"eager composition {comp['composition'][0]:.4f} / "
-          f"{comp['composition'][1]:.4f} ms, fused kernels "
-          f"{comp['fused'][0]:.4f} / {comp['fused'][1]:.4f} ms")
+    print(f"# stem tail at N={n_train} bf16 channels-last, forward / "
+          f"forward+backward: eager composition "
+          f"{comp['composition'][0]:.4f} / {comp['composition'][1]:.4f} ms, "
+          f"bn_prelu_pool(train=True) {comp['fused'][0]:.4f} / "
+          f"{comp['fused'][1]:.4f} ms")
     del x, xr, dout, dz, dz2, dx, out, xe, eval_out, eval_want
 
     # B9 at the serving shape: B=8 x beam 3 lanes, C=1024, 16 heads,
@@ -796,14 +836,17 @@ def phase_fuse_kernels(dev):
               f"{e_row:.2e} of their largest entry (limit 2e-2)")
         check(e_x <= 2e-2 and e_row <= 2e-2,
               f"decoder_layer_step disagrees at pos={pos}")
-    # timed at pos=250: every cache row read
+    # timed at pos=250: every cache row read; the scratch made once, as
+    # the decoder's cache keeps it
     weights = sum(nbytes(t) for t in packed)
+    scratch = pdl.layer_scratch(nl, c, f, dev)
     records["decoder_layer_step"] = dict(
         source="avsr_tpu_torch/csrc/decoder_layer.cu",
         replaces="avsr_tpu/ops/pallas/decoder_layer.py:81",
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: pdl.decoder_layer_step(
-            pos, xq, kv, src_k, src_v, mem_bias, lb, packed, lanes, heads)),
+            pos, xq, kv, src_k, src_v, mem_bias, lb, packed, lanes, heads,
+            scratch=scratch)),
         plain_ms=cuda_ms(lambda: pdl.decoder_layer_step_plain(
             pos, xq, kv, src_k, src_v, mem_bias, lb, packed, lanes, heads)),
         library_ms=None,  # no one call runs a decoder layer's step
@@ -827,26 +870,36 @@ def phase_fuse_kernels(dev):
     with torch.inference_mode():
         unfused_ms = cuda_ms(lambda: dec.layer_step(0, xq, pos, cache, mask,
                                                     lb, lanes))
-    # where the kernel's time goes: its eight phases, from the card's clock
-    # as block 0 passes each grid sync (mean of 20 launches)
-    stamps = torch.zeros(9, dtype=torch.int64, device=dev)
-    phase_us = torch.zeros(8, dtype=torch.float64)
-    for _ in range(20):
-        pdl.decoder_layer_step(pos, xq, kv, src_k, src_v, mem_bias, lb,
-                               packed, lanes, heads, stamps=stamps)
-        phase_us += stamps.diff().double().cpu() / 1e3 / 20
-    names = ("LN1+QKV", "self-attn", "out-proj", "LN2+q2", "cross-attn",
-             "out2", "LN3+W1", "W2+row")
-    print("# decoder_layer_step phases at pos=250 (us, with stamps): "
-          + ", ".join(f"{n} {u:.1f}" for n, u in zip(names, phase_us)))
     print(f"# one decoder layer step at pos={pos} (B=8, beam 3, bf16): "
           f"decoder_layer_step {records['decoder_layer_step']['ms']:.4f} ms, "
           f"the unfused step {unfused_ms:.4f} ms")
     for name, r in records.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"# {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, library n/a, bound {r['bound'][0]:.6f} ms "
+              f"ms, library {lib}, bound {r['bound'][0]:.6f} ms "
               f"({r['bound'][1]})")
     return records
+
+
+@contextlib.contextmanager
+def stem_layouts():
+    """Yields a list that records, for each x the ResNet's stem hands to
+    ``bn_prelu_pool``, whether it is channels-last already: the kernels'
+    layout, so the fused tail copies nothing."""
+    from avsr_tpu_torch.models import resnet
+
+    seen, real = [], resnet.bn_prelu_pool
+
+    def spy(x, *args, **kwargs):
+        seen.append(x.is_contiguous(memory_format=torch.channels_last))
+        return real(x, *args, **kwargs)
+
+    resnet.bn_prelu_pool = spy
+    try:
+        yield seen
+    finally:
+        resnet.bn_prelu_pool = real
 
 
 def flagship_config(dtype: str):
@@ -954,11 +1007,14 @@ def phase_serving(dev, gpu_name: str):
     fused_name = "beam ctc_weight=0.1, fused layer and stem"
     os.environ["AVSR_FUSED_STEM_EVAL"] = "1"
     try:
-        n, walls[fused_name] = serve(fused_name, "beam", 0.1, False, frec)
+        with stem_layouts() as seen:
+            n, walls[fused_name] = serve(fused_name, "beam", 0.1, False, frec)
         fy, fl, fs, f_enc, f_beam = _stage_times(frec, audio, video)[:5]
     finally:
         del os.environ["AVSR_FUSED_STEM_EVAL"]
     runs[fused_name] = n
+    check(seen and all(seen), f"{fused_name}: the stem's x was not "
+          f"channels-last ({seen}), so the fused tail copied it")
     steps = n["decoder_layer_step"] // cfg.dlayers
     check(steps >= 1 and n["decoder_layer_step"] == steps * cfg.dlayers
           and n["decode_attention"] == 0,
@@ -1092,6 +1148,7 @@ TWINS = {"flash_attention": ("flash_attention_plain",
                              "flash_attention_bwd_plain", "_bwd_from_delta",
                              "dropout_keep_mask_plain"),
          "stem_fuse": ("bn_prelu_pool_plain", "bn_prelu_pool_bwd_plain",
+                       "bn_prelu_pool_bwd1_plain", "bn_prelu_pool_bwd2_plain",
                        "pool_bwd_plain", "_batch_stats_plain")}
 
 
@@ -1131,7 +1188,8 @@ def phase_training(dev, smi: str, fused_stem: bool = False):
     for (m, name), fn in originals.items():
         setattr(mods[m], name, counted(name, fn))
     try:
-        res = bench_train.measure(state, batch, args)
+        with stem_layouts() as seen:
+            res = bench_train.measure(state, batch, args)
     finally:
         for (m, name), fn in originals.items():
             setattr(mods[m], name, fn)
@@ -1165,6 +1223,8 @@ def phase_training(dev, smi: str, fused_stem: bool = False):
         check(fwd == (1.0, 1.0) and bwd[0] == bwd[1] and 0 < bwd[0] <= 1,
               f"stem kernels: {fwd} forward and {bwd} backward launches a "
               f"step{what}")
+        check(seen and all(seen), f"the stem's x was not channels-last in "
+              f"training ({seen}), so the fused tail copied it")
     else:
         check(fwd + bwd == (0.0,) * 4, "stem kernels ran without the switch")
     check(not any(calls.values()), f"a plain twin ran on the card: {calls}")

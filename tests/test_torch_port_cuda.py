@@ -255,20 +255,26 @@ def _stem_case(dtype, n, c, h, w, ties, seed):
     return x.to(dtype), params, dout.to(dtype)
 
 
+@pytest.mark.parametrize("layout", [torch.contiguous_format,
+                                    torch.channels_last])
 @pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,c,h,w", [(7, 16, 8, 12), (6, 64, 44, 44),
                                      (3, 5, 6, 2)])
-def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties):
+def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties, layout):
     """The four bn_prelu_pool kernels through the autograd function on the
     card against the twins on the CPU, training: pooled output within tol
     x |max|, batch mean and var within 1e-5 relative, dx and the three
     parameter gradients within tol x |max| (bf16: x and dz are rounded
     where the twins round them; sums run in other orders); eval within
     tol x |max|. Each kernel launches once; a second run is bit-identical
-    (no float atomics). The 3 x 5 x 6 x 2 case takes the scalar loads."""
+    (no float atomics). The kernels read channels-last frames: an x in the
+    contiguous (NCHW) layout is copied to it; the output comes back
+    channels-last, dx in x's layout. The 3 x 5 x 6 x 2 case takes the
+    scalar loads."""
     x, params, dout = _stem_case(dtype, n, c, h, w, ties, n * c + h)
+    x = x.contiguous(memory_format=layout)
     res = {}
     counts = [psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
               psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2]
@@ -283,6 +289,8 @@ def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties):
                                                           xs))])
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(counts, before)] == [2] * 4
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert xs[0].grad.is_contiguous(memory_format=layout)  # x's own layout
     want, (got, again) = res["cpu"][0], res[str(dev)]
     for a, b in zip(got, again):
         assert torch.equal(a, b)
@@ -350,11 +358,19 @@ def test_decoder_layer_kernel_matches_plain(dev, pos, pdtype, cdtype, tol, b,
                                              packed, k, heads)
     before = pdl.decoder_layer_step.launches
     dargs = [a.to(dev) for a in args]
-    got_x, got_kv = pdl.decoder_layer_step(
-        pos, *dargs, pdl.PackedLayer(*(p.to(dev) for p in packed)), k, heads)
+    dpacked = pdl.PackedLayer(*(p.to(dev) for p in packed))
+    got_x, got_kv = pdl.decoder_layer_step(pos, *dargs, dpacked, k, heads)
     torch.cuda.synchronize()
     assert pdl.decoder_layer_step.launches == before + -(-b // (32 // k))
     assert got_kv is dargs[1]
+    # a scratch made once (as the decoder's cache keeps it) gives the same
+    again = [a.to(dev) for a in args]
+    scratch = pdl.layer_scratch(n, c, f, dev)
+    for _ in range(2):
+        again_x, _ = pdl.decoder_layer_step(pos, *[a.clone() for a in again],
+                                            dpacked, k, heads,
+                                            scratch=scratch)
+        assert torch.equal(again_x, got_x)
     row = min(pos, s - 1)
     rest = [i for i in range(s) if i != row]
     assert torch.equal(got_kv[:, rest].cpu(), kv[:, rest])
