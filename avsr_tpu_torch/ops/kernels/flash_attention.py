@@ -10,6 +10,11 @@ it launches a hand-written kernel and counts the launch:
   with delta = rowsum(dO * O) computed in the kernel;
 - ``flash_attention_bwd_dkv``: ``csrc/flash_attention_bwd.cu``, (dk, dv).
 
+bf16 operands run on the tensor cores (``mma.sync``, ``csrc/mma_bf16.cuh``;
+the forward rounds the normalised probabilities to bf16 before P V, as
+the TPU kernel and the twin do); fp32 operands run on the CUDA cores in
+fp32, since the tensor cores would take them as TF32.
+
 ``FlashAttentionFn`` is the autograd function over them. Attention-prob
 dropout runs inside the kernels: each keep decision is drawn from
 Philox4x32-10 keyed by the two seed words, at the counter of the element's
@@ -203,12 +208,17 @@ def _check(q, k, v, key_bias, *rest):
         raise ValueError(f"no flash_attention for device {q.device}")
 
 
-def _kernel_args(q, dropout_rate, dropout_seed):
-    """Checks the card-side operands; returns the dropout arguments
-    (rate flag, uint32 threshold, 1/keep, seed words)."""
+def _kernel_args(q, dropout_rate, dropout_seed, *operands):
+    """Checks the card-side operands (q and the other (N, T, D) tensors
+    ``operands``); returns the dropout arguments (rate flag, uint32
+    threshold, 1/keep, seed words)."""
     n, t, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel takes head dims {HEAD_DIMS}; got {d}")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, *operands)):
+        raise ValueError("the bf16 kernels copy 16-byte chunks: (N, T, D) "
+                         "operands must start 16-byte aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -242,7 +252,7 @@ def flash_attention_fwd(q, k, v, key_bias, scale: float = 1.0,
         return flash_attention_plain(q, k, v, key_bias, scale,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=dropout_seed)
-    drop = _kernel_args(q, dropout_rate, dropout_seed)
+    drop = _kernel_args(q, dropout_rate, dropout_seed, k, v)
     n, t, d = q.shape
     fn = _build.function(
         "avsr_flash_attention_fwd",
@@ -274,7 +284,7 @@ def flash_attention_bwd_dq(q, k, v, key_bias, out, do, lse,
         dq = _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
                              mask)[0]
         return dq, delta
-    drop = _kernel_args(q, dropout_rate, dropout_seed)
+    drop = _kernel_args(q, dropout_rate, dropout_seed, k, v, out, do)
     n, t, d = q.shape
     fn = _build.function(
         "avsr_flash_attention_bwd_dq",
@@ -305,7 +315,7 @@ def flash_attention_bwd_dkv(q, k, v, key_bias, do, lse, delta,
         mask = _twin_mask(q, None, dropout_rate, dropout_seed)
         return _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
                                mask)[1:]
-    drop = _kernel_args(q, dropout_rate, dropout_seed)
+    drop = _kernel_args(q, dropout_rate, dropout_seed, k, v, do)
     n, t, d = q.shape
     fn = _build.function(
         "avsr_flash_attention_bwd_dkv",

@@ -15,9 +15,16 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    pre-beam 4); the flash forward with dropout and the two backward
    kernels at the training shapes (N = 6*16 heads, T=384, D=64, bf16 and
    fp32, ragged key bias), the forward's dropout mask read out and held
-   bit for bit against the twin's; the fused stem tail's four kernels at
-   the training shape (N = 6*384 channels-last frames of (64, 44, 44),
-   bf16), plus fp32 and tied-maxima cases and the eval apply at the
+   bit for bit against the twin's, two backward calls held bit for bit
+   against each other, the bf16 forward's share of outputs bit-equal to
+   the twin's printed, and the cost of the dropout draw (each kernel
+   timed without it); the flash kernels' library call is PyTorch's fused
+   SDPA as a user calls it (4-D (B, H, T, D), the key bias as a (B, 1, 1,
+   T) mask, ``dropout_p`` at the kernels' rate, forward and backward),
+   each backend of ``SDPA_BACKENDS`` forced in turn with ``sdpa_kernel``
+   and the fastest kept, its name printed; the fused stem tail's four
+   kernels at the training shape (N = 6*384 channels-last frames of (64,
+   44, 44), bf16), plus fp32 and tied-maxima cases and the eval apply at the
    serving shape (N = 8*377), with torch's own BatchNorm passes
    (``batch_norm_stats``, ``batch_norm_backward_elemt``) as the library
    calls of stats and bwd2; the one-launch decoder layer at the serving
@@ -94,6 +101,8 @@ TRAIN_HEADS = TRAIN_BATCH * 16  # the encoder's attention rows in training
 # outside the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+# PyTorch's fused attention backends tried as the flash kernels' yardstick
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 # above the H100's highest SM clock (1.98 GHz): a spin of 2x the host's
 # enqueue time in these cycles lasts at least that long
 SPIN_CYCLES_PER_S = 2.0e9
@@ -136,6 +145,62 @@ def cuda_ms(fn, iters: int = 4, warmup: int = 2, repeats: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def fused_sdpa_ms(q, k, v, bias, heads: int, scale: float, rate: float,
+                  do=None):
+    """(device ms, backend) of PyTorch's fused SDPA on the flash kernels'
+    inputs as a user calls it: the (N, T, D) rows seen as 4-D (B, H, T, D),
+    the per-utterance key bias as a broadcast (B, 1, 1, T) additive mask
+    in the operands' dtype, ``dropout_p`` = ``rate``. The forward, or with
+    ``do`` the backward of all three gradients. Each backend of
+    ``SDPA_BACKENDS`` is forced in turn with ``sdpa_kernel``; the fastest
+    that takes the call is kept and every one is printed."""
+    from torch.nn import functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n, t, d = q.shape
+    b = n // heads
+    q4, k4, v4 = (x.view(b, heads, t, d) for x in (q, k, v))
+    rows = bias.view(b, heads, t)
+    check(torch.equal(rows, rows[:, :1].expand_as(rows)),
+          "the key bias must be one row per utterance")
+    mask = rows[:, :1, None, :].to(q.dtype)
+    what = "forward" if do is None else "backward"
+    best = None
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+
+        def fwd(x=(q4, k4, v4), backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    *x, attn_mask=mask, dropout_p=rate, scale=scale)
+
+        try:
+            if do is None:
+                fn = fwd
+            else:
+                leaves = [x.detach().clone().requires_grad_()
+                          for x in (q4, k4, v4)]
+                out = fwd(leaves)
+                g4 = do.view(b, heads, t, d)
+
+                def fn(out=out, leaves=leaves, g4=g4):
+                    return torch.autograd.grad(out, leaves, g4,
+                                               retain_graph=True)
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"# SDPA {name} {what} refused: "
+                  f"{str(e).splitlines()[0][:160]}")
+            continue
+        ms = cuda_ms(fn)
+        print(f"# SDPA {name} {what} (B={b}, H={heads}, T={t}, D={d}, "
+              f"{str(q.dtype)[6:]}, dropout_p={rate}): {ms:.4f} ms")
+        if best is None or ms < best[0]:
+            best = (ms, name)
+    check(best is not None, f"no fused SDPA backend takes the {what}")
+    return best
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -203,8 +268,6 @@ def step_state(seed: int, i: int, dev, ties: bool):
 
 def phase_kernels(dev):
     """Each kernel vs its plain twin at the serving shapes; returns records."""
-    from torch.nn import functional as F
-
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
@@ -217,32 +280,36 @@ def phase_kernels(dev):
     records = {}
 
     # flash: encoder self-attention, (B*16, 384, 64) bf16, 377 valid frames
-    # and shorter rows; out within 8e-3 abs (two bf16 ulps below |out| = 1:
-    # the kernel keeps p in fp32 where the twin rounds it), lse within 1e-4
-    n, t, d = B * 16, 384, 64
+    # and shorter utterances; out within 8e-3 abs (two bf16 ulps below
+    # |out| = 1), lse within 1e-4; the share of output elements equal to
+    # the twin's bit for bit printed (both round the normalised P, C10)
+    heads, t, d = 16, 384, 64
+    n = B * heads
     q, k, v = (torch.randn(n, t, d, generator=g, device=dev).to(bf16)
                for _ in range(3))
-    lens = torch.full((n,), 377, device=dev)
+    lens = torch.full((B,), 377, device=dev)
     lens[::5] = 200
     bias = torch.where(torch.arange(t, device=dev)[None] < lens[:, None],
-                       0.0, -1.0e30).contiguous()
+                       0.0, -1.0e30).repeat_interleave(heads, 0).contiguous()
     scale = d ** -0.5
     got, lse = pfa.flash_attention_fwd(q, k, v, bias, scale)
     want, want_lse = pfa.flash_attention_plain(q, k, v, bias, scale)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     lse_err = (lse - want_lse).abs().max().item()
-    print(f"# flash_attention_fwd max_abs_err={err:.3e} lse_err={lse_err:.3e}")
+    same = (got == want).float().mean().item()
+    print(f"# flash_attention_fwd max_abs_err={err:.3e} lse_err={lse_err:.3e}"
+          f" bit-equal to the twin: {same:.5f} of elements")
     check(err <= 8e-3 and lse_err <= 1e-4, "flash_attention_fwd disagrees")
-    mask = bias[:, None, :].to(bf16)
+    library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, 0.0)
     records["flash_attention_fwd"] = dict(
         source="avsr_tpu_torch/csrc/flash_attention.cu",
         replaces="avsr_tpu/ops/pallas/flash_attention.py:296",
         max_abs_err=err,
         ms=cuda_ms(lambda: pfa.flash_attention_fwd(q, k, v, bias, scale)),
         plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(q, k, v, bias, scale)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, scale=scale)),
+        library_ms=library_ms,
+        library=backend,
         # q.k and p.v: 2 flops per multiply-add, bf16 operands
         bound=bound(nbytes(q, k, v, bias, got, lse), 4 * n * t * t * d,
                     "bf16"),
@@ -418,28 +485,29 @@ def phase_kernels(dev):
     return records
 
 
-def _attention_inputs(g, dev, dtype, n, t, d):
-    """q, k, v, dO (n, t, d) in ``dtype`` and a ragged fp32 key bias: every
-    fifth row 200 valid keys, every seventh 377, the rest all t."""
+def _attention_inputs(g, dev, dtype, b, heads, t, d):
+    """q, k, v, dO (b*heads, t, d) in ``dtype`` and a ragged fp32 key bias
+    (b*heads, t), one row per utterance as the encoder makes it: every
+    fifth utterance 200 valid keys, every seventh 377, the rest all t."""
+    n = b * heads
     q, k, v, do = (torch.randn(n, t, d, generator=g, device=dev).to(dtype)
                    for _ in range(4))
-    lens = torch.full((n,), t, device=dev)
+    lens = torch.full((b,), t, device=dev)
     lens[::5] = min(200, t)
     lens[1::7] = min(377, t)
     bias = torch.where(torch.arange(t, device=dev)[None] < lens[:, None],
-                       0.0, -1.0e30).contiguous()
-    return q, k, v, do, bias
+                       0.0, -1.0e30)
+    return q, k, v, do, bias.repeat_interleave(heads, 0).contiguous()
 
 
 def phase_train_kernels(dev):
     """The flash forward with in-kernel dropout and the two backward
     kernels at the training shapes (N = 6*16, T=384, D=64); returns their
     records (the forward's replaces the serving-shape one)."""
-    from torch.nn import functional as F
-
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 
     g = torch.Generator(device=dev).manual_seed(1)
+    heads = TRAIN_HEADS // TRAIN_BATCH
     n, t, d = TRAIN_HEADS, T_PAD, 64
     rate, seed = 0.1, (20261016, 3)
     scale = d ** -0.5
@@ -471,11 +539,13 @@ def phase_train_kernels(dev):
     # forward with dropout, dQ/dK/dV with and without: against the twins
     # on the same inputs and seed, each within a limit relative to the
     # output's largest entry: fp32 1e-4 (sums in another order), bf16 2e-2
-    # (the same roundings of P~ and dS; two ulps at the top; the forward's
-    # unrounded P, C10)
+    # (the same roundings of P, P~ and dS; two ulps at the top); the bf16
+    # forward's share of outputs bit-equal to the twin's printed; two
+    # backward calls bit-identical
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        q, k, v, do, bias = _attention_inputs(g, dev, dtype, n, t, d)
+        q, k, v, do, bias = _attention_inputs(g, dev, dtype, TRAIN_BATCH,
+                                              heads, t, d)
         for r, sd in ((0.0, None), (rate, seed)):
             out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, r, sd)
             if r:
@@ -491,9 +561,18 @@ def phase_train_kernels(dev):
                                                    lse, scale, r, sd)
             dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse,
                                                  delta, scale, r, sd)
+            again = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse,
+                                            scale, r, sd)
+            check(all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv),
+                                                          again)),
+                  f"flash backward not deterministic ({dtype}, rate={r})")
             w_out, _ = pfa.flash_attention_plain(q, k, v, bias, scale,
                                                  dropout_rate=r,
                                                  dropout_seed=sd)
+            if dtype == torch.bfloat16:
+                same = (out == w_out).float().mean().item()
+                print(f"# flash forward bf16 rate={r}: bit-equal to the "
+                      f"twin: {same:.5f} of elements")
             wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do,
                                                   lse, scale, dropout_rate=r,
                                                   dropout_seed=sd)
@@ -509,17 +588,15 @@ def phase_train_kernels(dev):
                 check(e <= tol * m, f"flash {name} {dtype} rate={r} disagrees")
 
     # times at the training precision, bf16, with dropout
-    q, k, v, do, bias = _attention_inputs(g, dev, torch.bfloat16, n, t,
-                                          d)
+    q, k, v, do, bias = _attention_inputs(g, dev, torch.bfloat16,
+                                          TRAIN_BATCH, heads, t, d)
     out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, rate, seed)
     dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse, scale,
                                            rate, seed)
     dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, scale,
                                          rate, seed)
-    mask = bias[:, None, :].to(torch.bfloat16)
-    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
-                                             scale=scale)
+    fwd_lib = fused_sdpa_ms(q, k, v, bias, heads, scale, rate)
+    bwd_lib = fused_sdpa_ms(q, k, v, bias, heads, scale, rate, do)
     bf16 = torch.bfloat16
     flops = 2 * n * t * t * d  # one (T x T x D) product
     records["flash_attention_fwd"] = dict(
@@ -530,9 +607,9 @@ def phase_train_kernels(dev):
                                                    rate, seed)),
         plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(
             q, k, v, bias, scale, dropout_rate=rate, dropout_seed=seed)),
-        # SDPA with the bias as its mask and dropout_p at the same rate
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)),
+        # fused SDPA, the bias as its mask, dropout_p at the same rate
+        library_ms=fwd_lib[0],
+        library=fwd_lib[1],
         # q.k and p.v; q, k, v, bias read once, out and lse written once
         bound=bound(nbytes(q, k, v, bias, out, lse), 2 * flops, "bf16"),
     )
@@ -546,9 +623,10 @@ def phase_train_kernels(dev):
         plain_ms=cuda_ms(lambda: pfa.flash_attention_bwd_plain(
             q, k, v, bias, out, do, lse, scale, dropout_rate=rate,
             dropout_seed=seed)),
-        # SDPA's backward (no dropout), all three gradients in one call
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qr, kr, vr), do, retain_graph=True)),
+        # fused SDPA's backward at the same dropout rate, all three
+        # gradients in one call
+        library_ms=bwd_lib[0],
+        library=bwd_lib[1],
         # S and dP recomputed, dS K; q, k, v, O, dO, bias, lse read,
         # dq and delta written
         bound=bound(nbytes(q, k, v, out, do, bias, lse, dq, delta),
@@ -561,7 +639,8 @@ def phase_train_kernels(dev):
         ms=cuda_ms(lambda: pfa.flash_attention_bwd_dkv(
             q, k, v, bias, do, lse, delta, scale, rate, seed)),
         plain_ms=records["flash_attention_bwd_dq"]["plain_ms"],
-        library_ms=records["flash_attention_bwd_dq"]["library_ms"],
+        library_ms=bwd_lib[0],
+        library=bwd_lib[1],
         # S and dP recomputed, P~^T dO and dS^T Q; q, k, v, dO, bias, lse,
         # delta read, dk and dv written
         bound=bound(nbytes(q, k, v, do, bias, lse, delta, dk, dv),
@@ -570,8 +649,21 @@ def phase_train_kernels(dev):
     for name, r in records.items():
         print(f"# {name} (training shape, bf16, dropout {rate}): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
-              f"({r['bound'][1]})")
+              f"{r['library_ms']:.4f} ms ({r['library']}), bound "
+              f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    # the cost of the in-kernel dropout draw: the same calls without it
+    no_drop = dict(
+        flash_attention_fwd=lambda: pfa.flash_attention_fwd(
+            q, k, v, bias, scale),
+        flash_attention_bwd_dq=lambda: pfa.flash_attention_bwd_dq(
+            q, k, v, bias, out, do, lse, scale),
+        flash_attention_bwd_dkv=lambda: pfa.flash_attention_bwd_dkv(
+            q, k, v, bias, do, lse, delta, scale))
+    for name, fn in no_drop.items():
+        ms = cuda_ms(fn)
+        print(f"# {name} (training shape, bf16) without dropout: {ms:.4f} "
+              f"ms; the dropout draw costs {records[name]['ms'] - ms:.4f} "
+              f"ms")
     return records
 
 
@@ -1342,7 +1434,7 @@ def main() -> int:
     print(f"# flash_attention_fwd at the serving shape (B=8, no dropout): "
           f"kernel {serving_fwd['ms']:.4f} ms, plain "
           f"{serving_fwd['plain_ms']:.4f} ms, library "
-          f"{serving_fwd['library_ms']:.4f} ms")
+          f"{serving_fwd['library_ms']:.4f} ms ({serving_fwd['library']})")
     records.update(phase_train_kernels(dev))
     records.update(phase_fuse_kernels(dev))
     print("# phase 4: full-width serving, bf16, B=8, 375 frames")

@@ -159,13 +159,15 @@ def _attn_case(dev, n, tt, d, dtype, seed):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("tt,d", [(100, 16), (77, 32), (384, 64), (130, 128)])
+@pytest.mark.parametrize("tt,d", [(100, 16), (77, 32), (384, 64), (130, 128),
+                                  (640, 64)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_flash_bwd_kernels_match_plain(dev, dtype, tol, tt, d, rate):
     """The forward with and without dropout, and the dq (with delta) and
     dkv kernels against the plain twins on the same inputs and seed:
     within ``tol`` of each output's largest entry (fp32 sums in another
-    order; bf16: the same roundings of P~ and dS, two ulps at the top)."""
+    order; bf16: the same roundings of P~ and dS, two ulps at the top).
+    T=640 is past the TPU kernels' resident limit (512)."""
     q, k, v, bias, do = _attn_case(dev, 6, tt, d, dtype, tt + d)
     seed = (11, 22) if rate else None
     sc = d ** -0.5
@@ -186,6 +188,54 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, tol, tt, d, rate):
     for got, want in zip((out, dq, dk, dv), (w_out, *wants)):
         scale = want.float().abs().max()
         assert (got.float() - want.float()).abs().max() <= tol * scale
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_bwd_kernels_are_deterministic(dev, rate):
+    """Two bf16 backward calls on the same inputs and seed give the same
+    bits: every dQ, dK, dV element is written by one block, with no
+    atomics."""
+    q, k, v, bias, do = _attn_case(dev, 6, 384, 64, torch.bfloat16, 5)
+    seed = (7, 8) if rate else None
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.125, rate, seed)
+    first = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse, 0.125, rate,
+                                    seed)
+    second = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse, 0.125,
+                                     rate, seed)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tt,d", [(384, 64), (130, 128), (77, 32)])
+def test_flash_bf16_forward_is_the_twins_bit_for_bit(dev, rate, tt, d):
+    """The bf16 forward rounds the normalised probabilities to bf16 before
+    the value product, as the TPU kernel and the twin do, so most output
+    elements equal the twin's bit for bit; only scores whose fp32 sums
+    round apart (another summation order) differ, by an ulp."""
+    q, k, v, bias, _ = _attn_case(dev, 6, tt, d, torch.bfloat16, tt)
+    seed = (3, 9) if rate else None
+    got, _ = pfa.flash_attention_fwd(q, k, v, bias, d ** -0.5, rate, seed)
+    want, _ = pfa.flash_attention_plain(q, k, v, bias, d ** -0.5,
+                                        dropout_rate=rate, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert (got == want).float().mean().item() >= 0.95
+
+
+def test_flash_bf16_kernels_refuse_misaligned_operands(dev):
+    """The bf16 kernels copy 16-byte chunks: an operand that starts off a
+    16-byte boundary is refused before any launch."""
+    q, k, v, bias, do = _attn_case(dev, 2, 64, 32, torch.bfloat16, 1)
+    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    before = pfa.flash_attention_fwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa.flash_attention_fwd(shifted, k, v, bias, 0.2)
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.2)
+    with pytest.raises(ValueError, match="16-byte"):
+        pfa.flash_attention_bwd_dq(q, k, v, bias, out, shifted, lse, 0.2)
+    assert pfa.flash_attention_fwd.launches == before + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -165,8 +165,20 @@ def test_flash_fn_grads_match_jax(n, tt, d, dropout):
         assert max(e_port, e_jax) <= 2e-6, (
             f"{name}: the port is {e_port:.2e} and JAX {e_jax:.2e} off the "
             f"float64 evaluation; the drifting side is "
-            f"{'the port' if e_port > e_jax else 'JAX'}")
-        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0, err_msg=name)
+            f"{'the port' if e_port > e_jax else 'JAX'}; {_torch_state()}")
+        np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0,
+                                   err_msg=f"{name}; {_torch_state()}")
+
+
+def _torch_state() -> str:
+    """The process's torch settings that could move an fp32 CPU result
+    (ROADMAP C21), for a failure message."""
+    mkldnn = getattr(torch.backends.mkldnn, "fp32_precision", "unknown")
+    return (f"torch threads {torch.get_num_threads()}, interop threads "
+            f"{torch.get_num_interop_threads()}, fp32 matmul precision "
+            f"{torch.get_float32_matmul_precision()!r}, oneDNN fp32 "
+            f"precision {mkldnn!r}; parallel_info: "
+            f"{' | '.join(torch.__config__.parallel_info().split(chr(10)))}")
 
 
 def _attention_f64(q, k, v, bias, scale, mask, w):
