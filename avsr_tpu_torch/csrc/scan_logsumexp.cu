@@ -7,41 +7,126 @@
 //
 // What bounds it on the card: the CTC prefix scorer calls it twice a decode
 // step at (T, C) = (384, B*K*S') = (384, 96) at B=8: 2 x 147 KB, about
-// 0.09 us of HBM traffic at 3.35 TB/s. The bytes do not bound it. A column
-// is a chain of T dependent steps (each an expf and a multiply-add on the
-// running sum), so the time is the chain's latency plus the launch: the
-// kernel is launch- and latency-bound at these shapes.
+// 0.09 us of HBM traffic at 3.35 TB/s. The bytes do not bound it: a column
+// walked by one thread is a chain of T dependent steps (two expf, a logf,
+// a load and a store each), so the time is that chain's latency.
 //
-// Design: columns are independent, so one thread owns one column and walks
-// T in order, keeping the running max m and the sum s of exp(x_j - m). The
-// threads of a warp own neighbouring columns, so every row's loads and
-// stores coalesce. The TPU scan's numerics are kept: the shift is the
-// prefix's own running max (a column-global max underflows at T=375), the
-// shift is guarded with max(m, -3.0e38) so that -inf - -inf never occurs,
-// and the output is logf(fmaxf(s, 1e-37f)) + m, so an all -inf prefix gives
-// -inf. The sum is accumulated in sequential order, the twin's in a tree of
-// depth log2(T): results differ by a few ulps (see chip_smoke.py).
+// Design: a parallel scan over the same monoid. A block takes kCols
+// columns and walks T in chunks of 32 * kLaneRows rows. It copies a chunk
+// with cp.async, all of a thread's loads in flight at once, coalesced
+// (consecutive threads, consecutive columns of a row) into
+// shared memory, column-major, with one pad word after every kLaneRows
+// rows and a column stride of 32 * (kLaneRows + 1) + 32 / kCols words:
+// lane i's reads of rows i * kLaneRows + k (an odd 13 words apart), and a
+// warp's accesses to 32 / kCols rows of kCols columns, then hit distinct
+// banks. Warp w scans column w: lane i combines its
+// kLaneRows consecutive rows in order, keeping every inclusive (m, s) pair
+// in registers; a 5-level __shfl_up_sync Kogge-Stone over the lanes'
+// totals gives each lane its exclusive prefix, which the chunk carry from
+// the earlier chunks precedes; each pair combined with it gives
+// logf(fmaxf(s, 1e-37f)) + m. The chain of roundings of an output falls
+// from T steps to at most kLaneRows + 5 + 2 a chunk.
+//
+// Numerics are the TPU kernel's: every prefix is shifted by its own
+// running max (a column-global max underflows at T=375), the shift is
+// guarded with max(m, -3.0e38) so that -inf - -inf never occurs, and an
+// all -inf prefix gives -inf.
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kCols = 8;       // columns of a block, one warp each
+constexpr int kLaneRows = 12;  // consecutive rows of a lane
+constexpr int kThreads = 32 * kCols;
+constexpr int kChunk = 32 * kLaneRows;         // rows of a chunk
+constexpr int kStride = 32 * (kLaneRows + 1) + 32 / kCols;  // a column
+constexpr unsigned kFull = 0xffffffffu;
+
+// (m, s) <- (m, s) . (m2, s2) over the (max, shifted sum) monoid
+__device__ __forceinline__ void combine(float& m, float& s, float m2,
+                                        float s2) {
+  const float mm = fmaxf(m, m2);
+  const float safe = fmaxf(mm, -3.0e38f);
+  s = s * expf(m - safe) + s2 * expf(m2 - safe);
+  m = mm;
+}
+
+__device__ __forceinline__ int at(int col, int row) {
+  return col * kStride + row + row / kLaneRows;
+}
 
 __global__ void __launch_bounds__(kThreads)
     cumlogsumexp_kernel(const float* __restrict__ x, float* __restrict__ out,
                         int t, int c) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= c) return;
-  float m = -INFINITY;
-  float s = 0.0f;
-  for (int i = 0; i < t; ++i) {
-    const size_t at = static_cast<size_t>(i) * c + col;
-    const float xv = x[at];
-    const float mm = fmaxf(m, xv);
-    const float safe = fmaxf(mm, -3.0e38f);
-    s = s * expf(m - safe) + expf(xv - safe);
-    m = mm;
-    out[at] = logf(fmaxf(s, 1e-37f)) + m;
+  __shared__ float buf[kCols * kStride];
+  const int c0 = blockIdx.x * kCols;
+  const int cols = min(kCols, c - c0);
+  const int tid = threadIdx.x;
+  const int w = tid / 32;
+  const int lane = tid % 32;
+  float carry_m = -INFINITY;  // the column's scan over earlier chunks
+  float carry_s = 0.0f;
+  for (int t0 = 0; t0 < t; t0 += kChunk) {
+    const int n = min(kChunk, t - t0);
+    for (int e = tid; e < n * kCols; e += kThreads) {  // all in flight
+      const int r = e / kCols;
+      const int col = e % kCols;
+      if (col < cols)
+        avsr::mma::cp_async4(&buf[at(col, r)],
+                             x + static_cast<size_t>(t0 + r) * c + c0 + col);
+    }
+    avsr::mma::cp_async_commit();
+    avsr::mma::cp_async_wait<0>();
+    __syncthreads();
+    if (w < cols) {  // warp-uniform
+      float pm[kLaneRows], ps[kLaneRows];
+      float m = -INFINITY;
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kLaneRows; ++k) {
+        const int r = lane * kLaneRows + k;
+        if (r < n) combine(m, s, buf[at(w, r)], 1.0f);
+        pm[k] = m;
+        ps[k] = s;
+      }
+      // inclusive scan of the lanes' totals, then shift by one lane
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float m2 = __shfl_up_sync(kFull, m, off);
+        const float s2 = __shfl_up_sync(kFull, s, off);
+        if (lane >= off) combine(m, s, m2, s2);
+      }
+      float em = __shfl_up_sync(kFull, m, 1);
+      float es = __shfl_up_sync(kFull, s, 1);
+      if (lane == 0) {
+        em = -INFINITY;
+        es = 0.0f;
+      }
+      float pre_m = carry_m;
+      float pre_s = carry_s;
+      combine(pre_m, pre_s, em, es);
+#pragma unroll
+      for (int k = 0; k < kLaneRows; ++k) {
+        const int r = lane * kLaneRows + k;
+        if (r < n) {
+          float om = pre_m;
+          float os = pre_s;
+          combine(om, os, pm[k], ps[k]);
+          buf[at(w, r)] = logf(fmaxf(os, 1e-37f)) + om;
+        }
+      }
+      combine(carry_m, carry_s, __shfl_sync(kFull, m, 31),
+              __shfl_sync(kFull, s, 31));
+    }
+    __syncthreads();
+    for (int e = tid; e < n * kCols; e += kThreads) {
+      const int r = e / kCols;
+      const int col = e % kCols;
+      if (col < cols)
+        out[static_cast<size_t>(t0 + r) * c + c0 + col] = buf[at(col, r)];
+    }
+    __syncthreads();
   }
 }
 
@@ -51,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int avsr_cumlogsumexp(const float* x, float* out, int t, int c,
                                  void* stream) {
   if (t <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (c + kThreads - 1) / kThreads;
+  const int blocks = (c + kCols - 1) / kCols;
   cumlogsumexp_kernel<<<blocks, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(x, out, t, c);
   return static_cast<int>(cudaGetLastError());

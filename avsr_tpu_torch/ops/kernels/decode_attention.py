@@ -4,16 +4,32 @@ Counterpart of ``avsr_tpu/ops/pallas/decode_attention.py``
 (``decode_attention`` with ``kv_row``, resident v3). ``decode_attention``
 dispatches on the tensors' device: on the CPU it runs
 ``decode_attention_plain``, on a CUDA device it launches
-``csrc/decode_attention.cu``.
+``csrc/decode_attention.cu`` over thread-block clusters, with the launch
+plan (``launch_plan``: cluster size, rows a rank, tile, shared memory)
+computed here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from avsr_tpu_torch.ops.kernels import _build
+
+# the kernel's launch: 128 threads (4 warps) a block, clusters of a portable
+# size (at most 8 blocks), one stage buffer of at most STAGE_BYTES, and the
+# opt-in shared-memory limit of a block on the H100 (227 KB)
+THREADS = 128
+WARPS = THREADS // 32
+CLUSTER_SIZES = (2, 4, 8)
+# two blocks an SM of the 132: G=2 at B=8 and at B=32 (H=16), the fastest
+# of G = 1, 2, 4, 8 at both (tools/decode_variants.py on the H100)
+FILL_BLOCKS = 256
+STAGE_BYTES = 48 * 1024
+SMEM_MAX = 232448
 
 
 def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
@@ -21,23 +37,96 @@ def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
     """Plain torch twin. Writes ``kv_row`` into row min(pos, S-1) of
     ``kv_cache`` in place, then attends with the TPU kernel's rounding
     points: q and the normalised probabilities are cast to the cache dtype
-    before their products, which accumulate in fp32."""
+    before their products. Between those points it computes in float64, so
+    it gives the correctly rounded answer (each cast to a narrower dtype
+    goes through fp32, as the kernel's values do). An fp32 evaluation's
+    own summation order flips the bf16 rounding of a p now and then: at
+    the serving widths (B=32, bf16 cache) that moved outputs by 1.95e-3
+    against the correctly rounded answer on the H100."""
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     b = n // lanes
     dh = c // heads
     kv_cache[:, min(pos, s_max - 1)] = kv_row.to(kv_cache.dtype)
-    kv = kv_cache.view(b, lanes, s_max, 2, heads, dh).float()
-    qq = q.to(kv_cache.dtype).float().view(b, lanes, heads, dh)
+    kv = kv_cache.view(b, lanes, s_max, 2, heads, dh).double()
+    qq = q.to(kv_cache.dtype).double().view(b, lanes, heads, dh)
     scores = torch.einsum("bkhd,bjshd->bhkjs", qq, kv[:, :, :, 0])
     scores = scores + lane_bias.permute(0, 1, 3, 2)[:, None]  # (B,1,K,J,S)
     flat = scores.reshape(b, heads, lanes, lanes * s_max)
     m = flat.amax(dim=-1, keepdim=True)
     p = torch.exp(flat - m)
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    p = p.to(kv_cache.dtype).float().view(b, heads, lanes, lanes, s_max)
-    out = torch.einsum("bhkjs,bjshd->bkhd", p, kv[:, :, :, 1])
-    return out.reshape(n, c).to(q.dtype), kv_cache
+    p = p.float().to(kv_cache.dtype).double()
+    out = torch.einsum("bhkjs,bjshd->bkhd",
+                       p.view(b, heads, lanes, lanes, s_max), kv[:, :, :, 1])
+    return out.reshape(n, c).float().to(q.dtype), kv_cache
+
+
+class Plan(NamedTuple):
+    """A launch of the kernel: ``cluster`` blocks share one (utterance,
+    head); rank r takes rows [r * rows_per_rank, (r + 1) * rows_per_rank)
+    of the ``rows`` = lanes * (min(pos, S-1) + 1) (j, s) rows of the
+    prefix, in tiles of ``tile`` rows (two stage buffers), with ``smem``
+    bytes of dynamic shared memory."""
+    cluster: int
+    rows_per_rank: int
+    tile: int
+    smem: int
+    grid: tuple
+    rows: int
+
+    def rank_rows(self, rank: int) -> range:
+        begin = min(rank * self.rows_per_rank, self.rows)
+        return range(begin, min(begin + self.rows_per_rank, self.rows))
+
+
+def smem_bytes(lanes: int, dh: int, esize: int, rows_per_rank: int,
+               tile: int) -> int:
+    """Shared memory of one block (``smem_bytes`` of the CUDA source): two
+    stage buffers of ``tile`` rows rounded up to 16, a row dh cache
+    elements and a 16-byte pad; fp32 scores (lanes, rows_per_rank); the
+    local and the joint (m, l) per query; the warps' partial outputs and
+    the rank's (lanes, dh)."""
+    return (2 * -(-tile // 16) * 16 * (dh * esize + 16)
+            + 4 * (lanes * rows_per_rank + 4 * lanes
+                   + (WARPS + 1) * lanes * dh))
+
+
+def choose_cluster(b: int, heads: int) -> int:
+    """The smallest cluster whose grid puts FILL_BLOCKS blocks on the card,
+    else the largest."""
+    for g in CLUSTER_SIZES:
+        if b * heads * g >= FILL_BLOCKS:
+            return g
+    return CLUSTER_SIZES[-1]
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
+                pos: int, esize: int, cluster: int | None = None) -> Plan:
+    """The kernel's launch for one step. ``cluster`` forces G (1, 2, 4 or
+    8; the variants tool sweeps it); by default ``choose_cluster``, raised
+    while the scores of a rank's rows overflow shared memory. The tile is
+    the whole chunk where it fits STAGE_BYTES. Raises ValueError where no
+    plan fits."""
+    rows = lanes * (min(pos, s_max - 1) + 1)
+    row_bytes = dh * esize
+    first = cluster or choose_cluster(b, heads)
+    sizes = (cluster,) if cluster else tuple(
+        g for g in CLUSTER_SIZES if g >= first)
+    for g in sizes:
+        rpr = -(-rows // g)
+        fixed = smem_bytes(lanes, dh, esize, rpr, 0)
+        # whole 16-row groups of padded rows in the two stage buffers
+        room = (SMEM_MAX - fixed) // (2 * (row_bytes + 16)) // 16 * 16
+        tile = min(rpr, max(16, STAGE_BYTES // row_bytes // 16 * 16), room)
+        if tile >= 1:
+            return Plan(g, rpr, tile,
+                        smem_bytes(lanes, dh, esize, rpr, tile),
+                        (heads * g, b), rows)
+    raise ValueError(f"no launch of decode_attention fits {SMEM_MAX} bytes "
+                     f"of shared memory: lanes={lanes}, dh={dh}, "
+                     f"s_max={s_max}, pos={pos}, cluster={cluster}")
 
 
 def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
@@ -70,30 +159,34 @@ def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
             raise ValueError("inputs must be contiguous")
 
 
-def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
+def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
+            cluster=None):
     n, s_max, c2 = kv_cache.shape
     dh = c2 // 2 // heads
-    vec = 16 // kv_cache.element_size()  # cache elements per 16-byte chunk
-    cpr = dh // vec
-    if dh % vec or cpr > 32 or cpr & (cpr - 1) or lanes > 8:
-        raise ValueError(f"kernel takes head dims of 1-32 16-byte chunks (a "
-                         f"power of two) and <= 8 lanes, got dh={dh}, "
-                         f"lanes={lanes}")
+    esize = kv_cache.element_size()
+    if dh * esize % 16 or dh * esize > 512 or lanes > 8:
+        raise ValueError(f"kernel takes head dims of 1-32 16-byte chunks and "
+                         f"<= 8 lanes, got dh={dh}, lanes={lanes}")
     if kv_cache.data_ptr() % 16:
         raise ValueError("kv_cache must be 16-byte aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    plan = launch_plan(n // lanes, lanes, heads, dh, s_max, int(pos), esize,
+                       cluster)
     fn = _build.function(
         "avsr_decode_attention",
-        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12 + (ctypes.c_void_p,),
     )
     kv_row = kv_row.to(kv_cache.dtype)
+    if kv_row.data_ptr() % 16:  # the kernel copies it 16 bytes at a time
+        kv_row = kv_row.clone()
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), kv_cache.data_ptr(), lane_bias.data_ptr(),
              kv_row.data_ptr(), out.data_ptr(), n // lanes, lanes, heads, dh,
              s_max, int(pos), _build.dtype_code(q.dtype),
-             _build.dtype_code(kv_cache.dtype),
+             _build.dtype_code(kv_cache.dtype), plan.cluster,
+             plan.rows_per_rank, plan.tile, plan.smem,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)
     decode_attention.launches += 1

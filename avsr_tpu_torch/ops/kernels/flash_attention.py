@@ -208,6 +208,15 @@ def _check(q, k, v, key_bias, *rest):
         raise ValueError(f"no flash_attention for device {q.device}")
 
 
+def _aligned(*operands):
+    """The operands, each copied into a fresh tensor (which the caching
+    allocator aligns) where a bf16 one does not start 16-byte aligned:
+    the bf16 kernels copy 16-byte chunks, and the TPU kernel takes any
+    array."""
+    return tuple(x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16
+                 else x for x in operands)
+
+
 def _kernel_args(q, dropout_rate, dropout_seed, *operands):
     """Checks the card-side operands (q and the other (N, T, D) tensors
     ``operands``); returns the dropout arguments (rate flag, uint32
@@ -252,6 +261,7 @@ def flash_attention_fwd(q, k, v, key_bias, scale: float = 1.0,
         return flash_attention_plain(q, k, v, key_bias, scale,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=dropout_seed)
+    q, k, v = _aligned(q, k, v)
     drop = _kernel_args(q, dropout_rate, dropout_seed, k, v)
     n, t, d = q.shape
     fn = _build.function(
@@ -284,6 +294,7 @@ def flash_attention_bwd_dq(q, k, v, key_bias, out, do, lse,
         dq = _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
                              mask)[0]
         return dq, delta
+    q, k, v, out, do = _aligned(q, k, v, out, do)
     drop = _kernel_args(q, dropout_rate, dropout_seed, k, v, out, do)
     n, t, d = q.shape
     fn = _build.function(
@@ -315,6 +326,7 @@ def flash_attention_bwd_dkv(q, k, v, key_bias, do, lse, delta,
         mask = _twin_mask(q, None, dropout_rate, dropout_seed)
         return _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
                                mask)[1:]
+    q, k, v, do = _aligned(q, k, v, do)
     drop = _kernel_args(q, dropout_rate, dropout_seed, k, v, do)
     n, t, d = q.shape
     fn = _build.function(

@@ -4,7 +4,9 @@ Counterpart of ``avsr_tpu/ops/pallas/scan_logsumexp.py`` ``cumlogsumexp``:
 the CTC prefix scorer's two scans per decode step. ``cumlogsumexp``
 dispatches on the tensor's device: on the CPU it runs
 ``cumlogsumexp_plain``, on a CUDA device it launches
-``csrc/scan_logsumexp.cu``.
+``csrc/scan_logsumexp.cu``, a parallel scan: a warp a column, LANE_ROWS
+consecutive rows a lane, a Kogge-Stone over the 32 lanes' totals, and a
+carry from one chunk of CHUNK_ROWS rows to the next.
 
 Both keep every prefix shifted by its own running maximum. A column-global
 maximum with one cumulative sum is not equivalent: the CTC terms drift by
@@ -21,6 +23,9 @@ import torch
 from avsr_tpu_torch.ops.kernels import _build
 
 NEG_INF = float("-inf")
+# the kernel's scan shape (kLaneRows of csrc/scan_logsumexp.cu)
+LANE_ROWS = 12
+CHUNK_ROWS = 32 * LANE_ROWS
 
 
 def cumlogsumexp_plain(x):

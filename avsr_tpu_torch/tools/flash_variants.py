@@ -36,27 +36,29 @@ ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "flash_variants"
 
 
-def parse(arg: str):
+def parse(arg: str, sources=SOURCES):
     """(name, source dir, [(file, const, value), ...]) of one command-line
-    variant."""
+    variant; a substitution names one of ``sources``."""
     name, _, spec = arg.partition("=")
     name, _, where = name.partition("@")
     subs = []
     for item in filter(None, spec.split(",")):
         fname, _, assign = item.partition(":")
         const, _, value = assign.partition("=")
-        if fname not in SOURCES or not const or not value.isdigit():
+        if fname not in sources or not const or not value.isdigit():
             raise SystemExit(f"bad substitution {item!r} in {arg!r}")
         subs.append((fname, const, value))
     return name, Path(where) if where else _build.CSRC_DIR, subs
 
 
-def prepare(name: str, where: Path, subs) -> Path:
-    """Writes the variant's sources (those of SOURCES that ``where`` has);
-    returns its directory."""
-    csrc = OUT / name / "csrc"
+def prepare(name: str, where: Path, subs, sources=SOURCES,
+            out: Path | None = None) -> Path:
+    """Writes the variant's sources (those of ``sources`` that ``where``
+    has) under ``out`` (default OUT); returns its directory."""
+    out = OUT if out is None else out
+    csrc = out / name / "csrc"
     csrc.mkdir(parents=True, exist_ok=True)
-    for fname in SOURCES:
+    for fname in sources:
         if not (where / fname).exists():
             continue
         text = (where / fname).read_text()
@@ -67,7 +69,7 @@ def prepare(name: str, where: Path, subs) -> Path:
                 if n != 1:
                     raise SystemExit(f"{fname} has no one {const}")
         (csrc / fname).write_text(text)
-    return OUT / name
+    return out / name
 
 
 def use(variant_dir: Path) -> None:
@@ -144,31 +146,44 @@ def run(name: str) -> None:
               flush=True)
 
 
-def main(argv: list[str]) -> int:
+def drive(argv: list[str], module: str, sources, prepare_fn, run_fn,
+          out: Path) -> int:
+    """A variants tool's command line: with ``--build NAME`` or ``--run
+    NAME`` one variant in this process; else every variant of ``argv``
+    (read by ``parse`` against ``sources``, written by ``prepare_fn``)
+    built at once, each in a process of its own, then each run in a
+    process of its own (``python -m module --run NAME``, which calls
+    ``run_fn``). Returns the exit code: 2 without variants."""
     if len(argv) == 2 and argv[0] in ("--build", "--run"):
         if argv[0] == "--build":
-            use(OUT / argv[1])
+            use(out / argv[1])
             _build.build()
         else:
-            run(argv[1])
+            run_fn(argv[1])
         return 0
     variants = {name: (where, subs)
-                for name, where, subs in map(parse, argv)}
+                for name, where, subs in (parse(a, sources) for a in argv)}
     if not variants:
-        print(__doc__)
         return 2
     for name, (where, subs) in variants.items():
-        prepare(name, where, subs)
+        prepare_fn(name, where, subs)
     builds = {name: subprocess.Popen(
-        [sys.executable, "-m", __spec__.name, "--build", name], cwd=ROOT)
+        [sys.executable, "-m", module, "--build", name], cwd=ROOT)
         for name in variants}
     rcs = {name: proc.wait() for name, proc in builds.items()}
     print(f"# builds (exit codes): {rcs}", flush=True)
     for name, rc in rcs.items():
         if rc == 0:
-            subprocess.run([sys.executable, "-m", __spec__.name, "--run",
-                            name], cwd=ROOT, check=False)
+            subprocess.run([sys.executable, "-m", module, "--run", name],
+                           cwd=ROOT, check=False)
     return 0 if all(rc == 0 for rc in rcs.values()) else 1
+
+
+def main(argv: list[str]) -> int:
+    rc = drive(argv, __spec__.name, SOURCES, prepare, run, OUT)
+    if rc == 2:
+        print(__doc__)
+    return rc
 
 
 if __name__ == "__main__":

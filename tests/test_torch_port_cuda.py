@@ -55,13 +55,18 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, tt, d):
     assert (lse.cpu() - want_lse).abs().max() <= 1e-3
 
 
-@pytest.mark.parametrize("pos", [0, 37, 63, 80])
+@pytest.mark.parametrize("pos", [0, 37, 63, 80, 191])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,k,dh", [(3, 3, 64), (2, 5, 32), (1, 1, 128)])
-def test_decode_kernel_matches_plain(dev, pos, dtype, tol, b, k, dh):
+@pytest.mark.parametrize("b,k,dh", [(3, 3, 64), (2, 5, 32), (1, 1, 128),
+                                    (2, 8, 64)])
+@pytest.mark.parametrize("s_max", [64, 192])
+def test_decode_kernel_matches_plain(dev, pos, dtype, tol, b, k, dh, s_max):
+    """Over a cluster of the launch plan's size (8 at these batches; at
+    pos 0 most ranks hold no row), the written row and the whole cache
+    bit-exact, pos >= S clamped to S-1."""
     g = _gen(pos)
-    s_max, heads = 64, 4
+    heads = 4
     n, c = b * k, heads * dh
     q = torch.randn(n, c, generator=g).to(dtype)
     kv = torch.randn(n, s_max, 2 * c, generator=g).to(dtype)
@@ -82,6 +87,40 @@ def test_decode_kernel_matches_plain(dev, pos, dtype, tol, b, k, dh):
     assert (got.float().cpu() - want.float()).abs().max() <= tol
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("qdtype,cdtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.bfloat16),
+                                           (torch.bfloat16, torch.float32)])
+def test_decode_kernel_every_cluster_size(dev, cluster, qdtype, cdtype):
+    """Each cluster size G, forced, at the serving head width (B=8, K=3,
+    H=16, dh=64, S=192; S=1000 for G=1, whose chunk takes several
+    tiles), the mixed dtype pairs, and pos 0, 100, 250: cache bit-exact,
+    out within 2e-2 (bf16 p) of the twin, one launch each."""
+    b, k, heads, dh = 8, 3, 16, 64
+    s_max = 1000 if cluster == 1 else 192
+    g = _gen(cluster)
+    n, c = b * k, heads * dh
+    for pos in (0, 100, 250):
+        q = (torch.randn(n, c, generator=g) * 0.125).to(qdtype)
+        kv = torch.randn(n, s_max, 2 * c, generator=g).to(cdtype)
+        row = torch.randn(n, 2 * c, generator=g).to(cdtype)
+        anc = torch.randint(0, k, (s_max, b, k), generator=g)
+        anc[min(pos, s_max - 1)] = torch.arange(k)
+        valid = (torch.arange(s_max) <= pos)[:, None, None, None] & (
+            anc[..., None] == torch.arange(k))
+        bias = torch.where(valid.permute(1, 2, 0, 3), 0.0, NEG).contiguous()
+        want, want_kv = pda.decode_attention_plain(pos, q, kv.clone(), bias,
+                                                   k, heads, row)
+        kv_d = kv.to(dev)
+        before = pda.decode_attention.launches
+        got, _ = pda._launch(pos, q.to(dev), kv_d, bias.to(dev), k, heads,
+                             row.to(dev), cluster)
+        torch.cuda.synchronize()
+        assert pda.decode_attention.launches == before + 1
+        assert torch.equal(kv_d.cpu(), want_kv)
+        assert (got.float().cpu() - want.float()).abs().max() <= 2e-2
+
+
 @pytest.mark.parametrize("rows,v,k", [(24, 5049, 4), (8, 15, 3)])
 def test_topk_kernel_matches_plain(dev, rows, v, k):
     x = torch.randn(rows, v, generator=_gen(v))
@@ -94,11 +133,12 @@ def test_topk_kernel_matches_plain(dev, rows, v, k):
     assert torch.equal(got_v.cpu(), want_v)
 
 
-@pytest.mark.parametrize("tt,c", [(384, 96), (375, 7), (1, 5), (64, 300)])
+@pytest.mark.parametrize("tt,c", [(384, 96), (375, 7), (1, 5), (64, 300),
+                                  (384, 384), (700, 33)])
 def test_cumlogsumexp_kernel_matches_plain(dev, tt, c):
-    """Drifting columns, -inf prefixes and an all -inf column. The kernel
-    sums in sequential order, the twin as a tree: within 1e-4 + 1e-6|x|
-    (T rescale-and-add steps of a few ulps each), -inf exactly."""
+    """Drifting columns, -inf prefixes and an all -inf column; T past one
+    384-row chunk carries. The kernel's scan and the twin's tree combine
+    in other orders: within 1e-4 + 1e-6|x|, -inf exactly."""
     g = _gen(tt + c)
     x = torch.randn(tt, c, generator=g) * 3.0
     x = x - 8.5 * torch.arange(tt)[:, None].flip(0)
@@ -223,19 +263,37 @@ def test_flash_bf16_forward_is_the_twins_bit_for_bit(dev, rate, tt, d):
 
 
 def test_flash_bf16_kernels_refuse_misaligned_operands(dev):
-    """The bf16 kernels copy 16-byte chunks: an operand that starts off a
-    16-byte boundary is refused before any launch."""
+    """The bf16 kernels copy 16-byte chunks, and the TPU kernel takes any
+    array: an operand that starts off a 16-byte boundary (a ``flat[1:]``
+    view) is copied to an aligned tensor first, so the forward, dq and
+    dkv equal the aligned operands' bit for bit, one launch each."""
     q, k, v, bias, do = _attn_case(dev, 2, 64, 32, torch.bfloat16, 1)
-    flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
-    shifted = flat[1:].view(q.shape)
-    shifted.copy_(q)
-    before = pfa.flash_attention_fwd.launches
-    with pytest.raises(ValueError, match="16-byte"):
-        pfa.flash_attention_fwd(shifted, k, v, bias, 0.2)
-    out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.2)
-    with pytest.raises(ValueError, match="16-byte"):
-        pfa.flash_attention_bwd_dq(q, k, v, bias, out, shifted, lse, 0.2)
-    assert pfa.flash_attention_fwd.launches == before + 1
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16
+        return view
+
+    want, want_lse = pfa.flash_attention_fwd(q, k, v, bias, 0.2)
+    want_dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, want, do,
+                                                want_lse, 0.2)
+    want_dk, want_dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do,
+                                                   want_lse, delta, 0.2)
+    fns = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+           pfa.flash_attention_bwd_dkv)
+    before = [fn.launches for fn in fns]
+    out, lse = fns[0](shifted(q), k, shifted(v), bias, 0.2)
+    got_dq, _ = fns[1](q, shifted(k), v, bias, shifted(want), shifted(do),
+                       want_lse, 0.2)
+    dk, dv = fns[2](shifted(q), k, v, bias, shifted(do), want_lse, delta,
+                    0.2)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    assert torch.equal(got_dq, want_dq)
+    assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,7 +18,8 @@ from avsr_tpu_torch.ops.kernels import flash_attention as pfa  # noqa: E402
 from avsr_tpu_torch.ops.kernels import row_gather as prg  # noqa: E402
 from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl  # noqa: E402
 from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
-from tests.torch_port_common import beam_step_case, setup_torch, t  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    beam_step_case, decode_case, setup_torch, t)
 
 NEG = -1.0e30
 
@@ -73,27 +74,13 @@ def test_mha_flash_matches_jax(masked):
 # ---------------------------------------------------------------- decode
 
 
-def _decode_case(seed, b=3, k=3, s_max=64, heads=4, dh=32, pos=11):
-    rng = np.random.RandomState(seed)
-    n, c = b * k, heads * dh
-    q = rng.randn(n, c).astype(np.float32)
-    kv = rng.randn(n, s_max, 2 * c).astype(np.float32)
-    row = rng.randn(n, 2 * c).astype(np.float32)
-    anc = rng.randint(0, k, size=(s_max, b, k))
-    anc[min(pos, s_max - 1)] = np.arange(k)  # the step's row: own lane
-    valid = (np.arange(s_max) <= pos)[:, None, None, None] & (
-        anc[..., None] == np.arange(k))
-    bias = np.where(np.transpose(valid, (1, 2, 0, 3)), 0.0, NEG)  # (B,K,S,J)
-    return q, kv, row, bias.astype(np.float32)
-
-
 @pytest.mark.parametrize("pos", [0, 11, 63, 64, 90])
 def test_decode_attention_plain_matches_jax(pos):
     """Resident v3 with the in-kernel row write; pos >= S clamps the
     write to the last row (S = 64); B = 3 utterances, K = 3 lanes."""
     from avsr_tpu.ops.pallas.decode_attention import decode_attention
 
-    q, kv, row, bias = _decode_case(pos, pos=pos)
+    q, kv, row, bias = decode_case(pos, pos=pos)
     want, want_kv = decode_attention(
         jnp.asarray(pos), jnp.asarray(q), jnp.asarray(kv), jnp.asarray(bias),
         lanes=3, heads=4, kv_row=jnp.asarray(row), resident=True)
@@ -111,7 +98,7 @@ def test_decode_attention_plain_bf16_cache_rounding():
     the rounding of p would be ~4e-3 off."""
     from avsr_tpu.ops.pallas.decode_attention import decode_attention
 
-    q, kv, row, bias = _decode_case(7, b=1, pos=20)
+    q, kv, row, bias = decode_case(7, b=1, pos=20)
     kv16 = jnp.asarray(kv).astype(jnp.bfloat16)
     want, want_kv = decode_attention(
         jnp.asarray(20), jnp.asarray(q), kv16, jnp.asarray(bias),
@@ -169,7 +156,7 @@ def test_cpu_dispatch_launches_no_kernel():
     before = [fn.launches for fn in COUNTERS]
     x = torch.randn(2, 8, 16)
     pfa.flash_attention(x, x, x, torch.zeros(2, 8))
-    q, kv, row, bias = _decode_case(1, b=1)
+    q, kv, row, bias = decode_case(1, b=1)
     pda.decode_attention(3, t(q), t(kv), t(bias), 3, 4, t(row))
     ptk.topk_lastdim(torch.randn(4, 10), 2)
     psl.cumlogsumexp(torch.randn(6, 4))
@@ -190,7 +177,7 @@ def test_wrappers_reject_bad_inputs(case):
         elif case == "shape":
             pfa.flash_attention(x, x, x, torch.zeros(2, 9))
         elif case == "contiguity":
-            q, kv, row, b = _decode_case(2, b=1)
+            q, kv, row, b = decode_case(2, b=1)
             pda.decode_attention(3, t(q).t().contiguous().t(), t(kv), t(b),
                                  3, 4, t(row))
         elif case == "k":

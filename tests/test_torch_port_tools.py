@@ -61,3 +61,81 @@ def test_variant_sources_from_another_checkout(tmp_path, monkeypatch):
         "flash_attention.cu"]
     assert (out / "csrc" / "flash_attention.cu").read_text() == (
         "// another version\n")
+
+
+# ------------------------------------------------- decode_variants
+
+
+def test_decode_variant_arguments_name_its_sources():
+    """decode_variants substitutes in the decode and scan sources only."""
+    from avsr_tpu_torch.tools import decode_variants as dv
+
+    name, where, subs = fv.parse("mb8=decode_attention.cu:kMinBlocks=8,"
+                                 "scan_logsumexp.cu:kCols=16", dv.SOURCES)
+    assert (name, where) == ("mb8", fv._build.CSRC_DIR)
+    assert subs == [("decode_attention.cu", "kMinBlocks", "8"),
+                    ("scan_logsumexp.cu", "kCols", "16")]
+    with pytest.raises(SystemExit):
+        fv.parse("x=flash_attention.cu:kFwdMinBlocks=2", dv.SOURCES)
+
+
+@pytest.mark.parametrize("fname,const", [
+    ("decode_attention.cu", "kMinBlocks"),
+    ("decode_attention.cu", "kThreads"),
+    ("scan_logsumexp.cu", "kCols"),
+    ("scan_logsumexp.cu", "kLaneRows"),
+])
+def test_decode_variant_sources_and_wrappers(tmp_path, monkeypatch, fname,
+                                             const):
+    """A variant of this checkout changes one constant of its copy and
+    carries this checkout's two wrappers; one of another checkout carries
+    that checkout's sources and wrappers, so each version is called
+    through its own C interface."""
+    from avsr_tpu_torch.tools import decode_variants as dv
+
+    monkeypatch.setattr(dv, "OUT", tmp_path / "out")
+    out = dv.prepare("v", fv._build.CSRC_DIR, [(fname, const, "4")])
+    copy = (out / "csrc" / fname).read_text()
+    assert re.search(rf"constexpr int {const} = 4;", copy)
+    for mod in dv.WRAPPERS:
+        pkg = fv._build.PKG_DIR / "ops" / "kernels" / f"{mod}.py"
+        assert (out / "py" / f"{mod}.py").read_text() == pkg.read_text()
+    assert dv.wrapper(out, "decode_attention").launch_plan(
+        8, 3, 16, 64, 192, 250, 2).cluster in (2, 4, 8)
+
+    old = tmp_path / "parent" / "avsr_tpu_torch"
+    (old / "csrc").mkdir(parents=True)
+    (old / "ops" / "kernels").mkdir(parents=True)
+    (old / "csrc" / "decode_attention.cu").write_text("// old kernel\n")
+    (old / "ops" / "kernels" / "decode_attention.py").write_text("X = 1\n")
+    out = dv.prepare("parent", old / "csrc", [])
+    assert sorted(p.name for p in (out / "csrc").iterdir()) == [
+        "decode_attention.cu"]
+    assert sorted(p.name for p in (out / "py").iterdir()) == [
+        "decode_attention.py"]
+    assert dv.wrapper(out, "decode_attention").X == 1
+
+
+def test_decode_variant_register_report():
+    """Registers and spills of the decode and scan kernels, and of no other,
+    are read from a ptxas report."""
+    from avsr_tpu_torch.tools import decode_variants as dv
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_123decode_attention_kernelIffLi4EEEvPKT_' for "
+        "'sm_90a'",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z12topk_kernelPKf' for "
+        "'sm_90a'",
+        "ptxas info    : Used 40 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_119cumlogsumexp_kernelEPKfPfii' for 'sm_90a'",
+        "ptxas info    : Used 77 registers, used 1 barriers, 13440 bytes smem",
+    ])
+    lines = dv.registers(log)
+    assert len(lines) == 3
+    assert "decode_attention_kernel" in lines[0] and "64 registers" in lines[0]
+    assert "spill stores" in lines[1]
+    assert "cumlogsumexp_kernel" in lines[2] and "77 registers" in lines[2]

@@ -150,3 +150,22 @@ def beam_step_case(seed: int, i: int, *, use_ctc: bool = True,
                 yseq=yseq, anc=anc, ended_best=ended_best,
                 ended_cnt=ended_cnt, best_score=best_score,
                 best_yseq=best_yseq, best_len=best_len)
+
+
+def decode_case(seed: int, b: int = 3, k: int = 3, s_max: int = 64,
+                heads: int = 4, dh: int = 32, pos: int = 11,
+                q_scale: float = 1.0):
+    """One decode_attention step as numpy fp32 (q, kv, row, lane bias): a
+    random beam ancestry over the cache, each lane its own ancestor at the
+    step's row, every row past pos masked (-1e30) on every lane."""
+    rng = np.random.RandomState(seed)
+    n, c = b * k, heads * dh
+    q = rng.randn(n, c).astype(np.float32) * np.float32(q_scale)
+    kv = rng.randn(n, s_max, 2 * c).astype(np.float32)
+    row = rng.randn(n, 2 * c).astype(np.float32)
+    anc = rng.randint(0, k, size=(s_max, b, k))
+    anc[min(pos, s_max - 1)] = np.arange(k)  # the step's row: own lane
+    valid = (np.arange(s_max) <= pos)[:, None, None, None] & (
+        anc[..., None] == np.arange(k))
+    bias = np.where(np.transpose(valid, (1, 2, 0, 3)), 0.0, -1.0e30)
+    return q, kv, row, bias.astype(np.float32)  # bias (B, K, S, J)
