@@ -9,6 +9,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace avsr {
 
@@ -43,6 +44,47 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// (m, s) <- (m, s) . (m2, s2) over the (max, shifted sum) monoid of a
+// logsumexp, as the TPU kernels combine: each side shifted by the joint
+// max, guarded with max(mm, -3e38) so that -inf - -inf never occurs; an
+// empty side is (-inf, 0)
+__device__ __forceinline__ void combine_lse(float& m, float& s, float m2,
+                                            float s2) {
+  const float mm = fmaxf(m, m2);
+  const float safe = fmaxf(mm, -3.0e38f);
+  s = s * expf(m - safe) + s2 * expf(m2 - safe);
+  m = mm;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; writes zeros (reads nothing) if !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4-byte global -> shared copy (cached in L1 as well)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace avsr

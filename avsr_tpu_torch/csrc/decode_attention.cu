@@ -50,12 +50,14 @@
 // its 16-byte chunks) adjacent threads, each holding its chunk of all K
 // queries in registers; a shuffle over the gw threads sums a score.
 //
-// kMinBlocks and kStopAfter are the variants tool's knobs
-// (tools/decode_variants.py): the register cap, and an early return that
-// times the phases apart (9: the launch alone; 1: the copies; 2: the
-// scores; 3: the softmax; 4: the P.V before the ranks' sum). 0 runs all.
+// The numbered phase comments of the kernel are where the variants tool
+// (tools/decode_variants.py) cuts a copy of it short, to time the phases
+// apart.
 #include <cooperative_groups.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
@@ -65,19 +67,18 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMinBlocks = 1;  // __launch_bounds__' blocks an SM
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLanes = 8;
 constexpr int kMaxCluster = 8;
 constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
-constexpr int kStopAfter = 0;  // 0: the whole kernel
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of a block
 constexpr unsigned kFull = 0xffffffffu;
 
-using avsr::mma::cp_async16;
-using avsr::mma::cp_async_commit;
-using avsr::mma::cp_async4;
-using avsr::mma::cp_async_wait;
+using avsr::combine_lse;
+using avsr::cp_async16;
+using avsr::cp_async4;
+using avsr::cp_async_commit;
+using avsr::cp_async_wait;
 
 // the 16 bytes at p as floats
 template <typename TC>
@@ -87,15 +88,6 @@ __device__ __forceinline__ void load_chunk(const TC* p, float* out) {
 #pragma unroll
   for (int i = 0; i < static_cast<int>(16 / sizeof(TC)); ++i)
     out[i] = avsr::to_float(e[i]);
-}
-
-// (m, l) <- (m, l) . (m2, l2) over the (max, shifted sum) monoid
-__device__ __forceinline__ void combine(float& m, float& l, float m2,
-                                        float l2) {
-  const float mm = fmaxf(m, m2);
-  const float safe = fmaxf(mm, -3.0e38f);  // -inf - -inf never occurs
-  l = l * expf(m - safe) + l2 * expf(m2 - safe);
-  m = mm;
 }
 
 // shared-memory bytes of one block (two stage buffers of tile rows rounded
@@ -114,7 +106,7 @@ __host__ __device__ inline size_t smem_bytes(int lanes, int dh, int esize,
 // kMma: a bf16 cache with dh = kMmaDh, whose q.k and P.V run on the tensor
 // cores (mma.sync m16n8k16, the lanes' queries as the 8-wide operand).
 template <typename TQ, typename TC, int kLanes, bool kMma>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads)
     decode_attention_kernel(const TQ* __restrict__ q, TC* cache,
                             const float* __restrict__ lane_bias,
                             const TC* __restrict__ kv_row, TQ* __restrict__ out,
@@ -153,10 +145,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   // mma fragment coordinates: row (or query) gq, column pair cq
   const int gq = lane_id >> 2;
   const int cq = 2 * (lane_id & 3);
-  if (kStopAfter == 9) return;
 
   TC* stage = reinterpret_cast<TC*>(smem_raw);  // 2 x (tile_rows, ld)
-  float* sc = reinterpret_cast<float*>(stage + 2 * static_cast<size_t>(tile_rows) * ld);
+  float* sc = reinterpret_cast<float*>(
+      stage + 2 * static_cast<size_t>(tile_rows) * ld);
   float* stat = sc + lanes * rows_per_rank;  // (2, lanes): local m, l
   float* joint = stat + 2 * lanes;           // (2, lanes): joint m, den
   float* red = joint + 2 * lanes;            // (kWarps, lanes, dh)
@@ -235,10 +227,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   };
   issue(0);
   issue(1);
-  if (kStopAfter == 1) {
-    cp_async_wait<0>();
-    return;
-  }
 
   // the cache's row pos_c of each lane j whose (j, pos_c) lies in the tile
   // just landed in buf: its K or V half of this head, from shared memory
@@ -312,13 +300,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     __syncthreads();
     issue(i + 2);
   }
-  if (kStopAfter == 2) {
-    cp_async_wait<0>();
-    return;
-  }
 
-  // 4. the joint softmax: local (m, l) per query, combined over the
-  // cluster's ranks in rank order; then p in the cache dtype
+  // 4. the joint softmax's statistics: local (m, l) per query, combined
+  // over the cluster's ranks in rank order
   for (int kq = warp; kq < lanes; kq += kWarps) {
     const float* srow = sc + kq * rows_per_rank;
     float mx = -INFINITY;
@@ -348,15 +332,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     float den = 0.f;
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
-      if (r < g) combine(m, den, ms[r], ls[r]);
+      if (r < g) combine_lse(m, den, ms[r], ls[r]);
     joint[tid] = m;
     joint[lanes + tid] = fmaxf(den, 1e-30f);
   }
   __syncthreads();
-  if (kStopAfter == 3) {
-    cluster.sync();
-    return;
-  }
+  // 5. p of the chunk's rows, normalised, in the cache dtype
   for (int kq = 0; kq < lanes; ++kq) {
     const float m = joint[kq];
     const float den = joint[lanes + kq];
@@ -367,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
   __syncthreads();
 
-  // 5. this rank's partial P.V over its rows, in fp32, into red
+  // 6. this rank's partial P.V over its rows, in fp32, into red
   if constexpr (kMma) {
     // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time: V^T
     // by transposed ldmatrix, P^T (exact in bf16: p is rounded already)
@@ -470,9 +451,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     for (int w = 0; w < kWarps; ++w) tot += red[w * lanes * dh + e];
     part[e] = tot;
   }
-  if (kStopAfter == 4) return;
 
-  // 6. out = the ranks' partials summed in rank order; rank r writes its
+  // 7. out = the ranks' partials summed in rank order; rank r writes its
   // share of the (lanes, dh) outputs
   cluster.sync();
   const int per = (lanes * dh + g - 1) / g;
@@ -490,6 +470,40 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     out[(lane0 + kq) * c_dim + h * dh + e % dh] = avsr::from_float<TQ>(tot);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// Raises a kernel's dynamic shared-memory limit to smem where smem is above
+// the default 48 KB. The limit is one value per kernel and device, which
+// every launch shares, so it is set once and only ever raised, not at
+// every launch (the beam launches the kernel thousands of times a batch).
+template <typename K>
+cudaError_t raise_smem_limit(K kernel, int smem) {
+  struct Limit {
+    const void* fn;
+    int dev;
+    int smem;
+  };
+  static std::mutex mu;
+  static std::vector<Limit> limits;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(mu);
+  Limit* limit = nullptr;
+  for (Limit& e : limits)
+    if (e.fn == fn && e.dev == dev) limit = &e;
+  if (limit != nullptr && limit->smem >= smem) return cudaSuccess;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+      cudaSuccess)
+    return err;
+  if (limit == nullptr)
+    limits.push_back({fn, dev, smem});
+  else
+    limit->smem = smem;
+  return cudaSuccess;
 }
 
 template <typename TQ, typename TC, int kLanes, bool kMma>
@@ -514,11 +528,8 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
       static_cast<long long>(heads) * cluster > 0x7fffffff)
     return cudaErrorInvalidValue;
   auto kernel = decode_attention_kernel<TQ, TC, kLanes, kMma>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
+  if (cudaError_t err = raise_smem_limit(kernel, smem); err != cudaSuccess)
+    return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(heads * cluster, b);
   cfg.blockDim = dim3(kThreads);

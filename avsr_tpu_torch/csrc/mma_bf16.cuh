@@ -2,8 +2,8 @@
 //
 // Warp-level `mma.sync.aligned.m16n8k16` bf16 -> fp32 products with their
 // operands brought from shared memory by `ldmatrix`, 16-byte `cp.async`
-// tile loads into padded shared-memory rows, and the Philox keep bits of
-// an m16n8 accumulator fragment.
+// tile loads (common.cuh) into padded shared-memory rows, and the Philox
+// keep bits of an m16n8 accumulator fragment.
 //
 // Fragment layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane >> 2 and c = 2 * (lane & 3):
@@ -23,6 +23,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "philox.cuh"
 
 namespace avsr {
@@ -30,34 +31,11 @@ namespace mma {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; writes zeros (reads nothing) if !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4-byte global -> shared copy (cached in L1 as well)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most N of this thread's copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// the cp.async helpers of common.cuh, under the names the kernels use
+using avsr::cp_async16;
+using avsr::cp_async_commit;
+using avsr::cp_async_wait;
+using avsr::smem_addr;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(

@@ -32,7 +32,6 @@
 // guarded with max(m, -3.0e38) so that -inf - -inf never occurs, and an
 // all -inf prefix gives -inf.
 #include "common.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -43,14 +42,7 @@ constexpr int kChunk = 32 * kLaneRows;         // rows of a chunk
 constexpr int kStride = 32 * (kLaneRows + 1) + 32 / kCols;  // a column
 constexpr unsigned kFull = 0xffffffffu;
 
-// (m, s) <- (m, s) . (m2, s2) over the (max, shifted sum) monoid
-__device__ __forceinline__ void combine(float& m, float& s, float m2,
-                                        float s2) {
-  const float mm = fmaxf(m, m2);
-  const float safe = fmaxf(mm, -3.0e38f);
-  s = s * expf(m - safe) + s2 * expf(m2 - safe);
-  m = mm;
-}
+using avsr::combine_lse;
 
 __device__ __forceinline__ int at(int col, int row) {
   return col * kStride + row + row / kLaneRows;
@@ -73,11 +65,11 @@ __global__ void __launch_bounds__(kThreads)
       const int r = e / kCols;
       const int col = e % kCols;
       if (col < cols)
-        avsr::mma::cp_async4(&buf[at(col, r)],
-                             x + static_cast<size_t>(t0 + r) * c + c0 + col);
+        avsr::cp_async4(&buf[at(col, r)],
+                        x + static_cast<size_t>(t0 + r) * c + c0 + col);
     }
-    avsr::mma::cp_async_commit();
-    avsr::mma::cp_async_wait<0>();
+    avsr::cp_async_commit();
+    avsr::cp_async_wait<0>();
     __syncthreads();
     if (w < cols) {  // warp-uniform
       float pm[kLaneRows], ps[kLaneRows];
@@ -86,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < kLaneRows; ++k) {
         const int r = lane * kLaneRows + k;
-        if (r < n) combine(m, s, buf[at(w, r)], 1.0f);
+        if (r < n) combine_lse(m, s, buf[at(w, r)], 1.0f);
         pm[k] = m;
         ps[k] = s;
       }
@@ -95,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int off = 1; off < 32; off <<= 1) {
         const float m2 = __shfl_up_sync(kFull, m, off);
         const float s2 = __shfl_up_sync(kFull, s, off);
-        if (lane >= off) combine(m, s, m2, s2);
+        if (lane >= off) combine_lse(m, s, m2, s2);
       }
       float em = __shfl_up_sync(kFull, m, 1);
       float es = __shfl_up_sync(kFull, s, 1);
@@ -105,19 +97,19 @@ __global__ void __launch_bounds__(kThreads)
       }
       float pre_m = carry_m;
       float pre_s = carry_s;
-      combine(pre_m, pre_s, em, es);
+      combine_lse(pre_m, pre_s, em, es);
 #pragma unroll
       for (int k = 0; k < kLaneRows; ++k) {
         const int r = lane * kLaneRows + k;
         if (r < n) {
           float om = pre_m;
           float os = pre_s;
-          combine(om, os, pm[k], ps[k]);
+          combine_lse(om, os, pm[k], ps[k]);
           buf[at(w, r)] = logf(fmaxf(os, 1e-37f)) + om;
         }
       }
-      combine(carry_m, carry_s, __shfl_sync(kFull, m, 31),
-              __shfl_sync(kFull, s, 31));
+      combine_lse(carry_m, carry_s, __shfl_sync(kFull, m, 31),
+                  __shfl_sync(kFull, s, 31));
     }
     __syncthreads();
     for (int e = tid; e < n * kCols; e += kThreads) {

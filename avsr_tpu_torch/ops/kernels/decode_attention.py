@@ -25,9 +25,9 @@ from avsr_tpu_torch.ops.kernels import _build
 THREADS = 128
 WARPS = THREADS // 32
 CLUSTER_SIZES = (2, 4, 8)
-# two blocks an SM of the 132: G=2 at B=8 and at B=32 (H=16), the fastest
-# of G = 1, 2, 4, 8 at both (tools/decode_variants.py on the H100)
-FILL_BLOCKS = 256
+# G=2: the fastest of G = 1, 2, 4, 8 at B=8 and at B=32 (H=16), the two
+# batches measured (tools/decode_variants.py on the H100)
+CLUSTER = 2
 STAGE_BYTES = 48 * 1024
 SMEM_MAX = 232448
 
@@ -37,29 +37,23 @@ def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
     """Plain torch twin. Writes ``kv_row`` into row min(pos, S-1) of
     ``kv_cache`` in place, then attends with the TPU kernel's rounding
     points: q and the normalised probabilities are cast to the cache dtype
-    before their products. Between those points it computes in float64, so
-    it gives the correctly rounded answer (each cast to a narrower dtype
-    goes through fp32, as the kernel's values do). An fp32 evaluation's
-    own summation order flips the bf16 rounding of a p now and then: at
-    the serving widths (B=32, bf16 cache) that moved outputs by 1.95e-3
-    against the correctly rounded answer on the H100."""
+    before their products, which accumulate in fp32."""
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     b = n // lanes
     dh = c // heads
     kv_cache[:, min(pos, s_max - 1)] = kv_row.to(kv_cache.dtype)
-    kv = kv_cache.view(b, lanes, s_max, 2, heads, dh).double()
-    qq = q.to(kv_cache.dtype).double().view(b, lanes, heads, dh)
+    kv = kv_cache.view(b, lanes, s_max, 2, heads, dh).float()
+    qq = q.to(kv_cache.dtype).float().view(b, lanes, heads, dh)
     scores = torch.einsum("bkhd,bjshd->bhkjs", qq, kv[:, :, :, 0])
     scores = scores + lane_bias.permute(0, 1, 3, 2)[:, None]  # (B,1,K,J,S)
     flat = scores.reshape(b, heads, lanes, lanes * s_max)
     m = flat.amax(dim=-1, keepdim=True)
     p = torch.exp(flat - m)
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    p = p.float().to(kv_cache.dtype).double()
-    out = torch.einsum("bhkjs,bjshd->bkhd",
-                       p.view(b, heads, lanes, lanes, s_max), kv[:, :, :, 1])
-    return out.reshape(n, c).float().to(q.dtype), kv_cache
+    p = p.to(kv_cache.dtype).float().view(b, heads, lanes, lanes, s_max)
+    out = torch.einsum("bhkjs,bjshd->bkhd", p, kv[:, :, :, 1])
+    return out.reshape(n, c).to(q.dtype), kv_cache
 
 
 class Plan(NamedTuple):
@@ -92,28 +86,18 @@ def smem_bytes(lanes: int, dh: int, esize: int, rows_per_rank: int,
                    + (WARPS + 1) * lanes * dh))
 
 
-def choose_cluster(b: int, heads: int) -> int:
-    """The smallest cluster whose grid puts FILL_BLOCKS blocks on the card,
-    else the largest."""
-    for g in CLUSTER_SIZES:
-        if b * heads * g >= FILL_BLOCKS:
-            return g
-    return CLUSTER_SIZES[-1]
-
-
 @functools.lru_cache(maxsize=4096)
 def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
                 pos: int, esize: int, cluster: int | None = None) -> Plan:
     """The kernel's launch for one step. ``cluster`` forces G (1, 2, 4 or
-    8; the variants tool sweeps it); by default ``choose_cluster``, raised
-    while the scores of a rank's rows overflow shared memory. The tile is
-    the whole chunk where it fits STAGE_BYTES. Raises ValueError where no
-    plan fits."""
+    8; the variants tool sweeps it); by default CLUSTER, raised while the
+    scores of a rank's rows overflow shared memory. The tile is the whole
+    chunk where it fits STAGE_BYTES. Raises ValueError where no plan
+    fits."""
     rows = lanes * (min(pos, s_max - 1) + 1)
     row_bytes = dh * esize
-    first = cluster or choose_cluster(b, heads)
     sizes = (cluster,) if cluster else tuple(
-        g for g in CLUSTER_SIZES if g >= first)
+        g for g in CLUSTER_SIZES if g >= CLUSTER)
     for g in sizes:
         rpr = -(-rows // g)
         fixed = smem_bytes(lanes, dh, esize, rpr, 0)

@@ -1,7 +1,7 @@
 """Times variants of the beam's per-step kernels on the card.
 
     python -m avsr_tpu_torch.tools.decode_variants base \\
-        mb8=decode_attention.cu:kMinBlocks=8 \\
+        cols4=scan_logsumexp.cu:kCols=4 upto3=decode_attention.cu:stop=3 \\
         parent@build/parent/avsr_tpu_torch/csrc
 
 Each argument is a variant, read as ``flash_variants`` reads it: ``NAME``,
@@ -17,13 +17,20 @@ each runs in a process of its own, which loads its library and
 
 - ``decode_attention`` at pos 250 (the whole 192-row cache read) at B=8
   and B=32 (``chip_smoke.decode_case``): holds it against this checkout's
-  twin (the
-  cache bit-exact, out's max abs error), then times it warm (one cache)
+  twin (the cache bit-exact, out's max abs error), then times it warm (one
+  cache)
   and cold (rotating over six caches, as the six decoder layers read
   them), at every cluster size G of CLUSTERS where the wrapper has a
   launch plan (so this tool picks G), else as the wrapper launches it;
 - ``cumlogsumexp`` at (384, 96) and (384, 384) (``chip_smoke.scan_case``),
   against this checkout's twin, and timed.
+
+``decode_attention.cu:stop=N`` cuts the variant's copy of the decode
+kernel short before its phase comment ``// N.`` (``cut``), so that the
+phases are timed apart: stop=1 leaves the launch alone, stop=3 the copies
+landed, 4 the scores, 5 the cluster's softmax statistics, 7 the rank's
+P.V. Such a variant's output is not the kernel's; its error is printed
+all the same.
 
 Times are ``chip_smoke.cuda_ms``; registers and spills of each kernel come
 from its ``-Xptxas -v`` report. Needs a CUDA device and ``nvcc``.
@@ -48,10 +55,30 @@ ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "decode_variants"
 
 
+def cut(text: str, phase: int) -> str:
+    """The decode kernel's source with a return before its phase comment
+    ``// N.``: before phase 1 at once (the launch alone), later once the
+    block's copies landed and every block of the cluster arrived, so that
+    no block leaves while another reads its shared memory."""
+    marker = f"\n  // {phase}. "
+    if text.count(marker) != 1:
+        raise SystemExit(f"decode_attention.cu has no one phase {phase}")
+    stop = ("\n  return;" if phase == 1 else
+            "\n  cp_async_wait<0>();\n  cluster.sync();\n  return;")
+    return text.replace(marker, stop + marker)
+
+
 def prepare(name: str, where: Path, subs) -> Path:
-    """Writes the variant's sources and, where ``where``'s checkout has
-    them, its wrappers (``py/``); returns its directory."""
-    out = fv.prepare(name, where, subs, SOURCES, OUT)
+    """Writes the variant's sources, the decode kernel cut short where a
+    substitution says ``stop``, and, where ``where``'s checkout has them,
+    its wrappers (``py/``); returns its directory."""
+    stops = [int(v) for f, const, v in subs
+             if (f, const) == ("decode_attention.cu", "stop")]
+    out = fv.prepare(name, where, [x for x in subs if x[1] != "stop"],
+                     SOURCES, OUT)
+    for phase in stops:
+        src = out / "csrc" / "decode_attention.cu"
+        src.write_text(cut(src.read_text(), phase))
     kernels = where.parent / "ops" / "kernels"
     (out / "py").mkdir(exist_ok=True)
     for mod in WRAPPERS:

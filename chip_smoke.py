@@ -411,13 +411,19 @@ def phase_kernels(dev):
     )
 
     # decode_attention: (B*3, 1024) bf16 queries over a (B*3, 192, 2048)
-    # bf16 cache, H=16, at B=8 and B=32; the written row bit-exact, pos >= S
-    # clamps to S-1; out within 1e-3 abs of the twin, the correctly rounded
-    # answer (float64 between the rounding points): the kernel rounds q and
-    # p where the twin does, and its fp32 sums flip the bf16 rounding of a
-    # p or an output now and then
+    # bf16 cache, H=16, at B=8 and B=32, pos 0, 100, 191 and 250 (pos >= S
+    # clamps to S-1): the cache bit-equal to the twin's and the row
+    # written. out within 1e-3 abs of the twin's: at B=8 in bf16, as the
+    # kernel serves it; at both batches before the output's rounding (q
+    # given in fp32, which the kernel and the twin round to bf16 as they
+    # do the bf16 q, so the arithmetic is the same), and the bf16 output
+    # bit-equal to that fp32 output rounded. Past |out| = 0.25 one bf16
+    # ulp is 1.95e-3: a bf16 output within 1e-3 there must be the twin's
+    # bit for bit, so B=32's bf16 difference is printed, not held to it.
+    # 1e-3 holds on this data, not on every seed, for the twin against
+    # itself on the CPU either (ROADMAP C27)
     lanes, heads = BEAM, 16
-    errs = []
+    errs, bf16_errs = [], {B: [], 32: []}
     for b in (B, 32):
         for pos in (0, 100, KV_CAP - 1, 250):
             q, (kv,), row, lb = decode_case(g, dev, b, pos)
@@ -426,17 +432,31 @@ def phase_kernels(dev):
                                                row)
             want, want_kv = pda.decode_attention_plain(pos, q, kv_plain, lb,
                                                        lanes, heads, row)
+            got32, _ = pda.decode_attention(pos, q.float(), kv.clone(), lb,
+                                            lanes, heads, row)
+            want32, _ = pda.decode_attention_plain(pos, q.float(), kv.clone(),
+                                                   lb, lanes, heads, row)
             torch.cuda.synchronize()
             check(got_kv is kv, "decode_attention did not update in place")
             check(torch.equal(got_kv, want_kv),
                   f"decode_attention cache differs at B={b}, pos={pos}")
             check(torch.equal(got_kv[:, min(pos, KV_CAP - 1)], row),
                   f"decode_attention row not written at B={b}, pos={pos}")
-            errs.append((got.float() - want.float()).abs().max().item())
+            check(torch.equal(got, got32.to(got.dtype)),
+                  f"decode_attention's bf16 output is not its fp32 output "
+                  f"rounded at B={b}, pos={pos}")
+            errs.append((got32 - want32).abs().max().item())
+            bf16_errs[b].append((got.float() - want.float()).abs().max()
+                                .item())
     err = max(errs)
-    print(f"# decode_attention max_abs_err={err:.3e} (B={B} and 32, pos 0, "
-          f"100, 191, 250)")
-    check(err <= 1e-3, "decode_attention disagrees")
+    print(f"# decode_attention max_abs_err={err:.3e} before the output's "
+          f"rounding (B={B} and 32, pos 0, 100, 191, 250); in bf16 "
+          f"{max(bf16_errs[B]):.3e} at B={B}, {max(bf16_errs[32]):.3e} at "
+          f"B=32 (by pos: "
+          + ", ".join(f"{e:.3e}" for e in bf16_errs[32]) + ")")
+    check(err <= 1e-3, "decode_attention disagrees before its rounding")
+    check(max(bf16_errs[B]) <= 1e-3, f"decode_attention disagrees at B={B}")
+    err = max(err, max(bf16_errs[B]))
     # timed at pos=250, where the whole 192-row cache is valid and read:
     # warm (one cache, which the L2 holds at B=8) and cold (rotating over
     # the six layers' caches, as the beam reads them)

@@ -62,9 +62,9 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, tt, d):
                                     (2, 8, 64)])
 @pytest.mark.parametrize("s_max", [64, 192])
 def test_decode_kernel_matches_plain(dev, pos, dtype, tol, b, k, dh, s_max):
-    """Over a cluster of the launch plan's size (8 at these batches; at
-    pos 0 most ranks hold no row), the written row and the whole cache
-    bit-exact, pos >= S clamped to S-1."""
+    """Over a cluster of the launch plan's size (2; at pos 0 a rank may
+    hold no row), the written row and the whole cache bit-exact, pos >= S
+    clamped to S-1."""
     g = _gen(pos)
     heads = 4
     n, c = b * k, heads * dh

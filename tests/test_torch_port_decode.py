@@ -77,14 +77,13 @@ def test_plan_covers_every_row_once(lanes):
 
 
 def test_plan_fills_the_card_and_can_be_forced():
-    """G is the smallest cluster that puts >= 256 blocks (two an SM) on the
-    card: 2 at the serving batch (B=8, H=16) and at B=32, 8 at B=1; a
-    forced G is kept; a shape whose scores overflow shared memory at
-    every G is refused."""
-    assert pda.launch_plan(8, 3, 16, 64, 192, 250, 2).cluster == 2
-    assert pda.launch_plan(32, 3, 16, 64, 192, 250, 2).cluster == 2
-    assert pda.launch_plan(1, 3, 16, 64, 192, 250, 2).cluster == 8
-    assert pda.launch_plan(2, 3, 16, 64, 192, 250, 2).cluster == 8
+    """G is CLUSTER (2, the fastest measured at B=8 and at B=32, H=16) at
+    every batch, raised only where a rank's scores would overflow shared
+    memory; a forced G is kept; a shape whose scores overflow shared
+    memory at every G is refused."""
+    assert pda.CLUSTER == 2
+    for b in (1, 2, 4, 8, 32):
+        assert pda.launch_plan(b, 3, 16, 64, 192, 250, 2).cluster == 2
     for g in (1, 2, 4, 8):
         plan = pda.launch_plan(8, 3, 16, 64, 192, 250, 2, g)
         assert plan.cluster == g and plan.grid == (16 * g, 8)
