@@ -1,7 +1,8 @@
 // One decoder layer's whole beam-search decode step in one cooperative
 // launch: LN1 + QKV, self-attention over the lazy-reorder K|V cache with the
 // step's fresh row, out-projection, LN2 + cross-attention over the shared
-// source K/V, LN3 + ReLU FFN, and the K|V row write.
+// source K/V, LN3 + ReLU FFN, and the K|V row write, for every lane of the
+// batch (no lane limit: one launch per layer and step at any batch).
 //
 // Replaces the Pallas TPU kernel avsr_tpu/ops/pallas/decoder_layer.py
 // `decoder_layer_step` (`_kernel`). Its rounding points are kept: the
@@ -20,32 +21,68 @@
 //
 // What bounds it on the card: the bytes. Per layer and step it reads the
 // layer's weights once (12 C^2 elements, ~25 MB in bf16 at C=1024, F=3072),
-// the valid prefix of the K|V cache (up to ~19 MB at B*K=24, S=192) and the
-// source K/V (~12 MB at S_enc=377): ~17 us at 3.35 TB/s. The products are
-// GEMVs with N = B*K <= 32 rows, 2 N FLOPs a weight element, so the weights
-// are streamed once with 16-byte loads and each element is used for all N
-// rows (held in fp32 in shared memory), accumulating in fp32 registers.
+// the valid prefix of the K|V cache (~19 MB at 24 lanes, S=192) and the
+// source K/V (~12 MB at S_enc=377): ~17 us at 3.35 TB/s at B=8. At these
+// sizes every phase is a few memory round trips, so the design counts
+// round trips as much as bytes.
 //
-// Structure: a grid of as many blocks as fit on the card at once, launched
-// with cudaLaunchCooperativeKernel, eight phases separated by grid syncs:
-//   1 LN1 + QKV          GEMV rows over the blocks; LN recomputed per block
+// Design. A grid of as many blocks as fit on the card at once (cooperative
+// launch), eleven phases separated by grid syncs (~1 us each on the H100):
+//   0 LN1 into the operand, the fp32 residual
+//   1 QKV                GEMV
 //   2 self-attention     one block per (utterance, head)
-//   3 out-proj + resid   GEMV
-//   4 LN2 + q2           GEMV
-//   5 cross-attention    one block per (utterance, head)
-//   6 out2 + resid       GEMV
-//   7 LN3 + W1 + ReLU    GEMV
-//   8 W2 + resid, cast; the K|V row write
-// Intermediates (the fp32 residual, QKV, q2, the GEMV operands) live in
-// global scratch given by the caller; a phase's outputs are visible to the
-// next after the grid sync.
+//   3 out-proj + resid   GEMV; LN2 statistics of each row group
+//   4 LN2 into the operand
+//   5 q2                 GEMV
+//   6 cross-attention    one block per (utterance, head)
+//   7 out2 + resid       GEMV; LN3 statistics of each row group
+//   8 LN3 into the operand
+//   9 W1 + ReLU          GEMV
+//  10 W2 + resid, cast; the K|V row write
+// A GEMV phase (out = act W^T + b, W (O, K)) is cut into items of R output
+// rows (a multiple of 8) x one K slice of KS columns, walked over the grid;
+// the launch plan (ops/kernels/decoder_layer.py) picks R and KS of each
+// GEMV from the grid, so that ~every block takes one item (C=1024 rows:
+// 128 items of 8 rows on the H100's 132 blocks). The shared memory and the
+// grid are this file's: the plan asks for them (avsr_decoder_layer_config). A block stages the operand of
+// its slice for every lane in shared memory (16-byte cp.async, each block
+// starting at its own offset, since all of them read the same rows), in
+// stages of up to max_ks columns; its 8 warps split each stage's 32-column
+// chunks. bf16 weights run on the tensor cores: mma.sync m16n8k16 with 16
+// lanes of the operand as the A operand and 8 weight rows as the B
+// operand, the weights loaded straight from global memory 16 bytes a lane
+// (a lane's 8 consecutive k feed two products, the same k permutation on
+// both operands) and issued before the block waits for its operand stage;
+// fp32 weights run on the CUDA cores (no TF32). The warps' sums are added
+// in a fixed order. With S > 1 each item writes its partial and the last
+// block of a row group to arrive (a counter) sums the slices in slice order
+// and applies the epilogue: deterministic, no atomics on values. The
+// LayerNorms are computed once per row and column unit by the grid's warps
+// into an operand buffer in the weight dtype: LN1 from the row, LN2 and LN3
+// from each row group's (sum, centred sum of squares), which the residual
+// phases leave.
+//
+// The attention phases take one (utterance, head) a block: its keys and
+// values staged in shared memory with cp.async, all issued at once where
+// they fit; with a bf16 cache and 64-wide heads q.k and P.V on the tensor
+// cores (the queries as the 8-wide operand), else on the CUDA cores.
+//
+// An optional trace (a pointer in the arguments) records each block's
+// global timer at the start and end of every phase, and at the steps of
+// one phase (kTraceSub), for tools/layer_variants.py.
+//
+// The numbered phase comments of the kernel are where the variants tool
+// (tools/layer_variants.py) cuts a copy of it short, to time the phases
+// apart.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <vector>
 
 #include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -53,10 +90,27 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 32;  // N = B*K lanes held in GEMV registers
-constexpr int kMaxLanes = 8;  // beam lanes K of one utterance
-constexpr int kLnPerLane = 32;  // LayerNorm width <= 32 * 32 = 1024
+constexpr int kMinBlocks = 1;  // __launch_bounds__: blocks an SM
+constexpr int kMaxRowTiles = 4;    // 8-row tiles of an item at most
+constexpr int kMaxRows = 8 * kMaxRowTiles;
+constexpr int kMaxN = 96;          // lanes of one pass over an item
+constexpr int kMTiles = kMaxN / 16;
+constexpr int kMaxKsBytes = 2048;  // a bf16 operand stage's bytes a lane
+constexpr int kBatch = 2;          // chunks of weights loaded at once a warp
+constexpr int kMaxLanes = 8;       // beam lanes K of one utterance
+constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
+constexpr int kStageBytes = 163840;  // an attention stage's keys and values
+constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of a block
+constexpr int kGemvs = 6;
+constexpr int kPhases = 11;
+constexpr int kSteps = 6;      // marks within one phase, where traced
+constexpr int kTraceSub = 99;  // the phase whose steps a trace marks (99: none)
 constexpr unsigned kFull = 0xffffffffu;
+
+using avsr::cp_async16;
+using avsr::cp_async_commit;
+using avsr::cp_async_wait;
+using bf16 = __nv_bfloat16;
 
 template <typename TW, typename TC>
 struct Args {
@@ -83,9 +137,19 @@ struct Args {
   float* xres;          // (N, C) fp32 residual stream
   float* qkv;           // (N, 3C) fp32
   float* q2;            // (N, C) fp32, scaled
-  float* act;           // (N, max(C, F)) GEMV operands, rounded to TW
+  TW* opnd;             // (N, max(C, F)) GEMV operands, in the weight dtype
+  TW* lnop;             // (N, C) the LayerNorms' outputs, in the weight dtype
+  float* stats;         // 2 x (C / 8 at most, N, 2): LN2's and LN3's groups
+  float* part;          // split-K partials (slices, O, N) of one GEMV
+  int* counters;        // one a row group of each GEMV, zero between calls
   TW* out;              // (N, C)
+  // null, or (grid, 2 * kPhases + kSteps) global-timer marks: each block's
+  // start of every phase and its arrival at the phase's end, then the
+  // steps of phase kTraceSub
+  unsigned long long* trace;
   int n, lanes, heads, dh, c, f, s_dec, s_enc, pos;
+  int rows[kGemvs];     // rows of an item of QKV, out, q2, out2, W1, W2
+  int ks[kGemvs];       // their K slices' columns
   float scale;  // dh^-0.5 rounded to fp32
 };
 
@@ -94,18 +158,29 @@ __device__ __forceinline__ float round_to(float x) {
   return avsr::to_float(avsr::from_float<T>(x));
 }
 
-// 8 consecutive elements at p (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(e[i]);
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// a shared-memory operand row's elements for a stage of `cols` columns:
+// bf16 rows 64 bytes past a multiple of 128 (the 8 rows of a 16-byte load
+// phase hit distinct banks); fp32 rows a 16-byte pad
+template <typename TW>
+__host__ __device__ constexpr int act_ld(int cols) {
+  return sizeof(TW) == 2 ? cdiv(cols, 64) * 64 + 32 : cols + 4;
 }
-__device__ __forceinline__ void load8(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+
+// the most K columns of an operand stage: kMaxKsBytes of bf16 a lane, or a
+// quarter of that in fp32 (whose warps' sums do not alias the operand)
+__host__ __device__ constexpr int max_ks(int wsize) {
+  return wsize == 2 ? kMaxKsBytes / 2 : kMaxKsBytes / 8;
+}
+
+// the 16 bytes at p, read once (not kept in L1)
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
 // the 16-byte chunk of a cache row at p, as floats
@@ -118,362 +193,1047 @@ __device__ __forceinline__ void load_chunk(const TC* p, float* out) {
     out[i] = avsr::to_float(e[i]);
 }
 
-// tile[r][k] = round_TW(LN(src[r]) * g + b) for the n rows of width c
-// (c <= 32 * kLnPerLane), one warp a row; the row is loaded into registers
-// once, all its loads in flight together (the TPU kernel's _layer_norm:
-// mean, centred variance, eps 1e-12, fp32)
+// One GEMV of a phase: out = act W^T + b over `in` columns, items of
+// `rows` output rows x one K slice of `ks` columns (a multiple of 32), so
+// `slices` of them; `cnt` its counters (one a row group).
+template <typename TW>
+struct Gemv {
+  const TW* w;
+  const TW* b;
+  int out, in, rows, ks, slices;
+  int* cnt;
+
+  __device__ int groups() const { return cdiv(out, rows); }
+  __device__ int items() const { return groups() * slices; }
+};
+
+// The operand stage act[r][k - k0] = src[n0 + r][k] for k in [k0, k1), as
+// 16-byte copies, zeros up to k0 + w32.
+template <typename TW>
+__device__ void copy_operand(TW* act, int ld, const TW* src, int src_ld,
+                             int n0, int nn, int k0, int k1, int w32) {
+  constexpr int kV = 16 / sizeof(TW);
+  const int per_row = w32 / kV, total = nn * per_row;
+  // every block reads the same operand: each starts at its own offset, so
+  // that the blocks' requests spread over the L2's lines
+  const int off = static_cast<int>((blockIdx.x * 128ull) % total);
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int e = i + off < total ? i + off : i + off - total;
+    const int r = e / per_row, col = k0 + (e - r * per_row) * kV;
+    const bool ok = col < k1;
+    cp_async16(act + r * ld + col - k0,
+               ok ? src + static_cast<size_t>(n0 + r) * src_ld + col : src,
+               ok);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// kN consecutive values at p (16-byte aligned) as floats: 16-byte loads,
+// through L2 only (`cg`: data written earlier in the launch) or read-only
+template <int kN>
+__device__ __forceinline__ void load_floats(const float* p, float (&out)[kN],
+                                            bool cg) {
+#pragma unroll
+  for (int i = 0; i < kN / 4; ++i) {
+    const float4* q = reinterpret_cast<const float4*>(p) + i;
+    const float4 v = cg ? __ldcg(q) : __ldg(q);
+    out[4 * i] = v.x;
+    out[4 * i + 1] = v.y;
+    out[4 * i + 2] = v.z;
+    out[4 * i + 3] = v.w;
+  }
+}
+template <int kN>
+__device__ __forceinline__ void load_floats(const bf16* p, float (&out)[kN],
+                                            bool cg) {
+#pragma unroll
+  for (int i = 0; i < kN / 8; ++i) {
+    const uint4* q = reinterpret_cast<const uint4*>(p) + i;
+    const uint4 raw = cg ? __ldcg(q) : __ldg(q);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = __bfloat162float(e[k]);
+  }
+}
+
+// The LayerNorm of every lane's row of src (the TPU kernel's _layer_norm,
+// eps 1e-12, fp32) into dst, rounded to TW, in units of (lane, 256
+// columns) over the grid's warps: LN1 (gst null) from the row's mean and
+// centred variance; LN2 and LN3 from the row groups' (sum s_g, centred sum
+// of squares m_g) that the residual phase before left (groups of `rows`
+// columns), combined pairwise (Chan et al.) once the mean is known: the
+// row's centred sum of squares is sum m_g + n_g (s_g / n_g - mean)^2, a sum
+// of terms >= 0, exact also where |mean| is far above the row's spread.
 template <typename TW, typename TS>
-__device__ void ln_tile(const TS* __restrict__ src, const TW* __restrict__ g,
-                        const TW* __restrict__ b, int n, int c, float* tile) {
+__device__ void normalize(const TS* src, int c, int n, const float* gst,
+                          int rows, const TW* g, const TW* b, TW* dst) {
+  constexpr int kV = 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += kWarps) {
-    const TS* row = src + static_cast<size_t>(r) * c;
-    float v[kLnPerLane];
+  const int units = cdiv(c, 32 * kV);
+  for (int u = blockIdx.x * kWarps + warp; u < n * units;
+       u += gridDim.x * kWarps) {
+    const int nl = u / units, k = (u - nl * units) * 32 * kV + lane * kV;
+    const TS* row = src + static_cast<size_t>(nl) * c;
+    float mean, m2;
+    if (gst == nullptr) {
+      float sum = 0.f;
+#pragma unroll 4
+      for (int kk = lane * kV; kk < c; kk += 32 * kV) {
+        float xs[kV];
+        load_floats<kV>(row + kk, xs, false);
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      const int k = lane + 32 * i;
-      v[i] = k < c ? avsr::to_float(row[k]) : 0.f;
+        for (int i = 0; i < kV; ++i) sum += xs[i];
+      }
+      mean = avsr::warp_sum(sum) / c;
+      m2 = 0.f;
+#pragma unroll 4
+      for (int kk = lane * kV; kk < c; kk += 32 * kV) {
+        float xs[kV];
+        load_floats<kV>(row + kk, xs, false);
+#pragma unroll
+        for (int i = 0; i < kV; ++i) {
+          const float d = __fsub_rn(xs[i], mean);
+          m2 = fmaf(d, d, m2);
+        }
+      }
+      m2 = avsr::warp_sum(m2);
+    } else {
+      const float2* st = reinterpret_cast<const float2*>(gst);
+      const int groups = cdiv(c, rows);
+      float sum = 0.f;
+#pragma unroll 4
+      for (int gi = lane; gi < groups; gi += 32)
+        sum += __ldcg(st + gi * n + nl).x;
+      mean = avsr::warp_sum(sum) / c;
+      m2 = 0.f;
+#pragma unroll 4
+      for (int gi = lane; gi < groups; gi += 32) {
+        const float2 v = __ldcg(st + gi * n + nl);
+        const float cnt = static_cast<float>(min(rows, c - gi * rows));
+        const float d = __fsub_rn(v.x / cnt, mean);
+        m2 += fmaf(cnt * d, d, v.y);
+      }
+      m2 = avsr::warp_sum(m2);
     }
-    float s = 0.f;
+    const float rs = rsqrtf(m2 / c + 1e-12f);
+    if (k < c) {
+      float xs[kV], gs[kV], bs[kV];
+      load_floats<kV>(row + k, xs, sizeof(TS) == 4);
+      load_floats<kV>(g + k, gs, false);
+      load_floats<kV>(b + k, bs, false);
+      alignas(16) TW v[kV];
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) s += v[i];
-    const float mean = avsr::warp_sum(s) / c;
-    float var = 0.f;
+      for (int i = 0; i < kV; ++i)
+        v[i] = avsr::from_float<TW>(__fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(xs[i], mean), rs), gs[i]), bs[i]));
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      if (lane + 32 * i < c) {
-        const float d = __fsub_rn(v[i], mean);
-        var = fmaf(d, d, var);
+      for (int i = 0; i < kV * static_cast<int>(sizeof(TW)) / 16; ++i)
+        reinterpret_cast<uint4*>(dst + static_cast<size_t>(nl) * c + k)[i] =
+            reinterpret_cast<const uint4*>(v)[i];
+    }
+  }
+}
+
+// A warp's chunks of an operand stage of `cols` columns: 32-column chunks
+// split over the block's warps
+__device__ __forceinline__ void warp_chunks(int cols, int* c0, int* c1) {
+  const int chunks = cdiv(cols, 32);
+  const int per = cdiv(chunks, kWarps);
+  *c0 = min(threadIdx.x / 32 * per, chunks);
+  *c1 = min(*c0 + per, chunks);
+}
+
+// One item's products over the operand stages of [k0, k1), bf16 on the
+// tensor cores: the warp's sums over its chunks of every stage, lanes
+// n0..n0+nn-1 x rows o0..o0+rt*8-1, land in wres[warp][lane][row] (which
+// aliases the operand stage: written after every warp has read it).
+// stage(act, ld, kb, ke, w32) stages the operand of columns [kb, ke).
+template <typename Stage>
+__device__ void item_products(const bf16* __restrict__ w, int out, int in,
+                              int o0, int rt, int k0, int k1, int nn,
+                              bf16* act, float* wres, int nn16,
+                              Stage stage) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int mt_n = nn16 / 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  float acc[kMTiles][kMaxRowTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kMaxRowTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  const int most = max_ks(2);
+  for (int kb = k0; kb < k1; kb += most) {
+    const int ke = min(kb + most, k1);
+    const int w32 = cdiv(ke - kb, 32) * 32;
+    const int ld = act_ld<bf16>(w32);
+    int c0, c1;
+    warp_chunks(ke - kb, &c0, &c1);
+    // the weights of chunks c0 .. c0 + kBatch - 1 of the warp, for every
+    // 8-row tile: lane (g, t) holds k 8t..8t+7 of row g
+    uint4 wv[kBatch][kMaxRowTiles];
+    auto load_w = [&](int cb) {
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+        for (int nt = 0; nt < kMaxRowTiles; ++nt) {
+          const int row = o0 + nt * 8 + gq;
+          const int col = kb + (cb + u) * 32 + 8 * t;
+          wv[u][nt] = cb + u < c1 && nt < rt && row < out && col < ke
+                          ? ld_stream(w + static_cast<size_t>(row) * in + col)
+                          : zero;
+        }
+    };
+    load_w(c0);  // in flight while the block stages the operand
+    stage(act, ld, kb, ke, w32);
+    for (int cb = c0; cb < c1; cb += kBatch) {
+      if (cb != c0) load_w(cb);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (cb + u >= c1) break;  // uniform over the warp
+        const bf16* arow = act + gq * ld + (cb + u) * 32 + 8 * t;
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          if (mt >= mt_n) break;
+          // lanes g and g + 8 of the m-tile: logical k pairs (2t, 2t+1)
+          // and (2t+8, 2t+9) of the first product are physical k
+          // 8t..8t+3, of the second 8t+4..8t+7; the weights' likewise
+          const uint4 r0 =
+              *reinterpret_cast<const uint4*>(arow + mt * 16 * ld);
+          const uint4 r8 =
+              *reinterpret_cast<const uint4*>(arow + (mt * 16 + 8) * ld);
+          const uint32_t a1[4] = {r0.x, r8.x, r0.y, r8.y};
+          const uint32_t a2[4] = {r0.z, r8.z, r0.w, r8.w};
+#pragma unroll
+          for (int nt = 0; nt < kMaxRowTiles; ++nt) {
+            if (nt < rt) {
+              avsr::mma::mma16816(acc[mt][nt], a1, wv[u][nt].x, wv[u][nt].y);
+              avsr::mma::mma16816(acc[mt][nt], a2, wv[u][nt].z, wv[u][nt].w);
+            }
+          }
+        }
       }
     }
-    const float rs = rsqrtf(avsr::warp_sum(var) / c + 1e-12f);
+    __syncthreads();  // every warp has read the stage
+  }
+  const int rows = rt * 8;
 #pragma unroll
-    for (int i = 0; i < kLnPerLane; ++i) {
-      const int k = lane + 32 * i;
-      if (k < c) {
-        const float y = __fadd_rn(
-            __fmul_rn(__fmul_rn(__fsub_rn(v[i], mean), rs),
-                      avsr::to_float(g[k])),
-            avsr::to_float(b[k]));
-        tile[r * c + k] = round_to<TW>(y);
+  for (int mt = 0; mt < kMTiles; ++mt) {
+    if (mt >= mt_n) break;
+#pragma unroll
+    for (int nt = 0; nt < kMaxRowTiles; ++nt) {
+      if (nt >= rt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nl = mt * 16 + gq + (e >> 1) * 8;
+        const int r = nt * 8 + 2 * t + (e & 1);
+        if (nl < nn) wres[(warp * nn16 + nl) * rows + r] = acc[mt][nt][e];
       }
     }
   }
   __syncthreads();
 }
 
-// out[r][o] = sum_k tile[r][k] w[o][k] + bias[o] for the n rows, each output
-// row o owned by one warp, store(r, o, value). The operand is read from
-// `src` (n rows of stride src_ld, fp32) in chunks of the tile's width
-// tile_w, or, with src == nullptr, is already the whole tile (in_dim <=
-// tile_w). The rows a block owns depend on the block alone, so every warp
-// of a block passes the same __syncthreads.
-template <typename TW, typename Store>
-__device__ void gemv(const TW* __restrict__ w, const TW* __restrict__ bias,
-                     int out_dim, int in_dim, int n, float* tile, int tile_w,
-                     const float* src, int src_ld, Store store) {
+// The same on the CUDA cores for fp32 weights: a lane a column of each
+// 32-column chunk, up to 32 lanes' sums in registers, one warp sum each,
+// added into wres (after act, zeroed here).
+template <typename Stage>
+__device__ void item_products(const float* __restrict__ w, int out, int in,
+                              int o0, int rt, int k0, int k1, int nn,
+                              float* act, float* wres, int nn16,
+                              Stage stage) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int row0 = blockIdx.x * kWarps; row0 < out_dim;
-       row0 += gridDim.x * kWarps) {
-    const int row = row0 + warp;
-    float acc[kMaxRows];
+  const int rows = rt * 8;
+  for (int e = threadIdx.x; e < kWarps * nn16 * rows; e += kThreads)
+    wres[e] = 0.f;
+  const int most = max_ks(4);
+  for (int kb = k0; kb < k1; kb += most) {
+    const int ke = min(kb + most, k1);
+    const int w32 = cdiv(ke - kb, 32) * 32;
+    const int ld = act_ld<float>(w32);
+    int c0, c1;
+    warp_chunks(ke - kb, &c0, &c1);
+    stage(act, ld, kb, ke, w32);
+    for (int rr = 0; rr < rows; ++rr) {
+      const int row = o0 + rr;
+      if (row >= out) break;  // uniform over the warp
+      const float* wrow = w + static_cast<size_t>(row) * in + kb;
+      for (int nb = 0; nb < nn; nb += 32) {
+        float acc[32];
 #pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) acc[r] = 0.f;
-    for (int k0 = 0; k0 < in_dim; k0 += tile_w) {
-      const int width = min(tile_w, in_dim - k0);
-      if (src != nullptr) {
-        // 16-byte copies, several in flight per thread (width % 8 == 0)
-        const int w4 = width / 4;
-        __syncthreads();
-#pragma unroll 4
-        for (int e = threadIdx.x; e < n * w4; e += kThreads) {
-          const int r = e / w4, k4 = e - r * w4;
-          reinterpret_cast<float4*>(tile + r * width)[k4] =
-              *reinterpret_cast<const float4*>(
-                  src + static_cast<size_t>(r) * src_ld + k0 + 4 * k4);
+        for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+        for (int cc = c0; cc < c1; ++cc) {
+          const int k = cc * 32 + lane;
+          const float wv = kb + k < ke ? wrow[k] : 0.f;
+#pragma unroll
+          for (int q = 0; q < 32; ++q)
+            if (nb + q < nn) acc[q] = fmaf(act[(nb + q) * ld + k], wv, acc[q]);
         }
-        __syncthreads();
-      }
-      if (row >= out_dim) continue;
-      const TW* wrow = w + static_cast<size_t>(row) * in_dim + k0;
-#pragma unroll 4
-      for (int k = lane * 8; k < width; k += 32 * 8) {
-        float wv[8];
-        load8(wrow + k, wv);
+        float mine = 0.f;
 #pragma unroll
-        for (int r = 0; r < kMaxRows; ++r) {
-          if (r < n) {
-            float xv[8];
-            load8(tile + r * width + k, xv);
-#pragma unroll
-            for (int i = 0; i < 8; ++i) acc[r] = fmaf(xv[i], wv[i], acc[r]);
+        for (int q = 0; q < 32; ++q) {
+          if (nb + q < nn) {
+            const float s = avsr::warp_sum(acc[q]);
+            if (lane == q) mine = s;
           }
         }
+        if (nb + lane < nn) wres[(warp * nn16 + nb + lane) * rows + rr] += mine;
       }
     }
-    if (row >= out_dim) continue;
-    // lane r keeps row r's sum, then all lanes store at once (one memory
-    // round trip for the read-modify-write stores, not n)
-    float mine = 0.f;
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r) {
-      if (r < n) {
-        const float s = avsr::warp_sum(acc[r]);
-        if (lane == r) mine = s;
-      }
-    }
-    if (lane < n)
-      store(lane, row, __fadd_rn(mine, avsr::to_float(bias[row])));
+    __syncthreads();  // every warp has read the stage
   }
 }
+
+// The GEMV region of a block's shared memory: the operand stage and the
+// warps' sums (aliased on the tensor-core path), then a residual item's old
+// residual values (kMaxRows x n fp32)
+__host__ __device__ inline size_t gemv_bytes(int n, int wsize) {
+  const size_t nn16 = cdiv(n < kMaxN ? n : kMaxN, 16) * 16;
+  const int ks = max_ks(wsize);
+  const size_t act =
+      nn16 * (wsize == 2 ? act_ld<bf16>(ks) : act_ld<float>(ks)) * wsize;
+  const size_t wres = sizeof(float) * kWarps * nn16 * kMaxRows;
+  const size_t body = wsize == 2 ? (act > wres ? act : wres) : act + wres;
+  return (body + 15) / 16 * 16 + sizeof(float) * kMaxRows * n;
+}
+
+// One GEMV phase over the grid. load(act, ld, n0, nn, kb, ke, w32) stages
+// the operand of columns [kb, ke) for lanes n0..n0+nn-1 (ending in
+// __syncthreads); epi(lane, o, value) takes each finished output, bias
+// added; step(k) marks the item's steps in a trace. With `xres` (row
+// stride c), a residual phase: each output is added to xres instead, the
+// item's old residual values and biases fetched as it starts, and the
+// block that finishes a row group leaves each lane's (sum, centred sum of
+// squares) of the group's new residual columns at gst[(group, lane)].
+template <typename TW, typename Load, typename Epi, typename Step>
+__device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
+                           unsigned char* smem, Load load, Epi epi,
+                           Step step, float* xres = nullptr, int c = 0,
+                           float* gst = nullptr) {
+  constexpr bool kMma = sizeof(TW) == 2;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ks = g.ks, rows = g.rows, rt = rows / 8;
+  // old[lane][row]: the item's residual values, after the GEMV region
+  float* old = reinterpret_cast<float*>(
+      smem + gemv_bytes(n, sizeof(TW)) - sizeof(float) * kMaxRows * n);
+  __shared__ int last;
+  __shared__ float bias[kMaxRows];
+  for (int it = blockIdx.x; it < g.items(); it += gridDim.x) {
+    const int rg = it / g.slices, s = it - rg * g.slices;
+    const int o0 = rg * rows;
+    const int k0 = s * ks, k1 = min(k0 + ks, g.in);
+    const int c1 = min(o0 + rows, g.out);
+    // the item's biases and old residual values, in flight while it works
+    // (read after the products' barriers)
+    for (int r = threadIdx.x; r < rows; r += kThreads)
+      bias[r] = o0 + r < g.out ? avsr::to_float(g.b[o0 + r]) : 0.f;
+    if (xres != nullptr) {
+      const int per = rows / 4;  // 16-byte chunks of a lane's columns
+      for (int e = threadIdx.x; e < n * per; e += kThreads) {
+        const int nl = e / per, q = e - nl * per;
+        const bool ok = o0 + 4 * q < c1;
+        cp_async16(old + nl * rows + 4 * q,
+                   ok ? xres + static_cast<size_t>(nl) * c + o0 + 4 * q
+                      : xres,
+                   ok);
+      }
+      cp_async_commit();
+    }
+    auto finish = [&](int nl, int r, float v) {
+      const int o = o0 + r;
+      v = __fadd_rn(v, bias[r]);
+      if (xres != nullptr) {
+        v = __fadd_rn(old[nl * rows + r], v);
+        old[nl * rows + r] = v;
+        xres[static_cast<size_t>(nl) * c + o] = v;
+      } else {
+        epi(nl, o, v);
+      }
+    };
+    for (int n0 = 0; n0 < n; n0 += kMaxN) {
+      const int nn = min(kMaxN, n - n0), nn16 = cdiv(nn, 16) * 16;
+      TW* act = reinterpret_cast<TW*>(smem);
+      float* wres = kMma ? reinterpret_cast<float*>(smem)
+                         : reinterpret_cast<float*>(
+                               act + nn16 * act_ld<TW>(max_ks(sizeof(TW))));
+      item_products(g.w, g.out, g.in, o0, rt, k0, k1, nn, act, wres, nn16,
+                    [&](TW* a, int ld, int kb, int ke, int w32) {
+                      load(a, ld, n0, nn, kb, ke, w32);
+                      step(0);
+                    });
+      step(1);
+      if (xres != nullptr) {  // the old residual values landed
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      // the warps' sums, in order
+      for (int e = threadIdx.x; e < rows * nn; e += kThreads) {
+        const int nl = e / rows, r = e - nl * rows;
+        if (o0 + r >= g.out) continue;
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) v += wres[(w * nn16 + nl) * rows + r];
+        if (g.slices == 1)
+          finish(n0 + nl, r, v);
+        else
+          part[(static_cast<size_t>(s) * g.out + o0 + r) * n + n0 + nl] = v;
+      }
+      __syncthreads();
+      step(2);
+    }
+    bool done = g.slices == 1;
+    if (!done) {
+      // the last block of the row group to arrive sums the slices in order
+      __threadfence();
+      __syncthreads();
+      if (threadIdx.x == 0)
+        last = atomicAdd(g.cnt + rg, 1) == g.slices - 1;
+      __syncthreads();
+      done = last;
+      if (done) {
+        __threadfence();
+        for (int e = threadIdx.x; e < rows * n; e += kThreads) {
+          const int nl = e / rows, r = e - nl * rows;
+          const int o = o0 + r;
+          if (o >= g.out) continue;
+          float v = 0.f;
+#pragma unroll 4
+          for (int s2 = 0; s2 < g.slices; ++s2)
+            v += __ldcg(part + (static_cast<size_t>(s2) * g.out + o) * n + nl);
+          finish(nl, r, v);
+        }
+        if (threadIdx.x == 0) g.cnt[rg] = 0;  // zero for the next call
+      }
+    }
+    step(3);
+    if (done && gst != nullptr) {
+      __syncthreads();  // the new residual values, in old[]
+#pragma unroll 4
+      for (int nl = warp; nl < n; nl += kWarps) {
+        const bool mine = o0 + lane < c1;  // rows <= 32: a column a lane
+        const float v = mine ? old[nl * rows + lane] : 0.f;
+        const float sum = avsr::warp_sum(v);
+        const float d = mine ? v - sum / (c1 - o0) : 0.f;
+        const float m2 = avsr::warp_sum(d * d);
+        if (lane == 0) {
+          gst[(rg * n + nl) * 2] = sum;
+          gst[(rg * n + nl) * 2 + 1] = m2;
+        }
+      }
+    }
+    __syncthreads();
+    step(4);
+  }
+}
+
+// The rows an attention reads: row r = j * per_lane + s (lane j of the
+// utterance, position s) lies at base + j * lane_stride + s * row_stride, the
+// value half `half` elements after the key; its bias for query kq at
+// bias + kq * bias_q + s * bias_s + j * bias_j.
+template <typename TC>
+struct Rows {
+  const TC* base;
+  int per_lane;
+  size_t lane_stride, row_stride;
+  ptrdiff_t half;
+  const float* bias;
+  size_t bias_q, bias_s, bias_j;
+};
 
 // Attention of `lanes` queries qs (lanes, dh) over `rows` stored rows of one
 // (utterance, head): scores = q . key(r) + bias(kq, r), plus, with `fresh`,
 // one more score cur[kq] and value vn[kq] per query (its own fresh row).
 // Softmax in fp32, denominator clamped at 1e-30, probabilities rounded to
-// TC; out(kq, d, value). Shared memory: sc (lanes * rows), red (kWarps *
-// lanes * dh).
-template <typename TC, typename KeyRow, typename ValRow, typename Bias,
-          typename Out>
+// TC; out(kq, d, value). The rows' keys and values are copied into shared
+// memory with cp.async (positions stepped by additions, not divisions),
+// issued all at once where they fit one stage of `tile` rows (the serving
+// shapes), else tile by tile; the bias is copied into the scores first.
+// With a bf16 cache and dh = kMmaDh, q.k and P.V run on the tensor cores
+// (mma.sync m16n8k16, the queries as the 8-wide operand, keys by
+// ldmatrix, values by transposed ldmatrix, P exact in bf16 since it is
+// rounded already), as decode_attention.cu does; otherwise on the CUDA
+// cores. The softmax's statistics are taken by all warps over row ranges
+// and combined in warp order. Shared memory: sc (lanes * rows), red
+// (kWarps * max(lanes * dh, 2 * kMaxLanes)), kbuf and vbuf (tile rows
+// rounded to 16, of dh elements and a 16-byte pad). kLanes >= lanes sizes
+// the per-thread sums; step(k) marks the steps in a trace.
+template <typename TC, int kLanes, typename Out, typename Step>
 __device__ void attend(int lanes, int rows, int dh, const float* qs,
-                       KeyRow key_row, ValRow val_row, Bias bias, bool fresh,
-                       const float* cur, const float* vn, float* sc,
-                       float* red, Out out) {
+                       const Rows<TC>& rw, bool fresh, const float* cur,
+                       const float* vn, float* sc, float* red, TC* kbuf,
+                       TC* vbuf, int tile, Out out, Step step) {
   constexpr int kVec = 16 / sizeof(TC);
+  constexpr bool kMmaType = sizeof(TC) == 2;
+  const bool mma = kMmaType && dh == kMmaDh;
   const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
+  const int gq = lane_id >> 2, cq = 2 * (lane_id & 3);
   const int cpr = dh / kVec;          // threads per row, a power of two
   const int groups = kThreads / cpr;  // rows in flight
   const int chunk = tid % cpr, grp = tid / cpr;
-#pragma unroll 2
-  for (int r0 = 0; r0 < rows; r0 += groups) {
-    const int r = r0 + grp;
-    const bool ok = r < rows;
-    float kv[kVec];
-    if (ok) {
-      load_chunk(key_row(r) + chunk * kVec, kv);
+  const int ld = dh + kVec;           // a stage row and its 16-byte pad
+  const int ntiles = cdiv(rows, tile);
+  // copies of rows r0 .. r0 + nr - 1 (keys, or values with `half`) into
+  // buf, zeros up to a multiple of 16 rows
+  auto copy_rows = [&](TC* buf, ptrdiff_t half, int r0, int nr) {
+    const int n16 = cdiv(nr, 16) * 16;
+    int j = (r0 + grp) / rw.per_lane, s = (r0 + grp) % rw.per_lane;
+    for (int r = grp; r < n16; r += groups) {
+      const bool ok = r < nr;
+      const TC* src = rw.base + half + j * rw.lane_stride + s * rw.row_stride +
+                      chunk * kVec;
+      cp_async16(buf + r * ld + chunk * kVec, ok ? src : rw.base, ok);
+      for (s += groups; s >= rw.per_lane; s -= rw.per_lane) ++j;
+    }
+  };
+  for (int kq = 0; kq < (rows > 0 ? lanes : 0); ++kq) {
+    int j = tid / rw.per_lane, s = tid % rw.per_lane;
+    for (int r = tid; r < rows; r += kThreads) {
+      avsr::cp_async4(sc + kq * rows + r, rw.bias + kq * rw.bias_q +
+                                               s * rw.bias_s + j * rw.bias_j);
+      for (s += kThreads; s >= rw.per_lane; s -= rw.per_lane) ++j;
+    }
+  }
+  // the queries as the 8-wide B operand (query gq, dims cq, cq+1 and
+  // cq+8, cq+9 of each 16), rounded to bf16 as qs holds them
+  uint32_t qb[kMmaDh / 16][2];
+  if (mma) {
+#pragma unroll
+    for (int kk = 0; kk < kMmaDh / 16; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float* q = qs + gq * dh + kk * 16 + hf * 8 + cq;
+        qb[kk][hf] = gq < lanes ? avsr::mma::pack_bf16(q[0], q[1]) : 0u;
+      }
+  }
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * tile, nr = min(tile, rows - r0);
+    copy_rows(kbuf, 0, r0, nr);
+    cp_async_commit();
+    if (ntiles == 1) {  // the values' copies fly during the scores
+      copy_rows(vbuf, rw.half, 0, rows);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    step(0);
+    if (mma) {
+      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T
+      for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int kq = 0; kq < kMaxLanes; ++kq) {
-      if (kq < lanes) {
-        const float* qrow = qs + kq * dh + chunk * kVec;
-        float part = 0.f;
+        for (int kk = 0; kk < kMmaDh / 16; ++kk) {
+          uint32_t af[4];
+          avsr::mma::load_a<kMmaDh>(
+              af, reinterpret_cast<const bf16*>(kbuf) + t16 * ld, kk,
+              lane_id);
+          avsr::mma::mma16816(acc, af, qb[kk][0], qb[kk][1]);
+        }
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) part = fmaf(qrow[e], kv[e], part);
-        for (int off = 1; off < cpr; off <<= 1)
-          part += __shfl_xor_sync(kFull, part, off);
-        if (ok && chunk == 0) sc[kq * rows + r] = __fadd_rn(part, bias(kq, r));
+        for (int e = 0; e < 4; ++e) {
+          const int row = t16 + gq + (e >> 1) * 8;
+          const int kq = cq + (e & 1);
+          if (kq < lanes && row < nr) {
+            float* sp = sc + kq * rows + r0 + row;
+            *sp = __fadd_rn(acc[e], *sp);
+          }
+        }
       }
-    }
-  }
-  __syncthreads();
-  __shared__ float pcur[kMaxLanes];
-  for (int kq = warp; kq < lanes; kq += kWarps) {
-    float* srow = sc + kq * rows;
-    float mx = fresh ? cur[kq] : -INFINITY;
-    for (int e = lane_id; e < rows; e += 32) mx = fmaxf(mx, srow[e]);
-    mx = avsr::warp_max(mx);
-    float sum = 0.f;
-    for (int e = lane_id; e < rows; e += 32) {
-      const float p = expf(srow[e] - mx);
-      srow[e] = p;
-      sum += p;
-    }
-    sum = avsr::warp_sum(sum);
-    const float pc = fresh ? expf(cur[kq] - mx) : 0.f;
-    const float den = fmaxf(sum + pc, 1e-30f);
-    for (int e = lane_id; e < rows; e += 32)
-      srow[e] = round_to<TC>(srow[e] / den);
-    if (lane_id == 0) pcur[kq] = round_to<TC>(pc / den);
-  }
-  __syncthreads();
-  float acc[kMaxLanes][kVec];
-#pragma unroll
-  for (int kq = 0; kq < kMaxLanes; ++kq)
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[kq][e] = 0.f;
+    } else {
 #pragma unroll 2
-  for (int r = grp; r < rows; r += groups) {
-    float vv[kVec];
-    load_chunk(val_row(r) + chunk * kVec, vv);
+      for (int q0 = 0; q0 < nr; q0 += groups) {
+        const int r = q0 + grp;
+        const bool ok = r < nr;
+        float kv[kVec];
+        if (ok) {
+          load_chunk(kbuf + r * ld + chunk * kVec, kv);
+        } else {
 #pragma unroll
-    for (int kq = 0; kq < kMaxLanes; ++kq) {
-      if (kq < lanes) {
-        const float p = sc[kq * rows + r];
+          for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
+        }
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[kq][e] = fmaf(p, vv[e], acc[kq][e]);
+        for (int kq = 0; kq < kLanes; ++kq) {
+          if (kq < lanes) {
+            const float* qrow = qs + kq * dh + chunk * kVec;
+            float part = 0.f;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) part = fmaf(qrow[e], kv[e], part);
+            for (int off = 1; off < cpr; off <<= 1)
+              part += __shfl_xor_sync(kFull, part, off);
+            if (ok && chunk == 0) {
+              float* sp = sc + kq * rows + r0 + r;
+              *sp = __fadd_rn(part, *sp);
+            }
+          }
+        }
       }
     }
+    __syncthreads();
   }
-  // the row groups of a warp (lanes that share a chunk), then the warps
-#pragma unroll
-  for (int kq = 0; kq < kMaxLanes; ++kq) {
-    if (kq < lanes) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        for (int off = cpr; off < 32; off <<= 1)
-          acc[kq][e] += __shfl_xor_sync(kFull, acc[kq][e], off);
-        if (lane_id < cpr)
-          red[(warp * lanes + kq) * dh + chunk * kVec + e] = acc[kq][e];
+  step(1);
+  // the softmax's statistics: each warp's (max, sum) over its row range
+  // for every query, combined in warp order with the fresh score
+  __shared__ float joint[2 * kMaxLanes];
+  {
+    const int per = cdiv(rows, kWarps);
+    const int b0 = warp * per, b1 = min(b0 + per, rows);
+    for (int kq = 0; kq < lanes; ++kq) {
+      const float* srow = sc + kq * rows;
+      float mx = -INFINITY;
+      for (int e = b0 + lane_id; e < b1; e += 32) mx = fmaxf(mx, srow[e]);
+      mx = avsr::warp_max(mx);
+      const float safe = fmaxf(mx, -3.0e38f);
+      float sum = 0.f;
+      for (int e = b0 + lane_id; e < b1; e += 32) sum += expf(srow[e] - safe);
+      sum = avsr::warp_sum(sum);
+      if (lane_id == 0) {
+        red[(warp * kMaxLanes + kq) * 2] = mx;
+        red[(warp * kMaxLanes + kq) * 2 + 1] = sum;
       }
     }
   }
   __syncthreads();
+  if (tid < lanes) {
+    float m = fresh ? cur[tid] : -INFINITY;
+    float den = fresh ? 1.f : 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      avsr::combine_lse(m, den, red[(w * kMaxLanes + tid) * 2],
+                        red[(w * kMaxLanes + tid) * 2 + 1]);
+    joint[2 * tid] = m;
+    joint[2 * tid + 1] = fmaxf(den, 1e-30f);
+  }
+  __syncthreads();
+  for (int kq = 0; kq < lanes; ++kq) {
+    const float m = joint[2 * kq], den = joint[2 * kq + 1];
+    const float inv = __frcp_rn(den);
+    for (int r = tid; r < rows; r += kThreads) {
+      float* sp = sc + kq * rows + r;
+      *sp = round_to<TC>(avsr::mma::div_rn(expf(*sp - m), den, inv));
+    }
+  }
+  __syncthreads();
+  step(2);
+  if (mma) {
+    // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time
+    constexpr int kMt = kMmaDh / 16;
+    float oacc[kMt][4];
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oacc[mt][e] = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      const int r0 = t * tile, nr = min(tile, rows - r0);
+      if (ntiles > 1) {
+        copy_rows(vbuf, rw.half, r0, nr);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
+        auto p = [&](int row) {
+          return gq < lanes && row < nr ? sc[gq * rows + r0 + row] : 0.f;
+        };
+        const uint32_t b0 =
+            avsr::mma::pack_bf16(p(t16 + cq), p(t16 + cq + 1));
+        const uint32_t b1 =
+            avsr::mma::pack_bf16(p(t16 + cq + 8), p(t16 + cq + 9));
+        const bf16* v16 = reinterpret_cast<const bf16*>(vbuf) +
+                          (t16 + ((lane_id >> 4) & 1) * 8 + (lane_id & 7)) *
+                              ld +
+                          ((lane_id >> 3) & 1) * 8;
+#pragma unroll
+        for (int mt = 0; mt < kMt; ++mt) {
+          uint32_t af[4];
+          avsr::mma::ldsm_x4_t(af, v16 + mt * 16);
+          avsr::mma::mma16816(oacc[mt], af, b0, b1);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kq = cq + (e & 1);
+        if (kq < lanes)
+          red[(warp * lanes + kq) * dh + mt * 16 + gq + (e >> 1) * 8] =
+              oacc[mt][e];
+      }
+  } else {
+    float acc[kLanes][kVec];
+#pragma unroll
+    for (int kq = 0; kq < kLanes; ++kq)
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[kq][e] = 0.f;
+    for (int t = 0; t < ntiles; ++t) {
+      const int r0 = t * tile, nr = min(tile, rows - r0);
+      if (ntiles > 1) {
+        copy_rows(vbuf, rw.half, r0, nr);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 2
+      for (int r = grp; r < nr; r += groups) {
+        float vv[kVec];
+        load_chunk(vbuf + r * ld + chunk * kVec, vv);
+#pragma unroll
+        for (int kq = 0; kq < kLanes; ++kq) {
+          if (kq < lanes) {
+            const float pr = sc[kq * rows + r0 + r];
+#pragma unroll
+            for (int e = 0; e < kVec; ++e)
+              acc[kq][e] = fmaf(pr, vv[e], acc[kq][e]);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // the row groups of a warp (lanes that share a chunk)
+#pragma unroll
+    for (int kq = 0; kq < kLanes; ++kq) {
+      if (kq < lanes) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          for (int off = cpr; off < 32; off <<= 1)
+            acc[kq][e] += __shfl_xor_sync(kFull, acc[kq][e], off);
+          if (lane_id < cpr)
+            red[(warp * lanes + kq) * dh + chunk * kVec + e] = acc[kq][e];
+        }
+      }
+    }
+  }
+  step(3);
+  __syncthreads();
+  // the warps in order, and the fresh row's share
   for (int e = tid; e < lanes * dh; e += kThreads) {
     const int kq = e / dh, d = e % dh;
     float tot = 0.f;
     for (int w = 0; w < kWarps; ++w) tot += red[(w * lanes + kq) * dh + d];
-    if (fresh) tot = __fadd_rn(tot, __fmul_rn(pcur[kq], vn[kq * dh + d]));
+    if (fresh) {
+      const float pc = round_to<TC>(expf(cur[kq] - joint[2 * kq]) /
+                                    joint[2 * kq + 1]);
+      tot = __fadd_rn(tot, __fmul_rn(pc, vn[kq * dh + d]));
+    }
     out(kq, d, tot);
   }
   __syncthreads();
+  step(4);
+}
+
+// rows of one attention stage: every row of the larger attention where
+// its keys and values fit kStageBytes and the rest of the block's shared
+// memory (`other` bytes) leaves room, else as many as fit (a multiple of
+// 16); a stage row holds dh elements and a 16-byte pad, the rows rounded up
+// to 16
+__host__ __device__ inline int attn_tile(int rows, int dh, int csize,
+                                         int other) {
+  const int room = kMaxSmem - other < kStageBytes ? kMaxSmem - other
+                                                  : kStageBytes;
+  const int most = room / (2 * (dh * csize + 16));
+  return rows <= (most / 16) * 16 ? rows : (most / 16) * 16;
+}
+
+// bytes of the two stages of `tile` rows
+__host__ __device__ inline size_t attn_stages(int tile, int dh, int csize) {
+  return 2 * static_cast<size_t>(cdiv(tile, 16) * 16) * (dh * csize + 16);
+}
+
+// the attention scratch's bytes before its stages: q, fresh k and v, the
+// fresh scores, the warps' P.V sums (or softmax statistics), and the
+// scores (lanes x rows, a multiple of 4 floats)
+__host__ __device__ inline int attn_fixed(int lanes, int dh, int rows) {
+  return static_cast<int>(sizeof(float)) *
+         (3 * kMaxLanes * dh + kMaxLanes +
+          kWarps * (kMaxLanes * dh > 2 * kMaxLanes ? kMaxLanes * dh
+                                                    : 2 * kMaxLanes) +
+          (lanes * rows + 3) / 4 * 4);
+}
+
+// shared-memory bytes of one block: the GEMV operand stage and the warps'
+// sums (aliased on the tensor-core path), or the attention scratch and its
+// key and value stages (the plan's, through avsr_decoder_layer_config)
+__host__ __device__ inline size_t smem_bytes(int n, int lanes, int dh,
+                                             int s_dec, int s_enc, int wsize,
+                                             int csize) {
+  const size_t gemv = gemv_bytes(n, wsize);
+  const int rows = lanes * s_dec > s_enc ? lanes * s_dec : s_enc;
+  const int fixed = attn_fixed(lanes, dh, rows);
+  const size_t attn =
+      fixed + attn_stages(attn_tile(rows, dh, csize, fixed + 16), dh, csize);
+  const size_t body = gemv > attn ? gemv : attn;
+  return (body + 15) / 16 * 16;
+}
+
+// the global timer (ns) into this block's trace slot, where a trace is
+// asked for
+template <typename TW, typename TC>
+__device__ __forceinline__ void mark(const Args<TW, TC>& a, int slot) {
+  if (a.trace != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.trace[blockIdx.x * (2 * kPhases + kSteps) + slot] = t;
+  }
+}
+
+// GEMV i of the layer (QKV, out, q2, out2, W1, W2), built where a phase
+// uses it (from the kernel's parameters, not held in registers across the
+// phases); its counters follow those of the GEMVs before it (room for
+// items of 8 rows)
+template <typename TW, typename TC>
+__device__ __forceinline__ Gemv<TW> gemv_of(const Args<TW, TC>& a, int i) {
+  const int c = a.c, f = a.f;
+  const TW* const ws[kGemvs] = {a.w_qkv, a.w_out, a.w_q2, a.w_out2, a.w_1,
+                                a.w_2};
+  const TW* const bs[kGemvs] = {a.b_qkv, a.b_out, a.b_q2, a.b_out2, a.b_1,
+                                a.b_2};
+  const int outs[kGemvs] = {3 * c, c, c, c, f, c};
+  const int ins[kGemvs] = {c, c, c, c, c, f};
+  int* cnt = a.counters;
+#pragma unroll
+  for (int j = 0; j < kGemvs; ++j)
+    if (j < i) cnt += cdiv(outs[j], 8);
+  return Gemv<TW>{ws[i],   bs[i],   outs[i],
+                  ins[i],  a.rows[i], a.ks[i],
+                  cdiv(ins[i], a.ks[i]), cnt};
+}
+
+// the LayerNorm statistics of the residual phases' row groups: LN2's (ln
+// 1) and LN3's (ln 2), each (C / 8 at most, N, 2)
+template <typename TW, typename TC>
+__device__ __forceinline__ float* stats_of(const Args<TW, TC>& a, int ln) {
+  return a.stats + (ln - 1) * 2 * a.n * cdiv(a.c, 8);
 }
 
 template <typename TW, typename TC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     decoder_layer_kernel(const Args<TW, TC> a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int n = a.n, c = a.c, f = a.f, dh = a.dh, lanes = a.lanes;
   const int s_dec = a.s_dec, s_enc = a.s_enc;
   const int n_utt = n / lanes;
   const int c3 = 3 * c;
+  const int kf = max(c, f);  // the operands' row stride
   const float scale = a.scale;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t gtid = static_cast<size_t>(blockIdx.x) * kThreads + tid;
   const size_t gstride = static_cast<size_t>(gridDim.x) * kThreads;
-  const bool gemv_c = blockIdx.x * kWarps < c;  // the block owns C rows
-  // attention scratch: q (lanes, dh), fresh k and v, scores, P.V partials
-  float* qs = smem;
+  const int s_lim = min(a.pos, s_dec);  // the cache rows attended
+  // attention scratch: q (lanes, dh), fresh k and v, scores, P.V partials,
+  // the key and value stages
+  float* qs = reinterpret_cast<float*>(smem);
   float* kn = qs + kMaxLanes * dh;
   float* vn = kn + kMaxLanes * dh;
   float* cur = vn + kMaxLanes * dh;
   float* red = cur + kMaxLanes;
   float* sc = red + kWarps * kMaxLanes * dh;
+  const int attn_rows = max(lanes * s_dec, s_enc);
+  const int tile = attn_tile(attn_rows, dh, sizeof(TC),
+                             attn_fixed(lanes, dh, attn_rows) + 16);
+  TC* kbuf = reinterpret_cast<TC*>(sc + cdiv(lanes * attn_rows, 4) * 4);
+  TC* vbuf = kbuf + attn_stages(tile, dh, sizeof(TC)) / 2 / sizeof(TC);
+  // the steps of phase p, marked where p is the traced one
+  auto steps = [&](int p) {
+    return [&a, p](int k) {
+      if (p == kTraceSub) mark(a, 2 * kPhases + k);
+    };
+  };
+  // the GEMV operands: the LayerNorms' outputs, and the attention outputs
+  // and FFN hidden rows
+  auto from_lnop = [&](TW* act, int ld, int n0, int nn, int kb, int ke,
+                       int w32) {
+    copy_operand<TW>(act, ld, a.lnop, c, n0, nn, kb, ke, w32);
+  };
+  auto from_opnd = [&](TW* act, int ld, int n0, int nn, int kb, int ke,
+                       int w32) {
+    copy_operand<TW>(act, ld, a.opnd, kf, n0, nn, kb, ke, w32);
+  };
+  auto no_epi = [](int, int, float) {};  // the residual phases' own
 
-  // 1. LN1 + QKV; the residual stream starts as x in fp32
+  mark(a, 0);
+  // 0. LN1 into the operand; the residual stream starts as x in fp32
   for (size_t e = gtid; e < static_cast<size_t>(n) * c; e += gstride)
     a.xres[e] = avsr::to_float(a.x[e]);
-  if (blockIdx.x * kWarps < c3) {
-    ln_tile<TW>(a.x, a.ln_w, a.ln_b, n, c, smem);
-    gemv<TW>(a.w_qkv, a.b_qkv, c3, c, n, smem, c, nullptr, 0,
-             [&](int r, int o, float v) { a.qkv[r * c3 + o] = v; });
-  }
+  normalize<TW, TW>(a.x, c, n, nullptr, 0, a.ln_w, a.ln_b, a.lnop);
+  mark(a, 1);
   grid.sync();
+  mark(a, 2);
+
+  // 1. QKV
+  gemv_phase<TW>(
+      gemv_of(a, 0), n, a.part, smem, from_lnop,
+      [&](int r, int o, float v) {
+        a.qkv[static_cast<size_t>(r) * c3 + o] = v;
+      },
+      steps(1));
+  mark(a, 3);
+  grid.sync();
+  mark(a, 4);
 
   // 2. self-attention, one block per (utterance, head): the cache rows
   // s < min(pos, S) (rows past pos carry -1e30 on every lane, the caller's
   // contract; the stale row at pos < S is masked) and the fresh row
-  const int s_lim = min(a.pos, s_dec);
   for (int item = blockIdx.x; item < n_utt * a.heads; item += gridDim.x) {
     const int b = item / a.heads, h = item % a.heads;
     const size_t lane0 = static_cast<size_t>(b) * lanes;
     for (int e = tid; e < lanes * dh; e += kThreads) {
       const int kq = e / dh, d = e % dh;
       const float* row = a.qkv + (lane0 + kq) * c3 + h * dh + d;
-      qs[e] = round_to<TC>(round_to<TW>(row[0] * scale));
-      kn[e] = round_to<TC>(row[c]);
-      vn[e] = round_to<TC>(row[2 * c]);
+      qs[e] = round_to<TC>(round_to<TW>(__ldcg(row) * scale));
+      kn[e] = round_to<TC>(__ldcg(row + c));
+      vn[e] = round_to<TC>(__ldcg(row + 2 * c));
     }
     __syncthreads();
-    for (int kq = tid / 32; kq < lanes; kq += kWarps) {
+    for (int kq = warp; kq < lanes; kq += kWarps) {
       float part = 0.f;
-      for (int d = tid % 32; d < dh; d += 32)
+      for (int d = lane; d < dh; d += 32)
         part = fmaf(kn[kq * dh + d], qs[kq * dh + d], part);
       part = avsr::warp_sum(part);
-      if (tid % 32 == 0) cur[kq] = part;
+      if (lane == 0) cur[kq] = part;
     }
     __syncthreads();
     const int c2 = 2 * c;
-    attend<TC>(
-        lanes, lanes * s_lim, dh, qs,
-        [&](int r) {
-          return a.kv + ((lane0 + r / s_lim) * s_dec + r % s_lim) * c2 + h * dh;
-        },
-        [&](int r) {
-          return a.kv + ((lane0 + r / s_lim) * s_dec + r % s_lim) * c2 + c +
-                 h * dh;
-        },
-        [&](int kq, int r) {
-          return a.lane_bias[((lane0 + kq) * s_dec + r % s_lim) * lanes +
-                             r / s_lim];
-        },
-        true, cur, vn, sc, red,
-        [&](int kq, int d, float v) {
-          a.act[(lane0 + kq) * c + h * dh + d] = round_to<TW>(v);
-        });
+    // the lanes' sums sized for 4 lanes where they fit (the beam's 3)
+    auto run = [&](auto kl) {
+      const Rows<TC> rw{a.kv + lane0 * s_dec * c2 + h * dh,
+                        s_lim,
+                        static_cast<size_t>(s_dec) * c2,
+                        static_cast<size_t>(c2),
+                        static_cast<ptrdiff_t>(c),
+                        a.lane_bias + lane0 * s_dec * lanes,
+                        static_cast<size_t>(s_dec) * lanes,
+                        static_cast<size_t>(lanes),
+                        1};
+      attend<TC, decltype(kl)::value>(
+          lanes, lanes * s_lim, dh, qs, rw,
+          true, cur, vn, sc, red, kbuf, vbuf, tile,
+          [&](int kq, int d, float v) {
+            a.opnd[(lane0 + kq) * kf + h * dh + d] = avsr::from_float<TW>(v);
+          },
+          steps(2));
+    };
+    if (lanes <= 4)
+      run(std::integral_constant<int, 4>());
+    else
+      run(std::integral_constant<int, kMaxLanes>());
   }
+  mark(a, 5);
   grid.sync();
+  mark(a, 6);
 
-  // 3. out-projection + residual
-  if (gemv_c)
-    gemv<TW>(a.w_out, a.b_out, c, c, n, smem, c, a.act, c,
-             [&](int r, int o, float v) { a.xres[r * c + o] += v; });
+  // 3. out-projection + residual; LN2's statistics of each row group
+  gemv_phase<TW>(gemv_of(a, 1), n, a.part, smem, from_opnd, no_epi,
+                 steps(3), a.xres, c, stats_of(a, 1));
+  mark(a, 7);
   grid.sync();
+  mark(a, 8);
 
-  // 4. LN2 + source-attention query, scaled by dh^-0.5
-  if (gemv_c) {
-    ln_tile<TW>(a.xres, a.ln_w + c, a.ln_b + c, n, c, smem);
-    gemv<TW>(a.w_q2, a.b_q2, c, c, n, smem, c, nullptr, 0,
-             [&](int r, int o, float v) { a.q2[r * c + o] = v * scale; });
-  }
+  // 4. LN2 into the operand
+  normalize<TW, float>(a.xres, c, n, stats_of(a, 1), a.rows[1], a.ln_w + c,
+                       a.ln_b + c, a.lnop);
+  mark(a, 9);
   grid.sync();
+  mark(a, 10);
 
-  // 5. cross-attention over the utterance's source rows
+  // 5. source-attention query, scaled by dh^-0.5
+  gemv_phase<TW>(
+      gemv_of(a, 2), n, a.part, smem, from_lnop,
+      [&](int r, int o, float v) {
+        a.q2[static_cast<size_t>(r) * c + o] = v * scale;
+      },
+      steps(5));
+  mark(a, 11);
+  grid.sync();
+  mark(a, 12);
+
+  // 6. cross-attention over the utterance's source rows
   for (int item = blockIdx.x; item < n_utt * a.heads; item += gridDim.x) {
     const int b = item / a.heads, h = item % a.heads;
     const size_t lane0 = static_cast<size_t>(b) * lanes;
     const size_t src0 = static_cast<size_t>(b) * s_enc;
     for (int e = tid; e < lanes * dh; e += kThreads) {
       const int kq = e / dh, d = e % dh;
-      qs[e] = round_to<TC>(round_to<TW>(a.q2[(lane0 + kq) * c + h * dh + d]));
+      qs[e] = round_to<TC>(
+          round_to<TW>(__ldcg(a.q2 + (lane0 + kq) * c + h * dh + d)));
     }
     __syncthreads();
-    attend<TC>(
-        lanes, s_enc, dh, qs,
-        [&](int r) { return a.src_k + (src0 + r) * c + h * dh; },
-        [&](int r) { return a.src_v + (src0 + r) * c + h * dh; },
-        [&](int, int r) { return a.mem_bias[src0 + r]; }, false, cur, vn,
-        sc, red,
-        [&](int kq, int d, float v) {
-          a.act[(lane0 + kq) * c + h * dh + d] = round_to<TW>(v);
-        });
+    // the lanes' sums sized for 4 lanes where they fit (the beam's 3)
+    auto run = [&](auto kl) {
+      const Rows<TC> rw{a.src_k + src0 * c + h * dh,
+                        s_enc,
+                        0,
+                        static_cast<size_t>(c),
+                        a.src_v - a.src_k,
+                        a.mem_bias + src0,
+                        0,
+                        1,
+                        0};
+      attend<TC, decltype(kl)::value>(
+          lanes, s_enc, dh, qs, rw, false, cur, vn,
+          sc, red, kbuf, vbuf, tile,
+          [&](int kq, int d, float v) {
+            a.opnd[(lane0 + kq) * kf + h * dh + d] = avsr::from_float<TW>(v);
+          },
+          steps(6));
+    };
+    if (lanes <= 4)
+      run(std::integral_constant<int, 4>());
+    else
+      run(std::integral_constant<int, kMaxLanes>());
   }
+  mark(a, 13);
   grid.sync();
+  mark(a, 14);
 
-  // 6. source out-projection + residual
-  if (gemv_c)
-    gemv<TW>(a.w_out2, a.b_out2, c, c, n, smem, c, a.act, c,
-             [&](int r, int o, float v) { a.xres[r * c + o] += v; });
+  // 7. source out-projection + residual; LN3's statistics
+  gemv_phase<TW>(gemv_of(a, 3), n, a.part, smem, from_opnd, no_epi,
+                 steps(7), a.xres, c, stats_of(a, 2));
+  mark(a, 15);
   grid.sync();
+  mark(a, 16);
 
-  // 7. LN3 + W1 + ReLU, rounded to the weight dtype (W2's operand)
-  if (blockIdx.x * kWarps < f) {
-    ln_tile<TW>(a.xres, a.ln_w + 2 * c, a.ln_b + 2 * c, n, c, smem);
-    gemv<TW>(a.w_1, a.b_1, f, c, n, smem, c, nullptr, 0,
-             [&](int r, int o, float v) {
-               a.act[r * f + o] = round_to<TW>(fmaxf(v, 0.f));
-             });
-  }
+  // 8. LN3 into the operand
+  normalize<TW, float>(a.xres, c, n, stats_of(a, 2), a.rows[3],
+                       a.ln_w + 2 * c, a.ln_b + 2 * c, a.lnop);
+  mark(a, 17);
   grid.sync();
+  mark(a, 18);
 
-  // 8. W2 + residual, the layer's output; the fresh K|V row (every block
+  // 9. W1 + ReLU, rounded to the weight dtype (W2's operand)
+  gemv_phase<TW>(
+      gemv_of(a, 4), n, a.part, smem, from_lnop,
+      [&](int r, int o, float v) {
+        a.opnd[static_cast<size_t>(r) * kf + o] =
+            avsr::from_float<TW>(fmaxf(v, 0.f));
+      },
+      steps(9));
+  mark(a, 19);
+  grid.sync();
+  mark(a, 20);
+
+  // 10. W2 + residual, the layer's output; the fresh K|V row (every block
   // finished reading the cache before the sync after phase 2)
-  if (gemv_c)
-    gemv<TW>(a.w_2, a.b_2, c, f, n, smem, c, a.act, f,
-             [&](int r, int o, float v) {
-               a.out[r * c + o] =
-                   avsr::from_float<TW>(__fadd_rn(a.xres[r * c + o], v));
-             });
+  gemv_phase<TW>(
+      gemv_of(a, 5), n, a.part, smem, from_opnd,
+      [&](int r, int o, float v) {
+        const size_t i = static_cast<size_t>(r) * c + o;
+        a.out[i] = avsr::from_float<TW>(__fadd_rn(__ldcg(a.xres + i), v));
+      },
+      steps(10));
   const int row_c = min(a.pos, s_dec - 1);
   const int c2 = 2 * c;
   for (size_t e = gtid; e < static_cast<size_t>(n) * c2; e += gstride) {
-    const size_t lane = e / c2, col = e % c2;
-    a.kv[(lane * s_dec + row_c) * c2 + col] =
-        avsr::from_float<TC>(a.qkv[lane * c3 + c + col]);
+    const size_t ln = e / c2, col = e % c2;
+    a.kv[(ln * s_dec + row_c) * c2 + col] =
+        avsr::from_float<TC>(__ldcg(a.qkv + ln * c3 + c + col));
   }
+  mark(a, 2 * kPhases - 1);
 }
 
 // The grid of a cooperative launch: as many blocks as fit on the card at
@@ -533,6 +1293,20 @@ cudaError_t cooperative_grid(K kernel, size_t smem, int* grid) {
 }
 
 template <typename TW, typename TC>
+cudaError_t config_typed(const int* shape, int* out) {
+  const int n = shape[0], lanes = shape[1], dh = shape[2], s_dec = shape[3],
+            s_enc = shape[4];
+  if (n <= 0 || lanes <= 0 || dh <= 0 || s_dec <= 0 || s_enc <= 0)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      smem_bytes(n, lanes, dh, s_dec, s_enc, sizeof(TW), sizeof(TC));
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  out[0] = static_cast<int>(smem);
+  out[2] = kMaxRows;
+  return cooperative_grid(decoder_layer_kernel<TW, TC>, smem, out + 1);
+}
+
+template <typename TW, typename TC>
 cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
                          cudaStream_t stream) {
   Args<TW, TC> a;
@@ -549,8 +1323,13 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   a.xres = static_cast<float*>(ptrs[20]);
   a.qkv = static_cast<float*>(ptrs[21]);
   a.q2 = static_cast<float*>(ptrs[22]);
-  a.act = static_cast<float*>(ptrs[23]);
-  a.out = static_cast<TW*>(ptrs[24]);
+  a.opnd = static_cast<TW*>(ptrs[23]);
+  a.lnop = static_cast<TW*>(ptrs[24]);
+  a.stats = static_cast<float*>(ptrs[25]);
+  a.part = static_cast<float*>(ptrs[26]);
+  a.counters = static_cast<int*>(ptrs[27]);
+  a.out = static_cast<TW*>(ptrs[28]);
+  a.trace = static_cast<unsigned long long*>(ptrs[29]);
   a.n = dims[0];
   a.lanes = dims[1];
   a.heads = dims[2];
@@ -560,29 +1339,38 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   a.s_dec = dims[6];
   a.s_enc = dims[7];
   a.pos = dims[8];
+  const int grid = dims[9];
+  for (int i = 0; i < kGemvs; ++i) {
+    a.rows[i] = dims[10 + i];
+    a.ks[i] = dims[10 + kGemvs + i];
+  }
   a.scale = scale;
   constexpr int kVec = 16 / sizeof(TC);
   const int cpr = a.dh / kVec;
-  if (a.n <= 0 || a.n > kMaxRows || a.lanes <= 0 || a.lanes > kMaxLanes ||
-      a.n % a.lanes || a.heads * a.dh != a.c || a.c % 8 || a.f % 8 ||
-      a.dh % kVec || cpr > 32 || (cpr & (cpr - 1)) || a.s_dec <= 0 ||
-      a.s_enc <= 0 || a.pos < 0 || a.c > 32 * kLnPerLane)
+  if (a.n <= 0 || a.lanes <= 0 || a.lanes > kMaxLanes || a.n % a.lanes ||
+      a.heads * a.dh != a.c || a.c % 8 || a.f % 8 || a.dh % kVec ||
+      cpr > 32 || (cpr & (cpr - 1)) || a.s_dec <= 0 || a.s_enc <= 0 ||
+      a.pos < 0)
     return cudaErrorInvalidValue;
-  // the operands read with 16-byte loads: the cache, the source K/V and
-  // the weight matrices
-  for (int i : {1, 2, 3, 8, 10, 12, 14, 16, 18})
+  for (int i = 0; i < kGemvs; ++i) {
+    if (a.ks[i] < 32 || a.ks[i] % 32 || a.rows[i] < 8 ||
+        a.rows[i] > kMaxRows || a.rows[i] % 8)
+      return cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_bytes(a.n, a.lanes, a.dh, a.s_dec, a.s_enc,
+                                 sizeof(TW), sizeof(TC));
+  if (smem > static_cast<size_t>(kMaxSmem)) return cudaErrorInvalidValue;
+  // the operands read with 16-byte loads: x, the cache, the source K/V,
+  // the LayerNorm parameters, the weight matrices, the residual and the
+  // operand scratch
+  for (int i : {0, 1, 2, 3, 6, 7, 8, 10, 12, 14, 16, 18, 20, 23, 24})
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0)
       return cudaErrorMisalignedAddress;
-  const size_t attn = 3 * kMaxLanes * a.dh + kMaxLanes +
-                      kWarps * kMaxLanes * a.dh +
-                      static_cast<size_t>(a.lanes) *
-                          max(a.lanes * a.s_dec, a.s_enc);
-  const size_t smem =
-      sizeof(float) * max(static_cast<size_t>(a.n) * a.c, attn);
   auto kernel = decoder_layer_kernel<TW, TC>;
-  int grid = 0;
-  cudaError_t err = cooperative_grid(kernel, smem, &grid);
+  int most = 0;
+  cudaError_t err = cooperative_grid(kernel, smem, &most);
   if (err != cudaSuccess) return err;
+  if (grid < 1 || grid > most) return cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
                                      dim3(grid), dim3(kThreads), args, smem,
@@ -591,14 +1379,39 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
 
 }  // namespace
 
-// ptrs (host array of 25 device pointers): x, kv, src_k, src_v, mem_bias,
+// The launch's layout, for the launch plan (ops/kernels/decoder_layer.py):
+// shape = {n, lanes, dh, s_dec, s_enc}; out = {the dynamic shared memory of
+// a block (bytes), the most blocks a cooperative launch holds with it (the
+// grid), the most rows of a GEMV item}.
+extern "C" int avsr_decoder_layer_config(int param_dtype, int cache_dtype,
+                                         const int* shape, int* out) {
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (param_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
+    err = config_typed<bf16, bf16>(shape, out);
+  else if (param_dtype == avsr::kFloat32 && cache_dtype == avsr::kFloat32)
+    err = config_typed<float, float>(shape, out);
+  else if (param_dtype == avsr::kFloat32 && cache_dtype == avsr::kBFloat16)
+    err = config_typed<float, bf16>(shape, out);
+  else if (param_dtype == avsr::kBFloat16 && cache_dtype == avsr::kFloat32)
+    err = config_typed<bf16, float>(shape, out);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// ptrs (host array of 30 device pointers): x, kv, src_k, src_v, mem_bias,
 // lane_bias, the 14 packed parameters (ln_w, ln_b, w_qkv, b_qkv, w_out,
-// b_out, w_q2, b_q2, w_out2, b_out2, w_1, b_1, w_2, b_2), then the fp32
-// scratch xres (N*C), qkv (N*3C), q2 (N*C), act (N*max(C,F)) and the output
-// (N, C). dims: n, lanes,
-// heads, dh, c, f, s_dec, s_enc, pos; scale: dh^-0.5 in fp32. x, the
-// parameters and the output are in param_dtype; kv, src_k and src_v in
-// cache_dtype.
+// b_out, w_q2, b_q2, w_out2, b_out2, w_1, b_1, w_2, b_2), then the scratch
+// xres (N*C fp32), qkv (N*3C fp32), q2 (N*C fp32), opnd (N*max(C,F)) and
+// lnop (N*C) in param_dtype, stats (fp32), part (fp32), counters (int32,
+// zero), the output (N, C), and a trace (null, or int64 (grid, 2 * kPhases
+// + kSteps): each block's global timer at the start and end of each phase,
+// then at the steps of phase kTraceSub). dims: n, lanes, heads, dh, c, f,
+// s_dec, s_enc, pos, grid, then the rows of an item of the six GEMVs (QKV,
+// out, q2, out2, W1, W2) and their K slices' columns; scale: dh^-0.5 in
+// fp32. x, the parameters and the output are in param_dtype; kv, src_k and
+// src_v in cache_dtype.
 extern "C" int avsr_decoder_layer(void* const* ptrs, const int* dims,
                                   float scale, int param_dtype,
                                   int cache_dtype, void* stream) {

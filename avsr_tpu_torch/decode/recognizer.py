@@ -28,6 +28,7 @@ from avsr_tpu_torch.decode.beam import (
     greedy_ctc,
 )
 from avsr_tpu_torch.models.e2e import AVSRModel
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.masks import make_non_pad_mask
 
 
@@ -63,6 +64,8 @@ class Recognizer:
         if self.video_wire not in ("uint8", "delta", "delta2"):
             raise ValueError(f"video_wire {self.video_wire!r}")
         self.device = torch.device(self.device)
+        if self.device.type == "cpu":
+            warm_exp()
         self.model = self.model.to(self.device).eval()
         self._enc, self._ctc = self.model.encoder, self.model.ctc
         if self.encode_dtype == "bfloat16":

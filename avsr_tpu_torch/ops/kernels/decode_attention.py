@@ -17,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.kernels import _build
 
 # the kernel's launch: 128 threads (4 warps) a block, clusters of a portable
@@ -54,6 +55,54 @@ def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
     p = p.to(kv_cache.dtype).float().view(b, heads, lanes, lanes, s_max)
     out = torch.einsum("bhkjs,bjshd->bkhd", p, kv[:, :, :, 1])
     return out.reshape(n, c).to(q.dtype), kv_cache
+
+
+def _ulp(x, dtype):
+    """One unit in the last place of dtype at |x| (0 at 0): 2^(e - t + 1)
+    for |x| in [2^e, 2^(e + 1)), t the dtype's significand bits."""
+    bits = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[dtype]
+    x = x.abs()
+    e = torch.floor(torch.log2(torch.where(x > 0, x, torch.ones_like(x))))
+    return torch.where(x > 0, torch.exp2(e - (bits - 1)), torch.zeros_like(x))
+
+
+def output_bound(pos: int, q, kv_cache, lane_bias, lanes: int, heads: int,
+                 kv_row):
+    """Per output element (N, C), how far two fp32 evaluations of
+    ``decode_attention`` may lie apart with the TPU kernel's rounding
+    points, whatever the order of their sums (ROADMAP C27).
+
+    Each normalised p is rounded to the cache dtype: the two evaluations'
+    fp32 p differ by a few fp32 ulps (the max is exact; the denominator and
+    q.k are sums in other orders), so a p at a rounding boundary may round
+    either way, by one ulp of the cache dtype at p. The P.V sums then
+    differ by at most sum_r ulp(p_r) |v_r| plus their own fp32 rounding,
+    2 gamma_n sum_r p_r |v_r| (gamma_n = n u / (1 - n u), u = 2^-24, n the
+    rows); the output's rounding to q's dtype adds one ulp of that dtype
+    at |out| (for fp32 q, an fp32 ulp). p and out are the twin's."""
+    n, s_max, c2 = kv_cache.shape
+    c = c2 // 2
+    b = n // lanes
+    dh = c // heads
+    cd = kv_cache.dtype
+    kv = kv_cache.clone()
+    kv[:, min(pos, s_max - 1)] = kv_row.to(cd)
+    kv = kv.view(b, lanes, s_max, 2, heads, dh).float()
+    qq = q.to(cd).float().view(b, lanes, heads, dh)
+    scores = torch.einsum("bkhd,bjshd->bhkjs", qq, kv[:, :, :, 0])
+    scores = scores + lane_bias.float().permute(0, 1, 3, 2)[:, None]
+    flat = scores.reshape(b, heads, lanes, lanes * s_max)
+    p = torch.exp(flat - flat.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(cd).float()
+    v = kv[:, :, :, 1].permute(0, 3, 1, 2, 4).reshape(b, heads,
+                                                        lanes * s_max, dh)
+    rows = lanes * s_max
+    gamma = rows * 2.0 ** -24 / (1 - rows * 2.0 ** -24)
+    out = torch.einsum("bhkr,bhrd->bhkd", p, v)
+    delta = (torch.einsum("bhkr,bhrd->bhkd", _ulp(p, cd), v.abs())
+             + 2 * gamma * torch.einsum("bhkr,bhrd->bhkd", p, v.abs()))
+    delta = delta + _ulp(out.abs() + delta, q.dtype)
+    return delta.permute(0, 2, 1, 3).reshape(n, c)
 
 
 class Plan(NamedTuple):
@@ -191,6 +240,7 @@ def decode_attention(pos: int, q, kv_cache, lane_bias, lanes: int,
     ``kv_cache`` itself. Returns (out (N, C) in q's dtype, kv_cache)."""
     _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row)
     if q.device.type == "cpu":
+        warm_exp()
         return decode_attention_plain(pos, q, kv_cache, lane_bias, lanes,
                                       heads, kv_row)
     if q.device.type != "cuda":

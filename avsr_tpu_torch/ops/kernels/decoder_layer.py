@@ -6,7 +6,12 @@ with lazy beam reorder and the step's fresh K|V row, out-projection,
 LN2 + cross-attention over the shared source K/V, LN3 + ReLU FFN, each with
 its residual. ``decoder_layer_step`` dispatches on the device: CPU tensors
 run ``decoder_layer_step_plain``, CUDA tensors launch the cooperative kernel
-of ``csrc/decoder_layer.cu`` (its products are its own GEMVs).
+of ``csrc/decoder_layer.cu`` once, at any batch. Its launch plan is here
+(``launch_plan``): the items of each of the six GEMVs (rows a multiple of
+8, and K slices: split-K) over the grid, so that the blocks share every
+GEMV phase. The kernel's layout (a block's shared memory, the grid of
+every block the card holds at once, the most rows of an item) is the CUDA
+source's, which the plan asks for on the card (``card_plan``).
 
 The rounding points are the TPU kernel's, not the port's unfused step:
 the residual stream is fp32 inside the layer and rounded to the parameter
@@ -25,10 +30,12 @@ row. The fresh row is then written at min(pos, S-1), in place.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1.0e30
@@ -184,82 +191,187 @@ def _check(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
         raise ValueError("inputs must be contiguous")
 
 
-MAX_ROWS = 32  # lanes a launch holds in its GEMV registers (csrc)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def slice_cols(k_in: int, slices: int) -> int:
+    """Columns of each of ``slices`` K slices of a GEMV over ``k_in``
+    columns: whole 32-column chunks."""
+    return _cdiv(_cdiv(k_in, 32), slices) * 32
+
+
+class Plan(NamedTuple):
+    """A launch of the kernel over ``grid`` blocks: the GEMVs (QKV, out,
+    q2, out2, W1, W2) as (out rows, K) with the ``rows`` of their items,
+    the columns ``ks`` of their K slices, the ``slices`` and the ``items``
+    (row groups times slices); scratch sizes: split-K partials ``part`` and
+    LayerNorm ``stats`` in floats, ``counters``."""
+    grid: int
+    gemvs: tuple
+    rows: tuple
+    ks: tuple
+    slices: tuple
+    items: tuple
+    part: int
+    stats: int
+    counters: int
+
+
+def gemv_shapes(c: int, f: int) -> tuple:
+    """(out rows, K) of QKV, out, q2, out2, W1, W2."""
+    return ((3 * c, c), (c, c), (c, c), (c, c), (f, c), (c, f))
+
+
+def _stats_size(n: int, c: int) -> int:
+    # LN2's and LN3's (sum, m2) a lane and row group of at least 8 columns
+    return 4 * n * _cdiv(c, 8)
+
+
+def _counters_size(c: int, f: int) -> int:
+    return sum(_cdiv(o, 8) for o, _ in gemv_shapes(c, f))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, c: int, f: int, grid: int, max_rows: int) -> Plan:
+    """The GEMVs' items over ``grid`` co-resident blocks for n lanes: K is
+    split only where items of 8 rows would leave half of the grid idle,
+    into as many slices as the grid then holds (at C=1024 on the H100's
+    132 blocks no GEMV is split); rows are the fewest multiple of 8 (up
+    to ``max_rows``) whose items the grid holds at once, else
+    ``max_rows``."""
+    gemvs = gemv_shapes(c, f)
+    rows, ks, slices = [], [], []
+    for out, k_in in gemvs:
+        groups = _cdiv(out, 8)
+        cut = grid // groups if 2 * groups <= grid else 1
+        cols = slice_cols(k_in, cut)
+        s = _cdiv(k_in, cols)
+        rows.append(next((r for r in range(8, max_rows + 1, 8)
+                          if _cdiv(out, r) * s <= grid), max_rows))
+        ks.append(cols)
+        slices.append(s)
+    items = tuple(_cdiv(o, r) * s for (o, _), r, s in zip(gemvs, rows,
+                                                         slices))
+    part = max([s * o * n for (o, _), s in zip(gemvs, slices) if s > 1],
+               default=0)
+    return Plan(grid, gemvs, tuple(rows), tuple(ks), tuple(slices), items,
+                part, _stats_size(n, c), _counters_size(c, f))
+
+
+@functools.lru_cache(maxsize=256)
+def card_plan(n: int, lanes: int, heads: int, c: int, f: int, s_dec: int,
+              s_enc: int, param_dtype, cache_dtype,
+              device: int) -> tuple[Plan, int]:
+    """(the launch plan, a block's dynamic shared memory in bytes) on the
+    current card (``device`` keys the cache): the kernel reports its shared
+    memory, the blocks a cooperative launch holds and the most rows of an
+    item (``avsr_decoder_layer_config``)."""
+    fn = _build.function("avsr_decoder_layer_config",
+                         (ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p))
+    shape = (ctypes.c_int * 5)(n, lanes, c // heads, s_dec, s_enc)
+    out = (ctypes.c_int * 3)()
+    _build.check("decoder_layer_step",
+                 fn(_build.dtype_code(param_dtype),
+                    _build.dtype_code(cache_dtype), ctypes.addressof(shape),
+                    ctypes.addressof(out)))
+    smem, grid, max_rows = out
+    return launch_plan(n, c, f, grid, max_rows), smem
 
 
 class Scratch(NamedTuple):
-    """The kernel's fp32 working rows for up to MAX_ROWS lanes."""
+    """The kernel's working memory for n lanes."""
 
-    xres: torch.Tensor  # (R, C) the residual stream
-    qkv: torch.Tensor  # (R, 3C)
-    q2: torch.Tensor  # (R, C)
-    act: torch.Tensor  # (R, max(C, F)) the GEMV operands
+    xres: torch.Tensor  # (N, C) fp32 residual stream
+    qkv: torch.Tensor  # (N, 3C) fp32
+    q2: torch.Tensor  # (N, C) fp32
+    opnd: torch.Tensor  # (N, max(C, F)) the GEMV operands (weight dtype)
+    lnop: torch.Tensor  # (N, C) the LayerNorms' outputs (weight dtype)
+    stats: torch.Tensor  # LayerNorm statistics, fp32
+    part: torch.Tensor  # split-K partials, fp32, sized at the first launch
+    counters: torch.Tensor  # int32, one a row group, zero between launches
 
 
 def _scratch_shapes(n, c, f):
-    rows = min(n, MAX_ROWS)
-    return [(rows, width) for width in (c, 3 * c, c, max(c, f))]
+    return [(n, c), (n, 3 * c), (n, c), (n, max(c, f)), (n, c),
+            (_stats_size(n, c),)]
 
 
 def layer_scratch(n: int, c: int, f: int, device) -> Scratch:
     """Scratch for ``decoder_layer_step`` over n lanes: made once per decode
     and shared by its layers and steps, which run one after another."""
-    return Scratch(*(torch.empty(shape, dtype=torch.float32, device=device)
-                     for shape in _scratch_shapes(n, c, f)))
+    fp32 = [torch.empty(shape, dtype=torch.float32, device=device)
+            for shape in _scratch_shapes(n, c, f)]
+    return Scratch(*fp32, torch.empty(0, dtype=torch.float32, device=device),
+                   torch.zeros(_counters_size(c, f), dtype=torch.int32,
+                               device=device))
+
+
+# a trace holds, for each block, 2 marks for each of the kernel's PHASES
+# phases and STEPS more within the phase kTraceSub of the source
+PHASES, STEPS = 11, 6
 
 
 def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-            packed: PackedLayer, lanes, heads, scratch):
+            packed: PackedLayer, lanes, heads, scratch, trace=None):
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     f = packed.w_1.shape[0]
     dev = x.device
-    if c > 1024 or lanes > 8:
-        raise ValueError(f"the kernel takes C <= 1024 and <= 8 beam lanes, "
-                         f"got C={c}, lanes={lanes}")
+    if lanes > 8:
+        raise ValueError(f"the kernel takes <= 8 beam lanes, got {lanes}")
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    if scratch is None:
+        scratch = layer_scratch(n, c, f, dev)
+    shapes = _scratch_shapes(n, c, f)
+    if any(t.shape != shape or t.dtype != torch.float32 or t.device != dev
+           or not t.is_contiguous()
+           for t, shape in zip(scratch, shapes)) or (
+            scratch.counters.shape != (_counters_size(c, f),)
+            or scratch.counters.device != dev):
+        raise ValueError(f"scratch must be layer_scratch({n}, {c}, {f}) on "
+                         f"{dev}")
+    plan, _ = card_plan(n, lanes, heads, c, f, s_max, src_k.shape[1],
+                        x.dtype, kv_cache.dtype, dev.index)
+    if scratch.part.numel() < plan.part:
+        scratch.part.resize_(plan.part)
+    cols = 2 * PHASES + STEPS
+    if trace is not None and (trace.dtype != torch.int64 or trace.device != dev
+                              or trace.numel() < plan.grid * cols):
+        raise ValueError(f"trace must be int64 ({plan.grid}, {cols}) on "
+                         f"{dev}")
     fn = _build.function(
         "avsr_decoder_layer",
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p),
     )
-    if scratch is None:
-        scratch = layer_scratch(n, c, f, dev)
-    if any(t.shape != shape or t.dtype != torch.float32 or t.device != dev
-           or not t.is_contiguous()
-           for t, shape in zip(scratch, _scratch_shapes(n, c, f))):
-        raise ValueError(f"scratch must be layer_scratch({n}, {c}, {f}) on "
-                         f"{dev}")
-    # one launch holds up to MAX_ROWS lanes: whole utterances, so a larger
-    # batch runs as consecutive launches over utterance groups (one at
-    # B*K <= 32, the serving batch)
-    group = max(1, MAX_ROWS // lanes) * lanes
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     out = torch.empty_like(x)
+    tensors = (x, kv_cache, src_k, src_v, mem_bias, lane_bias, *packed,
+               *scratch, out)
+    ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
+        *(t.data_ptr() for t in tensors),
+        0 if trace is None else trace.data_ptr())
+    dims = (ctypes.c_int * 22)(
+        n, lanes, heads, c // heads, c, f, s_max, src_k.shape[1], int(pos),
+        plan.grid, *plan.rows, *plan.ks)
     scale = (c // heads) ** -0.5  # ctypes.c_float rounds it to fp32
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    for n0 in range(0, n, group):
-        m = min(group, n - n0)
-        b0, b1 = n0 // lanes, (n0 + m) // lanes
-        tensors = (x[n0:n0 + m], kv_cache[n0:n0 + m], src_k[b0:b1],
-                   src_v[b0:b1], mem_bias[b0:b1], lane_bias[b0:b1], *packed,
-                   *scratch, out[n0:n0 + m])
-        ptrs = (ctypes.c_void_p * len(tensors))(
-            *(t.data_ptr() for t in tensors))
-        dims = (ctypes.c_int * 9)(m, lanes, heads, c // heads, c, f, s_max,
-                                  src_k.shape[1], int(pos))
-        err = fn(ctypes.addressof(ptrs), ctypes.addressof(dims), scale,
-                 _build.dtype_code(x.dtype), _build.dtype_code(kv_cache.dtype),
-                 stream)
-        _build.check("decoder_layer_step", err)
-        decoder_layer_step.launches += 1
+    err = fn(ctypes.addressof(ptrs), ctypes.addressof(dims), scale,
+             _build.dtype_code(x.dtype), _build.dtype_code(kv_cache.dtype),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("decoder_layer_step", err)
+    decoder_layer_step.launches += 1
     return out, kv_cache
 
 
 def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
                        lane_bias, packed: PackedLayer, lanes: int,
-                       heads: int, scratch: Scratch | None = None):
+                       heads: int, scratch: Scratch | None = None,
+                       trace=None):
     """One decoder layer's decode step for all N = B*lanes beam lanes.
 
     pos: the step's position; x (N, C) the residual stream in the
@@ -270,22 +382,26 @@ def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
     stored lane j at row s is an ancestor of lane k, -1e30 elsewhere,
     including every row s > pos on every lane (the kernel skips those
     rows); packed: ``pack_layer_params``; scratch: ``layer_scratch(N, C,
-    F, device)`` to reuse (the card only; made per call without it).
+    F, device)`` to reuse (the card only; made per call without it);
+    trace: an int64 tensor of (grid, 2 * PHASES + STEPS) on the card, or
+    None, which the kernel fills with each block's global timer (ns) at the
+    start and at the end of each phase, then at the steps of one phase
+    (``tools/layer_variants.py`` reads it).
 
     Returns (x_out (N, C) in x's dtype, kv_cache) with this step's K|V row
-    written at min(pos, S-1) IN PLACE. On the card one cooperative launch
-    takes up to 32 lanes (whole utterances); more run as consecutive
-    launches."""
+    written at min(pos, S-1) IN PLACE. On the card it is one cooperative
+    launch at any batch."""
     _check(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias, packed,
            lanes, heads)
     if x.device.type == "cpu":
+        warm_exp()
         return decoder_layer_step_plain(pos, x, kv_cache, src_k, src_v,
                                         mem_bias, lane_bias, packed, lanes,
                                         heads)
     if x.device.type != "cuda":
         raise ValueError(f"no decoder_layer_step for device {x.device}")
     return _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-                   packed, lanes, heads, scratch)
+                   packed, lanes, heads, scratch, trace)
 
 
 decoder_layer_step.launches = 0

@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1.0e30
@@ -258,6 +259,7 @@ def flash_attention_fwd(q, k, v, key_bias, scale: float = 1.0,
     normaliser's."""
     _check(q, k, v, key_bias)
     if q.device.type == "cpu":
+        warm_exp()
         return flash_attention_plain(q, k, v, key_bias, scale,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=dropout_seed)
@@ -289,6 +291,7 @@ def flash_attention_bwd_dq(q, k, v, key_bias, out, do, lse,
     and delta = rowsum(dO * O), which ``flash_attention_bwd_dkv`` takes."""
     _check(q, k, v, key_bias, out, do, lse)
     if q.device.type == "cpu":
+        warm_exp()
         delta = attention_delta_plain(out, do)
         mask = _twin_mask(q, None, dropout_rate, dropout_seed)
         dq = _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
@@ -323,6 +326,7 @@ def flash_attention_bwd_dkv(q, k, v, key_bias, do, lse, delta,
     statistics lse and delta of the forward and ``flash_attention_bwd_dq``."""
     _check(q, k, v, key_bias, do, lse, delta)
     if q.device.type == "cpu":
+        warm_exp()
         mask = _twin_mask(q, None, dropout_rate, dropout_seed)
         return _bwd_from_delta(q, k, v, key_bias, do, lse, delta, scale,
                                mask)[1:]

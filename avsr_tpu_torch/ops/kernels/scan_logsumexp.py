@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.kernels import _build
 
 NEG_INF = float("-inf")
@@ -75,6 +76,7 @@ def cumlogsumexp(x):
     if not x.is_contiguous():
         raise ValueError("input must be contiguous")
     if x.device.type == "cpu":
+        warm_exp()
         return cumlogsumexp_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"no cumlogsumexp for device {x.device}")

@@ -23,8 +23,9 @@ share of the traced window and of the median untraced run. The profiler
 slows the host, so wall times come from the untraced runs. The per-kernel
 table (``key_averages``, by device time) is written to ``--table``.
 
-Prints the card's nvidia-smi name and power limit, then one JSON object as
-the last line.
+With ``--fused-layer`` the decoder runs ``decode_fused_layer`` (one
+``decoder_layer_step`` launch a layer and step). Prints the card's
+nvidia-smi name and power limit, then one JSON object as the last line.
 """
 
 from __future__ import annotations
@@ -79,6 +80,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--table", default=None,
                     help="file for the profiler's per-kernel tables")
+    ap.add_argument("--fused-layer", action="store_true",
+                    help="decode_fused_layer: one decoder_layer_step a "
+                         "layer and step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: torch sees no CUDA device")
@@ -98,6 +102,7 @@ def main() -> None:
                              decoder_param_dtype="bfloat16",
                              decode_fused_attention=True)
     cfg.encoder.use_flash_attention = True
+    cfg.decode_fused_layer = args.fused_layer
     with torch.device(dev):
         model = AVSRModel(cfg)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
@@ -112,7 +117,8 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    res = {"card": smi, "batch": BATCH, "frames": FRAMES}
+    res = {"card": smi, "batch": BATCH, "frames": FRAMES,
+           "fused_layer": args.fused_layer}
     n = REPEATS
     padded = np.zeros((BATCH, FRAMES + 2, 88, 88, 1), np.uint8)
     for i, v in enumerate(video):

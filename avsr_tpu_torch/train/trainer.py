@@ -31,6 +31,7 @@ from avsr_tpu_torch.core.checkpoint import avsr_mapping
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data.wire import VIDEO_MEAN, VIDEO_STD
 from avsr_tpu_torch.models.e2e import AVSRModel
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.dropout import DropoutRng
 
 METRICS = ("loss", "loss_ctc", "loss_att", "acc")
@@ -125,6 +126,8 @@ def init_state(model_cfg: AVHubertAVSRConfig, train_cfg: TrainConfig,
     with seeded random weights, the optimizer, its schedule, and the
     run's ``DropoutRng`` from ``seed``."""
     device = torch.device(device)
+    if device.type == "cpu":
+        warm_exp()
     if model is None:
         from avsr_tpu_torch.core.weights import init_weights
 

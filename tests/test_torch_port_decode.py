@@ -184,6 +184,42 @@ def test_split_arithmetic_matches_plain_and_jax(pos, cluster, cache_dtype):
         want_kv.float().numpy(), np.asarray(jkv_out.astype(jnp.float32)))
 
 
+# ------------------------------------------ B2: the output bound (C27)
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pos,s_max", [(0, 64), (37, 64), (63, 64),
+                                       (80, 64), (150, 192)])
+def test_jax_kernel_and_twin_within_the_output_bound(qdtype, pos, s_max):
+    """JAX's ``decode_attention`` (resident v3, interpret) and the fp32 twin
+    lie within ``output_bound`` of each other element by element, with a
+    bf16 cache, q in bf16 (the output rounded, as the beam serves) and in
+    fp32 (unrounded): B=2, K=3, H=4, dh=64, the queries scaled as the
+    decoder scales them. The bound is no looser than it need be: it stays
+    within a few output ulps plus the p flips it counts."""
+    from avsr_tpu.ops.pallas.decode_attention import decode_attention
+
+    b, k, heads, dh = 2, 3, 4, 64
+    q, kv, row, bias = decode_case(pos + s_max, b, k, s_max, heads, dh, pos,
+                                   q_scale=dh ** -0.5)
+    td = getattr(torch, qdtype)
+    jd = jnp.bfloat16 if qdtype == "bfloat16" else jnp.float32
+    cache = t(kv).to(torch.bfloat16)
+    tq = t(q).to(td)
+    want, _ = pda.decode_attention_plain(pos, tq, cache.clone(), t(bias), k,
+                                         heads, t(row))
+    jout, _ = decode_attention(
+        jnp.asarray(pos), jnp.asarray(q).astype(jd),
+        jnp.asarray(kv).astype(jnp.bfloat16), jnp.asarray(bias), lanes=k,
+        heads=heads, kv_row=jnp.asarray(row).astype(jnp.bfloat16),
+        resident=True)
+    bound = pda.output_bound(pos, tq, cache, t(bias), k, heads, t(row))
+    got = torch.from_numpy(np.asarray(jout.astype(jnp.float32)))
+    diff = (got - want.float()).abs()
+    assert (diff <= bound).all(), float((diff - bound).max())
+    assert bound.max() < 0.1  # p flips over a few hundred rows, not more
+
+
 # ---------------------------------------------- B3: the chunked scan
 
 

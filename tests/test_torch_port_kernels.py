@@ -165,6 +165,64 @@ def test_cpu_dispatch_launches_no_kernel():
     assert [fn.launches for fn in COUNTERS] == before
 
 
+def _cpu_route(route):
+    """(module, its twin's name, a call of the wrapper on the CPU)."""
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+
+    x = torch.randn(2, 8, 16)
+    bias = torch.zeros(2, 8)
+    if route == "flash":
+        return pfa, "flash_attention_plain", lambda: pfa.flash_attention_fwd(
+            x, x, x, bias)
+    if route in ("flash_dq", "flash_dkv"):
+        out, lse = pfa.flash_attention_plain(x, x, x, bias)
+        if route == "flash_dq":
+            return pfa, "attention_delta_plain", lambda: (
+                pfa.flash_attention_bwd_dq(x, x, x, bias, out, x, lse))
+        delta = pfa.attention_delta_plain(out, x)
+        return pfa, "_bwd_from_delta", lambda: pfa.flash_attention_bwd_dkv(
+            x, x, x, bias, x, lse, delta)
+    if route == "decode":
+        q, kv, row, lb = decode_case(1, b=1)
+        return pda, "decode_attention_plain", lambda: pda.decode_attention(
+            3, t(q), t(kv), t(lb), 3, 4, t(row))
+    if route == "scan":
+        return psl, "cumlogsumexp_plain", lambda: psl.cumlogsumexp(
+            torch.randn(6, 4))
+    from avsr_tpu_torch.models.decoder import DecoderLayer
+
+    packed = pdl.pack_layer_params(DecoderLayer(32, 4, 64), torch.float32)
+    args = (torch.randn(2, 32), torch.randn(2, 4, 64), torch.randn(1, 3, 32),
+            torch.randn(1, 3, 32), torch.zeros(1, 3), torch.zeros(1, 2, 4, 2))
+    return pdl, "decoder_layer_step_plain", lambda: pdl.decoder_layer_step(
+        2, *args, packed, 2, 4)
+
+
+@pytest.mark.parametrize("route", ["flash", "flash_dq", "flash_dkv",
+                                   "decode", "scan", "layer"])
+def test_cpu_route_warms_exp_first(route, monkeypatch):
+    """Each wrapper whose plain twin takes exps runs ``ops.cpu.warm_exp``
+    before the twin on the CPU, once a process (ROADMAP C21: a fresh
+    process's first threaded exp can come out ~2^-15 off under CPU
+    contention)."""
+    from avsr_tpu_torch.ops import cpu
+
+    mod, name, call = _cpu_route(route)
+    twin = getattr(mod, name)
+    seen = []
+
+    def spy(*args, **kwargs):
+        seen.append(cpu.warm_exp.cache_info().currsize)
+        return twin(*args, **kwargs)
+
+    monkeypatch.setattr(mod, name, spy)
+    cpu.warm_exp.cache_clear()
+    call()
+    call()
+    assert seen[:2] == [1, 1]
+    assert cpu.warm_exp.cache_info().misses == 1
+
+
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k",
                                   "scan_dtype", "gather_index_dtype",
                                   "gather_rank", "update_shape",

@@ -1,6 +1,7 @@
 """The port's kernel-variant tool on the CPU: how it reads variants and
 writes their sources (building and timing them needs the card)."""
 
+import importlib.util
 import re
 from pathlib import Path
 
@@ -162,6 +163,91 @@ def test_decode_variant_register_report():
     assert "decode_attention_kernel" in lines[0] and "64 registers" in lines[0]
     assert "spill stores" in lines[1]
     assert "cumlogsumexp_kernel" in lines[2] and "77 registers" in lines[2]
+
+
+# ------------------------------------------------- layer_variants
+
+
+@pytest.mark.parametrize("phase", range(1, 11))
+def test_layer_variant_cuts_the_kernel_short(tmp_path, monkeypatch, phase):
+    """``decoder_layer.cu:stop=N`` returns before the layer kernel's phase
+    comment N in the variant's copy only (every block, so no block waits at
+    a later grid sync); the shipped source has no such return; a phase the
+    source lacks is refused."""
+    from avsr_tpu_torch.tools import layer_variants as lv
+
+    monkeypatch.setattr(lv, "OUT", tmp_path / "out")
+    src = (fv._build.CSRC_DIR / "decoder_layer.cu").read_text()
+    out = lv.prepare("v", fv._build.CSRC_DIR,
+                     [("decoder_layer.cu", "stop", str(phase))])
+    copy = (out / "csrc" / "decoder_layer.cu").read_text()
+    marker = f"\n  // {phase}. "
+    assert copy.count("\n  return;" + marker) == 1
+    assert copy.replace("\n  return;" + marker, marker) == src
+    with pytest.raises(SystemExit):
+        lv.cut(src, 11)
+
+
+def test_layer_variant_constants_and_wrapper(tmp_path, monkeypatch):
+    """A variant sets a kernel constant in its copy of the source and gets
+    a copy of its checkout's wrapper, whose launch plan it then runs; the
+    phase whose steps a variant traces is read from its source; arguments
+    name the layer's sources only."""
+    from avsr_tpu_torch.tools import layer_variants as lv
+
+    name, _, subs = fv.parse("v=decoder_layer.cu:kMaxRowTiles=2,"
+                             "decoder_layer.cu:kTraceSub=6", lv.SOURCES)
+    monkeypatch.setattr(lv, "OUT", tmp_path / "out")
+    csrc = fv._build.CSRC_DIR
+    out = lv.prepare(name, csrc, subs)
+    source = out / "csrc" / "decoder_layer.cu"
+    assert "constexpr int kMaxRowTiles = 2;" in source.read_text()
+    assert lv.trace_sub(source) == 6
+    assert lv.trace_sub(csrc / "decoder_layer.cu") == 99
+    spec = importlib.util.spec_from_file_location(
+        "variant_layer", out / "py" / "decoder_layer.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.launch_plan(24, 1024, 3072, 132, 16).rows == (16, 8, 8, 8,
+                                                             16, 8)
+    for arg in ("v=topk.cu:kThreads=2", "v=decoder_layer.py:X=1"):
+        with pytest.raises(SystemExit):
+            fv.parse(arg, lv.SOURCES)
+
+
+def test_layer_variant_register_report():
+    """Registers and spills of each layer-kernel instantiation, and of no
+    other kernel, are read from a ptxas report."""
+    from avsr_tpu_torch.tools import layer_variants as lv
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_120decoder_layer_kernelI13__nv_bfloat16S1_EEvN"
+        "S_4ArgsIT_T0_EE' for 'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z12topk_kernelPKf' for "
+        "'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    lines = lv.registers(log)
+    assert len(lines) == 2
+    assert "decoder_layer_kernel" in lines[0] and "128 registers" in lines[0]
+    assert "spill stores" in lines[1]
+
+
+def test_layer_trace_tables():
+    """Phase work is the median block's end minus start, the barrier the
+    last arrival to the first departure; a step's time is after its
+    phase's start, over the blocks that marked it."""
+    from avsr_tpu_torch.tools import layer_variants as lv
+
+    # two blocks, two phases, then two step slots of phase 1
+    marks = [[1000, 3000, 4000, 9000, 5000, 0],
+             [1500, 3500, 4200, 8000, 6000, 7000],
+             [0, 0, 0, 0, 0, 0]]  # a block the grid did not have
+    assert lv.phase_times(marks, 2) == [(2.0, 0.5), (4.4, 0)]
+    assert lv.step_times(marks, 2, 1, 2) == [1.4, 2.8]
 
 
 # ------------------------------------------------- decode_numerics

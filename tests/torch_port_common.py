@@ -16,7 +16,9 @@ import torch
 
 
 def setup_torch():
-    """fp32 on the CPU, no TF32, two threads (tier-1 runs six workers)."""
+    """fp32 on the CPU, no TF32, two threads (tier-1 runs six workers). The
+    port's CPU route warms torch's CPU exp itself (``ops.cpu.warm_exp``,
+    ROADMAP C21)."""
     torch.set_num_threads(2)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
