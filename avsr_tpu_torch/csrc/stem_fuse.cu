@@ -11,21 +11,26 @@
 //
 // What bounds them on the card: the bytes. Each pass reads the stem output
 // once (bf16, 571 MB at the training shape N = 2304) and does a few FLOPs an
-// element; the backward also writes dz and dx of the same size. A thread
-// owns V consecutive channels of a position (4 in `stats`, `apply` and
-// `bwd2`: 8- or 16-byte accesses; 2 in `bwd1`, which holds a 5x5
-// neighbourhood of them in registers) and consecutive threads walk the
-// channels, so a warp's accesses are contiguous. The pool's windows
-// overlap: `apply` reads an input position up to 4 times and `bwd1` (a
-// thread per 2x2 block of positions) up to 9 times; the repeats hit L1 and
-// L2, not memory. Indices are 32-bit (a frame batch below 2^31 elements).
+// element; the backward also writes dz and dx of the same size. In `stats`,
+// `apply` and `bwd2` a thread owns 4 consecutive channels of a position (8-
+// or 16-byte accesses) and consecutive threads walk the channels, so a
+// warp's accesses are contiguous; the pool's windows overlap, and `apply`
+// reads an input position up to 4 times (the repeats hit L1 and L2).
+// `bwd1` stages strips of a frame (all channels, full width, a few rows and
+// their halo) in shared memory by 1-D bulk copies (TMA), two strips in
+// flight, and works from there: y once an element (and again across a
+// window column's left edge), each window's argmax once, dz back to memory
+// in one bulk store a strip. Indices are 32-bit (a frame batch below 2^31
+// elements).
 //
 // Determinism: the channel sums of `stats` and `bwd1` use no float atomics.
-// Each block owns a fixed range of positions; a thread keeps its own sums,
-// the block adds its threads' sums in a fixed order into its partials, and
-// the last block to finish (an integer counter, zeroed by the caller) adds
-// the blocks' partials in block order. The ranges depend on the shape
-// alone, so a sum never depends on the blocks' schedule.
+// Each block owns a fixed set of positions (a range of positions in
+// `stats`, of strips in `bwd1`); a thread keeps its own sums, the block adds
+// its threads' sums in a fixed order into its partials, and the last block
+// to finish (an integer counter, zeroed by the caller) adds the blocks'
+// partials in block order. The sets depend on the shape and the grid (the
+// card's SM count for `bwd1`) alone, so a sum never depends on the blocks'
+// schedule.
 //
 // Rounding: products and sums that the plain PyTorch twin rounds one by one
 // are written with __fmul_rn / __fadd_rn / __fsub_rn, so nvcc cannot contract
@@ -43,6 +48,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;  // of the reducing kernels (partial rows)
 constexpr int kMaxGrid = 4096;    // of the elementwise kernels (grid-stride)
+constexpr int kStripThreads = 768;  // bwd1: 24 warps, one block an SM
+constexpr int kStripRows = 6;       // bwd1: output rows a strip, at most
+constexpr int kMaxSmem = 227 * 1024;
 
 // V consecutive channels of one position
 template <typename T, int V>
@@ -69,7 +77,7 @@ __device__ __forceinline__ void store(T* p, const float (&in)[V]) {
 // bias, alpha): g = scale * rstd, b = bias - mean * scale * rstd (the TPU
 // kernel's form of z = x * g + b), alpha, mean, rstd.
 __device__ void stage_affine(const float* p, int channels, float* s) {
-  for (int c = threadIdx.x; c < channels; c += kThreads) {
+  for (int c = threadIdx.x; c < channels; c += blockDim.x) {
     const float mean = p[c], rstd = p[channels + c];
     const float scale = p[2 * channels + c], bias = p[3 * channels + c];
     s[c] = __fmul_rn(scale, rstd);
@@ -99,7 +107,7 @@ __device__ void reduce_channels(const float (&acc)[K][V], int ch, int lane,
   }
   __syncthreads();
   const size_t row = static_cast<size_t>(K) * channels;
-  for (int j = threadIdx.x; j < K * channels; j += kThreads) {
+  for (int j = threadIdx.x; j < K * channels; j += blockDim.x) {
     const int k = j / channels, c = j % channels;
     float s = 0.f;
     for (int l = 0; l < lanes; ++l) s += red[(k * lanes + l) * channels + c];
@@ -113,7 +121,7 @@ __device__ void reduce_channels(const float (&acc)[K][V], int ch, int lane,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int j = threadIdx.x; j < K * channels; j += kThreads) {
+  for (int j = threadIdx.x; j < K * channels; j += blockDim.x) {
     float s = 0.f;
     for (unsigned b = 0; b < gridDim.x; ++b) s += __ldcg(partial + b * row + j);
     out[j] = s;
@@ -193,147 +201,318 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One item = V channels of the 2x2 block of positions (2oh + a, 2ow + b),
-// a, b in {0, 1}: the windows (oh + da, ow + db), da, db in {0, 1}, are the
-// only ones that hold them, and their candidates are the 5x5 neighbourhood
-// rows 2oh - 1 .. 2oh + 3, columns 2ow - 1 .. 2ow + 3. Two blocks an SM at
-// least: the neighbourhood is held in registers.
+// bwd1 over strips of a frame (`bwd1_plan`): a strip is R output rows of
+// one frame, so it owns input rows 2o0 .. 2o1 - 1 (o1 = o0 + R, or the
+// frame's end) and needs the windows o0 .. o1 (window o1 holds its last
+// row), that is input rows 2o0 - 1 .. 2o1 + 1 and cotangent rows o0 .. o1.
+// In NHWC each range is one contiguous run of bytes. The strip's input
+// row r sits at row r - 2o0 + 1 of its stage, cotangent row oh at oh - o0.
+template <typename T>
+struct Bwd1Args {
+  const T* x;
+  const float* p;
+  const T* dout;
+  T* dz;
+  float* partial;
+  int* counter;
+  float* red;
+  int n, channels, h, w;
+  int rows;         // R, output rows a strip
+  int stages;       // strip buffers, 1 or 2
+  int stage_bytes;  // one buffer: input rows, then cotangent rows
+  int dout_off;     // byte offset of the cotangent rows in a buffer
+  int bulk;         // rows move by 1-D bulk copies, else by the threads
+};
+
+// One block an SM walks a run of consecutive strips. One thread keeps the
+// next `stages` strips' rows in flight (cp.async.bulk into the stage
+// buffers, completing on an mbarrier each); where the rows are not
+// 16-byte multiples, the threads copy them. For each strip, with thread
+// (ch, lane) owning V channels and walking window columns ow = lane, +
+// lanes, ...:
+//   A. each window's first maximum (k = 3i + j of its 3x3 candidates, a
+//      later candidate winning only if strictly greater), down the column:
+//      y of a window's bottom row is the next window's top row; a byte a
+//      window and channel in `wins`; the strip's last window row is the
+//      next strip's first, kept in `carry`;
+//   B. each owned 2x2 block (rows 2oh, 2oh + 1, columns 2ow, 2ow + 1): dy
+//      from the <= 4 windows holding each position, added in ascending k
+//      as the TPU kernel's scatter adds them (the order of the position's
+//      candidates i, then j), dz and the three sums; dz overwrites x in
+//      the stage buffer;
+//   C. the owned rows of dz leave in one bulk store (or by the threads).
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-    bwd1_kernel(const T* __restrict__ x, const float* __restrict__ p,
-                const T* __restrict__ dout, T* __restrict__ dz_out,
-                float* partial, int* counter, float* red_out, int blocks2x2,
-                int channels, int h, int w) {
-  extern __shared__ float prm[];  // g, b, alpha, mean, rstd rows
-  __shared__ float red[3 * kThreads * V];
-  stage_affine(p, channels, prm);
-  const int cpr = channels / V, lanes = kThreads / cpr;
-  const int ch = threadIdx.x % cpr, lane = threadIdx.x / cpr;
-  const int c0 = ch * V, ho = h / 2, wo = w / 2;
-  float acc[3][V] = {};  // dbeta, dgamma, dalpha
-  int q0, q1;
-  block_range(blocks2x2, q0, q1);
-  for (int q = q0 + lane; lane < lanes && q < q1; q += lanes) {
-    const int ow = q % wo, oh = q / wo % ho, n = q / wo / ho;
-    const bool win_r = oh + 1 < ho, win_c = ow + 1 < wo;  // windows da/db = 1
-    // the neighbourhood's rows and columns inside the frame: only the first
-    // (at oh = 0, ow = 0) and the last (without window 1) can fall outside
-    bool in_r[5], in_c[5];
+__global__ void __launch_bounds__(kStripThreads, 1)
+    bwd1_kernel(const Bwd1Args<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* stage0 = smem + 128;
+  const int chans = a.channels, h = a.h, w = a.w, ho = h / 2, wo = w / 2;
+  const int R = a.rows, per_frame = (ho + R - 1) / R;
+  const int strips = a.n * per_frame;
+  // elements a row of x and of dout (the plan fits rows in shared memory)
+  const int rx = w * chans, rd = wo * chans;
+  // wins: (R + 1) window rows; carry: the last window row of the strip
+  // before, which is this strip's first where both are of one frame
+  unsigned char* wins = stage0 + a.stages * a.stage_bytes;
+  unsigned char* carry = wins + (((R + 1) * rd + 15) & ~15);
+  float* prm = reinterpret_cast<float*>(carry + ((rd + 15) & ~15));
+  const int tid = threadIdx.x;
+  // the thread that issues the bulk copies: the last, whose warp has no
+  // window column at the stem's widths (22 columns of 24 lanes at C = 64)
+  const bool producer = tid == kStripThreads - 1;
+  if (a.bulk && producer) {
+    avsr::mbar_init(&bars[0], 1);
+    avsr::mbar_init(&bars[1], 1);
+    avsr::mbar_init_fence();
+  }
+  stage_affine(a.p, chans, prm);  // ends in __syncthreads
+  const int cpr = chans / V, lanes = kStripThreads / cpr;
+  const int ch = tid % cpr, lane = tid / cpr, c0 = ch * V;
+  float g[V], b[V], al[V], mean[V], rstd[V];
 #pragma unroll
-    for (int i = 0; i < 5; ++i) {
-      in_r[i] = (i > 0 || oh > 0) && (i < 4 || win_r);
-      in_c[i] = (i > 0 || ow > 0) && (i < 4 || win_c);
+  for (int e = 0; e < V; ++e) {
+    const int c = c0 + e;
+    g[e] = prm[c];
+    b[e] = prm[chans + c];
+    al[e] = prm[2 * chans + c];
+    mean[e] = prm[3 * chans + c];
+    rstd[e] = prm[4 * chans + c];
+  }
+
+  // strip s: frame f, output rows [o0, o1), windows [o0, o0 + nwin)
+  auto strip = [&](int s, int& f, int& o0, int& o1, int& nwin) {
+    f = s / per_frame;
+    o0 = s % per_frame * R;
+    o1 = min(o0 + R, ho);
+    nwin = min(o1 + 1, ho) - o0;
+  };
+  auto stage_x = [&](int st) {
+    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes);
+  };
+  auto stage_d = [&](int st) {
+    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes + a.dout_off);
+  };
+  // the rows of strip s into stage st: by the producer as bulk copies, or
+  // by every thread (the caller synchronises)
+  auto fetch = [&](int s, int st) {
+    int f, o0, o1, nwin;
+    strip(s, f, o0, o1, nwin);
+    const int r0 = max(2 * o0 - 1, 0), r1 = 2 * (o0 + nwin);
+    const T* xs = a.x + (static_cast<size_t>(f) * h + r0) * rx;
+    const T* ds = a.dout + (static_cast<size_t>(f) * ho + o0) * rd;
+    T* xd = stage_x(st) + (r0 - 2 * o0 + 1) * rx;
+    const int nx = (r1 - r0) * rx, nd = nwin * rd;
+    if (a.bulk) {
+      const uint32_t bx = static_cast<uint32_t>(nx * sizeof(T));
+      const uint32_t bd = static_cast<uint32_t>(nd * sizeof(T));
+      avsr::mbar_expect_tx(&bars[st], bx + bd);
+      avsr::bulk_load(xd, xs, bx, &bars[st]);
+      avsr::bulk_load(stage_d(st), ds, bd, &bars[st]);
+    } else {
+      for (int e = tid; e < nx; e += kStripThreads) xd[e] = xs[e];
+      T* dd = stage_d(st);
+      for (int e = tid; e < nd; e += kStripThreads) dd[e] = ds[e];
     }
-    Chunk<T, V> raw[5][5];
+  };
+  auto yv = [&](float xv, int e) {
+    const float z = __fadd_rn(__fmul_rn(xv, g[e]), b[e]);
+    return z < 0.f ? __fmul_rn(al[e], z) : z;
+  };
+
+  // this block's strips: a run [s0, s1) of consecutive ones
+  const int s0 = static_cast<int>(static_cast<long long>(strips) *
+                                  blockIdx.x / gridDim.x);
+  const int s1 = static_cast<int>(static_cast<long long>(strips) *
+                                  (blockIdx.x + 1) / gridDim.x);
+  if (a.bulk && producer)
+    for (int st = 0; st < a.stages && s0 + st < s1; ++st) fetch(s0 + st, st);
+  float acc[3][V] = {};  // dbeta, dgamma, dalpha
+  int it = 0;
+  for (int s = s0; s < s1; ++s, ++it) {
+    const int st = it % a.stages;
+    int f, o0, o1, nwin;
+    strip(s, f, o0, o1, nwin);
+    if (a.bulk) {
+      avsr::mbar_wait(&bars[st], (it / a.stages) & 1);
+    } else {
+      fetch(s, st);
+      __syncthreads();
+    }
+    T* xs = stage_x(st);
+    const T* ds = stage_d(st);
+
+    // A. each window's first maximum. Offsets are 32-bit and relative to
+    // the stage: x at (stage row, column 2ow - 1, channel c0) is
+    // xs[row * rx + off], its right neighbours at + chans and + 2 chans.
+    // Window row 0 is carried where the strip before (this block's, of the
+    // same frame) computed it: this thread wrote its part of `carry`
+    const int q0 = it > 0 && o0 > 0 ? 1 : 0;
+    for (int ow = lane; lane < lanes && ow < wo; ow += lanes) {
+      const bool left = ow > 0;  // column 2ow - 1 lies inside the frame
+      const int off = (2 * ow - 1) * chans + c0;
+      if (q0 == 1) {
 #pragma unroll
-    for (int i = 0; i < 5; ++i)
-#pragma unroll
-      for (int j = 0; j < 5; ++j) {
-        if (in_r[i] && in_c[j]) {
-          raw[i][j] = *reinterpret_cast<const Chunk<T, V>*>(
-              x +
-              (static_cast<size_t>(n * h + 2 * oh - 1 + i) * w + 2 * ow - 1 +
-               j) * channels +
-              c0);
-        } else {
-#pragma unroll
-          for (int e = 0; e < V; ++e) raw[i][j].v[e] = avsr::from_float<T>(0.f);
-        }
+        for (int e = 0; e < V; ++e)
+          wins[ow * chans + c0 + e] = carry[ow * chans + c0 + e];
       }
-    float gs[2][2][V];  // the windows' cotangents
+      float top[3][V];  // y of window row q0's top row; padding never wins
 #pragma unroll
-    for (int da = 0; da < 2; ++da)
+      for (int j = 0; j < 3; ++j) {
+        float v[V];
+        const bool in = o0 + q0 > 0 && (j > 0 || left);
+        if (in) load<T, V>(xs + 2 * q0 * rx + off + j * chans, v);
 #pragma unroll
-      for (int db = 0; db < 2; ++db) {
-        if ((da == 0 || win_r) && (db == 0 || win_c)) {
-          load<T, V>(dout +
-                         (static_cast<size_t>(n * ho + oh + da) * wo + ow +
-                          db) * channels +
-                         c0,
-                     gs[da][db]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < V; ++e) gs[da][db][e] = 0.f;
-        }
+        for (int e = 0; e < V; ++e) top[j][e] = in ? yv(v[e], e) : -INFINITY;
       }
-    float dzs[2][2][V];
+      int row = off + (2 * q0 + 1) * rx;  // stage row 2q + 1, input row 2oh
+      int win = (q0 * wo + ow) * chans + c0;
+      for (int q = q0; q < nwin; ++q, row += 2 * rx, win += wo * chans) {
+        float best[V];
+        int kb[V];
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      const int c = c0 + e;
-      const float g = prm[c], b = prm[channels + c], al = prm[2 * channels + c];
-      const float mean = prm[3 * channels + c], rstd = prm[4 * channels + c];
-      float y[5][5];
+        for (int e = 0; e < V; ++e) {
+          best[e] = -INFINITY;
+          kb[e] = -1;
 #pragma unroll
-      for (int i = 0; i < 5; ++i)
-#pragma unroll
-        for (int j = 0; j < 5; ++j) {
-          const float z =
-              __fadd_rn(__fmul_rn(avsr::to_float(raw[i][j].v[e]), g), b);
-          // a padded position never wins
-          y[i][j] = !(in_r[i] && in_c[j]) ? -INFINITY
-                    : z < 0.f             ? __fmul_rn(al, z)
-                                          : z;
+          for (int j = 0; j < 3; ++j)
+            if (top[j][e] > best[e]) {
+              best[e] = top[j][e];
+              kb[e] = j;
+            }
         }
-      // each window's first maximum in row-major order (k = 3i + j): a
-      // later candidate wins only if strictly greater
-      int kbest[2][2];
 #pragma unroll
-      for (int da = 0; da < 2; ++da)
+        for (int i = 1; i < 3; ++i)
 #pragma unroll
-        for (int db = 0; db < 2; ++db) {
-          float best = -INFINITY;
-          kbest[da][db] = -1;
+          for (int j = 0; j < 3; ++j) {
+            float v[V];
+            if (j > 0 || left)
+              load<T, V>(xs + row + (i - 1) * rx + j * chans, v);
 #pragma unroll
-          for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int j = 0; j < 3; ++j)
-              if (y[2 * da + i][2 * db + j] > best) {
-                best = y[2 * da + i][2 * db + j];
-                kbest[da][db] = 3 * i + j;
+            for (int e = 0; e < V; ++e) {
+              const float y = j > 0 || left ? yv(v[e], e) : -INFINITY;
+              if (y > best[e]) {
+                best[e] = y;
+                kb[e] = 3 * i + j;
               }
-        }
-      // dy of each owned position: the cotangents of the windows it won,
-      // added in ascending k as the TPU kernel's scatter adds them
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 2; ++bb) {
-          float dy = 0.f;
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            const int dr = 1 + a - i;  // 2 * da
-            if (dr < 0 || (dr & 1) || (dr == 2 && !win_r)) continue;
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-              const int dc = 1 + bb - j;  // 2 * db
-              if (dc < 0 || (dc & 1) || (dc == 2 && !win_c)) continue;
-              if (kbest[dr / 2][dc / 2] == 3 * i + j)
-                dy = __fadd_rn(dy, gs[dr / 2][dc / 2][e]);
+              if (i == 2) top[j][e] = y;
             }
           }
-          const float xv = avsr::to_float(raw[1 + a][1 + bb].v[e]);
-          const float zv = __fadd_rn(__fmul_rn(xv, g), b);
-          const bool neg = zv < 0.f;
-          const float dzv = neg ? __fmul_rn(al, dy) : dy;
-          const float xhat = __fmul_rn(__fsub_rn(xv, mean), rstd);
-          dzs[a][bb][e] = dzv;
-          acc[0][e] += dzv;
-          acc[1][e] = fmaf(dzv, xhat, acc[1][e]);
-          if (neg) acc[2][e] = fmaf(dy, zv, acc[2][e]);
-        }
+        auto put = [&](unsigned char* dst) {
+          if constexpr (V == 2) {
+            *reinterpret_cast<uint16_t*>(dst) =
+                static_cast<uint16_t>((kb[0] & 0xff) | (kb[1] & 0xff) << 8);
+          } else {
+            *dst = static_cast<unsigned char>(kb[0]);
+          }
+        };
+        put(wins + win);
+        if (q == nwin - 1) put(carry + ow * chans + c0);
+      }
     }
+    __syncthreads();
+
+    // B. dz of the owned 2x2 blocks and the sums; dz replaces x
+    for (int ow = lane; lane < lanes && ow < wo; ow += lanes) {
+      const bool right = ow + 1 < wo;
+      // window row q at columns ow (c = 0) and ow + 1 (c = 1): its first
+      // maximum's k (-1 where there is no such window) and cotangent
+      int kc[2][V], kn[2][V];
+      float gc[2][V], gn[2][V];
+      auto window_row = [&](int q, int (&k)[2][V], float (&gd)[2][V]) {
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
+        for (int c = 0; c < 2; ++c) {
+          const int off = (q * wo + ow + c) * chans + c0;
+          const bool in = q < nwin && (c == 0 || right);
+          if (in) load<T, V>(ds + off, gd[c]);
 #pragma unroll
-      for (int bb = 0; bb < 2; ++bb)
-        store<T, V>(dz_out +
-                        (static_cast<size_t>(n * h + 2 * oh + a) * w + 2 * ow +
-                         bb) * channels +
-                        c0,
-                    dzs[a][bb]);
+          for (int e = 0; e < V; ++e) {
+            k[c][e] = in ? wins[off + e] : -1;
+            if (!in) gd[c][e] = 0.f;
+          }
+        }
+      };
+      window_row(0, kc, gc);
+      int row = rx + 2 * ow * chans + c0;  // stage row 2q + 1, column 2ow
+      for (int q = 0; q < o1 - o0; ++q, row += 2 * rx) {
+        window_row(q + 1, kn, gn);
+#pragma unroll
+        for (int pa = 0; pa < 2; ++pa)
+#pragma unroll
+          for (int pb = 0; pb < 2; ++pb) {
+            T* px = xs + row + pa * rx + pb * chans;
+            float xv[V], dzs[V];
+            load<T, V>(px, xv);
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              // the position's windows in ascending k: candidate row i
+              // (0: the window below, 1 or 2: this one), then column j
+              float dy = 0.f;
+              auto take = [&](int kw, float gw, int k) {
+                if (kw == k) dy = __fadd_rn(dy, gw);
+              };
+              if (pa == 0 && pb == 0) {
+                take(kc[0][e], gc[0][e], 4);
+              } else if (pa == 0) {
+                take(kc[1][e], gc[1][e], 3);
+                take(kc[0][e], gc[0][e], 5);
+              } else if (pb == 0) {
+                take(kn[0][e], gn[0][e], 1);
+                take(kc[0][e], gc[0][e], 7);
+              } else {
+                take(kn[1][e], gn[1][e], 0);
+                take(kn[0][e], gn[0][e], 2);
+                take(kc[1][e], gc[1][e], 6);
+                take(kc[0][e], gc[0][e], 8);
+              }
+              const float zv = __fadd_rn(__fmul_rn(xv[e], g[e]), b[e]);
+              const bool neg = zv < 0.f;
+              const float dzv = neg ? __fmul_rn(al[e], dy) : dy;
+              const float xhat = __fmul_rn(__fsub_rn(xv[e], mean[e]), rstd[e]);
+              dzs[e] = dzv;
+              acc[0][e] += dzv;
+              acc[1][e] = fmaf(dzv, xhat, acc[1][e]);
+              if (neg) acc[2][e] = fmaf(dy, zv, acc[2][e]);
+            }
+            store<T, V>(px, dzs);
+          }
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            kc[c][e] = kn[c][e];
+            gc[c][e] = gn[c][e];
+          }
+      }
+    }
+
+    // C. the owned rows of dz (stage rows 1 .. 2 (o1 - o0)) out; then the
+    // stage takes strip s + stages
+    T* dst = a.dz + (static_cast<size_t>(f) * h + 2 * o0) * rx;
+    const int nz = 2 * (o1 - o0) * rx;
+    if (a.bulk) {
+      avsr::fence_proxy_async();
+      __syncthreads();
+      if (producer) {
+        avsr::bulk_store(dst, xs + rx, static_cast<uint32_t>(nz * sizeof(T)));
+        const int next = s + a.stages;
+        if (next < s1) {
+          avsr::bulk_wait_read();
+          fetch(next, st);
+        }
+      }
+    } else {
+      __syncthreads();
+      for (int e = tid; e < nz; e += kStripThreads) dst[e] = xs[rx + e];
+      __syncthreads();
+    }
   }
-  reduce_channels<3, V>(acc, ch, lane, lanes, channels, red, partial, counter,
-                        red_out);
+  if (a.bulk && producer) avsr::bulk_wait();
+  __syncthreads();
+  // the stage buffers are free: they hold the block's sums
+  reduce_channels<3, V>(acc, ch, lane, lanes, chans,
+                        reinterpret_cast<float*>(stage0), a.partial,
+                        a.counter, a.red);
 }
 
 // p2 rows: mean, rstd, scale * rstd, dbeta / M, dgamma / M; one item = V
@@ -406,6 +585,42 @@ int reduce_grid(int positions, int channels) {
   return std::min(kMaxBlocks, (positions + lanes - 1) / lanes);
 }
 
+// bwd1's strips for a shape: the most output rows R <= kStripRows whose
+// buffers fit in shared memory, two of them where the rows move by bulk
+// copies (every row a 16-byte multiple, every pointer 16-byte aligned),
+// else one; the shared memory also holds the block's sums at the end.
+// False where no strip of one output row fits.
+struct Bwd1Plan {
+  int rows, stages, stage_bytes, dout_off, smem, bulk;
+};
+
+bool bwd1_plan(int channels, int h, int w, size_t elem, int vec, bool aligned,
+               Bwd1Plan& plan) {
+  const auto up = [](size_t b, size_t to) { return (b + to - 1) / to * to; };
+  const size_t rowx = static_cast<size_t>(w) * channels * elem;
+  const size_t rowd = rowx / 2;
+  plan.bulk = aligned && rowx % 16 == 0 && rowd % 16 == 0;
+  const size_t sums = 128 + sizeof(float) * 3 * kStripThreads * vec;
+  for (int stages = plan.bulk ? 2 : 1; stages >= 1; --stages)
+    for (int r = std::min(kStripRows, h / 2); r >= 1; --r) {
+      const size_t dout_off = up((2 * r + 3) * rowx, 16);
+      const size_t stage = up(dout_off + (r + 1) * rowd, 128);
+      // the stages, wins and carry (a byte a window and channel), prm
+      const size_t smem = std::max(
+          sums, 128 + stages * stage + up((r + 1) * rowd / elem, 16) +
+                    up(rowd / elem, 16) + sizeof(float) * 5 * channels);
+      if (smem <= static_cast<size_t>(kMaxSmem)) {
+        plan.rows = r;
+        plan.stages = stages;
+        plan.stage_bytes = static_cast<int>(stage);
+        plan.dout_off = static_cast<int>(dout_off);
+        plan.smem = static_cast<int>(smem);
+        return true;
+      }
+    }
+  return false;
+}
+
 int elementwise_grid(int items) {
   return std::min(kMaxGrid, (items + kThreads - 1) / kThreads);
 }
@@ -460,14 +675,36 @@ extern "C" int avsr_bn_bwd1(const void* x, const float* p, const void* dout,
                             void* stream) {
   if (bad_dims(n, channels, h, w)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks2x2 = n * (h / 2) * (w / 2);
   return dispatch<2>(dtype, channels, {x, dout, dz}, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int V = decltype(tag)::vec;
-    bwd1_kernel<T, V><<<reduce_grid<V>(blocks2x2, channels), kThreads,
-                        5 * channels * sizeof(float), s>>>(
-        static_cast<const T*>(x), p, static_cast<const T*>(dout),
-        static_cast<T*>(dz), partial, counter, red, blocks2x2, channels, h, w);
+    bool aligned = true;
+    for (const void* q : std::initializer_list<const void*>{x, dout, dz})
+      aligned = aligned && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+    Bwd1Plan plan;
+    if (!bwd1_plan(channels, h, w, sizeof(T), V, aligned, plan))
+      return cudaErrorInvalidValue;
+    auto kernel = bwd1_kernel<T, V>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             plan.smem)) != cudaSuccess ||
+        (err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kStripThreads, plan.smem)) != cudaSuccess)
+      return err;
+    const int strips = n * ((h / 2 + plan.rows - 1) / plan.rows);
+    const int grid = std::min({strips, std::max(1, sms * per_sm),
+                               kMaxBlocks});
+    const Bwd1Args<T> args{static_cast<const T*>(x), p,
+                           static_cast<const T*>(dout), static_cast<T*>(dz),
+                           partial, counter, red, n, channels, h, w,
+                           plan.rows, plan.stages, plan.stage_bytes,
+                           plan.dout_off, plan.bulk};
+    kernel<<<grid, kStripThreads, plan.smem, s>>>(args);
     return cudaGetLastError();
   });
 }

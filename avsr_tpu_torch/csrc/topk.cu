@@ -7,16 +7,35 @@
 // beam search needs this tie order (torch.topk does not document one on
 // CUDA).
 //
-// What bounds it on the card: nothing in the arithmetic. The beam calls it
-// twice per decode step on small buffers ((B*3, 5049) and (B, 15) fp32), so
-// its cost is launch latency plus k dependent block reductions; the row
-// (20 KB at V = 5049) stays in L1/L2 across the k passes.
+// What bounds it on the card: latency. The beam calls it twice a decode
+// step on small buffers ((B*3, 5049) and (B, 15) fp32, 485 KB and 480 B at
+// B=8), so the bytes take 0.15 us and the time is the launch, one round
+// trip to memory and the dependent steps of the merge.
 //
-// Design: one block of 256 threads per row. Each round every thread scans a
-// strided slice for its best (value, index) pair under the order "larger
-// value, then smaller index", treating the indices chosen in earlier rounds
-// (kept in shared memory) as -inf; a warp-shuffle reduction and a second
-// one over the warps' winners pick the round's element.
+// Design: each row is read once. A thread keeps the best k (value, index)
+// pairs of its own elements in registers, sorted under "larger value, then
+// smaller index" (a list of K >= k slots; K is 4, 8, 16 or 32, chosen by k
+// alone). k rounds merge a warp's lists: a round's winner is the largest
+// head value (one __reduce_max_sync over an order-preserving integer key),
+// then the smallest index holding it (one __reduce_min_sync), and the lane
+// holding it pops its head; a second merge does the same over the warps'
+// lists in shared memory.
+// - Vocabulary rows (v > kWarpRowMax): a block of kThreads a row, the row
+//   body in 16-byte loads from its first 16-byte boundary (rows start at
+//   row * v * 4 bytes), head and tail in scalar loads. (A cluster of 2 or
+//   4 blocks a row, merged through distributed shared memory, measured
+//   slower at the beam's 24 rows: its cluster syncs cost more than the
+//   shorter scans save.)
+// - Short rows (the beam's flat (B, 15) top-k): a warp a row, kFlatWarps
+//   rows a block, scalar loads.
+//
+// The rounds' rule when a row has fewer than k entries above -inf: once the
+// finite entries are used up (after c rounds), a round's max is -inf and
+// its index the lowest index whose current value is -inf, which counts the
+// c indices already chosen. That index does not change between such rounds:
+// it is min(lowest index holding -inf, indices of the c rounds), and the
+// merged list holds both (its entry c is the lowest index holding -inf).
+// `finish` writes it. NaN entries are never chosen.
 #include <climits>
 
 #include "common.cuh"
@@ -24,73 +43,224 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 32;
+constexpr int kChunks = 8;     // 16-byte loads in flight a thread
+constexpr int kFlatWarps = 4;  // rows a block of the warp-a-row kernel
+constexpr int kWarpRowMax = 1024;  // longest row taken a warp a row
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
+// "a before b": the larger value, then the smaller index
+__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
+  return va > vb || (va == vb && ia < ib);
+}
+
+// the best K (value, index) pairs seen, sorted; empty slots are (-inf,
+// INT_MAX), which every element (-inf included) beats
+template <int K>
+struct List {
+  float v[K];
+  int i[K];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      v[p] = -INFINITY;
+      i[p] = INT_MAX;
+    }
+  }
+
+  __device__ __forceinline__ void insert(float x, int idx) {
+    if (!better(x, idx, v[K - 1], i[K - 1])) return;
+    v[K - 1] = x;
+    i[K - 1] = idx;
+#pragma unroll
+    for (int p = K - 1; p > 0; --p) {
+      if (better(v[p], i[p], v[p - 1], i[p - 1])) {
+        const float tv = v[p];
+        const int ti = i[p];
+        v[p] = v[p - 1];
+        i[p] = i[p - 1];
+        v[p - 1] = tv;
+        i[p - 1] = ti;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int p = 0; p + 1 < K; ++p) {
+      v[p] = v[p + 1];
+      i[p] = i[p + 1];
+    }
+    v[K - 1] = -INFINITY;
+    i[K - 1] = INT_MAX;
+  }
+
+  // slots [0, k) from shared memory (the rest empty)
+  __device__ __forceinline__ void load(const float* sv, const int* si,
+                                       int k) {
+#pragma unroll
+    for (int p = 0; p < K; ++p) {
+      v[p] = p < k ? sv[p] : -INFINITY;
+      i[p] = p < k ? si[p] : INT_MAX;
+    }
+  }
+};
+
+// an unsigned integer in the order of the floats (not NaN), -0 as +0
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.f);
+  return b ^ (b >> 31 ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float(key ^ (key >> 31 ? 0x80000000u : 0xffffffffu));
+}
+
+// k rounds over the warp's lists: every lane learns each round's winner;
+// lane 0 writes it to (ov[r], oi[r]). An index lives in one lane's list, so
+// one lane pops a real winner (empty slots tie, and popping one is a no-op).
+template <int K>
+__device__ __forceinline__ void merge_warp(List<K>& l, int k, float* ov,
+                                           int* oi) {
+  for (int r = 0; r < k; ++r) {
+    const unsigned head = order_key(l.v[0]);
+    const unsigned best = __reduce_max_sync(0xffffffffu, head);
+    const int bi =
+        __reduce_min_sync(0xffffffffu, head == best ? l.i[0] : INT_MAX);
+    if (l.i[0] == bi) l.pop();
+    if ((threadIdx.x & 31) == 0) {
+      ov[r] = key_value(best);
+      oi[r] = bi;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    topk_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                long long* __restrict__ ids, int v, int k) {
-  __shared__ int sel[kMaxK];
-  __shared__ float wv[kThreads / 32];
-  __shared__ int wi[kThreads / 32];
-  const float* row = x + static_cast<size_t>(blockIdx.x) * v;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane_id = tid % 32;
-
-  for (int r = 0; r < k; ++r) {
-    float best = -INFINITY;
-    int bi = INT_MAX;
-    for (int i = tid; i < v; i += kThreads) {
-      float xv = row[i];
-      for (int p = 0; p < r; ++p)
-        if (sel[p] == i) xv = -INFINITY;
-      better(best, bi, xv, i);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      better(best, bi, ov, oi);
-    }
-    if (lane_id == 0) {
-      wv[warp] = best;
-      wi[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      best = lane_id < kThreads / 32 ? wv[lane_id] : -INFINITY;
-      bi = lane_id < kThreads / 32 ? wi[lane_id] : INT_MAX;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        better(best, bi, ov, oi);
-      }
-      if (lane_id == 0) {
-        sel[r] = bi;
-        vals[static_cast<size_t>(blockIdx.x) * k + r] = best;
-        ids[static_cast<size_t>(blockIdx.x) * k + r] = bi;
-      }
-    }
-    __syncthreads();
+// writes output slot r < k of a row from its merged list (sv, si): the
+// list itself while its values are above -inf, then the rounds' -inf rule
+__device__ __forceinline__ void finish(const float* sv, const int* si, int k,
+                                       int r, float* vals, long long* ids) {
+  int c = 0;
+  while (c < k && sv[c] > -INFINITY) ++c;
+  if (r < c) {
+    vals[r] = sv[r];
+    ids[r] = si[r];
+    return;
   }
+  int j = si[c];
+  for (int p = 0; p < c; ++p) j = min(j, si[p]);
+  vals[r] = -INFINITY;
+  ids[r] = j;
+}
+
+// a block a row
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    topk_row_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                    long long* __restrict__ ids, int v, int k) {
+  __shared__ float wv[kWarps * K];
+  __shared__ int wi[kWarps * K];
+  __shared__ float bv[K];
+  __shared__ int bi[K];
+  const float* row = x + static_cast<size_t>(blockIdx.x) * v;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // head: the scalars before the row's first 16-byte boundary
+  const int head = min(v, static_cast<int>(
+                              (16 - reinterpret_cast<uintptr_t>(row) % 16) %
+                              16 / 4));
+  const int nvec = (v - head) / 4;
+  const int body_end = head + 4 * nvec;
+  List<K> l;
+  l.clear();
+  if (tid < head) l.insert(__ldg(row + tid), tid);
+  if (tid < v - body_end) l.insert(__ldg(row + body_end + tid), body_end + tid);
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  for (int q0 = tid; q0 < nvec; q0 += kChunks * kThreads) {
+    float4 c[kChunks];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int q = q0 + u * kThreads;
+      if (q < nvec) c[u] = __ldg(body + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const int q = q0 + u * kThreads;
+      if (q < nvec) {
+        const int e = head + 4 * q;
+        l.insert(c[u].x, e);
+        l.insert(c[u].y, e + 1);
+        l.insert(c[u].z, e + 2);
+        l.insert(c[u].w, e + 3);
+      }
+    }
+  }
+  merge_warp<K>(l, k, wv + warp * K, wi + warp * K);
+  __syncthreads();
+  if (warp == 0) {
+    const int w = lane < kWarps ? lane : 0;
+    l.load(wv + w * K, wi + w * K, lane < kWarps ? k : 0);
+    merge_warp<K>(l, k, bv, bi);
+    __syncwarp();
+    if (tid < k)
+      finish(bv, bi, k, tid, vals + static_cast<size_t>(blockIdx.x) * k,
+             ids + static_cast<size_t>(blockIdx.x) * k);
+  }
+}
+
+// a warp a row, kFlatWarps rows a block
+template <int K>
+__global__ void __launch_bounds__(kFlatWarps * 32)
+    topk_warp_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                     long long* __restrict__ ids, int rows, int v, int k) {
+  __shared__ float wv[kFlatWarps * K];
+  __shared__ int wi[kFlatWarps * K];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row_id = blockIdx.x * kFlatWarps + warp;
+  if (row_id >= rows) return;  // a whole warp: no shuffle misses a lane
+  const float* row = x + static_cast<size_t>(row_id) * v;
+  List<K> l;
+  l.clear();
+  for (int e = lane; e < v; e += 32) l.insert(__ldg(row + e), e);
+  float* ov = wv + warp * K;
+  int* oi = wi + warp * K;
+  merge_warp<K>(l, k, ov, oi);
+  __syncwarp();
+  if (lane < k)
+    finish(ov, oi, k, lane, vals + static_cast<size_t>(row_id) * k,
+           ids + static_cast<size_t>(row_id) * k);
+}
+
+template <int K>
+cudaError_t launch(const float* x, float* vals, long long* ids, int rows,
+                   int v, int k, cudaStream_t stream) {
+  if (v <= kWarpRowMax)
+    topk_warp_kernel<K><<<(rows + kFlatWarps - 1) / kFlatWarps,
+                          kFlatWarps * 32, 0, stream>>>(x, vals, ids, rows,
+                                                        v, k);
+  else
+    topk_row_kernel<K><<<rows, kThreads, 0, stream>>>(x, vals, ids, v, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x: (rows, v) fp32 contiguous; vals: (rows, k) fp32; ids: (rows, k) int64.
+// x: (rows, v) fp32 contiguous, 4-byte aligned; vals: (rows, k) fp32; ids:
+// (rows, k) int64.
 extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
                                  int rows, int v, int k, void* stream) {
-  if (rows <= 0 || v <= 0 || k <= 0 || k > kMaxK || k > v)
+  if (rows <= 0 || v <= 0 || k <= 0 || k > kMaxK || k > v ||
+      reinterpret_cast<uintptr_t>(x) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  topk_kernel<<<rows, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, vals, ids, v, k);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (k <= 4)
+    err = launch<4>(x, vals, ids, rows, v, k, s);
+  else if (k <= 8)
+    err = launch<8>(x, vals, ids, rows, v, k, s);
+  else if (k <= 16)
+    err = launch<16>(x, vals, ids, rows, v, k, s);
+  else
+    err = launch<kMaxK>(x, vals, ids, rows, v, k, s);
+  return static_cast<int>(err);
 }

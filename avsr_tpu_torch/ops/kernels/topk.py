@@ -2,8 +2,11 @@
 
 Counterpart of ``avsr_tpu/ops/pallas/topk.py`` ``topk_lastdim``.
 ``topk_lastdim`` dispatches on the tensor's device: on the CPU it runs
-``topk_plain``, on a CUDA device it launches ``csrc/topk.cu``. torch.topk is
-not used: its tie order on CUDA is not documented.
+``topk_plain``, on a CUDA device it launches ``csrc/topk.cu``: rows longer
+than ``WARP_ROW_MAX`` (the beam's vocabulary rows) a block or a cluster a
+row, shorter ones (its flat (B, 15) top-k) a warp a row; ``launches``
+counts both, ``flat_launches`` the second. torch.topk is not used: its tie
+order on CUDA is not documented.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 from avsr_tpu_torch.ops.kernels import _build
 
 MAX_K = 32
+WARP_ROW_MAX = 1024  # csrc/topk.cu kWarpRowMax
 
 
 def topk_plain(x, k: int):
@@ -46,6 +50,7 @@ def _launch(x2, k):
              torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check("topk_lastdim", err)
     topk_lastdim.launches += 1
+    topk_lastdim.flat_launches += v <= WARP_ROW_MAX
     return vals, ids
 
 
@@ -69,3 +74,4 @@ def topk_lastdim(x, k: int):
 
 
 topk_lastdim.launches = 0
+topk_lastdim.flat_launches = 0

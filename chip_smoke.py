@@ -29,11 +29,17 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    cache) and cold (rotating over the six decoder layers' caches, which
    the L2 cannot hold; the record's time), with fused SDPA on strided
    views of the cache as its library call (and the row write's own copy
-   time printed beside it); ``cumlogsumexp`` at (384, 96) (B=8, the
+   time printed beside it); ``topk_lastdim`` at the beam's two shapes,
+   the pre-beam (B*3, 5049) k=4 and the flat (B, 15) k=3, at B=8 (the
+   records ``topk_lastdim`` and ``topk_lastdim_flat``) and B=32, exact
+   against the twin on rows with ties, equal values, too few finite
+   entries and starts off a 16-byte boundary, each timed beside
+   ``torch.topk``; ``cumlogsumexp`` at (384, 96) (B=8, the
    record) and (384, 384) (B=32) against ``torch.logcumsumexp``; the
    fused stem tail's four kernels at the training shape (N = 6*384
    channels-last frames of (64, 44, 44), bf16), plus fp32 and tied-maxima
-   cases and the eval apply at the serving shape (N = 8*377), with
+   cases and the eval apply at the serving shape (N = 8*377), bwd1's dz
+   held against its twin as well as dx, with
    torch's own BatchNorm passes
    (``batch_norm_stats``, ``batch_norm_backward_elemt``) as the library
    calls of stats and bwd2; the one-launch decoder layer at the serving
@@ -75,7 +81,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
 the kernel's main path: the default beam run of phase 4 (``ctc_weight=0.1``,
-unfused) for the serving kernels, the fused run for ``beam_update``, which
+unfused) for the serving kernels (top-k's vocabulary-row and flat launches
+apart), the fused run for ``beam_update``, which
 only the fused bookkeeping runs, the fused-layer run for
 ``decoder_layer_step``, phase 6's timed steps for the three flash kernels
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels. The last
@@ -553,33 +560,48 @@ def phase_kernels(dev):
         bound=timed[B]["bound"],
     )
 
-    # topk: pre-beam (B*3, 5049) k=4 and flat beam (B, 15) k=3, exact, with
-    # ties against the row maximum
-    errs = []
-    for rows, vocab, kk in ((B * 3, 5049, 4), (B, 15, 3)):
+    # topk: pre-beam (B*3, 5049) k=4 and flat beam (B, 15) k=3, at B=8 and
+    # B=32, exact, with ties against the row maximum, a row of equal
+    # values, rows with fewer than k entries above -inf (a round repeats
+    # an earlier index) and rows off a 16-byte boundary; each shape timed
+    # beside torch.topk. Records: the vocabulary rows at B=8
+    # (``topk_lastdim``) and the flat top-k at B=8 (``topk_lastdim_flat``)
+    errs, topk_ms = [], {}
+    flat = BEAM * (PRE_BEAM + 1)  # the beam's (K, S' + 1) candidates
+    for rows, vocab, kk in ((B * BEAM, VOCAB, PRE_BEAM), (B, flat, BEAM),
+                            (32 * BEAM, VOCAB, PRE_BEAM), (32, flat, BEAM)):
+        buf = torch.randn(rows * vocab + 1, generator=g, device=dev)
+        for x in (buf[:-1].view(rows, vocab), buf[1:].view(rows, vocab)):
+            x[:, vocab // 2] = x.amax(dim=1)
+            x[:, -1] = x.amax(dim=1)
+            x[1] = 0.5
+            x[2] = float("-inf")
+            x[2, vocab - 2] = 1.0
+            x[3, : vocab - 1] = float("-inf")
+            gv, gi = ptk.topk_lastdim(x, kk)
+            wv, wi = ptk.topk_plain(x, kk)
+            torch.cuda.synchronize()
+            check(torch.equal(gi, wi) and torch.equal(gv, wv),
+                  f"topk_lastdim disagrees at ({rows}, {vocab}) k={kk}")
+            errs.append((gv - wv).abs().nan_to_num().max().item())
         x = torch.randn(rows, vocab, generator=g, device=dev)
-        x[:, vocab // 2] = x.amax(dim=1)
-        x[:, -1] = x.amax(dim=1)
-        x[1] = 0.5
-        gv, gi = ptk.topk_lastdim(x, kk)
-        wv, wi = ptk.topk_plain(x, kk)
-        torch.cuda.synchronize()
-        check(torch.equal(gi, wi) and torch.equal(gv, wv),
-              f"topk_lastdim disagrees at ({rows}, {vocab}) k={kk}")
-        errs.append((gv - wv).abs().max().item())
-    x = torch.randn(B * 3, 5049, generator=g, device=dev)
+        vals, ids = ptk.topk_lastdim(x, kk)
+        topk_ms[rows, vocab] = dict(
+            ms=cuda_ms(lambda: ptk.topk_lastdim(x, kk)),
+            plain_ms=cuda_ms(lambda: ptk.topk_plain(x, kk)),
+            library_ms=cuda_ms(lambda: torch.topk(x, kk)),
+            # one comparison per element and round
+            bound=bound(nbytes(x, vals, ids), kk * x.numel(), "fp32"))
+        t = topk_ms[rows, vocab]
+        print(f"# topk_lastdim ({rows}, {vocab}) k={kk}: kernel "
+              f"{t['ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.6f} ms")
     print(f"# topk_lastdim exact (max_abs_err={max(errs)})")
-    vals, ids = ptk.topk_lastdim(x, 4)
-    records["topk_lastdim"] = dict(
-        source="avsr_tpu_torch/csrc/topk.cu",
-        replaces="avsr_tpu/ops/pallas/topk.py:47",
-        max_abs_err=max(errs),
-        ms=cuda_ms(lambda: ptk.topk_lastdim(x, 4)),
-        plain_ms=cuda_ms(lambda: ptk.topk_plain(x, 4)),
-        library_ms=cuda_ms(lambda: torch.topk(x, 4)),
-        # one comparison per element and round
-        bound=bound(nbytes(x, vals, ids), 4 * x.numel(), "fp32"),
-    )
+    for name, shape in (("topk_lastdim", (B * BEAM, VOCAB)),
+                        ("topk_lastdim_flat", (B, flat))):
+        records[name] = dict(source="avsr_tpu_torch/csrc/topk.cu",
+                             replaces="avsr_tpu/ops/pallas/topk.py:47",
+                             max_abs_err=max(errs), **topk_ms[shape])
 
     # cumlogsumexp: the scorer's (T, B*K*S') scans, (384, 96) at B=8 and
     # (384, 384) at B=32 (scan_case). The kernel's scan and the twin's tree
@@ -923,16 +945,21 @@ def phase_fuse_kernels(dev):
         wants = psf.bn_prelu_pool_bwd_plain(x, scale, bias, alpha, mean, rstd,
                                             dout)
         again = psf.bn_prelu_pool_bwd1(x, p, dout)
+        w_dz = psf.bn_prelu_pool_bwd1_plain(x, scale, bias, alpha, mean, rstd,
+                                            dout)[0]
         torch.cuda.synchronize()
         errs = {"out": _rel_err(out, w_out), "mean": _rel_err(mean, w_mean),
-                "var": _rel_err(var, w_var), "dx": _rel_err(dx, wants[0]),
+                "var": _rel_err(var, w_var), "dz": _rel_err(dz, w_dz),
+                "dx": _rel_err(dx, wants[0]),
                 "dscale": _rel_err(red[1], wants[1]),
                 "dbias": _rel_err(red[0], wants[2]),
                 "dalpha": _rel_err(red[2], wants[3])}
-        lims = {"out": tol, "dx": tol if dtype == bf16 else 1e-4}
+        lims = {"out": tol, "dz": tol, "dx": tol if dtype == bf16 else 1e-4}
         print(f"# stem tail N={n} {str(dtype)[6:]}{' ties' if ties else ''}: "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f" (limits {tol:g} out/dx, 1e-4 others)")
+              + f" (limits {tol:g} out/dz/dx, 1e-4 others); dz bit-equal to "
+              f"the twin's at {(dz == w_dz).float().mean().item():.6f} of "
+              f"its elements")
         for k, v in errs.items():
             check(v <= lims.get(k, 1e-4), f"stem tail {k} disagrees at N={n} "
                   f"{dtype}{' ties' if ties else ''}")
@@ -1268,10 +1295,14 @@ def phase_serving(dev, gpu_name: str):
         torch.cuda.synchronize()
         for fn in counters:
             fn.launches = 0
+        ptk.topk_lastdim.flat_launches = 0
         t0 = time.perf_counter()
         out = rec.transcribe_batch(audio, video, mode=mode)
         wall = time.perf_counter() - t0
         launches = {fn.__name__: fn.launches for fn in counters}
+        # top-k's two kernels: the vocabulary rows and the flat (B, 15)
+        launches["topk_lastdim_flat"] = ptk.topk_lastdim.flat_launches
+        launches["topk_lastdim"] -= ptk.topk_lastdim.flat_launches
         check(len(out) == B, f"{name}: wrong number of transcripts")
         for toks in out:
             check(toks.ndim == 1 and ((toks >= 0) & (toks < cfg.odim)).all(),
@@ -1295,7 +1326,8 @@ def phase_serving(dev, gpu_name: str):
         steps = n["decode_attention"] // cfg.dlayers
         check(steps >= 1 and n["decode_attention"] == steps * cfg.dlayers,
               f"{name}: decode_attention not launched per layer and step")
-        check(n["topk_lastdim"] >= (1 if fused else 2) * steps,
+        check(n["topk_lastdim"] >= steps
+              and (fused or n["topk_lastdim_flat"] >= steps),
               f"{name}: topk_lastdim not launched every step")
         if ctc_weight:
             check(n["row_gather"] >= steps,

@@ -155,13 +155,55 @@ def test_decode_kernel_every_cluster_size(dev, cluster, qdtype, cdtype):
         assert (got.float().cpu() - want.float()).abs().max() <= 2e-2
 
 
-@pytest.mark.parametrize("rows,v,k", [(24, 5049, 4), (8, 15, 3)])
+@pytest.mark.parametrize("rows,v,k", [(24, 5049, 4), (96, 5049, 4),
+                                      (8, 15, 3), (32, 15, 3), (5, 1025, 8),
+                                      (3, 1024, 9), (40, 5049, 32)])
 def test_topk_kernel_matches_plain(dev, rows, v, k):
+    """The beam's shapes (block or cluster a vocabulary row at 24 and 96
+    rows, a warp a row for the flat (B, 15) top-k), both routes' edges, and
+    k across the register lists' sizes; ties with the row max, a row of
+    equal values. Rows of up to 1024 columns take the warp kernel."""
     x = torch.randn(rows, v, generator=_gen(v))
     x[:, v // 2] = x.amax(dim=1)  # ties with the row max
     x[1] = 0.25
     want_v, want_i = ptk.topk_plain(x, k)
+    before = (ptk.topk_lastdim.launches, ptk.topk_lastdim.flat_launches)
     got_v, got_i = ptk.topk_lastdim(x.to(dev), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert (ptk.topk_lastdim.launches - before[0],
+            ptk.topk_lastdim.flat_launches - before[1]) == (1, int(v <= 1024))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("v,k", [(5049, 4), (15, 3), (2000, 17)])
+def test_topk_kernel_edge_rows(dev, offset, v, k):
+    """Rows that start off a 16-byte boundary (the tensor's storage offset
+    and v = 5049 put each row's head elsewhere); rows with fewer than k
+    entries above -inf, where a round repeats an earlier index (-inf at
+    high and at low columns, a row all -inf); rows of equal values; +inf
+    entries."""
+    rows = 24
+    g = _gen(v + offset)
+    buf = torch.randn(rows * v + offset, generator=g)
+    x = buf[offset:].view(rows, v)
+    x[0] = float("-inf")
+    x[1] = float("-inf")
+    x[1, v - 1] = 2.0
+    x[2, :] = float("-inf")
+    x[2, 0] = -3.0
+    x[2, v // 2] = 1.0
+    x[3] = 7.5
+    x[4, v // 3] = float("inf")
+    x[4, v - 2] = float("inf")
+    x[5, : v // 2] = float("-inf")
+    x[5, v - 1] = float("-inf")
+    x[5, v // 2 + 1:v - 1] = float("-inf")
+    want_v, want_i = ptk.topk_plain(x, k)
+    xd = torch.randn(rows * v + offset).to(dev)
+    xd[offset:] = buf[offset:].to(dev)
+    got_v, got_i = ptk.topk_lastdim(xd[offset:].view(rows, v), k)
     torch.cuda.synchronize()
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_v.cpu(), want_v)
@@ -403,7 +445,8 @@ def _stem_case(dtype, n, c, h, w, ties, seed):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n,c,h,w", [(7, 16, 8, 12), (6, 64, 44, 44),
-                                     (3, 5, 6, 2)])
+                                     (3, 5, 6, 2), (1, 64, 44, 44),
+                                     (2, 16, 14, 10), (2, 64, 88, 88)])
 def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties, layout):
     """The four bn_prelu_pool kernels through the autograd function on the
     card against the twins on the CPU, training: pooled output within tol
@@ -414,7 +457,10 @@ def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties, layout):
     (no float atomics). The kernels read channels-last frames: an x in the
     contiguous (NCHW) layout is copied to it; the output comes back
     channels-last, dx in x's layout. The 3 x 5 x 6 x 2 case takes the
-    scalar loads."""
+    scalar loads and threads' copies in bwd1; 44 x 44 (22 output rows) and
+    14 x 10 (7) leave a partial strip of bwd1's 6 output rows; one frame
+    has fewer strips than the card has SMs; 88 x 88 in fp32 fits bwd1's
+    shared memory only at 2 output rows a strip and one buffer."""
     x, params, dout = _stem_case(dtype, n, c, h, w, ties, n * c + h)
     x = x.contiguous(memory_format=layout)
     res = {}
@@ -449,6 +495,33 @@ def test_stem_kernels_match_plain(dev, dtype, tol, n, c, h, w, ties, layout):
              for where in ("cpu", dev)]
     assert (evals[1].float() - evals[0].float()).abs().max() <= (
         tol * evals[0].float().abs().max())
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w", [(6, 64, 44, 44), (3, 5, 6, 2),
+                                     (2, 64, 88, 88), (200, 64, 44, 44),
+                                     (700, 5, 14, 6)])
+def test_stem_bwd1_dz_is_the_twins(dev, dtype, n, c, h, w, ties):
+    """bwd1's dz equals its twin's bit for bit on the same p: y, the pool's
+    routing (first maximum), dy added in ascending k and dz round as the
+    twin rounds them; the sums within 1e-4 of their largest entry. At 200
+    and 700 frames the strips outnumber the blocks, so a block's next
+    strip of a frame takes its first window row from the strip before."""
+    x, (scale, bias, alpha), dout = _stem_case(dtype, n, c, h, w, ties, 11)
+    x = x.contiguous(memory_format=torch.channels_last).to(dev)
+    dout = dout.contiguous(memory_format=torch.channels_last).to(dev)
+    scale, bias, alpha = (v.to(dev) for v in (scale, bias, alpha))
+    mean, var = psf._batch_stats_plain(x.float())
+    rstd = torch.rsqrt(var + 1e-5)
+    p = psf._pack(mean, rstd, scale, bias, alpha)
+    dz, red = psf.bn_prelu_pool_bwd1(x, p, dout)
+    w_dz, dgamma, dbeta, dalpha = psf.bn_prelu_pool_bwd1_plain(
+        x, scale, bias, alpha, mean, rstd, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(dz, w_dz)
+    want = torch.stack([dbeta, dgamma, dalpha])
+    assert (red - want).abs().max() <= 1e-4 * want.abs().max()
 
 
 def _layer(c, heads, f, seed):

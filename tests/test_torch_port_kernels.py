@@ -113,7 +113,8 @@ def test_decode_attention_plain_bf16_cache_rounding():
 # ---------------------------------------------------------------- topk
 
 
-@pytest.mark.parametrize("rows,v,k", [(9, 61, 4), (24, 5049, 4), (8, 15, 3)])
+@pytest.mark.parametrize("rows,v,k", [(9, 61, 4), (24, 5049, 4), (8, 15, 3),
+                                      (9, 61, 1), (9, 61, 8)])
 def test_topk_plain_matches_jax_with_ties(rows, v, k):
     from avsr_tpu.ops.pallas.topk import topk_lastdim
 
@@ -130,6 +131,128 @@ def test_topk_plain_matches_jax_with_ties(rows, v, k):
     got_v, got_i = ptk.topk_lastdim(t(x), k)
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
+def _inf_rows(v, seed):
+    """Rows with fewer finite entries than the rounds: none, one at the
+    end, two, one at the start with -inf after it, and a row that also
+    holds +inf; then random rows."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(7, v).astype(np.float32)
+    x[0] = -np.inf
+    x[1] = -np.inf
+    x[1, v - 1] = 2.0
+    x[2] = -np.inf
+    x[2, [0, v // 2]] = [-3.0, 1.0]
+    x[3, 1:] = -np.inf
+    x[4, :] = -np.inf
+    x[4, [v // 3, v - 2]] = [np.inf, 0.5]
+    return x
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("v", [15, 61])
+def test_topk_plain_matches_jax_on_the_inf_rule(v, k):
+    """Once a row's finite entries are used up, each round's max is -inf
+    and its index the lowest index whose current value is -inf, which can
+    be one chosen in an earlier round: the JAX kernel (interpret) and the
+    twin agree on every such row."""
+    from avsr_tpu.ops.pallas.topk import topk_lastdim
+
+    x = _inf_rows(v, v + k)
+    want_v, want_i = topk_lastdim(jnp.asarray(x), k)
+    got_v, got_i = ptk.topk_lastdim(t(x), k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    # the rule shows: a row with one finite entry repeats an index
+    assert len(set(got_i[1].tolist())) < k or k == 1
+
+
+INT_MAX = 2**31 - 1
+
+
+def _merge(lists, k):
+    """csrc/topk.cu merge_warp over lists (each sorted, padded with (-inf,
+    INT_MAX)): k rounds, each the largest head value, then the smallest
+    index holding it, every list whose head holds that index popping it."""
+    out = []
+    lists = [list(lst) for lst in lists]
+    for _ in range(k):
+        best = min((lst[0] for lst in lists), key=lambda e: (-e[0], e[1]))
+        out.append(best)
+        for lst in lists:
+            if lst[0][1] == best[1]:
+                lst.pop(0)
+                lst.append((-np.inf, INT_MAX))
+    return out
+
+
+def _topk_one_pass(row, k, offset, threads=256):
+    """csrc/topk.cu on one row: each thread's best K entries of the
+    elements it reads (the block kernel's head, 16-byte chunks and tail,
+    ``offset`` the row's start in floats modulo 4, or a warp's strided
+    scalars for short rows), merged a warp and then a block at a time,
+    then ``finish``'s -inf rule."""
+    v = len(row)
+    kk = next(n for n in (4, 8, 16, 32) if n >= k)
+    pad = [(-np.inf, INT_MAX)] * kk
+
+    def best(idx):
+        es = sorted(((float(row[i]), i) for i in idx if not np.isnan(row[i])),
+                    key=lambda e: (-e[0], e[1]))
+        return (es + pad)[:kk]
+
+    if v <= ptk.WARP_ROW_MAX:
+        merged = _merge([best(range(lane, v, 32)) for lane in range(32)], k)
+    else:
+        head = min(v, (4 - offset % 4) % 4)
+        nvec = (v - head) // 4
+        end = head + 4 * nvec
+        warps = []
+        for w in range(threads // 32):
+            lanes = []
+            for lane in range(32):
+                t = 32 * w + lane
+                idx = [e for q in range(t, nvec, threads)
+                       for e in range(head + 4 * q, head + 4 * q + 4)]
+                idx += [t] if t < head else []
+                idx += [end + t] if t < v - end else []
+                lanes.append(best(idx))
+            warps.append(_merge(lanes, k) + pad)
+        merged = _merge(warps, k)
+    c = next((r for r in range(k) if not merged[r][0] > -np.inf), k)
+    j = min([merged[c][1]] + [e[1] for e in merged[:c]]) if c < k else None
+    vals = [e[0] if r < c else -np.inf for r, e in enumerate(merged)]
+    ids = [e[1] if r < c else j for r, e in enumerate(merged)]
+    return np.float32(vals), np.int64(ids)
+
+
+@pytest.mark.parametrize("v,k,offset", [
+    (15, 3, 0), (15, 8, 0), (61, 4, 0), (1024, 9, 0), (5049, 4, 0),
+    (5049, 4, 1), (5049, 4, 3), (1025, 8, 2), (5049, 32, 1)])
+def test_topk_one_pass_design_matches_the_twin(v, k, offset):
+    """The kernel's design, emulated element by element (per-thread lists
+    of the elements each thread reads, warp and block merges, the -inf
+    rule from the merged list), gives the twin's values and indices on
+    rows with ties, equal values, +inf and too few finite entries."""
+    x = np.concatenate([_inf_rows(v, v + k), np.random.RandomState(k).randn(
+        2, v).astype(np.float32)])
+    x[5, v // 2] = x[5].max()
+    x[6] = 0.25
+    want_v, want_i = ptk.topk_plain(t(x), k)
+    for r in range(len(x)):
+        got_v, got_i = _topk_one_pass(x[r], k, (offset + r * v) % 4)
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_v, want_v[r].numpy())
+
+
+def test_topk_route_constant_is_the_sources():
+    """The wrapper counts the warp-a-row launches by the source's limit."""
+    from avsr_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC_DIR / "topk.cu").read_text()
+    assert (f"constexpr int kWarpRowMax = {ptk.WARP_ROW_MAX};" in src
+            and f"constexpr int kMaxK = {ptk.MAX_K};" in src)
 
 
 def test_topk_leading_axes():

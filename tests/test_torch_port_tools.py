@@ -282,3 +282,67 @@ def test_decode_numerics_exact_and_apart():
     b[3] = (a[3].view(torch.int16) + 2).view(torch.bfloat16)
     assert dn.apart(a, b).endswith("(2 > 1e-3, 1 of them one ulp)")
     assert dn.apart(a.float(), a.float()) == "0.000e+00"
+
+
+# ------------------------------------------------- topk_stem_variants
+
+
+def test_topk_stem_variant_arguments_and_sources(tmp_path, monkeypatch):
+    """A variant names the top-k or stem source's constants only; its copy
+    differs in the named constant; ``NAME@DIR`` brings DIR's checkout's
+    wrappers of both kernels."""
+    from avsr_tpu_torch.tools import topk_stem_variants as tv
+
+    name, _, subs = fv.parse("v=topk.cu:kThreads=512,stem_fuse.cu:"
+                             "kStripRows=3", tv.SOURCES)
+    assert subs == [("topk.cu", "kThreads", "512"),
+                    ("stem_fuse.cu", "kStripRows", "3")]
+    for bad in ("v=decoder_layer.cu:kTraceSub=2", "v=topk.py:X=1"):
+        with pytest.raises(SystemExit):
+            fv.parse(bad, tv.SOURCES)
+    monkeypatch.setattr(tv, "OUT", tmp_path / "out")
+    out = tv.prepare(name, fv._build.CSRC_DIR, subs)
+    assert "constexpr int kThreads = 512;" in (out / "csrc" / "topk.cu"
+                                               ).read_text()
+    assert "constexpr int kStripRows = 3;" in (out / "csrc" / "stem_fuse.cu"
+                                               ).read_text()
+    assert sorted(f.name for f in (out / "py").iterdir()) == [
+        "stem_fuse.py", "topk.py"]
+    old = tmp_path / "old" / "avsr_tpu_torch"
+    (old / "csrc").mkdir(parents=True)
+    (old / "ops" / "kernels").mkdir(parents=True)
+    (old / "csrc" / "topk.cu").write_text("// another version\n")
+    (old / "ops" / "kernels" / "topk.py").write_text("# old wrapper\n")
+    out = tv.prepare("parent", old / "csrc", [])
+    assert (out / "csrc" / "topk.cu").read_text() == "// another version\n"
+    assert [f.name for f in (out / "py").iterdir()] == ["topk.py"]
+
+
+def test_topk_stem_variant_register_report_and_dz(tmp_path, monkeypatch):
+    """Registers and spills of the top-k and bwd1 kernels, and of no other,
+    come from a ptxas report; dz digests are compared with the first
+    variant's."""
+    from avsr_tpu_torch.tools import topk_stem_variants as tv
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_115topk_row_kernelILi4EEEvPKfPfPxiii' for 'sm_90a'",
+        "ptxas info    : Used 64 registers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN12_GLOBAL__N_111bwd1_kernelI13__nv_bfloat16Li2EEEvNS_8Bwd1Args"
+        "IT_EE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z12stats_kernelPKf' for "
+        "'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    lines = tv.registers(log)
+    assert len(lines) == 2
+    assert "topk_row_kernel" in lines[0] and "64 registers" in lines[0]
+    assert "bwd1_kernel" in lines[1] and "spill stores" in lines[1]
+    monkeypatch.setattr(tv, "OUT", tmp_path)
+    for name, digest in (("base", "ab"), ("same", "ab"), ("other", "cd")):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "dz.sha256").write_text(digest + "\n")
+    assert tv.same_dz(["base", "same", "other", "missing"]) == {
+        "base": True, "same": True, "other": False, "missing": False}
