@@ -8,19 +8,29 @@
 // runs the whole update as one program instead of ~100 scalar-shaped XLA
 // ops.
 //
-// What bounds it on the card: at B=8, K=3, S'=4, L=377 and a 192-row
-// ancestry it reads and writes under 0.35 MB (the int64 token buffers and
-// ancestry dominate), about 0.1 us at 3.35 TB/s, with a few hundred
-// arithmetic operations. The launch bounds it. Its worth is the ~100
-// launches a step of the unfused step that it replaces, which only the
-// beam's wall time shows.
+// What bounds it on the card: latency. At B=8, K=3, S'=4, L=377 and a
+// 192-row ancestry it reads and writes under 0.35 MB (the int64 token
+// buffers and ancestry dominate), about 0.1 us at 3.35 TB/s, with a few
+// hundred arithmetic operations. So its time is the launch and the chain of
+// dependent steps after it. Its worth is the ~100 launches a step of the
+// unfused step that it replaces.
 //
-// Design: one block per utterance. Its threads weight the K*(S'+1)
-// candidates into shared memory; one thread then runs the k rounds of
-// (max, lowest flat index, mask) and the per-utterance scalars (retirement,
-// best slot, end detection), all O(K*(S'+1)) work; then all threads write
-// the gathered token rows, the best row, the ended statistics and the
-// ancestry, with neighbouring threads on neighbouring elements.
+// Design: one memory round trip, then register work. A grid of (B, G)
+// blocks, G enough that a thread owns kItems items of its utterance: a
+// column l < L (its K token-buffer elements, the best row's, the ended
+// statistics') or a row of the ancestry (its K entries). Every thread first
+// issues the loads of everything it will write, all K source rows of each;
+// warp 0 of every block loads the utterance's candidates, 4 a lane (K*(S'+1)
+// <= 128), and its scalars, in the same round trip. Warp 0 then runs the k
+// rounds of the top-k: the largest value by __reduce_max_sync over an
+// order-preserving key, the lowest flat index holding it by
+// __reduce_min_sync, that candidate set to -inf. Lane r keeps round r, so
+// retirement, the best slot, the running best and end detection are
+// lane-parallel over K (ballots and one warp max). Each block redoes this
+// from the same tiny inputs and gets the same answer; block 0 of an
+// utterance writes the per-hypothesis and per-utterance outputs. After one
+// __syncthreads every thread selects its outputs by `prev` from registers
+// and stores them; no load follows a store.
 //
 // Exactness: every output is bit-identical to beam_update_plain and to the
 // unfused step in decode/beam.py. torch rounds each operation on its own,
@@ -28,51 +38,77 @@
 // multiply-adds, which round once and could flip a near-tie in the top-k.
 // So the weighting uses the __fmul_rn / __fadd_rn / __fsub_rn intrinsics,
 // which are never contracted, in the unfused step's order; every other
-// output is a selection or a copy.
+// output is a selection or a copy. The top-k's rule is the twin's: the
+// largest value, the lowest flat index among equals; a round whose maximum
+// is -inf takes the lowest index holding -inf, which may be one chosen
+// before (chosen candidates hold -inf).
 #include <string.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxCand = 128;  // K * (S'+1)
+constexpr int kThreads = 128;  // a block; warp 0 runs the top-k
+constexpr int kItems = 1;      // columns or ancestry rows a thread
+constexpr int kMaxCand = 128;  // K * (S'+1): 4 a lane of warp 0
 constexpr int kMaxK = 16;
+constexpr unsigned kFull = 0xffffffffu;
+// 1: thread 0 of block (0, 0) marks the end of each phase in trace_marks,
+// for tools/bookkeeping_apply_variants.py; 0 (shipped): no marks
+constexpr int kTrace = 0;
+constexpr int kMarks = 7;
+
+// the SM clock (row 0) and the global timer in ns (row 1) at each mark:
+// entry, the item loads issued, the candidates' loads consumed, the k
+// rounds, the bookkeeping, the block's barrier, the item stores issued
+__device__ long long trace_marks[2][kMarks];
+
+__device__ __forceinline__ void mark(int at) {
+  if constexpr (kTrace != 0) {
+    if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+      long long clk, ns;
+      asm volatile("mov.u64 %0, %%clock64;" : "=l"(clk)::"memory");
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns)::"memory");
+      trace_marks[0][at] = clk;
+      trace_marks[1][at] = ns;
+    }
+  }
+}
 
 struct Ptrs {
   // inputs
-  const long long* xlens;      // (B,)
-  const float* dec_top;        // (B, K, S')
-  const float* dec_eos;        // (B, K)
-  const float* psi_cand;       // (B, K, S'), null without CTC
-  const float* psi_eos;        // (B, K), null without CTC
-  const float* ctc_s;          // (B, K), null without CTC
-  const long long* part_ids;   // (B, K, S')
-  const float* score;          // (B, K)
-  const unsigned char* alive;  // (B, K) bool
-  const unsigned char* stop;   // (B,) bool
-  const long long* yseq;       // (B, K, L)
-  const long long* anc;        // (S, B, K)
-  const float* ended_best;     // (B, L)
-  const long long* ended_cnt;  // (B, L)
-  const float* best_score;     // (B,)
-  const long long* best_yseq;  // (B, L)
-  const long long* best_len;   // (B,)
+  const long long* __restrict__ xlens;      // (B,)
+  const float* __restrict__ dec_top;        // (B, K, S')
+  const float* __restrict__ dec_eos;        // (B, K)
+  const float* __restrict__ psi_cand;       // (B, K, S'), null without CTC
+  const float* __restrict__ psi_eos;        // (B, K), null without CTC
+  const float* __restrict__ ctc_s;          // (B, K), null without CTC
+  const long long* __restrict__ part_ids;   // (B, K, S')
+  const float* __restrict__ score;          // (B, K)
+  const unsigned char* __restrict__ alive;  // (B, K) bool
+  const unsigned char* __restrict__ stop;   // (B,) bool
+  const long long* __restrict__ yseq;       // (B, K, L)
+  const long long* __restrict__ anc;        // (S, B, K)
+  const float* __restrict__ ended_best;     // (B, L)
+  const long long* __restrict__ ended_cnt;  // (B, L)
+  const float* __restrict__ best_score;     // (B,)
+  const long long* __restrict__ best_yseq;  // (B, L)
+  const long long* __restrict__ best_len;   // (B,)
   // outputs, in the order of beam_update.py _OUT
-  long long* token;            // (B, K)
-  long long* prev;             // (B, K)
-  long long* slot;             // (B, K)
-  float* psi_sel;              // (B, K)
-  float* score_o;              // (B, K)
-  unsigned char* alive_o;      // (B, K)
-  long long* yseq_o;           // (B, K, L)
-  long long* anc_o;            // (S, B, K)
-  float* ended_best_o;         // (B, L)
-  long long* ended_cnt_o;      // (B, L)
-  float* best_score_o;         // (B,)
-  long long* best_yseq_o;      // (B, L)
-  long long* best_len_o;       // (B,)
-  unsigned char* stop_o;       // (B,)
+  long long* __restrict__ token;            // (B, K)
+  long long* __restrict__ prev;             // (B, K)
+  long long* __restrict__ slot;             // (B, K)
+  float* __restrict__ psi_sel;              // (B, K)
+  float* __restrict__ score_o;              // (B, K)
+  unsigned char* __restrict__ alive_o;      // (B, K)
+  long long* __restrict__ yseq_o;           // (B, K, L)
+  long long* __restrict__ anc_o;            // (S, B, K)
+  float* __restrict__ ended_best_o;         // (B, L)
+  long long* __restrict__ ended_cnt_o;      // (B, L)
+  float* __restrict__ best_score_o;         // (B,)
+  long long* __restrict__ best_yseq_o;      // (B, L)
+  long long* __restrict__ best_len_o;       // (B,)
+  unsigned char* __restrict__ stop_o;       // (B,)
 };
 
 struct Dims {
@@ -80,156 +116,284 @@ struct Dims {
   float w_dec, w_ctc, neg, d_end;
 };
 
-// token buffer row j of the successor of lane j, element l (before the
-// lane_active freeze): the source row prev[j], then this step's writes
-__device__ __forceinline__ long long successor(const Ptrs& p, const Dims& d,
-                                               int b, int prev_j,
-                                               long long tok_j, bool forced,
-                                               int l) {
-  long long v = p.yseq[(static_cast<size_t>(b) * d.k + prev_j) * d.l + l];
-  if (l == d.i + 1) v = tok_j;
-  if (l == d.i + 2 && forced) v = d.eos;
-  return v;
+// v[j] for a j < KM known only at run time, without indexing registers
+template <int KM>
+__device__ __forceinline__ long long pick(const long long (&v)[KM], int j) {
+  long long out = v[0];
+#pragma unroll
+  for (int q = 1; q < KM; ++q)
+    if (q == j) out = v[q];
+  return out;
 }
 
+// KM: the most hypotheses the instantiation holds in registers (K <= KM)
+template <int KM>
 __global__ void __launch_bounds__(kThreads)
     beam_update_kernel(const Ptrs p, const Dims d) {
-  __shared__ float w[kMaxCand];
+  __shared__ float cand_w[kMaxCand];
   __shared__ long long cand_tok[kMaxCand];
   __shared__ float cand_psi[kMaxCand];
-  __shared__ int prev_s[kMaxK];
-  __shared__ long long tok_s[kMaxK];
+  __shared__ int prev_s[KM];
+  __shared__ long long tok_s[KM];
   __shared__ float step_best_s;
   __shared__ int best_slot_s, better_s, n_ended_s;
 
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int k = d.k, sp = d.sp, c = sp + 1, nc = k * c;
-  const long long xlen = p.xlens[b];
-  const bool lane_active = !p.stop[b] && d.i < xlen;
-  const bool forced = d.i >= xlen - 1;
+  mark(0);
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31;
+  const int k = d.k, sp = d.sp, c = sp + 1, nc = k * c, ll = d.l;
   const size_t bk = static_cast<size_t>(b) * k;
+  const size_t row = static_cast<size_t>(b) * ll;
 
-  // 1. candidate scores: w_dec*dec (+ w_ctc*(psi - s)), eos-slot dedup,
-  //    + score, dead lanes to neg
-  for (int f = tid; f < nc; f += kThreads) {
-    const int j = f / c, q = f % c;
-    const bool eos_slot = q == sp;
-    const size_t at = (bk + j) * sp + q;
-    const float dec = eos_slot ? p.dec_eos[bk + j] : p.dec_top[at];
-    float wv = __fmul_rn(d.w_dec, dec);
-    float psi = 0.0f;
-    if (d.use_ctc) {
-      psi = eos_slot ? p.psi_eos[bk + j] : p.psi_cand[at];
-      const float gain = __fsub_rn(psi, p.ctc_s[bk + j]);
-      wv = __fadd_rn(wv, __fmul_rn(d.w_ctc, gain));
+  // 1. every load, issued before any dependent work. This thread's items:
+  //    e < L a column of the token buffers, the best row and the ended
+  //    statistics; L <= e < L + S a row of the ancestry. All K source rows
+  //    of each, since `prev` is not known yet.
+  const long long xlen = p.xlens[b];
+  const bool stopped = p.stop[b];
+  long long src[kItems][KM] = {}, best_row[kItems] = {};
+  long long cnt_row[kItems] = {};
+  float eb_row[kItems] = {};
+  int item[kItems];
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int e = (u * gridDim.y + blockIdx.y) * kThreads + tid;
+    item[u] = e;
+    if (e < ll) {
+#pragma unroll
+      for (int j = 0; j < KM; ++j)
+        if (j < k) src[u][j] = p.yseq[(bk + j) * ll + e];
+      best_row[u] = p.best_yseq[row + e];
+      eb_row[u] = p.ended_best[row + e];
+      cnt_row[u] = p.ended_cnt[row + e];
+    } else if (e < ll + d.s) {
+      const size_t base = (static_cast<size_t>(e - ll) * d.b + b) * k;
+#pragma unroll
+      for (int j = 0; j < KM; ++j)
+        if (j < k) src[u][j] = p.anc[base + j];
     }
-    if (eos_slot) {
-      bool dup = false;
-      for (int qq = 0; qq < sp; ++qq)
-        dup |= p.part_ids[(bk + j) * sp + qq] == d.eos;
-      if (dup) wv = d.neg;
-    }
-    wv = __fadd_rn(wv, p.score[bk + j]);
-    if (!p.alive[bk + j]) wv = d.neg;
-    w[f] = wv;
-    cand_tok[f] = eos_slot ? static_cast<long long>(d.eos) : p.part_ids[at];
-    cand_psi[f] = psi;
   }
-  __syncthreads();
+  mark(1);
+  const bool lane_active = !stopped && d.i < xlen;
+  const bool forced = d.i >= xlen - 1;
 
-  // 2. one thread: top-k, retirement, best tracking, end detection
-  if (tid == 0) {
-    float top[kMaxK];
-    bool ended[kMaxK];
-    float step_best = -INFINITY;
-    int n_ended = 0;
+  // 2. warp 0: the candidates f = lane + 32t, the top-k, the bookkeeping
+  if (tid < 32) {
+    // the candidates' operands, loaded before any of them is used; lane
+    // r < K: hypothesis r's score and alive, for the freeze; lane mm <
+    // m_end: end detection's column max(i - mm - 2, 0) (any beyond the
+    // first 32 after the top-k)
+    float dec[4], psi[4] = {}, ctc[4] = {}, sc[4];
+    long long ctok[4];
+    bool live[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = lane + 32 * t;
+      if (f >= nc) continue;
+      const int j = f / c, q = f % c;
+      const bool eos_slot = q == sp;
+      const size_t at = (bk + j) * sp + q;
+      dec[t] = eos_slot ? p.dec_eos[bk + j] : p.dec_top[at];
+      if (d.use_ctc) {
+        psi[t] = eos_slot ? p.psi_eos[bk + j] : p.psi_cand[at];
+        ctc[t] = p.ctc_s[bk + j];
+      }
+      sc[t] = p.score[bk + j];
+      live[t] = p.alive[bk + j];
+      ctok[t] = eos_slot ? static_cast<long long>(d.eos) : p.part_ids[at];
+    }
+    const float score_r = lane < k ? p.score[bk + lane] : 0.0f;
+    const bool alive_r = lane < k && p.alive[bk + lane];
+    const float best_in = p.best_score[b];
+    const long long best_len_in = p.best_len[b];
+    const int col0 = max(d.i - lane - 2, 0);
+    const long long cnt0 = lane < d.m_end ? p.ended_cnt[row + col0] : 0;
+    const float eb0 = lane < d.m_end ? p.ended_best[row + col0] : 0.0f;
+
+    // eos among hypothesis j's pre-beam ids: bits of the 128 flat indices
+    // whose pre-beam id is eos, tested over [j (S'+1), j (S'+1) + S')
+    unsigned eos_at[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = lane + 32 * t;
+      eos_at[t] =
+          __ballot_sync(kFull, f < nc && f % c != sp && ctok[t] == d.eos);
+    }
+    auto eos_among = [&](int lo, int hi) {
+      bool any = false;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int a = max(lo - 32 * t, 0), z = min(hi - 32 * t, 32);
+        if (a < z)
+          any |= (eos_at[t] & (z == 32 ? ~0u : (1u << z) - 1) &
+                  ~((1u << a) - 1)) != 0;
+      }
+      return any;
+    };
+
+    unsigned key[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int f = lane + 32 * t;
+      key[t] = 0u;  // below every value's key: never chosen
+      if (f >= nc) continue;
+      const int j = f / c;
+      // the unfused step's order: w_dec*dec (+ w_ctc*(psi - s)), the
+      // eos-slot dedup, + score, dead lanes to neg
+      float wv = __fmul_rn(d.w_dec, dec[t]);
+      if (d.use_ctc)
+        wv = __fadd_rn(wv, __fmul_rn(d.w_ctc, __fsub_rn(psi[t], ctc[t])));
+      if (f - j * c == sp && eos_among(j * c, j * c + sp)) wv = d.neg;
+      wv = __fadd_rn(wv, sc[t]);
+      if (!live[t]) wv = d.neg;
+      cand_w[f] = wv;
+      cand_tok[f] = ctok[t];
+      cand_psi[f] = psi[t];
+      key[t] = avsr::order_key(wv);
+    }
+
+    mark(2);
+    // k rounds: the largest key, then the lowest flat index holding it;
+    // that candidate then holds -inf. Lane r keeps round r's index.
+    const unsigned neg_inf = avsr::order_key(-INFINITY);
+    int sel_r = 0;
+    bool inf_round_r = false;
     for (int r = 0; r < k; ++r) {
-      // largest value, lowest flat index among equals
-      float m = -INFINITY;
-      int sel = 0;
-      for (int f = 0; f < nc; ++f)
-        if (w[f] > m) {
-          m = w[f];
-          sel = f;
+      unsigned kb = key[0];
+      int tb = 0;
+#pragma unroll
+      for (int t = 1; t < 4; ++t)
+        if (key[t] > kb) {
+          kb = key[t];
+          tb = t;
         }
-      const int pj = sel / c;
-      top[r] = m;
-      prev_s[r] = pj;
-      tok_s[r] = cand_tok[sel];
-      p.token[bk + r] = cand_tok[sel];
-      p.prev[bk + r] = pj;
-      p.slot[bk + r] = sel - pj * c;
-      p.psi_sel[bk + r] = cand_psi[sel];
-      w[sel] = -INFINITY;
-      ended[r] = (cand_tok[sel] == d.eos || forced) && lane_active;
-      n_ended += ended[r];
-      step_best = fmaxf(step_best, ended[r] ? m : d.neg);
+      const unsigned mk = __reduce_max_sync(kFull, kb);
+      const unsigned sel =
+          __reduce_min_sync(kFull, kb == mk ? lane + 32 * tb : 0xffffffffu);
+      if (lane == static_cast<int>(sel & 31)) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (t == static_cast<int>(sel >> 5)) key[t] = neg_inf;
+      }
+      if (lane == r) {
+        sel_r = static_cast<int>(sel);
+        inf_round_r = mk == neg_inf;
+      }
     }
-    int best_slot = 0;
-    for (int r = k - 1; r >= 0; --r)
-      if ((ended[r] ? top[r] : d.neg) == step_best) best_slot = r;
-    const bool better = step_best > p.best_score[b] && lane_active;
-    const float best_score = better ? step_best : p.best_score[b];
-    p.best_score_o[b] = best_score;
-    p.best_len_o[b] = better ? d.i + (forced ? 3 : 2) : p.best_len[b];
+    __syncwarp();
 
-    bool any_alive = false;
-    for (int r = 0; r < k; ++r) {
-      const bool alive_new = !ended[r] && lane_active;
-      const float score_new = alive_new ? top[r] : d.neg;
-      const bool alive_o = lane_active ? alive_new : p.alive[bk + r];
-      p.score_o[bk + r] = lane_active ? score_new : p.score[bk + r];
-      p.alive_o[bk + r] = alive_o;
-      any_alive |= alive_o;
-    }
+    // lane r < K: round r's candidate; a round whose maximum is -inf
+    // scores -inf whatever its index held before it was chosen
+    mark(3);
+    const bool mine = lane < k;
+    const int pj = sel_r / c;
+    const float top = inf_round_r ? -INFINITY : cand_w[sel_r];
+    const long long tok = cand_tok[sel_r];
+    const bool ended = mine && (tok == d.eos || forced) && lane_active;
+    const int n_ended = __popc(__ballot_sync(kFull, ended));
+    const float step_best =
+        avsr::warp_max(mine ? (ended ? top : d.neg) : -INFINITY);
+    const unsigned at_best = __ballot_sync(
+        kFull, mine && (ended ? top : d.neg) == step_best);
+    const int best_slot = at_best ? __ffs(at_best) - 1 : 0;
+    const bool better = step_best > best_in && lane_active;
+    const float best_score = better ? step_best : best_in;
+    const bool alive_new = !ended && lane_active;
+    const bool alive_o = lane_active ? alive_new : alive_r;
+    const bool any_alive = __ballot_sync(kFull, mine && alive_o) != 0;
+
     // end detection on the updated statistics (column i is this step's)
     int count = 0;
-    for (int mm = 0; mm < d.m_end; ++mm) {
+    for (int m0 = 0; m0 < d.m_end; m0 += 32) {
+      const int mm = m0 + lane;
       const int j = d.i - mm - 2;
       const int jc = j > 0 ? j : 0;
-      const size_t at = static_cast<size_t>(b) * d.l + jc;
-      const long long cnt = p.ended_cnt[at] + (jc == d.i ? n_ended : 0);
-      const float eb = jc == d.i ? fmaxf(p.ended_best[at], step_best)
-                                 : p.ended_best[at];
+      long long cnt = cnt0;
+      float eb = eb0;
+      if (m0 > 0) {
+        cnt = mm < d.m_end ? p.ended_cnt[row + jc] : 0;
+        eb = mm < d.m_end ? p.ended_best[row + jc] : 0.0f;
+      }
+      if (jc == d.i) {
+        cnt += n_ended;
+        eb = fmaxf(eb, step_best);
+      }
       const bool ok = j >= 0 && cnt > 0;
       const bool worse = __fsub_rn(eb, best_score) < d.d_end;
-      count += ok && worse;
+      count += __popc(__ballot_sync(kFull, mm < d.m_end && ok && worse));
     }
     const bool newly = count >= d.m_end || !any_alive;
-    p.stop_o[b] = p.stop[b] || (newly && lane_active);
-    step_best_s = step_best;
-    best_slot_s = best_slot;
-    better_s = better;
-    n_ended_s = n_ended;
-  }
-  __syncthreads();
 
-  // 3. all threads: token buffers, best row, ended statistics, ancestry
-  for (int e = tid; e < k * d.l; e += kThreads) {
-    const int j = e / d.l, l = e % d.l;
-    const size_t at = (bk + j) * d.l + l;
-    p.yseq_o[at] = lane_active
-                       ? successor(p, d, b, prev_s[j], tok_s[j], forced, l)
-                       : p.yseq[at];
+    if (mine) {
+      prev_s[lane] = pj;
+      tok_s[lane] = tok;
+      if (blockIdx.y == 0) {
+        p.token[bk + lane] = tok;
+        p.prev[bk + lane] = pj;
+        p.slot[bk + lane] = sel_r - pj * c;
+        p.psi_sel[bk + lane] = cand_psi[sel_r];
+        p.score_o[bk + lane] =
+            lane_active ? (alive_new ? top : d.neg) : score_r;
+        p.alive_o[bk + lane] = alive_o;
+      }
+    }
+    if (lane == 0) {
+      step_best_s = step_best;
+      best_slot_s = best_slot;
+      better_s = better;
+      n_ended_s = n_ended;
+      if (blockIdx.y == 0) {
+        p.best_score_o[b] = best_score;
+        p.best_len_o[b] = better ? d.i + (forced ? 3 : 2) : best_len_in;
+        p.stop_o[b] = stopped || (newly && lane_active);
+      }
+    }
   }
-  const size_t row = static_cast<size_t>(b) * d.l;
-  for (int l = tid; l < d.l; l += kThreads) {
-    const int bs = best_slot_s;
-    p.best_yseq_o[row + l] =
-        better_s ? successor(p, d, b, prev_s[bs], tok_s[bs], forced, l)
-                 : p.best_yseq[row + l];
-    p.ended_best_o[row + l] = l == d.i
-                                  ? fmaxf(p.ended_best[row + l], step_best_s)
-                                  : p.ended_best[row + l];
-    p.ended_cnt_o[row + l] =
-        p.ended_cnt[row + l] + (l == d.i ? n_ended_s : 0);
+  mark(4);
+  __syncthreads();
+  mark(5);
+
+  // 3. this thread's items from registers: token buffers (the source row
+  //    prev[j], then this step's writes), the best row, the ended
+  //    statistics, the ancestry
+  int prev[KM];
+  long long toks[KM];
+#pragma unroll
+  for (int j = 0; j < KM; ++j) {
+    prev[j] = j < k ? prev_s[j] : 0;
+    toks[j] = j < k ? tok_s[j] : 0;
   }
-  for (int e = tid; e < d.s * k; e += kThreads) {
-    const int srow = e / k, j = e % k;
-    const size_t base = (static_cast<size_t>(srow) * d.b + b) * k;
-    p.anc_o[base + j] = p.anc[base + prev_s[j]];
+  const int bs = best_slot_s;
+  auto successor = [&](const long long (&v)[KM], int pj, long long tok,
+                       int l) {
+    long long out = pick<KM>(v, pj);
+    if (l == d.i + 1) out = tok;
+    if (l == d.i + 2 && forced) out = d.eos;
+    return out;
+  };
+#pragma unroll
+  for (int u = 0; u < kItems; ++u) {
+    const int e = item[u];
+    if (e < ll) {
+#pragma unroll
+      for (int j = 0; j < KM; ++j)
+        if (j < k)
+          p.yseq_o[(bk + j) * ll + e] =
+              lane_active ? successor(src[u], prev[j], toks[j], e)
+                          : src[u][j];
+      p.best_yseq_o[row + e] =
+          better_s ? successor(src[u], prev_s[bs], tok_s[bs], e)
+                   : best_row[u];
+      p.ended_best_o[row + e] =
+          e == d.i ? fmaxf(eb_row[u], step_best_s) : eb_row[u];
+      p.ended_cnt_o[row + e] = cnt_row[u] + (e == d.i ? n_ended_s : 0);
+    } else if (e < ll + d.s) {
+      const size_t base = (static_cast<size_t>(e - ll) * d.b + b) * k;
+#pragma unroll
+      for (int j = 0; j < KM; ++j)
+        if (j < k) p.anc_o[base + j] = pick<KM>(src[u], prev[j]);
+    }
   }
+  mark(6);
 }
 
 }  // namespace
@@ -243,12 +407,26 @@ extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
   if (b <= 0 || k <= 0 || k > kMaxK || sp <= 0 || k * (sp + 1) > kMaxCand ||
       l <= 0 || s <= 0 || m_end < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  // blocks an utterance: every column and ancestry row an item
+  const long long per = static_cast<long long>(kThreads) * kItems;
+  const long long g = (static_cast<long long>(l) + s + per - 1) / per;
+  if (g > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(sizeof(Ptrs) == 31 * sizeof(void*), "Ptrs layout");
   Ptrs p;
   memcpy(&p, ptrs, sizeof(Ptrs));
   const Dims d{i, b, k, sp, l, s, eos, m_end, use_ctc,
                w_dec, w_ctc, neg, d_end};
-  beam_update_kernel<<<b, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d);
+  const dim3 grid(b, static_cast<unsigned>(g));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 4)
+    beam_update_kernel<4><<<grid, kThreads, 0, st>>>(p, d);
+  else
+    beam_update_kernel<kMaxK><<<grid, kThreads, 0, st>>>(p, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the last traced launch's marks (2 x 7 int64; zeros where kTrace is 0)
+extern "C" int avsr_beam_update_trace(long long* out) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, trace_marks, sizeof(trace_marks)));
 }

@@ -58,6 +58,16 @@ __device__ __forceinline__ void combine_lse(float& m, float& s, float m2,
   m = mm;
 }
 
+// an unsigned integer in the order of the floats (not NaN), -0 as +0
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.f);
+  return b ^ (b >> 31 ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float(key ^ (key >> 31 ? 0x80000000u : 0xffffffffu));
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -11,17 +11,20 @@
 //
 // What bounds them on the card: the bytes. Each pass reads the stem output
 // once (bf16, 571 MB at the training shape N = 2304) and does a few FLOPs an
-// element; the backward also writes dz and dx of the same size. In `stats`,
-// `apply` and `bwd2` a thread owns 4 consecutive channels of a position (8-
-// or 16-byte accesses) and consecutive threads walk the channels, so a
-// warp's accesses are contiguous; the pool's windows overlap, and `apply`
-// reads an input position up to 4 times (the repeats hit L1 and L2).
-// `bwd1` stages strips of a frame (all channels, full width, a few rows and
-// their halo) in shared memory by 1-D bulk copies (TMA), two strips in
-// flight, and works from there: y once an element (and again across a
-// window column's left edge), each window's argmax once, dz back to memory
-// in one bulk store a strip. Indices are 32-bit (a frame batch below 2^31
-// elements).
+// element; the backward also writes dz and dx of the same size. In `stats`
+// and `bwd2` a thread owns 4 consecutive channels of a position (8- or
+// 16-byte accesses) and consecutive threads walk the channels, so a warp's
+// accesses are contiguous. `apply` and `bwd1` walk strips of a frame (all
+// channels, full width, a few rows and their halo) staged in shared memory
+// by 1-D bulk copies (TMA), two strips in flight (`StripWalk`, one plan and
+// one staging ring for both), and work from there. `apply` computes y once
+// an element (and again across a window column's left edge), the max of
+// each input row's three columns, each window's max down the column, and
+// stores the pooled rows in one bulk store a strip. `bwd1` computes y the
+// same way, each window's argmax once, and stores dz in one bulk store a
+// strip. A strip takes its first row (apply: the input row's maxima; bwd1:
+// the window row's argmax) from the strip before where one block walked
+// both. Indices are 32-bit (a frame batch below 2^31 elements).
 //
 // Determinism: the channel sums of `stats` and `bwd1` use no float atomics.
 // Each block owns a fixed set of positions (a range of positions in
@@ -34,8 +37,8 @@
 //
 // Rounding: products and sums that the plain PyTorch twin rounds one by one
 // are written with __fmul_rn / __fadd_rn / __fsub_rn, so nvcc cannot contract
-// them into fused multiply-adds; with the same statistics the forward equals
-// the twin bit for bit.
+// them into fused multiply-adds; a max is exact and is rounded to x's dtype
+// once, so with the same statistics the forward equals the twin bit for bit.
 #include <stdint.h>
 
 #include <algorithm>
@@ -48,8 +51,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 1024;  // of the reducing kernels (partial rows)
 constexpr int kMaxGrid = 4096;    // of the elementwise kernels (grid-stride)
-constexpr int kStripThreads = 768;  // bwd1: 24 warps, one block an SM
-constexpr int kStripRows = 6;       // bwd1: output rows a strip, at most
+constexpr int kStripThreads = 768;  // apply, bwd1: 24 warps, a block an SM
+constexpr int kStripRows = 6;       // apply, bwd1: output rows a strip, most
 constexpr int kMaxSmem = 227 * 1024;
 
 // V consecutive channels of one position
@@ -162,51 +165,248 @@ __global__ void __launch_bounds__(kThreads)
                         sums);
 }
 
-// one item = V channels of one output position
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-    apply_kernel(const T* __restrict__ x, const float* __restrict__ p,
-                 T* __restrict__ out, int items, int channels, int h,
-                 int w) {
-  extern __shared__ float prm[];  // g, b, alpha, mean, rstd rows
-  stage_affine(p, channels, prm);
-  const int cpr = channels / V, ho = h / 2, wo = w / 2;
-  for (int it = blockIdx.x * kThreads + threadIdx.x; it < items;
-       it += gridDim.x * kThreads) {
-    const int c0 = it % cpr * V, q = it / cpr;
-    const int ow = q % wo, oh = q / wo % ho, n = q / wo / ho;
-    float m[V];
-#pragma unroll
-    for (int e = 0; e < V; ++e) m[e] = -INFINITY;  // padding never wins
-    for (int i = 0; i < 3; ++i) {
-      const int r = 2 * oh + i - 1;
-      if (r < 0 || r >= h) continue;
-      for (int j = 0; j < 3; ++j) {
-        const int col = 2 * ow + j - 1;
-        if (col < 0 || col >= w) continue;
-        float v[V];
-        load<T, V>(x + (static_cast<size_t>(n * h + r) * w + col) * channels +
-                       c0,
-                   v);
-#pragma unroll
-        for (int e = 0; e < V; ++e) {
-          const int c = c0 + e;
-          const float z = __fadd_rn(__fmul_rn(v[e], prm[c]), prm[channels + c]);
-          m[e] = fmaxf(m[e],
-                       z >= 0.f ? z : __fmul_rn(prm[2 * channels + c], z));
+// Strips of a frame in shared memory, walked by `apply` and `bwd1`. A strip
+// is R output rows o0 .. o1 - 1 of one frame (o1 = o0 + R, or the frame's
+// end). Its input row r sits at row r - 2o0 + 1 of its stage buffer; the
+// pass keeps rows of output width after the input rows, at `aux_off` bytes.
+// In NHWC each range of rows is one contiguous run of bytes.
+struct StripArgs {
+  int n, channels, h, w;
+  int rows;         // R, output rows a strip
+  int stages;       // strip buffers, 1 or 2
+  int stage_bytes;  // one buffer: input rows, then rows of output width
+  int aux_off;      // byte offset of the rows of output width in a buffer
+  int bulk;         // rows move by 1-D bulk copies, else by the threads
+};
+
+// One block an SM walks a run [first, last) of consecutive strips. The last
+// thread, whose warp has no window column at the stem's widths (22 columns
+// of 24 lanes at C = 64), keeps the next `stages` strips' rows in flight:
+// cp.async.bulk into the stage buffers, completing on an mbarrier each;
+// where the rows are not 16-byte multiples, every thread copies them. A
+// strip whose block walked the strip before it in its frame takes its first
+// row (of windows in bwd1, of input in apply) from the pass's `carry`.
+// Shared memory: 128 bytes of barriers, the stage buffers, then the pass's
+// own buffers (`own`).
+template <typename T>
+struct StripWalk {
+  StripArgs a;
+  int ho, wo, per_frame, rx, rd, first, last;
+  uint64_t* bars;
+  unsigned char* stage0;
+  bool producer;
+
+  // the barriers are ready after the block's next __syncthreads
+  __device__ StripWalk(const StripArgs& args, unsigned char* smem)
+      : a(args) {
+    ho = a.h / 2;
+    wo = a.w / 2;
+    per_frame = (ho + a.rows - 1) / a.rows;
+    rx = a.w * a.channels;  // elements a row of input and of output
+    rd = wo * a.channels;
+    const long long strips = static_cast<long long>(a.n) * per_frame;
+    first = static_cast<int>(strips * blockIdx.x / gridDim.x);
+    last = static_cast<int>(strips * (blockIdx.x + 1) / gridDim.x);
+    bars = reinterpret_cast<uint64_t*>(smem);
+    stage0 = smem + 128;
+    producer = threadIdx.x == blockDim.x - 1;
+    if (a.bulk && producer) {
+      avsr::mbar_init(&bars[0], 1);
+      avsr::mbar_init(&bars[1], 1);
+      avsr::mbar_init_fence();
+    }
+  }
+
+  __device__ unsigned char* own() const {
+    return stage0 + a.stages * a.stage_bytes;
+  }
+  __device__ T* rows(int st) const {
+    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes);
+  }
+  __device__ T* aux(int st) const {
+    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes + a.aux_off);
+  }
+  // strip s: frame f, output rows [o0, o1)
+  __device__ void locate(int s, int& f, int& o0, int& o1) const {
+    f = s / per_frame;
+    o0 = s % per_frame * a.rows;
+    o1 = min(o0 + a.rows, ho);
+  }
+  __device__ bool carried(int s, int o0) const { return s > first && o0 > 0; }
+
+  // runs of n0 and n1 elements into stage st: by the producer as bulk
+  // copies on the stage's barrier, or by every thread (the caller
+  // synchronises)
+  __device__ void fetch(int st, T* d0, const T* s0, int n0, T* d1 = nullptr,
+                        const T* s1 = nullptr, int n1 = 0) const {
+    if (a.bulk) {
+      const uint32_t b0 = static_cast<uint32_t>(n0 * sizeof(T));
+      const uint32_t b1 = static_cast<uint32_t>(n1 * sizeof(T));
+      avsr::mbar_expect_tx(&bars[st], b0 + b1);
+      avsr::bulk_load(d0, s0, b0, &bars[st]);
+      if (n1 > 0) avsr::bulk_load(d1, s1, b1, &bars[st]);
+    } else {
+      for (int e = threadIdx.x; e < n0; e += blockDim.x) d0[e] = s0[e];
+      for (int e = threadIdx.x; e < n1; e += blockDim.x) d1[e] = s1[e];
+    }
+  }
+  // the first `stages` strips in flight; fetch(s, st) fetches strip s
+  template <typename F>
+  __device__ void prime(F fetch_strip) const {
+    if (a.bulk && producer)
+      for (int st = 0; st < a.stages && first + st < last; ++st)
+        fetch_strip(first + st, st);
+  }
+  // until the rows of strip s (the run's it-th) are in stage st
+  template <typename F>
+  __device__ void acquire(int it, int s, int st, F fetch_strip) const {
+    if (a.bulk) {
+      avsr::mbar_wait(&bars[st], (it / a.stages) & 1);
+    } else {
+      fetch_strip(s, st);
+      __syncthreads();
+    }
+  }
+  // n elements of the strip's output from shared src to dst (one bulk
+  // store), then stage st takes strip s + stages
+  template <typename F>
+  __device__ void release(int s, int st, T* dst, const T* src, int n,
+                          F fetch_strip) const {
+    if (a.bulk) {
+      avsr::fence_proxy_async();
+      __syncthreads();
+      if (producer) {
+        avsr::bulk_store(dst, src, static_cast<uint32_t>(n * sizeof(T)));
+        if (s + a.stages < last) {
+          avsr::bulk_wait_read();
+          fetch_strip(s + a.stages, st);
         }
       }
+    } else {
+      __syncthreads();
+      for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
+      __syncthreads();
     }
-    store<T, V>(out + static_cast<size_t>(it) * V, m);
   }
+  // until the run's stores are complete; the stage buffers are free after
+  __device__ void drain() const {
+    if (a.bulk && producer) avsr::bulk_wait();
+    __syncthreads();
+  }
+};
+
+template <typename T>
+struct ApplyArgs {
+  const T* x;
+  const float* p;
+  T* out;
+  StripArgs s;
+};
+
+// apply over strips: the strip's input rows 2o0 - 1 .. 2o1 - 1 in a stage
+// (row 2o0 - 1 not fetched where it is carried), thread (ch, lane) owning V
+// channels and walking window columns ow = lane, + lanes, ...: y =
+// PReLU(x * g + b) once for each input element of the column's three
+// columns (twice across a column's left edge), the max over the three
+// columns of each input row, each window's max down the column (a window's
+// bottom row is the next one's top), rounded to T once into the stage's
+// output rows, which leave in one bulk store. The strip's last input row's
+// maxima are the next strip's first, kept in `carry` (fp32, a window column
+// and channel).
+template <typename T, int V>
+__global__ void __launch_bounds__(kStripThreads, 1)
+    apply_kernel(const ApplyArgs<T> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const StripWalk<T> walk(a.s, smem);
+  const int chans = a.s.channels, h = a.s.h, wo = walk.wo;
+  const int rx = walk.rx, rd = walk.rd;
+  float* carry = reinterpret_cast<float*>(walk.own());
+  float* prm = carry + ((rd + 3) & ~3);
+  stage_affine(a.p, chans, prm);  // ends in __syncthreads
+  const int cpr = chans / V, lanes = kStripThreads / cpr;
+  const int tid = threadIdx.x, ch = tid % cpr, lane = tid / cpr, c0 = ch * V;
+  float g[V], b[V], al[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    g[e] = prm[c0 + e];
+    b[e] = prm[chans + c0 + e];
+    al[e] = prm[2 * chans + c0 + e];
+  }
+  auto fetch = [&](int s, int st) {
+    int f, o0, o1;
+    walk.locate(s, f, o0, o1);
+    const int r0 = walk.carried(s, o0) ? 2 * o0 : max(2 * o0 - 1, 0);
+    walk.fetch(st, walk.rows(st) + (r0 - 2 * o0 + 1) * rx,
+               a.x + (static_cast<size_t>(f) * h + r0) * rx,
+               (2 * o1 - r0) * rx);
+  };
+  // the max of y over the window column's three input columns at stage
+  // row sr (column 2ow - 1 is padding at ow = 0); offsets are 32-bit and
+  // relative to the stage
+  auto row_max = [&](const T* xs, int sr, int off, bool left, float(&m)[V]) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) m[e] = -INFINITY;  // padding never wins
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      if (j == 0 && !left) continue;
+      float v[V];
+      load<T, V>(xs + sr * rx + off + j * chans, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float z = __fadd_rn(__fmul_rn(v[e], g[e]), b[e]);
+        m[e] = fmaxf(m[e], z >= 0.f ? z : __fmul_rn(al[e], z));
+      }
+    }
+  };
+
+  walk.prime(fetch);
+  int it = 0;
+  for (int s = walk.first; s < walk.last; ++s, ++it) {
+    const int st = it % a.s.stages;
+    int f, o0, o1;
+    walk.locate(s, f, o0, o1);
+    walk.acquire(it, s, st, fetch);
+    const T* xs = walk.rows(st);
+    T* os = walk.aux(st);
+    const bool carried = walk.carried(s, o0);
+    for (int ow = lane; lane < lanes && ow < wo; ow += lanes) {
+      const bool left = ow > 0;
+      const int off = (2 * ow - 1) * chans + c0;
+      float* cw = carry + ow * chans + c0;
+      float top[V];  // the row maxima of the window's top input row
+      if (carried) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) top[e] = cw[e];
+      } else if (o0 > 0) {
+        row_max(xs, 0, off, left, top);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) top[e] = -INFINITY;
+      }
+      for (int q = 0; q < o1 - o0; ++q) {
+        float mid[V], bot[V], o[V];
+        row_max(xs, 2 * q + 1, off, left, mid);
+        row_max(xs, 2 * q + 2, off, left, bot);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          o[e] = fmaxf(fmaxf(top[e], mid[e]), bot[e]);
+          top[e] = bot[e];
+        }
+        store<T, V>(os + q * rd + ow * chans + c0, o);
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) cw[e] = top[e];
+    }
+    walk.release(s, st, a.out + (static_cast<size_t>(f) * walk.ho + o0) * rd,
+                 os, (o1 - o0) * rd, fetch);
+  }
+  walk.drain();
 }
 
-// bwd1 over strips of a frame (`bwd1_plan`): a strip is R output rows of
-// one frame, so it owns input rows 2o0 .. 2o1 - 1 (o1 = o0 + R, or the
-// frame's end) and needs the windows o0 .. o1 (window o1 holds its last
-// row), that is input rows 2o0 - 1 .. 2o1 + 1 and cotangent rows o0 .. o1.
-// In NHWC each range is one contiguous run of bytes. The strip's input
-// row r sits at row r - 2o0 + 1 of its stage, cotangent row oh at oh - o0.
+// bwd1 over strips: a strip owns input rows 2o0 .. 2o1 - 1 and needs the
+// windows o0 .. o1 (window o1 holds its last row), that is input rows
+// 2o0 - 1 .. 2o1 + 1 and cotangent rows o0 .. o1, the cotangent rows at
+// stage row oh - o0 of the rows of output width.
 template <typename T>
 struct Bwd1Args {
   const T* x;
@@ -216,20 +416,11 @@ struct Bwd1Args {
   float* partial;
   int* counter;
   float* red;
-  int n, channels, h, w;
-  int rows;         // R, output rows a strip
-  int stages;       // strip buffers, 1 or 2
-  int stage_bytes;  // one buffer: input rows, then cotangent rows
-  int dout_off;     // byte offset of the cotangent rows in a buffer
-  int bulk;         // rows move by 1-D bulk copies, else by the threads
+  StripArgs s;
 };
 
-// One block an SM walks a run of consecutive strips. One thread keeps the
-// next `stages` strips' rows in flight (cp.async.bulk into the stage
-// buffers, completing on an mbarrier each); where the rows are not
-// 16-byte multiples, the threads copy them. For each strip, with thread
-// (ch, lane) owning V channels and walking window columns ow = lane, +
-// lanes, ...:
+// For each strip, with thread (ch, lane) owning V channels and walking
+// window columns ow = lane, + lanes, ...:
 //   A. each window's first maximum (k = 3i + j of its 3x3 candidates, a
 //      later candidate winning only if strictly greater), down the column:
 //      y of a window's bottom row is the next window's top row; a byte a
@@ -245,27 +436,15 @@ template <typename T, int V>
 __global__ void __launch_bounds__(kStripThreads, 1)
     bwd1_kernel(const Bwd1Args<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* stage0 = smem + 128;
-  const int chans = a.channels, h = a.h, w = a.w, ho = h / 2, wo = w / 2;
-  const int R = a.rows, per_frame = (ho + R - 1) / R;
-  const int strips = a.n * per_frame;
-  // elements a row of x and of dout (the plan fits rows in shared memory)
-  const int rx = w * chans, rd = wo * chans;
+  const StripWalk<T> walk(a.s, smem);
+  const int chans = a.s.channels, h = a.s.h, ho = walk.ho, wo = walk.wo;
+  const int R = a.s.rows, rx = walk.rx, rd = walk.rd;
   // wins: (R + 1) window rows; carry: the last window row of the strip
   // before, which is this strip's first where both are of one frame
-  unsigned char* wins = stage0 + a.stages * a.stage_bytes;
+  unsigned char* wins = walk.own();
   unsigned char* carry = wins + (((R + 1) * rd + 15) & ~15);
   float* prm = reinterpret_cast<float*>(carry + ((rd + 15) & ~15));
   const int tid = threadIdx.x;
-  // the thread that issues the bulk copies: the last, whose warp has no
-  // window column at the stem's widths (22 columns of 24 lanes at C = 64)
-  const bool producer = tid == kStripThreads - 1;
-  if (a.bulk && producer) {
-    avsr::mbar_init(&bars[0], 1);
-    avsr::mbar_init(&bars[1], 1);
-    avsr::mbar_init_fence();
-  }
   stage_affine(a.p, chans, prm);  // ends in __syncthreads
   const int cpr = chans / V, lanes = kStripThreads / cpr;
   const int ch = tid % cpr, lane = tid / cpr, c0 = ch * V;
@@ -280,74 +459,40 @@ __global__ void __launch_bounds__(kStripThreads, 1)
     rstd[e] = prm[4 * chans + c];
   }
 
-  // strip s: frame f, output rows [o0, o1), windows [o0, o0 + nwin)
-  auto strip = [&](int s, int& f, int& o0, int& o1, int& nwin) {
-    f = s / per_frame;
-    o0 = s % per_frame * R;
-    o1 = min(o0 + R, ho);
-    nwin = min(o1 + 1, ho) - o0;
-  };
-  auto stage_x = [&](int st) {
-    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes);
-  };
-  auto stage_d = [&](int st) {
-    return reinterpret_cast<T*>(stage0 + st * a.stage_bytes + a.dout_off);
-  };
-  // the rows of strip s into stage st: by the producer as bulk copies, or
-  // by every thread (the caller synchronises)
+  // the x and cotangent rows of strip s into stage st
   auto fetch = [&](int s, int st) {
-    int f, o0, o1, nwin;
-    strip(s, f, o0, o1, nwin);
+    int f, o0, o1;
+    walk.locate(s, f, o0, o1);
+    const int nwin = min(o1 + 1, ho) - o0;
     const int r0 = max(2 * o0 - 1, 0), r1 = 2 * (o0 + nwin);
-    const T* xs = a.x + (static_cast<size_t>(f) * h + r0) * rx;
-    const T* ds = a.dout + (static_cast<size_t>(f) * ho + o0) * rd;
-    T* xd = stage_x(st) + (r0 - 2 * o0 + 1) * rx;
-    const int nx = (r1 - r0) * rx, nd = nwin * rd;
-    if (a.bulk) {
-      const uint32_t bx = static_cast<uint32_t>(nx * sizeof(T));
-      const uint32_t bd = static_cast<uint32_t>(nd * sizeof(T));
-      avsr::mbar_expect_tx(&bars[st], bx + bd);
-      avsr::bulk_load(xd, xs, bx, &bars[st]);
-      avsr::bulk_load(stage_d(st), ds, bd, &bars[st]);
-    } else {
-      for (int e = tid; e < nx; e += kStripThreads) xd[e] = xs[e];
-      T* dd = stage_d(st);
-      for (int e = tid; e < nd; e += kStripThreads) dd[e] = ds[e];
-    }
+    walk.fetch(st, walk.rows(st) + (r0 - 2 * o0 + 1) * rx,
+               a.x + (static_cast<size_t>(f) * h + r0) * rx, (r1 - r0) * rx,
+               walk.aux(st), a.dout + (static_cast<size_t>(f) * ho + o0) * rd,
+               nwin * rd);
   };
   auto yv = [&](float xv, int e) {
     const float z = __fadd_rn(__fmul_rn(xv, g[e]), b[e]);
     return z < 0.f ? __fmul_rn(al[e], z) : z;
   };
 
-  // this block's strips: a run [s0, s1) of consecutive ones
-  const int s0 = static_cast<int>(static_cast<long long>(strips) *
-                                  blockIdx.x / gridDim.x);
-  const int s1 = static_cast<int>(static_cast<long long>(strips) *
-                                  (blockIdx.x + 1) / gridDim.x);
-  if (a.bulk && producer)
-    for (int st = 0; st < a.stages && s0 + st < s1; ++st) fetch(s0 + st, st);
+  walk.prime(fetch);
   float acc[3][V] = {};  // dbeta, dgamma, dalpha
   int it = 0;
-  for (int s = s0; s < s1; ++s, ++it) {
-    const int st = it % a.stages;
-    int f, o0, o1, nwin;
-    strip(s, f, o0, o1, nwin);
-    if (a.bulk) {
-      avsr::mbar_wait(&bars[st], (it / a.stages) & 1);
-    } else {
-      fetch(s, st);
-      __syncthreads();
-    }
-    T* xs = stage_x(st);
-    const T* ds = stage_d(st);
+  for (int s = walk.first; s < walk.last; ++s, ++it) {
+    const int st = it % a.s.stages;
+    int f, o0, o1;
+    walk.locate(s, f, o0, o1);
+    const int nwin = min(o1 + 1, ho) - o0;
+    walk.acquire(it, s, st, fetch);
+    T* xs = walk.rows(st);
+    const T* ds = walk.aux(st);
 
     // A. each window's first maximum. Offsets are 32-bit and relative to
     // the stage: x at (stage row, column 2ow - 1, channel c0) is
     // xs[row * rx + off], its right neighbours at + chans and + 2 chans.
     // Window row 0 is carried where the strip before (this block's, of the
     // same frame) computed it: this thread wrote its part of `carry`
-    const int q0 = it > 0 && o0 > 0 ? 1 : 0;
+    const int q0 = walk.carried(s, o0) ? 1 : 0;
     for (int ow = lane; lane < lanes && ow < wo; ow += lanes) {
       const bool left = ow > 0;  // column 2ow - 1 lies inside the frame
       const int off = (2 * ow - 1) * chans + c0;
@@ -488,30 +633,13 @@ __global__ void __launch_bounds__(kStripThreads, 1)
 
     // C. the owned rows of dz (stage rows 1 .. 2 (o1 - o0)) out; then the
     // stage takes strip s + stages
-    T* dst = a.dz + (static_cast<size_t>(f) * h + 2 * o0) * rx;
-    const int nz = 2 * (o1 - o0) * rx;
-    if (a.bulk) {
-      avsr::fence_proxy_async();
-      __syncthreads();
-      if (producer) {
-        avsr::bulk_store(dst, xs + rx, static_cast<uint32_t>(nz * sizeof(T)));
-        const int next = s + a.stages;
-        if (next < s1) {
-          avsr::bulk_wait_read();
-          fetch(next, st);
-        }
-      }
-    } else {
-      __syncthreads();
-      for (int e = tid; e < nz; e += kStripThreads) dst[e] = xs[rx + e];
-      __syncthreads();
-    }
+    walk.release(s, st, a.dz + (static_cast<size_t>(f) * h + 2 * o0) * rx,
+                 xs + rx, 2 * (o1 - o0) * rx, fetch);
   }
-  if (a.bulk && producer) avsr::bulk_wait();
-  __syncthreads();
+  walk.drain();
   // the stage buffers are free: they hold the block's sums
   reduce_channels<3, V>(acc, ch, lane, lanes, chans,
-                        reinterpret_cast<float*>(stage0), a.partial,
+                        reinterpret_cast<float*>(walk.rows(0)), a.partial,
                         a.counter, a.red);
 }
 
@@ -585,40 +713,69 @@ int reduce_grid(int positions, int channels) {
   return std::min(kMaxBlocks, (positions + lanes - 1) / lanes);
 }
 
-// bwd1's strips for a shape: the most output rows R <= kStripRows whose
-// buffers fit in shared memory, two of them where the rows move by bulk
-// copies (every row a 16-byte multiple, every pointer 16-byte aligned),
-// else one; the shared memory also holds the block's sums at the end.
-// False where no strip of one output row fits.
-struct Bwd1Plan {
-  int rows, stages, stage_bytes, dout_off, smem, bulk;
+// The strips of a pass (`StripWalk`): the most output rows R <= kStripRows
+// whose buffers fit in shared memory, that is `stages` buffers of 2R + xr
+// input rows and R + dr rows of output width, after 128 bytes of barriers,
+// then the pass's own buffers (own(R) bytes), and at least `least` bytes in
+// all. Two buffers where the rows move by bulk copies (every row a 16-byte
+// multiple, every pointer 16-byte aligned), else one. False where no strip
+// of one output row fits.
+struct StripPlan {
+  int rows, stages, stage_bytes, aux_off, smem, bulk;
 };
 
-bool bwd1_plan(int channels, int h, int w, size_t elem, int vec, bool aligned,
-               Bwd1Plan& plan) {
+template <typename Own>
+bool strip_plan(int channels, int h, int w, size_t elem, bool aligned, int xr,
+                int dr, Own own, size_t least, StripPlan& plan) {
   const auto up = [](size_t b, size_t to) { return (b + to - 1) / to * to; };
   const size_t rowx = static_cast<size_t>(w) * channels * elem;
   const size_t rowd = rowx / 2;
   plan.bulk = aligned && rowx % 16 == 0 && rowd % 16 == 0;
-  const size_t sums = 128 + sizeof(float) * 3 * kStripThreads * vec;
   for (int stages = plan.bulk ? 2 : 1; stages >= 1; --stages)
     for (int r = std::min(kStripRows, h / 2); r >= 1; --r) {
-      const size_t dout_off = up((2 * r + 3) * rowx, 16);
-      const size_t stage = up(dout_off + (r + 1) * rowd, 128);
-      // the stages, wins and carry (a byte a window and channel), prm
-      const size_t smem = std::max(
-          sums, 128 + stages * stage + up((r + 1) * rowd / elem, 16) +
-                    up(rowd / elem, 16) + sizeof(float) * 5 * channels);
+      const size_t aux_off = up((2 * r + xr) * rowx, 16);
+      const size_t stage = up(aux_off + (r + dr) * rowd, 128);
+      const size_t smem = std::max(least, 128 + stages * stage + own(r));
       if (smem <= static_cast<size_t>(kMaxSmem)) {
         plan.rows = r;
         plan.stages = stages;
         plan.stage_bytes = static_cast<int>(stage);
-        plan.dout_off = static_cast<int>(dout_off);
+        plan.aux_off = static_cast<int>(aux_off);
         plan.smem = static_cast<int>(smem);
         return true;
       }
     }
   return false;
+}
+
+// a strip pass's kernel on `plan`: one block an SM (no more blocks than
+// strips or kMaxBlocks), each walking a run of strips
+template <typename Args>
+cudaError_t launch_strips(void (*kernel)(Args), const StripPlan& plan,
+                          Args args, cudaStream_t stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           plan.smem)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kStripThreads, plan.smem)) != cudaSuccess)
+    return err;
+  const StripArgs& a = args.s;
+  const int strips = a.n * ((a.h / 2 + plan.rows - 1) / plan.rows);
+  const int grid = std::min({strips, std::max(1, sms * per_sm), kMaxBlocks});
+  kernel<<<grid, kStripThreads, plan.smem, stream>>>(args);
+  return cudaGetLastError();
+}
+
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  bool ok = true;
+  for (const void* q : ptrs)
+    ok = ok && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  return ok;
 }
 
 int elementwise_grid(int items) {
@@ -651,17 +808,22 @@ extern "C" int avsr_bn_apply(const void* x, const float* p, void* out, int n,
                              int channels, int h, int w, int dtype,
                              void* stream) {
   if (bad_dims(n, channels, h, w)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int outputs = n * (h / 2) * (w / 2);
-  return dispatch<4>(dtype, channels, {x, out}, [&](auto tag) {
+  return dispatch<2>(dtype, channels, {x, out}, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int V = decltype(tag)::vec;
-    const int items = outputs * (channels / V);
-    apply_kernel<T, V><<<elementwise_grid(items), kThreads,
-                         5 * channels * sizeof(float), s>>>(
-        static_cast<const T*>(x), p, static_cast<T*>(out), items, channels, h,
-        w);
-    return cudaGetLastError();
+    // own buffers: the carried row maxima (fp32) and the parameters
+    const size_t carry = (static_cast<size_t>(w / 2) * channels + 3) / 4 * 16;
+    StripPlan plan;
+    if (!strip_plan(channels, h, w, sizeof(T), aligned16({x, out}), 1, 0,
+                    [&](int) { return carry + 5 * channels * sizeof(float); },
+                    0, plan))
+      return cudaErrorInvalidValue;
+    const ApplyArgs<T> args{
+        static_cast<const T*>(x), p, static_cast<T*>(out),
+        {n, channels, h, w, plan.rows, plan.stages, plan.stage_bytes,
+         plan.aux_off, plan.bulk}};
+    return launch_strips(apply_kernel<T, V>, plan, args,
+                         static_cast<cudaStream_t>(stream));
   });
 }
 
@@ -674,38 +836,28 @@ extern "C" int avsr_bn_bwd1(const void* x, const float* p, const void* dout,
                             int n, int channels, int h, int w, int dtype,
                             void* stream) {
   if (bad_dims(n, channels, h, w)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dispatch<2>(dtype, channels, {x, dout, dz}, [&](auto tag) {
     using T = typename decltype(tag)::type;
     constexpr int V = decltype(tag)::vec;
-    bool aligned = true;
-    for (const void* q : std::initializer_list<const void*>{x, dout, dz})
-      aligned = aligned && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-    Bwd1Plan plan;
-    if (!bwd1_plan(channels, h, w, sizeof(T), V, aligned, plan))
+    // own buffers: wins ((R + 1) window rows, a byte a window and channel),
+    // carry (one window row), the parameters; the block's sums at the end
+    const size_t rowd = static_cast<size_t>(w / 2) * channels;
+    const auto up16 = [](size_t b) { return (b + 15) / 16 * 16; };
+    StripPlan plan;
+    if (!strip_plan(channels, h, w, sizeof(T), aligned16({x, dout, dz}), 3, 1,
+                    [&](int r) {
+                      return up16((r + 1) * rowd) + up16(rowd) +
+                             5 * channels * sizeof(float);
+                    },
+                    128 + sizeof(float) * 3 * kStripThreads * V, plan))
       return cudaErrorInvalidValue;
-    auto kernel = bwd1_kernel<T, V>;
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             plan.smem)) != cudaSuccess ||
-        (err = cudaGetDevice(&dev)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(
-             &sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kStripThreads, plan.smem)) != cudaSuccess)
-      return err;
-    const int strips = n * ((h / 2 + plan.rows - 1) / plan.rows);
-    const int grid = std::min({strips, std::max(1, sms * per_sm),
-                               kMaxBlocks});
-    const Bwd1Args<T> args{static_cast<const T*>(x), p,
-                           static_cast<const T*>(dout), static_cast<T*>(dz),
-                           partial, counter, red, n, channels, h, w,
-                           plan.rows, plan.stages, plan.stage_bytes,
-                           plan.dout_off, plan.bulk};
-    kernel<<<grid, kStripThreads, plan.smem, s>>>(args);
-    return cudaGetLastError();
+    const Bwd1Args<T> args{
+        static_cast<const T*>(x), p, static_cast<const T*>(dout),
+        static_cast<T*>(dz), partial, counter, red,
+        {n, channels, h, w, plan.rows, plan.stages, plan.stage_bytes,
+         plan.aux_off, plan.bulk}};
+    return launch_strips(bwd1_kernel<T, V>, plan, args,
+                         static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -107,16 +107,6 @@ struct List {
   }
 };
 
-// an unsigned integer in the order of the floats (not NaN), -0 as +0
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned b = __float_as_uint(v + 0.f);
-  return b ^ (b >> 31 ? 0xffffffffu : 0x80000000u);
-}
-
-__device__ __forceinline__ float key_value(unsigned key) {
-  return __uint_as_float(key ^ (key >> 31 ? 0x80000000u : 0xffffffffu));
-}
-
 // k rounds over the warp's lists: every lane learns each round's winner;
 // lane 0 writes it to (ov[r], oi[r]). An index lives in one lane's list, so
 // one lane pops a real winner (empty slots tie, and popping one is a no-op).
@@ -124,13 +114,13 @@ template <int K>
 __device__ __forceinline__ void merge_warp(List<K>& l, int k, float* ov,
                                            int* oi) {
   for (int r = 0; r < k; ++r) {
-    const unsigned head = order_key(l.v[0]);
+    const unsigned head = avsr::order_key(l.v[0]);
     const unsigned best = __reduce_max_sync(0xffffffffu, head);
     const int bi =
         __reduce_min_sync(0xffffffffu, head == best ? l.i[0] : INT_MAX);
     if (l.i[0] == bi) l.pop();
     if ((threadIdx.x & 31) == 0) {
-      ov[r] = key_value(best);
+      ov[r] = avsr::key_value(best);
       oi[r] = bi;
     }
   }

@@ -72,6 +72,16 @@ def prepare(name: str, where: Path, subs, sources=SOURCES,
     return out / name
 
 
+def chip_smoke():
+    """This checkout's ``chip_smoke.py`` as a module: its timer, bounds and
+    inputs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
 def use(variant_dir: Path) -> None:
     """Points this process's kernel library at the variant's copy."""
     _build.CSRC_DIR = variant_dir / "csrc"
@@ -98,10 +108,7 @@ def run(name: str) -> None:
 
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = chip_smoke()
     use(OUT / name)
     library, _ = _build.build()
     for line in registers(library):

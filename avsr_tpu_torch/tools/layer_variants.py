@@ -179,10 +179,7 @@ def phase_table(torch, step, mod, sub: int) -> str:
 def run(name: str) -> None:
     import torch
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = fv.chip_smoke()
     variant = OUT / name
     fv.use(variant)
     library, _ = _build.build()

@@ -36,7 +36,6 @@ Times are ``chip_smoke.cuda_ms``. Needs a CUDA device and ``nvcc``.
 from __future__ import annotations
 
 import hashlib
-import importlib.util
 import re
 import sys
 from pathlib import Path
@@ -53,41 +52,45 @@ ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "topk_stem_variants"
 
 
-def prepare(name: str, where: Path, subs) -> Path:
-    """Writes the variant's sources and, where ``where``'s checkout has
-    them, its wrappers (``py/``); returns its directory."""
-    out = fv.prepare(name, where, subs, SOURCES, OUT)
+def prepare(name: str, where: Path, subs, sources=SOURCES,
+            wrappers=WRAPPERS, out: Path | None = None) -> Path:
+    """Writes the variant's sources (those of ``sources``) and, where
+    ``where``'s checkout has them, its ``wrappers`` (``py/``) under ``out``
+    (default OUT); returns its directory."""
+    out = fv.prepare(name, where, subs, sources, OUT if out is None else out)
     kernels = where.parent / "ops" / "kernels"
     (out / "py").mkdir(exist_ok=True)
-    for mod in WRAPPERS:
+    for mod in wrappers:
         if (kernels / f"{mod}.py").exists():
             (out / "py" / f"{mod}.py").write_text(
                 (kernels / f"{mod}.py").read_text())
     return out
 
 
-def registers(log: str) -> list[str]:
-    """Registers and spills of the top-k and bwd1 kernels from a
-    ``-Xptxas -v`` report."""
+def registers(log: str, kernels: str = KERNELS) -> list[str]:
+    """Registers and spills of the kernels whose names match ``kernels``
+    (default: the top-k and bwd1 kernels) from a ``-Xptxas -v`` report."""
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
             continue
-        if (entry and re.search(KERNELS, entry)
+        if (entry and re.search(kernels, entry)
                 and ("registers" in line or "spill stores" in line)):
             out.append(f"{dv.demangle(entry)}: "
                        + line.split(":", 1)[-1].strip())
     return out
 
 
-def same_dz(names) -> dict[str, bool]:
-    """Whether each variant's dz digest is the first variant's; a variant
-    that wrote none is False."""
+def same_digest(names, fname: str = "dz.sha256",
+                out: Path | None = None) -> dict[str, bool]:
+    """Whether each variant's digest ``fname`` (under ``out``, default OUT)
+    is the first variant's; a variant that wrote none is False."""
+    out = OUT if out is None else out
     digests = {}
     for name in names:
-        path = OUT / name / "dz.sha256"
+        path = out / name / fname
         digests[name] = path.read_text().strip() if path.exists() else None
     first = digests[names[0]]
     return {name: d is not None and d == first for name, d in digests.items()}
@@ -105,10 +108,7 @@ def topk_case(torch, g, dev, rows: int, v: int):
 def run(name: str) -> None:
     import torch
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = fv.chip_smoke()
     variant = OUT / name
     fv.use(variant)
     library, _ = _build.build()
@@ -177,7 +177,7 @@ def main(argv: list[str]) -> int:
         return rc
     if argv[0] not in ("--build", "--run") and len(argv) > 1:
         names = [fv.parse(a, SOURCES)[0] for a in argv]
-        print(f"# dz bit-equal to [{names[0]}]'s: {same_dz(names)}")
+        print(f"# dz bit-equal to [{names[0]}]'s: {same_digest(names)}")
     return rc
 
 

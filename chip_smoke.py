@@ -34,12 +34,15 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    records ``topk_lastdim`` and ``topk_lastdim_flat``) and B=32, exact
    against the twin on rows with ties, equal values, too few finite
    entries and starts off a 16-byte boundary, each timed beside
-   ``torch.topk``; ``cumlogsumexp`` at (384, 96) (B=8, the
+   ``torch.topk``; ``beam_update`` at B=8 (the record) and B=32, every
+   output bit for bit, timed beside the launch floor (a kernel that spins
+   one cycle); ``cumlogsumexp`` at (384, 96) (B=8, the
    record) and (384, 384) (B=32) against ``torch.logcumsumexp``; the
    fused stem tail's four kernels at the training shape (N = 6*384
    channels-last frames of (64, 44, 44), bf16), plus fp32 and tied-maxima
-   cases and the eval apply at the serving shape (N = 8*377), bwd1's dz
-   held against its twin as well as dx, with
+   cases and the eval apply at the serving shape (N = 8*377), the apply's
+   output held bit for bit against the twin given the same statistics and
+   bwd1's dz against its twin as well as dx, with
    torch's own BatchNorm passes
    (``batch_norm_stats``, ``batch_norm_backward_elemt``) as the library
    calls of stats and bwd2; the one-launch decoder layer at the serving
@@ -246,12 +249,18 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
-def step_state(seed: int, i: int, dev, ties: bool):
-    """One beam step's bookkeeping inputs at the serving shapes (B=8, beam
-    3, pre-beam 4, L=377, a 192-row ancestry), on the card. Lane 0 takes
-    its forced last step, lane 1 is stopped, lane 2 has eos among its
-    pre-beam ids and ends hypotheses; with ``ties`` every lane's
-    hypotheses 0 and 1 are identical, so their candidates tie."""
+# beam_update's constants in the beam: the decoder's and the CTC weight at
+# ctc_weight=0.1, the dead-lane score, end detection's threshold and window
+BEAM_UPDATE_KW = dict(w_dec=0.9, w_ctc=0.1, eos=EOS, neg=-1.0e30,
+                      d_end=-10.0, m_end=3)
+
+
+def step_state(seed: int, i: int, dev, ties: bool, b: int = B):
+    """One beam step's bookkeeping inputs at the serving shapes (b
+    utterances, beam 3, pre-beam 4, L=377, a 192-row ancestry), on the
+    card. Lane 0 takes its forced last step, lane 1 is stopped, lane 2 has
+    eos among its pre-beam ids and ends hypotheses; with ``ties`` every
+    lane's hypotheses 0 and 1 are identical, so their candidates tie."""
     g = torch.Generator(device=dev).manual_seed(seed)
     ll = FRAMES + 2
 
@@ -261,29 +270,29 @@ def step_state(seed: int, i: int, dev, ties: bool):
     def randint(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev)
 
-    xlens = randint(i + 1, FRAMES + 1, B)
+    xlens = randint(i + 1, FRAMES + 1, b)
     xlens[0] = i + 1
-    stop = torch.zeros(B, dtype=torch.bool, device=dev)
+    stop = torch.zeros(b, dtype=torch.bool, device=dev)
     stop[1] = True
     st = dict(
         xlens=xlens,
-        dec_top=randn(B, BEAM, PRE_BEAM, scale=3.0, shift=-4.0).sort(
+        dec_top=randn(b, BEAM, PRE_BEAM, scale=3.0, shift=-4.0).sort(
             dim=-1, descending=True).values,
-        dec_eos=randn(B, BEAM, scale=3.0, shift=-6.0),
-        psi_cand=randn(B, BEAM, PRE_BEAM, scale=10.0, shift=-30.0),
-        psi_eos=randn(B, BEAM, scale=10.0, shift=-40.0),
-        ctc_s=randn(B, BEAM, scale=10.0, shift=-25.0),
-        part_ids=randint(1, EOS, B, BEAM, PRE_BEAM),
-        score=randn(B, BEAM, scale=5.0, shift=-20.0),
-        alive=torch.ones(B, BEAM, dtype=torch.bool, device=dev),
+        dec_eos=randn(b, BEAM, scale=3.0, shift=-6.0),
+        psi_cand=randn(b, BEAM, PRE_BEAM, scale=10.0, shift=-30.0),
+        psi_eos=randn(b, BEAM, scale=10.0, shift=-40.0),
+        ctc_s=randn(b, BEAM, scale=10.0, shift=-25.0),
+        part_ids=randint(1, EOS, b, BEAM, PRE_BEAM),
+        score=randn(b, BEAM, scale=5.0, shift=-20.0),
+        alive=torch.ones(b, BEAM, dtype=torch.bool, device=dev),
         stop=stop,
-        yseq=randint(1, EOS, B, BEAM, ll),
-        anc=randint(0, BEAM, KV_CAP, B, BEAM),
-        ended_best=randn(B, ll, scale=5.0, shift=-30.0),
-        ended_cnt=randint(0, 3, B, ll),
-        best_score=randn(B, scale=5.0, shift=-15.0),
-        best_yseq=randint(1, EOS, B, ll),
-        best_len=randint(2, i + 3, B),
+        yseq=randint(1, EOS, b, BEAM, ll),
+        anc=randint(0, BEAM, KV_CAP, b, BEAM),
+        ended_best=randn(b, ll, scale=5.0, shift=-30.0),
+        ended_cnt=randint(0, 3, b, ll),
+        best_score=randn(b, scale=5.0, shift=-15.0),
+        best_yseq=randint(1, EOS, b, ll),
+        best_len=randint(2, i + 3, b),
     )
     st["ended_best"][:, i:] = -1.0e30
     st["ended_cnt"][:, i:] = 0
@@ -663,35 +672,45 @@ def phase_kernels(dev):
     )
 
     # beam_update: step states with and without ties, mid-utterance and
-    # at the forced last step of every lane; every output bit-exact
-    kw = dict(w_dec=0.9, w_ctc=0.1, eos=EOS, neg=-1.0e30, d_end=-10.0,
-              m_end=3)
-    for seed, i, ties in ((1, 40, False), (2, 40, True), (3, 200, True),
-                          (4, FRAMES - 1, False)):
-        st = step_state(seed, i, dev, ties)
-        if i == FRAMES - 1:
-            st["xlens"][:] = FRAMES  # every lane takes its forced step
-        got = pbu.beam_update(i, *st.values(), **kw)
-        want = pbu.beam_update_plain(i, *st.values(), **kw)
-        torch.cuda.synchronize()
-        for name, w in want.items():
-            check(torch.equal(got[name], w),
-                  f"beam_update {name} differs at step {i}, ties={ties}")
-    print("# beam_update exact (4 step states: ties, forced last step)")
-    st = step_state(5, 200, dev, True)
-    out = pbu.beam_update(200, *st.values(), **kw)
-    records["beam_update"] = dict(
-        source="avsr_tpu_torch/csrc/beam_update.cu",
-        replaces="avsr_tpu/ops/pallas/beam_update.py:35",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: pbu.beam_update(200, *st.values(), **kw)),
-        plain_ms=cuda_ms(lambda: pbu.beam_update_plain(200, *st.values(),
-                                                       **kw)),
-        library_ms=None,  # no one call does the step's bookkeeping
-        # weighting (5 flops a candidate) and k rounds over the candidates
-        bound=bound(nbytes(*st.values(), *out.values()),
-                    B * BEAM * (PRE_BEAM + 1) * (5 + BEAM), "fp32"),
-    )
+    # at the forced last step of every lane, at B=8 and B=32; every output
+    # bit-exact. Timed at both batches beside the launch floor (a kernel
+    # that spins one cycle, timed the same way); B=8 is the record
+    kw = BEAM_UPDATE_KW
+    for b in (B, 32):
+        for seed, i, ties in ((1, 40, False), (2, 40, True), (3, 200, True),
+                              (4, FRAMES - 1, False)):
+            st = step_state(seed, i, dev, ties, b)
+            if i == FRAMES - 1:
+                st["xlens"][:] = FRAMES  # every lane takes its forced step
+            got = pbu.beam_update(i, *st.values(), **kw)
+            want = pbu.beam_update_plain(i, *st.values(), **kw)
+            torch.cuda.synchronize()
+            for name, w in want.items():
+                check(torch.equal(got[name], w), f"beam_update {name} differs "
+                      f"at B={b}, step {i}, ties={ties}")
+    print("# beam_update exact at B=8 and B=32 (4 step states each: ties, "
+          "forced last step)")
+    floor = cuda_ms(lambda: torch.cuda._sleep(1))
+    for b in (32, B):
+        st = step_state(5, 200, dev, True, b)
+        out = pbu.beam_update(200, *st.values(), **kw)
+        records["beam_update"] = dict(
+            source="avsr_tpu_torch/csrc/beam_update.cu",
+            replaces="avsr_tpu/ops/pallas/beam_update.py:35",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: pbu.beam_update(200, *st.values(), **kw)),
+            plain_ms=cuda_ms(lambda: pbu.beam_update_plain(
+                200, *st.values(), **kw)),
+            library_ms=None,  # no one call does the step's bookkeeping
+            # weighting (5 flops a candidate) and k rounds over the
+            # candidates
+            bound=bound(nbytes(*st.values(), *out.values()),
+                        b * BEAM * (PRE_BEAM + 1) * (5 + BEAM), "fp32"),
+        )
+        r = records["beam_update"]
+        print(f"# beam_update B={b}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]}), launch floor {floor:.4f} ms")
     for name, r in records.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -947,7 +966,12 @@ def phase_fuse_kernels(dev):
         again = psf.bn_prelu_pool_bwd1(x, p, dout)
         w_dz = psf.bn_prelu_pool_bwd1_plain(x, scale, bias, alpha, mean, rstd,
                                             dout)[0]
+        # the twin given the same p: the output bit for bit
+        same_p = psf.bn_prelu_pool_plain(x, scale, bias, alpha, train=False,
+                                         running_mean=mean, running_var=var)
         torch.cuda.synchronize()
+        check(torch.equal(out, same_p), f"bn_prelu_pool_apply is not the "
+              f"twin's bit for bit at N={n} {dtype}{' ties' if ties else ''}")
         errs = {"out": _rel_err(out, w_out), "mean": _rel_err(mean, w_mean),
                 "var": _rel_err(var, w_var), "dz": _rel_err(dz, w_dz),
                 "dx": _rel_err(dx, wants[0]),
@@ -995,11 +1019,13 @@ def phase_fuse_kernels(dev):
     eval_want = psf.bn_prelu_pool_plain(xe, scale, bias, alpha, train=False,
                                         running_mean=rm, running_var=rv)
     torch.cuda.synchronize()
-    eval_err = _rel_err(eval_out, eval_want)
-    print(f"# stem tail eval N={n_eval} bf16: out {eval_err:.2e} (limit 2e-2)")
-    check(eval_err <= 2e-2, "bn_prelu_pool_apply (eval) disagrees")
+    print(f"# stem tail eval N={n_eval} bf16: out bit-equal to the twin's "
+          f"{torch.equal(eval_out, eval_want)} (the same p)")
+    check(torch.equal(eval_out, eval_want),
+          "bn_prelu_pool_apply (eval) is not the twin's bit for bit")
     eval_ms = cuda_ms(lambda: psf.bn_prelu_pool_apply(xe, pe))
-    eval_bound = bound(nbytes(xe, eval_out), 5 * xe.numel(), "fp32")
+    eval_bound = bound(nbytes(xe, eval_out),
+                       4 * xe.numel() + 8 * eval_out.numel(), "fp32")
     # the serving entry point on the stem's channels-last x (no copy), and
     # on an NCHW copy of it (which the wrapper copies back first)
     xe_nchw = xe.contiguous()
@@ -1056,7 +1082,8 @@ def phase_fuse_kernels(dev):
             running_var=var)),
         library_ms=None,  # no one call normalises, activates and pools
         bound=bound(nbytes(x, out), 4 * x.numel() + 8 * out.numel(),
-                    "fp32"))
+                    "fp32"),
+        eval_ms=eval_ms, eval_bound=eval_bound)
     records["bn_prelu_pool_bwd1"] = dict(
         source=src, replaces=f"{base}:179",
         ms=cuda_ms(lambda: psf.bn_prelu_pool_bwd1(x, p, dout)),

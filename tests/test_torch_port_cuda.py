@@ -264,6 +264,47 @@ def test_beam_update_kernel_matches_plain(dev, seed, i, use_ctc, dyadic):
         assert torch.equal(got[name].cpu(), w), name
 
 
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("k,sp,ll,s_rows", [(3, 4, 377, 192), (3, 4, 30, 16),
+                                            (16, 7, 377, 192),
+                                            (4, 31, 60, 40)])
+def test_beam_update_kernel_at_every_batch_and_its_limits(dev, b, k, sp, ll,
+                                                          s_rows):
+    """Every output bit-identical to the twin at B=1, 8 and 32, at the
+    serving shape (K=3, 15 candidates, L=377 and a 192-row ancestry: five
+    blocks an utterance), at one block an utterance, and at the kernel's
+    limits (K=16 with 128 candidates; K=4 with 128)."""
+    kw = dict(w_dec=0.9, w_ctc=0.1, eos=60, neg=NEG, d_end=-10.0, m_end=3)
+    case = beam_step_case(b, 20, b=max(b, 6), k=k, sp=sp, ll=ll,
+                          s_rows=s_rows, eos=60)
+    args = [torch.from_numpy(x) for x in case.values()]
+    args = [(x[:, :b] if name == "anc" else x[:b]).contiguous()
+            for name, x in zip(case, args)]
+    want = pbu.beam_update_plain(20, *args, **kw)
+    got = pbu.beam_update(20, *(x.to(dev) for x in args), **kw)
+    torch.cuda.synchronize()
+    for name, w in want.items():
+        assert torch.equal(got[name].cpu(), w), name
+
+
+@pytest.mark.parametrize("k,sp", [(17, 4), (3, 43), (1, 128)])
+def test_beam_update_kernel_refuses_beyond_its_limits(dev, k, sp):
+    """More than 16 hypotheses or more than 128 candidates K*(S'+1): the
+    kernel refuses the launch, and the wrapper raises."""
+    b, ll = 2, 30
+    z = torch.zeros
+    args = [torch.full((b,), 20, dtype=torch.int64), z(b, k, sp), z(b, k),
+            z(b, k, sp), z(b, k), z(b, k),
+            torch.ones(b, k, sp, dtype=torch.int64), z(b, k),
+            torch.ones(b, k, dtype=torch.bool), z(b, dtype=torch.bool),
+            z(b, k, ll, dtype=torch.int64), z(8, b, k, dtype=torch.int64),
+            z(b, ll), z(b, ll, dtype=torch.int64), z(b),
+            z(b, ll, dtype=torch.int64), z(b, dtype=torch.int64)]
+    with pytest.raises(RuntimeError, match="beam_update"):
+        pbu.beam_update(5, *(x.to(dev) for x in args), w_dec=0.9, w_ctc=0.1,
+                        eos=1, neg=NEG, d_end=-10.0, m_end=3)
+
+
 def _attn_case(dev, n, tt, d, dtype, seed):
     g = _gen(seed)
     q, k, v, do = (torch.randn(n, tt, d, generator=g).to(dtype)
@@ -522,6 +563,37 @@ def test_stem_bwd1_dz_is_the_twins(dev, dtype, n, c, h, w, ties):
     assert torch.equal(dz, w_dz)
     want = torch.stack([dbeta, dgamma, dalpha])
     assert (red - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,offset", [
+    (6, 64, 44, 44, 0), (200, 64, 44, 44, 0), (301, 64, 44, 44, 0),
+    (7, 64, 8, 8, 0), (5, 16, 46, 46, 0), (2, 64, 88, 88, 0),
+    (3, 5, 6, 2, 0), (700, 5, 14, 6, 0), (9, 64, 44, 44, 1)])
+def test_stem_apply_is_the_twins_bit_for_bit(dev, dtype, n, c, h, w, offset):
+    """The apply pass equals its twin given the same p bit for bit: y and
+    the window maxima are exact, rounded once. Strips of the 44 x 44 frame
+    end part-way (22 output rows), 8 x 8 frames are one strip, 46 x 46
+    leaves a 5-row strip; at 200 and 301 frames the strips outnumber the
+    blocks (a run's strips carry their first input row's maxima, runs end
+    mid-frame); 88 x 88 fits fewer rows a strip; 5 channels (rows not
+    16-byte multiples) and a tensor starting one element off a 16-byte
+    boundary take the threads' copies."""
+    x, (scale, bias, alpha), _ = _stem_case(dtype, n, c, h, w, False, 17)
+    flat = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+    x = flat[offset:].view(n, h, w, c).copy_(
+        x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    scale, bias, alpha = (v.to(dev) for v in (scale, bias, alpha))
+    mean, var = psf._batch_stats_plain(x.float())
+    p = psf._pack(mean, torch.rsqrt(var + 1e-5), scale, bias, alpha)
+    before = psf.bn_prelu_pool_apply.launches
+    out = psf.bn_prelu_pool_apply(x, p)
+    want = psf.bn_prelu_pool_plain(x, scale, bias, alpha, train=False,
+                                   running_mean=mean, running_var=var)
+    torch.cuda.synchronize()
+    assert psf.bn_prelu_pool_apply.launches == before + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, want)
 
 
 def _layer(c, heads, f, seed):

@@ -17,6 +17,7 @@ from avsr_tpu_torch.ops.kernels import decode_attention as pda  # noqa: E402
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa  # noqa: E402
 from avsr_tpu_torch.ops.kernels import row_gather as prg  # noqa: E402
 from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl  # noqa: E402
+from avsr_tpu_torch.ops.kernels import stem_fuse as psf  # noqa: E402
 from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
 from tests.torch_port_common import (  # noqa: E402
     beam_step_case, decode_case, setup_torch, t)
@@ -260,6 +261,289 @@ def test_topk_leading_axes():
     vals, ids = ptk.topk_lastdim(t(x), 4)
     assert vals.shape == ids.shape == (2, 3, 4)
     np.testing.assert_array_equal(ids.numpy(), np.argsort(-x, axis=-1)[..., :4])
+
+
+# ---------------------------------------------------------------- beam_update
+
+
+def _order_key(v):
+    """csrc/common.cuh order_key: a uint32 in the order of the floats, -0
+    as +0."""
+    b = int(np.array([v + np.float32(0)], np.float32).view(np.uint32)[0])
+    return b ^ (0xFFFFFFFF if b >> 31 else 0x80000000)
+
+
+def _beam_update_design(i, args, *, w_dec, w_ctc, eos, neg, d_end, m_end,
+                        threads=128, items=1):
+    """csrc/beam_update.cu on numpy arrays, element by element: warp 0's
+    candidates f = lane + 32t with the weighting's fp32 roundings in the
+    unfused step's order (eos among a hypothesis' pre-beam ids from a
+    ballot of the candidates' ids), k rounds of (__reduce_max_sync of the
+    lanes' best order keys, __reduce_min_sync of the flat index among the
+    lanes holding it, that candidate to -inf), lane r keeping round r, the
+    lane-parallel bookkeeping (ballots, a warp max), then the (B, G) grid's
+    threads each writing its items (columns of the token buffers, the best
+    row and the ended statistics; ancestry rows) from the K source rows it
+    loaded. Asserts that every element of the copied outputs is written once."""
+    (xlens, dec_top, dec_eos, psi_cand, psi_eos, ctc_s, part_ids, score,
+     alive, stop, yseq, anc, ended_best, ended_cnt, best_score, best_yseq,
+     best_len) = args
+    f32 = np.float32
+    b_n, k, sp = part_ids.shape
+    c, ll, s_rows = sp + 1, yseq.shape[2], anc.shape[0]
+    nc = k * c
+    assert k <= 16 and nc <= 128
+    small = {name: np.zeros((b_n, k), dt) for name, dt in (
+        ("token", np.int64), ("prev", np.int64), ("slot", np.int64),
+        ("psi_sel", np.float32), ("score", np.float32), ("alive", bool))}
+    out = dict(small, best_score=np.zeros(b_n, np.float32),
+               best_len=np.zeros(b_n, np.int64), stop=np.zeros(b_n, bool),
+               yseq=np.zeros_like(yseq), anc=np.zeros_like(anc),
+               ended_best=np.zeros_like(ended_best),
+               ended_cnt=np.zeros_like(ended_cnt),
+               best_yseq=np.zeros_like(best_yseq))
+    writes = {name: np.zeros(out[name].shape, int) for name in (
+        "yseq", "anc", "ended_best", "ended_cnt", "best_yseq")}
+    g = -(-(ll + s_rows) // (threads * items))
+    key_inf = _order_key(f32(-np.inf))
+    for b in range(b_n):
+        lane_active = not stop[b] and i < xlens[b]
+        forced = i >= xlens[b] - 1
+        # warp 0: weights, tokens, psi of the candidates; keys in lanes
+        w = np.zeros(nc, np.float32)
+        tok = np.zeros(nc, np.int64)
+        psi = np.zeros(nc, np.float32)
+        keys = [[0] * 4 for _ in range(32)]
+        # bit f of the ballots: candidate f's pre-beam id is eos
+        eos_at = sum(1 << f for f in range(nc) if f % c != sp
+                     and part_ids[b, f // c, f % c] == eos)
+        for f in range(nc):
+            j, q = divmod(f, c)
+            eos_slot = q == sp
+            dec = dec_eos[b, j] if eos_slot else dec_top[b, j, q]
+            wv = f32(w_dec) * dec
+            if psi_cand is not None:
+                psi[f] = psi_eos[b, j] if eos_slot else psi_cand[b, j, q]
+                wv = wv + f32(w_ctc) * (psi[f] - ctc_s[b, j])
+            if eos_slot and eos_at >> (j * c) & ((1 << sp) - 1):
+                wv = f32(neg)
+            wv = wv + score[b, j]
+            if not alive[b, j]:
+                wv = f32(neg)
+            w[f], tok[f] = wv, (eos if eos_slot else part_ids[b, j, q])
+            keys[f % 32][f // 32] = _order_key(wv)
+        sel_r, inf_r = [0] * 32, [False] * 32
+        for r in range(k):
+            best = []
+            for lane in range(32):  # the lane's largest key, lowest t
+                tb = max(range(4), key=lambda t: (keys[lane][t], -t))
+                best.append((keys[lane][tb], lane + 32 * tb))
+            mk = max(kb for kb, _ in best)
+            sel = min(f for kb, f in best if kb == mk)
+            keys[sel % 32][sel // 32] = key_inf
+            sel_r[r], inf_r[r] = sel, mk == key_inf
+        # lane r < k: round r's candidate
+        top = [f32(-np.inf) if inf_r[r] else w[sel_r[r]] for r in range(k)]
+        toks = [tok[sel_r[r]] for r in range(k)]
+        prev = [sel_r[r] // c for r in range(k)]
+        ended = [(toks[r] == eos or forced) and lane_active for r in range(k)]
+        es = [top[r] if ended[r] else f32(neg) for r in range(k)]
+        step_best = max(es)
+        best_slot = min(r for r in range(k) if es[r] == step_best)
+        n_ended = sum(ended)
+        better = step_best > best_score[b] and lane_active
+        bsc = step_best if better else best_score[b]
+        alive_o = [(not ended[r] and lane_active) if lane_active
+                   else alive[b, r] for r in range(k)]
+        count = 0
+        for mm in range(m_end):
+            j = i - mm - 2
+            jc = max(j, 0)
+            cnt, eb = ended_cnt[b, jc], ended_best[b, jc]
+            if jc == i:
+                cnt, eb = cnt + n_ended, max(eb, step_best)
+            count += j >= 0 and cnt > 0 and f32(eb - bsc) < d_end
+        for r in range(k):
+            out["token"][b, r], out["prev"][b, r] = toks[r], prev[r]
+            out["slot"][b, r] = sel_r[r] - prev[r] * c
+            out["psi_sel"][b, r] = psi[sel_r[r]]
+            out["score"][b, r] = ((top[r] if alive_o[r] else f32(neg))
+                                  if lane_active else score[b, r])
+            out["alive"][b, r] = alive_o[r]
+        out["best_score"][b] = bsc
+        out["best_len"][b] = (i + (3 if forced else 2) if better
+                              else best_len[b])
+        out["stop"][b] = stop[b] or ((count >= m_end or not any(alive_o))
+                                     and lane_active)
+
+        # every thread of the (B, G) grid: its items from its loads
+        def successor(src, j, col):
+            v = src[prev[j]]
+            if col == i + 1:
+                v = toks[j]
+            if col == i + 2 and forced:
+                v = eos
+            return v
+
+        for gy in range(g):
+            for tid in range(threads):
+                for u in range(items):
+                    e = (u * g + gy) * threads + tid
+                    if e < ll:
+                        src = yseq[b, :, e]
+                        for j in range(k):
+                            out["yseq"][b, j, e] = (
+                                successor(src, j, e) if lane_active
+                                else src[j])
+                            writes["yseq"][b, j, e] += 1
+                        out["best_yseq"][b, e] = (
+                            successor(src, best_slot, e) if better
+                            else best_yseq[b, e])
+                        out["ended_best"][b, e] = (
+                            max(ended_best[b, e], step_best) if e == i
+                            else ended_best[b, e])
+                        out["ended_cnt"][b, e] = ended_cnt[b, e] + (
+                            n_ended if e == i else 0)
+                        for name in ("best_yseq", "ended_best", "ended_cnt"):
+                            writes[name][b, e] += 1
+                    elif e < ll + s_rows:
+                        src = anc[e - ll, b]
+                        for j in range(k):
+                            out["anc"][e - ll, b, j] = src[prev[j]]
+                            writes["anc"][e - ll, b, j] += 1
+    for name, n in writes.items():
+        assert (n == 1).all(), name
+    return out
+
+
+def _inf_lanes(case, lanes):
+    """Lanes whose candidates are all -inf but one: at lanes[0] the finite
+    one is flat index 0, so the later rounds (maximum -inf) take index 0
+    again; at lanes[1] it is the eos slot of hypothesis 1, so they take
+    index 0, not chosen before."""
+    for b, keep in zip(lanes, ((0, 0), (1, None))):
+        case["dec_top"][b] = -np.inf
+        case["dec_eos"][b] = -np.inf
+        j, q = keep
+        if q is None:
+            case["dec_eos"][b, j] = -1.0
+        else:
+            case["dec_top"][b, j, q] = -1.0
+    return case
+
+
+@pytest.mark.parametrize("use_ctc,dyadic", [(True, False), (False, False),
+                                            (True, True)])
+@pytest.mark.parametrize("seed,i,k,sp,items", [(0, 4, 3, 4, 1),
+                                               (1, 9, 3, 4, 2),
+                                               (2, 17, 16, 7, 1)])
+def test_beam_update_warp_design_matches_the_twin(seed, i, k, sp, items,
+                                                  use_ctc, dyadic):
+    """The kernel's design, emulated element by element (the warp top-k on
+    order keys with lowest-index ties, rounds whose maximum is -inf, dead
+    hypotheses at neg, eos among the pre-beam ids, the lane-parallel
+    bookkeeping and the grid's copies from registers), gives every output
+    of the twin, at the shipped shape (K=3, 15 candidates) and the
+    kernel's limits (K=16, 128 candidates), one or two items a thread."""
+    case = beam_step_case(seed, i, use_ctc=use_ctc, dyadic=dyadic, b=8, k=k,
+                          sp=sp, ll=40, s_rows=24)
+    case = _inf_lanes(case, (6, 7))
+    kw = dict(BU_KW, w_ctc=0.1 if use_ctc else 0.0,
+              w_dec=0.9 if use_ctc else 1.0)
+    want = pbu.beam_update_plain(i, *(None if x is None else t(x)
+                                      for x in case.values()), **kw)
+    got = _beam_update_design(i, list(case.values()), **kw, threads=16,
+                              items=items)
+    assert want["token"][6].tolist() == [case["part_ids"][6, 0, 0]] * k
+    assert want["prev"][7].tolist() == [1] + [0] * (k - 1)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name], w.numpy(), err_msg=name)
+
+
+# ---------------------------------------------------------------- stem apply
+
+
+def _apply_strips(x, g, b, al, rows, blocks):
+    """csrc/stem_fuse.cu apply_kernel's walk over channels-last frames x
+    (N, H, W, C) fp32, element by element: strips of `rows` output rows
+    of a frame, each block of `blocks` a run of consecutive strips; a
+    strip's stage holds only the input rows it fetched (its first row
+    2o0 - 1 left out where the block's strip before, of the same frame,
+    carries that row's maxima); y = PReLU(x g + b) in the kernel's fp32
+    roundings, the max over each window column's three input columns of a
+    row, each window's max down the column. Asserts that every output
+    window is written once and that a carried row equals that row's
+    maxima from x. Returns the fp32 pooled (N, H/2, W/2, C)."""
+    n, h, w, c = x.shape
+    ho, wo = h // 2, w // 2
+    per_frame = -(-ho // rows)
+    strips = n * per_frame
+    out = np.full((n, ho, wo, c), np.nan, np.float32)
+    written = np.zeros((n, ho, wo), int)
+
+    def row_max(row):  # (W, C) input row -> (wo, C) window-column maxima
+        z = row * g + b
+        y = np.where(z >= 0, z, al * z).astype(np.float32)
+        yp = np.concatenate([np.full((1, c), -np.inf, np.float32), y])
+        return np.maximum(np.maximum(yp[0:w:2], yp[1:w + 1:2]),
+                          yp[2:w + 2:2])
+
+    for blk in range(blocks):
+        first, last = strips * blk // blocks, strips * (blk + 1) // blocks
+        carry = None
+        for s in range(first, last):
+            f, o0 = s // per_frame, s % per_frame * rows
+            o1 = min(o0 + rows, ho)
+            carried = s > first and o0 > 0
+            r0 = 2 * o0 if carried else max(2 * o0 - 1, 0)
+            stage = {r: x[f, r] for r in range(r0, 2 * o1)}
+            if carried:
+                np.testing.assert_array_equal(carry, row_max(x[f, 2 * o0 - 1]))
+                top = carry
+            elif o0 > 0:
+                top = row_max(stage[2 * o0 - 1])
+            else:
+                top = np.full((wo, c), -np.inf, np.float32)
+            for oh in range(o0, o1):
+                mid, bot = row_max(stage[2 * oh]), row_max(stage[2 * oh + 1])
+                out[f, oh] = np.maximum(np.maximum(top, mid), bot)
+                written[f, oh] += 1
+                top = bot
+            carry = top
+    assert (written == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("hw", [8, 44])
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6])
+def test_apply_strip_walk_matches_the_twin(rows, hw):
+    """The apply kernel's strip walk, emulated (strip ends, frame ends, the
+    halo row, the carried row, runs of strips that cross frames), gives
+    the twin's pooled output bit for bit given the same statistics, in
+    fp32 and rounded once to bf16."""
+    rng = np.random.RandomState(rows * 100 + hw)
+    n, c = 5, 3
+    x = (rng.randn(n, c, hw, hw) * 2.0 + 0.3).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.randn(c)).astype(np.float32)
+    bias = (0.1 * rng.randn(c)).astype(np.float32)
+    alpha = (0.25 + 0.05 * rng.randn(c)).astype(np.float32)
+    mean = (0.1 * rng.randn(c)).astype(np.float32)
+    var = (1.0 + rng.rand(c)).astype(np.float32)
+    rstd = torch.rsqrt(t(var) + 1e-5)
+    g, b = (v.numpy() for v in psf._affine(t(mean), rstd, t(scale),
+                                            t(bias)))
+    xl = x.transpose(0, 2, 3, 1).copy()
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = t(x).to(dtype)
+        want = psf.bn_prelu_pool_plain(xd, t(scale), t(bias), t(alpha),
+                                       train=False, running_mean=t(mean),
+                                       running_var=t(var))
+        xs = xd.float().numpy().transpose(0, 2, 3, 1).copy() if (
+            dtype == torch.bfloat16) else xl
+        for blocks in (1, 2, 7, 64):
+            got = _apply_strips(xs, g, b, alpha, rows, blocks)
+            got = torch.from_numpy(got.transpose(0, 3, 1, 2).copy()).to(dtype)
+            assert torch.equal(got, want), (dtype, blocks)
 
 
 # ---------------------------------------------------------------- wrappers

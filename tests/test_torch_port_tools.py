@@ -344,5 +344,42 @@ def test_topk_stem_variant_register_report_and_dz(tmp_path, monkeypatch):
     for name, digest in (("base", "ab"), ("same", "ab"), ("other", "cd")):
         (tmp_path / name).mkdir()
         (tmp_path / name / "dz.sha256").write_text(digest + "\n")
-    assert tv.same_dz(["base", "same", "other", "missing"]) == {
+    assert tv.same_digest(["base", "same", "other", "missing"]) == {
         "base": True, "same": True, "other": False, "missing": False}
+
+
+# ------------------------------------------------- bookkeeping_apply_variants
+
+
+def test_bookkeeping_apply_variant_arguments_and_sources(tmp_path,
+                                                         monkeypatch):
+    """A variant names the bookkeeping or stem source's constants only; its
+    copy differs in the named constant and carries both wrappers;
+    ``kTrace=1`` makes it a traced variant, whose marks become phase times
+    in ns (SM clocks scaled by the global timer over the launch)."""
+    from avsr_tpu_torch.tools import bookkeeping_apply_variants as bv
+
+    name, _, subs = fv.parse("v=beam_update.cu:kItems=2,beam_update.cu:"
+                             "kTrace=1,stem_fuse.cu:kStripRows=4",
+                             bv.SOURCES)
+    assert subs == [("beam_update.cu", "kItems", "2"),
+                    ("beam_update.cu", "kTrace", "1"),
+                    ("stem_fuse.cu", "kStripRows", "4")]
+    for bad in ("v=topk.cu:kThreads=2", "v=beam_update.py:X=1",
+                "v=beam_update.cu:kItems=two"):
+        with pytest.raises(SystemExit):
+            fv.parse(bad, bv.SOURCES)
+    monkeypatch.setattr(bv, "OUT", tmp_path / "out")
+    out = bv.prepare(name, fv._build.CSRC_DIR, subs)
+    src = (out / "csrc" / "beam_update.cu").read_text()
+    assert "constexpr int kItems = 2;" in src
+    assert "constexpr int kStripRows = 4;" in (
+        out / "csrc" / "stem_fuse.cu").read_text()
+    assert sorted(f.name for f in (out / "py").iterdir()) == [
+        "beam_update.py", "stem_fuse.py"]
+    assert bv.traced(out) and not bv.traced(bv.prepare(
+        "plain", fv._build.CSRC_DIR, []))
+    marks = [[100, 300, 700, 1100], [5000, 5100, 5300, 5500]]
+    assert bv.phase_ns(marks) == [100.0, 200.0, 200.0]
+    assert len(bv.PHASES) + 1 == int(re.search(
+        r"constexpr int kMarks = (\d+);", src).group(1))
