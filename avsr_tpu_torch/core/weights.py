@@ -8,6 +8,7 @@ the JAX package's mapping), so every source of weights ends in
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -35,10 +36,11 @@ def torch_state_from_jax(variables_np, cfg: AVHubertAVSRConfig
             for k, v in state.items()}
 
 
-def load_released(model_dir: str):
+def load_released(model_dir: str, **overrides):
     """(cfg, AVSRModel) from an HF-style directory: ``config.json`` plus
     ``model.safetensors`` or ``pytorch_model.bin`` with ``avsr.``-prefixed
-    keys, loaded strictly."""
+    keys, loaded strictly. ``overrides`` set top-level config fields (the
+    decoder's dtypes, say) before the model is built."""
     from avsr_tpu_torch.models.e2e import AVSRModel
 
     cfg_path = os.path.join(model_dir, "config.json")
@@ -47,6 +49,7 @@ def load_released(model_dir: str):
             cfg = AVHubertAVSRConfig.from_dict(json.load(f))
     else:
         cfg = AVHubertAVSRConfig()
+    cfg = dataclasses.replace(cfg, **overrides)
     state = {}
     for k, v in normalize_torch_keys(load_torch_state_dict(model_dir)).items():
         if k.endswith(_IGNORABLE_SUFFIXES):

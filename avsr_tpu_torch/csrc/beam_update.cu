@@ -42,6 +42,23 @@
 // largest value, the lowest flat index among equals; a round whose maximum
 // is -inf takes the lowest index holding -inf, which may be one chosen
 // before (chosen candidates hold -inf).
+//
+// Beyond the warp's limits (K > kMaxK or K*(S'+1) > kMaxCand: a beam of 10
+// has 160 candidates, a beam of 22 has 748) beam_update_wide_kernel runs
+// the same update with a block. Its threads weight the candidates into
+// shared memory (the same intrinsics in the same order), then K rounds of
+// a block-wide arg-max (avsr::block_best) take, each, the best candidate
+// after the previous round's winner in the order "larger value, then
+// lower flat index": exactly the twin's rounds, without masking; the first
+// round whose best is -inf starts the twin's -inf rule (that round's
+// index is the lowest holding -inf, later rounds the lower of it and the
+// lowest index chosen before). Hypothesis r's bookkeeping runs in thread
+// r, the reductions over K in thread 0, then every thread writes its items
+// (columns and ancestry rows), gathering each source row by prev. Shared
+// memory grows with K*(S'+1) (4 bytes a candidate and 23 a hypothesis);
+// the launch refuses more than a block's 227 KB (some 56,000 candidates). Only right here: making it fast (fewer
+// barriers a round, the warp kernel's single memory round trip) is later
+// work.
 #include <string.h>
 
 #include "common.cuh"
@@ -396,6 +413,199 @@ __global__ void __launch_bounds__(kThreads)
   mark(6);
 }
 
+constexpr int kWideThreads = 256;  // a block of the wide kernel
+// a block's shared memory on sm_90, less the wide kernel's static arrays
+constexpr int kMaxSmem = 232448 - 1024;
+
+// the wide kernel's dynamic shared memory: tok[K] (int64), w[nc] and
+// es[K] (fp32), sel[K] and prev[K] (int32), dup[K], ended[K], alive[K]
+__host__ __device__ inline size_t wide_smem(int k, int nc) {
+  return 8 * static_cast<size_t>(k) + 4 * static_cast<size_t>(nc) +
+         4 * static_cast<size_t>(k) + 8 * static_cast<size_t>(k) +
+         3 * static_cast<size_t>(k);
+}
+
+__global__ void __launch_bounds__(kWideThreads)
+    beam_update_wide_kernel(const Ptrs p, const Dims d) {
+  extern __shared__ __align__(8) unsigned char smem[];
+  __shared__ unsigned skey[kWideThreads / 32];
+  __shared__ int sidx[kWideThreads / 32];
+  __shared__ float step_best_s;
+  __shared__ int best_slot_s, better_s, n_ended_s, c_fin_s;
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int k = d.k, sp = d.sp, c = sp + 1, nc = k * c, ll = d.l;
+  const size_t bk = static_cast<size_t>(b) * k;
+  const size_t row = static_cast<size_t>(b) * ll;
+  long long* tok_s = reinterpret_cast<long long*>(smem);
+  float* w = reinterpret_cast<float*>(tok_s + k);
+  float* es = w + nc;
+  int* sel = reinterpret_cast<int*>(es + k);
+  int* prev_s = sel + k;
+  unsigned char* dup = reinterpret_cast<unsigned char*>(prev_s + k);
+  unsigned char* ended_s = dup + k;
+  unsigned char* alive_s = ended_s + k;
+
+  const long long xlen = p.xlens[b];
+  const bool stopped = p.stop[b];
+  const bool lane_active = !stopped && d.i < xlen;
+  const bool forced = d.i >= xlen - 1;
+
+  // eos among hypothesis j's pre-beam ids
+  for (int j = tid; j < k; j += kWideThreads) {
+    bool any = false;
+    for (int q = 0; q < sp; ++q) any |= p.part_ids[(bk + j) * sp + q] == d.eos;
+    dup[j] = any;
+  }
+  __syncthreads();
+  // the candidates' weights, in the unfused step's order: w_dec*dec
+  // (+ w_ctc*(psi - s)), the eos-slot dedup, + score, dead lanes to neg
+  for (int f = tid; f < nc; f += kWideThreads) {
+    const int j = f / c, q = f - j * c;
+    const bool eos_slot = q == sp;
+    const size_t at = (bk + j) * sp + q;
+    float wv = __fmul_rn(d.w_dec, eos_slot ? p.dec_eos[bk + j] : p.dec_top[at]);
+    if (d.use_ctc) {
+      const float psi = eos_slot ? p.psi_eos[bk + j] : p.psi_cand[at];
+      wv = __fadd_rn(wv, __fmul_rn(d.w_ctc, __fsub_rn(psi, p.ctc_s[bk + j])));
+    }
+    if (eos_slot && dup[j]) wv = d.neg;
+    wv = __fadd_rn(wv, p.score[bk + j]);
+    if (!p.alive[bk + j]) wv = d.neg;
+    w[f] = wv;
+  }
+  __syncthreads();
+
+  // K rounds: the best candidate after the previous winner; from the
+  // first round whose best is -inf on, the -inf rule
+  const unsigned key_neg_inf = avsr::order_key(-INFINITY);
+  unsigned pk = 0xffffffffu;
+  int pi = -1, lowest = INT_MAX, c_fin = k;
+  for (int r = 0; r < k; ++r) {
+    unsigned bkey = 0u;  // a NaN's key: "none"
+    int bi = INT_MAX;
+    for (int f = tid; f < nc; f += kWideThreads) {
+      const float wv = w[f];
+      if (wv != wv) continue;
+      const unsigned key = avsr::order_key(wv);
+      if ((key < pk || (key == pk && f > pi)) && key > bkey) {
+        bkey = key;
+        bi = f;
+      }
+    }
+    avsr::block_best(bkey, bi, skey, sidx);
+    if (bkey <= key_neg_inf) {
+      const int j = min(bi, lowest);
+      for (int q = r + tid; q < k; q += kWideThreads) sel[q] = j;
+      c_fin = r;
+      break;
+    }
+    if (tid == 0) sel[r] = bi;
+    pk = bkey;
+    pi = bi;
+    lowest = min(lowest, bi);
+  }
+  if (tid == 0) c_fin_s = c_fin;
+  __syncthreads();
+
+  // hypothesis r in thread r: round r's candidate; a round whose maximum
+  // is -inf scores -inf whatever its index held before it was chosen
+  for (int r = tid; r < k; r += kWideThreads) {
+    const int f = sel[r];
+    const int pj = f / c, q = f - pj * c;
+    const float top = r >= c_fin_s ? -INFINITY : w[f];
+    const long long tok =
+        q == sp ? static_cast<long long>(d.eos) : p.part_ids[(bk + pj) * sp + q];
+    const bool ended = (tok == d.eos || forced) && lane_active;
+    const bool alive_new = !ended && lane_active;
+    tok_s[r] = tok;
+    prev_s[r] = pj;
+    es[r] = ended ? top : d.neg;
+    ended_s[r] = ended;
+    alive_s[r] = lane_active ? alive_new : p.alive[bk + r];
+    if (blockIdx.y == 0) {
+      p.token[bk + r] = tok;
+      p.prev[bk + r] = pj;
+      p.slot[bk + r] = q;
+      p.psi_sel[bk + r] =
+          d.use_ctc ? (q == sp ? p.psi_eos[bk + pj]
+                               : p.psi_cand[(bk + pj) * sp + q])
+                    : 0.0f;
+      p.score_o[bk + r] =
+          lane_active ? (alive_new ? top : d.neg) : p.score[bk + r];
+      p.alive_o[bk + r] = alive_s[r];
+    }
+  }
+  __syncthreads();
+
+  // the utterance's reductions over K, retirement, running best and end
+  // detection, in thread 0
+  if (tid == 0) {
+    int n_ended = 0, best_slot = 0;
+    float step_best = -INFINITY;
+    bool any_alive = false;
+    for (int r = 0; r < k; ++r) {
+      n_ended += ended_s[r];
+      step_best = fmaxf(step_best, es[r]);
+      any_alive |= alive_s[r] != 0;
+    }
+    for (int r = k - 1; r >= 0; --r)
+      if (es[r] == step_best) best_slot = r;
+    const float best_in = p.best_score[b];
+    const bool better = step_best > best_in && lane_active;
+    const float best_score = better ? step_best : best_in;
+    int count = 0;
+    for (int mm = 0; mm < d.m_end; ++mm) {
+      const int j = d.i - mm - 2;
+      const int jc = j > 0 ? j : 0;
+      long long cnt = p.ended_cnt[row + jc];
+      float eb = p.ended_best[row + jc];
+      if (jc == d.i) {
+        cnt += n_ended;
+        eb = fmaxf(eb, step_best);
+      }
+      count += j >= 0 && cnt > 0 && __fsub_rn(eb, best_score) < d.d_end;
+    }
+    const bool newly = count >= d.m_end || !any_alive;
+    step_best_s = step_best;
+    best_slot_s = best_slot;
+    better_s = better;
+    n_ended_s = n_ended;
+    if (blockIdx.y == 0) {
+      p.best_score_o[b] = best_score;
+      p.best_len_o[b] = better ? d.i + (forced ? 3 : 2) : p.best_len[b];
+      p.stop_o[b] = stopped || (newly && lane_active);
+    }
+  }
+  __syncthreads();
+
+  // this block's items: columns e < L of the token buffers, the best row
+  // and the ended statistics; ancestry rows L <= e < L + S
+  auto successor = [&](int j, int e) {
+    long long out = p.yseq[(bk + prev_s[j]) * ll + e];
+    if (e == d.i + 1) out = tok_s[j];
+    if (e == d.i + 2 && forced) out = d.eos;
+    return out;
+  };
+  const int stride = gridDim.y * kWideThreads;
+  for (int e = blockIdx.y * kWideThreads + tid; e < ll + d.s; e += stride) {
+    if (e < ll) {
+      for (int j = 0; j < k; ++j)
+        p.yseq_o[(bk + j) * ll + e] =
+            lane_active ? successor(j, e) : p.yseq[(bk + j) * ll + e];
+      p.best_yseq_o[row + e] =
+          better_s ? successor(best_slot_s, e) : p.best_yseq[row + e];
+      const float eb = p.ended_best[row + e];
+      p.ended_best_o[row + e] = e == d.i ? fmaxf(eb, step_best_s) : eb;
+      p.ended_cnt_o[row + e] =
+          p.ended_cnt[row + e] + (e == d.i ? n_ended_s : 0);
+    } else {
+      const size_t base = (static_cast<size_t>(e - ll) * d.b + b) * k;
+      for (int j = 0; j < k; ++j) p.anc_o[base + j] = p.anc[base + prev_s[j]];
+    }
+  }
+}
+
 }  // namespace
 
 // ptrs: the 17 inputs then the 14 outputs of beam_update.py, in that
@@ -404,20 +614,37 @@ extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
                                 int sp, int l, int s, int eos, int m_end,
                                 int use_ctc, float w_dec, float w_ctc,
                                 float neg, float d_end, void* stream) {
-  if (b <= 0 || k <= 0 || k > kMaxK || sp <= 0 || k * (sp + 1) > kMaxCand ||
-      l <= 0 || s <= 0 || m_end < 0)
+  if (b <= 0 || k <= 0 || sp <= 0 || l <= 0 || s <= 0 || m_end < 0 ||
+      static_cast<long long>(k) * (sp + 1) > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  // blocks an utterance: every column and ancestry row an item
-  const long long per = static_cast<long long>(kThreads) * kItems;
-  const long long g = (static_cast<long long>(l) + s + per - 1) / per;
-  if (g > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static_assert(sizeof(Ptrs) == 31 * sizeof(void*), "Ptrs layout");
   Ptrs p;
   memcpy(&p, ptrs, sizeof(Ptrs));
   const Dims d{i, b, k, sp, l, s, eos, m_end, use_ctc,
                w_dec, w_ctc, neg, d_end};
-  const dim3 grid(b, static_cast<unsigned>(g));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k > kMaxK || k * (sp + 1) > kMaxCand) {
+    const size_t smem = wide_smem(k, k * (sp + 1));
+    const long long g = (static_cast<long long>(l) + s + kWideThreads - 1) /
+                        kWideThreads;
+    if (smem > kMaxSmem || g > 65535)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          beam_update_wide_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    beam_update_wide_kernel<<<dim3(b, static_cast<unsigned>(g)),
+                              kWideThreads, smem, st>>>(p, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // blocks an utterance: every column and ancestry row an item
+  const long long per = static_cast<long long>(kThreads) * kItems;
+  const long long g = (static_cast<long long>(l) + s + per - 1) / per;
+  if (g > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(b, static_cast<unsigned>(g));
   if (k <= 4)
     beam_update_kernel<4><<<grid, kThreads, 0, st>>>(p, d);
   else

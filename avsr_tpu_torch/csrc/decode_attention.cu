@@ -53,6 +53,19 @@
 // The numbered phase comments of the kernel are where the variants tool
 // (tools/decode_variants.py) cuts a copy of it short, to time the phases
 // apart.
+//
+// More than kMaxLanes lanes (beams of 9 and more): decode_attention_wide_
+// kernel, one block of kWideThreads a (head, query lane, utterance), with
+// the same rounding points and row write. Its warps take the prefix's
+// (j, s) rows in turn (the row pos_c from kv_row), a 16-byte chunk a lane
+// and shuffles the sum, into fp32 scores in shared memory; block-wide max
+// and sum give p = round_to_cache_dtype(exp(s - m) / max(den, 1e-30));
+// the P.V splits the rows into groups of a thread a chunk, whose partials
+// add in group order. The block writes its (lane, head) slice of the step's row
+// into the cache; no block reads that row from the cache. Each query lane
+// reads the whole prefix, so the cache is read K times over (from L2
+// where it fits): simple and right; sharing the reads between the lanes
+// is later work.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -550,6 +563,158 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
   return cudaGetLastError();
 }
 
+constexpr int kWideThreads = 128;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// the wide kernel's shared memory: q (dh), the scores (lanes * rows of a
+// lane), the warps' partial max and sum, and the row groups' partial
+// outputs (kWideThreads / chunks a row groups of dh)
+__host__ __device__ inline size_t wide_smem_bytes(int lanes, int dh, int esize,
+                                                  int s_lim) {
+  const int cpr = dh * esize / 16;
+  return sizeof(float) *
+         (static_cast<size_t>(dh) + static_cast<size_t>(lanes) * s_lim +
+          kWideWarps + static_cast<size_t>(kWideThreads / cpr) * dh);
+}
+
+template <typename TQ, typename TC>
+__global__ void __launch_bounds__(kWideThreads)
+    decode_attention_wide_kernel(const TQ* __restrict__ q, TC* cache,
+                                 const float* __restrict__ lane_bias,
+                                 const TC* __restrict__ kv_row,
+                                 TQ* __restrict__ out, int lanes, int heads,
+                                 int dh, int s_max, int pos) {
+  constexpr int kVec = 16 / sizeof(TC);  // elements per 16-byte chunk
+  extern __shared__ __align__(16) float wsm[];
+  const int h = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = heads * dh, s_lim = min(pos, s_max - 1) + 1;
+  const int pc = s_lim - 1, rows = lanes * s_lim;
+  const int cpr = dh / kVec;  // 16-byte chunks a row, 1-32
+  int gw = 1;  // lanes of a warp that share a row: a power of two >= cpr
+  while (gw < cpr) gw <<= 1;
+  const int groups = kWideThreads / cpr;  // row groups of the P.V
+  const size_t n0 = static_cast<size_t>(b) * lanes;  // the utterance's lane 0
+  const size_t c2 = 2 * static_cast<size_t>(c);
+  float* qs = wsm;
+  float* sc = qs + dh;
+  float* red = sc + rows;
+  float* part = red + kWideWarps;
+
+  // q rounded to the cache dtype; this block's slice of the step's row
+  for (int e = tid; e < dh; e += kWideThreads) {
+    const size_t at = (n0 + k) * c2 + static_cast<size_t>(h) * dh + e;
+    qs[e] = avsr::to_float(avsr::from_float<TC>(
+        avsr::to_float(q[(n0 + k) * c + static_cast<size_t>(h) * dh + e])));
+    const size_t dst = ((n0 + k) * s_max + pc) * c2 +
+                       static_cast<size_t>(h) * dh + e;
+    cache[dst] = kv_row[at];
+    cache[dst + c] = kv_row[at + c];
+  }
+  __syncthreads();
+
+  // row r = (j, s) of the prefix: its K (at 0) or V (at c) slice of head h
+  auto row_at = [&](int r, size_t half) -> const TC* {
+    const int j = r / s_lim, s = r - j * s_lim;
+    const size_t off = static_cast<size_t>(h) * dh + half;
+    return s == pc ? kv_row + (n0 + j) * c2 + off
+                   : cache + ((n0 + j) * s_max + s) * c2 + off;
+  };
+  // scores: gw lanes a row (a 16-byte chunk each), 32 / gw rows a warp at a
+  // time, the chunk's products summed by shuffles within the gw lanes
+  const int sub = lane / gw, ch = lane % gw, rpw = 32 / gw;
+#pragma unroll 4
+  for (int r0 = warp * rpw; r0 < rows; r0 += kWideWarps * rpw) {
+    const int r = r0 + sub;
+    float dot = 0.f;
+    if (r < rows && ch < cpr) {
+      float kf[kVec];
+      load_chunk(row_at(r, 0) + ch * kVec, kf);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) dot += qs[ch * kVec + i] * kf[i];
+    }
+    for (int off = gw / 2; off > 0; off >>= 1)
+      dot += __shfl_xor_sync(kFull, dot, off);
+    if (ch == 0 && r < rows) {
+      const int j = r / s_lim, s = r - j * s_lim;
+      sc[r] = dot + lane_bias[((n0 + k) * s_max + s) * lanes + j];
+    }
+  }
+  __syncthreads();
+  // the joint max and the sum of exp(s - m) over the prefix
+  float m = -INFINITY;
+  for (int r = tid; r < rows; r += kWideThreads) m = fmaxf(m, sc[r]);
+  m = avsr::warp_max(m);
+  if (lane == 0) red[warp] = m;
+  __syncthreads();
+  m = red[0];
+  for (int w = 1; w < kWideWarps; ++w) m = fmaxf(m, red[w]);
+  __syncthreads();
+  float sum = 0.f;
+  for (int r = tid; r < rows; r += kWideThreads) {
+    const float p = expf(sc[r] - m);
+    sc[r] = p;
+    sum += p;
+  }
+  sum = avsr::warp_sum(sum);
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  float den = 0.f;
+  for (int w = 0; w < kWideWarps; ++w) den += red[w];
+  den = fmaxf(den, 1e-30f);
+  for (int r = tid; r < rows; r += kWideThreads)
+    sc[r] = avsr::to_float(avsr::from_float<TC>(sc[r] / den));
+  __syncthreads();
+  // P.V: thread (g, chunk) sums rows g, g + groups, ... of its chunk's
+  // columns; the groups' partials then add in group order
+  const int g = tid / cpr, gc = tid - g * cpr;
+  if (g < groups) {
+    float acc[kVec] = {};
+#pragma unroll 4
+    for (int r = g; r < rows; r += groups) {
+      float vf[kVec];
+      load_chunk(row_at(r, c) + gc * kVec, vf);
+      const float p = sc[r];
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[i] += p * vf[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) part[g * dh + gc * kVec + i] = acc[i];
+  }
+  __syncthreads();
+  for (int d = tid; d < dh; d += kWideThreads) {
+    float tot = 0.f;
+    for (int gg = 0; gg < groups; ++gg) tot += part[gg * dh + d];
+    out[(n0 + k) * c + static_cast<size_t>(h) * dh + d] =
+        avsr::from_float<TQ>(tot);
+  }
+}
+
+template <typename TQ, typename TC>
+cudaError_t launch_wide(const void* q, void* cache, const float* lane_bias,
+                        const void* kv_row, void* out, int b, int lanes,
+                        int heads, int dh, int s_max, int pos,
+                        cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(TC);
+  // 1-32 16-byte chunks a row, 16-byte aligned
+  if (dh % kVec != 0 || dh / kVec > 32 ||
+      reinterpret_cast<uintptr_t>(cache) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(kv_row) % 16 != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      wide_smem_bytes(lanes, dh, sizeof(TC), min(pos, s_max - 1) + 1);
+  if (smem > kMaxSmem || lanes > 65535) return cudaErrorInvalidValue;
+  auto kernel = decode_attention_wide_kernel<TQ, TC>;
+  if (cudaError_t err = raise_smem_limit(kernel, static_cast<int>(smem));
+      err != cudaSuccess)
+    return err;
+  kernel<<<dim3(heads, lanes, b), kWideThreads, smem, stream>>>(
+      static_cast<const TQ*>(q), static_cast<TC*>(cache), lane_bias,
+      static_cast<const TC*>(kv_row), static_cast<TQ*>(out), lanes, heads,
+      dh, s_max, pos);
+  return cudaGetLastError();
+}
+
 template <typename TQ, typename TC>
 cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
                          const void* kv_row, void* out, int b, int lanes,
@@ -613,6 +778,37 @@ extern "C" int avsr_decode_attention(const void* q, void* cache,
     err = launch_lanes<bf16, float>(q, cache, lane_bias, kv_row, out, b, lanes,
                                     heads, dh, s_max, pos, cluster,
                                     rows_per_rank, tile, smem, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// lanes > kMaxLanes: the same operands, a block a (head, query lane,
+// utterance), no launch plan
+extern "C" int avsr_decode_attention_wide(const void* q, void* cache,
+                                          const float* lane_bias,
+                                          const void* kv_row, void* out, int b,
+                                          int lanes, int heads, int dh,
+                                          int s_max, int pos, int q_dtype,
+                                          int cache_dtype, void* stream) {
+  if (b <= 0 || b > 65535 || lanes <= kMaxLanes || heads <= 0 || dh <= 0 ||
+      s_max <= 0 || pos < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  cudaError_t err;
+  if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
+    err = launch_wide<bf16, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
+                                  heads, dh, s_max, pos, s);
+  else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kFloat32)
+    err = launch_wide<float, float>(q, cache, lane_bias, kv_row, out, b,
+                                    lanes, heads, dh, s_max, pos, s);
+  else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kBFloat16)
+    err = launch_wide<float, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
+                                   heads, dh, s_max, pos, s);
+  else if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kFloat32)
+    err = launch_wide<bf16, float>(q, cache, lane_bias, kv_row, out, b, lanes,
+                                   heads, dh, s_max, pos, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -36,6 +36,18 @@
 // it is min(lowest index holding -inf, indices of the c rounds), and the
 // merged list holds both (its entry c is the lowest index holding -inf).
 // `finish` writes it. NaN entries are never chosen.
+//
+// k > kMaxK (a pre-beam of 1.5 x beam over 32, beams of 22 and more): a
+// block of kWideThreads a row, k rounds of a block-wide arg-max. Round r
+// takes the best element that comes after round r-1's winner in the total
+// order "larger value, then lower index" (each thread its own best over
+// its strided elements, then avsr::block_best), so nothing is masked or
+// written back and the row is only read; the rule is C1's, exact. The
+// first round whose best is -inf starts the -inf rule above: its element
+// is the lowest index holding -inf, and every later slot takes the lower
+// of it and the lowest index chosen before. The rounds re-read the row
+// from L1/L2 (20 KB at V=5049); k rounds of two block barriers bound it,
+// which is later work to shorten.
 #include <climits>
 
 #include "common.cuh"
@@ -48,6 +60,7 @@ constexpr int kMaxK = 32;
 constexpr int kChunks = 8;     // 16-byte loads in flight a thread
 constexpr int kFlatWarps = 4;  // rows a block of the warp-a-row kernel
 constexpr int kWarpRowMax = 1024;  // longest row taken a warp a row
+constexpr int kWideThreads = 256;  // a row of the k > kMaxK kernel
 
 // "a before b": the larger value, then the smaller index
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
@@ -221,6 +234,56 @@ __global__ void __launch_bounds__(kFlatWarps * 32)
            ids + static_cast<size_t>(row_id) * k);
 }
 
+// k > kMaxK: a block a row, k rounds of a block-wide arg-max after the
+// previous round's winner
+__global__ void __launch_bounds__(kWideThreads)
+    topk_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
+                     long long* __restrict__ ids, int v, int k) {
+  __shared__ unsigned skey[kWideThreads / 32];
+  __shared__ int sidx[kWideThreads / 32];
+  const size_t r0 = blockIdx.x;
+  const float* row = x + r0 * v;
+  float* ov = vals + r0 * k;
+  long long* oi = ids + r0 * k;
+  const unsigned key_neg_inf = avsr::order_key(-INFINITY);
+  unsigned pk = 0xffffffffu;  // the previous winner: nothing comes before
+  int pi = -1;
+  int lowest = INT_MAX;  // the lowest index chosen so far
+  for (int r = 0; r < k; ++r) {
+    // key 0 (a NaN's bits) is below every value's key: "none"
+    unsigned bk = 0u;
+    int bi = INT_MAX;
+    for (int e = threadIdx.x; e < v; e += kWideThreads) {
+      const float xv = __ldg(row + e);
+      if (xv != xv) continue;
+      const unsigned key = avsr::order_key(xv);
+      // after (pk, pi) in the order, and better than this thread's best
+      // (its e rise, so an equal key never beats it)
+      if ((key < pk || (key == pk && e > pi)) && key > bk) {
+        bk = key;
+        bi = e;
+      }
+    }
+    avsr::block_best(bk, bi, skey, sidx);
+    if (bk <= key_neg_inf) {
+      // the -inf rule for rounds r..k-1 (bi: the lowest index holding -inf)
+      const int j = min(bi, lowest);
+      for (int q = r + threadIdx.x; q < k; q += kWideThreads) {
+        ov[q] = -INFINITY;
+        oi[q] = j;
+      }
+      return;
+    }
+    if (threadIdx.x == 0) {
+      ov[r] = avsr::key_value(bk);
+      oi[r] = bi;
+    }
+    pk = bk;
+    pi = bi;
+    lowest = min(lowest, bi);
+  }
+}
+
 template <int K>
 cudaError_t launch(const float* x, float* vals, long long* ids, int rows,
                    int v, int k, cudaStream_t stream) {
@@ -239,12 +302,15 @@ cudaError_t launch(const float* x, float* vals, long long* ids, int rows,
 // (rows, k) int64.
 extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
                                  int rows, int v, int k, void* stream) {
-  if (rows <= 0 || v <= 0 || k <= 0 || k > kMaxK || k > v ||
+  if (rows <= 0 || v <= 0 || k <= 0 || k > v ||
       reinterpret_cast<uintptr_t>(x) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (k <= 4)
+  if (k > kMaxK) {
+    topk_wide_kernel<<<rows, kWideThreads, 0, s>>>(x, vals, ids, v, k);
+    err = cudaGetLastError();
+  } else if (k <= 4)
     err = launch<4>(x, vals, ids, rows, v, k, s);
   else if (k <= 8)
     err = launch<8>(x, vals, ids, rows, v, k, s);

@@ -14,16 +14,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 
-def smooth_crops(rng: np.random.RandomState, t: int) -> np.ndarray:
-    """uint8 crops (t, 88, 88, 1)."""
+def smooth_crops(rng: np.random.RandomState, t: int, size: int = 88
+                 ) -> np.ndarray:
+    """uint8 crops (t, size, size, 1), size <= 96: 88 as the model takes
+    them, 96 as the datasets ship them (the collator crops the centre)."""
     key_every = 6
     n_keys = t // key_every + 2
-    keys = np.kron(rng.randn(n_keys, 12, 12), np.ones((1, 8, 8)))[:, :88, :88]
+    keys = np.kron(rng.randn(n_keys, 12, 12),
+                   np.ones((1, 8, 8)))[:, :size, :size]
     idx = np.arange(t) / key_every
     i0 = idx.astype(np.int64)
     w = (idx - i0)[:, None, None]
     frames = keys[i0] * (1 - w) + keys[i0 + 1] * w
-    texture = rng.randn(1, 88, 88) * 10.0
+    texture = rng.randn(1, size, size) * 10.0
     vid = (128 + 16 * frames + texture).clip(0, 255).astype(np.uint8)
     return vid[..., None]
 

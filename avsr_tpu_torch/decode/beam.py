@@ -116,8 +116,10 @@ def beam_search_batched(
             F.pad(ctc_log_probs.float(), (0, 0, 0, t_pad - s_max)), xlens,
             cfg.blank)
         # loop-invariant scorer inputs: the transposed table whose rows the
-        # step gathers (one row per candidate token), and the blank cumsum
-        logp_rows = log_probs.transpose(1, 2).reshape(b * v, t_pad)
+        # step gathers (one row per candidate token; at b = 1 the reshape
+        # is a strided view, and the gather takes rows), and the blank
+        # cumsum
+        logp_rows = log_probs.transpose(1, 2).reshape(b * v, t_pad).contiguous()
         cum_b_all = torch.cumsum(log_probs[:, :, cfg.blank], dim=1)
         ctc_state = ctc_prefix.init_state(log_probs, k, cfg.sos, cfg.blank)
         row_base = (ar_b * v)[:, None, None]

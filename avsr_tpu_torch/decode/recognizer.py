@@ -13,6 +13,7 @@ on the card unless ``device`` says otherwise.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
@@ -46,6 +47,9 @@ class Recognizer:
     beam_size: int = 3
     ctc_weight: float = 0.1
     t_buckets: Sequence[int] = (96, 192, 288, 384)
+    # audio layout per video frame: fbank features (1 x 104)
+    audio_rate: int = 1
+    audio_dim: int = 104
     # self-KV buffer cap in tokens (None = frame-count-sized buffer)
     max_decode_tokens: Optional[int] = None
     # encoder forward dtype: "float32" or "bfloat16"
@@ -124,11 +128,10 @@ class Recognizer:
         t_b = pick_bucket(self.t_buckets, int(lengths.max()))
         b = batch_pad or len(videos)
         vdtype = np.uint8 if videos[0].dtype == np.uint8 else np.float32
-        audio_dim = self.cfg.encoder.audio_feat_dim  # fbank, one row a frame
-        aud = np.zeros((b, t_b, audio_dim), np.float32)
+        aud = np.zeros((b, t_b * self.audio_rate, self.audio_dim), np.float32)
         vid = np.zeros((b, t_b, 88, 88, 1), vdtype)
         for i, (a, v) in enumerate(zip(audio_feats, videos)):
-            a = a.reshape(-1, audio_dim)
+            a = a.reshape(-1, self.audio_dim)
             aud[i, : len(a)] = a
             vid[i, : len(v)] = v
         lens = np.zeros((b,), np.int64)
@@ -146,22 +149,61 @@ class Recognizer:
         return (aud_t.to(dev), torch.from_numpy(vid).to(dev),
                 torch.from_numpy(lens).to(dev), len(videos))
 
+    def transcribe_batch_async(self, audio_feats: List[np.ndarray],
+                               videos: List[np.ndarray], mode: str = "beam",
+                               batch_pad: Optional[int] = None
+                               ) -> "_PendingBatch":
+        """Encode and decode a batch; the pending batch's ``result()``
+        copies the tokens to the host and strips them.
+
+        The JAX package's counterpart returns as soon as the work is
+        dispatched. Here the beam loop reads its stop flag from the device
+        at every step, so the decode has run when this returns; only the
+        copy to the host is left for ``result()``. The call sets the
+        current CUDA device to the recognizer's, so a thread other than
+        the one that built it can call it."""
+        if mode not in ("beam", "greedy"):
+            raise ValueError(f"mode {mode!r}")
+        on_device = (torch.cuda.device(self.device)
+                     if self.device.type == "cuda"
+                     else contextlib.nullcontext())
+        with on_device:
+            aud, vid, lens, n = self._pad_batch(audio_feats, videos,
+                                                batch_pad)
+            feats, ctc_logp = self.encode(aud, vid, lens)
+            if mode == "greedy":
+                return _PendingBatch(self, "greedy", n, greedy_ctc(
+                    ctc_logp, lens, blank=self.cfg.blank))
+            return _PendingBatch(self, "beam", n,
+                                 self.beam(feats, ctc_logp, lens)[:2])
+
     def transcribe_batch(self, audio_feats: List[np.ndarray],
                          videos: List[np.ndarray], mode: str = "beam",
                          batch_pad: Optional[int] = None) -> List[np.ndarray]:
         """Decode a batch; returns per-utterance token ids (no sos/eos)."""
-        if mode not in ("beam", "greedy"):
-            raise ValueError(f"mode {mode!r}")
-        aud, vid, lens, n = self._pad_batch(audio_feats, videos, batch_pad)
-        feats, ctc_logp = self.encode(aud, vid, lens)
-        if mode == "greedy":
-            toks, tlens = greedy_ctc(ctc_logp, lens, blank=self.cfg.blank)
-            toks, tlens = toks.cpu().numpy(), tlens.cpu().numpy()
-            return [toks[i, : tlens[i]] for i in range(n)]
-        yseqs, ylens, _ = self.beam(feats, ctc_logp, lens)
-        yseqs, ylens = yseqs.cpu().numpy(), ylens.cpu().numpy()
+        return self.transcribe_batch_async(audio_feats, videos, mode,
+                                           batch_pad).result()
+
+    def transcribe(self, audio_feats: np.ndarray, video: np.ndarray,
+                   mode: str = "beam") -> np.ndarray:
+        return self.transcribe_batch([audio_feats], [video], mode=mode)[0]
+
+
+class _PendingBatch:
+    """A decoded batch on the device; ``result()`` copies and strips it."""
+
+    def __init__(self, rec: Recognizer, mode: str, n: int, tensors):
+        self.rec = rec
+        self.mode = mode
+        self.n = n
+        self.tensors = tensors
+
+    def result(self) -> List[np.ndarray]:
+        toks, lens = (x.cpu().numpy() for x in self.tensors)
+        if self.mode == "greedy":
+            return [toks[i, : lens[i]] for i in range(self.n)]
         out = []
-        for i in range(n):
-            seq = yseqs[i, 1: ylens[i]]  # strip sos
-            out.append(seq[seq != self.cfg.eos])  # strip eos
+        for i in range(self.n):
+            seq = toks[i, 1: lens[i]]  # strip sos
+            out.append(seq[seq != self.rec.cfg.eos])  # strip eos
         return out

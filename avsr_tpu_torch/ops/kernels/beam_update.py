@@ -9,7 +9,10 @@ and end detection (the reference's e2e_asr_common.end_detect). Unfused,
 that is about a hundred tiny launches a step (``decode/beam.py``).
 
 ``beam_update`` dispatches on the tensor's device: on the CPU it runs
-``beam_update_plain``, on a CUDA device it launches ``csrc/beam_update.cu``.
+``beam_update_plain``, on a CUDA device it launches ``csrc/beam_update.cu``:
+a warp's kernel up to ``MAX_K`` hypotheses and ``MAX_CAND`` candidates
+K*(S'+1), a block's beyond (``wide_launches`` counts those launches; a
+beam of 10 has 160 candidates).
 Both are bit-identical to the unfused step of ``decode/beam.py``: the same
 fp32 operations in the same order, each rounded on its own (no fused
 multiply-add), and selections that copy values. The port's beam always
@@ -28,6 +31,8 @@ import torch
 from avsr_tpu_torch.ops.kernels import _build
 
 _BIG = 2**62
+MAX_K = 16  # csrc/beam_update.cu kMaxK
+MAX_CAND = 128  # csrc/beam_update.cu kMaxCand
 
 _OUT = ("token", "prev", "slot", "psi_sel", "score", "alive", "yseq", "anc",
         "ended_best", "ended_cnt", "best_score", "best_yseq", "best_len",
@@ -180,6 +185,7 @@ def _launch(i, ins, use_ctc, w_dec, w_ctc, eos, neg, d_end, m_end):
              d_end, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("beam_update", err)
     beam_update.launches += 1
+    beam_update.wide_launches += k > MAX_K or k * (sp + 1) > MAX_CAND
     return outs
 
 
@@ -234,9 +240,8 @@ def beam_update(i: int, xlens, dec_top, dec_eos, psi_cand, psi_eos, ctc_s,
         return beam_update_plain(i, *ins, **kw)
     if part_ids.device.type != "cuda":
         raise ValueError(f"no beam_update for device {part_ids.device}")
-    # the kernel refuses (invalid argument) a beam over 16 or more than
-    # 128 candidates K*(S'+1)
     return _launch(i, ins, use_ctc, **kw)
 
 
 beam_update.launches = 0
+beam_update.wide_launches = 0

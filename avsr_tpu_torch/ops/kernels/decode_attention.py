@@ -6,7 +6,9 @@ dispatches on the tensors' device: on the CPU it runs
 ``decode_attention_plain``, on a CUDA device it launches
 ``csrc/decode_attention.cu`` over thread-block clusters, with the launch
 plan (``launch_plan``: cluster size, rows a rank, tile, shared memory)
-computed here.
+computed here. Beyond ``MAX_LANES`` beam lanes (beams of 9 and more) it
+launches the source's block-a-query kernel instead (no plan);
+``wide_launches`` counts those launches.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ CLUSTER_SIZES = (2, 4, 8)
 CLUSTER = 2
 STAGE_BYTES = 48 * 1024
 SMEM_MAX = 232448
+MAX_LANES = 8  # csrc/decode_attention.cu kMaxLanes
 
 
 def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
@@ -192,19 +195,42 @@ def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
             raise ValueError("inputs must be contiguous")
 
 
+def _launch_wide(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
+    n, s_max, c2 = kv_cache.shape
+    fn = _build.function(
+        "avsr_decode_attention_wide",
+        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
+    )
+    kv_row = kv_row.to(kv_cache.dtype)
+    if kv_row.data_ptr() % 16:  # the kernel reads it 16 bytes at a time
+        kv_row = kv_row.clone()
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), kv_cache.data_ptr(), lane_bias.data_ptr(),
+             kv_row.data_ptr(), out.data_ptr(), n // lanes, lanes, heads,
+             c2 // 2 // heads, s_max, int(pos), _build.dtype_code(q.dtype),
+             _build.dtype_code(kv_cache.dtype),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("decode_attention", err)
+    decode_attention.launches += 1
+    decode_attention.wide_launches += 1
+    return out, kv_cache
+
+
 def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
             cluster=None):
     n, s_max, c2 = kv_cache.shape
     dh = c2 // 2 // heads
     esize = kv_cache.element_size()
-    if dh * esize % 16 or dh * esize > 512 or lanes > 8:
-        raise ValueError(f"kernel takes head dims of 1-32 16-byte chunks and "
-                         f"<= 8 lanes, got dh={dh}, lanes={lanes}")
-    if kv_cache.data_ptr() % 16:
-        raise ValueError("kv_cache must be 16-byte aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    if dh * esize % 16 or dh * esize > 512:
+        raise ValueError(f"kernel takes head dims of 1-32 16-byte chunks, "
+                         f"got dh={dh}")
+    if kv_cache.data_ptr() % 16:
+        raise ValueError("kv_cache must be 16-byte aligned")
+    if lanes > MAX_LANES:
+        return _launch_wide(pos, q, kv_cache, lane_bias, lanes, heads, kv_row)
     plan = launch_plan(n // lanes, lanes, heads, dh, s_max, int(pos), esize,
                        cluster)
     fn = _build.function(
@@ -249,3 +275,4 @@ def decode_attention(pos: int, q, kv_cache, lane_bias, lanes: int,
 
 
 decode_attention.launches = 0
+decode_attention.wide_launches = 0

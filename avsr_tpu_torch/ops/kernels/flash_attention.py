@@ -424,7 +424,8 @@ def mha_flash(q, k, v, padding_mask: Optional[torch.Tensor], scale: float,
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
 
     def to_rows(x):
-        return x.permute(0, 2, 1, 3).reshape(b * h, tp, dh)
+        # at b = 1 the reshape is a strided view: the kernels take rows
+        return x.permute(0, 2, 1, 3).reshape(b * h, tp, dh).contiguous()
 
     out = flash_attention(
         to_rows(q), to_rows(k), to_rows(v),

@@ -1,12 +1,15 @@
-"""Exact small-k top-k over the last axis (descending, lower-index ties).
+"""Exact top-k over the last axis (descending, lower-index ties).
 
-Counterpart of ``avsr_tpu/ops/pallas/topk.py`` ``topk_lastdim``.
-``topk_lastdim`` dispatches on the tensor's device: on the CPU it runs
-``topk_plain``, on a CUDA device it launches ``csrc/topk.cu``: rows longer
-than ``WARP_ROW_MAX`` (the beam's vocabulary rows) a block or a cluster a
-row, shorter ones (its flat (B, 15) top-k) a warp a row; ``launches``
-counts both, ``flat_launches`` the second. torch.topk is not used: its tie
-order on CUDA is not documented.
+Counterpart of ``avsr_tpu/ops/pallas/topk.py`` ``topk_lastdim``, for any
+k up to the row's length. ``topk_lastdim`` dispatches on the tensor's
+device: on the CPU it runs ``topk_plain``, on a CUDA device it launches
+``csrc/topk.cu``. For k up to ``MAX_K``: rows longer than
+``WARP_ROW_MAX`` (the beam's vocabulary rows) a block a row, shorter ones
+(its flat (B, K*(S'+1)) top-k) a warp a row. Beyond ``MAX_K`` (the
+pre-beam of a beam of 22 or more): a block a row, k block-wide rounds.
+``launches`` counts all three, ``flat_launches`` the warp-a-row kernel's
+and ``wide_launches`` the k > ``MAX_K`` kernel's. torch.topk is not used:
+its tie order on CUDA is not documented.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 
 from avsr_tpu_torch.ops.kernels import _build
 
-MAX_K = 32
+MAX_K = 32  # csrc/topk.cu kMaxK: the largest k of the per-thread lists
 WARP_ROW_MAX = 1024  # csrc/topk.cu kWarpRowMax
 
 
@@ -50,7 +53,8 @@ def _launch(x2, k):
              torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check("topk_lastdim", err)
     topk_lastdim.launches += 1
-    topk_lastdim.flat_launches += v <= WARP_ROW_MAX
+    topk_lastdim.flat_launches += k <= MAX_K and v <= WARP_ROW_MAX
+    topk_lastdim.wide_launches += k > MAX_K
     return vals, ids
 
 
@@ -60,8 +64,8 @@ def topk_lastdim(x, k: int):
     are int64 (torch's index dtype)."""
     if x.dtype != torch.float32:
         raise TypeError(f"topk_lastdim takes fp32, got {x.dtype}")
-    if not 0 < k <= min(MAX_K, x.shape[-1]):
-        raise ValueError(f"k={k} outside [1, min({MAX_K}, {x.shape[-1]})]")
+    if not 0 < k <= x.shape[-1]:
+        raise ValueError(f"k={k} outside [1, {x.shape[-1]}]")
     if not x.is_contiguous():
         raise ValueError("input must be contiguous")
     if x.device.type == "cpu":
@@ -75,3 +79,4 @@ def topk_lastdim(x, k: int):
 
 topk_lastdim.launches = 0
 topk_lastdim.flat_launches = 0
+topk_lastdim.wide_launches = 0

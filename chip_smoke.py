@@ -51,7 +51,14 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    bit-equal, timed at pos 250 warm and cold (rotating over six layers'
    weights and caches; the record's time) beside the unfused layer step;
    as information, the eager composition the stem kernels replace, and
-   ``bn_prelu_pool`` on channels-last and on NCHW x;
+   ``bn_prelu_pool`` on channels-last and on NCHW x; the paths that beams
+   above the fast kernels' limits take (ROADMAP C28), each exact against
+   its twin at B=8 and at the shapes phase 8 gives them (B=32, a 128-row
+   cache, L=98), and timed at phase 8's: ``decode_attention`` at 22 lanes
+   (records ``decode_attention_wide``, cold at pos 74, SDPA beside it),
+   ``topk_lastdim`` at beam 22's pre-beam (B*22, 5049) k=33
+   (``topk_lastdim_wide``) and its flat (B, 22*34) k=22, ``beam_update`` at
+   K=10, S'=15 and K=22, S'=33 (``beam_update_wide``);
 4. serves the full-width flagship configuration (24x1024 AV-HuBERT encoder,
    6x1024 decoder, vocab 5049; seeded random weights) through
    ``Recognizer.transcribe_batch``, B=8 utterances of 375 frames: the
@@ -79,7 +86,19 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    card (kernels) and on the CPU (twins), B=2, T=32 with one utterance
    shorter, dropout off, TF32 off, and compares the losses, the gradient
    norm and the per-module gradient norms; then again with
-   ``AVSR_FUSED_STEM=1`` on both sides.
+   ``AVSR_FUSED_STEM=1`` on both sides;
+8. runs the evaluation entry point, ``avsr_tpu_torch.cli.evaluation``'s
+   ``InferenceEngine`` at the CLI's defaults, on the flagship config loaded
+   from a reference-format directory of seed-0 weights, with a toy
+   tokenizer (``phase_eval``): 32 utterances of 2-15 s as mp4 + wav bytes
+   (cv2 writes them; the phase fails without it) through ``eval_lrs2``,
+   one warm pass and three timed ones, the transcripts held to
+   ``Recognizer.transcribe_batch`` on the same collated features; prints
+   the median wall audio-s/s (media decode, fbank and collation included)
+   and the fbank route; then beams of 22 and 10, unfused and fused, on two
+   3 s utterances, fused equal to unfused, and the same runs again with
+   every call of the beam's top-k, bookkeeping and decode attention held
+   against its twin at the shapes the engine gives them (B=32).
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -88,7 +107,10 @@ unfused) for the serving kernels (top-k's vocabulary-row and flat launches
 apart), the fused run for ``beam_update``, which
 only the fused bookkeeping runs, the fused-layer run for
 ``decoder_layer_step``, phase 6's timed steps for the three flash kernels
-and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels. The last
+and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
+beam of 22 for the wide paths (unfused for ``decode_attention_wide`` and
+``topk_lastdim_wide``, fused for ``beam_update_wide``), whose
+``max_abs_err`` also covers phase 8's checked beams. The last
 line is ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero at once.
 """
@@ -99,6 +121,7 @@ import contextlib
 import copy
 import itertools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -119,6 +142,10 @@ T_PAD = 384  # FRAMES + 2 rounded up to 128, the CTC scorer's time axis
 TRAIN_BATCH = 6  # bench_train's default batch
 TRAIN_HEADS = TRAIN_BATCH * 16  # the encoder's attention rows in training
 LAYERS = 6  # the decoder's layers: the caches a beam step reads in turn
+EVAL_B = 32  # the CLI's batch_size, to which phase 8's beams pad
+EVAL_T = 96  # the frame bucket of phase 8's 3 s (75-frame) utterances
+EVAL_KV = 128  # their K|V cache rows: EVAL_T + 2 rounded up to 64
+EVAL_POS = 74  # the last step of a 75-frame utterance
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, and operations/s by operand type (dense tensor-core bf16, fp32
@@ -255,14 +282,15 @@ BEAM_UPDATE_KW = dict(w_dec=0.9, w_ctc=0.1, eos=EOS, neg=-1.0e30,
                       d_end=-10.0, m_end=3)
 
 
-def step_state(seed: int, i: int, dev, ties: bool, b: int = B):
+def step_state(seed: int, i: int, dev, ties: bool, b: int = B, k: int = BEAM,
+               sp: int = PRE_BEAM, t: int = FRAMES, kv_cap: int = KV_CAP):
     """One beam step's bookkeeping inputs at the serving shapes (b
-    utterances, beam 3, pre-beam 4, L=377, a 192-row ancestry), on the
-    card. Lane 0 takes its forced last step, lane 1 is stopped, lane 2 has
-    eos among its pre-beam ids and ends hypotheses; with ``ties`` every
+    utterances, beam k (3), pre-beam sp (4), t=375 encoder frames so
+    L=t+2=377, a kv_cap=192-row ancestry), on the card. Lane 0 takes its forced last step, lane 1 is stopped, lane 2
+    has eos among its pre-beam ids and ends hypotheses; with ``ties`` every
     lane's hypotheses 0 and 1 are identical, so their candidates tie."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    ll = FRAMES + 2
+    ll = t + 2
 
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=g, device=dev) * scale + shift
@@ -270,24 +298,24 @@ def step_state(seed: int, i: int, dev, ties: bool, b: int = B):
     def randint(lo, hi, *shape):
         return torch.randint(lo, hi, shape, generator=g, device=dev)
 
-    xlens = randint(i + 1, FRAMES + 1, b)
+    xlens = randint(i + 1, t + 1, b)
     xlens[0] = i + 1
     stop = torch.zeros(b, dtype=torch.bool, device=dev)
     stop[1] = True
     st = dict(
         xlens=xlens,
-        dec_top=randn(b, BEAM, PRE_BEAM, scale=3.0, shift=-4.0).sort(
+        dec_top=randn(b, k, sp, scale=3.0, shift=-4.0).sort(
             dim=-1, descending=True).values,
-        dec_eos=randn(b, BEAM, scale=3.0, shift=-6.0),
-        psi_cand=randn(b, BEAM, PRE_BEAM, scale=10.0, shift=-30.0),
-        psi_eos=randn(b, BEAM, scale=10.0, shift=-40.0),
-        ctc_s=randn(b, BEAM, scale=10.0, shift=-25.0),
-        part_ids=randint(1, EOS, b, BEAM, PRE_BEAM),
-        score=randn(b, BEAM, scale=5.0, shift=-20.0),
-        alive=torch.ones(b, BEAM, dtype=torch.bool, device=dev),
+        dec_eos=randn(b, k, scale=3.0, shift=-6.0),
+        psi_cand=randn(b, k, sp, scale=10.0, shift=-30.0),
+        psi_eos=randn(b, k, scale=10.0, shift=-40.0),
+        ctc_s=randn(b, k, scale=10.0, shift=-25.0),
+        part_ids=randint(1, EOS, b, k, sp),
+        score=randn(b, k, scale=5.0, shift=-20.0),
+        alive=torch.ones(b, k, dtype=torch.bool, device=dev),
         stop=stop,
-        yseq=randint(1, EOS, b, BEAM, ll),
-        anc=randint(0, BEAM, KV_CAP, b, BEAM),
+        yseq=randint(1, EOS, b, k, ll),
+        anc=randint(0, k, kv_cap, b, k),
         ended_best=randn(b, ll, scale=5.0, shift=-30.0),
         ended_cnt=randint(0, 3, b, ll),
         best_score=randn(b, scale=5.0, shift=-15.0),
@@ -305,21 +333,23 @@ def step_state(seed: int, i: int, dev, ties: bool, b: int = B):
     return st
 
 
-def decode_case(g, dev, b: int, pos: int, caches: int = 1):
-    """One ``decode_attention`` step's inputs at the serving widths: (b*3,
-    1024) bf16 queries scaled as dh**-0.5 does, ``caches`` distinct (b*3,
-    192, 2048) bf16 K|V caches, the step's row, and a random ancestry's
-    lane bias (B, K, S, J) with each lane its own ancestor at the step."""
-    lanes, c = BEAM, 1024
+def decode_case(g, dev, b: int, pos: int, caches: int = 1,
+                lanes: int = BEAM, kv_cap: int = KV_CAP):
+    """One ``decode_attention`` step's inputs at the serving widths: (b*K,
+    1024) bf16 queries scaled as dh**-0.5 does, ``caches`` distinct (b*K,
+    S, 2048) bf16 K|V caches (S = ``kv_cap``, 192), the step's row, and a
+    random ancestry's lane bias (B, K, S, J) with each lane its own
+    ancestor at the step; K = ``lanes`` (the beam, 3)."""
+    c = 1024
     nl = b * lanes
     q = (torch.randn(nl, c, generator=g, device=dev) * 0.125).to(
         torch.bfloat16)
-    kvs = [torch.randn(nl, KV_CAP, 2 * c, generator=g, device=dev).to(
+    kvs = [torch.randn(nl, kv_cap, 2 * c, generator=g, device=dev).to(
         torch.bfloat16) for _ in range(caches)]
     row = torch.randn(nl, 2 * c, generator=g, device=dev).to(torch.bfloat16)
-    anc = torch.randint(0, lanes, (KV_CAP, b, lanes), generator=g, device=dev)
-    anc[min(pos, KV_CAP - 1)] = torch.arange(lanes, device=dev)
-    valid = (torch.arange(KV_CAP, device=dev) <= pos)[:, None, None, None] & (
+    anc = torch.randint(0, lanes, (kv_cap, b, lanes), generator=g, device=dev)
+    anc[min(pos, kv_cap - 1)] = torch.arange(lanes, device=dev)
+    valid = (torch.arange(kv_cap, device=dev) <= pos)[:, None, None, None] & (
         anc[..., None] == torch.arange(lanes, device=dev))
     lb = torch.where(valid.permute(1, 2, 0, 3), 0.0, -1.0e30).contiguous()
     return q, kvs, row, lb
@@ -711,12 +741,171 @@ def phase_kernels(dev):
         print(f"# beam_update B={b}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
               f"({r['bound'][1]}), launch floor {floor:.4f} ms")
+    records.update(wide_kernel_records(dev, g))
     for name, r in records.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         print(f"# {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib}, bound "
               f"{r['bound'][0]:.6f} ms ({r['bound'][1]})")
+    return records
+
+
+def wide_kernel_records(dev, g):
+    """ROADMAP C28: the paths that beams above the fast kernels' limits
+    take, each held against its twin at B=8 (the serving shapes: a 192-row
+    cache, L=377) and at the shapes phase 8's beams give them (B=32, the
+    engine's batch; a 128-row cache and L=98, the 96-frame bucket of its
+    3 s utterances; steps 0-74), and timed at phase 8's shapes.
+    decode_attention at 22 lanes (``decode_attention_wide``), cache
+    bit-equal and output within ``output_bound``, timed at step 74 cold
+    beside fused SDPA. The top-k at beam 22's pre-beam rows (B*22, 5049)
+    k=33 (``topk_lastdim_wide``), exact on rows with ties, equal values,
+    +inf and too few finite entries, off a 16-byte boundary too, timed
+    beside ``torch.topk``; beam 22's flat top-k (B, 22*34) k=22, which the
+    list kernel takes, exact and timed. beam_update at K=10, S'=15 and at
+    K=22, S'=33 (``beam_update_wide``), four step states each, every
+    output bit for bit."""
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    records = {}
+    wide_k, wide_beam = 33, 22
+    # (utterances, encoder frames, cache rows, steps, decode steps checked)
+    shapes = ((B, FRAMES, KV_CAP, FRAMES, (0, 100, KV_CAP - 1, 250)),
+              (EVAL_B, EVAL_T, EVAL_KV, EVAL_POS + 1, (0, 37, EVAL_POS)))
+
+    ratios, errs = [], []
+    for b, _, kv_cap, _, positions in shapes:
+        for pos in positions:
+            q, (kv,), row, lb = decode_case(g, dev, b, pos, lanes=wide_beam,
+                                            kv_cap=kv_cap)
+            kv_plain = kv.clone()
+            before = pda.decode_attention.wide_launches
+            got, got_kv = pda.decode_attention(pos, q, kv, lb, wide_beam, 16,
+                                               row)
+            want, want_kv = pda.decode_attention_plain(
+                pos, q, kv_plain.clone(), lb, wide_beam, 16, row)
+            bnd = pda.output_bound(pos, q, kv_plain, lb, wide_beam, 16, row)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            ratios.append((diff / bnd).max().item())
+            errs.append(diff.max().item())
+            check(pda.decode_attention.wide_launches == before + 1,
+                  "decode_attention at 22 lanes did not launch its wide "
+                  "kernel")
+            check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
+                  f"decode_attention at 22 lanes disagrees at B={b}, "
+                  f"S={kv_cap}, pos={pos}")
+    q, kvs, row, lb = decode_case(g, dev, B, 250, caches=LAYERS,
+                                  lanes=wide_beam)
+    serving_ms = cuda_ms(rotating(lambda kv: pda.decode_attention(
+        250, q, kv, lb, wide_beam, 16, row), kvs))
+    pos = EVAL_POS
+    q, kvs, row, lb = decode_case(g, dev, EVAL_B, pos, caches=LAYERS,
+                                  lanes=wide_beam, kv_cap=EVAL_KV)
+    out, _ = pda.decode_attention(pos, q, kvs[0], lb, wide_beam, 16, row)
+    library_ms, backend = decode_sdpa_ms(q, kvs, lb, wide_beam, 16)
+    # the kernel reads the pos + 1 rows of the prefix, no more
+    used = (pos + 1) / EVAL_KV
+    records["decode_attention_wide"] = r = dict(
+        source="avsr_tpu_torch/csrc/decode_attention.cu",
+        replaces="avsr_tpu/ops/pallas/decode_attention.py:222",
+        max_abs_err=max(errs),
+        ms=cuda_ms(rotating(lambda kv: pda.decode_attention(
+            pos, q, kv, lb, wide_beam, 16, row), kvs)),
+        plain_ms=cuda_ms(lambda: pda.decode_attention_plain(
+            pos, q, kvs[0], lb, wide_beam, 16, row)),
+        library_ms=library_ms,
+        bound=bound(nbytes(q, out, row, row) + used * nbytes(kvs[0], lb),
+                    4 * EVAL_B * wide_beam * wide_beam * (pos + 1) * 1024,
+                    "bf16"))
+    print(f"# decode_attention 22 lanes at B={B} and {EVAL_B}: within "
+          f"output_bound (largest ratio {max(ratios):.3f}); B={EVAL_B}, "
+          f"S={EVAL_KV}, pos {pos} cold: kernel {r['ms']:.4f} ms, SDPA "
+          f"({backend}) {library_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); B={B}, pos 250 "
+          f"cold: kernel {serving_ms:.4f} ms")
+
+    flat = wide_beam * (wide_k + 1)
+    for b in (B, EVAL_B):
+        rows = b * wide_beam
+        buf = torch.randn(rows * VOCAB + 1, generator=g, device=dev)
+        for x in (buf[:-1].view(rows, VOCAB), buf[1:].view(rows, VOCAB)):
+            x[:, VOCAB // 2] = x.amax(dim=1)
+            x[1] = 0.5
+            x[2] = float("-inf")
+            x[2, [0, VOCAB // 2, VOCAB - 2]] = torch.tensor(
+                [-3.0, 1.0, 2.0], device=dev)
+            x[3, 20:] = float("-inf")
+            x[4, [7, VOCAB - 1]] = float("inf")
+            before = ptk.topk_lastdim.wide_launches
+            gv, gi = ptk.topk_lastdim(x, wide_k)
+            wv, wi = ptk.topk_plain(x, wide_k)
+            torch.cuda.synchronize()
+            check(ptk.topk_lastdim.wide_launches == before + 1,
+                  "topk_lastdim at k=33 did not launch its wide kernel")
+            check(torch.equal(gi, wi) and torch.equal(gv, wv),
+                  f"topk_lastdim disagrees at ({rows}, {VOCAB}) k={wide_k}")
+        for shape, kk in (((rows, VOCAB), wide_k), ((b, flat), wide_beam)):
+            x = torch.randn(*shape, generator=g, device=dev)
+            vals, ids = ptk.topk_lastdim(x, kk)
+            wv, wi = ptk.topk_plain(x, kk)
+            torch.cuda.synchronize()
+            check(torch.equal(ids, wi) and torch.equal(vals, wv),
+                  f"topk_lastdim disagrees at {shape} k={kk}")
+            r = dict(source="avsr_tpu_torch/csrc/topk.cu",
+                     replaces="avsr_tpu/ops/pallas/topk.py:47",
+                     max_abs_err=0.0,
+                     ms=cuda_ms(lambda: ptk.topk_lastdim(x, kk)),
+                     plain_ms=cuda_ms(lambda: ptk.topk_plain(x, kk)),
+                     library_ms=cuda_ms(lambda: torch.topk(x, kk)),
+                     # one comparison per element and round
+                     bound=bound(nbytes(x, vals, ids), kk * x.numel(),
+                                 "fp32"))
+            print(f"# topk_lastdim {shape} k={kk}: kernel {r['ms']:.4f} ms, "
+                  f"torch.topk {r['library_ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms")
+            if b == EVAL_B and kk == wide_k:
+                records["topk_lastdim_wide"] = r
+
+    kw = BEAM_UPDATE_KW
+    for b, t, kv_cap, last, _ in shapes:
+        for k, sp in ((10, 15), (wide_beam, wide_k)):
+            for seed, i, ties in ((1, 0, False), (2, 40, True),
+                                  (3, last - 30, True), (4, last - 1, False)):
+                st = step_state(seed, i, dev, ties, b, k, sp, t, kv_cap)
+                if i == last - 1:
+                    st["xlens"][:] = last
+                before = pbu.beam_update.wide_launches
+                got = pbu.beam_update(i, *st.values(), **kw)
+                want = pbu.beam_update_plain(i, *st.values(), **kw)
+                torch.cuda.synchronize()
+                check(pbu.beam_update.wide_launches == before + 1,
+                      f"beam_update at K={k}, S'={sp} did not launch its "
+                      f"wide kernel")
+                for name, w in want.items():
+                    check(torch.equal(got[name], w), f"beam_update {name} "
+                          f"differs at B={b}, K={k}, S'={sp}, L={t + 2}, "
+                          f"step {i}, ties={ties}")
+            st = step_state(5, 40, dev, True, b, k, sp, t, kv_cap)
+            out = pbu.beam_update(40, *st.values(), **kw)
+            r = dict(
+                source="avsr_tpu_torch/csrc/beam_update.cu",
+                replaces="avsr_tpu/ops/pallas/beam_update.py:35",
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: pbu.beam_update(40, *st.values(), **kw)),
+                plain_ms=cuda_ms(lambda: pbu.beam_update_plain(
+                    40, *st.values(), **kw)),
+                library_ms=None,
+                bound=bound(nbytes(*st.values(), *out.values()),
+                            b * k * (sp + 1) * (5 + k), "fp32"))
+            print(f"# beam_update wide K={k}, S'={sp}, B={b}, L={t + 2}: "
+                  f"exact; kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+                  f"({r['bound'][1]})")
+    records["beam_update_wide"] = r  # B=32, K=22, S'=33, L=98
     return records
 
 
@@ -1677,6 +1866,359 @@ def phase_train_parity(dev, fused_stem: bool = False):
         check(rel <= lim, f"train parity: gradient norm of {k}")
 
 
+EVAL_UTTERANCES = 32  # the CLI's batch: one chunk of the producer
+EVAL_WINDOWS = 3  # timed passes of phase 8 after the warm one
+EVAL_SECONDS = (2.0, 15.0)  # the range the utterances' durations span
+EVAL_WORDS = ("HELLO", "WORLD", "THE", "LAZY", "DOG", "QUICK", "BROWN",
+              "FOX", "SPEECH", "VIDEO", "AUDIO", "TEST")
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def _field(num: int, payload: bytes) -> bytes:  # length-delimited
+    return _varint(num << 3 | 2) + _varint(len(payload)) + payload
+
+
+def write_toy_tokenizer(directory: str, units: int) -> None:
+    """A SentencePiece model proto (field 1: pieces of piece=1, score=2
+    as a 32-bit float, type=3) holding <unk>, <s>, </s> and EVAL_WORDS,
+    and a units file of exactly ``units`` lines (<unk> 1, the words, then
+    filler pieces), so that every id below units + 2 maps to a piece."""
+    import struct
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)] + [
+        ("\u2581" + w, -1.0 - i, 1) for i, w in enumerate(EVAL_WORDS)]
+    proto = b"".join(_field(1, _field(1, p.encode()) + _varint(2 << 3 | 5)
+                            + struct.pack("<f", sc)
+                            + (_varint(3 << 3) + _varint(t) if t != 1 else b""))
+                     for p, sc, t in pieces)
+    with open(os.path.join(directory, "unigram5000.model"), "wb") as f:
+        f.write(proto)
+    names = [p for p, _, t in pieces if t == 1]
+    names += [f"\u2581W{i}" for i in range(units - 1 - len(names))]
+    with open(os.path.join(directory, "unigram5000_units.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(["<unk> 1"] + [f"{p} {i + 2}" for i, p in
+                                         enumerate(names)]) + "\n")
+
+
+def check_mp4_writer(directory: str) -> None:
+    """Phase 8 writes its utterances as mp4 with cv2 and the engine decodes
+    them (pyav first, if present): fail where cv2 cannot write mp4."""
+    try:
+        import cv2
+    except ImportError:
+        check(False, "phase 8: cv2 does not import, so no mp4 is written")
+    writer = cv2.VideoWriter(os.path.join(directory, "probe.mp4"),
+                             cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (96, 96))
+    ok = writer.isOpened()
+    writer.release()
+    check(ok, "phase 8: cv2 cannot open an mp4 writer")
+
+
+@contextlib.contextmanager
+def twins_checked(seen: dict):
+    """Within the block, every call the beam makes of ``topk_lastdim``,
+    ``beam_update`` and ``decode_attention`` is also held against the twin
+    on copies of the same card tensors, taken before the kernel writes:
+    the top-k and every output of beam_update exact, decode_attention's
+    cache bit-equal and its output within ``output_bound``. ``seen`` gets,
+    per kernel path (the wide ones under ``<name>_wide``), the calls, the
+    input shapes and the largest absolute error. The twins launch no
+    kernel, so the launch counts are those of the run."""
+    from avsr_tpu_torch.decode import beam as beam_mod
+    from avsr_tpu_torch.models import decoder as decoder_mod
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    def note(name, wide, shape, err):
+        entry = seen.setdefault(f"{name}_wide" if wide else name,
+                                {"calls": 0, "shapes": set(), "err": 0.0})
+        entry["calls"] += 1
+        entry["shapes"].add(shape)
+        entry["err"] = max(entry["err"], err)
+
+    def topk(x, k):
+        got = ptk.topk_lastdim(x, k)
+        want = ptk.topk_plain(x, k)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"topk_lastdim disagrees on the beam's {tuple(x.shape)} k={k}")
+        note("topk_lastdim", k > ptk.MAX_K, (tuple(x.shape), k), 0.0)
+        return got
+
+    def bookkeeping(i, *args, **kw):
+        copies = [a.clone() if torch.is_tensor(a) else a for a in args]
+        got = pbu.beam_update(i, *args, **kw)
+        want = pbu.beam_update_plain(i, *copies, **kw)
+        for name, w in want.items():
+            check(torch.equal(got[name], w),
+                  f"beam_update {name} disagrees on the beam's step {i}")
+        dec_top, yseq = args[1], args[10]  # (B, K, S'), (B, K, L)
+        b, k, sp = dec_top.shape
+        note("beam_update", k > pbu.MAX_K or k * (sp + 1) > pbu.MAX_CAND,
+             (b, k, sp, yseq.shape[-1]), 0.0)
+        return got
+
+    def attention(pos, q, kv, lb, lanes, heads, kv_row=None):
+        before = kv.clone()
+        got, got_kv = pda.decode_attention(pos, q, kv, lb, lanes, heads,
+                                           kv_row=kv_row)
+        want, want_kv = pda.decode_attention_plain(
+            pos, q, before.clone(), lb, lanes, heads, kv_row)
+        bnd = pda.output_bound(pos, q, before, lb, lanes, heads, kv_row)
+        diff = (got.float() - want.float()).abs()
+        check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
+              f"decode_attention disagrees on the beam's step {pos}, "
+              f"{lanes} lanes, cache {tuple(kv.shape)}")
+        note("decode_attention", lanes > pda.MAX_LANES,
+             (tuple(kv.shape), lanes), diff.max().item())
+        return got, got_kv
+
+    saved = (beam_mod.topk_lastdim, beam_mod.beam_update,
+             decoder_mod.decode_attention)
+    beam_mod.topk_lastdim, beam_mod.beam_update = topk, bookkeeping
+    decoder_mod.decode_attention = attention
+    try:
+        yield seen
+    finally:
+        (beam_mod.topk_lastdim, beam_mod.beam_update,
+         decoder_mod.decode_attention) = saved
+
+
+def phase_eval(dev, smi: str):
+    """The evaluation entry point at full width: ``avsr_tpu_torch.cli.
+    evaluation.InferenceEngine`` at the CLI's defaults (beam 3, 32 segments
+    a batch, bf16 decoder weights and K|V cache, fp32 encoder, on the card)
+    on the flagship configuration, loaded from a reference-format directory
+    (config.json, pytorch_model.bin of seed-0 random weights) through
+    ``load_released``, with a toy tokenizer found through AVSR_SPM_DIR.
+    32 utterances of 2-15 s (seeded): smooth 96x96 crops, a 16 kHz
+    waveform and a label of random words, as mp4 + wav bytes (written with
+    cv2) through ``eval_lrs2``: one untimed pass (the native fbank's build,
+    the first B=32 encode and beam), then ``EVAL_WINDOWS`` timed ones, the
+    median printed. Checks: every pass gives the same tokens, which are
+    ``Recognizer.transcribe_batch``'s on the same collated features, the
+    WER is finite, and the serving kernels ran. Then beams of 22 and of 10
+    through the engine on two 3 s utterances, unfused and fused: none
+    raises, fused and unfused give the same tokens, and the C28 kernels
+    ran; the same runs again under ``twins_checked``, every kernel call
+    held against its twin. Returns the launch counts of each run and what
+    the checked runs saw."""
+    import tempfile
+
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.data.synthetic import smooth_crops
+    from avsr_tpu_torch.models.e2e import AVSRModel
+    from avsr_tpu_torch.ops import fbank
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
+    from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    counters = (pfa.flash_attention_fwd, pda.decode_attention,
+                ptk.topk_lastdim, prg.row_gather, psl.cumlogsumexp,
+                pbu.beam_update)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        ptk.topk_lastdim.flat_launches = ptk.topk_lastdim.wide_launches = 0
+        pbu.beam_update.wide_launches = 0
+        pda.decode_attention.wide_launches = 0
+
+    def counts():
+        """Each kernel's launches, the wide paths apart from the others."""
+        n = {fn.__name__: fn.launches for fn in counters}
+        n["topk_lastdim_flat"] = ptk.topk_lastdim.flat_launches
+        for fn in (ptk.topk_lastdim, pbu.beam_update, pda.decode_attention):
+            n[f"{fn.__name__}_wide"] = fn.wide_launches
+            n[fn.__name__] -= fn.wide_launches
+        n["topk_lastdim"] -= n["topk_lastdim_flat"]
+        return n
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
+        cfg = AVHubertAVSRConfig()
+        os.environ["AVSR_SPM_DIR"] = os.path.join(root, "spm")
+        os.makedirs(os.environ["AVSR_SPM_DIR"])
+        write_toy_tokenizer(os.environ["AVSR_SPM_DIR"], cfg.odim - 2)
+        from avsr_tpu_torch.cli import evaluation as pe
+        from avsr_tpu_torch.data import media, tokenizer
+
+        check(tokenizer._DEFAULT_ASSET_DIRS[0] == os.environ["AVSR_SPM_DIR"],
+              "the tokenizer was imported before AVSR_SPM_DIR was set")
+        ckpt = os.path.join(root, "ckpt")
+        os.makedirs(ckpt)
+        cfg.to_json(os.path.join(ckpt, "config.json"))
+        with torch.device(dev):
+            model = AVSRModel(cfg)
+        init_weights(model, torch.Generator(device=dev).manual_seed(0))
+        torch.save({f"avsr.{k}": v.cpu() for k, v in
+                    model.state_dict().items()},
+                   os.path.join(ckpt, "pytorch_model.bin"))
+        del model
+        t0 = time.perf_counter()
+        engine = pe.InferenceEngine(checkpoint_path=ckpt)
+        engine.load_model()
+        rec = engine.recognizer
+        print(f"# engine loaded in {time.perf_counter() - t0:.1f} s")
+        check(engine.device == "cuda" and rec.device.type == "cuda"
+              and (rec.beam_size, engine.batch_size) == (3, 32)
+              and rec.cfg.decoder_param_dtype == "bfloat16"
+              and rec.cfg.decoder_cache_dtype == "bfloat16"
+              and rec.encode_dtype == "float32"
+              and not rec.fused_bookkeeping,
+              "the engine is not at the CLI's defaults")
+
+        rng = np.random.RandomState(0)
+        frames = np.round(rng.uniform(*EVAL_SECONDS, EVAL_UTTERANCES)
+                          * 25).astype(int)
+        utts = [(smooth_crops(rng, n, 96)[..., 0],
+                 (0.1 * rng.randn(n * 640)).astype(np.float32),
+                 " ".join(rng.choice(EVAL_WORDS, rng.randint(2, 12))))
+                for n in frames]
+        audio_s = float(frames.sum()) / 25.0
+        check_mp4_writer(root)
+
+        def samples_of(utts, name):
+            out = []
+            for i, (v, a, label) in enumerate(utts):
+                path = os.path.join(root, f"{name}{i}.mp4")
+                media.save_video(path, v)
+                media.save_audio(path[:-4] + ".wav", a)
+                with open(path, "rb") as f, open(path[:-4] + ".wav",
+                                                 "rb") as g:
+                    out.append({"video": f.read(), "audio": g.read(),
+                                "label": label})
+            return out
+
+        samples = samples_of(utts, "utt")
+        # the engine's tokens, as it detokenizes them, in order
+        tokens = []
+        post = engine._decode_tokens
+
+        def decode_tokens(toks):
+            tokens.append(np.array(toks))
+            return post(toks)
+
+        engine._decode_tokens = decode_tokens
+        route = fbank.fbank_route()  # builds the native fbank
+        passes, walls = [], []
+        for window in range(EVAL_WINDOWS + 1):  # the first is the warm-up
+            del tokens[:]
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            score = pe.eval_lrs2(engine, samples)
+            wall = time.perf_counter() - t0
+            main = counts()
+            passes.append(list(tokens))
+            if window:
+                walls.append(wall)
+        wall = statistics.median(walls)
+        print(f"# {smi}: phase 8 (mp4 route, fbank {route}): "
+              f"{EVAL_UTTERANCES} utterances, {audio_s:.2f} audio-s; "
+              f"wall of {EVAL_WINDOWS} passes after a warm one "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s (media decode, "
+              f"fbank and collation included; not the engine's load or the "
+              f"native fbank's build) -> median {audio_s / wall:.2f} "
+              f"audio-s/s ({audio_s / max(walls):.2f}-"
+              f"{audio_s / min(walls):.2f}); WER {score:.4f}; launches "
+              f"of the last pass {main}")
+        check(len(tokens) == EVAL_UTTERANCES, "phase 8: transcripts missing")
+        check(all(len(p) == len(tokens) and all(
+            np.array_equal(a, b) for a, b in zip(p, tokens)) for p in passes),
+            "phase 8: the passes' tokens differ")
+        check(math.isfinite(score), "phase 8: WER is not finite")
+        steps = main["decode_attention"] // cfg.dlayers
+        check(steps >= 1 and main["flash_attention_fwd"]
+              >= cfg.encoder.num_hidden_layers
+              and main["topk_lastdim"] >= steps
+              and main["topk_lastdim_flat"] >= steps
+              and main["row_gather"] >= steps
+              and main["cumlogsumexp"] >= 2 * steps
+              and main["beam_update"] == 0
+              and main["decode_attention_wide"] == 0,
+              f"phase 8: the serving kernels did not run as the beam "
+              f"does ({main})")
+
+        # the same collated features through Recognizer.transcribe_batch
+        feats = engine._features(samples)
+        auds = [np.asarray(a)[:n] for a, _, n in feats]
+        vids = [np.asarray(v)[:n] for _, v, n in feats]
+        want = rec.transcribe_batch(auds, vids, batch_pad=engine.batch_size)
+        check(len(want) == len(tokens) and all(
+            np.array_equal(w, t) for w, t in zip(want, tokens)),
+            "phase 8: the engine's tokens are not transcribe_batch's")
+
+        # beams of 22 and 10 on two 3 s utterances, unfused and fused;
+        # then again with every kernel call held against its twin
+        short = [{k: v for k, v in x.items() if k != "label"}
+                 for x in samples_of([
+                     (smooth_crops(rng, 75, 96)[..., 0],
+                      (0.1 * rng.randn(75 * 640)).astype(np.float32),
+                      "HELLO WORLD") for _ in range(2)], "short")]
+        runs, seen, run_tokens = {}, {}, {}
+        for checked in (False, True):
+            for beam in (22, 10):
+                got = {}
+                for fused in (False, True):
+                    rec.beam_size, rec.fused_bookkeeping = beam, fused
+                    del tokens[:]
+                    torch.cuda.synchronize()
+                    reset()
+                    t0 = time.perf_counter()
+                    with (twins_checked(seen) if checked
+                          else contextlib.nullcontext()):
+                        out = engine.infer_samples(short)
+                    torch.cuda.synchronize()
+                    name = f"beam {beam}{' fused' if fused else ''}"
+                    got[fused] = list(tokens)
+                    check(len(out) == 2, f"{name}: transcripts missing")
+                    if checked:
+                        check(all(np.array_equal(a, b) for a, b in
+                                  zip(got[fused], run_tokens[name])),
+                              f"{name}: the checked run's tokens differ")
+                        continue
+                    runs[name], run_tokens[name] = counts(), got[fused]
+                    print(f"# {name}: 2 x 3 s in "
+                          f"{time.perf_counter() - t0:.3f} s; launches "
+                          f"{runs[name]}")
+                check(all(np.array_equal(a, b)
+                          for a, b in zip(got[False], got[True])),
+                      f"beam {beam}: fused and unfused tokens differ")
+        rec.beam_size, rec.fused_bookkeeping = 3, False
+        for name, entry in sorted(seen.items()):
+            print(f"# beams 22 and 10 checked against the twins: {name} "
+                  f"{entry['calls']} calls, largest abs error "
+                  f"{entry['err']:.3e}, inputs {sorted(entry['shapes'])}")
+        check(runs["beam 22"]["topk_lastdim_wide"] >= 1
+              and runs["beam 22 fused"]["beam_update_wide"] >= 1
+              and runs["beam 10 fused"]["beam_update_wide"] >= 1
+              and runs["beam 10"]["topk_lastdim_wide"] == 0
+              and runs["beam 22"]["beam_update"] == 0
+              and runs["beam 22"]["beam_update_wide"] == 0
+              and all(n["decode_attention_wide"] >= 1
+                      and n["decode_attention"] == 0 for n in runs.values()),
+              "phase 8: the C28 kernels did not run where they should")
+        check(all(f"{n}_wide" in seen for n in (
+            "topk_lastdim", "beam_update", "decode_attention")),
+            "phase 8: a wide path was not checked against its twin")
+        del os.environ["AVSR_SPM_DIR"]
+    runs["eval"] = main
+    return runs, seen
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1734,6 +2276,8 @@ def main() -> int:
     print("# phase 7: full-width train-step parity, cuda vs cpu")
     phase_train_parity(dev)
     phase_train_parity(dev, fused_stem=True)
+    print("# phase 8: the evaluation entry point at full width")
+    eval_runs, eval_checked = phase_eval(dev, smi)
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused
@@ -1746,6 +2290,17 @@ def main() -> int:
     main_path.update(train_launches)
     main_path.update({k: v for k, v in stem_launches.items()
                       if k.startswith("bn_prelu_pool")})
+    # C28's kernels: phase 8's beam of 22, unfused (top-k) and fused
+    main_path["topk_lastdim_wide"] = eval_runs["beam 22"]["topk_lastdim_wide"]
+    main_path["beam_update_wide"] = eval_runs["beam 22 fused"][
+        "beam_update_wide"]
+    main_path["decode_attention_wide"] = eval_runs["beam 22"][
+        "decode_attention_wide"]
+    # their errors over phase 3's cases and phase 8's checked beams
+    for name, entry in eval_checked.items():
+        if name in records:
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                               entry["err"])
     kernels = [dict(name=name, route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=main_path[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -287,10 +287,12 @@ def test_beam_update_kernel_at_every_batch_and_its_limits(dev, b, k, sp, ll,
         assert torch.equal(got[name].cpu(), w), name
 
 
-@pytest.mark.parametrize("k,sp", [(17, 4), (3, 43), (1, 128)])
+@pytest.mark.parametrize("k,sp", [(1, 60000), (250, 250)])
 def test_beam_update_kernel_refuses_beyond_its_limits(dev, k, sp):
-    """More than 16 hypotheses or more than 128 candidates K*(S'+1): the
-    kernel refuses the launch, and the wrapper raises."""
+    """More candidates K*(S'+1) than a block's shared memory holds (the
+    wide kernel's limit, some 56,000): the kernel refuses the launch, and
+    the wrapper raises. (Beyond 16 hypotheses or 128 candidates the wide
+    kernel runs: test_beam_update_wide_kernel_matches_plain.)"""
     b, ll = 2, 30
     z = torch.zeros
     args = [torch.full((b,), 20, dtype=torch.int64), z(b, k, sp), z(b, k),
@@ -303,6 +305,123 @@ def test_beam_update_kernel_refuses_beyond_its_limits(dev, k, sp):
     with pytest.raises(RuntimeError, match="beam_update"):
         pbu.beam_update(5, *(x.to(dev) for x in args), w_dec=0.9, w_ctc=0.1,
                         eos=1, neg=NEG, d_end=-10.0, m_end=3)
+
+
+# ROADMAP C28: the top-k's k > 32 kernel and beam_update's block kernel,
+# just under and just over the fast paths' limits
+
+
+@pytest.mark.parametrize("lanes", [8, 9, 10, 22])
+@pytest.mark.parametrize("pos", [0, 100, 250])
+@pytest.mark.parametrize("qdtype,cdtype", [(torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32)])
+def test_decode_wide_kernel_within_the_output_bound(dev, lanes, pos, qdtype,
+                                                    cdtype):
+    """Just under (8 lanes: the cluster kernel) and over (9, 10, 22: the
+    block-a-query kernel) the cluster kernel's lanes, at the model's heads
+    (H=16, dh=64) over a 192-row cache: the cache the twin's bit for bit,
+    out within ``output_bound`` (ROADMAP C27) with a bf16 cache, within
+    1e-4 with an fp32 one (as test_decode_kernel_matches_plain: the bound
+    covers p's rounding to bf16, not the scores' fp32 sums in another
+    order); the wide count moves only beyond 8 lanes."""
+    from torch_port_common import decode_case
+
+    b, heads = 2, 16
+    q, kv, row, bias = (torch.from_numpy(x).contiguous() for x in decode_case(
+        pos + lanes, b=b, k=lanes, s_max=192, heads=heads, dh=64, pos=pos,
+        q_scale=0.125))
+    q, kv, row = q.to(qdtype), kv.to(cdtype), row.to(cdtype)
+    want, want_kv = pda.decode_attention_plain(pos, q, kv.clone(), bias,
+                                               lanes, heads, row)
+    bnd = pda.output_bound(pos, q, kv, bias, lanes, heads, row)
+    before = pda.decode_attention.wide_launches
+    got, got_kv = pda.decode_attention(pos, q.to(dev), kv.to(dev),
+                                       bias.to(dev), lanes, heads,
+                                       row.to(dev))
+    torch.cuda.synchronize()
+    assert pda.decode_attention.wide_launches - before == int(lanes > 8)
+    assert torch.equal(got_kv.cpu(), want_kv)
+    diff = (got.float().cpu() - want.float()).abs()
+    if cdtype == torch.float32:
+        bnd = torch.full_like(diff, 1e-4)
+    assert bool((diff <= bnd).all()), float((diff / bnd).max())
+
+
+@pytest.mark.parametrize("rows,v,k", [(44, 5049, 32), (44, 5049, 33),
+                                      (8, 726, 22), (8, 726, 33),
+                                      (3, 100, 100), (5, 1025, 64)])
+def test_topk_wide_kernel_matches_plain(dev, rows, v, k):
+    """Beam 22's pre-beam (B*22, 5049) at k = 32 (the list kernel) and 33
+    (the rounds kernel), its flat (B, 22*33) top-k at k = 22 and 33, k = v,
+    and a 1025-column row; ties with the row max, equal values, a row of
+    -inf with one finite entry, a row all -inf. Exact, and the wide count
+    moves only for k > 32."""
+    x = torch.randn(rows, v, generator=_gen(v + k))
+    x[:, v // 2] = x.amax(dim=1)
+    x[1] = 0.25
+    x[2] = float("-inf")
+    x[2, v - 1] = 1.5
+    if rows > 3:
+        x[3] = float("-inf")
+    want_v, want_i = ptk.topk_plain(x, k)
+    before = (ptk.topk_lastdim.launches, ptk.topk_lastdim.wide_launches)
+    got_v, got_i = ptk.topk_lastdim(x.to(dev), k)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert (ptk.topk_lastdim.launches - before[0],
+            ptk.topk_lastdim.wide_launches - before[1]) == (1, int(k > 32))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_topk_wide_kernel_edge_rows(dev, offset):
+    """k = 33 on rows off a 16-byte boundary with fewer than k entries
+    above -inf (the -inf rule repeats an index), +inf entries and a row of
+    equal values."""
+    rows, v = 8, 5049
+    buf = torch.randn(rows * v + offset, generator=_gen(offset))
+    x = buf[offset:].view(rows, v)
+    x[0] = float("-inf")
+    x[1] = float("-inf")
+    x[1, [0, v // 2, v - 1]] = torch.tensor([-3.0, 1.0, 2.0])
+    x[2] = 7.5
+    x[3, v // 3] = float("inf")
+    x[3, v - 2] = float("inf")
+    x[4, 40:] = float("-inf")
+    want_v, want_i = ptk.topk_plain(x, 33)
+    got_v, got_i = ptk.topk_lastdim(x.to(dev), 33)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu(), want_v)
+
+
+@pytest.mark.parametrize("k,sp", [(16, 7), (17, 7), (3, 41), (3, 42),
+                                  (10, 15), (22, 33), (17, 4), (3, 43)])
+@pytest.mark.parametrize("use_ctc", [True, False])
+def test_beam_update_wide_kernel_matches_plain(dev, k, sp, use_ctc):
+    """Just under (16 hypotheses, 128 candidates: the warp kernel) and just
+    over (17 hypotheses, 129 candidates) the warp kernel's limits, beam 10
+    (S'=15) and beam 22 (S'=33), and two shapes the warp kernel once
+    refused ((17, 4), (3, 43)): every output bit-identical to the twin,
+    and the wide count moves only beyond the limits."""
+    w_ctc = 0.1 if use_ctc else 0.0
+    eos = max(60, sp + 2)  # S' distinct ids below eos
+    kw = dict(w_dec=1.0 - w_ctc, w_ctc=w_ctc, eos=eos, neg=NEG, d_end=-10.0,
+              m_end=3)
+    for seed, i in ((k, 9), (sp, 20)):
+        args = [None if x is None else torch.from_numpy(x)
+                for x in beam_step_case(seed, i, use_ctc=use_ctc, b=8, k=k,
+                                        sp=sp, ll=377, s_rows=192,
+                                        eos=eos).values()]
+        want = pbu.beam_update_plain(i, *args, **kw)
+        before = pbu.beam_update.wide_launches
+        got = pbu.beam_update(i, *(None if x is None else x.to(dev)
+                                   for x in args), **kw)
+        torch.cuda.synchronize()
+        assert pbu.beam_update.wide_launches - before == int(
+            k > 16 or k * (sp + 1) > 128)
+        for name, w in want.items():
+            assert torch.equal(got[name].cpu(), w), name
 
 
 def _attn_case(dev, n, tt, d, dtype, seed):
