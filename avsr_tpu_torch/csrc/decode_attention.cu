@@ -11,25 +11,39 @@
 // What bounds it on the card: the bytes of the cache's valid prefix, read
 // cold. Each step moves B*K*(pos+1) rows of 2C cache elements (19 MB a
 // layer at B=8, K=3, S=192, C=1024 in bf16, 5.7 us at 3.35 TB/s; the six
-// layers' caches, 113 MB, do not stay in the 50 MB L2) for ~2 FLOP an
-// element. At B=8 there are only B*H = 128 (utterance, head) pairs: one
-// block a pair leaves the SMs few loads in flight, and the time is the
-// loads' latency, not the card's rate.
+// layers' caches, 113 MB, do not stay in the 50 MB L2) for ~2K FLOP an
+// element (every lane's query meets every stored row). At B=8 there are
+// only B*H = 128 (utterance, head) pairs: one block a pair leaves the SMs
+// few loads in flight, and the time is the loads' latency, not the card's
+// rate.
 //
 // Design: the rows of one (b, h) are split over a thread-block cluster of G
-// blocks (grid (H*G, B), cluster (G, 1, 1), launched with cudaLaunchKernelEx
-// so that G is chosen at run time by the caller's launch plan: G=2 at B=8
-// and B=32, the fastest measured). Rank r takes a contiguous chunk of the
-// prefix's rows = K*(pos_c+1) (j, s) rows, pos_c = min(pos, S-1). It
-// issues all of its chunk's loads up front with cp.async, the bias rows
-// 4 bytes and the K and V rows 16 bytes a copy, into two stage buffers
-// (tiles of `tile` rows, double-buffered when the chunk is larger), so V's
-// copies overlap the scores and the softmax, and the card keeps the whole
-// prefix in flight. The copies step through (j, s) by additions, not two
-// integer divisions each, and no copy waits on a load's result. Row
-// pos_c is never read from the cache: every rank copies it from kv_row,
-// and the rank whose chunk holds (j, pos_c) writes it into the cache from
-// its shared-memory copy, so no block reads a row another is writing.
+// blocks (grid (H*G, B, query groups), cluster (G, 1, 1), launched with
+// cudaLaunchKernelEx so that G is chosen at run time by the caller's launch
+// plan). Rank r takes a contiguous chunk of the prefix's K*(pos_c+1) rows,
+// row r = (s, j) = s * K + j (position s of stored lane j; pos_c =
+// min(pos, S-1)), and reads it once for all the lanes' queries of its group (every lane up to kGroupLanes = 64 of them: beams of
+// up to 64 read the prefix once; more lanes split into even query groups,
+// each a grid slice that reads the prefix again). It issues its chunk's
+// loads with cp.async, the bias 4 bytes a copy (in the rows' (s, j) order
+// each query's bias is one contiguous run of lane_bias) and the K and V
+// rows 16 bytes a copy, into two stage buffers (tiles of `tile` rows,
+// double-buffered), so that the next tile's copies overlap this tile's
+// products. The copies step through (s, j) by additions, not two integer
+// divisions each, and no copy waits on a load's result. Row pos_c is never
+// read from the cache: every rank copies it from kv_row, and the rank
+// whose chunk holds (pos_c, j) writes it into the cache from its
+// shared-memory copy (query group 0 only), so no block reads a row another
+// is writing.
+//
+// The fp32 scores of the rank's rows stay in shared memory where they fit
+// (`chunk` >= the rank's rows: one pass, the bias staged into the scores
+// with the first load). Where lanes x rows do not fit (many lanes over a
+// long cache), the rank walks its rows in chunks of `chunk` rows twice:
+// pass 1 takes each chunk's scores and folds its (max, shifted sum) into
+// the rank's; pass 2 loads each chunk's keys again, recomputes the same
+// scores (the same products in the same order, bias read from global
+// memory: bit for bit the scores of pass 1), and then its values.
 //
 // The TPU kernel's rounding points survive the split. q is rounded to the
 // cache dtype before q.k. Each rank publishes, per query, its local (max
@@ -39,33 +53,36 @@
 // rank with no row contributes (-inf, 0)), so every rank derives the same
 // m and den. Then p = round_to_cache_dtype(exp(s - m) / max(den, 1e-30)),
 // the partial P.V in fp32, and the G partial outputs are summed through
-// distributed shared memory in rank order: deterministic.
+// distributed shared memory in rank order: deterministic. With a bf16
+// cache the softmax's exp is __expf (ex2.approx: a few fp32 ulps, against
+// the 2^16 fp32 ulps of one bf16 step that p is rounded to), taken once a
+// score: the rank's exp(s - m_rank) replaces the held score, and p is it
+// times exp(m_rank - m) / den (a few fp32 ulps from exp(s - m) / den).
+// Such fp32 differences, like the sums' order, move an output only by the
+// p that round the other way, which decode_attention.output_bound counts
+// (ROADMAP C27). fp32 caches keep expf and IEEE-exact division (div_rn).
 //
 // Products: with a bf16 cache and dh = 64 (the model's heads) q.k and P.V
-// run on the tensor cores, mma.sync m16n8k16 with the lanes' (<= 8)
-// queries as the 8-wide operand: S (16 rows x 8 queries) = K q^T from
-// ldmatrix rows, out^T (dh x 8) = V^T P^T from transposed ldmatrix, P
-// exact in bf16 since it is rounded already. Otherwise (fp32 caches, other
-// head widths) a row's Dh slice is read by gw (the next power of two >=
-// its 16-byte chunks) adjacent threads, each holding its chunk of all K
-// queries in registers; a shuffle over the gw threads sums a score.
+// run on the tensor cores, mma.sync m16n8k16 with the group's queries as
+// ceil(lanes / 8) 8-wide operands (kNt tiles, a template: 1, 2, 4 or 8,
+// their B fragments bf16 pairs in shared memory): S (16 rows x 8 queries) =
+// K q^T from ldmatrix rows, every K fragment feeding every query tile;
+// out^T (dh x 8) = V^T P^T from transposed ldmatrix, P exact in bf16 since
+// it is rounded already (the softmax leaves each pair of rows' p as the
+// bf16 pair the B operand loads), warp w taking head dims 16 (w % 4)..+15
+// of every query tile over one half of the tile's 16-row groups, the two
+// halves' partials added in order. The softmax's elementwise passes keep four rows
+// in flight a thread; eight warps a block, two blocks an SM where the plan
+// fits. Otherwise (fp32 caches, other head widths) a row's Dh slice is
+// read by gw (the next power of two >= its 16-byte chunks) adjacent
+// threads, one query after another against the queries in shared memory,
+// a shuffle over the gw threads summing a score; the P.V gives each thread
+// (query, 16-byte chunk) outputs, which it accumulates over the tile's
+// rows in shared memory.
 //
 // The numbered phase comments of the kernel are where the variants tool
 // (tools/decode_variants.py) cuts a copy of it short, to time the phases
 // apart.
-//
-// More than kMaxLanes lanes (beams of 9 and more): decode_attention_wide_
-// kernel, one block of kWideThreads a (head, query lane, utterance), with
-// the same rounding points and row write. Its warps take the prefix's
-// (j, s) rows in turn (the row pos_c from kv_row), a 16-byte chunk a lane
-// and shuffles the sum, into fp32 scores in shared memory; block-wide max
-// and sum give p = round_to_cache_dtype(exp(s - m) / max(den, 1e-30));
-// the P.V splits the rows into groups of a thread a chunk, whose partials
-// add in group order. The block writes its (lane, head) slice of the step's row
-// into the cache; no block reads that row from the cache. Each query lane
-// reads the whole prefix, so the cache is read K times over (from L2
-// where it fits): simple and right; sharing the reads between the lanes
-// is later work.
 #include <cooperative_groups.h>
 #include <stdint.h>
 
@@ -79,13 +96,16 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLanes = 8;
+constexpr int kTileLanes = 8;  // queries of one mma operand tile
+constexpr int kGroupLanes = 64;  // queries of one block: 8 operand tiles
 constexpr int kMaxCluster = 8;
 constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of a block
 constexpr unsigned kFull = 0xffffffffu;
+// the mma path's P.V gives warp w head dims 16 (w % 4).. of row half w / 4
+static_assert(kWarps == 2 * kMmaDh / 16, "two warps a 16-wide head slice");
 
 using avsr::combine_lse;
 using avsr::cp_async16;
@@ -103,28 +123,38 @@ __device__ __forceinline__ void load_chunk(const TC* p, float* out) {
     out[i] = avsr::to_float(e[i]);
 }
 
-// shared-memory bytes of one block (two stage buffers of tile rows rounded
-// up to 16, each row dh elements and a 16-byte pad; the scores; the local
-// and joint (m, l); the warps' and the rank's partial outputs); the launch
-// plan computes the same
+// shared-memory bytes of one block: two stage buffers of tile rows rounded
+// up to 16, each row dh elements and a 16-byte pad; the fp32 scores of
+// `chunk` rows for each of the group's `lanes` queries (rounded up to 4
+// floats); the local and joint (m, l) per query; the queries and the
+// rank's partial outputs, (lanes, dh) each. The launch plan computes the
+// same.
 __host__ __device__ inline size_t smem_bytes(int lanes, int dh, int esize,
-                                             int rows_per_rank, int tile) {
+                                             int chunk, int tile) {
+  const size_t scores = (static_cast<size_t>(lanes) * chunk + 3) / 4 * 4;
   return 2 * static_cast<size_t>((tile + 15) & ~15) * (dh * esize + 16) +
-         sizeof(float) * (static_cast<size_t>(lanes) * rows_per_rank +
-                          4 * static_cast<size_t>(lanes) +
-                          static_cast<size_t>(kWarps + 1) * lanes * dh);
+         sizeof(float) * (scores + 4 * static_cast<size_t>(lanes) +
+                          2 * static_cast<size_t>(lanes) * dh);
 }
 
-// kLanes >= lanes sizes the SIMT path's per-thread arrays at compile time.
+// exp(x) of the softmax: on the mma path __expf (ex2.approx, a few fp32 ulps
+// off; p is rounded to bf16 after it, 2^16 fp32 ulps a step), else expf
+template <bool kFast>
+__device__ __forceinline__ float soft_exp(float x) {
+  return kFast ? __expf(x) : expf(x);
+}
+
+// kNt: query tiles of 8 of the mma path (the group's lanes <= 8 kNt).
 // kMma: a bf16 cache with dh = kMmaDh, whose q.k and P.V run on the tensor
-// cores (mma.sync m16n8k16, the lanes' queries as the 8-wide operand).
-template <typename TQ, typename TC, int kLanes, bool kMma>
-__global__ void __launch_bounds__(kThreads)
+// cores.
+template <typename TQ, typename TC, int kNt, bool kMma>
+__global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const TQ* __restrict__ q, TC* cache,
                             const float* __restrict__ lane_bias,
                             const TC* __restrict__ kv_row, TQ* __restrict__ out,
                             int lanes, int heads, int dh, int s_max, int pos,
-                            int rows_per_rank, int tile) {
+                            int rows_per_rank, int tile, int chunk,
+                            int group_lanes) {
   constexpr int kVec = 16 / sizeof(TC);  // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -132,6 +162,9 @@ __global__ void __launch_bounds__(kThreads)
   const int rank = static_cast<int>(cluster.block_rank());
   const int h = blockIdx.x / g;
   const int b = blockIdx.y;
+  const int kq0 = blockIdx.z * group_lanes;  // the group's first query lane
+  const int nq = min(group_lanes, lanes - kq0);  // its queries
+  const bool writer = blockIdx.z == 0;  // writes the step's row
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane_id = tid % 32;
@@ -139,92 +172,143 @@ __global__ void __launch_bounds__(kThreads)
   const int c2 = 2 * c_dim;
   const int pos_c = min(pos, s_max - 1);
   const int s_lim = pos_c + 1;
-  const int rows = lanes * s_lim;
+  const int rows = lanes * s_lim;  // row r = (s, j): s = r / lanes
   const int r_begin = min(rank * rows_per_rank, rows);
   const int my_rows = min(r_begin + rows_per_rank, rows) - r_begin;
   const int n_tiles = (my_rows + tile - 1) / tile;
+  const int tpc = (chunk + tile - 1) / tile;  // tiles a chunk
+  const int n_chunks = (my_rows + chunk - 1) / chunk;
+  const bool staged = n_chunks <= 1;  // the scores of every row at once
+  const int n_loads = (staged ? 2 : 3) * n_tiles;
   const int ld = dh + kVec;  // a stage row: dh elements and a 16-byte pad
   const int tile_rows = (tile + 15) & ~15;
   const int cpr = dh / kVec;  // 16-byte chunks a row
   // threads a row: gw = 2^lg >= cpr, <= 32; shifts, not divisions, place
-  // a thread, and (j, s) steps along without dividing
+  // a thread, and (s, j) steps along without dividing
   const int lg = cpr <= 1 ? 0 : 32 - __clz(cpr - 1);
   const int gw = 1 << lg;
   const int rows_per_pass = kThreads >> lg;
-  const int chunk = tid & (gw - 1);  // threads with chunk >= cpr idle
+  const int chunk16 = tid & (gw - 1);  // threads with chunk16 >= cpr idle
   const int grp = tid >> lg;
-  const bool has_chunk = chunk < cpr;
+  const bool has_chunk = chunk16 < cpr;
+  const int ds = rows_per_pass / lanes, dj = rows_per_pass % lanes;
   const size_t lane0 = static_cast<size_t>(b) * lanes;
   // mma fragment coordinates: row (or query) gq, column pair cq
   const int gq = lane_id >> 2;
   const int cq = 2 * (lane_id & 3);
+  // the mma P.V's share: head dims 16 mt..16 mt + 15, row groups half,
+  // half + 2, ...
+  const int mt = warp & 3, half = warp >> 2;
 
   TC* stage = reinterpret_cast<TC*>(smem_raw);  // 2 x (tile_rows, ld)
   float* sc = reinterpret_cast<float*>(
-      stage + 2 * static_cast<size_t>(tile_rows) * ld);
-  float* stat = sc + lanes * rows_per_rank;  // (2, lanes): local m, l
-  float* joint = stat + 2 * lanes;           // (2, lanes): joint m, den
-  float* red = joint + 2 * lanes;            // (kWarps, lanes, dh)
-  float* part = red + kWarps * lanes * dh;   // (lanes, dh): this rank's P.V
+      stage + 2 * static_cast<size_t>(tile_rows) * ld);  // (lanes, chunk)
+  float* stat = sc + (group_lanes * chunk + 3) / 4 * 4;  // (2, lanes): m, l
+  float* joint = stat + 2 * group_lanes;  // (2, lanes): m, p's factor
+  float* qs = joint + 2 * group_lanes;    // (lanes, dh): the queries
+  float* part = qs + group_lanes * dh;    // (lanes, dh): this rank's P.V
+  // the mma path's queries: bf16 pairs, rows of kQb words (a 16-byte pad:
+  // the 8 queries of a fragment hit distinct banks)
+  constexpr int kQb = kMmaDh / 2 + 4;
+  uint32_t* qb = reinterpret_cast<uint32_t*>(qs);
 
-  // 1. the queries, rounded to the cache dtype, in registers: on the mma
-  // path the B fragments of q^T (query gq, dims cq, cq+1 and cq+8, cq+9 of
-  // each 16), else this thread's chunk of every query. Their loads go out
-  // before the copies queue behind them.
-  constexpr int kQk = kMma ? kMmaDh / 16 : 1;
-  uint32_t qb[kQk][2];
-  float qr[kMma ? 1 : kLanes][kVec];
+  // 1. the queries, rounded to the cache dtype, in shared memory (on the
+  // mma path as bf16 pairs, eight dims a thread in 16-byte loads); the
+  // rank's (m, l) start empty
   if constexpr (kMma) {
+    constexpr int kQv = 16 / sizeof(TQ);  // q elements a 16-byte load
+    for (int e = tid; e < group_lanes * dh / 8; e += kThreads) {
+      const int kq = e / (dh / 8), d = (e - kq * (dh / 8)) * 8;
+      uint4 raw[8 / kQv];
+      const TQ* qp = q + (lane0 + kq0 + kq) * c_dim + h * dh + d;
 #pragma unroll
-    for (int kk = 0; kk < kQk; ++kk)
+      for (int i = 0; i < 8 / kQv; ++i)
+        raw[i] = kq < nq ? *reinterpret_cast<const uint4*>(qp + i * kQv)
+                         : make_uint4(0u, 0u, 0u, 0u);
+      const TQ* v = reinterpret_cast<const TQ*>(raw);
+      uint4 packed;
+      uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float q0 = 0.f, q1 = 0.f;
-        if (gq < lanes) {
-          const TQ* qp = q + (lane0 + gq) * c_dim + h * kMmaDh + kk * 16 +
-                         hf * 8 + cq;
-          q0 = avsr::to_float(qp[0]);
-          q1 = avsr::to_float(qp[1]);
-        }
-        qb[kk][hf] = avsr::mma::pack_bf16(q0, q1);
-      }
+      for (int i = 0; i < 4; ++i)
+        pw[i] = avsr::mma::pack_bf16(avsr::to_float(v[2 * i]),
+                                     avsr::to_float(v[2 * i + 1]));
+      *reinterpret_cast<uint4*>(qb + kq * kQb + d / 2) = packed;
+    }
   } else {
-#pragma unroll
-    for (int kq = 0; kq < kLanes; ++kq)
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        float v = 0.f;
-        if (kq < lanes && has_chunk)
-          v = avsr::to_float(avsr::from_float<TC>(avsr::to_float(
-              q[(lane0 + kq) * c_dim + h * dh + chunk * kVec + e])));
-        qr[kq][e] = v;
-      }
-  }
-
-  // 2. copies into shared memory: the ancestry bias of the chunk's rows
-  // into the scores (with load 0), then load i of the chunk (K tiles
-  // 0..n_tiles-1, then V tiles) into stage buffer i % 2, zeros up to a
-  // multiple of 16 rows; one commit group a load, empty past the last.
-  // Row pos_c comes from kv_row.
-  {
-    int j = (r_begin + tid) / s_lim;
-    int s = (r_begin + tid) % s_lim;
-    for (int lr = tid; lr < my_rows; lr += kThreads) {
-      for (int kq = 0; kq < lanes; ++kq)
-        cp_async4(sc + kq * rows_per_rank + lr,
-                  lane_bias + ((lane0 + kq) * s_max + s) * lanes + j);
-      for (s += kThreads; s >= s_lim; s -= s_lim) ++j;
+    for (int e = tid; e < group_lanes * dh; e += kThreads) {
+      const int kq = e / dh, d = e - kq * dh;
+      qs[e] = kq < nq ? avsr::to_float(avsr::from_float<TC>(avsr::to_float(
+                            q[(lane0 + kq0 + kq) * c_dim + h * dh + d])))
+                      : 0.f;
+      part[e] = 0.f;
     }
   }
+  for (int kq = tid; kq < group_lanes; kq += kThreads) {
+    stat[kq] = -INFINITY;
+    stat[group_lanes + kq] = 0.f;
+  }
+
+  // 2. copies into shared memory: where the scores of every row fit, the
+  // ancestry bias of the rank's rows into the scores (with load 0): in the
+  // (s, j) order of the rows, each query's rows are one contiguous run of
+  // lane_bias (B, K, S, J); then load i (K tiles 0..n_tiles-1; then V
+  // tiles, or, chunk by chunk, the chunk's K tiles again and its V tiles)
+  // into stage buffer i % 2, zeros up to a multiple of 16 rows; one commit
+  // group a load, empty past the last. Row pos_c comes from kv_row.
+  // Where every run starts 16-byte aligned (the plan's rows a rank are a
+  // multiple of 4) it goes 16 bytes a copy, its tail 4.
+  if (staged && my_rows > 0) {
+    const bool vec = (s_max * lanes) % 4 == 0 && r_begin % 4 == 0 &&
+                     chunk % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(lane_bias) % 16 == 0;
+    const int n4 = vec ? my_rows / 4 : 0;  // whole 16-byte copies a query
+    if (n4 > 0) {
+      int kq = tid / n4, v = tid - kq * n4;
+      for (; kq < nq;) {
+        cp_async16(sc + kq * chunk + 4 * v,
+                   lane_bias + (lane0 + kq0 + kq) * s_max * lanes + r_begin +
+                       4 * v,
+                   true);
+        for (v += kThreads; v >= n4 && kq < nq; v -= n4) ++kq;
+      }
+    }
+    const int tail = my_rows - 4 * n4;
+    int kq = tail > 0 ? tid / tail : nq, lr = tid - kq * tail;
+    for (; kq < nq;) {
+      cp_async4(sc + kq * chunk + 4 * n4 + lr,
+                lane_bias + (lane0 + kq0 + kq) * s_max * lanes + r_begin +
+                    4 * n4 + lr);
+      for (lr += kThreads; lr >= tail && kq < nq; lr -= tail) ++kq;
+    }
+  }
+  // load i: (0 keys / 1 values, its tile)
+  auto load_of = [&](int i, int* hf, int* t) {
+    if (i < n_tiles) {
+      *hf = 0;
+      *t = i;
+      return;
+    }
+    const int k = i - n_tiles;
+    if (staged) {
+      *hf = 1;
+      *t = k;
+      return;
+    }
+    const int c = k / (2 * tpc), r = k - c * 2 * tpc;
+    const int cnt = min(tpc, n_tiles - c * tpc);
+    *hf = r >= cnt;
+    *t = c * tpc + (r < cnt ? r : r - cnt);
+  };
   auto issue = [&](int i) {
-    if (i < 2 * n_tiles && has_chunk) {
-      const int half = i / n_tiles;  // 0: K, 1: V
-      const int base = (i % n_tiles) * tile;
+    if (i < n_loads && has_chunk) {
+      int hf, t;
+      load_of(i, &hf, &t);
+      const int base = t * tile;
       const int n = min(tile, my_rows - base);
       TC* buf = stage + static_cast<size_t>(i % 2) * tile_rows * ld;
-      const int col = half * c_dim + h * dh + chunk * kVec;
-      int j = (r_begin + base + grp) / s_lim;
-      int s = (r_begin + base + grp) % s_lim;
+      const int col = hf * c_dim + h * dh + chunk16 * kVec;
+      int s = (r_begin + base + grp) / lanes;
+      int j = (r_begin + base + grp) % lanes;
       const int n16 = (n + 15) & ~15;
       for (int lr = grp; lr < n16; lr += rows_per_pass) {
         const bool ok = lr < n;
@@ -232,8 +316,13 @@ __global__ void __launch_bounds__(kThreads)
         const TC* src = !ok         ? cache
                         : s == pos_c ? kv_row + lane * c2 + col
                                      : cache + (lane * s_max + s) * c2 + col;
-        cp_async16(buf + lr * ld + chunk * kVec, src, ok);
-        for (s += rows_per_pass; s >= s_lim; s -= s_lim) ++j;
+        cp_async16(buf + lr * ld + chunk16 * kVec, src, ok);
+        s += ds;
+        j += dj;
+        if (j >= lanes) {
+          j -= lanes;
+          ++s;
+        }
       }
     }
     cp_async_commit();
@@ -241,104 +330,149 @@ __global__ void __launch_bounds__(kThreads)
   issue(0);
   issue(1);
 
-  // the cache's row pos_c of each lane j whose (j, pos_c) lies in the tile
+  // the cache's row pos_c of each lane j whose (pos_c, j) lies in the tile
   // just landed in buf: its K or V half of this head, from shared memory
-  auto write_row = [&](const TC* buf, int base, int n, int half) {
+  auto write_row = [&](const TC* buf, int base, int n, int hf) {
+    if (!writer) return;
     for (int e = tid; e < lanes * cpr; e += kThreads) {
       const int j = e / cpr;
-      const int lr = j * s_lim + pos_c - r_begin - base;
+      const int lr = pos_c * lanes + j - r_begin - base;
       if (lr < 0 || lr >= n) continue;
       const int ch = e % cpr;
       *reinterpret_cast<uint4*>(
-          cache + ((lane0 + j) * s_max + pos_c) * c2 + half * c_dim +
+          cache + ((lane0 + j) * s_max + pos_c) * c2 + hf * c_dim +
           h * dh + ch * kVec) =
           *reinterpret_cast<const uint4*>(buf + lr * ld + ch * kVec);
     }
   };
 
-  // 3. scores of the chunk's rows, added to their bias
+  // the scores of tile t (in buf) into its chunk's rows of sc, added to
+  // their bias: staged in sc already, else read here
+  auto score_tile = [&](const TC* buf, int t) {
+    const int base = t * tile;
+    const int n = min(tile, my_rows - base);
+    float* st = sc + (t % tpc) * tile;
+    auto put = [&](int kq, int row, float acc) {
+      float* sp = st + kq * chunk + row;
+      if (staged)
+        *sp += acc;
+      else
+        *sp = acc + __ldg(lane_bias + (lane0 + kq0 + kq) * s_max * lanes +
+                          r_begin + base + row);
+    };
+    if constexpr (kMma) {
+      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T for
+      // every query tile from the same K fragments
+      for (int t16 = warp * 16; t16 < n; t16 += kWarps * 16) {
+        uint32_t a[kMmaDh / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kMmaDh / 16; ++kk)
+          avsr::mma::load_a<kMmaDh>(
+              a[kk], reinterpret_cast<const __nv_bfloat16*>(buf) + t16 * ld,
+              kk, lane_id);
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          if (nt * kTileLanes >= nq) break;  // uniform over the block
+          const uint32_t* qrow = qb + (nt * kTileLanes + gq) * kQb + cq / 2;
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < kMmaDh / 16; ++kk)
+            avsr::mma::mma16816(acc, a[kk], qrow[kk * 8], qrow[kk * 8 + 4]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = t16 + gq + (e >> 1) * 8;
+            const int kq = nt * kTileLanes + cq + (e & 1);
+            if (kq < nq && row < n) put(kq, row, acc[e]);
+          }
+        }
+      }
+    } else {
+      // gw threads a row, a shuffle sums their chunks; the pass and query
+      // counts are uniform over the block, so every lane reaches the
+      // shuffles
+      for (int r0 = 0; r0 < n; r0 += rows_per_pass) {
+        const int lr = r0 + grp;
+        const bool ok = lr < n && has_chunk;
+        float kv[kVec];
+        if (ok) {
+          load_chunk(buf + lr * ld + chunk16 * kVec, kv);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
+        }
+        for (int kq = 0; kq < nq; ++kq) {
+          float acc = 0.f;
+          if (ok) {
+            const float* qr = qs + kq * dh + chunk16 * kVec;
+#pragma unroll
+            for (int e = 0; e < kVec; ++e) acc = fmaf(qr[e], kv[e], acc);
+          }
+          for (int off = 1; off < gw; off <<= 1)
+            acc += __shfl_xor_sync(kFull, acc, off);
+          if (lr < n && chunk16 == 0) put(kq, lr, acc);
+        }
+      }
+    }
+  };
+
+  // the (max, shifted sum) of the chunk's n rows per query, folded into
+  // the rank's (m, l) in chunk order, four rows in flight a lane
+  // (independent chains, summed in a fixed order); on the mma path with
+  // every row's scores held, each score becomes its exp(s - m_rank)
+  auto fold = [&](int n) {
+    const bool keep = kMma && staged;
+    for (int kq = warp; kq < nq; kq += kWarps) {
+      float* srow = sc + kq * chunk;
+      float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+      for (int e = lane_id; e < n; e += 128)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e + 32 * u < n) m4[u] = fmaxf(m4[u], srow[e + 32 * u]);
+      const float mx =
+          avsr::warp_max(fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3])));
+      const float safe = fmaxf(mx, -3.0e38f);
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int e = lane_id; e < n; e += 128)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (e + 32 * u < n) {
+            const float x = soft_exp<kMma>(srow[e + 32 * u] - safe);
+            if (keep) srow[e + 32 * u] = x;
+            s4[u] += x;
+          }
+      const float sum = avsr::warp_sum((s4[0] + s4[1]) + (s4[2] + s4[3]));
+      if (lane_id == 0) combine_lse(stat[kq], stat[group_lanes + kq], mx, sum);
+    }
+  };
+
+  // 3. scores of the chunk's rows, added to their bias, and their
+  // statistics chunk by chunk
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<1>();
     __syncthreads();
     const TC* buf = stage + static_cast<size_t>(i % 2) * tile_rows * ld;
     const int base = i * tile;
-    const int n = min(tile, my_rows - base);
-    write_row(buf, base, n, 0);
-    if constexpr (kMma) {
-      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T
-      for (int t = warp * 16; t < n; t += kWarps * 16) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kQk; ++kk) {
-          uint32_t a[4];
-          avsr::mma::load_a<kMmaDh>(
-              a, reinterpret_cast<const __nv_bfloat16*>(buf) + t * ld, kk,
-              lane_id);
-          avsr::mma::mma16816(acc, a, qb[kk][0], qb[kk][1]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = t + gq + (e >> 1) * 8;
-          const int kq = cq + (e & 1);
-          if (kq < lanes && row < n)
-            sc[kq * rows_per_rank + base + row] += acc[e];
-        }
-      }
-    } else {
-      // gw threads a row, a shuffle sums their chunks; the pass count is
-      // uniform over the block, so every lane reaches the shuffles
-      for (int r0 = 0; r0 < n; r0 += rows_per_pass) {
-        const int lr = r0 + grp;
-        float kv[kVec];
-        if (lr < n && has_chunk) {
-          load_chunk(buf + lr * ld + chunk * kVec, kv);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
-        }
-#pragma unroll
-        for (int kq = 0; kq < kLanes; ++kq) {
-          if (kq < lanes) {
-            float acc = 0.f;
-#pragma unroll
-            for (int e = 0; e < kVec; ++e) acc = fmaf(qr[kq][e], kv[e], acc);
-            for (int off = 1; off < gw; off <<= 1)
-              acc += __shfl_xor_sync(kFull, acc, off);
-            if (lr < n && chunk == 0)
-              sc[kq * rows_per_rank + base + lr] += acc;
-          }
-        }
-      }
-    }
+    write_row(buf, base, min(tile, my_rows - base), 0);
+    score_tile(buf, i);
     __syncthreads();
     issue(i + 2);
+    // (the next tile's scores wait behind the barrier that opens it)
+    if (i % tpc == tpc - 1 || i == n_tiles - 1)
+      fold(min(chunk, my_rows - (i / tpc) * chunk));
   }
 
-  // 4. the joint softmax's statistics: local (m, l) per query, combined
-  // over the cluster's ranks in rank order
-  for (int kq = warp; kq < lanes; kq += kWarps) {
-    const float* srow = sc + kq * rows_per_rank;
-    float mx = -INFINITY;
-    for (int e = lane_id; e < my_rows; e += 32) mx = fmaxf(mx, srow[e]);
-    mx = avsr::warp_max(mx);
-    const float safe = fmaxf(mx, -3.0e38f);
-    float sum = 0.f;
-    for (int e = lane_id; e < my_rows; e += 32) sum += expf(srow[e] - safe);
-    sum = avsr::warp_sum(sum);
-    if (lane_id == 0) {
-      stat[kq] = mx;
-      stat[lanes + kq] = sum;
-    }
-  }
+  // 4. the joint softmax's statistics: the ranks' (m, l) per query,
+  // combined over the cluster in rank order; p's factor: 1 / den, or, on
+  // the mma path with every row's exp held, exp(m_rank - m) / den
   cluster.sync();
-  if (tid < lanes) {
+  if (tid < nq) {
     float ms[kMaxCluster], ls[kMaxCluster];  // all loads in flight at once
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r) {
       if (r < g) {
         const float* rs = cluster.map_shared_rank(stat, r);
         ms[r] = rs[tid];
-        ls[r] = rs[lanes + tid];
+        ls[r] = rs[group_lanes + tid];
       }
     }
     float m = -INFINITY;
@@ -346,130 +480,170 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < g) combine_lse(m, den, ms[r], ls[r]);
+    den = fmaxf(den, 1e-30f);
     joint[tid] = m;
-    joint[lanes + tid] = fmaxf(den, 1e-30f);
-  }
-  __syncthreads();
-  // 5. p of the chunk's rows, normalised, in the cache dtype
-  for (int kq = 0; kq < lanes; ++kq) {
-    const float m = joint[kq];
-    const float den = joint[lanes + kq];
-    for (int lr = tid; lr < my_rows; lr += kThreads) {
-      float* p = sc + kq * rows_per_rank + lr;
-      *p = avsr::to_float(avsr::from_float<TC>(expf(*p - m) / den));
-    }
+    joint[group_lanes + tid] =
+        !kMma    ? den
+        : staged ? soft_exp<true>(fmaxf(stat[tid], -3.0e38f) - m) / den
+                 : 1.f / den;
   }
   __syncthreads();
 
-  // 6. this rank's partial P.V over its rows, in fp32, into red
-  if constexpr (kMma) {
-    // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time: V^T
-    // by transposed ldmatrix, P^T (exact in bf16: p is rounded already)
-    // zero past the tile's rows, whose V rows are zeros too
-    constexpr int kMt = kMmaDh / 16;
-    float oacc[kMt][4];
+  // 5. chunk by chunk (the scores again where they did not all fit): p of
+  // the chunk's rows, normalised, in the cache dtype; then the warps' P.V
+  // over them, in fp32
+  constexpr int kOt = kMma ? kNt : 1;
+  float oacc[kOt][4];
 #pragma unroll
-    for (int mt = 0; mt < kMt; ++mt)
+  for (int nt = 0; nt < kOt; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[mt][e] = 0.f;
-    for (int i = n_tiles; i < 2 * n_tiles; ++i) {
-      cp_async_wait<1>();
-      __syncthreads();
-      const TC* buf = stage + static_cast<size_t>(i % 2) * tile_rows * ld;
-      const int base = (i - n_tiles) * tile;
-      const int n = min(tile, my_rows - base);
-      write_row(buf, base, n, 1);
-      for (int t = warp * 16; t < n; t += kWarps * 16) {
-        auto p = [&](int row) {
-          return gq < lanes && row < n ? sc[gq * rows_per_rank + base + row]
-                                       : 0.f;
-        };
-        const uint32_t b0 = avsr::mma::pack_bf16(p(t + cq), p(t + cq + 1));
-        const uint32_t b1 =
-            avsr::mma::pack_bf16(p(t + cq + 8), p(t + cq + 9));
-        const __nv_bfloat16* v16 =
-            reinterpret_cast<const __nv_bfloat16*>(buf) +
-            (t + ((lane_id >> 4) & 1) * 8 + (lane_id & 7)) * ld +
-            ((lane_id >> 3) & 1) * 8;
-#pragma unroll
-        for (int mt = 0; mt < kMt; ++mt) {
-          uint32_t a[4];
-          avsr::mma::ldsm_x4_t(a, v16 + mt * 16);
-          avsr::mma::mma16816(oacc[mt], a, b0, b1);
-        }
+    for (int e = 0; e < 4; ++e) oacc[nt][e] = 0.f;
+  int li = n_tiles;  // the next load
+  for (int c = 0; c < max(n_chunks, 1); ++c) {
+    const int t0 = c * tpc, t1 = min(n_tiles, t0 + tpc);
+    const int nrc = min(chunk, my_rows - c * chunk);
+    if (!staged) {
+      for (int t = t0; t < t1; ++t, ++li) {
+        cp_async_wait<1>();
+        __syncthreads();
+        score_tile(stage + static_cast<size_t>(li % 2) * tile_rows * ld, t);
+        __syncthreads();
+        issue(li + 2);
       }
-      __syncthreads();
-      issue(i + 2);
     }
-    cp_async_wait<0>();
+    // p of the chunk's rows, four units a thread at a time: on the mma path
+    // a unit is a (query, even row) pair, p = the held exp times p's
+    // factor, or exp(s - m) times 1 / den, the pair's two p rounded to
+    // bf16 into one 32-bit word in the even row's place (the P.V's B
+    // operand as it loads; a pair past the chunk's rows takes 0); else a
+    // (query, row), p = div_rn(expf(s - m), den) (IEEE's division wherever
+    // p is normal, with no slow path for the masked rows' p = 0)
+    if (nrc > 0) {
+      constexpr int kRows = kMma ? 2 : 1;  // rows a unit
+      const int per_q = (nrc + kRows - 1) / kRows;
+      const int total = nq * per_q;
+      int kq = tid / per_q, lu = tid - kq * per_q;
+      for (int e = tid; e < total; e += 4 * kThreads) {
+        float* pp[4];
+        float x[4][kRows], f[4];
+        bool two[4];
 #pragma unroll
-    for (int mt = 0; mt < kMt; ++mt)
+        for (int u = 0; u < 4; ++u) {
+          const bool ok = e + u * kThreads < total;
+          const int lr = kRows * lu;
+          pp[u] = sc + (ok ? kq * chunk + lr : 0);
+          two[u] = lr + 1 < nrc;
+          const float m = ok && !(kMma && staged) ? joint[kq] : 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kq = cq + (e & 1);
-        if (kq < lanes)
-          red[(warp * lanes + kq) * dh + mt * 16 + gq + (e >> 1) * 8] =
-              oacc[mt][e];
-      }
-  } else {
-    float acc[kLanes][kVec];
+          for (int i = 0; i < kRows; ++i)
+            x[u][i] = ok && (i == 0 || two[u]) ? pp[u][i] - m : -INFINITY;
+          f[u] = ok ? joint[group_lanes + kq] : 1.f;
+          for (lu += kThreads; lu >= per_q && kq < nq; lu -= per_q) ++kq;
+        }
 #pragma unroll
-    for (int kq = 0; kq < kLanes; ++kq)
+        for (int u = 0; u < 4; ++u) {
+          if (e + u * kThreads >= total) continue;
+          if constexpr (kMma) {
+            float p[2];
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[kq][e] = 0.f;
-    for (int i = n_tiles; i < 2 * n_tiles; ++i) {
-      cp_async_wait<1>();
-      __syncthreads();
-      const TC* buf = stage + static_cast<size_t>(i % 2) * tile_rows * ld;
-      const int base = (i - n_tiles) * tile;
-      const int n = min(tile, my_rows - base);
-      write_row(buf, base, n, 1);
-      if (has_chunk) {
-        for (int lr = grp; lr < n; lr += rows_per_pass) {
-          float vv[kVec];
-          load_chunk(buf + lr * ld + chunk * kVec, vv);
-#pragma unroll
-          for (int kq = 0; kq < kLanes; ++kq) {
-            if (kq < lanes) {
-              const float p = sc[kq * rows_per_rank + base + lr];
-#pragma unroll
-              for (int e = 0; e < kVec; ++e)
-                acc[kq][e] = fmaf(p, vv[e], acc[kq][e]);
-            }
+            for (int i = 0; i < 2; ++i)
+              p[i] = i == 1 && !two[u] ? 0.f
+                     : staged          ? x[u][i] * f[u]
+                                       : soft_exp<true>(x[u][i]) * f[u];
+            *reinterpret_cast<uint32_t*>(pp[u]) =
+                avsr::mma::pack_bf16(p[0], p[1]);
+          } else {
+            *pp[u] = avsr::to_float(avsr::from_float<TC>(avsr::mma::div_rn(
+                expf(x[u][0]), f[u], __frcp_rn(f[u]))));
           }
         }
       }
-      __syncthreads();
-      issue(i + 2);
     }
-    cp_async_wait<0>();
-    // the row groups of a warp (lanes that share a chunk)
+    __syncthreads();
+    for (int t = t0; t < t1; ++t, ++li) {
+      cp_async_wait<1>();
+      __syncthreads();
+      const TC* buf = stage + static_cast<size_t>(li % 2) * tile_rows * ld;
+      const int base = t * tile;
+      const int n = min(tile, my_rows - base);
+      const float* pt = sc + (t % tpc) * tile;
+      write_row(buf, base, n, 1);
+      if constexpr (kMma) {
+        // out^T (dh x 8 queries) = V^T P^T: warp (mt, half) takes head
+        // dims 16 mt..16 mt + 15 of every query tile over the row groups
+        // of its half; V^T by transposed ldmatrix, P^T (exact in bf16: p
+        // is rounded already) zero past the tile's rows, whose V rows are
+        // zeros too
+        const __nv_bfloat16* v16 =
+            reinterpret_cast<const __nv_bfloat16*>(buf) +
+            (((lane_id >> 4) & 1) * 8 + (lane_id & 7)) * ld +
+            ((lane_id >> 3) & 1) * 8 + mt * 16;
+        for (int t16 = half * 16; t16 < n; t16 += 32) {
+          uint32_t a[4];
+          avsr::mma::ldsm_x4_t(a, v16 + t16 * ld);
 #pragma unroll
-    for (int kq = 0; kq < kLanes; ++kq) {
-      if (kq < lanes) {
+          for (int nt = 0; nt < kNt; ++nt) {
+            if (nt * kTileLanes >= nq) break;  // uniform over the block
+            const int kq = nt * kTileLanes + gq;
+            // rows (row, row + 1) of p in the even row's word, zero past
+            // the tile
+            auto p2 = [&](int row) {
+              return kq < nq && row < n
+                         ? *reinterpret_cast<const uint32_t*>(
+                               pt + kq * chunk + row)
+                         : 0u;
+            };
+            avsr::mma::mma16816(oacc[nt], a, p2(t16 + cq), p2(t16 + cq + 8));
+          }
+        }
+      } else {
+        // thread (query, 16-byte chunk) outputs, summed over the rows in
+        // order into the rank's partial
+        for (int e = tid; e < nq * cpr; e += kThreads) {
+          const int kq = e / cpr, ch = e - kq * cpr;
+          float* o = part + kq * dh + ch * kVec;
+          float acc[kVec];
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          for (int off = gw; off < 32; off <<= 1)
-            acc[kq][e] += __shfl_xor_sync(kFull, acc[kq][e], off);
-          if (lane_id < gw && has_chunk)
-            red[(warp * lanes + kq) * dh + chunk * kVec + e] = acc[kq][e];
+          for (int x = 0; x < kVec; ++x) acc[x] = o[x];
+          for (int r = 0; r < n; ++r) {
+            float vv[kVec];
+            load_chunk(buf + r * ld + ch * kVec, vv);
+            const float p = pt[kq * chunk + r];
+#pragma unroll
+            for (int x = 0; x < kVec; ++x) acc[x] = fmaf(p, vv[x], acc[x]);
+          }
+#pragma unroll
+          for (int x = 0; x < kVec; ++x) o[x] = acc[x];
         }
       }
+      __syncthreads();
+      issue(li + 2);
     }
   }
-  __syncthreads();
-  // the warps in order, into this rank's partial
-  for (int e = tid; e < lanes * dh; e += kThreads) {
-    float tot = 0.f;
-    for (int w = 0; w < kWarps; ++w) tot += red[w * lanes * dh + e];
-    part[e] = tot;
+  // 6. the rank's partial P.V: on the mma path the second row half's sums,
+  // then the first half's added to them
+  cp_async_wait<0>();
+  if constexpr (kMma) {
+    for (int h2 = 1; h2 >= 0; --h2) {
+      if (half == h2) {
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kq = nt * kTileLanes + cq + (e & 1);
+            float* o = part + kq * dh + mt * 16 + gq + (e >> 1) * 8;
+            if (kq < nq) *o = h2 ? oacc[nt][e] : oacc[nt][e] + *o;
+          }
+      }
+      __syncthreads();
+    }
   }
 
   // 7. out = the ranks' partials summed in rank order; rank r writes its
   // share of the (lanes, dh) outputs
   cluster.sync();
-  const int per = (lanes * dh + g - 1) / g;
-  const int e_end = min((rank + 1) * per, lanes * dh);
+  const int per = (nq * dh + g - 1) / g;
+  const int e_end = min((rank + 1) * per, nq * dh);
   for (int e = rank * per + tid; e < e_end; e += kThreads) {
     float v[kMaxCluster];
 #pragma unroll
@@ -480,7 +654,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kMaxCluster; ++r)
       if (r < g) tot += v[r];
     const int kq = e / dh;
-    out[(lane0 + kq) * c_dim + h * dh + e % dh] = avsr::from_float<TQ>(tot);
+    out[(lane0 + kq0 + kq) * c_dim + h * dh + e % dh] =
+        avsr::from_float<TQ>(tot);
   }
   cluster.sync();  // no block leaves while another reads its shared memory
 }
@@ -519,32 +694,38 @@ cudaError_t raise_smem_limit(K kernel, int smem) {
   return cudaSuccess;
 }
 
-template <typename TQ, typename TC, int kLanes, bool kMma>
+template <typename TQ, typename TC, int kNt, bool kMma>
 cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
                          const void* kv_row, void* out, int b, int lanes,
                          int heads, int dh, int s_max, int pos, int cluster,
-                         int rows_per_rank, int tile, int smem,
-                         cudaStream_t stream) {
+                         int rows_per_rank, int tile, int chunk,
+                         int group_lanes, int smem, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(TC);
   const int rows = lanes * (min(pos, s_max - 1) + 1);
+  const int groups = (lanes + group_lanes - 1) / group_lanes;
   // 1-32 16-byte chunks a row, 16-byte aligned; a plan that covers every
-  // row with the shared memory it states
+  // row and query lane with the shared memory it states, chunks of whole
+  // tiles where there are more than one
   if (dh % kVec != 0 || dh / kVec > 32 ||
       reinterpret_cast<uintptr_t>(cache) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(kv_row) % 16 != 0 ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
       rows_per_rank < 1 ||
       static_cast<long long>(rows_per_rank) * cluster < rows || tile < 1 ||
-      tile > rows_per_rank || smem > kMaxSmem ||
+      tile > rows_per_rank || chunk < tile ||
+      (chunk % tile != 0 && chunk < rows_per_rank) ||
+      group_lanes < 1 || group_lanes > kGroupLanes ||
+      (kMma && group_lanes > kTileLanes * kNt) || groups > 65535 ||
+      smem > kMaxSmem ||
       static_cast<size_t>(smem) !=
-          smem_bytes(lanes, dh, sizeof(TC), rows_per_rank, tile) ||
+          smem_bytes(group_lanes, dh, sizeof(TC), chunk, tile) ||
       static_cast<long long>(heads) * cluster > 0x7fffffff)
     return cudaErrorInvalidValue;
-  auto kernel = decode_attention_kernel<TQ, TC, kLanes, kMma>;
+  auto kernel = decode_attention_kernel<TQ, TC, kNt, kMma>;
   if (cudaError_t err = raise_smem_limit(kernel, smem); err != cudaSuccess)
     return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(heads * cluster, b);
+  cfg.gridDim = dim3(heads * cluster, b, groups);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -558,160 +739,8 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TQ*>(q), static_cast<TC*>(cache),
       lane_bias, static_cast<const TC*>(kv_row), static_cast<TQ*>(out), lanes,
-      heads, dh, s_max, pos, rows_per_rank, tile);
+      heads, dh, s_max, pos, rows_per_rank, tile, chunk, group_lanes);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-constexpr int kWideThreads = 128;
-constexpr int kWideWarps = kWideThreads / 32;
-
-// the wide kernel's shared memory: q (dh), the scores (lanes * rows of a
-// lane), the warps' partial max and sum, and the row groups' partial
-// outputs (kWideThreads / chunks a row groups of dh)
-__host__ __device__ inline size_t wide_smem_bytes(int lanes, int dh, int esize,
-                                                  int s_lim) {
-  const int cpr = dh * esize / 16;
-  return sizeof(float) *
-         (static_cast<size_t>(dh) + static_cast<size_t>(lanes) * s_lim +
-          kWideWarps + static_cast<size_t>(kWideThreads / cpr) * dh);
-}
-
-template <typename TQ, typename TC>
-__global__ void __launch_bounds__(kWideThreads)
-    decode_attention_wide_kernel(const TQ* __restrict__ q, TC* cache,
-                                 const float* __restrict__ lane_bias,
-                                 const TC* __restrict__ kv_row,
-                                 TQ* __restrict__ out, int lanes, int heads,
-                                 int dh, int s_max, int pos) {
-  constexpr int kVec = 16 / sizeof(TC);  // elements per 16-byte chunk
-  extern __shared__ __align__(16) float wsm[];
-  const int h = blockIdx.x, k = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c = heads * dh, s_lim = min(pos, s_max - 1) + 1;
-  const int pc = s_lim - 1, rows = lanes * s_lim;
-  const int cpr = dh / kVec;  // 16-byte chunks a row, 1-32
-  int gw = 1;  // lanes of a warp that share a row: a power of two >= cpr
-  while (gw < cpr) gw <<= 1;
-  const int groups = kWideThreads / cpr;  // row groups of the P.V
-  const size_t n0 = static_cast<size_t>(b) * lanes;  // the utterance's lane 0
-  const size_t c2 = 2 * static_cast<size_t>(c);
-  float* qs = wsm;
-  float* sc = qs + dh;
-  float* red = sc + rows;
-  float* part = red + kWideWarps;
-
-  // q rounded to the cache dtype; this block's slice of the step's row
-  for (int e = tid; e < dh; e += kWideThreads) {
-    const size_t at = (n0 + k) * c2 + static_cast<size_t>(h) * dh + e;
-    qs[e] = avsr::to_float(avsr::from_float<TC>(
-        avsr::to_float(q[(n0 + k) * c + static_cast<size_t>(h) * dh + e])));
-    const size_t dst = ((n0 + k) * s_max + pc) * c2 +
-                       static_cast<size_t>(h) * dh + e;
-    cache[dst] = kv_row[at];
-    cache[dst + c] = kv_row[at + c];
-  }
-  __syncthreads();
-
-  // row r = (j, s) of the prefix: its K (at 0) or V (at c) slice of head h
-  auto row_at = [&](int r, size_t half) -> const TC* {
-    const int j = r / s_lim, s = r - j * s_lim;
-    const size_t off = static_cast<size_t>(h) * dh + half;
-    return s == pc ? kv_row + (n0 + j) * c2 + off
-                   : cache + ((n0 + j) * s_max + s) * c2 + off;
-  };
-  // scores: gw lanes a row (a 16-byte chunk each), 32 / gw rows a warp at a
-  // time, the chunk's products summed by shuffles within the gw lanes
-  const int sub = lane / gw, ch = lane % gw, rpw = 32 / gw;
-#pragma unroll 4
-  for (int r0 = warp * rpw; r0 < rows; r0 += kWideWarps * rpw) {
-    const int r = r0 + sub;
-    float dot = 0.f;
-    if (r < rows && ch < cpr) {
-      float kf[kVec];
-      load_chunk(row_at(r, 0) + ch * kVec, kf);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dot += qs[ch * kVec + i] * kf[i];
-    }
-    for (int off = gw / 2; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(kFull, dot, off);
-    if (ch == 0 && r < rows) {
-      const int j = r / s_lim, s = r - j * s_lim;
-      sc[r] = dot + lane_bias[((n0 + k) * s_max + s) * lanes + j];
-    }
-  }
-  __syncthreads();
-  // the joint max and the sum of exp(s - m) over the prefix
-  float m = -INFINITY;
-  for (int r = tid; r < rows; r += kWideThreads) m = fmaxf(m, sc[r]);
-  m = avsr::warp_max(m);
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  m = red[0];
-  for (int w = 1; w < kWideWarps; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  float sum = 0.f;
-  for (int r = tid; r < rows; r += kWideThreads) {
-    const float p = expf(sc[r] - m);
-    sc[r] = p;
-    sum += p;
-  }
-  sum = avsr::warp_sum(sum);
-  if (lane == 0) red[warp] = sum;
-  __syncthreads();
-  float den = 0.f;
-  for (int w = 0; w < kWideWarps; ++w) den += red[w];
-  den = fmaxf(den, 1e-30f);
-  for (int r = tid; r < rows; r += kWideThreads)
-    sc[r] = avsr::to_float(avsr::from_float<TC>(sc[r] / den));
-  __syncthreads();
-  // P.V: thread (g, chunk) sums rows g, g + groups, ... of its chunk's
-  // columns; the groups' partials then add in group order
-  const int g = tid / cpr, gc = tid - g * cpr;
-  if (g < groups) {
-    float acc[kVec] = {};
-#pragma unroll 4
-    for (int r = g; r < rows; r += groups) {
-      float vf[kVec];
-      load_chunk(row_at(r, c) + gc * kVec, vf);
-      const float p = sc[r];
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc[i] += p * vf[i];
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) part[g * dh + gc * kVec + i] = acc[i];
-  }
-  __syncthreads();
-  for (int d = tid; d < dh; d += kWideThreads) {
-    float tot = 0.f;
-    for (int gg = 0; gg < groups; ++gg) tot += part[gg * dh + d];
-    out[(n0 + k) * c + static_cast<size_t>(h) * dh + d] =
-        avsr::from_float<TQ>(tot);
-  }
-}
-
-template <typename TQ, typename TC>
-cudaError_t launch_wide(const void* q, void* cache, const float* lane_bias,
-                        const void* kv_row, void* out, int b, int lanes,
-                        int heads, int dh, int s_max, int pos,
-                        cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(TC);
-  // 1-32 16-byte chunks a row, 16-byte aligned
-  if (dh % kVec != 0 || dh / kVec > 32 ||
-      reinterpret_cast<uintptr_t>(cache) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(kv_row) % 16 != 0)
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      wide_smem_bytes(lanes, dh, sizeof(TC), min(pos, s_max - 1) + 1);
-  if (smem > kMaxSmem || lanes > 65535) return cudaErrorInvalidValue;
-  auto kernel = decode_attention_wide_kernel<TQ, TC>;
-  if (cudaError_t err = raise_smem_limit(kernel, static_cast<int>(smem));
-      err != cudaSuccess)
-    return err;
-  kernel<<<dim3(heads, lanes, b), kWideThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<TC*>(cache), lane_bias,
-      static_cast<const TC*>(kv_row), static_cast<TQ*>(out), lanes, heads,
-      dh, s_max, pos);
   return cudaGetLastError();
 }
 
@@ -719,25 +748,23 @@ template <typename TQ, typename TC>
 cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
                          const void* kv_row, void* out, int b, int lanes,
                          int heads, int dh, int s_max, int pos, int cluster,
-                         int rows_per_rank, int tile, int smem,
-                         cudaStream_t stream) {
+                         int rows_per_rank, int tile, int chunk,
+                         int group_lanes, int smem, cudaStream_t stream) {
+#define AVSR_DECODE_LAUNCH(NT, MMA)                                          \
+  launch_typed<TQ, TC, NT, MMA>(q, cache, lane_bias, kv_row, out, b, lanes,  \
+                                heads, dh, s_max, pos, cluster,             \
+                                rows_per_rank, tile, chunk, group_lanes, smem, \
+                                stream)
   if constexpr (sizeof(TC) == 2) {
-    if (dh == kMmaDh)
-      return launch_typed<TQ, TC, kMaxLanes, true>(
-          q, cache, lane_bias, kv_row, out, b, lanes, heads, dh, s_max, pos,
-          cluster, rows_per_rank, tile, smem, stream);
+    if (dh == kMmaDh) {
+      if (group_lanes <= kTileLanes) return AVSR_DECODE_LAUNCH(1, true);
+      if (group_lanes <= 2 * kTileLanes) return AVSR_DECODE_LAUNCH(2, true);
+      if (group_lanes <= 4 * kTileLanes) return AVSR_DECODE_LAUNCH(4, true);
+      return AVSR_DECODE_LAUNCH(8, true);
+    }
   }
-  if (lanes <= 2)
-    return launch_typed<TQ, TC, 2, false>(
-        q, cache, lane_bias, kv_row, out, b, lanes, heads, dh, s_max, pos,
-        cluster, rows_per_rank, tile, smem, stream);
-  if (lanes <= 4)
-    return launch_typed<TQ, TC, 4, false>(
-        q, cache, lane_bias, kv_row, out, b, lanes, heads, dh, s_max, pos,
-        cluster, rows_per_rank, tile, smem, stream);
-  return launch_typed<TQ, TC, kMaxLanes, false>(
-      q, cache, lane_bias, kv_row, out, b, lanes, heads, dh, s_max, pos,
-      cluster, rows_per_rank, tile, smem, stream);
+  return AVSR_DECODE_LAUNCH(1, false);
+#undef AVSR_DECODE_LAUNCH
 }
 
 }  // namespace
@@ -748,68 +775,37 @@ cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
 // lanes) fp32. The launch plan (ops/kernels/decode_attention.py
 // `launch_plan`): `cluster` blocks of one (b, h), rank r taking rows
 // [r*rows_per_rank, (r+1)*rows_per_rank) of the lanes*(pos_c+1) prefix,
-// in tiles of `tile` rows, with `smem` bytes of dynamic shared memory.
+// in tiles of `tile` rows, the scores of `chunk` rows at once (all of the
+// rank's, or a multiple of the tile); query groups of `group_lanes` lanes; `smem` bytes of
+// dynamic shared memory.
 extern "C" int avsr_decode_attention(const void* q, void* cache,
                                      const float* lane_bias, const void* kv_row,
                                      void* out, int b, int lanes, int heads,
                                      int dh, int s_max, int pos, int q_dtype,
                                      int cache_dtype, int cluster,
-                                     int rows_per_rank, int tile, int smem,
+                                     int rows_per_rank, int tile, int chunk,
+                                     int group_lanes, int smem,
                                      void* stream) {
-  if (b <= 0 || b > 65535 || lanes <= 0 || lanes > kMaxLanes || heads <= 0 ||
-      dh <= 0 || s_max <= 0 || pos < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  cudaError_t err;
-  if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
-    err = launch_lanes<bf16, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                   heads, dh, s_max, pos, cluster,
-                                   rows_per_rank, tile, smem, s);
-  else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kFloat32)
-    err = launch_lanes<float, float>(q, cache, lane_bias, kv_row, out, b,
-                                     lanes, heads, dh, s_max, pos, cluster,
-                                     rows_per_rank, tile, smem, s);
-  else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kBFloat16)
-    err = launch_lanes<float, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                    heads, dh, s_max, pos, cluster,
-                                    rows_per_rank, tile, smem, s);
-  else if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kFloat32)
-    err = launch_lanes<bf16, float>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                    heads, dh, s_max, pos, cluster,
-                                    rows_per_rank, tile, smem, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
-}
-
-// lanes > kMaxLanes: the same operands, a block a (head, query lane,
-// utterance), no launch plan
-extern "C" int avsr_decode_attention_wide(const void* q, void* cache,
-                                          const float* lane_bias,
-                                          const void* kv_row, void* out, int b,
-                                          int lanes, int heads, int dh,
-                                          int s_max, int pos, int q_dtype,
-                                          int cache_dtype, void* stream) {
-  if (b <= 0 || b > 65535 || lanes <= kMaxLanes || heads <= 0 || dh <= 0 ||
+  if (b <= 0 || b > 65535 || lanes <= 0 || heads <= 0 || dh <= 0 ||
       s_max <= 0 || pos < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t err;
+#define AVSR_DECODE_TYPED(TQ, TC)                                           \
+  launch_lanes<TQ, TC>(q, cache, lane_bias, kv_row, out, b, lanes, heads,  \
+                       dh, s_max, pos, cluster, rows_per_rank, tile, chunk, \
+                       group_lanes, smem, s)
   if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
-    err = launch_wide<bf16, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                  heads, dh, s_max, pos, s);
+    err = AVSR_DECODE_TYPED(bf16, bf16);
   else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kFloat32)
-    err = launch_wide<float, float>(q, cache, lane_bias, kv_row, out, b,
-                                    lanes, heads, dh, s_max, pos, s);
+    err = AVSR_DECODE_TYPED(float, float);
   else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kBFloat16)
-    err = launch_wide<float, bf16>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                   heads, dh, s_max, pos, s);
+    err = AVSR_DECODE_TYPED(float, bf16);
   else if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kFloat32)
-    err = launch_wide<bf16, float>(q, cache, lane_bias, kv_row, out, b, lanes,
-                                   heads, dh, s_max, pos, s);
+    err = AVSR_DECODE_TYPED(bf16, float);
   else
     err = cudaErrorInvalidValue;
+#undef AVSR_DECODE_TYPED
   return static_cast<int>(err);
 }

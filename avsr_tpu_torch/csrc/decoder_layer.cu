@@ -2,7 +2,8 @@
 // launch: LN1 + QKV, self-attention over the lazy-reorder K|V cache with the
 // step's fresh row, out-projection, LN2 + cross-attention over the shared
 // source K/V, LN3 + ReLU FFN, and the K|V row write, for every lane of the
-// batch (no lane limit: one launch per layer and step at any batch).
+// batch (beams of up to kMaxLanes = 32 lanes; one launch per layer and step
+// at any batch).
 //
 // Replaces the Pallas TPU kernel avsr_tpu/ops/pallas/decoder_layer.py
 // `decoder_layer_step` (`_kernel`). Its rounding points are kept: the
@@ -65,7 +66,11 @@
 // The attention phases take one (utterance, head) a block: its keys and
 // values staged in shared memory with cp.async, all issued at once where
 // they fit; with a bf16 cache and 64-wide heads q.k and P.V on the tensor
-// cores (the queries as the 8-wide operand), else on the CUDA cores.
+// cores (the queries as up to four 8-wide operands: kMaxLanes = 32 lanes
+// an utterance), else on the CUDA cores. Where the scores of every lane's
+// rows do not fit a block's shared memory (beams above 16 over a full
+// 192-row cache), the attention takes two passes over tiles of its rows:
+// the statistics first, then the same scores again, p and P.V.
 //
 // An optional trace (a pointer in the arguments) records each block's
 // global timer at the start and end of every phase, and at the steps of
@@ -78,7 +83,6 @@
 #include <stdint.h>
 
 #include <mutex>
-#include <type_traits>
 #include <vector>
 
 #include "common.cuh"
@@ -97,7 +101,7 @@ constexpr int kMaxN = 96;          // lanes of one pass over an item
 constexpr int kMTiles = kMaxN / 16;
 constexpr int kMaxKsBytes = 2048;  // a bf16 operand stage's bytes a lane
 constexpr int kBatch = 2;          // chunks of weights loaded at once a warp
-constexpr int kMaxLanes = 8;       // beam lanes K of one utterance
+constexpr int kMaxLanes = 32;      // beam lanes K of one utterance
 constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
 constexpr int kStageBytes = 163840;  // an attention stage's keys and values
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of a block
@@ -489,8 +493,8 @@ __device__ void item_products(const float* __restrict__ w, int out, int in,
 }
 
 // The GEMV region of a block's shared memory: the operand stage and the
-// warps' sums (aliased on the tensor-core path), then a residual item's old
-// residual values (kMaxRows x n fp32)
+// warps' sums (aliased on the tensor-core path) of one pass of up to kMaxN
+// lanes, whatever the lanes in all
 __host__ __device__ inline size_t gemv_bytes(int n, int wsize) {
   const size_t nn16 = cdiv(n < kMaxN ? n : kMaxN, 16) * 16;
   const int ks = max_ks(wsize);
@@ -498,17 +502,18 @@ __host__ __device__ inline size_t gemv_bytes(int n, int wsize) {
       nn16 * (wsize == 2 ? act_ld<bf16>(ks) : act_ld<float>(ks)) * wsize;
   const size_t wres = sizeof(float) * kWarps * nn16 * kMaxRows;
   const size_t body = wsize == 2 ? (act > wres ? act : wres) : act + wres;
-  return (body + 15) / 16 * 16 + sizeof(float) * kMaxRows * n;
+  return (body + 15) / 16 * 16;
 }
 
 // One GEMV phase over the grid. load(act, ld, n0, nn, kb, ke, w32) stages
 // the operand of columns [kb, ke) for lanes n0..n0+nn-1 (ending in
 // __syncthreads); epi(lane, o, value) takes each finished output, bias
 // added; step(k) marks the item's steps in a trace. With `xres` (row
-// stride c), a residual phase: each output is added to xres instead, the
-// item's old residual values and biases fetched as it starts, and the
-// block that finishes a row group leaves each lane's (sum, centred sum of
-// squares) of the group's new residual columns at gst[(group, lane)].
+// stride c), a residual phase: each output is added to xres instead (its
+// old value read through L2 as the output is finished; the item's biases
+// fetched as it starts), and the block that finishes a row group leaves
+// each lane's (sum, centred sum of squares) of the group's new residual
+// columns at gst[(group, lane)].
 template <typename TW, typename Load, typename Epi, typename Step>
 __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
                            unsigned char* smem, Load load, Epi epi,
@@ -517,9 +522,6 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
   constexpr bool kMma = sizeof(TW) == 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ks = g.ks, rows = g.rows, rt = rows / 8;
-  // old[lane][row]: the item's residual values, after the GEMV region
-  float* old = reinterpret_cast<float*>(
-      smem + gemv_bytes(n, sizeof(TW)) - sizeof(float) * kMaxRows * n);
   __shared__ int last;
   __shared__ float bias[kMaxRows];
   for (int it = blockIdx.x; it < g.items(); it += gridDim.x) {
@@ -527,29 +529,16 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
     const int o0 = rg * rows;
     const int k0 = s * ks, k1 = min(k0 + ks, g.in);
     const int c1 = min(o0 + rows, g.out);
-    // the item's biases and old residual values, in flight while it works
-    // (read after the products' barriers)
+    // the item's biases, in flight while it works (read after the
+    // products' barriers)
     for (int r = threadIdx.x; r < rows; r += kThreads)
       bias[r] = o0 + r < g.out ? avsr::to_float(g.b[o0 + r]) : 0.f;
-    if (xres != nullptr) {
-      const int per = rows / 4;  // 16-byte chunks of a lane's columns
-      for (int e = threadIdx.x; e < n * per; e += kThreads) {
-        const int nl = e / per, q = e - nl * per;
-        const bool ok = o0 + 4 * q < c1;
-        cp_async16(old + nl * rows + 4 * q,
-                   ok ? xres + static_cast<size_t>(nl) * c + o0 + 4 * q
-                      : xres,
-                   ok);
-      }
-      cp_async_commit();
-    }
     auto finish = [&](int nl, int r, float v) {
       const int o = o0 + r;
       v = __fadd_rn(v, bias[r]);
       if (xres != nullptr) {
-        v = __fadd_rn(old[nl * rows + r], v);
-        old[nl * rows + r] = v;
-        xres[static_cast<size_t>(nl) * c + o] = v;
+        float* x = xres + static_cast<size_t>(nl) * c + o;
+        *x = __fadd_rn(__ldcg(x), v);
       } else {
         epi(nl, o, v);
       }
@@ -566,10 +555,6 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
                       step(0);
                     });
       step(1);
-      if (xres != nullptr) {  // the old residual values landed
-        cp_async_wait<0>();
-        __syncthreads();
-      }
       // the warps' sums, in order
       for (int e = threadIdx.x; e < rows * nn; e += kThreads) {
         const int nl = e / rows, r = e - nl * rows;
@@ -611,11 +596,13 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
     }
     step(3);
     if (done && gst != nullptr) {
-      __syncthreads();  // the new residual values, in old[]
+      __syncthreads();  // the block's new residual values, in xres
 #pragma unroll 4
       for (int nl = warp; nl < n; nl += kWarps) {
         const bool mine = o0 + lane < c1;  // rows <= 32: a column a lane
-        const float v = mine ? old[nl * rows + lane] : 0.f;
+        const float v =
+            mine ? __ldcg(xres + static_cast<size_t>(nl) * c + o0 + lane)
+                 : 0.f;
         const float sum = avsr::warp_sum(v);
         const float d = mine ? v - sum / (c1 - o0) : 0.f;
         const float m2 = avsr::warp_sum(d * d);
@@ -644,30 +631,89 @@ struct Rows {
   size_t bias_q, bias_s, bias_j;
 };
 
-// Attention of `lanes` queries qs (lanes, dh) over `rows` stored rows of one
-// (utterance, head): scores = q . key(r) + bias(kq, r), plus, with `fresh`,
-// one more score cur[kq] and value vn[kq] per query (its own fresh row).
-// Softmax in fp32, denominator clamped at 1e-30, probabilities rounded to
-// TC; out(kq, d, value). The rows' keys and values are copied into shared
-// memory with cp.async (positions stepped by additions, not divisions),
-// issued all at once where they fit one stage of `tile` rows (the serving
-// shapes), else tile by tile; the bias is copied into the scores first.
-// With a bf16 cache and dh = kMmaDh, q.k and P.V run on the tensor cores
-// (mma.sync m16n8k16, the queries as the 8-wide operand, keys by
-// ldmatrix, values by transposed ldmatrix, P exact in bf16 since it is
-// rounded already), as decode_attention.cu does; otherwise on the CUDA
-// cores. The softmax's statistics are taken by all warps over row ranges
-// and combined in warp order. Shared memory: sc (lanes * rows), red
-// (kWarps * max(lanes * dh, 2 * kMaxLanes)), kbuf and vbuf (tile rows
-// rounded to 16, of dh elements and a 16-byte pad). kLanes >= lanes sizes
-// the per-thread sums; step(k) marks the steps in a trace.
-template <typename TC, int kLanes, typename Out, typename Step>
-__device__ void attend(int lanes, int rows, int dh, const float* qs,
-                       const Rows<TC>& rw, bool fresh, const float* cur,
-                       const float* vn, float* sc, float* red, TC* kbuf,
-                       TC* vbuf, int tile, Out out, Step step) {
+// The attention scratch at the start of a block's shared memory, offsets in
+// floats: the queries, the fresh keys and values ((lanes, dh) each), the
+// fresh scores, the joint (m, den) of each query, `red` (the warps' softmax
+// statistics, then the P.V's sums), the scores (lanes x span); then, in
+// bytes, the key and value stages of `tile` rows each (rounded up to 16, a
+// row dh elements and a 16-byte pad). span: every row of the longer
+// attention (`rows`: one pass) where their scores and stages of 16 rows
+// fit, the stages then of up to kStageBytes; else a tile, as large as the
+// tile's scores and its stages fit (two passes).
+struct AttnLayout {
+  int qs, kn, vn, cur, joint, red, sc;
+  int span, tile;
+  size_t kbuf, vbuf, bytes;
+};
+
+__host__ __device__ inline int round4(int x) { return (x + 3) / 4 * 4; }
+
+__host__ __device__ inline AttnLayout attn_layout(int lanes, int dh,
+                                                  int rows, int csize) {
+  AttnLayout l;
+  const size_t ld = static_cast<size_t>(dh) * csize + 16;  // a stage row
+  l.qs = 0;
+  l.kn = lanes * dh;
+  l.vn = 2 * lanes * dh;
+  l.cur = 3 * lanes * dh;
+  l.joint = l.cur + round4(lanes);
+  l.red = l.joint + round4(2 * lanes);
+  // red: the warps' statistics, then the P.V's sums: the warps' partials
+  // of one query tile, or (lanes, dh)
+  int red = lanes * dh > 2 * kWarps * lanes ? lanes * dh : 2 * kWarps * lanes;
+  if (lanes <= 8 && kWarps * lanes * dh > red) red = kWarps * lanes * dh;
+  l.sc = l.red + round4(red);
+  const size_t head = sizeof(float) * l.sc;
+  const size_t all = sizeof(float) * ((static_cast<size_t>(lanes) * rows + 3) /
+                                      4 * 4);
+  const size_t most_stage = kStageBytes / (2 * ld) / 16 * 16;
+  if (head + all + 2 * 16 * ld <= kMaxSmem) {
+    size_t most = (kMaxSmem - head - all) / (2 * ld) / 16 * 16;
+    most = most < most_stage ? most : most_stage;
+    l.span = rows;
+    l.tile = static_cast<size_t>(rows) <= most ? rows : static_cast<int>(most);
+  } else {
+    size_t most = (kMaxSmem - head) / (2 * ld + sizeof(float) * lanes) / 16 *
+                  16;
+    l.span = l.tile = static_cast<int>(most < most_stage ? most : most_stage);
+  }
+  l.kbuf = head + sizeof(float) * ((static_cast<size_t>(lanes) * l.span + 3) /
+                                   4 * 4);
+  l.vbuf = l.kbuf + static_cast<size_t>(cdiv(l.tile, 16) * 16) * ld;
+  l.bytes = l.vbuf + static_cast<size_t>(cdiv(l.tile, 16) * 16) * ld;
+  return l;
+}
+
+// Attention of `lanes` (<= kMaxLanes) queries qs (lanes, dh) over `rows`
+// stored rows of one (utterance, head): scores = q . key(r) + bias(kq, r),
+// plus, with `fresh`, one more score cur[kq] and value vn[kq] per query (its
+// own fresh row). Softmax in fp32, denominator clamped at 1e-30,
+// probabilities rounded to TC; out(kq, d, value). The scratch is `lay`'s,
+// from `smf`. The rows' keys and values are copied into shared memory with
+// cp.async (positions stepped by additions, not divisions), issued all at
+// once where they fit one stage of `lay.tile` rows (the serving shapes),
+// else tile by tile, the bias copied into the scores beside them. Where the
+// scores of every row fit (rows <= lay.span) one pass: all the scores, their
+// statistics, p, then P.V over the values' tiles. Else two passes over the
+// tiles: the tile's scores and their statistics folded into the joint
+// (max, shifted sum) in tile order; then each tile's keys, bias and values
+// again, the same scores (the same products in the same order), p and
+// P.V. With a bf16 cache and dh = kMmaDh, q.k and P.V run on the tensor
+// cores (mma.sync m16n8k16, the queries as up to kMaxLanes / 8 8-wide
+// operands fed by the same ldmatrix'd keys and transposed values, P exact
+// in bf16 since it is rounded already; the P.V's warps take (16 head dims,
+// every other 16 rows) and the two row halves add in order), as
+// decode_attention.cu does; otherwise on the CUDA cores, a thread a
+// (query, 16-byte chunk) of the P.V summing the rows in order. The
+// softmax's statistics are taken by all warps over row ranges and combined
+// in warp order. step(k) marks the steps in a trace.
+template <typename TC, typename Out, typename Step>
+__device__ void attend(int lanes, int rows, int dh, float* smf,
+                       const AttnLayout& lay, const Rows<TC>& rw, bool fresh,
+                       Out out, Step step) {
   constexpr int kVec = 16 / sizeof(TC);
   constexpr bool kMmaType = sizeof(TC) == 2;
+  constexpr int kQTiles = kMaxLanes / 8;  // query tiles of the mma path
   const bool mma = kMmaType && dh == kMmaDh;
   const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
   const int gq = lane_id >> 2, cq = 2 * (lane_id & 3);
@@ -675,7 +721,18 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
   const int groups = kThreads / cpr;  // rows in flight
   const int chunk = tid % cpr, grp = tid / cpr;
   const int ld = dh + kVec;           // a stage row and its 16-byte pad
+  const int tile = lay.tile;
+  const bool one = rows <= lay.span;  // every row's scores at once
+  const int stride = one ? rows : tile;  // a query's scores
   const int ntiles = cdiv(rows, tile);
+  const float* qs = smf + lay.qs;
+  const float* vn = smf + lay.vn;
+  const float* cur = smf + lay.cur;
+  float* joint = smf + lay.joint;
+  float* red = smf + lay.red;
+  float* sc = smf + lay.sc;
+  TC* kbuf = reinterpret_cast<TC*>(reinterpret_cast<char*>(smf) + lay.kbuf);
+  TC* vbuf = reinterpret_cast<TC*>(reinterpret_cast<char*>(smf) + lay.vbuf);
   // copies of rows r0 .. r0 + nr - 1 (keys, or values with `half`) into
   // buf, zeros up to a multiple of 16 rows
   auto copy_rows = [&](TC* buf, ptrdiff_t half, int r0, int nr) {
@@ -689,62 +746,70 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
       for (s += groups; s >= rw.per_lane; s -= rw.per_lane) ++j;
     }
   };
-  for (int kq = 0; kq < (rows > 0 ? lanes : 0); ++kq) {
-    int j = tid / rw.per_lane, s = tid % rw.per_lane;
-    for (int r = tid; r < rows; r += kThreads) {
-      avsr::cp_async4(sc + kq * rows + r, rw.bias + kq * rw.bias_q +
-                                               s * rw.bias_s + j * rw.bias_j);
-      for (s += kThreads; s >= rw.per_lane; s -= rw.per_lane) ++j;
-    }
-  }
-  // the queries as the 8-wide B operand (query gq, dims cq, cq+1 and
-  // cq+8, cq+9 of each 16), rounded to bf16 as qs holds them
-  uint32_t qb[kMmaDh / 16][2];
-  if (mma) {
-#pragma unroll
-    for (int kk = 0; kk < kMmaDh / 16; ++kk)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float* q = qs + gq * dh + kk * 16 + hf * 8 + cq;
-        qb[kk][hf] = gq < lanes ? avsr::mma::pack_bf16(q[0], q[1]) : 0u;
+  // the bias of rows r0 .. r0 + nr - 1 into the scores at `at`
+  auto copy_bias = [&](float* at, int r0, int nr) {
+    for (int kq = 0; kq < lanes; ++kq) {
+      int j = (r0 + tid) / rw.per_lane, s = (r0 + tid) % rw.per_lane;
+      for (int r = tid; r < nr; r += kThreads) {
+        avsr::cp_async4(at + kq * stride + r, rw.bias + kq * rw.bias_q +
+                                                  s * rw.bias_s +
+                                                  j * rw.bias_j);
+        for (s += kThreads; s >= rw.per_lane; s -= rw.per_lane) ++j;
       }
-  }
-  for (int t = 0; t < ntiles; ++t) {
-    const int r0 = t * tile, nr = min(tile, rows - r0);
-    copy_rows(kbuf, 0, r0, nr);
-    cp_async_commit();
-    if (ntiles == 1) {  // the values' copies fly during the scores
-      copy_rows(vbuf, rw.half, 0, rows);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    }
+  };
+  // the queries as bf16 pairs in the fresh keys' place (read before the
+  // attention), rows of kQb words (a 16-byte pad: the 8 queries of a
+  // fragment hit distinct banks): the 8-wide B operands (query 8 nt + gq,
+  // dims cq, cq+1 and cq+8, cq+9 of each 16) one 32-bit load each,
+  // rounded to bf16 as qs holds them
+  constexpr int kQb = kMmaDh / 2 + 4;
+  uint32_t* qb = reinterpret_cast<uint32_t*>(smf + lay.kn);
+  if (mma) {
+    for (int e = tid; e < lanes * kMmaDh / 2; e += kThreads) {
+      const int kq = e / (kMmaDh / 2), d = 2 * (e % (kMmaDh / 2));
+      qb[kq * kQb + d / 2] =
+          avsr::mma::pack_bf16(qs[kq * dh + d], qs[kq * dh + d + 1]);
     }
     __syncthreads();
-    step(0);
+  }
+  // the scores of the nr rows in kbuf added into theirs at `at` (the bias)
+  auto scores = [&](float* at, int nr) {
     if (mma) {
-      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T
+      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T for
+      // every query tile from the same K fragments
       for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        uint32_t af[kMmaDh / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kMmaDh / 16; ++kk) {
-          uint32_t af[4];
+        for (int kk = 0; kk < kMmaDh / 16; ++kk)
           avsr::mma::load_a<kMmaDh>(
-              af, reinterpret_cast<const bf16*>(kbuf) + t16 * ld, kk,
+              af[kk], reinterpret_cast<const bf16*>(kbuf) + t16 * ld, kk,
               lane_id);
-          avsr::mma::mma16816(acc, af, qb[kk][0], qb[kk][1]);
-        }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = t16 + gq + (e >> 1) * 8;
-          const int kq = cq + (e & 1);
-          if (kq < lanes && row < nr) {
-            float* sp = sc + kq * rows + r0 + row;
-            *sp = __fadd_rn(acc[e], *sp);
+        for (int nt = 0; nt < kQTiles; ++nt) {
+          if (nt * 8 >= lanes) break;  // uniform over the block
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          const bool live = nt * 8 + gq < lanes;  // zeros past the lanes
+          const uint32_t* qrow = qb + (nt * 8 + gq) * kQb + cq / 2;
+#pragma unroll
+          for (int kk = 0; kk < kMmaDh / 16; ++kk)
+            avsr::mma::mma16816(acc, af[kk], live ? qrow[kk * 8] : 0u,
+                                live ? qrow[kk * 8 + 4] : 0u);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = t16 + gq + (e >> 1) * 8;
+            const int kq = nt * 8 + cq + (e & 1);
+            if (kq < lanes && row < nr) {
+              float* sp = at + kq * stride + row;
+              *sp = __fadd_rn(acc[e], *sp);
+            }
           }
         }
       }
     } else {
+      // cpr threads a row, one query after another, a shuffle summing
+      // their chunks; the pass and query counts are uniform over the
+      // block, so every lane reaches the shuffles
 #pragma unroll 2
       for (int q0 = 0; q0 < nr; q0 += groups) {
         const int r = q0 + grp;
@@ -756,34 +821,28 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
 #pragma unroll
           for (int e = 0; e < kVec; ++e) kv[e] = 0.f;
         }
+        for (int kq = 0; kq < lanes; ++kq) {
+          const float* qrow = qs + kq * dh + chunk * kVec;
+          float part = 0.f;
 #pragma unroll
-        for (int kq = 0; kq < kLanes; ++kq) {
-          if (kq < lanes) {
-            const float* qrow = qs + kq * dh + chunk * kVec;
-            float part = 0.f;
-#pragma unroll
-            for (int e = 0; e < kVec; ++e) part = fmaf(qrow[e], kv[e], part);
-            for (int off = 1; off < cpr; off <<= 1)
-              part += __shfl_xor_sync(kFull, part, off);
-            if (ok && chunk == 0) {
-              float* sp = sc + kq * rows + r0 + r;
-              *sp = __fadd_rn(part, *sp);
-            }
+          for (int e = 0; e < kVec; ++e) part = fmaf(qrow[e], kv[e], part);
+          for (int off = 1; off < cpr; off <<= 1)
+            part += __shfl_xor_sync(kFull, part, off);
+          if (ok && chunk == 0) {
+            float* sp = at + kq * stride + r;
+            *sp = __fadd_rn(part, *sp);
           }
         }
       }
     }
-    __syncthreads();
-  }
-  step(1);
-  // the softmax's statistics: each warp's (max, sum) over its row range
-  // for every query, combined in warp order with the fresh score
-  __shared__ float joint[2 * kMaxLanes];
-  {
-    const int per = cdiv(rows, kWarps);
-    const int b0 = warp * per, b1 = min(b0 + per, rows);
+  };
+  // the statistics of the nr scores at `at`: each warp's (max, sum) over
+  // its row range for every query, folded into the joint in warp order
+  auto fold = [&](const float* at, int nr) {
+    const int per = cdiv(nr, kWarps);
+    const int b0 = warp * per, b1 = min(b0 + per, nr);
     for (int kq = 0; kq < lanes; ++kq) {
-      const float* srow = sc + kq * rows;
+      const float* srow = at + kq * stride;
       float mx = -INFINITY;
       for (int e = b0 + lane_id; e < b1; e += 32) mx = fmaxf(mx, srow[e]);
       mx = avsr::warp_max(mx);
@@ -792,54 +851,108 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
       for (int e = b0 + lane_id; e < b1; e += 32) sum += expf(srow[e] - safe);
       sum = avsr::warp_sum(sum);
       if (lane_id == 0) {
-        red[(warp * kMaxLanes + kq) * 2] = mx;
-        red[(warp * kMaxLanes + kq) * 2 + 1] = sum;
+        red[(warp * lanes + kq) * 2] = mx;
+        red[(warp * lanes + kq) * 2 + 1] = sum;
       }
     }
-  }
-  __syncthreads();
-  if (tid < lanes) {
-    float m = fresh ? cur[tid] : -INFINITY;
-    float den = fresh ? 1.f : 0.f;
-    for (int w = 0; w < kWarps; ++w)
-      avsr::combine_lse(m, den, red[(w * kMaxLanes + tid) * 2],
-                        red[(w * kMaxLanes + tid) * 2 + 1]);
-    joint[2 * tid] = m;
-    joint[2 * tid + 1] = fmaxf(den, 1e-30f);
-  }
-  __syncthreads();
-  for (int kq = 0; kq < lanes; ++kq) {
-    const float m = joint[2 * kq], den = joint[2 * kq + 1];
-    const float inv = __frcp_rn(den);
-    for (int r = tid; r < rows; r += kThreads) {
-      float* sp = sc + kq * rows + r;
-      *sp = round_to<TC>(avsr::mma::div_rn(expf(*sp - m), den, inv));
+    __syncthreads();
+    if (tid < lanes) {
+      float m = joint[2 * tid], den = joint[2 * tid + 1];
+      for (int w = 0; w < kWarps; ++w)
+        avsr::combine_lse(m, den, red[(w * lanes + tid) * 2],
+                          red[(w * lanes + tid) * 2 + 1]);
+      joint[2 * tid] = m;
+      joint[2 * tid + 1] = den;
     }
+    __syncthreads();
+  };
+  // p of the nr scores at `at`, normalised, in the cache dtype
+  auto probs = [&](float* at, int nr) {
+    for (int kq = 0; kq < lanes; ++kq) {
+      const float m = joint[2 * kq], den = joint[2 * kq + 1];
+      const float inv = __frcp_rn(den);
+      for (int r = tid; r < nr; r += kThreads) {
+        float* sp = at + kq * stride + r;
+        *sp = round_to<TC>(avsr::mma::div_rn(expf(*sp - m), den, inv));
+      }
+    }
+  };
+
+  // pass 1: the scores and the joint statistics, the fresh score first
+  if (tid < lanes) {
+    joint[2 * tid] = fresh ? cur[tid] : -INFINITY;
+    joint[2 * tid + 1] = fresh ? 1.f : 0.f;
   }
+  if (one && rows > 0) copy_bias(sc, 0, rows);
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * tile, nr = min(tile, rows - r0);
+    if (!one) copy_bias(sc, r0, nr);
+    copy_rows(kbuf, 0, r0, nr);
+    cp_async_commit();
+    if (ntiles == 1) {  // the values' copies fly during the scores
+      copy_rows(vbuf, rw.half, 0, rows);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    step(0);
+    scores(one ? sc + r0 : sc, nr);
+    __syncthreads();
+    if (!one) fold(sc, nr);
+  }
+  step(1);
+  if (one) fold(sc, rows);
+  if (tid < lanes) joint[2 * tid + 1] = fmaxf(joint[2 * tid + 1], 1e-30f);
+  if (!mma)  // red becomes the P.V's sums
+    for (int e = tid; e < lanes * dh; e += kThreads) red[e] = 0.f;
   __syncthreads();
+
+  // pass 2: p and P.V (in two passes, each tile's scores again first)
+  if (one) {
+    probs(sc, rows);
+    __syncthreads();
+  }
   step(2);
-  if (mma) {
-    // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time
-    constexpr int kMt = kMmaDh / 16;
-    float oacc[kMt][4];
+  // the mma P.V's accumulators: with one query tile, the warp's rows for
+  // all four 16-dim head slices (the warps split the rows); with more,
+  // head slice mt of every query tile over the row groups of one half
+  const bool one_tile = lanes <= 8;
+  const int mt = warp & 3, half = warp >> 2;
+  float oacc[4][4];
 #pragma unroll
-    for (int mt = 0; mt < kMt; ++mt)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[mt][e] = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      const int r0 = t * tile, nr = min(tile, rows - r0);
+    for (int e = 0; e < 4; ++e) oacc[i][e] = 0.f;
+  for (int t = 0; t < ntiles; ++t) {
+    const int r0 = t * tile, nr = min(tile, rows - r0);
+    if (!one) {
+      copy_bias(sc, r0, nr);
+      copy_rows(kbuf, 0, r0, nr);
+      copy_rows(vbuf, rw.half, r0, nr);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      scores(sc, nr);
+      __syncthreads();
+      probs(sc, nr);
+    } else {
       if (ntiles > 1) {
         copy_rows(vbuf, rw.half, r0, nr);
         cp_async_commit();
       }
       cp_async_wait<0>();
-      __syncthreads();
+    }
+    __syncthreads();
+    const float* pt = one ? sc + r0 : sc;
+    if (mma && one_tile) {
+      // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time
       for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
         auto p = [&](int row) {
-          return gq < lanes && row < nr ? sc[gq * rows + r0 + row] : 0.f;
+          return gq < lanes && row < nr ? pt[gq * stride + row] : 0.f;
         };
-        const uint32_t b0 =
-            avsr::mma::pack_bf16(p(t16 + cq), p(t16 + cq + 1));
+        const uint32_t b0 = avsr::mma::pack_bf16(p(t16 + cq), p(t16 + cq + 1));
         const uint32_t b1 =
             avsr::mma::pack_bf16(p(t16 + cq + 8), p(t16 + cq + 9));
         const bf16* v16 = reinterpret_cast<const bf16*>(vbuf) +
@@ -847,74 +960,95 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
                               ld +
                           ((lane_id >> 3) & 1) * 8;
 #pragma unroll
-        for (int mt = 0; mt < kMt; ++mt) {
+        for (int m4 = 0; m4 < 4; ++m4) {
           uint32_t af[4];
-          avsr::mma::ldsm_x4_t(af, v16 + mt * 16);
-          avsr::mma::mma16816(oacc[mt], af, b0, b1);
+          avsr::mma::ldsm_x4_t(af, v16 + m4 * 16);
+          avsr::mma::mma16816(oacc[m4], af, b0, b1);
         }
       }
-      __syncthreads();
-    }
+    } else if (mma) {
+      // out^T (dh x 8 queries) = V^T P^T: warp (mt, half) takes head dims
+      // 16 mt..16 mt + 15 of every query tile over the tile's row groups
+      // half, half + 2, ...; zero p past the tile's rows, whose V rows are
+      // zeros too
+      const bf16* v16 = reinterpret_cast<const bf16*>(vbuf) +
+                        (((lane_id >> 4) & 1) * 8 + (lane_id & 7)) * ld +
+                        ((lane_id >> 3) & 1) * 8 + mt * 16;
+      for (int t16 = half * 16; t16 < nr; t16 += 32) {
+        uint32_t af[4];
+        avsr::mma::ldsm_x4_t(af, v16 + t16 * ld);
 #pragma unroll
-    for (int mt = 0; mt < kMt; ++mt)
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt * 8 >= lanes) break;  // uniform over the block
+          const int kq = nt * 8 + gq;
+          auto p = [&](int row) {
+            return kq < lanes && row < nr ? pt[kq * stride + row] : 0.f;
+          };
+          const uint32_t b0 =
+              avsr::mma::pack_bf16(p(t16 + cq), p(t16 + cq + 1));
+          const uint32_t b1 =
+              avsr::mma::pack_bf16(p(t16 + cq + 8), p(t16 + cq + 9));
+          avsr::mma::mma16816(oacc[nt], af, b0, b1);
+        }
+      }
+    } else {
+      // thread (query, 16-byte chunk) outputs, the rows summed in order
+      for (int e = tid; e < lanes * cpr; e += kThreads) {
+        const int kq = e / cpr, ch = e - kq * cpr;
+        float* o = red + kq * dh + ch * kVec;
+        float acc[kVec];
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) acc[x] = o[x];
+        for (int r = 0; r < nr; ++r) {
+          float vv[kVec];
+          load_chunk(vbuf + r * ld + ch * kVec, vv);
+          const float pr = pt[kq * stride + r];
+#pragma unroll
+          for (int x = 0; x < kVec; ++x) acc[x] = fmaf(pr, vv[x], acc[x]);
+        }
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) o[x] = acc[x];
+      }
+    }
+    __syncthreads();
+  }
+  step(3);
+  if (mma && one_tile) {
+    // the warps' partials, summed in warp order below
+#pragma unroll
+    for (int m4 = 0; m4 < 4; ++m4)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kq = cq + (e & 1);
         if (kq < lanes)
-          red[(warp * lanes + kq) * dh + mt * 16 + gq + (e >> 1) * 8] =
-              oacc[mt][e];
+          red[(warp * lanes + kq) * dh + m4 * 16 + gq + (e >> 1) * 8] =
+              oacc[m4][e];
       }
-  } else {
-    float acc[kLanes][kVec];
+    __syncthreads();
+  } else if (mma) {
+    // the second row half's sums into red, then the first half's added
+    for (int h2 = 1; h2 >= 0; --h2) {
+      if (half == h2) {
 #pragma unroll
-    for (int kq = 0; kq < kLanes; ++kq)
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt * 8 >= lanes) break;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[kq][e] = 0.f;
-    for (int t = 0; t < ntiles; ++t) {
-      const int r0 = t * tile, nr = min(tile, rows - r0);
-      if (ntiles > 1) {
-        copy_rows(vbuf, rw.half, r0, nr);
-        cp_async_commit();
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll 2
-      for (int r = grp; r < nr; r += groups) {
-        float vv[kVec];
-        load_chunk(vbuf + r * ld + chunk * kVec, vv);
-#pragma unroll
-        for (int kq = 0; kq < kLanes; ++kq) {
-          if (kq < lanes) {
-            const float pr = sc[kq * rows + r0 + r];
-#pragma unroll
-            for (int e = 0; e < kVec; ++e)
-              acc[kq][e] = fmaf(pr, vv[e], acc[kq][e]);
+          for (int e = 0; e < 4; ++e) {
+            const int kq = nt * 8 + cq + (e & 1);
+            float* o = red + kq * dh + mt * 16 + gq + (e >> 1) * 8;
+            if (kq < lanes) *o = h2 ? oacc[nt][e] : oacc[nt][e] + *o;
           }
         }
       }
       __syncthreads();
     }
-    // the row groups of a warp (lanes that share a chunk)
-#pragma unroll
-    for (int kq = 0; kq < kLanes; ++kq) {
-      if (kq < lanes) {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          for (int off = cpr; off < 32; off <<= 1)
-            acc[kq][e] += __shfl_xor_sync(kFull, acc[kq][e], off);
-          if (lane_id < cpr)
-            red[(warp * lanes + kq) * dh + chunk * kVec + e] = acc[kq][e];
-        }
-      }
-    }
   }
-  step(3);
-  __syncthreads();
-  // the warps in order, and the fresh row's share
+  // and the fresh row's share
   for (int e = tid; e < lanes * dh; e += kThreads) {
     const int kq = e / dh, d = e % dh;
-    float tot = 0.f;
-    for (int w = 0; w < kWarps; ++w) tot += red[(w * lanes + kq) * dh + d];
+    float tot = red[e];
+    if (mma && one_tile)
+      for (int w = 1; w < kWarps; ++w) tot += red[w * lanes * dh + e];
     if (fresh) {
       const float pc = round_to<TC>(expf(cur[kq] - joint[2 * kq]) /
                                     joint[2 * kq + 1]);
@@ -926,35 +1060,6 @@ __device__ void attend(int lanes, int rows, int dh, const float* qs,
   step(4);
 }
 
-// rows of one attention stage: every row of the larger attention where
-// its keys and values fit kStageBytes and the rest of the block's shared
-// memory (`other` bytes) leaves room, else as many as fit (a multiple of
-// 16); a stage row holds dh elements and a 16-byte pad, the rows rounded up
-// to 16
-__host__ __device__ inline int attn_tile(int rows, int dh, int csize,
-                                         int other) {
-  const int room = kMaxSmem - other < kStageBytes ? kMaxSmem - other
-                                                  : kStageBytes;
-  const int most = room / (2 * (dh * csize + 16));
-  return rows <= (most / 16) * 16 ? rows : (most / 16) * 16;
-}
-
-// bytes of the two stages of `tile` rows
-__host__ __device__ inline size_t attn_stages(int tile, int dh, int csize) {
-  return 2 * static_cast<size_t>(cdiv(tile, 16) * 16) * (dh * csize + 16);
-}
-
-// the attention scratch's bytes before its stages: q, fresh k and v, the
-// fresh scores, the warps' P.V sums (or softmax statistics), and the
-// scores (lanes x rows, a multiple of 4 floats)
-__host__ __device__ inline int attn_fixed(int lanes, int dh, int rows) {
-  return static_cast<int>(sizeof(float)) *
-         (3 * kMaxLanes * dh + kMaxLanes +
-          kWarps * (kMaxLanes * dh > 2 * kMaxLanes ? kMaxLanes * dh
-                                                    : 2 * kMaxLanes) +
-          (lanes * rows + 3) / 4 * 4);
-}
-
 // shared-memory bytes of one block: the GEMV operand stage and the warps'
 // sums (aliased on the tensor-core path), or the attention scratch and its
 // key and value stages (the plan's, through avsr_decoder_layer_config)
@@ -963,9 +1068,7 @@ __host__ __device__ inline size_t smem_bytes(int n, int lanes, int dh,
                                              int csize) {
   const size_t gemv = gemv_bytes(n, wsize);
   const int rows = lanes * s_dec > s_enc ? lanes * s_dec : s_enc;
-  const int fixed = attn_fixed(lanes, dh, rows);
-  const size_t attn =
-      fixed + attn_stages(attn_tile(rows, dh, csize, fixed + 16), dh, csize);
+  const size_t attn = attn_layout(lanes, dh, rows, csize).bytes;
   const size_t body = gemv > attn ? gemv : attn;
   return (body + 15) / 16 * 16;
 }
@@ -1025,19 +1128,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const size_t gtid = static_cast<size_t>(blockIdx.x) * kThreads + tid;
   const size_t gstride = static_cast<size_t>(gridDim.x) * kThreads;
   const int s_lim = min(a.pos, s_dec);  // the cache rows attended
-  // attention scratch: q (lanes, dh), fresh k and v, scores, P.V partials,
-  // the key and value stages
-  float* qs = reinterpret_cast<float*>(smem);
-  float* kn = qs + kMaxLanes * dh;
-  float* vn = kn + kMaxLanes * dh;
-  float* cur = vn + kMaxLanes * dh;
-  float* red = cur + kMaxLanes;
-  float* sc = red + kWarps * kMaxLanes * dh;
-  const int attn_rows = max(lanes * s_dec, s_enc);
-  const int tile = attn_tile(attn_rows, dh, sizeof(TC),
-                             attn_fixed(lanes, dh, attn_rows) + 16);
-  TC* kbuf = reinterpret_cast<TC*>(sc + cdiv(lanes * attn_rows, 4) * 4);
-  TC* vbuf = kbuf + attn_stages(tile, dh, sizeof(TC)) / 2 / sizeof(TC);
+  // attention scratch (attn_layout): q (lanes, dh), fresh k and v and
+  // their scores, then attend's own
+  float* smf = reinterpret_cast<float*>(smem);
+  const AttnLayout lay =
+      attn_layout(lanes, dh, max(lanes * s_dec, s_enc), sizeof(TC));
+  float* qs = smf + lay.qs;
+  float* kn = smf + lay.kn;
+  float* vn = smf + lay.vn;
+  float* cur = smf + lay.cur;
   // the steps of phase p, marked where p is the traced one
   auto steps = [&](int p) {
     return [&a, p](int k) {
@@ -1099,29 +1198,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     }
     __syncthreads();
     const int c2 = 2 * c;
-    // the lanes' sums sized for 4 lanes where they fit (the beam's 3)
-    auto run = [&](auto kl) {
-      const Rows<TC> rw{a.kv + lane0 * s_dec * c2 + h * dh,
-                        s_lim,
-                        static_cast<size_t>(s_dec) * c2,
-                        static_cast<size_t>(c2),
-                        static_cast<ptrdiff_t>(c),
-                        a.lane_bias + lane0 * s_dec * lanes,
-                        static_cast<size_t>(s_dec) * lanes,
-                        static_cast<size_t>(lanes),
-                        1};
-      attend<TC, decltype(kl)::value>(
-          lanes, lanes * s_lim, dh, qs, rw,
-          true, cur, vn, sc, red, kbuf, vbuf, tile,
-          [&](int kq, int d, float v) {
-            a.opnd[(lane0 + kq) * kf + h * dh + d] = avsr::from_float<TW>(v);
-          },
-          steps(2));
-    };
-    if (lanes <= 4)
-      run(std::integral_constant<int, 4>());
-    else
-      run(std::integral_constant<int, kMaxLanes>());
+    const Rows<TC> rw{a.kv + lane0 * s_dec * c2 + h * dh,
+                      s_lim,
+                      static_cast<size_t>(s_dec) * c2,
+                      static_cast<size_t>(c2),
+                      static_cast<ptrdiff_t>(c),
+                      a.lane_bias + lane0 * s_dec * lanes,
+                      static_cast<size_t>(s_dec) * lanes,
+                      static_cast<size_t>(lanes),
+                      1};
+    attend<TC>(lanes, lanes * s_lim, dh, smf, lay, rw, true,
+               [&](int kq, int d, float v) {
+                 a.opnd[(lane0 + kq) * kf + h * dh + d] =
+                     avsr::from_float<TW>(v);
+               },
+               steps(2));
   }
   mark(a, 5);
   grid.sync();
@@ -1163,29 +1254,21 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
           round_to<TW>(__ldcg(a.q2 + (lane0 + kq) * c + h * dh + d)));
     }
     __syncthreads();
-    // the lanes' sums sized for 4 lanes where they fit (the beam's 3)
-    auto run = [&](auto kl) {
-      const Rows<TC> rw{a.src_k + src0 * c + h * dh,
-                        s_enc,
-                        0,
-                        static_cast<size_t>(c),
-                        a.src_v - a.src_k,
-                        a.mem_bias + src0,
-                        0,
-                        1,
-                        0};
-      attend<TC, decltype(kl)::value>(
-          lanes, s_enc, dh, qs, rw, false, cur, vn,
-          sc, red, kbuf, vbuf, tile,
-          [&](int kq, int d, float v) {
-            a.opnd[(lane0 + kq) * kf + h * dh + d] = avsr::from_float<TW>(v);
-          },
-          steps(6));
-    };
-    if (lanes <= 4)
-      run(std::integral_constant<int, 4>());
-    else
-      run(std::integral_constant<int, kMaxLanes>());
+    const Rows<TC> rw{a.src_k + src0 * c + h * dh,
+                      s_enc,
+                      0,
+                      static_cast<size_t>(c),
+                      a.src_v - a.src_k,
+                      a.mem_bias + src0,
+                      0,
+                      1,
+                      0};
+    attend<TC>(lanes, s_enc, dh, smf, lay, rw, false,
+               [&](int kq, int d, float v) {
+                 a.opnd[(lane0 + kq) * kf + h * dh + d] =
+                     avsr::from_float<TW>(v);
+               },
+               steps(6));
   }
   mark(a, 13);
   grid.sync();

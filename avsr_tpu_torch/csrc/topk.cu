@@ -37,17 +37,18 @@
 // merged list holds both (its entry c is the lowest index holding -inf).
 // `finish` writes it. NaN entries are never chosen.
 //
-// k > kMaxK (a pre-beam of 1.5 x beam over 32, beams of 22 and more): a
-// block of kWideThreads a row, k rounds of a block-wide arg-max. Round r
-// takes the best element that comes after round r-1's winner in the total
-// order "larger value, then lower index" (each thread its own best over
-// its strided elements, then avsr::block_best), so nothing is masked or
-// written back and the row is only read; the rule is C1's, exact. The
-// first round whose best is -inf starts the -inf rule above: its element
-// is the lowest index holding -inf, and every later slot takes the lower
-// of it and the lowest index chosen before. The rounds re-read the row
-// from L1/L2 (20 KB at V=5049); k rounds of two block barriers bound it,
-// which is later work to shorten.
+// k > kMaxK (a pre-beam of 1.5 x beam over 32, beams of 22 and more, and
+// the flat top-k of beams above 32): a block of kWideThreads a row, a radix
+// select over the row staged once in shared memory (topk_wide_kernel): a
+// few 8-bit digit passes find the k-th largest key, one compaction in
+// index order takes the keys above it and the lowest-index keys equal to
+// it, and a bitonic sort of next_pow2(k) entries orders them by (value
+// descending, index ascending). The rule is C1's, exact: the same
+// selection as k rounds of (max, lowest index holding it); a row with
+// fewer than k entries above -inf fills the rest with the -inf rule above;
+// NaN is never chosen. Bound: the row's 20 KB read once at V=5049 and a
+// few barriers a pass; rows up to kWideSmemMax / 4 entries (~57,000 at
+// k=33).
 #include <climits>
 
 #include "common.cuh"
@@ -61,6 +62,10 @@ constexpr int kChunks = 8;     // 16-byte loads in flight a thread
 constexpr int kFlatWarps = 4;  // rows a block of the warp-a-row kernel
 constexpr int kWarpRowMax = 1024;  // longest row taken a warp a row
 constexpr int kWideThreads = 256;  // a row of the k > kMaxK kernel
+// the k > kMaxK kernel's dynamic shared memory at most: 227 KB less its
+// static 1.1 KB
+constexpr int kWideSmemMax = 230400;
+static_assert(kWideThreads == 256, "a thread a digit bin");
 
 // "a before b": the larger value, then the smaller index
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
@@ -234,53 +239,202 @@ __global__ void __launch_bounds__(kFlatWarps * 32)
            ids + static_cast<size_t>(row_id) * k);
 }
 
-// k > kMaxK: a block a row, k rounds of a block-wide arg-max after the
-// previous round's winner
+// The k > kMaxK kernel's dynamic shared memory: the row's keys (v, 8-byte
+// aligned) and the sort buffer (next_pow2(k) 64-bit entries)
+__host__ __device__ inline size_t wide_smem_bytes(int v, int k) {
+  int n = 1;
+  while (n < k) n <<= 1;
+  return (static_cast<size_t>(v) + 1) / 2 * 8 + static_cast<size_t>(n) * 8;
+}
+
+// (exclusive prefix, total) of x over the block's threads in thread order
+__device__ __forceinline__ unsigned block_scan(unsigned x, unsigned* total,
+                                               unsigned* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned inc = x;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned y = __shfl_up_sync(0xffffffffu, inc, off);
+    if (lane >= off) inc += y;
+  }
+  if (lane == 31) tmp[warp] = inc;
+  __syncthreads();
+  unsigned before = 0, all = 0;
+#pragma unroll
+  for (int w = 0; w < kWideThreads / 32; ++w) {
+    before += w < warp ? tmp[w] : 0u;
+    all += tmp[w];
+  }
+  __syncthreads();  // tmp free again
+  *total = all;
+  return before + inc - x;
+}
+
+// k > kMaxK: a block a row, a radix select. The row is staged once in
+// shared memory as order keys (NaN and -inf as 0, below every other key);
+// if more than k keys lie above 0, 8-bit digit passes, most significant
+// first (a histogram of the keys that share the prefix so far, with
+// warp-aggregated shared-memory atomics, then a block scan from the top
+// digit), find the k-th largest key T and how many keys lie above it (a
+// pass stops early where all keys of the chosen digit are taken). Then
+// every key above T and the lowest-index keys equal to T, up to k, are
+// compacted in index order (each thread a contiguous range, a block scan
+// of the threads' counts) and sorted by (key descending, index ascending)
+// with a bitonic sort of next_pow2(k) entries. Where c <= k keys lie above
+// 0, all c are taken and slots c..k-1 get C1's -inf rule: -inf at the
+// lower of the lowest index holding -inf and the lowest index chosen.
 __global__ void __launch_bounds__(kWideThreads)
     topk_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
                      long long* __restrict__ ids, int v, int k) {
-  __shared__ unsigned skey[kWideThreads / 32];
-  __shared__ int sidx[kWideThreads / 32];
+  extern __shared__ __align__(16) unsigned char wide_smem[];
+  __shared__ unsigned hist[256];
+  __shared__ unsigned tmp[kWideThreads / 32];
+  __shared__ unsigned s_digit, s_above, s_count;
+  __shared__ int s_neg_inf, s_lowest;
+  unsigned* keys = reinterpret_cast<unsigned*>(wide_smem);
+  unsigned long long* sel = reinterpret_cast<unsigned long long*>(
+      wide_smem + (static_cast<size_t>(v) + 1) / 2 * 8);
+  const int tid = threadIdx.x, lane = tid & 31;
   const size_t r0 = blockIdx.x;
   const float* row = x + r0 * v;
+  if (tid == 0) {
+    s_neg_inf = INT_MAX;
+    s_lowest = INT_MAX;
+  }
+
+  // the row into shared memory as keys: its body in 16-byte loads from its
+  // first 16-byte boundary, head and tail in scalar loads; the count of
+  // keys above 0 and the lowest index holding -inf
+  const int head = min(v, static_cast<int>(
+                              (16 - reinterpret_cast<uintptr_t>(row) % 16) %
+                              16 / 4));
+  const int nvec = (v - head) / 4;
+  const int body_end = head + 4 * nvec;
+  unsigned above = 0;
+  int neg_inf = INT_MAX;
+  auto put = [&](float xv, int e) {
+    const bool none = xv != xv || xv == -INFINITY;
+    keys[e] = none ? 0u : avsr::order_key(xv);
+    above += !none;
+    if (xv == -INFINITY) neg_inf = min(neg_inf, e);
+  };
+  if (tid < head) put(__ldg(row + tid), tid);
+  if (tid < v - body_end) put(__ldg(row + body_end + tid), body_end + tid);
+  const float4* body = reinterpret_cast<const float4*>(row + head);
+  for (int q = tid; q < nvec; q += kWideThreads) {
+    const float4 c = __ldg(body + q);
+    const int e = head + 4 * q;
+    put(c.x, e);
+    put(c.y, e + 1);
+    put(c.z, e + 2);
+    put(c.w, e + 3);
+  }
+  neg_inf = __reduce_min_sync(0xffffffffu, neg_inf);
+  if (lane == 0 && neg_inf != INT_MAX) atomicMin(&s_neg_inf, neg_inf);
+  unsigned c_above;
+  block_scan(above, &c_above, tmp);  // its barriers publish the keys too
+
+  // the digit passes: keys with (key & mask) > prefix are taken, and
+  // `need` of those with (key & mask) == prefix, the lowest indices first
+  unsigned prefix = 0, mask = 0xffffffffu;
+  unsigned need = 0;  // c <= k: every key above 0, none equal to 0
+  if (c_above > static_cast<unsigned>(k)) {
+    need = k;
+    mask = 0;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      hist[tid] = 0;  // kWideThreads == 256 bins
+      __syncthreads();
+      for (int e0 = 0; e0 < v; e0 += kWideThreads) {
+        const int e = e0 + tid;
+        const unsigned key = e < v ? keys[e] : 0u;
+        const bool in = e < v && (key & mask) == prefix;
+        const unsigned digit = in ? (key >> shift) & 255u : 256u;
+        const unsigned peers = __match_any_sync(0xffffffffu, digit);
+        if (in && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[digit], __popc(peers));
+      }
+      __syncthreads();
+      // thread t takes digit 255 - t: the keys of the digits above it
+      const unsigned cnt = hist[255 - tid];
+      unsigned total;
+      const unsigned higher = block_scan(cnt, &total, tmp);
+      if (higher < need && higher + cnt >= need) {
+        s_digit = 255 - tid;
+        s_above = higher;
+        s_count = cnt;
+      }
+      __syncthreads();
+      need -= s_above;
+      prefix |= s_digit << shift;
+      mask |= 255u << shift;
+      if (s_count == need) break;  // every key of the digit is taken
+    }
+  }
+
+  // compaction in index order, thread t taking elements [t per, (t+1) per)
+  const int per = (v + kWideThreads - 1) / kWideThreads;
+  const int e0 = min(v, tid * per), e1 = min(v, e0 + per);
+  unsigned n_gt = 0, n_eq = 0;
+  for (int e = e0; e < e1; ++e) {
+    const unsigned km = keys[e] & mask;
+    n_gt += km > prefix;
+    n_eq += km == prefix;
+  }
+  unsigned tot_gt, tot_eq;
+  unsigned at_gt = block_scan(n_gt, &tot_gt, tmp);
+  unsigned at_eq = block_scan(n_eq, &tot_eq, tmp);
+  const unsigned m = tot_gt + min(need, tot_eq);  // entries chosen
+  int lowest = INT_MAX;
+  for (int e = e0; e < e1; ++e) {
+    const unsigned key = keys[e];
+    const unsigned km = key & mask;
+    unsigned slot;
+    if (km > prefix) {
+      slot = at_gt++;
+    } else if (km == prefix && at_eq < need) {
+      slot = tot_gt + at_eq++;
+    } else {
+      continue;
+    }
+    sel[slot] = (static_cast<unsigned long long>(key) << 32) |
+                (0xffffffffu - static_cast<unsigned>(e));
+    lowest = min(lowest, e);
+  }
+  lowest = __reduce_min_sync(0xffffffffu, lowest);
+  if (lane == 0 && lowest != INT_MAX) atomicMin(&s_lowest, lowest);
+  int n = 1;
+  while (n < static_cast<int>(m)) n <<= 1;
+  for (int i = m + tid; i < n; i += kWideThreads) sel[i] = 0ull;
+  __syncthreads();
+
+  // bitonic sort of the n entries, descending
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < n / 2; i += kWideThreads) {
+        const int lo = 2 * i - (i & (stride - 1));
+        const int hi = lo + stride;
+        const unsigned long long a = sel[lo], b = sel[hi];
+        const bool down = (lo & size) == 0;
+        if (down ? a < b : a > b) {
+          sel[lo] = b;
+          sel[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
   float* ov = vals + r0 * k;
   long long* oi = ids + r0 * k;
-  const unsigned key_neg_inf = avsr::order_key(-INFINITY);
-  unsigned pk = 0xffffffffu;  // the previous winner: nothing comes before
-  int pi = -1;
-  int lowest = INT_MAX;  // the lowest index chosen so far
-  for (int r = 0; r < k; ++r) {
-    // key 0 (a NaN's bits) is below every value's key: "none"
-    unsigned bk = 0u;
-    int bi = INT_MAX;
-    for (int e = threadIdx.x; e < v; e += kWideThreads) {
-      const float xv = __ldg(row + e);
-      if (xv != xv) continue;
-      const unsigned key = avsr::order_key(xv);
-      // after (pk, pi) in the order, and better than this thread's best
-      // (its e rise, so an equal key never beats it)
-      if ((key < pk || (key == pk && e > pi)) && key > bk) {
-        bk = key;
-        bi = e;
-      }
+  const int j = min(s_neg_inf, s_lowest);  // the -inf rule's index
+  for (int r = tid; r < k; r += kWideThreads) {
+    if (r < static_cast<int>(m)) {
+      ov[r] = avsr::key_value(static_cast<unsigned>(sel[r] >> 32));
+      oi[r] = 0xffffffffu - static_cast<unsigned>(sel[r]);
+    } else {
+      ov[r] = -INFINITY;
+      oi[r] = j;
     }
-    avsr::block_best(bk, bi, skey, sidx);
-    if (bk <= key_neg_inf) {
-      // the -inf rule for rounds r..k-1 (bi: the lowest index holding -inf)
-      const int j = min(bi, lowest);
-      for (int q = r + threadIdx.x; q < k; q += kWideThreads) {
-        ov[q] = -INFINITY;
-        oi[q] = j;
-      }
-      return;
-    }
-    if (threadIdx.x == 0) {
-      ov[r] = avsr::key_value(bk);
-      oi[r] = bi;
-    }
-    pk = bk;
-    pi = bi;
-    lowest = min(lowest, bi);
   }
 }
 
@@ -308,7 +462,14 @@ extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (k > kMaxK) {
-    topk_wide_kernel<<<rows, kWideThreads, 0, s>>>(x, vals, ids, v, k);
+    const size_t smem = wide_smem_bytes(v, k);
+    if (smem > kWideSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024 &&
+        (err = cudaFuncSetAttribute(
+             topk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kWideSmemMax)) != cudaSuccess)
+      return static_cast<int>(err);
+    topk_wide_kernel<<<rows, kWideThreads, smem, s>>>(x, vals, ids, v, k);
     err = cudaGetLastError();
   } else if (k <= 4)
     err = launch<4>(x, vals, ids, rows, v, k, s);

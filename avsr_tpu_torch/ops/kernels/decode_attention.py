@@ -6,9 +6,10 @@ dispatches on the tensors' device: on the CPU it runs
 ``decode_attention_plain``, on a CUDA device it launches
 ``csrc/decode_attention.cu`` over thread-block clusters, with the launch
 plan (``launch_plan``: cluster size, rows a rank, tile, shared memory)
-computed here. Beyond ``MAX_LANES`` beam lanes (beams of 9 and more) it
-launches the source's block-a-query kernel instead (no plan);
-``wide_launches`` counts those launches.
+computed here. One launch reads each (utterance, head)'s prefix once for
+up to ``GROUP_LANES`` beam lanes (their queries as up to eight 8-lane mma
+operands); ``wide_launches`` counts the launches beyond ``MAX_LANES``
+lanes (one operand tile: beams of 9 and more).
 """
 
 from __future__ import annotations
@@ -22,18 +23,25 @@ import torch
 from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.kernels import _build
 
-# the kernel's launch: 128 threads (4 warps) a block, clusters of a portable
+# the kernel's launch: 256 threads (8 warps) a block, clusters of a portable
 # size (at most 8 blocks), one stage buffer of at most STAGE_BYTES, and the
 # opt-in shared-memory limit of a block on the H100 (227 KB)
-THREADS = 128
+THREADS = 256
 WARPS = THREADS // 32
 CLUSTER_SIZES = (2, 4, 8)
-# G=2: the fastest of G = 1, 2, 4, 8 at B=8 and at B=32 (H=16), the two
-# batches measured (tools/decode_variants.py on the H100)
+# G=2: the fastest of G = 1, 2, 4, 8 at B=8 (H=16) for one query tile; at
+# B=32 G=1 is (tools/decode_variants.py on the H100): where the (utterance,
+# head) pairs fill the card's SMS SMs twice over, one block a pair
 CLUSTER = 2
+SMS = 132  # the H100's SMs
 STAGE_BYTES = 48 * 1024
 SMEM_MAX = 232448
-MAX_LANES = 8  # csrc/decode_attention.cu kMaxLanes
+# two blocks an SM: each with its 1 KB reserve within the SM's 228 KB
+PAIR_SMEM = 113 * 1024
+PAIR_TILE = 64  # the least tile of a two-blocks-an-SM plan
+TWO_PASS_TILE = 128  # the tile of a two-pass plan
+MAX_LANES = 8  # csrc/decode_attention.cu kTileLanes: one mma query tile
+GROUP_LANES = 64  # csrc/decode_attention.cu kGroupLanes: a block's queries
 
 
 def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
@@ -111,55 +119,105 @@ def output_bound(pos: int, q, kv_cache, lane_bias, lanes: int, heads: int,
 class Plan(NamedTuple):
     """A launch of the kernel: ``cluster`` blocks share one (utterance,
     head); rank r takes rows [r * rows_per_rank, (r + 1) * rows_per_rank)
-    of the ``rows`` = lanes * (min(pos, S-1) + 1) (j, s) rows of the
-    prefix, in tiles of ``tile`` rows (two stage buffers), with ``smem``
-    bytes of dynamic shared memory."""
+    (a multiple of 4) of the ``rows`` = lanes * (min(pos, S-1) + 1) rows
+    of the prefix, row r = s * lanes + j (position s of stored lane j),
+    in tiles of ``tile`` rows (two stage buffers), holding the scores of
+    ``chunk`` rows at once: one pass where ``chunk`` is
+    ``rows_per_rank``, else two over chunks of whole tiles, the second
+    taking the scores again; query groups of ``group_lanes`` lanes,
+    ``groups`` of them (the grid's third axis), each reading the prefix
+    once; ``smem`` bytes of dynamic shared memory."""
     cluster: int
     rows_per_rank: int
     tile: int
     smem: int
     grid: tuple
     rows: int
+    chunk: int
+    group_lanes: int
+    groups: int
 
     def rank_rows(self, rank: int) -> range:
         begin = min(rank * self.rows_per_rank, self.rows)
         return range(begin, min(begin + self.rows_per_rank, self.rows))
 
+    def rank_chunks(self, rank: int) -> list:
+        """The rank's rows in the chunks whose scores it holds at once."""
+        rows = self.rank_rows(rank)
+        return [range(r, min(r + self.chunk, rows.stop))
+                for r in range(rows.start, rows.stop, self.chunk)]
 
-def smem_bytes(lanes: int, dh: int, esize: int, rows_per_rank: int,
+
+def smem_bytes(lanes: int, dh: int, esize: int, chunk: int,
                tile: int) -> int:
     """Shared memory of one block (``smem_bytes`` of the CUDA source): two
     stage buffers of ``tile`` rows rounded up to 16, a row dh cache
-    elements and a 16-byte pad; fp32 scores (lanes, rows_per_rank); the
-    local and the joint (m, l) per query; the warps' partial outputs and
-    the rank's (lanes, dh)."""
+    elements and a 16-byte pad; fp32 scores (lanes, chunk), rounded up to
+    4 floats; the local and the joint (m, l) per query; the queries and
+    the rank's partial outputs, (lanes, dh) each. ``lanes``: a query
+    group's."""
     return (2 * -(-tile // 16) * 16 * (dh * esize + 16)
-            + 4 * (lanes * rows_per_rank + 4 * lanes
-                   + (WARPS + 1) * lanes * dh))
+            + 4 * (-(-lanes * chunk // 4) * 4 + 4 * lanes + 2 * lanes * dh))
+
+
+def _tiles(budget: int, lanes: int, dh: int, esize: int, rpr: int,
+           least: int):
+    """(tile, chunk = rpr) of the largest tile (the rank's rows where they
+    fit STAGE_BYTES, else a multiple of 16 rows, at least ``least``) whose
+    one-pass layout (the scores of all the rank's rows) fits ``budget``
+    bytes; None where none does."""
+    most = min(rpr, max(16, STAGE_BYTES // (dh * esize) // 16 * 16))
+    for tile in [most] + list(range(most // 16 * 16, least - 1, -16)):
+        if 1 <= tile and smem_bytes(lanes, dh, esize, rpr, tile) <= budget:
+            return tile, rpr
+    return None
 
 
 @functools.lru_cache(maxsize=4096)
 def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
                 pos: int, esize: int, cluster: int | None = None) -> Plan:
-    """The kernel's launch for one step. ``cluster`` forces G (1, 2, 4 or
-    8; the variants tool sweeps it); by default CLUSTER, raised while the
-    scores of a rank's rows overflow shared memory. The tile is the whole
-    chunk where it fits STAGE_BYTES. Raises ValueError where no plan
-    fits."""
+    """The kernel's launch for one step. Lanes beyond GROUP_LANES split
+    into even query groups. ``cluster`` forces G (1, 2, 4 or 8; the
+    variants tool sweeps it); by default CLUSTER (1 for one query tile
+    where B*H pairs fill the card twice), raised while a rank's scores
+    would not fit one pass. A one-pass layout within PAIR_SMEM (two
+    blocks an SM, a tile of at least PAIR_TILE rows) at the least G that
+    gives one comes first (at 22 lanes over a 192-row cache G=8 two an
+    SM measured 0.18 ms at B=8 against G=2's 0.27 one an SM), else within
+    SMEM_MAX; where no G gives one, the largest G's rank holds the scores
+    of a chunk of its rows at a time and takes them twice. Raises
+    ValueError where no plan fits."""
     rows = lanes * (min(pos, s_max - 1) + 1)
-    row_bytes = dh * esize
+    groups = -(-lanes // GROUP_LANES)
+    gl = -(-lanes // groups)
+    least = 1 if lanes <= MAX_LANES and b * heads >= 2 * SMS else CLUSTER
     sizes = (cluster,) if cluster else tuple(
-        g for g in CLUSTER_SIZES if g >= CLUSTER)
-    for g in sizes:
-        rpr = -(-rows // g)
-        fixed = smem_bytes(lanes, dh, esize, rpr, 0)
-        # whole 16-row groups of padded rows in the two stage buffers
-        room = (SMEM_MAX - fixed) // (2 * (row_bytes + 16)) // 16 * 16
-        tile = min(rpr, max(16, STAGE_BYTES // row_bytes // 16 * 16), room)
-        if tile >= 1:
-            return Plan(g, rpr, tile,
-                        smem_bytes(lanes, dh, esize, rpr, tile),
-                        (heads * g, b), rows)
+        g for g in (1, *CLUSTER_SIZES) if g >= least)
+
+    def rank_rows(g):  # a multiple of 4: each rank's bias 16-byte aligned
+        return -(-rows // (4 * g)) * 4
+
+    def plan(g, tile, chunk):
+        rpr = rank_rows(g)
+        return Plan(g, rpr, tile, smem_bytes(gl, dh, esize, chunk, tile),
+                    (heads * g, b), rows, chunk, gl, groups)
+
+    for budget, pair in ((PAIR_SMEM, True), (SMEM_MAX, False)):
+        for g in sizes:
+            rpr = rank_rows(g)
+            got = _tiles(budget, gl, dh, esize, rpr,
+                         min(PAIR_TILE, rpr) if pair else 1)
+            if got:
+                return plan(g, *got)
+    # two passes: tiles of up to TWO_PASS_TILE rows, the most whole tiles
+    # of scores that fit beside them
+    g = sizes[-1]
+    rpr = rank_rows(g)
+    for tile in range(min(TWO_PASS_TILE, rpr), 0, -16):
+        room = SMEM_MAX - smem_bytes(gl, dh, esize, 0, tile)
+        chunk = room // (4 * gl) // tile * tile
+        if chunk >= tile:
+            return plan(g, tile, chunk)
     raise ValueError(f"no launch of decode_attention fits {SMEM_MAX} bytes "
                      f"of shared memory: lanes={lanes}, dh={dh}, "
                      f"s_max={s_max}, pos={pos}, cluster={cluster}")
@@ -195,29 +253,8 @@ def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
             raise ValueError("inputs must be contiguous")
 
 
-def _launch_wide(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
-    n, s_max, c2 = kv_cache.shape
-    fn = _build.function(
-        "avsr_decode_attention_wide",
-        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
-    )
-    kv_row = kv_row.to(kv_cache.dtype)
-    if kv_row.data_ptr() % 16:  # the kernel reads it 16 bytes at a time
-        kv_row = kv_row.clone()
-    out = torch.empty_like(q)
-    err = fn(q.data_ptr(), kv_cache.data_ptr(), lane_bias.data_ptr(),
-             kv_row.data_ptr(), out.data_ptr(), n // lanes, lanes, heads,
-             c2 // 2 // heads, s_max, int(pos), _build.dtype_code(q.dtype),
-             _build.dtype_code(kv_cache.dtype),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("decode_attention", err)
-    decode_attention.launches += 1
-    decode_attention.wide_launches += 1
-    return out, kv_cache
-
-
 def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
-            cluster=None):
+            cluster=None, plan=None):
     n, s_max, c2 = kv_cache.shape
     dh = c2 // 2 // heads
     esize = kv_cache.element_size()
@@ -229,26 +266,28 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
                          f"got dh={dh}")
     if kv_cache.data_ptr() % 16:
         raise ValueError("kv_cache must be 16-byte aligned")
-    if lanes > MAX_LANES:
-        return _launch_wide(pos, q, kv_cache, lane_bias, lanes, heads, kv_row)
-    plan = launch_plan(n // lanes, lanes, heads, dh, s_max, int(pos), esize,
-                       cluster)
+    if plan is None:
+        plan = launch_plan(n // lanes, lanes, heads, dh, s_max, int(pos),
+                           esize, cluster)
     fn = _build.function(
         "avsr_decode_attention",
-        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 12 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 14 + (ctypes.c_void_p,),
     )
     kv_row = kv_row.to(kv_cache.dtype)
     if kv_row.data_ptr() % 16:  # the kernel copies it 16 bytes at a time
         kv_row = kv_row.clone()
+    if q.data_ptr() % 16:  # the mma path reads q 16 bytes at a time
+        q = q.clone()
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), kv_cache.data_ptr(), lane_bias.data_ptr(),
              kv_row.data_ptr(), out.data_ptr(), n // lanes, lanes, heads, dh,
              s_max, int(pos), _build.dtype_code(q.dtype),
              _build.dtype_code(kv_cache.dtype), plan.cluster,
-             plan.rows_per_rank, plan.tile, plan.smem,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             plan.rows_per_rank, plan.tile, plan.chunk, plan.group_lanes,
+             plan.smem, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)
     decode_attention.launches += 1
+    decode_attention.wide_launches += lanes > MAX_LANES
     return out, kv_cache
 
 

@@ -6,7 +6,8 @@ with lazy beam reorder and the step's fresh K|V row, out-projection,
 LN2 + cross-attention over the shared source K/V, LN3 + ReLU FFN, each with
 its residual. ``decoder_layer_step`` dispatches on the device: CPU tensors
 run ``decoder_layer_step_plain``, CUDA tensors launch the cooperative kernel
-of ``csrc/decoder_layer.cu`` once, at any batch. Its launch plan is here
+of ``csrc/decoder_layer.cu`` once, at any batch, for up to ``MAX_LANES``
+beam lanes an utterance. Its launch plan is here
 (``launch_plan``): the items of each of the six GEMVs (rows a multiple of
 8, and K slices: split-K) over the grid, so that the blocks share every
 GEMV phase. The kernel's layout (a block's shared memory, the grid of
@@ -40,6 +41,7 @@ from avsr_tpu_torch.ops.kernels import _build
 
 NEG_INF = -1.0e30
 LN_EPS = 1e-12
+MAX_LANES = 32  # csrc/decoder_layer.cu kMaxLanes: beam lanes an utterance
 
 
 class PackedLayer(NamedTuple):
@@ -319,8 +321,9 @@ def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
     c = c2 // 2
     f = packed.w_1.shape[0]
     dev = x.device
-    if lanes > 8:
-        raise ValueError(f"the kernel takes <= 8 beam lanes, got {lanes}")
+    if lanes > MAX_LANES:
+        raise ValueError(f"the kernel takes <= {MAX_LANES} beam lanes, got "
+                         f"{lanes}")
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")

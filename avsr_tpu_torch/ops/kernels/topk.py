@@ -6,7 +6,9 @@ device: on the CPU it runs ``topk_plain``, on a CUDA device it launches
 ``csrc/topk.cu``. For k up to ``MAX_K``: rows longer than
 ``WARP_ROW_MAX`` (the beam's vocabulary rows) a block a row, shorter ones
 (its flat (B, K*(S'+1)) top-k) a warp a row. Beyond ``MAX_K`` (the
-pre-beam of a beam of 22 or more): a block a row, k block-wide rounds.
+pre-beam of a beam of 22 or more): a block a row, a radix select over the
+row staged in shared memory, for rows whose ``wide_smem_bytes`` fit
+``WIDE_SMEM_MAX``.
 ``launches`` counts all three, ``flat_launches`` the warp-a-row kernel's
 and ``wide_launches`` the k > ``MAX_K`` kernel's. torch.topk is not used:
 its tie order on CUDA is not documented.
@@ -22,6 +24,14 @@ from avsr_tpu_torch.ops.kernels import _build
 
 MAX_K = 32  # csrc/topk.cu kMaxK: the largest k of the per-thread lists
 WARP_ROW_MAX = 1024  # csrc/topk.cu kWarpRowMax
+WIDE_SMEM_MAX = 230400  # csrc/topk.cu kWideSmemMax
+
+
+def wide_smem_bytes(v: int, k: int) -> int:
+    """The k > MAX_K kernel's dynamic shared memory (csrc/topk.cu
+    ``wide_smem_bytes``): the row's keys, 8-byte aligned, and a sort buffer
+    of next_pow2(k) 64-bit entries."""
+    return (v + 1) // 2 * 8 + 8 * (1 << (k - 1).bit_length())
 
 
 def topk_plain(x, k: int):
@@ -43,6 +53,10 @@ def _launch(x2, k):
     if x2.device.index != torch.cuda.current_device():
         raise ValueError(f"tensor on {x2.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    if k > MAX_K and wide_smem_bytes(v, k) > WIDE_SMEM_MAX:
+        raise ValueError(f"topk_lastdim at k={k} > {MAX_K} takes rows whose "
+                         f"keys and sort buffer fit {WIDE_SMEM_MAX} bytes: "
+                         f"v={v} needs {wide_smem_bytes(v, k)}")
     fn = _build.function(
         "avsr_topk_lastdim",
         (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),

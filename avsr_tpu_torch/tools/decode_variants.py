@@ -15,21 +15,24 @@ once, one ``nvcc`` per source, under ``build/decode_variants/NAME/``; then
 each runs in a process of its own, which loads its library and
 ``decode_attention`` and ``cumlogsumexp`` from its wrappers and:
 
-- ``decode_attention`` at pos 250 (the whole 192-row cache read) at B=8
-  and B=32 (``chip_smoke.decode_case``): holds it against this checkout's
-  twin (the cache bit-exact, out's max abs error), then times it warm (one
-  cache)
-  and cold (rotating over six caches, as the six decoder layers read
-  them), at every cluster size G of CLUSTERS where the wrapper has a
-  launch plan (so this tool picks G), else as the wrapper launches it;
+- ``decode_attention`` at each of SHAPES (``chip_smoke.decode_case``):
+  beam 3 at pos 250 (the whole 192-row cache read) at B=8 and B=32, beam
+  22 at phase 8's shape at B=8 and B=32 and over the serving cache at
+  B=8: holds it against this checkout's twin (the cache bit-exact, out's
+  max abs error), then times it warm (one cache) and cold (rotating over
+  six caches, as the six decoder layers read them), at every cluster
+  size G of CLUSTERS where the wrapper has a launch plan (so this tool
+  picks G; and, where the plan keeps two blocks an SM, the one-block-an-SM
+  plan of the largest tile beside it), else as the wrapper launches it;
+  the first variant, named ``base``, prints fused SDPA's time beside;
 - ``cumlogsumexp`` at (384, 96) and (384, 384) (``chip_smoke.scan_case``),
   against this checkout's twin, and timed.
 
 ``decode_attention.cu:stop=N`` cuts the variant's copy of the decode
 kernel short before its phase comment ``// N.`` (``cut``), so that the
 phases are timed apart: stop=1 leaves the launch alone, stop=3 the copies
-landed, 4 the scores, 5 the cluster's softmax statistics, 7 the rank's
-P.V. Such a variant's output is not the kernel's; its error is printed
+landed, 4 the scores and their statistics, 5 the cluster's softmax
+statistics, 6 p and the warps' P.V, 7 the rank's partial. Such a variant's output is not the kernel's; its error is printed
 all the same.
 
 Times are ``chip_smoke.cuda_ms``; registers and spills of each kernel come
@@ -39,6 +42,7 @@ from its ``-Xptxas -v`` report. Needs a CUDA device and ``nvcc``.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import re
 import subprocess
 import sys
@@ -51,6 +55,11 @@ SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "runtime.cu",
            "decode_attention.cu", "scan_logsumexp.cu")
 WRAPPERS = ("decode_attention", "scan_logsumexp")
 CLUSTERS = (1, 2, 4, 8)
+# (lanes, B, pos, cache rows) timed: beam 3 over the serving cache at B=8
+# and B=32; beam 22 at phase 8's shape (S=128, pos 74) at B=8 and B=32,
+# and over the serving cache at B=8
+SHAPES = ((3, 8, 250, 192), (3, 32, 250, 192), (22, 8, 74, 128),
+          (22, 32, 74, 128), (22, 8, 250, 192))
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "decode_variants"
 
@@ -127,6 +136,33 @@ def registers(log: str) -> list[str]:
     return out
 
 
+def plans(pda, b, lanes, heads, kv_cap, pos):
+    """(label, plan) of each launch timed: as wrapped (a wrapper with no
+    plans, or a parent's beyond its one-tile lanes), else every G of
+    CLUSTERS with the wrapper's plan and, where it differs, the one-block-
+    an-SM plan of the largest tile."""
+    if not hasattr(pda, "launch_plan") or (
+            lanes > pda.MAX_LANES and not hasattr(pda, "GROUP_LANES")):
+        return [("launch as wrapped", None)]
+    out = []
+    for g in CLUSTERS:
+        plan = pda.launch_plan(b, lanes, heads, 64, kv_cap, pos, 2, g)
+        out.append((f"G={g} tile {plan.tile} chunk "
+                    f"{getattr(plan, 'chunk', plan.rows_per_rank)} smem "
+                    f"{plan.smem}", plan))
+        if hasattr(pda, "_tiles") and plan.chunk == plan.rows_per_rank:
+            big = pda._tiles(pda.SMEM_MAX, plan.group_lanes, 64, 2,
+                             plan.rows_per_rank, 1)
+            if big and big[0] != plan.tile:
+                tile, chunk = big
+                alt = plan._replace(tile=tile, chunk=chunk,
+                                    smem=pda.smem_bytes(plan.group_lanes, 64,
+                                                        2, chunk, tile))
+                out.append((f"G={g} tile {tile} chunk {chunk} smem "
+                            f"{alt.smem} (one block an SM)", alt))
+    return out
+
+
 def run(name: str) -> None:
     import torch
 
@@ -145,19 +181,24 @@ def run(name: str) -> None:
     psl = wrapper(variant, "scan_logsumexp")
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(2)
-    lanes, heads, pos = cs.BEAM, 16, 250
-    for b in (cs.B, 32):
-        q, kvs, row, lb = cs.decode_case(g, dev, b, pos, caches=cs.LAYERS)
+    heads = 16
+    takes_plan = "plan" in inspect.signature(pda._launch).parameters
+    for lanes, b, pos, kv_cap in SHAPES:
+        q, kvs, row, lb = cs.decode_case(g, dev, b, pos, caches=cs.LAYERS,
+                                         lanes=lanes, kv_cap=kv_cap)
         want, want_kv = ref_da.decode_attention_plain(
             pos, q, kvs[0].clone(), lb, lanes, heads, row)
-        planned = hasattr(pda, "launch_plan")
-        for cluster in CLUSTERS if planned else (None,):
-            def step(kv, cluster=cluster, q=q, row=row, lb=lb):
-                if cluster is None:
+        for what, plan in plans(pda, b, lanes, heads, kv_cap, pos):
+            def step(kv, plan=plan, q=q, row=row, lb=lb):
+                if plan is None:
                     return pda.decode_attention(pos, q, kv, lb, lanes, heads,
                                                 row)
+                if takes_plan:
+                    return pda._launch(pos, q, kv, lb, lanes, heads, row,
+                                       plan=plan)
+                # a parent's wrapper forces G alone
                 return pda._launch(pos, q, kv, lb, lanes, heads, row,
-                                   cluster)
+                                   plan.cluster)
 
             kv = kvs[0].clone()
             got, _ = step(kv)
@@ -166,10 +207,15 @@ def run(name: str) -> None:
             same = torch.equal(kv, want_kv)
             warm = cs.cuda_ms(lambda: step(kvs[0]))
             cold = cs.cuda_ms(cs.rotating(step, kvs))
-            what = "launch as wrapped" if cluster is None else f"G={cluster}"
-            print(f"# [{name}] decode_attention B={b} {what}: warm "
-                  f"{warm:.4f} ms, cold {cold:.4f} ms, max_abs_err "
-                  f"{err:.3e}, cache equal {same}", flush=True)
+            print(f"# [{name}] decode_attention {lanes} lanes B={b} "
+                  f"S={kv_cap} pos {pos} {what}: warm {warm:.4f} ms, cold "
+                  f"{cold:.4f} ms, max_abs_err {err:.3e}, cache equal "
+                  f"{same}", flush=True)
+        if name == "base":
+            ms, backend = cs.decode_sdpa_ms(q, kvs, lb, lanes, heads)
+            print(f"# [{name}] SDPA {lanes} lanes B={b} S={kv_cap} pos "
+                  f"{pos}: {ms:.4f} ms ({backend})", flush=True)
+        del q, kvs, row, lb
     for t, c in ((cs.T_PAD, 96), (cs.T_PAD, 384)):
         x = cs.scan_case(g, dev, t, c)
         got = psl.cumlogsumexp(x)

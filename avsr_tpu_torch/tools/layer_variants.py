@@ -8,9 +8,10 @@ Each argument is a variant, read as ``flash_variants`` reads it: ``NAME``,
 ``NAME=FILE:CONST=VALUE[,...]`` (the named ``constexpr int`` of one of
 SOURCES set to VALUE), or ``NAME@DIR`` with the sources of
 DIR, the ``csrc/`` of another checkout (say the parent commit's, unpacked
-with ``git archive``), whose wrapper ``DIR/../ops/kernels/decoder_layer.py``
-is loaded beside them, so a C interface that changed between the two
-still gets its own caller. All variants build at once, one ``nvcc`` per
+with ``git archive``), whose wrappers ``DIR/../ops/kernels/decoder_layer.py``
+and ``decode_attention.py`` (for the unfused step) are loaded beside
+them, so a C interface that changed between the two still gets its own
+caller. All variants build at once, one ``nvcc`` per
 source, under ``build/layer_variants/NAME/``; then each runs in a process
 of its own, which loads its library and its wrapper's
 ``decoder_layer_step``, prints the kernel's registers and spills (each
@@ -81,10 +82,11 @@ def prepare(name: str, where: Path, subs) -> Path:
         if (f, const) == ("decoder_layer.cu", "stop"):
             src = out / "csrc" / "decoder_layer.cu"
             src.write_text(cut(src.read_text(), int(value)))
-    wrapper = where.parent / "ops" / "kernels" / WRAPPER
     (out / "py").mkdir(exist_ok=True)
-    if wrapper.exists():
-        (out / "py" / WRAPPER).write_text(wrapper.read_text())
+    for name in (WRAPPER, "decode_attention.py"):
+        wrapper = where.parent / "ops" / "kernels" / name
+        if wrapper.exists():
+            (out / "py" / name).write_text(wrapper.read_text())
     return out
 
 
@@ -192,6 +194,13 @@ def run(name: str) -> None:
         "variant_decoder_layer", variant / "py" / WRAPPER)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    # the unfused step through the variant's own decode_attention wrapper,
+    # whose C interface is its library's
+    from avsr_tpu_torch.models import decoder as decoder_mod
+
+    if (variant / "py" / "decode_attention.py").exists():
+        decoder_mod.decode_attention = dv.wrapper(
+            variant, "decode_attention").decode_attention
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(4)

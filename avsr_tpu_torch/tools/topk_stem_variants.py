@@ -16,8 +16,9 @@ process of its own, which loads its library and its wrappers, prints the
 two kernels' registers and spills (from the ``-Xptxas -v`` report), and:
 
 - ``topk_lastdim`` at the beam's shapes (SHAPES: the pre-beam (B*3, 5049)
-  k=4 and the flat (B, 15) k=3 at B=8 and B=32), with ties at the row
-  maximum: exact against this checkout's twin, timed beside
+  k=4 and the flat (B, 15) k=3 at B=8 and B=32; beam 22's pre-beam
+  (B*22, 5049) k=33 at B=8 and B=32, and k=48 and 64 at B=32), with ties
+  at the row maximum: exact against this checkout's twin, timed beside
   ``torch.topk`` on the same tensor (warm: the beam's logits were just
   written) and beside the launch floor, a kernel that spins one cycle
   (``torch.cuda._sleep(1)``) timed the same way;
@@ -46,7 +47,9 @@ from avsr_tpu_torch.tools import flash_variants as fv
 
 SOURCES = ("common.cuh", "runtime.cu", "topk.cu", "stem_fuse.cu")
 WRAPPERS = ("topk", "stem_fuse")
-SHAPES = ((24, 5049, 4), (96, 5049, 4), (8, 15, 3), (32, 15, 3))
+SHAPES = ((24, 5049, 4), (96, 5049, 4), (8, 15, 3), (32, 15, 3),
+          (176, 5049, 33), (704, 5049, 33), (704, 5049, 48),
+          (704, 5049, 64))
 KERNELS = r"topk\w*_kernel|bwd1_kernel"
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "topk_stem_variants"

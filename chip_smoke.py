@@ -50,15 +50,20 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    and 96 lanes, one launch each) at pos 0, 100, 191 and 250, two calls
    bit-equal, timed at pos 250 warm and cold (rotating over six layers'
    weights and caches; the record's time) beside the unfused layer step;
+   and at 22 lanes, B=32 (704 lanes, phase 8's fused beam of 22: a 128-row
+   cache, 98 source rows) at pos 0, 37, 74 and 130, checked the same way
+   and timed at pos 74;
    as information, the eager composition the stem kernels replace, and
    ``bn_prelu_pool`` on channels-last and on NCHW x; the paths that beams
    above the fast kernels' limits take (ROADMAP C28), each exact against
    its twin at B=8 and at the shapes phase 8 gives them (B=32, a 128-row
-   cache, L=98), and timed at phase 8's: ``decode_attention`` at 22 lanes
-   (records ``decode_attention_wide``, cold at pos 74, SDPA beside it),
+   cache, L=98), and timed at phase 8's and at B=8: ``decode_attention``
+   at 22 lanes (records ``decode_attention_wide``, cold at pos 74, SDPA
+   beside it, at B=32 and B=8, and at B=8 over the serving cache),
    ``topk_lastdim`` at beam 22's pre-beam (B*22, 5049) k=33
-   (``topk_lastdim_wide``) and its flat (B, 22*34) k=22, ``beam_update`` at
-   K=10, S'=15 and K=22, S'=33 (``beam_update_wide``);
+   (``topk_lastdim_wide``, the radix select; ``torch.topk`` beside it) and
+   its flat (B, 22*34) k=22, ``beam_update`` at K=10, S'=15 and K=22,
+   S'=33 (``beam_update_wide``);
 4. serves the full-width flagship configuration (24x1024 AV-HuBERT encoder,
    6x1024 decoder, vocab 5049; seeded random weights) through
    ``Recognizer.transcribe_batch``, B=8 utterances of 375 frames: the
@@ -98,7 +103,10 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    and the fbank route; then beams of 22 and 10, unfused and fused, on two
    3 s utterances, fused equal to unfused, and the same runs again with
    every call of the beam's top-k, bookkeeping and decode attention held
-   against its twin at the shapes the engine gives them (B=32).
+   against its twin at the shapes the engine gives them (B=32); then the
+   same beams a third way, with the decoder's fused layer
+   (``decode_fused_layer``), every ``decoder_layer_step`` call held
+   against its twin and its launches checked (once a layer and step).
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -110,7 +118,8 @@ only the fused bookkeeping runs, the fused-layer run for
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
 beam of 22 for the wide paths (unfused for ``decode_attention_wide`` and
 ``topk_lastdim_wide``, fused for ``beam_update_wide``), whose
-``max_abs_err`` also covers phase 8's checked beams. The last
+``max_abs_err`` also covers phase 8's checked beams (and
+``decoder_layer_step``'s its fused-layer beams). The last
 line is ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero at once.
 """
@@ -363,20 +372,22 @@ def rotating(fn, args):
     return lambda: fn(next(it))
 
 
-def layer_case(g, dev, b: int, pos: int, layers: int = 1):
-    """One ``decoder_layer_step``'s inputs at the serving widths: b*3
-    lanes, C=1024, 16 heads, F=3072, bf16. ``layers`` decoder layers of
-    random weights (N(0, 1/in) matrices, biases 0.02, LayerNorm scales
-    around 1) as modules (``mods``) and packed (``packs``), each with its
-    own (b*3, 192, 2048) K|V cache (``kvs``) and (b, 377, 1024) source K/V
-    (``srcs``); the step's x, the source-padding bias (utterance 1's last
-    10 rows padded) and a random ancestry's lane bias with the beam's
-    contract (rows past pos masked, this step's row each lane's own)."""
+def layer_case(g, dev, b: int, pos: int, layers: int = 1, lanes: int = BEAM,
+               s_max: int = KV_CAP, s_enc: int = FRAMES + 2):
+    """One ``decoder_layer_step``'s inputs at the serving widths: b*lanes
+    lanes (beam 3), C=1024, 16 heads, F=3072, bf16. ``layers`` decoder
+    layers of random weights (N(0, 1/in) matrices, biases 0.02, LayerNorm
+    scales around 1) as modules (``mods``) and packed (``packs``), each
+    with its own (b*lanes, s_max=192, 2048) K|V cache (``kvs``) and (b,
+    s_enc=377, 1024) source K/V (``srcs``); the step's x, the
+    source-padding bias (utterance 1's last 10 rows padded) and a random
+    ancestry's lane bias with the beam's contract (rows past pos masked,
+    this step's row each lane's own)."""
     from avsr_tpu_torch.models.decoder import DecoderLayer
     from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
 
-    lanes, heads, c, f = BEAM, 16, 1024, 3072
-    s_max, s_enc, nl = KV_CAP, FRAMES + 2, b * BEAM
+    heads, c, f = 16, 1024, 3072
+    nl = b * lanes
     bf16 = torch.bfloat16
     case = dict(mods=[], packs=[], kvs=[], srcs=[])
     for _ in range(layers):
@@ -798,35 +809,40 @@ def wide_kernel_records(dev, g):
             check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
                   f"decode_attention at 22 lanes disagrees at B={b}, "
                   f"S={kv_cap}, pos={pos}")
-    q, kvs, row, lb = decode_case(g, dev, B, 250, caches=LAYERS,
-                                  lanes=wide_beam)
-    serving_ms = cuda_ms(rotating(lambda kv: pda.decode_attention(
-        250, q, kv, lb, wide_beam, 16, row), kvs))
-    pos = EVAL_POS
-    q, kvs, row, lb = decode_case(g, dev, EVAL_B, pos, caches=LAYERS,
-                                  lanes=wide_beam, kv_cap=EVAL_KV)
-    out, _ = pda.decode_attention(pos, q, kvs[0], lb, wide_beam, 16, row)
-    library_ms, backend = decode_sdpa_ms(q, kvs, lb, wide_beam, 16)
-    # the kernel reads the pos + 1 rows of the prefix, no more
-    used = (pos + 1) / EVAL_KV
-    records["decode_attention_wide"] = r = dict(
-        source="avsr_tpu_torch/csrc/decode_attention.cu",
-        replaces="avsr_tpu/ops/pallas/decode_attention.py:222",
-        max_abs_err=max(errs),
-        ms=cuda_ms(rotating(lambda kv: pda.decode_attention(
-            pos, q, kv, lb, wide_beam, 16, row), kvs)),
-        plain_ms=cuda_ms(lambda: pda.decode_attention_plain(
-            pos, q, kvs[0], lb, wide_beam, 16, row)),
-        library_ms=library_ms,
-        bound=bound(nbytes(q, out, row, row) + used * nbytes(kvs[0], lb),
-                    4 * EVAL_B * wide_beam * wide_beam * (pos + 1) * 1024,
-                    "bf16"))
     print(f"# decode_attention 22 lanes at B={B} and {EVAL_B}: within "
-          f"output_bound (largest ratio {max(ratios):.3f}); B={EVAL_B}, "
-          f"S={EVAL_KV}, pos {pos} cold: kernel {r['ms']:.4f} ms, SDPA "
-          f"({backend}) {library_ms:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); B={B}, pos 250 "
-          f"cold: kernel {serving_ms:.4f} ms")
+          f"output_bound (largest ratio {max(ratios):.3f})")
+    # timed cold at phase 8's shape (S=128, pos 74) at B=32 (the record)
+    # and B=8, fused SDPA beside it; and at B=8 over the serving cache
+    # (S=192, pos 250)
+    for b, pos, kv_cap in ((B, 250, KV_CAP), (B, EVAL_POS, EVAL_KV),
+                           (EVAL_B, EVAL_POS, EVAL_KV)):
+        q, kvs, row, lb = decode_case(g, dev, b, pos, caches=LAYERS,
+                                      lanes=wide_beam, kv_cap=kv_cap)
+        out, _ = pda.decode_attention(pos, q, kvs[0], lb, wide_beam, 16, row)
+        library_ms, backend = decode_sdpa_ms(q, kvs, lb, wide_beam, 16)
+        # the kernel reads the pos + 1 rows of the prefix, no more
+        used = (min(pos, kv_cap - 1) + 1) / kv_cap
+        plan = pda.launch_plan(b, wide_beam, 16, 64, kv_cap, pos, 2)
+        r = dict(
+            source="avsr_tpu_torch/csrc/decode_attention.cu",
+            replaces="avsr_tpu/ops/pallas/decode_attention.py:222",
+            max_abs_err=max(errs),
+            ms=cuda_ms(rotating(lambda kv: pda.decode_attention(
+                pos, q, kv, lb, wide_beam, 16, row), kvs)),
+            plain_ms=cuda_ms(lambda: pda.decode_attention_plain(
+                pos, q, kvs[0], lb, wide_beam, 16, row)),
+            library_ms=library_ms,
+            bound=bound(nbytes(q, out, row, row) + used * nbytes(kvs[0], lb),
+                        4 * b * wide_beam * wide_beam * used * kv_cap * 1024,
+                        "bf16"))
+        print(f"# decode_attention 22 lanes, B={b}, S={kv_cap}, pos {pos} "
+              f"cold (G={plan.cluster}, tile {plan.tile}, chunk "
+              f"{plan.chunk}, {plan.smem} B): kernel {r['ms']:.4f} ms, "
+              f"SDPA ({backend}) {library_ms:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]})")
+        del q, kvs, row, lb
+    records["decode_attention_wide"] = r  # B=32, S=128, pos 74
 
     flat = wide_beam * (wide_k + 1)
     for b in (B, EVAL_B):
@@ -1427,6 +1443,7 @@ def layer_kernel_record(dev, g):
                         args=(case["x"], kv, *case["srcs"][0],
                               case["mem_bias"], case["lb"], packed))
         del case, dec, cache, scratch
+    wide_layer_check(dev, g)
     args = timed[B]["args"]
     return dict(
         source="avsr_tpu_torch/csrc/decoder_layer.cu",
@@ -1438,6 +1455,77 @@ def layer_kernel_record(dev, g):
         library_ms=None,  # no one call runs a decoder layer's step
         bound=timed[B]["bound"],
     )
+
+
+def wide_layer_check(dev, g):
+    """B9 above 8 lanes (ROADMAP C30) at the shapes phase 8's fused beam of
+    22 gives it: B=32 (704 lanes), a 128-row cache, 98 source rows, at pos
+    0, 37, 74 (one pass of the self-attention's scores at the first, two
+    over tiles of its rows at the others) and 130 (past the cap): one
+    launch, two calls bit-equal, the rest of the cache untouched, x_out and
+    the written row within 2e-2 of their largest entry of the twin's (as
+    phase 3 holds B9 at beam 3). Timed at pos 74 warm and cold (rotating
+    over six layers' weights and caches) beside its bound."""
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+
+    lanes, heads, c, f = 22, 16, 1024, 3072
+    s_max, s_enc, b = EVAL_KV, EVAL_T + 2, EVAL_B
+    nl = b * lanes
+    for pos in (0, 37, EVAL_POS, s_max + 2):
+        case = layer_case(g, dev, b, pos, lanes=lanes, s_max=s_max,
+                          s_enc=s_enc)
+        kv = case["kvs"][0]
+        kv_plain, kv_again = kv.clone(), kv.clone()
+        args = (case["x"], kv, *case["srcs"][0], case["mem_bias"],
+                case["lb"], case["packs"][0], lanes, heads)
+        before = pdl.decoder_layer_step.launches
+        got, got_kv = pdl.decoder_layer_step(pos, *args)
+        launches = pdl.decoder_layer_step.launches - before
+        again, _ = pdl.decoder_layer_step(pos, case["x"], kv_again, *args[2:])
+        want, _ = pdl.decoder_layer_step_plain(pos, case["x"], kv_plain,
+                                               *args[2:])
+        torch.cuda.synchronize()
+        row = min(pos, s_max - 1)
+        rest = torch.arange(s_max, device=dev) != row
+        e_x, e_row = _rel_err(got, want), _rel_err(kv[:, row],
+                                                   kv_plain[:, row])
+        print(f"# decoder_layer_step {lanes} lanes, B={b}, S={s_max}, "
+              f"pos={pos}: x_out {e_x:.2e}, row {e_row:.2e} of their "
+              f"largest entry (limit 2e-2)")
+        check(launches == 1 and got_kv is kv
+              and torch.equal(kv[:, rest], kv_plain[:, rest])
+              and torch.equal(got, again) and torch.equal(kv, kv_again)
+              and e_x <= 2e-2 and e_row <= 2e-2,
+              f"decoder_layer_step at {lanes} lanes disagrees at pos={pos}")
+        del case, kv, kv_plain, kv_again
+    pos = EVAL_POS
+    case = layer_case(g, dev, b, pos, layers=LAYERS, lanes=lanes,
+                      s_max=s_max, s_enc=s_enc)
+    scratch = pdl.layer_scratch(nl, c, f, dev)
+
+    def fused(i):
+        return pdl.decoder_layer_step(
+            pos, case["x"], case["kvs"][i], *case["srcs"][i],
+            case["mem_bias"], case["lb"], case["packs"][i], lanes, heads,
+            scratch=scratch)
+
+    warm = cuda_ms(lambda: fused(0))
+    cold = cuda_ms(rotating(fused, range(LAYERS)))
+    kv = case["kvs"][0]
+    used = (pos + 1) / s_max  # the rows of the prefix, no more
+    bnd = bound(sum(nbytes(t) for t in case["packs"][0])
+                + nbytes(case["x"], *case["srcs"][0], case["mem_bias"],
+                         case["x"], kv[:, 0])
+                + used * nbytes(kv, case["lb"]),
+                2 * nl * 12 * c * c
+                + 4 * nl * c * (lanes * (pos + 1) + s_enc), "bf16")
+    plan, smem = pdl.card_plan(nl, lanes, heads, c, f, s_max, s_enc,
+                               torch.bfloat16, torch.bfloat16, dev.index)
+    print(f"# decoder_layer_step {lanes} lanes, B={b} ({nl} lanes, one "
+          f"launch of {plan.grid} blocks, {smem} B shared memory), S={s_max}, "
+          f"pos {pos}: warm {warm:.4f} ms, cold {cold:.4f} ms; bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]})")
+    del case, scratch
 
 
 @contextlib.contextmanager
@@ -1993,6 +2081,51 @@ def twins_checked(seen: dict):
          decoder_mod.decode_attention) = saved
 
 
+@contextlib.contextmanager
+def layer_checked(seen: dict):
+    """Within the block, every call the decoder makes of
+    ``decoder_layer_step`` is also held against its twin on copies of the
+    same card tensors, taken before the kernel writes: x_out and the
+    written row within 2e-2 of their largest entry (as phase 3 holds B9),
+    every other cache row untouched. ``seen["decoder_layer_step"]`` gets
+    the calls, the input shapes and the largest absolute error of x_out.
+    The twin launches no kernel."""
+    from avsr_tpu_torch.models import decoder as decoder_mod
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+
+    real = decoder_mod.decoder_layer_step
+
+    def layer(pos, x, kv, src_k, src_v, mem_bias, lane_bias, packed, lanes,
+              heads, scratch=None):
+        before = kv.clone()
+        got, got_kv = real(pos, x, kv, src_k, src_v, mem_bias, lane_bias,
+                           packed, lanes, heads, scratch=scratch)
+        want, want_kv = pdl.decoder_layer_step_plain(
+            pos, x, before, src_k, src_v, mem_bias, lane_bias, packed, lanes,
+            heads)
+        row = min(pos, kv.shape[1] - 1)
+        rest = torch.arange(kv.shape[1], device=kv.device) != row
+        e_x, e_row = _rel_err(got, want), _rel_err(got_kv[:, row],
+                                                   want_kv[:, row])
+        check(e_x <= 2e-2 and e_row <= 2e-2
+              and torch.equal(got_kv[:, rest], want_kv[:, rest]),
+              f"decoder_layer_step disagrees on the beam's step {pos}, "
+              f"{lanes} lanes: x_out {e_x:.2e}, row {e_row:.2e}")
+        entry = seen.setdefault("decoder_layer_step",
+                                {"calls": 0, "shapes": set(), "err": 0.0})
+        entry["calls"] += 1
+        entry["shapes"].add((tuple(kv.shape), lanes))
+        entry["err"] = max(entry["err"],
+                           (got.float() - want.float()).abs().max().item())
+        return got, got_kv
+
+    decoder_mod.decoder_layer_step = layer
+    try:
+        yield seen
+    finally:
+        decoder_mod.decoder_layer_step = real
+
+
 def phase_eval(dev, smi: str):
     """The evaluation entry point at full width: ``avsr_tpu_torch.cli.
     evaluation.InferenceEngine`` at the CLI's defaults (beam 3, 32 segments
@@ -2021,6 +2154,7 @@ def phase_eval(dev, smi: str):
     from avsr_tpu_torch.ops import fbank
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
     from avsr_tpu_torch.ops.kernels import row_gather as prg
     from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
@@ -2197,6 +2331,39 @@ def phase_eval(dev, smi: str):
                 check(all(np.array_equal(a, b)
                           for a, b in zip(got[False], got[True])),
                       f"beam {beam}: fused and unfused tokens differ")
+        # the same beams a third way: the decoder's fused layer
+        # (decode_fused_layer) on the same seed-0 weights, every
+        # decoder_layer_step call held against its twin (ROADMAP C30)
+        rec.model.decoder.fused_layer = True
+        try:
+            for beam in (22, 10):
+                rec.beam_size, rec.fused_bookkeeping = beam, False
+                del tokens[:]
+                torch.cuda.synchronize()
+                reset()
+                pdl.decoder_layer_step.launches = 0
+                t0 = time.perf_counter()
+                with layer_checked(seen):
+                    out = engine.infer_samples(short)
+                torch.cuda.synchronize()
+                name = f"beam {beam} fused layer"
+                runs[name] = counts()
+                runs[name]["decoder_layer_step"] = (
+                    pdl.decoder_layer_step.launches)
+                same = all(np.array_equal(a, b) for a, b in
+                           zip(tokens, run_tokens[f"beam {beam}"]))
+                print(f"# {name}: 2 x 3 s in {time.perf_counter() - t0:.3f} "
+                      f"s, every layer step checked; tokens equal to the "
+                      f"unfused layer's: {same}; launches {runs[name]}")
+                n = runs[name]
+                check(len(out) == 2 and n["decoder_layer_step"] >= cfg.dlayers
+                      and n["decoder_layer_step"] % cfg.dlayers == 0
+                      and n["decode_attention"] == 0
+                      and n["decode_attention_wide"] == 0,
+                      f"{name}: decoder_layer_step not launched once per "
+                      f"layer and step ({n})")
+        finally:
+            rec.model.decoder.fused_layer = False
         rec.beam_size, rec.fused_bookkeeping = 3, False
         for name, entry in sorted(seen.items()):
             print(f"# beams 22 and 10 checked against the twins: {name} "
@@ -2209,10 +2376,12 @@ def phase_eval(dev, smi: str):
               and runs["beam 22"]["beam_update"] == 0
               and runs["beam 22"]["beam_update_wide"] == 0
               and all(n["decode_attention_wide"] >= 1
-                      and n["decode_attention"] == 0 for n in runs.values()),
+                      and n["decode_attention"] == 0 for name, n in
+                      runs.items() if "fused layer" not in name),
               "phase 8: the C28 kernels did not run where they should")
         check(all(f"{n}_wide" in seen for n in (
-            "topk_lastdim", "beam_update", "decode_attention")),
+            "topk_lastdim", "beam_update", "decode_attention"))
+            and "decoder_layer_step" in seen,
             "phase 8: a wide path was not checked against its twin")
         del os.environ["AVSR_SPM_DIR"]
     runs["eval"] = main

@@ -311,18 +311,20 @@ def test_beam_update_kernel_refuses_beyond_its_limits(dev, k, sp):
 # just under and just over the fast paths' limits
 
 
-@pytest.mark.parametrize("lanes", [8, 9, 10, 22])
-@pytest.mark.parametrize("pos", [0, 100, 250])
+@pytest.mark.parametrize("lanes", [8, 9, 16, 22, 32, 64, 100])
+@pytest.mark.parametrize("pos", [0, 100, 191, 250])
 @pytest.mark.parametrize("qdtype,cdtype", [(torch.bfloat16, torch.bfloat16),
                                            (torch.float32, torch.float32)])
 def test_decode_wide_kernel_within_the_output_bound(dev, lanes, pos, qdtype,
                                                     cdtype):
-    """Just under (8 lanes: the cluster kernel) and over (9, 10, 22: the
-    block-a-query kernel) the cluster kernel's lanes, at the model's heads
-    (H=16, dh=64) over a 192-row cache: the cache the twin's bit for bit,
-    out within ``output_bound`` (ROADMAP C27) with a bf16 cache, within
-    1e-4 with an fp32 one (as test_decode_kernel_matches_plain: the bound
-    covers p's rounding to bf16, not the scores' fp32 sums in another
+    """Just under (8 lanes: one query tile) and over (9-64: up to eight
+    query tiles, one read of the prefix; 100: two query groups of 50) the
+    one-tile limit, at the model's heads (H=16, dh=64) over a 192-row
+    cache (64 and 100 lanes at pos >= 64: two passes over chunks of the
+    rank's rows, as the launch plan says): the cache the twin's bit for
+    bit, out within ``output_bound`` (ROADMAP C27) with a bf16 cache,
+    within 1e-4 with an fp32 one (as test_decode_kernel_matches_plain: the
+    bound covers p's rounding to bf16, not the scores' fp32 sums in another
     order); the wide count moves only beyond 8 lanes."""
     from torch_port_common import decode_case
 
@@ -340,6 +342,41 @@ def test_decode_wide_kernel_within_the_output_bound(dev, lanes, pos, qdtype,
                                        row.to(dev))
     torch.cuda.synchronize()
     assert pda.decode_attention.wide_launches - before == int(lanes > 8)
+    assert torch.equal(got_kv.cpu(), want_kv)
+    diff = (got.float().cpu() - want.float()).abs()
+    if cdtype == torch.float32:
+        bnd = torch.full_like(diff, 1e-4)
+    assert bool((diff <= bnd).all()), float((diff / bnd).max())
+
+
+@pytest.mark.parametrize("lanes,cluster,chunk", [(22, 2, 64), (22, 4, 16),
+                                                 (9, 1, 32), (40, 8, 48)])
+@pytest.mark.parametrize("cdtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_two_passes(dev, lanes, cluster, chunk, cdtype):
+    """A launch plan forced to hold the scores of only ``chunk`` rows at a
+    time (two passes, the keys read twice), at B=2, H=16, dh=64, S=192,
+    pos 150: the same cache and an output within ``output_bound`` (bf16)
+    or 1e-4 (fp32), as the one-pass plan's."""
+    from torch_port_common import decode_case
+
+    b, heads, pos = 2, 16, 150
+    q, kv, row, bias = (torch.from_numpy(x).contiguous() for x in decode_case(
+        lanes + chunk, b=b, k=lanes, s_max=192, heads=heads, dh=64, pos=pos,
+        q_scale=0.125))
+    kv, row = kv.to(cdtype), row.to(cdtype)
+    esize = kv.element_size()
+    plan = pda.launch_plan(b, lanes, heads, 64, 192, pos, esize, cluster)
+    tile = min(chunk, plan.rows_per_rank)
+    plan = plan._replace(tile=tile, chunk=chunk,
+                         smem=pda.smem_bytes(plan.group_lanes, 64, esize,
+                                             chunk, tile))
+    assert plan.chunk < plan.rows_per_rank
+    want, want_kv = pda.decode_attention_plain(pos, q, kv.clone(), bias,
+                                               lanes, heads, row)
+    bnd = pda.output_bound(pos, q, kv, bias, lanes, heads, row)
+    got, got_kv = pda._launch(pos, q.to(dev), kv.to(dev), bias.to(dev),
+                              lanes, heads, row.to(dev), plan=plan)
+    torch.cuda.synchronize()
     assert torch.equal(got_kv.cpu(), want_kv)
     diff = (got.float().cpu() - want.float()).abs()
     if cdtype == torch.float32:
@@ -374,10 +411,12 @@ def test_topk_wide_kernel_matches_plain(dev, rows, v, k):
 
 
 @pytest.mark.parametrize("offset", [0, 1, 3])
-def test_topk_wide_kernel_edge_rows(dev, offset):
-    """k = 33 on rows off a 16-byte boundary with fewer than k entries
-    above -inf (the -inf rule repeats an index), +inf entries and a row of
-    equal values."""
+@pytest.mark.parametrize("k", [32, 33, 48, 64])
+def test_topk_wide_kernel_edge_rows(dev, offset, k):
+    """k = 32 (the list kernel) and 33, 48, 64 (the radix select) on rows
+    off a 16-byte boundary with fewer than k entries above -inf (the -inf
+    rule repeats an index), +inf entries, a row of equal values, ties at
+    the k-th value and a row of a few distinct values."""
     rows, v = 8, 5049
     buf = torch.randn(rows * v + offset, generator=_gen(offset))
     x = buf[offset:].view(rows, v)
@@ -388,11 +427,50 @@ def test_topk_wide_kernel_edge_rows(dev, offset):
     x[3, v // 3] = float("inf")
     x[3, v - 2] = float("inf")
     x[4, 40:] = float("-inf")
-    want_v, want_i = ptk.topk_plain(x, 33)
-    got_v, got_i = ptk.topk_lastdim(x.to(dev), 33)
+    x[5, ::7] = x[5].amax()  # 722 entries tie at the row's max
+    x[6] = torch.randint(0, 4, (v,), generator=_gen(k)).float()
+    want_v, want_i = ptk.topk_plain(x, k)
+    got_v, got_i = ptk.topk_lastdim(x.to(dev), k)
     torch.cuda.synchronize()
     assert torch.equal(got_i.cpu(), want_i)
     assert torch.equal(got_v.cpu(), want_v)
+
+
+@pytest.mark.parametrize("k", [33, 64, 5049])
+def test_topk_wide_kernel_skips_nan(dev, k):
+    """NaN is never chosen (C1): rows with NaNs, one with fewer than k
+    entries that are not NaN, one all NaN, against the k rounds of C1's
+    rule with NaN left out (``c1_topk``); k = v included."""
+    from torch_port_common import c1_topk
+
+    rows, v = 6, 5049
+    x = torch.randn(rows, v, generator=_gen(k))
+    x[0, ::3] = float("nan")
+    x[1] = float("nan")
+    x[1, [5, 9, 4000]] = torch.tensor([1.0, float("-inf"), -2.0])
+    x[2] = float("nan")
+    x[3, :100] = float("nan")
+    x[3, 100:] = float("-inf")
+    x[3, 2000] = 3.0
+    x[4, 1::2] = float("nan")
+    x[4, ::4] = 0.5
+    got_v, got_i = ptk.topk_lastdim(x.to(dev), k)
+    torch.cuda.synchronize()
+    want_v, want_i = c1_topk(x.numpy(), k)
+    assert (got_i.cpu().numpy() == want_i).all()
+    assert (got_v.cpu().numpy() == want_v).all()
+
+
+def test_topk_wide_kernel_refuses_beyond_its_limit(dev):
+    """Rows whose keys and sort buffer overflow shared memory at k > 32
+    raise ValueError naming the limit; the list kernel takes them at k =
+    32."""
+    x = torch.randn(2, 60000, device=dev)
+    assert ptk.wide_smem_bytes(60000, 33) > ptk.WIDE_SMEM_MAX
+    with pytest.raises(ValueError, match=str(ptk.WIDE_SMEM_MAX)):
+        ptk.topk_lastdim(x, 33)
+    vals, _ = ptk.topk_lastdim(x, 32)
+    assert torch.equal(vals, torch.topk(x, 32).values)
 
 
 @pytest.mark.parametrize("k,sp", [(16, 7), (17, 7), (3, 41), (3, 42),
@@ -791,3 +869,70 @@ def test_decoder_layer_kernel_matches_plain(dev, pos, pdtype, cdtype, tol, b,
                        ("row", got_kv[:, row], want_kv[:, row])):
         r = r.float()
         assert (a.float().cpu() - r).abs().max() <= tol * r.abs().max(), name
+
+
+@pytest.mark.parametrize("lanes", [8, 9, 10, 22, 32])
+@pytest.mark.parametrize("pos", [0, 100, 191, 250])
+@pytest.mark.parametrize("pdtype,cdtype,tol", [
+    (torch.bfloat16, torch.bfloat16, 2e-2),
+    (torch.float32, torch.float32, 2e-5)])
+def test_decoder_layer_kernel_wide_beams(dev, lanes, pos, pdtype, cdtype,
+                                         tol):
+    """decoder_layer_step above 8 lanes (ROADMAP C30) at the model's widths
+    (C=1024, H=16, F=3072) over a 192-row cache and 40 source rows, B=2:
+    8, 9 and 10 lanes in one pass; 22 and 32 from pos 100 on in two passes
+    over tiles of the rows (their scores do not fit a block): x_out and the
+    written row within tol x |max| of the twin's, the rest of the cache
+    untouched, one launch, two calls bit-equal."""
+    b, c, heads, f, s, s_enc = 2, 1024, 16, 3072, 192, 40
+    n = b * lanes
+    g = _gen(pos + lanes)
+    packed = pdl.pack_layer_params(_layer(c, heads, f, pos), pdtype)
+    x = torch.randn(n, c, generator=g).to(pdtype)
+    kv = torch.randn(n, s, 2 * c, generator=g).to(cdtype)
+    src_k, src_v = (torch.randn(b, s_enc, c, generator=g).to(cdtype)
+                    for _ in range(2))
+    mem_bias = torch.zeros(b, s_enc)
+    mem_bias[1, -3:] = NEG
+    anc = torch.randint(0, lanes, (s, b, lanes), generator=g)
+    anc[min(pos, s - 1)] = torch.arange(lanes)
+    valid = (torch.arange(s) <= pos)[:, None, None, None] & (
+        anc[..., None] == torch.arange(lanes))
+    lane_bias = torch.where(valid.permute(1, 2, 0, 3), 0.0, NEG).contiguous()
+    args = (x, kv, src_k, src_v, mem_bias, lane_bias)
+    want_x, want_kv = pdl.decoder_layer_step(pos, *(a.clone() for a in args),
+                                             packed, lanes, heads)
+    dpacked = pdl.PackedLayer(*(p.to(dev) for p in packed))
+    before = pdl.decoder_layer_step.launches
+    outs = []
+    for _ in range(2):
+        dargs = [a.to(dev) for a in args]
+        got_x, got_kv = pdl.decoder_layer_step(pos, *dargs, dpacked, lanes,
+                                               heads)
+        outs.append((got_x, got_kv))
+    torch.cuda.synchronize()
+    assert pdl.decoder_layer_step.launches == before + 2
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+    row = min(pos, s - 1)
+    rest = [i for i in range(s) if i != row]
+    assert torch.equal(got_kv[:, rest].cpu(), kv[:, rest])
+    for name, a, r in (("x_out", got_x, want_x),
+                       ("row", got_kv[:, row], want_kv[:, row])):
+        r = r.float()
+        assert (a.float().cpu() - r).abs().max() <= tol * r.abs().max(), name
+
+
+def test_decoder_layer_kernel_refuses_beyond_its_lanes(dev):
+    """More than MAX_LANES (32) lanes an utterance: ValueError naming the
+    limit, before anything is launched."""
+    lanes, c, heads, f = pdl.MAX_LANES + 1, 64, 1, 128
+    packed = pdl.PackedLayer(*(p.to(dev) for p in pdl.pack_layer_params(
+        _layer(c, heads, f, 0), torch.float32)))
+    kv = torch.zeros(lanes, 8, 2 * c, device=dev)
+    src = torch.zeros(1, 5, c, device=dev)
+    with pytest.raises(ValueError, match=str(pdl.MAX_LANES)):
+        pdl.decoder_layer_step(0, torch.zeros(lanes, c, device=dev), kv, src,
+                               src, torch.zeros(1, 5, device=dev),
+                               torch.zeros(1, lanes, 8, lanes, device=dev),
+                               packed, lanes, heads)

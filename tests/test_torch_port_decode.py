@@ -42,12 +42,15 @@ def test_plan_constants_are_the_kernels():
     assert pda.SMEM_MAX == 227 * 1024
 
 
-@pytest.mark.parametrize("lanes", range(1, 9))
+@pytest.mark.parametrize("lanes", [*range(1, 9), 9, 22, 40, 64, 100])
 def test_plan_covers_every_row_once(lanes):
     """For every S, pos (pos >= S clamps to S-1), batch and cache dtype:
-    each (j, s <= pos_c) row lies in exactly one rank, row pos_c of each
-    lane has exactly one owner, the grid is (H*G, B) with G a cluster size,
-    and a block's shared memory stays within 227 KB."""
+    each (j, s <= pos_c) row lies in exactly one rank and, within it, in
+    exactly one chunk, row pos_c of each lane has exactly one owner, every
+    lane lies in one query group of at most GROUP_LANES, the grid is
+    (H*G, B) with G a cluster size, the chunks hold whole tiles where a
+    rank takes more than one, and a block's shared memory stays within 227
+    KB."""
     heads, dh = 16, 64
     for s_max in (1, 64, 192, 1000):
         for pos in (0, 1, s_max - 1, s_max + 58):
@@ -55,46 +58,71 @@ def test_plan_covers_every_row_once(lanes):
             rows = lanes * (pos_c + 1)
             for b, esize in ((8, 2), (32, 2), (8, 4), (1, 4)):
                 plan = pda.launch_plan(b, lanes, heads, dh, s_max, pos, esize)
-                assert plan.cluster in pda.CLUSTER_SIZES
+                assert plan.cluster in (1, *pda.CLUSTER_SIZES)
                 assert plan.grid == (heads * plan.cluster, b)
                 assert plan.grid[0] % plan.cluster == 0
                 assert plan.rows == rows
+                assert plan.group_lanes <= pda.GROUP_LANES
+                assert (plan.groups - 1) * plan.group_lanes < lanes <= (
+                    plan.groups * plan.group_lanes)
                 owner = np.zeros(rows, int)
                 for r in range(plan.cluster):
                     got = plan.rank_rows(r)
                     assert len(got) <= plan.rows_per_rank
                     owner[list(got)] += 1
+                    chunks = plan.rank_chunks(r)
+                    assert sum(len(ch) for ch in chunks) == len(got)
+                    assert all(len(ch) <= plan.chunk for ch in chunks)
                 assert (owner == 1).all()
-                for j in range(lanes):
+                for j in range(lanes):  # row (pos_c, j) = pos_c * K + j
                     holders = [r for r in range(plan.cluster)
-                               if j * (pos_c + 1) + pos_c in plan.rank_rows(r)]
+                               if pos_c * lanes + j in plan.rank_rows(r)]
                     assert len(holders) == 1
                 assert 1 <= plan.tile <= plan.rows_per_rank
-                assert plan.smem == pda.smem_bytes(lanes, dh, esize,
-                                                   plan.rows_per_rank,
+                assert plan.rows_per_rank % 4 == 0
+                assert plan.chunk == plan.rows_per_rank or (
+                    plan.chunk % plan.tile == 0
+                    and plan.chunk < plan.rows_per_rank)
+                assert plan.smem == pda.smem_bytes(plan.group_lanes, dh,
+                                                   esize, plan.chunk,
                                                    plan.tile)
                 assert plan.smem <= 227 * 1024
 
 
 def test_plan_fills_the_card_and_can_be_forced():
-    """G is CLUSTER (2, the fastest measured at B=8 and at B=32, H=16) at
-    every batch, raised only where a rank's scores would overflow shared
-    memory; a forced G is kept; a shape whose scores overflow shared
-    memory at every G is refused."""
+    """G is CLUSTER (2, the fastest measured at B=8, H=16) while the
+    (utterance, head) pairs fill the card's SMs less than twice, else 1
+    (the fastest at B=32), raised only where a rank's scores would not fit
+    one pass; a forced G is kept; two blocks share an SM where a tile of PAIR_TILE
+    rows fits beside the scores; a shape whose scores do not fit at any G
+    takes two passes over chunks of whole tiles."""
     assert pda.CLUSTER == 2
-    for b in (1, 2, 4, 8, 32):
-        assert pda.launch_plan(b, 3, 16, 64, 192, 250, 2).cluster == 2
+    for b in (1, 2, 4, 8, 16, 32):
+        assert pda.launch_plan(b, 3, 16, 64, 192, 250, 2).cluster == (
+            1 if b * 16 >= 2 * pda.SMS else 2)
     for g in (1, 2, 4, 8):
         plan = pda.launch_plan(8, 3, 16, 64, 192, 250, 2, g)
         assert plan.cluster == g and plan.grid == (16 * g, 8)
     # the serving chunk fits one stage buffer: K and V loads go out at once
     plan = pda.launch_plan(8, 3, 16, 64, 192, 250, 2)
-    assert plan.tile == plan.rows_per_rank == 288
+    assert plan.tile == plan.rows_per_rank == plan.chunk == 288
+    assert plan.smem <= pda.PAIR_SMEM
+    # phase 8's beam of 22 (B=32, S=128, pos 74): one pass, two blocks an
+    # SM, in tiles; a rank's rows a multiple of 4 (its bias copied 16
+    # bytes at a time)
+    plan = pda.launch_plan(32, 22, 16, 64, 128, 74, 2)
+    assert plan.chunk == plan.rows_per_rank == 828
+    assert pda.PAIR_TILE <= plan.tile < 828 and plan.smem <= pda.PAIR_SMEM
     # a long cache tiles the chunk instead
     plan = pda.launch_plan(8, 8, 16, 128, 1000, 999, 4)
     assert plan.tile < plan.rows_per_rank
-    with pytest.raises(ValueError, match="shared memory"):
-        pda.launch_plan(1, 8, 1, 128, 200000, 199999, 4)
+    # beam 64 over a full 192-row cache, and a cache too long for any G:
+    # two passes
+    for args in ((32, 64, 16, 64, 192, 250, 2),
+                 (1, 8, 1, 128, 200000, 199999, 4)):
+        plan = pda.launch_plan(*args)
+        assert plan.cluster == 8 and plan.chunk < plan.rows_per_rank
+        assert plan.chunk % plan.tile == 0 and plan.smem <= pda.SMEM_MAX
 
 
 # ------------------------------------------- B2: the split's arithmetic
@@ -109,7 +137,7 @@ def _combine(m, s, m2, s2):
 
 def emulate_decode(pos, q, kv_cache, lane_bias, lanes, heads, kv_row, plan):
     """csrc/decode_attention.cu's arithmetic, rank by rank, in torch: rows
-    (j, s <= pos_c) in the kernel's order, row pos_c taken from kv_row;
+    (s <= pos_c, j) in the kernel's order, row pos_c taken from kv_row;
     per-rank (m, l) combined in rank order; P normalised, then rounded to
     the cache dtype; per-rank partial P.V summed in rank order."""
     n, s_max, c2 = kv_cache.shape
@@ -120,9 +148,10 @@ def emulate_decode(pos, q, kv_cache, lane_bias, lanes, heads, kv_row, plan):
     kv = kv_cache.view(b, lanes, s_max, 2, heads, dh)[:, :, :pos_c + 1]
     kv = kv.clone()
     kv[:, :, pos_c] = kv_row.to(cd).view(b, lanes, 2, heads, dh)
-    kv = kv.float().reshape(b, plan.rows, 2, heads, dh)  # rows j-major
+    # rows s-major: row r = s * K + j
+    kv = kv.float().transpose(1, 2).reshape(b, plan.rows, 2, heads, dh)
     qq = q.to(cd).float().view(b, lanes, heads, dh)
-    bias = lane_bias[:, :, :pos_c + 1].permute(0, 1, 3, 2)  # (B, K, J, s)
+    bias = lane_bias[:, :, :pos_c + 1]  # (B, K, s, J)
     scores = (torch.einsum("bkhd,brhd->bhkr", qq, kv[:, :, 0])
               + bias.reshape(b, 1, lanes, plan.rows))
     m = torch.full(scores.shape[:-1], float("-inf"))

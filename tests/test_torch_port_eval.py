@@ -2,12 +2,14 @@
 
 - C28 (ROADMAP): beams whose pre-beam k = int(1.5 beam) exceeds 32 (beam
   22), whose (K, S'+1) candidates exceed the warp kernel's 128 (beam 10)
-  or whose lanes exceed decode_attention's 8 decode token for token as
-  the JAX ``beam_search_batched`` does, unfused and fused; the twins at
-  those shapes against the JAX kernels in interpret mode; the new kernel
-  paths' designs (k rounds of a block-wide arg-max after the previous
-  winner and the -inf rule; a block a query over the scored prefix)
-  emulated against the twins.
+  or whose lanes exceed decode_attention's one query tile of 8 decode
+  token for token as the JAX ``beam_search_batched`` does, unfused and
+  fused; the twins at those shapes against the JAX kernels in interpret
+  mode; the kernels' designs beyond those limits emulated against the
+  twins: the top-k's radix select (exact, NaN never chosen),
+  beam_update's k rounds of a block-wide arg-max after the previous
+  winner and the -inf rule, and decode_attention's query tiles and groups
+  over the rank-split, chunked prefix.
 - The Recognizer's async API against its sync call and the JAX one.
 - ``avsr_tpu_torch.cli.evaluation.InferenceEngine(device="cpu")`` against
   ``avsr_tpu.cli.evaluation.InferenceEngine`` on one reference-format
@@ -110,7 +112,7 @@ KEY_NEG_INF = _order_key(-np.inf)
 
 def _rounds(values, k, threads=256):
     """k rounds of csrc's block-wide arg-max after the previous winner
-    (``topk_wide_kernel``, ``beam_update_wide_kernel``): each thread's best
+    (``beam_update_wide_kernel``): each thread's best
     over its strided elements that come after (pk, pi) in the order
     "larger key, then lower index", then the block's best (avsr::
     block_best: per warp, then over the warps); from the first round whose
@@ -160,18 +162,109 @@ def _inf_rows(v, seed):
     return x
 
 
-@pytest.mark.parametrize("v,k", [(61, 33), (150, 40), (61, 61)])
+def _keys(row):
+    """csrc/topk.cu topk_wide_kernel's keys: order_key, NaN and -inf 0."""
+    b = (row.astype(np.float32) + np.float32(0)).view(np.uint32)
+    keys = b ^ np.where(b >> 31, np.uint32(0xFFFFFFFF), np.uint32(0x80000000))
+    return np.where(np.isnan(row) | (row == -np.inf), np.uint32(0),
+                    keys).astype(np.uint32)
+
+
+def _radix_select(row, k):
+    """csrc/topk.cu's k > 32 kernel step by step: where more than k keys
+    lie above 0, 8-bit digit passes from the top (a histogram of the keys
+    sharing the prefix, the digit whose keys reach the k-th, an early stop
+    where all of its keys are taken); the keys above the prefix and the
+    lowest-index ones equal to it, in index order; sorted by (key
+    descending, index ascending); the -inf rule for the slots left.
+    Returns (values, indices)."""
+    keys = _keys(row)
+    prefix, mask, need = 0, 0xFFFFFFFF, 0
+    if int((keys > 0).sum()) > k:
+        prefix, mask, need = 0, 0, k
+        for shift in (24, 16, 8, 0):
+            inb = (keys & np.uint32(mask)) == prefix
+            hist = np.bincount((keys[inb] >> shift) & 255, minlength=256)
+            higher = 0
+            for d in range(255, -1, -1):
+                if higher < need <= higher + hist[d]:
+                    break
+                higher += hist[d]
+            need -= higher
+            prefix |= d << shift
+            mask |= 255 << shift
+            if hist[d] == need:
+                break
+    km = keys & np.uint32(mask)
+    chosen = np.concatenate([np.flatnonzero(km > prefix),
+                             np.flatnonzero(km == prefix)[:need]])
+    order = chosen[np.lexsort((chosen, -keys[chosen].astype(np.int64)))]
+    kv = keys[order]
+    bits = kv ^ np.where(kv >> 31, np.uint32(0x80000000),
+                         np.uint32(0xFFFFFFFF))
+    vals = np.full(k, -np.inf, np.float32)
+    ids = np.zeros(k, np.int64)
+    vals[:len(order)] = bits.astype(np.uint32).view(np.float32)
+    ids[:len(order)] = order
+    if len(order) < k:
+        neg = np.flatnonzero(row == -np.inf)
+        ids[len(order):] = min(neg.min() if len(neg) else INT_MAX,
+                               order.min() if len(order) else INT_MAX)
+    return vals, ids
+
+
+def _tie_rows(v, k, seed):
+    """_inf_rows, then rows tied at the k-th value, of a few distinct
+    values, and with equal values spread over every digit pass."""
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([_inf_rows(v, seed), rng.randn(3, v).astype(
+        np.float32)])
+    kth = np.sort(x[9])[::-1][min(k, v) - 1]
+    x[9, rng.randint(0, v, size=v // 4)] = kth
+    x[10] = rng.randint(0, 4, size=v).astype(np.float32)
+    x[11] = np.float32(1.0) + np.float32(2.0 ** -20) * rng.randint(
+        0, 8, size=v).astype(np.float32)
+    return x
+
+
+@pytest.mark.parametrize("v,k", [(61, 33), (150, 40), (61, 61), (5049, 33),
+                                 (5049, 48), (5049, 64), (300, 300)])
 def test_topk_wide_design_matches_the_twin(v, k):
-    """csrc/topk.cu's k > 32 kernel, emulated element by element, gives
-    the twin's values and indices."""
-    x = _inf_rows(v, v + k)
+    """csrc/topk.cu's k > 32 kernel (a radix select), emulated step by
+    step, gives the twin's values and indices exactly: ties at the k-th
+    value, equal values, +inf, too few entries above -inf, all -inf, k =
+    v."""
+    x = _tie_rows(v, k, v + k)
     want_v, want_i = ptk.topk_plain(t(x), k)
     for r in range(len(x)):
-        sel = _rounds(x[r], k)
-        np.testing.assert_array_equal([i for i, _ in sel], want_i[r].numpy())
-        np.testing.assert_array_equal(
-            [-np.inf if inf else x[r, i] for i, inf in sel],
-            want_v[r].numpy())
+        got_v, got_i = _radix_select(x[r], k)
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_v, want_v[r].numpy())
+
+
+@pytest.mark.parametrize("k", [33, 64, 5049])
+def test_topk_wide_design_skips_nan(k):
+    """The same emulation on rows with NaNs (which the twin's amax cannot
+    order) against C1's rule with NaN left out (``c1_topk``): NaN never
+    chosen, the -inf rule past the last entry above -inf, an all-NaN row
+    taking index 2**31 - 1."""
+    from tests.torch_port_common import c1_topk
+
+    rng = np.random.RandomState(k)
+    x = rng.randn(5, 5049).astype(np.float32)
+    x[0, ::3] = np.nan
+    x[1] = np.nan
+    x[1, [5, 9, 4000]] = [1.0, -np.inf, -2.0]
+    x[2] = np.nan
+    x[3, :100] = np.nan
+    x[3, 100:] = -np.inf
+    x[3, 2000] = 3.0
+    x[4, 1::2] = np.nan
+    want_v, want_i = c1_topk(x, k)
+    for r in range(len(x)):
+        got_v, got_i = _radix_select(x[r], k)
+        np.testing.assert_array_equal(got_i, want_i[r])
+        np.testing.assert_array_equal(got_v, want_v[r])
 
 
 @pytest.mark.parametrize("k,sp", [(10, 15), (22, 33), (17, 4)])
@@ -264,43 +357,91 @@ def test_beam_update_plain_wide_matches_jax(k, sp):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-def _decode_wide(pos, q, kv, bias, lanes, heads, row):
-    """csrc/decode_attention.cu's block-a-query kernel in torch: the
-    step's row written into the cache and read from kv_row, only the rows
-    s <= min(pos, S-1) scored, q and the normalised p rounded to the cache
-    dtype, fp32 sums."""
+def _combine(m, s, m2, s2):
+    """The kernels' (max, shifted sum) monoid with its -3e38 guard."""
+    mm = torch.maximum(m, m2)
+    safe = mm.clamp_min(-3.0e38)
+    return mm, s * torch.exp(m - safe) + s2 * torch.exp(m2 - safe)
+
+
+def _decode_tiled(pos, q, kv, bias, lanes, heads, row, plan):
+    """csrc/decode_attention.cu's order in torch: the step's row written
+    into the cache and read from kv_row, only the rows s <= min(pos, S-1)
+    scored, in the kernel's (s, j) order; query groups of
+    ``plan.group_lanes`` each over the whole
+    prefix; a rank's (m, l) folded over its chunks in order, the ranks'
+    combined in rank order; q and the normalised p rounded to the cache
+    dtype (with a bf16 cache p is a one-chunk rank's held exp(s - m_rank)
+    times exp(m_rank - m) / den), the ranks' fp32 partial P.V summed in
+    rank order."""
     n, s_max, c2 = kv.shape
     c, b = c2 // 2, n // lanes
     dh, pc = c // heads, min(pos, s_max - 1)
     cd = kv.dtype
     kv[:, pc] = row.to(cd)
     k4 = kv[:, :pc + 1].view(b, lanes, pc + 1, 2, heads, dh).float()
+    k4 = k4.transpose(1, 2).reshape(b, plan.rows, 2, heads, dh)  # r = s K + j
     qq = q.to(cd).float().view(b, lanes, heads, dh)
-    sc = torch.einsum("bkhd,bjshd->bhkjs", qq, k4[:, :, :, 0])
-    sc = sc + bias[:, :, :pc + 1].permute(0, 1, 3, 2)[:, None]
-    sc = sc.reshape(b, heads, lanes, lanes * (pc + 1))
-    p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
-    p = (p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(cd).float()
-    v = k4[:, :, :, 1].permute(0, 3, 1, 2, 4).reshape(
-        b, heads, lanes * (pc + 1), dh)
-    out = torch.einsum("bhkr,bhrd->bkhd", p, v).reshape(n, c)
-    return out.to(q.dtype), kv
+    bb = bias[:, :, :pc + 1].reshape(b, 1, lanes, plan.rows)
+    out = torch.zeros(b, heads, lanes, dh)
+    for g in range(plan.groups):
+        qs = slice(g * plan.group_lanes, min(lanes, (g + 1) * plan.group_lanes))
+        sc = torch.einsum("bkhd,brhd->bhkr", qq[:, qs], k4[:, :, 0]) + bb[
+            :, :, qs]
+        m = torch.full(sc.shape[:-1], float("-inf"))
+        den = torch.zeros(sc.shape[:-1])
+        held = []  # a one-chunk rank's exp(s - m_rank) and m_rank
+        for r in range(plan.cluster):
+            m_r, l_r = torch.full_like(m, float("-inf")), torch.zeros_like(den)
+            for ch in plan.rank_chunks(r):
+                part = sc[..., ch.start:ch.stop]
+                m_c = part.amax(dim=-1)
+                e = torch.exp(part - m_c.clamp_min(-3.0e38)[..., None])
+                m_r, l_r = _combine(m_r, l_r, m_c, e.sum(-1))
+            held.append((e, m_r) if len(plan.rank_chunks(r)) == 1 else None)
+            m, den = _combine(m, den, m_r, l_r)
+        den = den.clamp_min(1e-30)[..., None]
+        if cd == torch.float32:  # expf and IEEE division
+            p = torch.exp(sc - m[..., None]) / den
+        else:  # the held exp times exp(m_rank - m) / den, or exp(s - m) / den
+            p = torch.exp(sc - m[..., None]) * (1 / den)
+            for r, kept in enumerate(held):
+                rr = plan.rank_rows(r)
+                if kept is not None:
+                    e, m_r = kept
+                    p[..., rr.start:rr.stop] = e * (torch.exp(
+                        m_r.clamp_min(-3.0e38) - m)[..., None] / den)
+        p = p.to(cd).float()
+        o = torch.zeros(b, heads, qs.stop - qs.start, dh)
+        for r in range(plan.cluster):
+            rr = plan.rank_rows(r)
+            o = o + torch.einsum("bhkr,brhd->bhkd", p[..., rr.start:rr.stop],
+                                 k4[:, rr.start:rr.stop, 1])
+        out[:, :, qs] = o
+    return out.permute(0, 2, 1, 3).reshape(n, c).to(q.dtype), kv
 
 
 @pytest.mark.parametrize("pos", [0, 11, 63, 80])
-@pytest.mark.parametrize("lanes", [9, 22])
+@pytest.mark.parametrize("lanes", [9, 22, 40, 100])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
-def test_decode_wide_arithmetic_within_the_output_bound(pos, lanes,
-                                                        cache_dtype):
-    """More than 8 lanes (beams of 9 and more): the block-a-query kernel's
-    arithmetic against the twin within ``output_bound`` (ROADMAP C27), and
-    the same cache."""
+@pytest.mark.parametrize("chunk", [None, 16])
+def test_decode_tiled_arithmetic_within_the_output_bound(pos, lanes,
+                                                         cache_dtype, chunk):
+    """More than 8 lanes (beams of 9 and more; 100 lanes: two query groups
+    of 50): the kernel's order, with the launch plan's chunks or with
+    chunks of 16 rows forced (two passes), against the twin within
+    ``output_bound`` (ROADMAP C27), and the same cache."""
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
     from tests.torch_port_common import decode_case
 
     q, kv, row, bias = decode_case(pos + lanes, b=2, k=lanes, pos=pos)
     q, kv, row, bias = t(q), t(kv).to(cache_dtype), t(row), t(bias)
-    got, got_kv = _decode_wide(pos, q, kv.clone(), bias, lanes, 4, row)
+    plan = pda.launch_plan(2, lanes, 4, 32, 64, pos, kv.element_size())
+    assert plan.groups == (2 if lanes > pda.GROUP_LANES else 1)
+    if chunk and plan.rows_per_rank > chunk:
+        plan = plan._replace(tile=chunk, chunk=chunk)
+        assert len(plan.rank_chunks(0)) > 1
+    got, got_kv = _decode_tiled(pos, q, kv.clone(), bias, lanes, 4, row, plan)
     want, want_kv = pda.decode_attention(pos, q, kv.clone(), bias, lanes, 4,
                                          row)
     bnd = pda.output_bound(pos, q, kv, bias, lanes, 4, row)
@@ -309,19 +450,28 @@ def test_decode_wide_arithmetic_within_the_output_bound(pos, lanes,
 
 
 def test_wide_limits_are_the_sources():
-    """The wrappers count the wide launches by the sources' limits."""
+    """The wrappers' limits and counts are the sources': decode_attention's
+    one query tile (the wide count's limit) and query group, beam_update's
+    warp kernel, top-k's list kernel and the radix select's shared
+    memory."""
     from avsr_tpu_torch.ops.kernels import _build
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
 
     src = (_build.CSRC_DIR / "decode_attention.cu").read_text()
-    assert f"constexpr int kMaxLanes = {pda.MAX_LANES};" in src
-    assert "lanes <= kMaxLanes ||" in src
+    assert f"constexpr int kTileLanes = {pda.MAX_LANES};" in src
+    assert f"constexpr int kGroupLanes = {pda.GROUP_LANES};" in src
+    assert "decode_attention_wide_kernel" not in src
     src = (_build.CSRC_DIR / "beam_update.cu").read_text()
     assert f"constexpr int kMaxK = {pbu.MAX_K};" in src
     assert f"constexpr int kMaxCand = {pbu.MAX_CAND};" in src
     assert "k > kMaxK || k * (sp + 1) > kMaxCand" in src
     src = (_build.CSRC_DIR / "topk.cu").read_text()
     assert "if (k > kMaxK) {" in src
+    assert f"constexpr int kMaxK = {ptk.MAX_K};" in src
+    assert f"constexpr int kWideSmemMax = {ptk.WIDE_SMEM_MAX};" in src
+    for v, k in ((5049, 33), (61, 61), (5049, 5049), (100, 64)):
+        n = 1 << (k - 1).bit_length()
+        assert ptk.wide_smem_bytes(v, k) == (v + 1) // 2 * 8 + 8 * n
 
 
 @pytest.mark.parametrize("beam,fused,eos_boost", [(22, False, 0.0),

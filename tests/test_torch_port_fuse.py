@@ -396,6 +396,55 @@ def test_fused_layer_recognizer_matches_jax(fused_pair):
     assert len(calls) == 2 * max(lens)  # 2 layers, every step
 
 
+def test_fused_layer_recognizer_matches_jax_at_beam_10():
+    """Beam 10 (ROADMAP C30: above the 8 lanes the fused layer once took),
+    the tiny config in fp32 with decode_fused_layer on both sides, three
+    utterances of mixed length: tokens and lengths identical, scores within
+    2e-4 relative; every step's layers ran decoder_layer_step at 10
+    lanes."""
+    from avsr_tpu.decode.recognizer import Recognizer as JaxRecognizer
+    from avsr_tpu_torch.decode.recognizer import Recognizer
+
+    cfg = tiny_cfg()
+    cfg.decode_fused_layer = True
+    jmodel, variables = jax_tiny_model(cfg, seed=2)
+    kw = dict(beam_size=10, t_buckets=(24,), max_decode_tokens=16,
+              video_wire="delta2", ctc_weight=0.1)
+    jrec = JaxRecognizer(model=jmodel, variables=variables, cfg=cfg, **kw)
+    prec = Recognizer(model=port_model(cfg, variables), cfg=port_cfg(cfg),
+                      device="cpu", **kw)
+    assert prec.model.decoder.fused_layer
+    assert prec.cfg.decoder_param_dtype == prec.cfg.decoder_cache_dtype == (
+        "float32")
+    rng = np.random.RandomState(11)
+    lens = (19, 12, 16)
+    audio = [rng.randn(n, 104).astype(np.float32) for n in lens]
+    video = [rng.randint(0, 256, size=(n, 88, 88, 1)).astype(np.uint8)
+             for n in lens]
+    aud, vid, ln, _ = jrec._pad_batch(audio, video)
+    feats, ctc = jrec._encode_fn()(jrec.variables, aud, vid, ln)
+    jy, jl, js = (np.asarray(v) for v in jrec._beam_fn()(
+        jrec.variables, feats, ctc, ln))
+    lanes = []
+    real = pdl.decoder_layer_step_plain
+
+    def counted(*a, **kw):
+        lanes.append(a[8])
+        return real(*a, **kw)
+
+    pdl.decoder_layer_step_plain = counted
+    try:
+        paud, pvid, plens, _ = prec._pad_batch(audio, video)
+        py, pl, ps = (v.numpy() for v in prec.beam(
+            *prec.encode(paud, pvid, plens), plens))
+    finally:
+        pdl.decoder_layer_step_plain = real
+    np.testing.assert_array_equal(pl, jl)
+    np.testing.assert_array_equal(py, jy)
+    np.testing.assert_allclose(ps, js, rtol=2e-4, atol=0)
+    assert lanes and set(lanes) == {10}
+
+
 # ------------------------------------------------------------ coverage
 
 

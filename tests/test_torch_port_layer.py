@@ -222,11 +222,56 @@ def test_grouped_layernorm_holds_at_an_offset(groups, spread):
     assert err <= 8 * twin_err + 1e-5, (err, twin_err)
 
 
+def emulate_attention(q, keys, values, bias, cur, vn, tile, kd):
+    """The kernel's ``attend`` over R stored rows (fp32 tensors (..., K,
+    dh) queries, (..., R, dh) keys and values, (..., K, R) bias; with the
+    fresh score ``cur`` (..., K) and value ``vn`` (..., K, dh), or None):
+    one pass where R <= ``tile``, else two over tiles of ``tile`` rows;
+    each pass's statistics taken by 8 warps over even row ranges and folded
+    into the joint (max, shifted sum) in warp (and tile) order, starting
+    from the fresh score; p and the fresh row's share rounded to ``kd``;
+    P.V in fp32, tile by tile."""
+    r_all = keys.shape[-2]
+    scores = torch.einsum("...kd,...rd->...kr", q, keys) + bias
+    m = cur if cur is not None else torch.full(q.shape[:-1], float("-inf"))
+    den = torch.ones_like(m) if cur is not None else torch.zeros_like(m)
+    spans = ([(0, r_all)] if r_all <= tile else
+             [(r0, min(r0 + tile, r_all)) for r0 in range(0, r_all, tile)])
+    for r0, r1 in spans:
+        per = -(-(r1 - r0) // 8)
+        for w in range(8):
+            part = scores[..., r0 + w * per:min(r0 + (w + 1) * per, r1)]
+            if part.shape[-1] == 0:
+                m_w = torch.full_like(m, float("-inf"))
+                l_w = torch.zeros_like(den)
+            else:
+                m_w = part.amax(dim=-1)
+                l_w = torch.exp(part - m_w.clamp_min(-3.0e38)[..., None]).sum(-1)
+            mm = torch.maximum(m, m_w)
+            safe = mm.clamp_min(-3.0e38)
+            den = den * torch.exp(m - safe) + l_w * torch.exp(m_w - safe)
+            m = mm
+    den = den.clamp_min(1e-30)
+    p = (torch.exp(scores - m[..., None]) / den[..., None]).to(kd).float()
+    out = torch.zeros(*q.shape)
+    for r0, r1 in ([(r0, min(r0 + tile, r_all))
+                    for r0 in range(0, r_all, tile)] or [(0, 0)]):
+        out = out + torch.einsum("...kr,...rd->...kd", p[..., r0:r1],
+                                 values[..., r0:r1, :])
+    if cur is not None:
+        pc = (torch.exp(cur - m) / den).to(kd).float()
+        out = out + pc[..., None] * vn
+    return out
+
+
 def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-                  packed, lanes, heads, plan):
-    """``decoder_layer_step`` with the kernel's GEMVs and LayerNorms (the
-    attention as the twin's: the kernel's takes the same rounding points,
-    its fp32 sums in other orders); returns (x_out, the K|V row)."""
+                  packed, lanes, heads, plan, tile=None):
+    """``decoder_layer_step`` with the kernel's GEMVs and LayerNorms;
+    the attention as the twin's (the kernel's takes the same rounding
+    points, its fp32 sums in other orders), or, with ``tile``, in the
+    kernel's order (``emulate_attention``: the rows s < min(pos, S) of
+    every lane, two passes where they exceed the tile); returns (x_out,
+    the K|V row)."""
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     b, dh = n // lanes, c // heads
@@ -249,29 +294,47 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
     k_new = rnd(qkv[:, c:2 * c], kd).view(b, lanes, heads, dh)
     v_new = rnd(qkv[:, 2 * c:], kd).view(b, lanes, heads, dh)
     kv = kv_cache.float().view(b, lanes, s_max, 2, heads, dh)
-    scores = torch.einsum("bkhd,bjshd->bhkjs", q, kv[:, :, :, 0])
-    scores = scores + lane_bias.permute(0, 1, 3, 2)[:, None]
-    if pos < s_max:
-        scores[..., pos] += NEG
     cur = torch.einsum("bkhd,bkhd->bhk", k_new, q)
-    flat = scores.reshape(b, heads, lanes, lanes * s_max)
-    m = torch.maximum(flat.amax(dim=-1), cur)
-    pr, pc = torch.exp(flat - m[..., None]), torch.exp(cur - m)
-    den = (pr.sum(dim=-1) + pc).clamp_min(1e-30)
-    pr = rnd(pr / den[..., None], kd).view(b, heads, lanes, lanes, s_max)
-    pc = rnd(pc / den, kd)
-    o = torch.einsum("bhkjs,bjshd->bkhd", pr, kv[:, :, :, 1])
-    o = o + pc.permute(0, 2, 1)[..., None] * v_new
+    if tile is not None:
+        s_lim = min(pos, s_max)
+        rows = kv[:, :, :s_lim].permute(0, 4, 1, 2, 3, 5).reshape(
+            b, heads, lanes * s_lim, 2, dh)
+        bias = lane_bias[:, :, :s_lim].permute(0, 1, 3, 2).reshape(
+            b, 1, lanes, lanes * s_lim)
+        o = emulate_attention(q.permute(0, 2, 1, 3), rows[..., 0, :],
+                              rows[..., 1, :], bias, cur,
+                              v_new.permute(0, 2, 1, 3), tile, kd)
+        o = o.permute(0, 2, 1, 3)
+    else:
+        scores = torch.einsum("bkhd,bjshd->bhkjs", q, kv[:, :, :, 0])
+        scores = scores + lane_bias.permute(0, 1, 3, 2)[:, None]
+        if pos < s_max:
+            scores[..., pos] += NEG
+        flat = scores.reshape(b, heads, lanes, lanes * s_max)
+        m = torch.maximum(flat.amax(dim=-1), cur)
+        pr, pc = torch.exp(flat - m[..., None]), torch.exp(cur - m)
+        den = (pr.sum(dim=-1) + pc).clamp_min(1e-30)
+        pr = rnd(pr / den[..., None], kd).view(b, heads, lanes, lanes, s_max)
+        pc = rnd(pc / den, kd)
+        o = torch.einsum("bhkjs,bjshd->bkhd", pr, kv[:, :, :, 1])
+        o = o + pc.permute(0, 2, 1)[..., None] * v_new
     xf = xf + gemv(1, rnd(o.reshape(n, c), wd), w_out, b_out)
     q2 = gemv(2, rnd(emulate_ln(xf, ln_w[1], ln_b[1], plan.rows[1]), wd),
               w_q2, b_q2) * scale
     q2 = rnd(rnd(q2, wd), kd).view(b, lanes, heads, dh)
     sk = src_k.float().view(b, -1, heads, dh)
     sv = src_v.float().view(b, -1, heads, dh)
-    s2 = torch.einsum("bkhd,bshd->bhks", q2, sk) + mem_bias[:, None, None, :]
-    p2 = torch.exp(s2 - s2.amax(dim=-1, keepdim=True))
-    p2 = rnd(p2 / p2.sum(dim=-1, keepdim=True).clamp_min(1e-30), kd)
-    o2 = torch.einsum("bhks,bshd->bkhd", p2, sv)
+    if tile is not None:
+        o2 = emulate_attention(
+            q2.permute(0, 2, 1, 3), sk.permute(0, 2, 1, 3),
+            sv.permute(0, 2, 1, 3), mem_bias[:, None, None, :], None, None,
+            tile, kd).permute(0, 2, 1, 3)
+    else:
+        s2 = torch.einsum("bkhd,bshd->bhks", q2, sk) + mem_bias[:, None,
+                                                                 None, :]
+        p2 = torch.exp(s2 - s2.amax(dim=-1, keepdim=True))
+        p2 = rnd(p2 / p2.sum(dim=-1, keepdim=True).clamp_min(1e-30), kd)
+        o2 = torch.einsum("bhks,bshd->bkhd", p2, sv)
     xf = xf + gemv(3, rnd(o2.reshape(n, c), wd), w_out2, b_out2)
     hid = rnd(torch.relu(gemv(
         4, rnd(emulate_ln(xf, ln_w[2], ln_b[2], plan.rows[3]), wd), w_1,
@@ -284,11 +347,11 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
 BE, KE, SE, S_ENC, CE, HE, FE = 3, 3, 16, 11, 128, 2, 256
 
 
-def _case(pos, seed, dtype):
+def _case(pos, seed, dtype, lanes=KE):
     """A layer of random weights (LN scales around 1) and one step's
-    inputs at C=128, F=256, two 64-wide heads, B=3, K=3: the beam's
-    contract (rows past pos masked on every lane, this step's row each
-    lane's own), utterance 1's last 3 source rows padded."""
+    inputs at C=128, F=256, two 64-wide heads, B=3, K=3 (or ``lanes``):
+    the beam's contract (rows past pos masked on every lane, this step's
+    row each lane's own), utterance 1's last 3 source rows padded."""
     from avsr_tpu_torch.models.decoder import DecoderLayer
 
     rng = np.random.RandomState(seed)
@@ -301,21 +364,21 @@ def _case(pos, seed, dtype):
             else:
                 prm.copy_(t(rng.randn(*prm.shape) / np.sqrt(prm.shape[-1])))
     packed = pdl.pack_layer_params(layer, dtype)
-    n = BE * KE
+    n = BE * lanes
     x = t(rng.randn(n, CE)).to(dtype)
     kv = t(rng.randn(n, SE, 2 * CE)).to(dtype)
     src_k, src_v = (t(rng.randn(BE, S_ENC, CE)).to(dtype) for _ in range(2))
     mem_bias = torch.zeros(BE, S_ENC)
     mem_bias[1, -3:] = NEG
-    anc = rng.randint(0, KE, size=(SE, BE, KE))
-    anc[min(pos, SE - 1)] = np.arange(KE)
+    anc = rng.randint(0, lanes, size=(SE, BE, lanes))
+    anc[min(pos, SE - 1)] = np.arange(lanes)
     valid = (np.arange(SE) <= pos)[:, None, None, None] & (
-        anc[..., None] == np.arange(KE))
+        anc[..., None] == np.arange(lanes))
     lane_bias = t(np.where(valid.transpose(1, 2, 0, 3), 0.0, NEG))
     return layer, packed, (x, kv, src_k, src_v, mem_bias, lane_bias.float())
 
 
-def _jax_step(pos, layer, args, dtype):
+def _jax_step(pos, layer, args, dtype, lanes=KE):
     from avsr_tpu.ops.pallas import decoder_layer as jdl
 
     tree = {}
@@ -336,7 +399,8 @@ def _jax_step(pos, layer, args, dtype):
     out, cache = jdl.decoder_layer_step(
         jnp.asarray(pos, jnp.int32), x.astype(jd), kv.astype(jd),
         src_k.astype(jd), src_v.astype(jd), mem_bias, lane_bias,
-        jdl.pack_layer_params(tree, jd), lanes=KE, heads=HE, interpret=True)
+        jdl.pack_layer_params(tree, jd), lanes=lanes, heads=HE,
+        interpret=True)
     return (np.asarray(out.astype(jnp.float32)),
             np.asarray(cache.astype(jnp.float32))[:, min(pos, SE - 1)])
 
@@ -374,6 +438,36 @@ def test_kernel_arithmetic_matches_plain_and_jax(pos, dtype, tol, items):
     want_x, want_kv = pdl.decoder_layer_step_plain(
         pos, *(a.clone() for a in args), packed, KE, HE)
     jax_x, jax_row = _jax_step(pos, layer, args, dtype)
+    want_row = want_kv[:, min(pos, SE - 1)]
+    for name, got, want in (("x_out", got_x, want_x.float().numpy()),
+                            ("row", got_row, want_row.float().numpy()),
+                            ("x_out vs JAX", got_x, jax_x),
+                            ("row vs JAX", got_row, jax_row)):
+        got = got.float().numpy()
+        err = np.abs(got - want).max()
+        assert err <= tol * np.abs(want).max(), f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("lanes,tile", [(3, 560), (10, 16), (22, 32),
+                                        (32, 48)])
+@pytest.mark.parametrize("pos", [0, 7, SE + 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_wide_beam_attention_matches_plain_and_jax(lanes, tile, pos, dtype,
+                                                   tol):
+    """ROADMAP C30: the kernel's attention order (``emulate_attention``),
+    one pass (3 lanes) or two over tiles of ``tile`` rows (10, 22 and 32
+    lanes: the scores of every lane's rows need not fit a block), inside
+    the emulated layer, against the twin and JAX's ``decoder_layer_step``
+    (interpret) at the same lanes: x_out and the written row within tol x
+    |max|, as test_kernel_arithmetic_matches_plain_and_jax holds them."""
+    layer, packed, args = _case(pos, pos + lanes, dtype, lanes)
+    plan = pdl.launch_plan(BE * lanes, CE, FE, 132, MAX_ROWS)
+    got_x, got_row = emulate_layer(pos, *args, packed, lanes, HE, plan,
+                                   tile=tile)
+    want_x, want_kv = pdl.decoder_layer_step_plain(
+        pos, *(a.clone() for a in args), packed, lanes, HE)
+    jax_x, jax_row = _jax_step(pos, layer, args, dtype, lanes)
     want_row = want_kv[:, min(pos, SE - 1)]
     for name, got, want in (("x_out", got_x, want_x.float().numpy()),
                             ("row", got_row, want_row.float().numpy()),

@@ -81,7 +81,7 @@ def test_decode_variant_arguments_name_its_sources():
 
 
 @pytest.mark.parametrize("fname,const", [
-    ("decode_attention.cu", "kMaxLanes"),
+    ("decode_attention.cu", "kTileLanes"),
     ("decode_attention.cu", "kThreads"),
     ("scan_logsumexp.cu", "kCols"),
     ("scan_logsumexp.cu", "kLaneRows"),

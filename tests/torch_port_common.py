@@ -171,3 +171,25 @@ def decode_case(seed: int, b: int = 3, k: int = 3, s_max: int = 64,
         anc[..., None] == np.arange(k))
     bias = np.where(np.transpose(valid, (1, 2, 0, 3)), 0.0, -1.0e30)
     return q, kv, row, bias.astype(np.float32)  # bias (B, K, S, J)
+
+
+def c1_topk(x, k: int):
+    """(values, indices) of k rounds of C1's rule (ROADMAP) per row of a
+    numpy fp32 (rows, v) array, NaN never chosen: the entries above -inf by
+    value descending, then index ascending; once they run out, -inf at the
+    lower of the lowest index holding -inf and the lowest index chosen
+    (2**31 - 1 where there is neither)."""
+    rows, v = x.shape
+    vals = np.full((rows, k), -np.inf, np.float32)
+    ids = np.zeros((rows, k), np.int64)
+    for r in range(rows):
+        row = x[r]
+        live = np.flatnonzero(~np.isnan(row) & (row > -np.inf))
+        order = live[np.lexsort((live, -row[live]))][:k]
+        vals[r, :len(order)] = row[order]
+        ids[r, :len(order)] = order
+        if len(order) < k:
+            neg = np.flatnonzero(row == -np.inf)
+            ids[r, len(order):] = min(neg.min() if len(neg) else 2**31 - 1,
+                                      order.min() if len(order) else 2**31 - 1)
+    return vals, ids
