@@ -69,31 +69,6 @@ __device__ __forceinline__ float key_value(unsigned key) {
   return __uint_as_float(key ^ (key >> 31 ? 0x80000000u : 0xffffffffu));
 }
 
-// (key, idx) <- the best of the block's (key, idx) pairs: the largest key,
-// then the lowest index holding it; every thread gets it. blockDim.x is a
-// multiple of 32; skey and sidx hold blockDim.x / 32 entries of shared
-// memory, free again when this returns.
-__device__ __forceinline__ void block_best(unsigned& key, int& idx,
-                                           unsigned* skey, int* sidx) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  unsigned mk = __reduce_max_sync(full, key);
-  int mi = __reduce_min_sync(full, key == mk ? idx : INT_MAX);
-  if (lane == 0) {
-    skey[warp] = mk;
-    sidx[warp] = mi;
-  }
-  __syncthreads();
-  const unsigned k2 = lane < warps ? skey[lane] : 0u;
-  const int i2 = lane < warps ? sidx[lane] : INT_MAX;
-  mk = __reduce_max_sync(full, k2);
-  mi = __reduce_min_sync(full, k2 == mk ? i2 : INT_MAX);
-  __syncthreads();
-  key = mk;
-  idx = mi;
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -109,6 +84,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 // 4-byte global -> shared copy (cached in L1 as well)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+// 8-byte global -> shared copy (cached in L1 as well)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
 }

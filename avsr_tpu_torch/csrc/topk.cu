@@ -49,6 +49,22 @@
 // NaN is never chosen. Bound: the row's 20 KB read once at V=5049 and a
 // few barriers a pass; rows up to kWideSmemMax / 4 entries (~57,000 at
 // k=33).
+//
+// The CTC candidate rows in the same launch (avsr_topk_gather_rows): the
+// beam's pre-beam top-k picks, for each (utterance, hypothesis) row r, the
+// ids whose columns of the CTC log-prob table the prefix scorer reads next.
+// Gathered by a launch of their own (csrc/row_gather.cu, the TPU kernel
+// avsr_tpu/ops/pallas/row_gather.py `_kernel`), those rows cost a launch
+// and the elementwise add that builds their indices, two launch floors for
+// 0.3 MB of copies at B=8. So each kernel above, once its row's ids are
+// chosen, puts them in shared memory (one barrier; a warp's own
+// __syncwarp in the warp-a-row kernel) and copies table row
+// (r / lanes) * v + id[q] to output row r * k + q for every q: 16-byte
+// loads and stores where the row length tp is a multiple of 4 and both
+// buffers are 16-byte aligned, single floats otherwise. An id outside
+// [0, v), which only a row without a value that is not NaN gives, writes a
+// row of NaN. Bytes are copied, so the rows are exact; the selection is
+// the same code with or without the copy.
 #include <climits>
 
 #include "common.cuh"
@@ -70,6 +86,44 @@ static_assert(kWideThreads == 256, "a thread a digit bin");
 // "a before b": the larger value, then the smaller index
 __device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
   return va > vb || (va == vb && ia < ib);
+}
+
+// where the chosen ids' CTC rows go; table null: no gather
+struct Gather {
+  const float* __restrict__ table;  // (rows / lanes * v, tp)
+  float* __restrict__ out;          // (rows * k, tp)
+  int lanes, tp;
+  bool vec;  // 16-byte copies
+};
+
+// output rows r*k .. r*k+k-1: table rows (r / lanes) * v + id[q] for the
+// k ids of row r (in shared memory), copied by `threads` threads from `t`
+__device__ __forceinline__ void gather_rows(const Gather& g, const int* id,
+                                            int k, size_t r, int v, int t,
+                                            int threads) {
+  const size_t base = r / g.lanes * static_cast<size_t>(v);
+  if (g.vec) {
+    const int n4 = g.tp / 4;
+    float4* out = reinterpret_cast<float4*>(g.out + r * k * g.tp);
+    for (int e = t; e < k * n4; e += threads) {
+      const int q = e / n4;
+      const int j = id[q];
+      float4 val = make_float4(NAN, NAN, NAN, NAN);
+      if (j >= 0 && j < v)
+        val = __ldg(reinterpret_cast<const float4*>(
+                        g.table + (base + j) * g.tp) + (e - q * n4));
+      out[e] = val;
+    }
+  } else {
+    float* out = g.out + r * k * g.tp;
+    for (int e = t; e < k * g.tp; e += threads) {
+      const int q = e / g.tp;
+      const int j = id[q];
+      out[e] = j >= 0 && j < v ? __ldg(g.table + (base + j) * g.tp +
+                                       (e - q * g.tp))
+                               : NAN;
+    }
+  }
 }
 
 // the best K (value, index) pairs seen, sorted; empty slots are (-inf,
@@ -145,31 +199,35 @@ __device__ __forceinline__ void merge_warp(List<K>& l, int k, float* ov,
 }
 
 // writes output slot r < k of a row from its merged list (sv, si): the
-// list itself while its values are above -inf, then the rounds' -inf rule
-__device__ __forceinline__ void finish(const float* sv, const int* si, int k,
-                                       int r, float* vals, long long* ids) {
+// list itself while its values are above -inf, then the rounds' -inf rule;
+// returns the id written
+__device__ __forceinline__ int finish(const float* sv, const int* si, int k,
+                                      int r, float* vals, long long* ids) {
   int c = 0;
   while (c < k && sv[c] > -INFINITY) ++c;
   if (r < c) {
     vals[r] = sv[r];
     ids[r] = si[r];
-    return;
+    return si[r];
   }
   int j = si[c];
   for (int p = 0; p < c; ++p) j = min(j, si[p]);
   vals[r] = -INFINITY;
   ids[r] = j;
+  return j;
 }
 
 // a block a row
 template <int K>
 __global__ void __launch_bounds__(kThreads)
     topk_row_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                    long long* __restrict__ ids, int v, int k) {
+                    long long* __restrict__ ids, int v, int k,
+                    const Gather g) {
   __shared__ float wv[kWarps * K];
   __shared__ int wi[kWarps * K];
   __shared__ float bv[K];
   __shared__ int bi[K];
+  __shared__ int chosen[K];
   const float* row = x + static_cast<size_t>(blockIdx.x) * v;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
@@ -211,8 +269,13 @@ __global__ void __launch_bounds__(kThreads)
     merge_warp<K>(l, k, bv, bi);
     __syncwarp();
     if (tid < k)
-      finish(bv, bi, k, tid, vals + static_cast<size_t>(blockIdx.x) * k,
-             ids + static_cast<size_t>(blockIdx.x) * k);
+      chosen[tid] = finish(bv, bi, k, tid,
+                           vals + static_cast<size_t>(blockIdx.x) * k,
+                           ids + static_cast<size_t>(blockIdx.x) * k);
+  }
+  if (g.table != nullptr) {  // the same for every thread of the launch
+    __syncthreads();
+    gather_rows(g, chosen, k, blockIdx.x, v, tid, kThreads);
   }
 }
 
@@ -220,9 +283,11 @@ __global__ void __launch_bounds__(kThreads)
 template <int K>
 __global__ void __launch_bounds__(kFlatWarps * 32)
     topk_warp_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                     long long* __restrict__ ids, int rows, int v, int k) {
+                     long long* __restrict__ ids, int rows, int v, int k,
+                     const Gather g) {
   __shared__ float wv[kFlatWarps * K];
   __shared__ int wi[kFlatWarps * K];
+  __shared__ int chosen[kFlatWarps * K];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row_id = blockIdx.x * kFlatWarps + warp;
   if (row_id >= rows) return;  // a whole warp: no shuffle misses a lane
@@ -234,9 +299,15 @@ __global__ void __launch_bounds__(kFlatWarps * 32)
   int* oi = wi + warp * K;
   merge_warp<K>(l, k, ov, oi);
   __syncwarp();
+  int* mine = chosen + warp * K;
   if (lane < k)
-    finish(ov, oi, k, lane, vals + static_cast<size_t>(row_id) * k,
-           ids + static_cast<size_t>(row_id) * k);
+    mine[lane] = finish(ov, oi, k, lane,
+                        vals + static_cast<size_t>(row_id) * k,
+                        ids + static_cast<size_t>(row_id) * k);
+  if (g.table != nullptr) {
+    __syncwarp();
+    gather_rows(g, mine, k, row_id, v, lane, 32);
+  }
 }
 
 // The k > kMaxK kernel's dynamic shared memory: the row's keys (v, 8-byte
@@ -285,7 +356,8 @@ __device__ __forceinline__ unsigned block_scan(unsigned x, unsigned* total,
 // lower of the lowest index holding -inf and the lowest index chosen.
 __global__ void __launch_bounds__(kWideThreads)
     topk_wide_kernel(const float* __restrict__ x, float* __restrict__ vals,
-                     long long* __restrict__ ids, int v, int k) {
+                     long long* __restrict__ ids, int v, int k,
+                     const Gather g) {
   extern __shared__ __align__(16) unsigned char wide_smem[];
   __shared__ unsigned hist[256];
   __shared__ unsigned tmp[kWideThreads / 32];
@@ -427,39 +499,42 @@ __global__ void __launch_bounds__(kWideThreads)
   float* ov = vals + r0 * k;
   long long* oi = ids + r0 * k;
   const int j = min(s_neg_inf, s_lowest);  // the -inf rule's index
+  // the keys are read no more: the chosen ids go there (k <= v)
+  int* chosen = reinterpret_cast<int*>(keys);
   for (int r = tid; r < k; r += kWideThreads) {
+    int id = j;
     if (r < static_cast<int>(m)) {
       ov[r] = avsr::key_value(static_cast<unsigned>(sel[r] >> 32));
-      oi[r] = 0xffffffffu - static_cast<unsigned>(sel[r]);
+      id = static_cast<int>(0xffffffffu - static_cast<unsigned>(sel[r]));
     } else {
       ov[r] = -INFINITY;
-      oi[r] = j;
     }
+    oi[r] = id;
+    chosen[r] = id;
+  }
+  if (g.table != nullptr) {
+    __syncthreads();
+    gather_rows(g, chosen, k, r0, v, tid, kWideThreads);
   }
 }
 
 template <int K>
 cudaError_t launch(const float* x, float* vals, long long* ids, int rows,
-                   int v, int k, cudaStream_t stream) {
+                   int v, int k, const Gather& g, cudaStream_t stream) {
   if (v <= kWarpRowMax)
     topk_warp_kernel<K><<<(rows + kFlatWarps - 1) / kFlatWarps,
                           kFlatWarps * 32, 0, stream>>>(x, vals, ids, rows,
-                                                        v, k);
+                                                        v, k, g);
   else
-    topk_row_kernel<K><<<rows, kThreads, 0, stream>>>(x, vals, ids, v, k);
+    topk_row_kernel<K><<<rows, kThreads, 0, stream>>>(x, vals, ids, v, k, g);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// x: (rows, v) fp32 contiguous, 4-byte aligned; vals: (rows, k) fp32; ids:
-// (rows, k) int64.
-extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
-                                 int rows, int v, int k, void* stream) {
+int topk(const float* x, float* vals, long long* ids, int rows, int v, int k,
+         const Gather& g, cudaStream_t s) {
   if (rows <= 0 || v <= 0 || k <= 0 || k > v ||
       reinterpret_cast<uintptr_t>(x) % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (k > kMaxK) {
     const size_t smem = wide_smem_bytes(v, k);
@@ -469,15 +544,43 @@ extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
              topk_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
              kWideSmemMax)) != cudaSuccess)
       return static_cast<int>(err);
-    topk_wide_kernel<<<rows, kWideThreads, smem, s>>>(x, vals, ids, v, k);
+    topk_wide_kernel<<<rows, kWideThreads, smem, s>>>(x, vals, ids, v, k, g);
     err = cudaGetLastError();
   } else if (k <= 4)
-    err = launch<4>(x, vals, ids, rows, v, k, s);
+    err = launch<4>(x, vals, ids, rows, v, k, g, s);
   else if (k <= 8)
-    err = launch<8>(x, vals, ids, rows, v, k, s);
+    err = launch<8>(x, vals, ids, rows, v, k, g, s);
   else if (k <= 16)
-    err = launch<16>(x, vals, ids, rows, v, k, s);
+    err = launch<16>(x, vals, ids, rows, v, k, g, s);
   else
-    err = launch<kMaxK>(x, vals, ids, rows, v, k, s);
+    err = launch<kMaxK>(x, vals, ids, rows, v, k, g, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// x: (rows, v) fp32 contiguous, 4-byte aligned; vals: (rows, k) fp32; ids:
+// (rows, k) int64.
+extern "C" int avsr_topk_lastdim(const float* x, float* vals, long long* ids,
+                                 int rows, int v, int k, void* stream) {
+  return topk(x, vals, ids, rows, v, k, Gather{nullptr, nullptr, 1, 1, false},
+              static_cast<cudaStream_t>(stream));
+}
+
+// avsr_topk_lastdim, and in the same launch the table rows of the chosen
+// ids: table (rows / lanes * v, tp) fp32, out (rows * k, tp) fp32, both
+// contiguous; rows a multiple of lanes.
+extern "C" int avsr_topk_gather_rows(const float* x, float* vals,
+                                     long long* ids, int rows, int v, int k,
+                                     const float* table, float* out,
+                                     int lanes, int tp, void* stream) {
+  if (table == nullptr || out == nullptr || lanes <= 0 || tp <= 0 ||
+      rows % lanes != 0 || reinterpret_cast<uintptr_t>(table) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = tp % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return topk(x, vals, ids, rows, v, k, Gather{table, out, lanes, tp, vec},
+              static_cast<cudaStream_t>(stream));
 }

@@ -27,8 +27,7 @@ from torch.nn import functional as F
 
 from avsr_tpu_torch.decode import ctc_prefix
 from avsr_tpu_torch.ops.kernels.beam_update import beam_update
-from avsr_tpu_torch.ops.kernels.row_gather import row_gather
-from avsr_tpu_torch.ops.kernels.topk import topk_lastdim
+from avsr_tpu_torch.ops.kernels.topk import topk_gather_rows, topk_lastdim
 
 NEG = -1.0e30
 D_END = -10.0  # log(1 * exp(-10)), e2e_asr_common.py:18
@@ -122,7 +121,6 @@ def beam_search_batched(
         logp_rows = log_probs.transpose(1, 2).reshape(b * v, t_pad).contiguous()
         cum_b_all = torch.cumsum(log_probs[:, :, cfg.blank], dim=1)
         ctc_state = ctc_prefix.init_state(log_probs, k, cfg.sos, cfg.blank)
-        row_base = (ar_b * v)[:, None, None]
 
     i = 0
     done = all(x <= 0 for x in xlens_host)
@@ -139,15 +137,18 @@ def beam_search_batched(
         dec_logp = dec_logp.view(b, k, v)
 
         # 2. pre-beam on decoder scores, then CTC prefix scores of the
-        # candidates (+ eos, which CTC always scores)
-        dec_top, part_ids = topk_lastdim(dec_logp, n_pre)  # (B, K, S')
+        # candidates (+ eos, which CTC always scores); with CTC the same
+        # launch gathers the candidates' rows of the table
         if use_ctc:
-            xs_rows = row_gather(logp_rows, (part_ids + row_base).view(-1))
+            dec_top, part_ids, xs_rows = topk_gather_rows(dec_logp, n_pre,
+                                                          logp_rows)
             xs = xs_rows.view(b, k, n_pre, t_pad).permute(3, 0, 1, 2)
             psi_cand, psi_eos, r_cands = (
                 ctc_prefix.score_candidates_cols_batched(
                     xs, cum_b_all, xlens, ctc_state, part_ids, eos,
                     cfg.blank))
+        else:
+            dec_top, part_ids = topk_lastdim(dec_logp, n_pre)  # (B, K, S')
 
         if cfg.fused_bookkeeping:
             # 3-6 in one kernel launch

@@ -12,7 +12,10 @@ that is about a hundred tiny launches a step (``decode/beam.py``).
 ``beam_update_plain``, on a CUDA device it launches ``csrc/beam_update.cu``:
 a warp's kernel up to ``MAX_K`` hypotheses and ``MAX_CAND`` candidates
 K*(S'+1), a block's beyond (``wide_launches`` counts those launches; a
-beam of 10 has 160 candidates).
+beam of 10 has 160 candidates): each warp sorts a chunk of 128
+candidates into a list, the lists merged by their entries' places, with
+no round of block barriers; a launch whose lists and item tile do not fit
+a block's shared memory raises.
 Both are bit-identical to the unfused step of ``decode/beam.py``: the same
 fp32 operations in the same order, each rounded on its own (no fused
 multiply-add), and selections that copy values. The port's beam always

@@ -5,7 +5,9 @@ decode step, the CTC prefix scorer's B*K*S' candidate rows of the
 transposed (B*V, Tp) log-prob table. ``row_gather`` dispatches on the
 tensor's device: on the CPU it runs ``row_gather_plain``, on a CUDA device
 it launches ``csrc/row_gather.cu``. The result is exact either way (bytes
-are copied).
+are copied). The beam itself gathers these rows in its pre-beam top-k's
+launch (``topk.topk_gather_rows``), which saves this launch and the index
+add before it; ``row_gather`` stays for any other gather of rows.
 
 The TPU kernel copies the 8-row block around each row and selects the row
 with a one-hot contraction, a workaround for the TPU's (8, 128) tiling

@@ -12,6 +12,12 @@ row staged in shared memory, for rows whose ``wide_smem_bytes`` fit
 ``launches`` counts all three, ``flat_launches`` the warp-a-row kernel's
 and ``wide_launches`` the k > ``MAX_K`` kernel's. torch.topk is not used:
 its tie order on CUDA is not documented.
+
+``topk_gather_rows`` is the beam's pre-beam top-k with the CTC scorer's
+candidate rows (``row_gather.row_gather`` of the transposed log-prob
+table) copied in the same launch; its launches count in
+``topk_lastdim``'s counters as well and in ``gather_launches``
+(``topk_gather_rows.launches`` too).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import ctypes
 import torch
 
 from avsr_tpu_torch.ops.kernels import _build
+from avsr_tpu_torch.ops.kernels.row_gather import row_gather_plain
 
 MAX_K = 32  # csrc/topk.cu kMaxK: the largest k of the per-thread lists
 WARP_ROW_MAX = 1024  # csrc/topk.cu kWarpRowMax
@@ -48,7 +55,7 @@ def topk_plain(x, k: int):
     return torch.stack(vals, -1), torch.stack(ids, -1)
 
 
-def _launch(x2, k):
+def _launch(x2, k, table=None, lanes=1):
     rows, v = x2.shape
     if x2.device.index != torch.cuda.current_device():
         raise ValueError(f"tensor on {x2.device}, current device is "
@@ -57,19 +64,37 @@ def _launch(x2, k):
         raise ValueError(f"topk_lastdim at k={k} > {MAX_K} takes rows whose "
                          f"keys and sort buffer fit {WIDE_SMEM_MAX} bytes: "
                          f"v={v} needs {wide_smem_bytes(v, k)}")
-    fn = _build.function(
-        "avsr_topk_lastdim",
-        (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
-    )
     vals = torch.empty((rows, k), dtype=x2.dtype, device=x2.device)
     ids = torch.empty((rows, k), dtype=torch.int64, device=x2.device)
-    err = fn(x2.data_ptr(), vals.data_ptr(), ids.data_ptr(), rows, v, k,
-             torch.cuda.current_stream(x2.device).cuda_stream)
-    _build.check("topk_lastdim", err)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    if table is None:
+        fn = _build.function(
+            "avsr_topk_lastdim",
+            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + (ctypes.c_void_p,),
+        )
+        out = None
+        err = fn(x2.data_ptr(), vals.data_ptr(), ids.data_ptr(), rows, v, k,
+                 stream)
+    else:
+        fn = _build.function(
+            "avsr_topk_gather_rows",
+            (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3
+            + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 2
+            + (ctypes.c_void_p,),
+        )
+        out = torch.empty((rows * k, table.shape[1]), dtype=table.dtype,
+                          device=table.device)
+        err = fn(x2.data_ptr(), vals.data_ptr(), ids.data_ptr(), rows, v, k,
+                 table.data_ptr(), out.data_ptr(), lanes, table.shape[1],
+                 stream)
+    _build.check("topk_lastdim" if table is None else "topk_gather_rows", err)
     topk_lastdim.launches += 1
     topk_lastdim.flat_launches += k <= MAX_K and v <= WARP_ROW_MAX
     topk_lastdim.wide_launches += k > MAX_K
-    return vals, ids
+    if table is not None:
+        topk_lastdim.gather_launches += 1
+        topk_gather_rows.launches += 1
+    return vals, ids, out
 
 
 def topk_lastdim(x, k: int):
@@ -87,10 +112,45 @@ def topk_lastdim(x, k: int):
     if x.device.type != "cuda":
         raise ValueError(f"no topk_lastdim for device {x.device}")
     lead = x.shape[:-1]
-    vals, ids = _launch(x.reshape(-1, x.shape[-1]), k)
+    vals, ids, _ = _launch(x.reshape(-1, x.shape[-1]), k)
     return vals.view(*lead, k), ids.view(*lead, k)
+
+
+def topk_gather_rows(x, k: int, table):
+    """``topk_lastdim(x, k)`` of an fp32 x (B, K, V), and the rows of
+    ``table`` (B*V, Tp) fp32 that its ids pick: rows[(b*K + j)*k + q] =
+    table[b*V + ids[b, j, q]], a new (B*K*k, Tp) tensor. Returns (values,
+    ids, rows). One launch on the card (an id outside [0, V), which only
+    a row of NaN gives there, takes a row of NaN); on the CPU
+    ``topk_plain`` then ``row_gather_plain``."""
+    if x.dtype != torch.float32 or table.dtype != torch.float32:
+        raise TypeError(f"topk_gather_rows takes fp32, got {x.dtype} and "
+                        f"{table.dtype}")
+    if x.dim() != 3 or table.dim() != 2:
+        raise ValueError(f"x (B, K, V) and table (B*V, Tp), got "
+                         f"{tuple(x.shape)} and {tuple(table.shape)}")
+    b, lanes, v = x.shape
+    if table.shape[0] != b * v:
+        raise ValueError(f"table has {table.shape[0]} rows, x asks for "
+                         f"B*V = {b * v}")
+    if not 0 < k <= v:
+        raise ValueError(f"k={k} outside [1, {v}]")
+    if not (x.is_contiguous() and table.is_contiguous()):
+        raise ValueError("inputs must be contiguous")
+    if table.device != x.device:
+        raise ValueError(f"x on {x.device}, table on {table.device}")
+    if x.device.type == "cpu":
+        vals, ids = topk_plain(x, k)
+        base = torch.arange(b, device=x.device)[:, None, None] * v
+        return vals, ids, row_gather_plain(table, (ids + base).view(-1))
+    if x.device.type != "cuda":
+        raise ValueError(f"no topk_gather_rows for device {x.device}")
+    vals, ids, rows = _launch(x.view(b * lanes, v), k, table, lanes)
+    return vals.view(b, lanes, k), ids.view(b, lanes, k), rows
 
 
 topk_lastdim.launches = 0
 topk_lastdim.flat_launches = 0
 topk_lastdim.wide_launches = 0
+topk_lastdim.gather_launches = 0
+topk_gather_rows.launches = 0

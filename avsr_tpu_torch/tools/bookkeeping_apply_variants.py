@@ -22,7 +22,11 @@ that spins one cycle, ``torch.cuda._sleep(1)``, timed the same way), and:
   checkout's twin bit for bit, and timed; with
   ``beam_update.cu:kTrace=1`` also the phases of one launch (thread 0 of
   block (0, 0) marks each phase's end with the SM clock, scaled to ns by
-  the global timer);
+  the global timer; the wide kernel's phases are WIDE_PHASES);
+- ``beam_update`` beyond the warp kernel's limits (WIDE: beams of 10 and
+  22, S'=15 and 33, at phase 8's B=32, L=98 and a 128-row ancestry, and
+  beam 22 at B=8 over the serving L=377 and 192 rows; step 40, ties), the
+  same way;
 - ``bn_prelu_pool_apply`` at the training shape (N = 6*384 channels-last
   frames of (64, 44, 44), bf16) and the eval shape (N = 8*377), with
   the batch statistics as p: against this checkout's twin given the same
@@ -31,7 +35,8 @@ that spins one cycle, ``torch.cuda._sleep(1)``, timed the same way), and:
 - ``bn_prelu_pool_bwd1`` at the training shape, warm, dz against the twin
   bit for bit (it shares the apply pass's strip walker).
 
-The SHA-256 of each kernel's outputs goes to ``NAME/{b8,apply,dz}.sha256``;
+The SHA-256 of each kernel's outputs goes to
+``NAME/{b8,b8wide,apply,dz}.sha256``;
 after the runs the tool prints whether each variant's outputs are the first
 variant's bit for bit. Times are ``chip_smoke.cuda_ms``. Needs a CUDA
 device and ``nvcc``.
@@ -52,12 +57,17 @@ from avsr_tpu_torch.tools import topk_stem_variants as tv
 
 SOURCES = ("common.cuh", "runtime.cu", "beam_update.cu", "stem_fuse.cu")
 WRAPPERS = ("beam_update", "stem_fuse")
-KERNELS = r"beam_update_kernel|apply_kernel|bwd1_kernel"
+KERNELS = r"beam_update\w*_kernel|apply_kernel|bwd1_kernel"
 BATCHES = (8, 32)
-DIGESTS = ("b8.sha256", "apply.sha256", "dz.sha256")
-# beam_update.cu's marks, where kTrace=1: the phases between them
+# (B, K, S', encoder frames T (L = T + 2), ancestry rows) of the wide path
+WIDE = ((32, 10, 15, 96, 128), (32, 22, 33, 96, 128), (8, 22, 33, 375, 192))
+DIGESTS = ("b8.sha256", "b8wide.sha256", "apply.sha256", "dz.sha256")
+# beam_update.cu's marks, where kTrace=1: the phases between them, in the
+# warp kernel and in the wide kernel
 PHASES = ("item loads issued", "candidates loaded", "k rounds",
           "bookkeeping", "barrier", "item stores")
+WIDE_PHASES = ("copies and loads issued", "loads consumed, eos flags",
+               "chunk rounds", "places", "bookkeeping", "tile wait, stores")
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "bookkeeping_apply_variants"
 
@@ -146,6 +156,25 @@ def run(name: str) -> None:
                   + ", ".join(f"{what} {t:.0f}" for what, t in zip(
                       PHASES, phase_ns(read_marks()))), flush=True)
     (variant / DIGESTS[0]).write_text(digest(outs))
+    outs = []
+    for b, k, sp, t, rows in WIDE:
+        st = cs.step_state(5, 40, dev, True, b, k, sp, t, rows)
+        got = pbu.beam_update(40, *st.values(), **kw)
+        want = ref_bu.beam_update_plain(40, *st.values(), **kw)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(got[key], w) for key, w in want.items())
+        outs += list(got.values())
+        ms = cs.cuda_ms(lambda: pbu.beam_update(40, *st.values(), **kw))
+        bnd = cs.bound(cs.nbytes(*st.values(), *got.values()),
+                       b * k * (sp + 1) * (5 + k), "fp32")
+        print(f"# [{name}] beam_update wide B={b}, K={k}, S'={sp}, "
+              f"L={t + 2}: {ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), "
+              f"every output the twin's bit for bit {exact}", flush=True)
+        if traced(variant):
+            print(f"# [{name}] beam_update wide B={b}, K={k} phases (ns): "
+                  + ", ".join(f"{what} {t:.0f}" for what, t in zip(
+                      WIDE_PHASES, phase_ns(read_marks()))), flush=True)
+    (variant / DIGESTS[1]).write_text(digest(outs))
 
     g = torch.Generator(device=dev).manual_seed(7)
     outs = []
@@ -179,14 +208,14 @@ def run(name: str) -> None:
                 x, scale, bias, alpha, mean, torch.rsqrt(var + 1e-5),
                 dout)[0]
             torch.cuda.synchronize()
-            (variant / DIGESTS[2]).write_text(digest([dz]))
+            (variant / DIGESTS[3]).write_text(digest([dz]))
             same = torch.equal(dz, w_dz)
             del dz, w_dz
             ms = cs.cuda_ms(lambda: psf.bn_prelu_pool_bwd1(*sets[1], dout))
             print(f"# [{name}] bn_prelu_pool_bwd1 N={n} bf16: warm {ms:.4f} "
                   f"ms; dz the twin's bit for bit {same}", flush=True)
         del sets, x, out, dout
-    (variant / DIGESTS[1]).write_text(digest(outs))
+    (variant / DIGESTS[2]).write_text(digest(outs))
 
 
 def main(argv: list[str]) -> int:

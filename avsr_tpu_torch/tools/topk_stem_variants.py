@@ -10,7 +10,8 @@ Each argument is a variant, read as ``flash_variants`` reads it: ``NAME``,
 SOURCES set to VALUE), or ``NAME@DIR`` with the sources of DIR, the
 ``csrc/`` of another checkout (say the parent commit's, unpacked with
 ``git archive``), whose wrappers ``DIR/../ops/kernels/{topk,stem_fuse}.py``
-are then loaded beside them. All variants build at once, one ``nvcc`` per
+(and ``row_gather.py``) are then loaded beside them. All variants build
+at once, one ``nvcc`` per
 source, under ``build/topk_stem_variants/NAME/``; then each runs in a
 process of its own, which loads its library and its wrappers, prints the
 two kernels' registers and spills (from the ``-Xptxas -v`` report), and:
@@ -22,6 +23,13 @@ two kernels' registers and spills (from the ``-Xptxas -v`` report), and:
   ``torch.topk`` on the same tensor (warm: the beam's logits were just
   written) and beside the launch floor, a kernel that spins one cycle
   (``torch.cuda._sleep(1)``) timed the same way;
+- the pre-beam with the CTC scorer's rows (GATHERS: beam 3 at B=8 and
+  B=32, k=4, Tp=384; beam 22 at B=32, k=33, Tp=128): the pair the beam
+  launched before, ``topk_lastdim``, the index add and ``row_gather``
+  (``row_gather.py`` loaded beside the variant's ``topk.py``), timed, and
+  where the variant's ``topk.py`` has it ``topk_gather_rows``, one launch,
+  timed beside it, its ids and rows held bit for bit against the pair's
+  and the pair's against this checkout's twins;
 - ``bn_prelu_pool_bwd1`` at the training shape (N = 6*384 channels-last
   frames of (64, 44, 44), bf16; ``chip_smoke._stem_inputs``): dz and the
   three sums against this checkout's twin, a second call bit-equal to the
@@ -45,11 +53,14 @@ from avsr_tpu_torch.ops.kernels import _build
 from avsr_tpu_torch.tools import decode_variants as dv
 from avsr_tpu_torch.tools import flash_variants as fv
 
-SOURCES = ("common.cuh", "runtime.cu", "topk.cu", "stem_fuse.cu")
-WRAPPERS = ("topk", "stem_fuse")
+SOURCES = ("common.cuh", "runtime.cu", "topk.cu", "stem_fuse.cu",
+           "row_gather.cu")
+WRAPPERS = ("topk", "stem_fuse", "row_gather")
 SHAPES = ((24, 5049, 4), (96, 5049, 4), (8, 15, 3), (32, 15, 3),
           (176, 5049, 33), (704, 5049, 33), (704, 5049, 48),
           (704, 5049, 64))
+# (B, beam, pre-beam k, the CTC table's Tp) of the pre-beam's row gather
+GATHERS = ((8, 3, 4, 384), (32, 3, 4, 384), (32, 22, 33, 128))
 KERNELS = r"topk\w*_kernel|bwd1_kernel"
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "topk_stem_variants"
@@ -108,6 +119,41 @@ def topk_case(torch, g, dev, rows: int, v: int):
     return x
 
 
+def gather_case(torch, cs, name, ptk, prg, ref_tk, g, dev, b, lanes, k,
+                tp):
+    """Times the pre-beam top-k of (b, lanes, V) logits and its rows of a
+    (b*V, tp) table: the unfused pair (top-k, index add, ``row_gather``)
+    and, where ``ptk`` has it, ``topk_gather_rows``; prints both and
+    whether their ids and rows agree bit for bit."""
+    v = cs.VOCAB
+    x = topk_case(torch, g, dev, b * lanes, v).view(b, lanes, v)
+    table = torch.randn(b * v, tp, generator=g, device=dev)
+    base = torch.arange(b, device=dev)[:, None, None] * v
+
+    def pair():
+        vals, ids = ptk.topk_lastdim(x, k)
+        return vals, ids, prg.row_gather(table, (ids + base).view(-1))
+
+    got = pair()
+    want = ref_tk.topk_plain(x, k)
+    torch.cuda.synchronize()
+    exact = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+             and torch.equal(got[2], table[(want[1] + base).view(-1)]))
+    ms = cs.cuda_ms(pair)
+    bnd = cs.bound(cs.nbytes(x, *got, got[2]), k * x.numel(), "fp32")
+    line = (f"# [{name}] pre-beam + rows B={b}, beam {lanes}, k={k}, "
+            f"Tp={tp}: top-k + add + row_gather {ms:.4f} ms (exact "
+            f"{exact})")
+    if hasattr(ptk, "topk_gather_rows"):
+        fused = ptk.topk_gather_rows(x, k, table)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(fused, got))
+        fused_ms = cs.cuda_ms(lambda: ptk.topk_gather_rows(x, k, table))
+        line += (f", topk_gather_rows {fused_ms:.4f} ms (the pair's bit "
+                 f"for bit {same})")
+    print(f"{line}; bound {bnd[0]:.6f} ms ({bnd[1]})", flush=True)
+
+
 def run(name: str) -> None:
     import torch
 
@@ -139,6 +185,11 @@ def run(name: str) -> None:
         print(f"# [{name}] topk_lastdim ({rows}, {v}) k={k}: {ms:.4f} ms, "
               f"torch.topk {lib:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), "
               f"exact {exact}", flush=True)
+
+    prg = dv.wrapper(variant, "row_gather")
+    for b, lanes, k, tp in GATHERS:
+        gather_case(torch, cs, name, ptk, prg, ref_tk, g, dev, b, lanes, k,
+                    tp)
 
     n = cs.TRAIN_BATCH * cs.T_PAD
     sets = []

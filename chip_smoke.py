@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the kernels (one nvcc per source, all at once), with the time;
-3. holds each of the thirteen kernels against its plain PyTorch twin, with
+3. holds each of the thirteen kernels, and the pre-beam top-k that
+   gathers the CTC candidate rows in its launch (``topk_gather_rows``),
+   against its plain PyTorch twin, with
    a stated limit, and times the kernel, the twin and, where one PyTorch
    call computes the same function, that call; computes each kernel's
    bound from the bytes and operations of its inputs. The serving kernels
@@ -34,7 +36,11 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    records ``topk_lastdim`` and ``topk_lastdim_flat``) and B=32, exact
    against the twin on rows with ties, equal values, too few finite
    entries and starts off a 16-byte boundary, each timed beside
-   ``torch.topk``; ``beam_update`` at B=8 (the record) and B=32, every
+   ``torch.topk``; ``row_gather``, exact; ``topk_gather_rows`` at B=8
+   (24, 5049) k=4 with the (B*V, 384) table (the record) and beam 22's
+   (704, 5049) k=33 with a (B*V, 128) one, ids and rows exact, one launch
+   each, timed beside the pair the beam launched before (the top-k, the
+   index add, ``row_gather``); ``beam_update`` at B=8 (the record) and B=32, every
    output bit for bit, timed beside the launch floor (a kernel that spins
    one cycle); ``cumlogsumexp`` at (384, 96) (B=8, the
    record) and (384, 384) (B=32) against ``torch.logcumsumexp``; the
@@ -72,7 +78,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    (``ctc_weight=0``), and greedy CTC; then the same weights with
    ``decode_fused_layer`` and ``AVSR_FUSED_STEM_EVAL=1``. Each run starts
    with every launch count at 0 and is checked for the kernels of its
-   path (with the switches off, no fused-path kernel runs; with them on,
+   path (with CTC one ``topk_gather_rows`` a step and no ``row_gather``;
+   with the switches off, no fused-path kernel runs; with them on,
    the stem hands the fused tail channels-last frames, so nothing is
    copied);
 5. runs the same full-width weights through the CUDA path (bookkeeping
@@ -112,7 +119,9 @@ Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
 the kernel's main path: the default beam run of phase 4 (``ctc_weight=0.1``,
 unfused) for the serving kernels (top-k's vocabulary-row and flat launches
-apart), the fused run for ``beam_update``, which
+apart; ``row_gather`` 0, since the beam gathers the CTC rows in its
+pre-beam top-k's launch, ``topk_gather_rows``, whose launches count in
+``topk_lastdim``'s too), the fused run for ``beam_update``, which
 only the fused bookkeeping runs, the fused-layer run for
 ``decoder_layer_step``, phase 6's timed steps for the three flash kernels
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
@@ -711,6 +720,54 @@ def phase_kernels(dev):
         # the rows asked for, not the table: read once, written once
         bound=bound(nbytes(idx, got, got), 0, "fp32"),
     )
+
+    # topk_gather_rows: the pre-beam top-k with the CTC candidate rows
+    # gathered in its launch, at the beam's B=8 (24, 5049) k=4 with the
+    # (B*V, 384) table (the record) and beam 22's B=32 (704, 5049) k=33
+    # with a (B*V, 128) one; ids and rows exact against the twins, one
+    # launch each, timed beside the pair the beam launched before (the
+    # top-k, the index add, row_gather)
+    for b, lanes, kk, tp in ((B, BEAM, PRE_BEAM, T_PAD),
+                             (EVAL_B, 22, 33, -(-EVAL_T // 128) * 128)):
+        x = torch.randn(b, lanes, VOCAB, generator=g, device=dev)
+        x[..., VOCAB // 2] = x.amax(dim=-1)
+        x[1, 0] = 0.5
+        table = torch.randn(b * VOCAB, tp, generator=g, device=dev)
+        base = torch.arange(b, device=dev)[:, None, None] * VOCAB
+        before = ptk.topk_gather_rows.launches
+        got = ptk.topk_gather_rows(x, kk, table)
+        wv, wi = ptk.topk_plain(x, kk)
+        want_rows = prg.row_gather_plain(table, (wi + base).view(-1))
+        torch.cuda.synchronize()
+        check(ptk.topk_gather_rows.launches == before + 1
+              and torch.equal(got[0], wv) and torch.equal(got[1], wi)
+              and torch.equal(got[2], want_rows),
+              f"topk_gather_rows disagrees at B={b}, beam {lanes}, k={kk}, "
+              f"Tp={tp}")
+
+        def pair(x=x, kk=kk, table=table, base=base):
+            vals, ids = ptk.topk_lastdim(x, kk)
+            return vals, ids, prg.row_gather(table, (ids + base).view(-1))
+
+        r = dict(
+            source="avsr_tpu_torch/csrc/topk.cu",
+            replaces="avsr_tpu/ops/pallas/row_gather.py:43",
+            max_abs_err=0.0,
+            ms=cuda_ms(lambda: ptk.topk_gather_rows(x, kk, table)),
+            plain_ms=cuda_ms(lambda: (
+                ptk.topk_plain(x, kk),
+                prg.row_gather_plain(table, (wi + base).view(-1)))),
+            library_ms=None,  # no one call takes the top-k and the rows
+            # the logits read, the values, ids and rows written, the rows
+            # read; one comparison per element and round
+            bound=bound(nbytes(x, *got, got[2]), kk * x.numel(), "fp32"))
+        pair_ms = cuda_ms(pair)
+        print(f"# topk_gather_rows B={b}, beam {lanes}, k={kk}, Tp={tp}: "
+              f"exact, one launch {r['ms']:.4f} ms against top-k + add + "
+              f"row_gather {pair_ms:.4f} ms; plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]})")
+        if b == B:
+            records["topk_gather_rows"] = r
 
     # beam_update: step states with and without ties, mid-utterance and
     # at the forced last step of every lane, at B=8 and B=32; every output
@@ -1587,8 +1644,8 @@ def phase_serving(dev, gpu_name: str):
           "the Recognizer's defaults changed")
     audio, video = synthetic_batch(np.random.RandomState(0), [FRAMES] * B)
     counters = (pfa.flash_attention_fwd, pda.decode_attention,
-                ptk.topk_lastdim, prg.row_gather, psl.cumlogsumexp,
-                pbu.beam_update, pdl.decoder_layer_step,
+                ptk.topk_lastdim, ptk.topk_gather_rows, prg.row_gather,
+                psl.cumlogsumexp, pbu.beam_update, pdl.decoder_layer_step,
                 psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply)
     layers = cfg.encoder.num_hidden_layers
     audio_s = B * SEGMENT_SECONDS
@@ -1633,9 +1690,13 @@ def phase_serving(dev, gpu_name: str):
         check(n["topk_lastdim"] >= steps
               and (fused or n["topk_lastdim_flat"] >= steps),
               f"{name}: topk_lastdim not launched every step")
+        # with CTC the pre-beam top-k gathers the candidates' rows in its
+        # launch: one topk_gather_rows a step, no row_gather
+        check(n["topk_gather_rows"] == (steps if ctc_weight else 0)
+              and n["row_gather"] == 0,
+              f"{name}: topk_gather_rows {n['topk_gather_rows']} and "
+              f"row_gather {n['row_gather']} launches in {steps} steps")
         if ctc_weight:
-            check(n["row_gather"] >= steps,
-                  f"{name}: row_gather not launched every step")
             check(n["cumlogsumexp"] >= 2 * steps,
                   f"{name}: cumlogsumexp not launched twice a step")
         check((n["beam_update"] >= steps) if fused
@@ -1672,7 +1733,8 @@ def phase_serving(dev, gpu_name: str):
           f"{fused_name}: decoder_layer_step not once per layer and step")
     check(n["bn_prelu_pool_apply"] == 1 and n["bn_prelu_pool_stats"] == 0,
           f"{fused_name}: not one stem apply per encode")
-    check(n["row_gather"] >= steps and n["cumlogsumexp"] >= 2 * steps,
+    check(n["topk_gather_rows"] == steps and n["row_gather"] == 0
+          and n["cumlogsumexp"] >= 2 * steps,
           f"{fused_name}: the CTC scorer's kernels not launched every step")
     check(torch.isfinite(fs).all().item(), "fused-layer beam scores")
 
@@ -2014,7 +2076,8 @@ def check_mp4_writer(directory: str) -> None:
 @contextlib.contextmanager
 def twins_checked(seen: dict):
     """Within the block, every call the beam makes of ``topk_lastdim``,
-    ``beam_update`` and ``decode_attention`` is also held against the twin
+    ``topk_gather_rows``, ``beam_update`` and ``decode_attention`` is also
+    held against the twin
     on copies of the same card tensors, taken before the kernel writes:
     the top-k and every output of beam_update exact, decode_attention's
     cache bit-equal and its output within ``output_bound``. ``seen`` gets,
@@ -2025,6 +2088,7 @@ def twins_checked(seen: dict):
     from avsr_tpu_torch.models import decoder as decoder_mod
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
     from avsr_tpu_torch.ops.kernels import topk as ptk
 
     def note(name, wide, shape, err):
@@ -2040,6 +2104,19 @@ def twins_checked(seen: dict):
         check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
               f"topk_lastdim disagrees on the beam's {tuple(x.shape)} k={k}")
         note("topk_lastdim", k > ptk.MAX_K, (tuple(x.shape), k), 0.0)
+        return got
+
+    def topk_rows(x, k, table):
+        got = ptk.topk_gather_rows(x, k, table)
+        vals, ids = ptk.topk_plain(x, k)
+        base = torch.arange(x.shape[0], device=x.device)[:, None, None]
+        rows = prg.row_gather_plain(table, (ids + base * x.shape[2]).view(-1))
+        check(torch.equal(got[0], vals) and torch.equal(got[1], ids)
+              and torch.equal(got[2], rows),
+              f"topk_gather_rows disagrees on the beam's {tuple(x.shape)} "
+              f"k={k}, table {tuple(table.shape)}")
+        note("topk_gather_rows", k > ptk.MAX_K,
+             (tuple(x.shape), k, tuple(table.shape)), 0.0)
         return got
 
     def bookkeeping(i, *args, **kw):
@@ -2070,15 +2147,16 @@ def twins_checked(seen: dict):
              (tuple(kv.shape), lanes), diff.max().item())
         return got, got_kv
 
-    saved = (beam_mod.topk_lastdim, beam_mod.beam_update,
-             decoder_mod.decode_attention)
-    beam_mod.topk_lastdim, beam_mod.beam_update = topk, bookkeeping
+    saved = (beam_mod.topk_lastdim, beam_mod.topk_gather_rows,
+             beam_mod.beam_update, decoder_mod.decode_attention)
+    beam_mod.topk_lastdim, beam_mod.topk_gather_rows = topk, topk_rows
+    beam_mod.beam_update = bookkeeping
     decoder_mod.decode_attention = attention
     try:
         yield seen
     finally:
-        (beam_mod.topk_lastdim, beam_mod.beam_update,
-         decoder_mod.decode_attention) = saved
+        (beam_mod.topk_lastdim, beam_mod.topk_gather_rows,
+         beam_mod.beam_update, decoder_mod.decode_attention) = saved
 
 
 @contextlib.contextmanager
@@ -2161,8 +2239,8 @@ def phase_eval(dev, smi: str):
     from avsr_tpu_torch.ops.kernels import topk as ptk
 
     counters = (pfa.flash_attention_fwd, pda.decode_attention,
-                ptk.topk_lastdim, prg.row_gather, psl.cumlogsumexp,
-                pbu.beam_update)
+                ptk.topk_lastdim, ptk.topk_gather_rows, prg.row_gather,
+                psl.cumlogsumexp, pbu.beam_update)
 
     def reset():
         for fn in counters:
@@ -2279,7 +2357,8 @@ def phase_eval(dev, smi: str):
               >= cfg.encoder.num_hidden_layers
               and main["topk_lastdim"] >= steps
               and main["topk_lastdim_flat"] >= steps
-              and main["row_gather"] >= steps
+              and main["topk_gather_rows"] >= steps
+              and main["row_gather"] == 0
               and main["cumlogsumexp"] >= 2 * steps
               and main["beam_update"] == 0
               and main["decode_attention_wide"] == 0,
@@ -2380,8 +2459,8 @@ def phase_eval(dev, smi: str):
                       runs.items() if "fused layer" not in name),
               "phase 8: the C28 kernels did not run where they should")
         check(all(f"{n}_wide" in seen for n in (
-            "topk_lastdim", "beam_update", "decode_attention"))
-            and "decoder_layer_step" in seen,
+            "topk_gather_rows", "beam_update", "decode_attention"))
+            and "topk_lastdim" in seen and "decoder_layer_step" in seen,
             "phase 8: a wide path was not checked against its twin")
         del os.environ["AVSR_SPM_DIR"]
     runs["eval"] = main

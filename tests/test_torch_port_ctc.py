@@ -91,6 +91,34 @@ def test_row_gather_plain_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+def test_topk_gather_rows_matches_jax_topk_and_row_gather():
+    """The fused pre-beam top-k and CTC row gather (its CPU route) gives
+    the JAX package's ``topk_lastdim`` followed by its ``row_gather`` of
+    rows b*V + id: the same values and ids, the same rows bit for bit, on
+    rows with ties at the maximum and a row of equal values."""
+    from avsr_tpu.ops.pallas.row_gather import row_gather
+    from avsr_tpu.ops.pallas.topk import topk_lastdim
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    b, k, v, tp, n = 2, 3, 64, 128, 4
+    rng = np.random.RandomState(13)
+    x = rng.randn(b, k, v).astype(np.float32)
+    x[..., v // 2] = x.max(axis=-1)
+    x[..., -1] = x.max(axis=-1)
+    x[1, 2] = 0.5
+    table = rng.randn(b * v, tp).astype(np.float32)
+    want_v, want_i = topk_lastdim(jnp.asarray(x), n)
+    idx = np.asarray(want_i) + (np.arange(b) * v)[:, None, None]
+    want_rows = row_gather(jnp.asarray(table),
+                           jnp.asarray(idx.reshape(-1), jnp.int32))
+    got_v, got_i, got_rows = ptk.topk_gather_rows(t(x), n, t(table))
+    assert got_rows.shape == (b * k * n, tp)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_rows.numpy(), np.asarray(want_rows))
+    assert (got_i[1, 2].numpy() == np.arange(n)).all()  # equal values
+
+
 # ---------------------------------------------------------- CTC scorer
 
 

@@ -287,12 +287,14 @@ def test_beam_update_kernel_at_every_batch_and_its_limits(dev, b, k, sp, ll,
         assert torch.equal(got[name].cpu(), w), name
 
 
-@pytest.mark.parametrize("k,sp", [(1, 60000), (250, 250)])
+@pytest.mark.parametrize("k,sp", [(100, 200), (250, 250)])
 def test_beam_update_kernel_refuses_beyond_its_limits(dev, k, sp):
-    """More candidates K*(S'+1) than a block's shared memory holds (the
-    wide kernel's limit, some 56,000): the kernel refuses the launch, and
-    the wrapper raises. (Beyond 16 hypotheses or 128 candidates the wide
-    kernel runs: test_beam_update_wide_kernel_matches_plain.)"""
+    """More listed candidates (min(K, 128) of each chunk of 128, 24 bytes
+    each) than a block's shared memory holds beside one item's tile (the
+    wide kernel's limit, some 9,000 candidates at K >= 128): the kernel
+    refuses the launch, and the wrapper raises. (Beyond 16 hypotheses or
+    128 candidates the wide kernel runs, 60,003 candidates of three
+    hypotheses included: test_beam_update_wide_kernel_matches_plain.)"""
     b, ll = 2, 30
     z = torch.zeros
     args = [torch.full((b,), 20, dtype=torch.int64), z(b, k, sp), z(b, k),
@@ -473,24 +475,41 @@ def test_topk_wide_kernel_refuses_beyond_its_limit(dev):
     assert torch.equal(vals, torch.topk(x, 32).values)
 
 
+def _all_inf_lanes(case):
+    """Lane 6's candidates all -inf (every round takes index 0), lane 7's
+    all -inf but hypothesis 1's eos slot (the later rounds take index 0,
+    not chosen before)."""
+    for name in ("dec_top", "dec_eos"):
+        case[name][6:8] = float("-inf")
+    case["dec_eos"][7, 1] = -1.0
+    return case
+
+
 @pytest.mark.parametrize("k,sp", [(16, 7), (17, 7), (3, 41), (3, 42),
-                                  (10, 15), (22, 33), (17, 4), (3, 43)])
+                                  (10, 15), (22, 33), (17, 4), (3, 43),
+                                  (30, 45), (40, 60), (3, 20000)])
 @pytest.mark.parametrize("use_ctc", [True, False])
-def test_beam_update_wide_kernel_matches_plain(dev, k, sp, use_ctc):
+@pytest.mark.parametrize("b", [8, 32])
+def test_beam_update_wide_kernel_matches_plain(dev, k, sp, use_ctc, b):
     """Just under (16 hypotheses, 128 candidates: the warp kernel) and just
     over (17 hypotheses, 129 candidates) the warp kernel's limits, beam 10
-    (S'=15) and beam 22 (S'=33), and two shapes the warp kernel once
-    refused ((17, 4), (3, 43)): every output bit-identical to the twin,
-    and the wide count moves only beyond the limits."""
+    (S'=15) and beam 22 (S'=33), two shapes the warp kernel once refused
+    ((17, 4), (3, 43)), beam 30 (1380 candidates: warps take a second
+    chunk), 40 hypotheses (two trips of warp 0's bookkeeping) and 60,003
+    candidates of three hypotheses, at B=8 and B=32, with two lanes whose
+    candidates are all -inf (or all but one): every output bit-identical
+    to the twin, and the wide count moves only beyond the limits."""
     w_ctc = 0.1 if use_ctc else 0.0
     eos = max(60, sp + 2)  # S' distinct ids below eos
     kw = dict(w_dec=1.0 - w_ctc, w_ctc=w_ctc, eos=eos, neg=NEG, d_end=-10.0,
               m_end=3)
     for seed, i in ((k, 9), (sp, 20)):
+        case = beam_step_case(seed, i, use_ctc=use_ctc, b=b, k=k, sp=sp,
+                              ll=377, s_rows=192, eos=eos)
+        if seed == k:
+            case = _all_inf_lanes(case)
         args = [None if x is None else torch.from_numpy(x)
-                for x in beam_step_case(seed, i, use_ctc=use_ctc, b=8, k=k,
-                                        sp=sp, ll=377, s_rows=192,
-                                        eos=eos).values()]
+                for x in case.values()]
         want = pbu.beam_update_plain(i, *args, **kw)
         before = pbu.beam_update.wide_launches
         got = pbu.beam_update(i, *(None if x is None else x.to(dev)
@@ -500,6 +519,60 @@ def test_beam_update_wide_kernel_matches_plain(dev, k, sp, use_ctc):
             k > 16 or k * (sp + 1) > 128)
         for name, w in want.items():
             assert torch.equal(got[name].cpu(), w), name
+
+
+@pytest.mark.parametrize("b,lanes,v,k,tp,offset", [
+    (8, 3, 5049, 4, 384, 0), (32, 3, 5049, 4, 384, 0),
+    (32, 22, 5049, 33, 128, 0), (8, 3, 5049, 4, 127, 0),
+    (8, 3, 5049, 4, 384, 1), (4, 22, 5049, 33, 131, 3),
+    (6, 3, 61, 4, 20, 0), (2, 5, 1025, 8, 36, 2)])
+def test_topk_gather_rows_kernel_matches_plain(dev, b, lanes, v, k, tp,
+                                               offset):
+    """The pre-beam top-k with the CTC rows gathered in its launch, against
+    ``topk_plain`` then ``row_gather_plain`` of rows b*V + id, bit for bit:
+    the beam's pre-beam at B=8 and B=32 (beam 3, k=4, Tp=384) and beam 22's
+    at B=32 (k=33, Tp=128: the radix select), a row length Tp that is not
+    a multiple of 4, a table 1 or 3 floats off a 16-byte boundary (single
+    floats copied), a short vocabulary (the warp-a-row kernel) and a
+    1025-column one; rows with ties at the maximum. A row of NaN, whose
+    ids lie outside [0, V) (C1's rule: 2**31 - 1), gathers rows of NaN.
+    One launch each, counted by the top-k, the gather and the wide
+    counters."""
+    from torch_port_common import c1_topk
+
+    g = _gen(v + k + tp + offset)
+    x = torch.randn(b, lanes, v, generator=g)
+    x[..., v // 2] = x.amax(dim=-1)
+    x[1, 0] = 0.25
+    x[0, lanes - 1] = float("nan")
+    buf = torch.randn(b * v * tp + offset, generator=g)
+    table = buf[offset:].view(b * v, tp)
+    vals, ids = ptk.topk_plain(x, k)
+    want_v, want_i = c1_topk(x[0, lanes - 1:].numpy(), k)
+    vals[0, lanes - 1], ids[0, lanes - 1] = (torch.from_numpy(want_v[0]),
+                                            torch.from_numpy(want_i[0]))
+    base = (torch.arange(b) * v)[:, None, None]
+    keep = (ids >= 0) & (ids < v)
+    want_rows = prg.row_gather_plain(table, torch.where(
+        keep, ids + base, 0).view(-1))
+    want_rows[~keep.view(-1)] = float("nan")
+    tb, xb, tbd = table.to(dev), x.to(dev), buf.to(dev)
+    if offset:
+        tb = tbd[offset:].view(b * v, tp)
+    counts = (ptk.topk_lastdim.launches, ptk.topk_lastdim.gather_launches,
+              ptk.topk_lastdim.wide_launches, ptk.topk_gather_rows.launches)
+    got_v, got_i, got_rows = ptk.topk_gather_rows(xb, k, tb)
+    torch.cuda.synchronize()
+    assert (ptk.topk_lastdim.launches - counts[0],
+            ptk.topk_lastdim.gather_launches - counts[1],
+            ptk.topk_lastdim.wide_launches - counts[2],
+            ptk.topk_gather_rows.launches - counts[3]) == (1, 1, int(k > 32),
+                                                           1)
+    assert torch.equal(got_i.cpu(), ids)
+    assert torch.equal(got_v.cpu(), vals)
+    got_rows = got_rows.cpu()
+    assert torch.isnan(got_rows[~keep.view(-1)]).all()
+    assert torch.equal(got_rows[keep.view(-1)], want_rows[keep.view(-1)])
 
 
 def _attn_case(dev, n, tt, d, dtype, seed):

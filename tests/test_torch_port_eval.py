@@ -49,12 +49,14 @@ from tests.test_torch_port_host import (  # noqa: E402
 )
 from tests.torch_port_common import (  # noqa: E402
     beam_step_case,
+    gather_spy,
     jax_tiny_model,
     port_cfg,
     port_model,
     setup_torch,
     t,
     tiny_cfg,
+    wide_topk,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -99,51 +101,6 @@ def _recognizers(base, eos_boost=0.0, **kw):
 
 
 # ---------------------------------------------------------------- C28
-
-
-def _order_key(v):
-    """csrc/common.cuh order_key: a uint32 in the order of the floats."""
-    b = int(np.array([np.float32(v) + np.float32(0)]).view(np.uint32)[0])
-    return b ^ (0xFFFFFFFF if b >> 31 else 0x80000000)
-
-
-KEY_NEG_INF = _order_key(-np.inf)
-
-
-def _rounds(values, k, threads=256):
-    """k rounds of csrc's block-wide arg-max after the previous winner
-    (``beam_update_wide_kernel``): each thread's best
-    over its strided elements that come after (pk, pi) in the order
-    "larger key, then lower index", then the block's best (avsr::
-    block_best: per warp, then over the warps); from the first round whose
-    best is -inf on, every slot takes the lower of that round's index and
-    the lowest index chosen before. Returns (index, inf round) a slot."""
-    keys = [None if np.isnan(x) else _order_key(x) for x in values]
-    pk, pi, lowest = 0xFFFFFFFF, -1, INT_MAX
-    out = []
-    for r in range(k):
-        per_thread = []
-        for tid in range(threads):
-            bk, bi = 0, INT_MAX
-            for e in range(tid, len(values), threads):
-                key = keys[e]
-                if key is not None and (key < pk or (key == pk and e > pi)) \
-                        and key > bk:
-                    bk, bi = key, e
-            per_thread.append((bk, bi))
-        warps = []
-        for w in range(0, threads, 32):
-            lanes = per_thread[w:w + 32]
-            mk = max(kk for kk, _ in lanes)
-            warps.append((mk, min(i for kk, i in lanes if kk == mk)))
-        bk = max(kk for kk, _ in warps)
-        bi = min(i for kk, i in warps if kk == bk)
-        if bk <= KEY_NEG_INF:
-            j = min(bi, lowest)
-            return out + [(j, True)] * (k - r)
-        out.append((bi, False))
-        pk, pi, lowest = bk, bi, min(lowest, bi)
-    return out
 
 
 def _inf_rows(v, seed):
@@ -270,7 +227,8 @@ def test_topk_wide_design_skips_nan(k):
 @pytest.mark.parametrize("k,sp", [(10, 15), (22, 33), (17, 4)])
 def test_beam_update_wide_rounds_match_the_twin(k, sp):
     """csrc/beam_update.cu's block kernel: the weights in the unfused
-    step's fp32 order, its K rounds emulated, and each hypothesis' token,
+    step's fp32 order, its top-k emulated (``wide_topk``: each chunk's
+    bitonic sort, the lists' places, the -inf rule), and each hypothesis' token,
     ancestor, slot, psi and score from round r's candidate give the twin's
     (a lane whose candidates are all -inf runs the -inf rule)."""
     case = beam_step_case(k + sp, 9, b=7, k=k, sp=sp, eos=49)
@@ -300,7 +258,7 @@ def test_beam_update_wide_rounds_match_the_twin(k, sp):
                 wv = f32(kw["neg"])
             w[f] = wv
             tok[f] = 49 if eos_slot else case["part_ids"][b, j, q]
-        sel = _rounds(w, k)
+        sel = [(f, top == -np.inf) for f, top in wide_topk(w, k)[0]]
         ids = [f for f, _ in sel]
         np.testing.assert_array_equal(tok[ids], want["token"][b].numpy())
         np.testing.assert_array_equal([f // c for f in ids],
@@ -477,10 +435,12 @@ def test_wide_limits_are_the_sources():
 @pytest.mark.parametrize("beam,fused,eos_boost", [(22, False, 0.0),
                                                   (22, True, 3.0),
                                                   (10, True, 0.0)])
-def test_c28_beam_matches_jax(base, beam, fused, eos_boost):
+def test_c28_beam_matches_jax(base, beam, fused, eos_boost, monkeypatch):
     """Beams of 22 (pre-beam 33 > 32; 748 candidates) and 10 (160
     candidates) decode as the JAX beam does, token for token, scores
-    within 1e-4, at ctc_weight=0.1; no kernel is launched on the CPU."""
+    within 1e-4, at ctc_weight=0.1, each step's pre-beam through the fused
+    top-k and CTC row gather; no kernel is launched on the CPU."""
+    calls = gather_spy(monkeypatch)
     jrec, prec = _recognizers(base, eos_boost, beam_size=beam,
                               ctc_weight=0.1)
     prec = dataclasses.replace(prec, fused_bookkeeping=fused)
@@ -494,6 +454,8 @@ def test_c28_beam_matches_jax(base, beam, fused, eos_boost):
     py, pl, ps = (x.numpy() for x in prec.beam(*prec.encode(paud, pvid, plens),
                                                  plens))
     assert (ptk.topk_lastdim.launches, pbu.beam_update.launches) == before
+    assert len(calls) >= pl.max() - 2
+    assert {shape[1:] for shape in calls} == {(beam, base[0].odim)}
     np.testing.assert_array_equal(pl, jl)
     np.testing.assert_array_equal(py, jy)
     np.testing.assert_allclose(ps, js, atol=1e-4, rtol=0)

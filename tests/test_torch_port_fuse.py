@@ -474,7 +474,8 @@ PORTED = {
         ("flash_attention", "flash_attention_bwd_dkv",
          "flash_attention_bwd.cu")],
     ("row_gather.py", "row_gather"): [
-        ("row_gather", "row_gather", "row_gather.cu")],
+        ("row_gather", "row_gather", "row_gather.cu"),
+        ("topk", "topk_gather_rows", "topk.cu")],
     ("scan_logsumexp.py", "cumlogsumexp"): [
         ("scan_logsumexp", "cumlogsumexp", "scan_logsumexp.cu")],
     ("stem_fuse.py", "_batch_stats"): [

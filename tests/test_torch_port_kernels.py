@@ -20,7 +20,7 @@ from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl  # noqa: E402
 from avsr_tpu_torch.ops.kernels import stem_fuse as psf  # noqa: E402
 from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
 from tests.torch_port_common import (  # noqa: E402
-    beam_step_case, decode_case, setup_torch, t)
+    beam_step_case, c1_topk, decode_case, setup_torch, t, wide_topk)
 
 NEG = -1.0e30
 
@@ -460,6 +460,202 @@ def test_beam_update_warp_design_matches_the_twin(seed, i, k, sp, items,
         np.testing.assert_array_equal(got[name], w.numpy(), err_msg=name)
 
 
+def _beam_update_wide_design(i, args, *, w_dec, w_ctc, eos, neg, d_end,
+                             m_end, per=4, items=32):
+    """csrc/beam_update.cu beam_update_wide_kernel on numpy arrays: the
+    weights in the unfused step's fp32 order (eos among a hypothesis' pre-beam
+    ids from flags set by the candidates' ids), the top-k of ``wide_topk``
+    (each chunk's bitonic sort, the lists' places, the -inf rule), warp 0's
+    bookkeeping over K, and every block of the (B, G) grid copying its
+    ``items`` columns or ancestry rows, all K source values of each, into a
+    tile and writing its outputs from the tile; block 0 of an utterance
+    writes the per-hypothesis and per-utterance outputs. Asserts that every
+    output element is written once. Returns (outputs, the chunks each
+    utterance's listed rounds came from)."""
+    (xlens, dec_top, dec_eos, psi_cand, psi_eos, ctc_s, part_ids, score,
+     alive, stop, yseq, anc, ended_best, ended_cnt, best_score, best_yseq,
+     best_len) = args
+    f32 = np.float32
+    b_n, k, sp = part_ids.shape
+    c, ll, s_rows = sp + 1, yseq.shape[2], anc.shape[0]
+    nc = k * c
+    out = dict(token=np.zeros((b_n, k), np.int64),
+               prev=np.zeros((b_n, k), np.int64),
+               slot=np.zeros((b_n, k), np.int64),
+               psi_sel=np.zeros((b_n, k), np.float32),
+               score=np.zeros((b_n, k), np.float32),
+               alive=np.zeros((b_n, k), bool),
+               yseq=np.zeros_like(yseq), anc=np.zeros_like(anc),
+               ended_best=np.zeros_like(ended_best),
+               ended_cnt=np.zeros_like(ended_cnt),
+               best_score=np.zeros(b_n, np.float32),
+               best_len=np.zeros(b_n, np.int64), stop=np.zeros(b_n, bool),
+               best_yseq=np.zeros_like(best_yseq))
+    writes = {name: np.zeros(x.shape, int) for name, x in out.items()}
+    g = -(-(ll + s_rows) // items)
+    chunks = []
+    for b in range(b_n):
+        lane_active = not stop[b] and i < xlens[b]
+        forced = i >= xlens[b] - 1
+        dup = [(part_ids[b, j] == eos).any() for j in range(k)]
+        w = np.zeros(nc, np.float32)
+        tok = np.zeros(nc, np.int64)
+        psi = np.zeros(nc, np.float32)
+        for f in range(nc):
+            j, q = divmod(f, c)
+            eos_slot = q == sp
+            dec = dec_eos[b, j] if eos_slot else dec_top[b, j, q]
+            wv = f32(w_dec) * dec
+            if psi_cand is not None:
+                psi[f] = psi_eos[b, j] if eos_slot else psi_cand[b, j, q]
+                wv = wv + f32(w_ctc) * (psi[f] - ctc_s[b, j])
+            if eos_slot and dup[j]:
+                wv = f32(neg)
+            wv = wv + score[b, j]
+            if not alive[b, j]:
+                wv = f32(neg)
+            w[f], tok[f] = wv, (eos if eos_slot else part_ids[b, j, q])
+        rounds, came = wide_topk(w, k, per)
+        chunks.append(came)
+        # warp 0: hypothesis r in lane r
+        toks = [tok[f] for f, _ in rounds]
+        prev = [f // c for f, _ in rounds]
+        ended = [(toks[r] == eos or forced) and lane_active for r in range(k)]
+        es = [top if ended[r] else f32(neg)
+              for r, (_, top) in enumerate(rounds)]
+        step_best = max(es)
+        best_slot = es.index(step_best)
+        n_ended = sum(ended)
+        better = step_best > best_score[b] and lane_active
+        bsc = step_best if better else best_score[b]
+        alive_o = [(not ended[r] and lane_active) if lane_active
+                   else alive[b, r] for r in range(k)]
+        count = 0
+        for mm in range(m_end):
+            j = i - mm - 2
+            jc = max(j, 0)
+            cnt, eb = ended_cnt[b, jc], ended_best[b, jc]
+            if jc == i:
+                cnt, eb = cnt + n_ended, max(eb, step_best)
+            count += j >= 0 and cnt > 0 and f32(eb - bsc) < d_end
+        for gy in range(g):
+            e0 = gy * items
+            e1 = min(e0 + items, ll + s_rows)
+            cols = max(0, min(e1, ll) - e0)
+            a0, arows = max(e0, ll) - ll, max(0, e1 - max(e0, ll))
+            tile = np.zeros((k, items), np.int64)
+            tile[:, :cols] = yseq[b, :, e0:e0 + cols]
+            tile[:, cols:cols + arows] = anc[a0:a0 + arows, b].T
+            if gy == 0:
+                for r, (f, top) in enumerate(rounds):
+                    vals = dict(token=toks[r], prev=prev[r],
+                                slot=f - prev[r] * c, psi_sel=psi[f],
+                                score=((top if alive_o[r] else f32(neg))
+                                       if lane_active else score[b, r]),
+                                alive=alive_o[r])
+                    for name, v in vals.items():
+                        out[name][b, r] = v
+                        writes[name][b, r] += 1
+                vals = dict(best_score=bsc,
+                            best_len=(i + (3 if forced else 2) if better
+                                      else best_len[b]),
+                            stop=stop[b] or ((count >= m_end
+                                              or not any(alive_o))
+                                             and lane_active))
+                for name, v in vals.items():
+                    out[name][b] = v
+                    writes[name][b] += 1
+
+            def successor(j, u, e):
+                v = tile[prev[j], u]
+                if e == i + 1:
+                    v = toks[j]
+                if e == i + 2 and forced:
+                    v = eos
+                return v
+
+            for j in range(k):
+                for u in range(cols):
+                    e = e0 + u
+                    out["yseq"][b, j, e] = (successor(j, u, e)
+                                            if lane_active else tile[j, u])
+                    writes["yseq"][b, j, e] += 1
+            for u in range(cols):
+                e = e0 + u
+                out["best_yseq"][b, e] = (successor(best_slot, u, e)
+                                          if better else best_yseq[b, e])
+                out["ended_best"][b, e] = (max(ended_best[b, e], step_best)
+                                           if e == i else ended_best[b, e])
+                out["ended_cnt"][b, e] = ended_cnt[b, e] + (
+                    n_ended if e == i else 0)
+                for name in ("best_yseq", "ended_best", "ended_cnt"):
+                    writes[name][b, e] += 1
+            for u in range(arows):
+                for j in range(k):
+                    out["anc"][a0 + u, b, j] = tile[prev[j], cols + u]
+                    writes["anc"][a0 + u, b, j] += 1
+    for name, n in writes.items():
+        assert (n == 1).all(), name
+    return out, chunks
+
+
+@pytest.mark.parametrize("use_ctc", [True, False])
+@pytest.mark.parametrize("k,sp,per,items", [(17, 7, 4, 32), (10, 15, 4, 32),
+                                            (22, 33, 4, 32), (3, 43, 4, 32),
+                                            (10, 15, 1, 7)])
+def test_beam_update_wide_design_matches_the_twin(k, sp, per, items,
+                                                  use_ctc):
+    """The wide kernel's design, emulated element by element (each chunk's
+    bitonic sort into a list, the lists' places, the -inf rule, dead
+    hypotheses at neg, eos among the pre-beam ids, warp 0's bookkeeping,
+    the grid's tiles and copies), gives every output of the twin bit for
+    bit, at 17 hypotheses, beams 10 and 22 and 132 candidates of 3; with
+    lanes whose candidates are all -inf but one, and the K best of a lane
+    drawn from more than one chunk's list; also with chunks of 32 and 7
+    items a block (tiles across the token buffer's end)."""
+    case = beam_step_case(k + sp, 9, use_ctc=use_ctc, b=8, k=k, sp=sp,
+                          ll=40, s_rows=24, eos=60)
+    case = _inf_lanes(case, (6, 7))
+    # lane 0: the last hypothesis' eos slot (in the last chunk) wins
+    case["dec_eos"][0, k - 1] = 20.0
+    kw = dict(BU_KW, eos=60, w_ctc=0.1 if use_ctc else 0.0,
+              w_dec=0.9 if use_ctc else 1.0)
+    want = pbu.beam_update_plain(9, *(None if x is None else t(x)
+                                      for x in case.values()), **kw)
+    got, chunks = _beam_update_wide_design(9, list(case.values()), **kw,
+                                           per=per, items=items)
+    assert want["token"][6].tolist() == [case["part_ids"][6, 0, 0]] * k
+    assert want["prev"][7].tolist() == [1] + [0] * (k - 1)
+    assert want["prev"][0, 0] == k - 1 and len(set(chunks[0])) > 1
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name], w.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("per", [1, 4])
+def test_beam_update_wide_design_skips_nan(per):
+    """The wide kernel's top-k never chooses NaN and keeps C1's -inf rule
+    (``c1_topk``) on weights with NaN, -inf, ties across chunks and too
+    few entries above -inf: 748 candidates, K = 22; where every candidate
+    is NaN the rule has no index and takes candidate 0."""
+    rng = np.random.RandomState(per)
+    rows = rng.randint(-3, 3, size=(6, 748)).astype(np.float32)
+    rows[0, ::3] = np.nan
+    rows[1] = np.nan
+    rows[1, [5, 300, 700]] = [1.0, -np.inf, -2.0]
+    rows[2, :500] = np.nan
+    rows[2, 500:] = -np.inf
+    rows[2, 600] = 3.0
+    rows[3, 1::2] = -np.inf
+    rows[4] = np.nan
+    want_v, want_i = c1_topk(rows, 22)
+    want_i[4] = 0
+    for r, row in enumerate(rows):
+        rounds, _ = wide_topk(row, 22, per)
+        np.testing.assert_array_equal([f for f, _ in rounds], want_i[r])
+        np.testing.assert_array_equal(np.float32([v for _, v in rounds]),
+                                      want_v[r])
+
+
 # ---------------------------------------------------------------- stem apply
 
 
@@ -633,7 +829,8 @@ def test_cpu_route_warms_exp_first(route, monkeypatch):
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k",
                                   "scan_dtype", "gather_index_dtype",
                                   "gather_rank", "update_shape",
-                                  "update_ctc_operands"])
+                                  "update_ctc_operands", "topk_rows_table",
+                                  "topk_rows_dtype", "topk_rows_rank"])
 def test_wrappers_reject_bad_inputs(case):
     x = torch.randn(2, 8, 16)
     with pytest.raises((TypeError, ValueError)):
@@ -653,6 +850,14 @@ def test_wrappers_reject_bad_inputs(case):
             prg.row_gather(torch.randn(6, 4), torch.tensor([1], dtype=torch.int32))
         elif case == "gather_rank":
             prg.row_gather(torch.randn(6, 4, 2), torch.tensor([1]))
+        elif case == "topk_rows_table":  # B*V rows asked, one short
+            ptk.topk_gather_rows(torch.randn(2, 3, 10), 4,
+                                 torch.randn(19, 8))
+        elif case == "topk_rows_dtype":
+            ptk.topk_gather_rows(torch.randn(2, 3, 10), 4,
+                                 torch.randn(20, 8, dtype=torch.float64))
+        elif case == "topk_rows_rank":
+            ptk.topk_gather_rows(torch.randn(6, 10), 4, torch.randn(60, 8))
         elif case == "update_shape":
             args = _step_args()
             args[10] = args[10][:, :, :-1]  # yseq one column short

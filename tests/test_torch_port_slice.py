@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from tests.torch_port_common import (  # noqa: E402
+    gather_spy,
     jax_tiny_model,
     port_cfg,
     port_model,
@@ -123,9 +124,14 @@ def _beams(jrec, prec, batch):
 
 
 @pytest.mark.parametrize("eos_boost,ctc_weight,fused", BEAM_CASES)
-def test_beam_matches_jax(pairs, batch, eos_boost, ctc_weight, fused):
+def test_beam_matches_jax(pairs, batch, eos_boost, ctc_weight, fused,
+                          monkeypatch):
+    """With CTC the port's steps take their pre-beam through the fused
+    top-k and row gather."""
     jrec, prec = pairs(eos_boost, ctc_weight, fused)
+    calls = gather_spy(monkeypatch)
     ctc, pctc, (jy, jl, js), (py, pl, ps) = _beams(jrec, prec, batch)
+    assert (len(calls) >= pl.max() - 2) if ctc_weight else not calls
     np.testing.assert_allclose(pctc, ctc, atol=2e-4, rtol=0)
     np.testing.assert_array_equal(pl, jl)
     np.testing.assert_array_equal(py, jy)

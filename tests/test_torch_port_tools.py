@@ -307,7 +307,7 @@ def test_topk_stem_variant_arguments_and_sources(tmp_path, monkeypatch):
     assert "constexpr int kStripRows = 3;" in (out / "csrc" / "stem_fuse.cu"
                                                ).read_text()
     assert sorted(f.name for f in (out / "py").iterdir()) == [
-        "stem_fuse.py", "topk.py"]
+        "row_gather.py", "stem_fuse.py", "topk.py"]
     old = tmp_path / "old" / "avsr_tpu_torch"
     (old / "csrc").mkdir(parents=True)
     (old / "ops" / "kernels").mkdir(parents=True)
@@ -348,6 +348,40 @@ def test_topk_stem_variant_register_report_and_dz(tmp_path, monkeypatch):
         "base": True, "same": True, "other": False, "missing": False}
 
 
+def test_topk_stem_variant_times_the_gather_pair_and_the_fused_entry(
+        monkeypatch, capsys):
+    """The pre-beam's row gather, run as the tool runs it but on the CPU
+    (the wrappers' twins, a timer that only calls): the unfused pair and
+    ``topk_gather_rows`` give the same ids and rows, both printed; a
+    parent's ``topk.py`` without the fused entry prints the pair alone.
+    ``row_gather.cu`` is one of the tool's sources."""
+    import types
+
+    import torch
+
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+    from avsr_tpu_torch.tools import topk_stem_variants as tv
+
+    assert fv.parse("v=row_gather.cu:kThreads=64", tv.SOURCES)[2] == [
+        ("row_gather.cu", "kThreads", "64")]
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    cs = types.SimpleNamespace(
+        VOCAB=61, cuda_ms=lambda fn: (fn(), 0.0)[1],
+        bound=lambda nbytes, ops, kind: (nbytes * 1e-9, "bytes"),
+        nbytes=lambda *xs: sum(x.numel() * x.element_size() for x in xs))
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cpu")
+    tv.gather_case(torch, cs, "base", ptk, prg, ptk, g, dev, 2, 3, 4, 20)
+    parent = types.SimpleNamespace(topk_lastdim=ptk.topk_lastdim)
+    tv.gather_case(torch, cs, "parent", parent, prg, ptk, g, dev, 2, 3, 4, 20)
+    out = capsys.readouterr().out.splitlines()
+    assert "(exact True), topk_gather_rows 0.0000 ms (the pair's bit for " \
+        "bit True)" in out[0]
+    assert "(exact True); bound" in out[1] and "topk_gather_rows" not in out[1]
+    assert all(k > 32 or b * lanes > 8 for b, lanes, k, _ in tv.GATHERS)
+
+
 # ------------------------------------------------- bookkeeping_apply_variants
 
 
@@ -379,6 +413,8 @@ def test_bookkeeping_apply_variant_arguments_and_sources(tmp_path,
         "beam_update.py", "stem_fuse.py"]
     assert bv.traced(out) and not bv.traced(bv.prepare(
         "plain", fv._build.CSRC_DIR, []))
+    assert bv.DIGESTS[:2] == ("b8.sha256", "b8wide.sha256")
+    assert all(k > 16 or k * (sp + 1) > 128 for _, k, sp, _, _ in bv.WIDE)
     marks = [[100, 300, 700, 1100], [5000, 5100, 5300, 5500]]
     assert bv.phase_ns(marks) == [100.0, 200.0, 200.0]
     assert len(bv.PHASES) + 1 == int(re.search(

@@ -193,3 +193,97 @@ def c1_topk(x, k: int):
             ids[r, len(order):] = min(neg.min() if len(neg) else 2**31 - 1,
                                       order.min() if len(order) else 2**31 - 1)
     return vals, ids
+
+
+INT_MAX = 2**31 - 1
+
+
+def order_keys(x):
+    """csrc/common.cuh order_key of each fp32 value: a uint32 in the order
+    of the floats, -0 as +0 (as int64)."""
+    b = (np.asarray(x, np.float32) + np.float32(0)).view(np.uint32).astype(
+        np.int64)
+    return b ^ np.where(b >> 31, 0xFFFFFFFF, 0x80000000)
+
+
+def bitonic_desc(words, per: int):
+    """csrc/beam_update.cu's sort of a chunk's 32 * ``per`` order words,
+    element e = per * lane + t: the bitonic network, stage (size, stride)
+    a compare-exchange of e and e ^ stride (in a lane's registers below
+    ``per``, else across lanes), runs whose bit ``size`` is 0 descending."""
+    w = list(words)
+    n = len(w)
+    size = 2
+    while size <= n:
+        stride = size // 2
+        while stride:
+            for e in range(n):
+                x = e ^ stride
+                if x > e:
+                    desc = (e & size) == 0
+                    if (w[x] > w[e]) == desc:
+                        w[e], w[x] = w[x], w[e]
+            stride //= 2
+        size *= 2
+    return w
+
+
+def wide_topk(w, k: int, per: int = 4):
+    """csrc/beam_update.cu ``beam_update_wide_kernel``'s top-k over one
+    utterance's weighted candidates ``w`` (fp32, flat index f): chunks of
+    32 * ``per`` candidates as order words (the value's order key above
+    the complement of f; 0 for NaN and -inf) sorted by ``bitonic_desc``;
+    a chunk's first min(k, 32 * per) words above 0 are its list, and its
+    lowest index holding -inf is kept beside it; then each entry's place,
+    the count of listed entries with a larger word. Returns the k rounds
+    as (flat index, value) pairs (the value -inf from the first round
+    whose maximum is -inf, with the -inf rule's index: the lower of the
+    lowest index holding -inf and the lowest index chosen; 0 where every
+    candidate is NaN), and the chunk each listed round came from."""
+    w = np.asarray(w, np.float32)
+    nc = len(w)
+    chunk = 32 * per
+    kc = min(k, chunk)
+    keys = np.where(np.isnan(w) | (w == -np.inf), 0, order_keys(w))
+    words = [int(keys[f]) << 32 | (0xFFFFFFFF - f) if keys[f] else 0
+             for f in range(nc)]
+    lists, infs = [], []
+    for ch in range(-(-nc // chunk)):
+        f0 = ch * chunk
+        held = words[f0:f0 + chunk]
+        ordered = bitonic_desc(held + [0] * (chunk - len(held)), per)
+        lists.append([x for x in ordered[:kc] if x])
+        neg = np.flatnonzero(w[f0:f0 + chunk] == -np.inf)
+        infs.append(f0 + int(neg.min()) if len(neg) else INT_MAX)
+    listed = [(word, ch) for ch, entries in enumerate(lists)
+              for word in entries]
+    placed = {}
+    for word, ch in listed:
+        rank = sum(other > word for other, _ in listed)
+        if rank < k:
+            assert rank not in placed
+            placed[rank] = (0xFFFFFFFF - (word & 0xFFFFFFFF), ch)
+    n_valid = min(k, len(listed))
+    assert sorted(placed) == list(range(n_valid))
+    chosen = [placed[r][0] for r in range(n_valid)]
+    j = min(infs + chosen) if infs + chosen else INT_MAX
+    j = 0 if j == INT_MAX else j
+    rounds = [(f, w[f]) for f in chosen] + [(j, np.float32(-np.inf))] * (
+        k - n_valid)
+    return rounds, [placed[r][1] for r in range(n_valid)]
+
+
+def gather_spy(monkeypatch):
+    """Counts the beam's calls of the fused pre-beam top-k and CTC row
+    gather (``topk_gather_rows``), which with CTC takes every step's
+    pre-beam."""
+    from avsr_tpu_torch.decode import beam as beam_mod
+
+    real, calls = beam_mod.topk_gather_rows, []
+
+    def spy(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(beam_mod, "topk_gather_rows", spy)
+    return calls
