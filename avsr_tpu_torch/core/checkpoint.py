@@ -182,6 +182,23 @@ def avsr_mapping(cfg: AVHubertAVSRConfig, prefix: str = "avsr."):
     return m
 
 
+def pretrain_mapping(encoder_cfg, prefix: str = ""):
+    """(torch_key, flax_path, transform, collection) table of the
+    pretraining model (``train/pretrain.AVHubertPretrainModel``): the avsr
+    encoder's entries under ``hubert``, plus ``mask_emb``, ``final_proj``
+    and ``label_embs``. The JAX package has no such table: this is the
+    weight bridge its pretraining variables cross to the port by."""
+    P = prefix
+    m = avhubert_encoder_entries(
+        f"{P}hubert", ("hubert",), encoder_cfg.num_hidden_layers,
+        fused_proj=encoder_cfg.fused_dim != encoder_cfg.encoder_embed_dim,
+    )
+    m += [(f"{P}mask_emb", ("mask_emb",), _copy, "p"),
+          (f"{P}label_embs", ("label_embs",), _copy, "p")]
+    m += _linear_entries(f"{P}final_proj", ("final_proj",))
+    return m
+
+
 def _decoder_entries(dt: str, df: Tuple[str, ...], dlayers: int):
     """ESPnet transformer decoder -> scanned (stacked) flax layer stack."""
     m = [(f"{dt}.embed.0.weight", df + ("embed", "embedding"), _copy, "p")]

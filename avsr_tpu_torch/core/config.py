@@ -9,8 +9,9 @@ checkpoints' ``config.json`` files load directly:
 Only fields that affect the computation graph are kept; unknown json fields
 are ignored on load. The Pallas, scan and remat switches are kept so that a
 config round-trips through ``to_dict``/``from_dict`` unchanged; of them the
-port reads only ``decode_fused_layer`` (its other modules always take their
-kernel paths).
+port reads ``decode_fused_layer`` and the remat switches (``scan_remat``,
+``frontend_remat``); its other modules always take their kernel paths, and
+``scan_unroll`` (an XLA scan knob) has no counterpart.
 """
 
 from __future__ import annotations

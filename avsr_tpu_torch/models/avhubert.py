@@ -13,8 +13,11 @@ Self-attention always runs through the flash-attention wrapper
 (``ops/kernels/flash_attention.mha_flash``): the hand-written kernels on the
 GPU, their plain twins on the CPU; in training its attention-prob dropout
 is drawn inside the kernels. ``train=True`` takes a ``DropoutRng`` for every
-dropout and switches the frontend's BatchNorms to batch statistics. Module
-names follow the reference checkpoint.
+dropout and switches the frontend's BatchNorms to batch statistics. The
+config's ``scan_remat`` and ``frontend_remat`` rematerialise the encoder
+layers and the video frontend in the backward (``models/remat.py``);
+``scan_unroll``, an XLA scan knob, has no counterpart. Module names follow
+the reference checkpoint.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from avsr_tpu_torch.core.config import AVHubertEncoderConfig
+from avsr_tpu_torch.models import remat
 from avsr_tpu_torch.models.resnet import ResEncoder
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels.flash_attention import mha_flash
@@ -87,8 +91,10 @@ class EncoderSelfAttention(nn.Module):
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, t, d = x.shape
         dk = d // self.heads
-        q, k, v = (p(x).view(b, t, self.heads, dk)
-                   for p in (self.q_proj, self.k_proj, self.v_proj))
+        q, k, v = (remat.mark(p(x).view(b, t, self.heads, dk), name)
+                   for p, name in ((self.q_proj, "enc_q"),
+                                   (self.k_proj, "enc_k"),
+                                   (self.v_proj, "enc_v")))
         rate, seed = 0.0, None
         if rng is not None and self.dropout > 0.0:
             rate, seed = self.dropout, rng.flash_seed()
@@ -106,8 +112,9 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
-        h = F.gelu(self.intermediate_dense(x))
-        return self.output_dense(dropout(h, self.activation_dropout, rng))
+        h = F.gelu(remat.mark(self.intermediate_dense(x), "enc_ffn_pre"))
+        h = remat.mark(dropout(h, self.activation_dropout, rng), "enc_ffn_act")
+        return self.output_dense(h)
 
 
 class EncoderLayer(nn.Module):
@@ -136,6 +143,7 @@ class AVHubertTransformer(nn.Module):
 
     def __init__(self, cfg: AVHubertEncoderConfig):
         super().__init__()
+        self.cfg = cfg
         d = cfg.encoder_embed_dim
         self.pos_conv_embed = ConvPositionalEmbedding(
             d, cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups)
@@ -150,8 +158,12 @@ class AVHubertTransformer(nn.Module):
         if padding_mask is not None:
             x = x * padding_mask[..., None].to(x.dtype)
         x = dropout(x + self.pos_conv_embed(x), self.hidden_dropout, rng)
+        mode = self.cfg.scan_remat
         for layer in self.layers:
-            x = layer(x, padding_mask, rng)
+            if mode != "none" and torch.is_grad_enabled():
+                x = remat.checkpoint(layer, (x, padding_mask, rng), rng, mode)
+            else:
+                x = layer(x, padding_mask, rng)
         return self.layer_norm(x)
 
 
@@ -203,7 +215,11 @@ class AVHubertModel(nn.Module):
             feats_a = self.feature_extractor_audio.proj(audio)
         if video is not None:
             fv = self.feature_extractor_video
-            feats_v = fv.proj(fv.resnet(video, train))
+            if train and c.frontend_remat and torch.is_grad_enabled():
+                v = remat.checkpoint(fv.resnet, (video, train))
+            else:
+                v = fv.resnet(video, train)
+            feats_v = fv.proj(v)
         if feats_a is None:
             feats_a = torch.zeros_like(feats_v)
         if feats_v is None:

@@ -25,6 +25,8 @@ import os
 import torch
 from torch import nn
 
+from avsr_tpu_torch.core import dist
+from avsr_tpu_torch.models import remat
 from avsr_tpu_torch.ops.kernels.stem_fuse import bn_prelu_pool
 
 
@@ -46,7 +48,11 @@ class BatchNorm(nn.Module):
     without gradient as flax does with momentum 0.9 (torch's 0.1),
     ``0.9 * running + 0.1 * batch``, the variance with the biased batch
     variance (torch's ``nn.BatchNorm`` uses the unbiased one), the old
-    statistics read at the activation dtype, the result kept in fp32.
+    statistics read at the activation dtype, the result kept in fp32; not
+    in the recompute of a rematerialised frontend. Under data parallelism
+    the batch statistics are the global batch's, as under pjit: the fp32
+    sums, sums of squares and counts are all-reduced with a differentiable
+    sum (``core/dist.all_reduce_sum``).
     """
 
     momentum = 0.9  # flax convention: weight of the old running average
@@ -72,8 +78,15 @@ class BatchNorm(nn.Module):
                     + shift.to(x.dtype).view(shape))
         axes = [0] + list(range(2, x.dim()))
         xa = x.float()
-        mean = xa.mean(dim=axes)
-        var = (xa * xa).mean(dim=axes) - mean * mean
+        if dist.world_size() > 1:
+            count = xa.new_full((xa.shape[1],), xa.numel() // xa.shape[1])
+            sums = dist.all_reduce_sum(torch.stack(
+                [xa.sum(dim=axes), (xa * xa).sum(dim=axes), count]))
+            mean = sums[0] / sums[2]
+            var = sums[1] / sums[2] - mean * mean
+        else:
+            mean = xa.mean(dim=axes)
+            var = (xa * xa).mean(dim=axes) - mean * mean
         if not self.folded:
             var = var.clamp_min(0.0)
         self._update(x.dtype, mean.detach(), var.detach())
@@ -89,6 +102,8 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update(self, dtype, mean, var):
+        if remat.recomputing():
+            return
         m = self.momentum
         for buf, stat in ((self.running_mean, mean), (self.running_var, var)):
             buf.copy_((m * buf.to(dtype)).float() + (1.0 - m) * stat)
@@ -193,6 +208,12 @@ class ResEncoder(nn.Module):
                                  eps=bn.eps, train=False,
                                  running_mean=bn.running_mean,
                                  running_var=bn.running_var)
+        if dist.world_size() > 1:
+            # the kernels' channel sums are per rank (ROADMAP A15)
+            raise NotImplementedError(
+                "AVSR_FUSED_STEM=1 under data parallelism: the fused stem "
+                "tail's batch statistics and bwd1's channel reductions are "
+                "not all-reduced yet (ROADMAP A15); unset the switch")
         out, mean, var = bn_prelu_pool(x, bn.weight, bn.bias, prelu.weight,
                                        eps=bn.eps, train=True)
         bn._update(x.dtype, mean, var)

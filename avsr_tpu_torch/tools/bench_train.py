@@ -2,7 +2,7 @@
 
     python -m avsr_tpu_torch.tools.bench_train [--batch 6] [--frames 384]
         [--labels 48] [--steps 10] [--accum 1] [--fp32] [--device cuda]
-        [--trace PATH]
+        [--remat none] [--frontend-remat] [--pretrain] [--trace PATH]
 
 Counterpart of the root ``bench_train.py`` (the JAX package's training
 entry at realistic shapes): AV-HuBERT-large joint CTC/attention
@@ -12,14 +12,21 @@ synthetic batch of ``--batch`` clips of ``--frames`` frames (384: 15 s
 padded to the 384 bucket) and ``--labels`` tokens; bf16 compute over fp32
 master weights unless ``--fp32``; the config's dropouts on, attention
 dropout inside the flash kernels; AdamW with clipping (``TrainConfig``
-defaults). Runs on ``cuda`` unless ``--device cpu``.
+defaults). ``--remat`` (the encoder layers: none, dots, full, ffn, ffn2,
+qkv_ffn) and ``--frontend-remat`` rematerialise in the backward
+(``models/remat.py``); ``--pretrain`` trains the AV-HuBERT
+masked-prediction objective at the same shapes instead (span masks, the
+'same_seq' video gather, random cluster targets), as the root
+``bench_train.py`` does. Runs on ``cuda`` unless ``--device cpu``.
 
-After two untimed steps (the first of them under
-``torch.utils.flop_counter.FlopCounterMode``), times ``--steps`` steps on
-the device-synchronised host clock and prints one JSON line:
-``sec_per_step``, ``samples_per_sec``, ``step_tflops`` (model FLOPs of one
-step: the counter's, plus the flash kernels', which it cannot see, at 4 N
-T^2 D a forward call and 2.5 times that a backward), ``mfu`` (those FLOPs
+Counts the model FLOPs of a step with ``torch.utils.flop_counter.
+FlopCounterMode`` over one sample's forward and backward with remat off
+(the recompute is overhead, not model work), times the step's samples,
+plus the flash kernels', which it cannot see, at 4 N T^2 D a forward
+call and 2.5 times that a backward. After two untimed steps, times
+``--steps`` steps on the device-synchronised host clock and prints one
+JSON line: ``sec_per_step``, ``samples_per_sec``, ``step_tflops`` (those
+model FLOPs), ``mfu`` (those FLOPs
 over the step time and the H100 SXM dense bf16 peak, 989 TFLOP/s; null on
 the CPU), ``loss``, ``grad_norm`` (of the last step), ``peak_mem_gb``
 (null on the CPU) and the kernels' launches per timed step (the three
@@ -43,6 +50,7 @@ import torch
 
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data.synthetic import synthetic_train_batch
+from avsr_tpu_torch.models import remat
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 from avsr_tpu_torch.ops.kernels import stem_fuse as psf
 from avsr_tpu_torch.train import trainer as T
@@ -66,6 +74,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--remat", default="none", choices=remat.MODES)
+    ap.add_argument("--frontend-remat", action="store_true")
+    ap.add_argument("--pretrain", action="store_true",
+                    help="AV-HuBERT masked-prediction objective at the same "
+                         "shapes (mask gather + cosine-logit head instead of "
+                         "the CTC/CE decoder)")
     ap.add_argument("--trace", default=None,
                     help="profile one more step; per-kernel table to PATH")
     args = ap.parse_args(argv)
@@ -78,21 +92,51 @@ def setup(args, model_cfg: Optional[AVHubertAVSRConfig] = None):
     """(train state, device batch) for ``args``; the flagship config
     unless ``model_cfg`` is given."""
     cfg = model_cfg or AVHubertAVSRConfig()
+    cfg.encoder.scan_remat = args.remat
+    cfg.encoder.frontend_remat = args.frontend_remat
     tcfg = T.TrainConfig(compute_dtype="float32" if args.fp32 else "bfloat16")
-    state = T.init_state(cfg, tcfg, seed=SEED, device=args.device)
+    pcfg = None
+    if args.pretrain:
+        from avsr_tpu_torch.train.pretrain import PretrainConfig
+
+        pcfg = PretrainConfig()
+    state = T.init_state(cfg, tcfg, seed=SEED, device=args.device,
+                         pretrain_cfg=pcfg)
     rng = np.random.RandomState(SEED)
-    mbs = [synthetic_train_batch(rng, args.batch, args.frames, args.labels,
-                                 vocab=min(5000, cfg.odim - 1))
-           for _ in range(args.accum)]
+    if pcfg is not None:
+        mbs = [_pretrain_batch(rng, args, pcfg) for _ in range(args.accum)]
+    else:
+        mbs = [synthetic_train_batch(rng, args.batch, args.frames,
+                                     args.labels,
+                                     vocab=min(5000, cfg.odim - 1))
+               for _ in range(args.accum)]
     batch = mbs[0] if args.accum == 1 else {
         k: np.stack([b[k] for b in mbs]) for k in mbs[0]}
     return state, T.to_device(batch, args.device)
 
 
-def flash_flops(cfg: AVHubertAVSRConfig, args) -> tuple[float, float]:
+def _pretrain_batch(rng, args, pcfg):
+    """The root ``bench_train.py --pretrain`` batch: N(0, 1) clips, span
+    masks and the 'same_seq' gather map, random cluster targets."""
+    from avsr_tpu_torch.train.pretrain import sample_pretrain_masks
+
+    b, t = args.batch, args.frames
+    audio_mask, _, src = sample_pretrain_masks(pcfg, b, t, rng=rng)
+    return {
+        "videos": rng.randn(b, t, 88, 88, 1).astype(np.float32),
+        "audios": rng.randn(b, t, 104).astype(np.float32),
+        "audio_mask": audio_mask,
+        "video_src_index": src,
+        "targets": rng.randint(0, pcfg.num_classes, (b, t)).astype(np.int32),
+        "video_lengths": np.full((b,), t, np.int32),
+    }
+
+
+def flash_flops(cfg, args) -> tuple[float, float]:
     """Model FLOPs of one flash forward call and of one backward (the
-    dq + dkv pair) at the step's shapes: 4 N T^2 D, and 2.5 times that."""
-    enc = cfg.encoder
+    dq + dkv pair) at the step's shapes: 4 N T^2 D, and 2.5 times that.
+    ``cfg`` is the model's config or its encoder's."""
+    enc = getattr(cfg, "encoder", cfg)
     t = -(-args.frames // 128) * 128  # mha_flash pads T to 128
     n = args.batch * enc.num_attention_heads
     d = enc.encoder_embed_dim // enc.num_attention_heads
@@ -105,21 +149,39 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def measure(state: T.TrainState, batch, args) -> dict:
-    """Warm-up (the first step counted), timed steps, the JSON record."""
+def model_flops(state: T.TrainState, batch, args) -> float:
+    """Model FLOPs of one step: one sample's forward and backward counted
+    with remat off, times the step's samples (every op is linear in the
+    batch), plus the flash kernels' analytic FLOPs at the full batch."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    enc = state.model.hubert.cfg if args.pretrain else state.model.cfg.encoder
+    saved = enc.scan_remat, enc.frontend_remat
+    enc.scan_remat, enc.frontend_remat = "none", False
+    first = {k: v[0] if args.accum > 1 else v for k, v in batch.items()}
+    one = {k: v[:1] for k, v in first.items()}
+    for fn in FLASH:
+        fn.launches = 0
+    try:
+        with FlopCounterMode(display=False) as counter:
+            loss, _ = T.loss_fn(state.model, one, state.rng, True,
+                                state.cfg.compute_dtype)
+            loss.backward()
+    finally:
+        enc.scan_remat, enc.frontend_remat = saved
+        state.optimizer.zero_grad(set_to_none=True)
+    fwd, bwd = flash_flops(enc, args)
+    # kernels are invisible to the counter; the CPU twins are not
+    return args.accum * (args.batch * counter.get_total_flops()
+                         + FLASH[0].launches * fwd + FLASH[1].launches * bwd)
+
+
+def measure(state: T.TrainState, batch, args) -> dict:
+    """Model FLOPs, warm-up steps, timed steps, the JSON record."""
     dev = torch.device(args.device)
     cuda = dev.type == "cuda"
-    for fn in KERNELS:
-        fn.launches = 0
-    with FlopCounterMode(display=False) as counter:
-        T.train_step(state, batch)
-    fwd, bwd = flash_flops(state.model.cfg, args)
-    # kernels are invisible to the counter; the CPU twins are not
-    step_flops = (counter.get_total_flops()
-                  + FLASH[0].launches * fwd + FLASH[1].launches * bwd)
-    for _ in range(WARMUP - 1):
+    step_flops = model_flops(state, batch, args)
+    for _ in range(WARMUP):
         T.train_step(state, batch)
     _sync(dev)
     if cuda:
@@ -135,6 +197,8 @@ def measure(state: T.TrainState, batch, args) -> dict:
         "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
         "batch": args.batch, "frames": args.frames, "labels": args.labels,
         "accum": args.accum, "compute_dtype": state.cfg.compute_dtype,
+        "remat": args.remat, "frontend_remat": args.frontend_remat,
+        "pretrain": args.pretrain,
         "steps": args.steps,
         "sec_per_step": sec,
         "samples_per_sec": args.batch * args.accum / sec,

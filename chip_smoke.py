@@ -113,7 +113,21 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    against its twin at the shapes the engine gives them (B=32); then the
    same beams a third way, with the decoder's fused layer
    (``decode_fused_layer``), every ``decoder_layer_step`` call held
-   against its twin and its launches checked (once a layer and step).
+   against its twin and its launches checked (once a layer and step);
+9. runs the training entry point, ``avsr_tpu_torch.cli.train.main``, on
+   the flagship config loaded from a reference-format directory of seed-0
+   weights with the toy tokenizer (``phase_train_cli``): 6 fine-tuning
+   steps at the JAX CLI's batch defaults (2 micro-batches of 6 synthetic
+   clips, an eval and a save every 3 steps, keep 1; the flash kernels'
+   launches 24 a micro-batch, no twin called, only ``checkpoints/6``
+   left, ``best.json`` written; the loop's wall samples/s and peak
+   memory), a resume from step 6 to 8, remat at B=6, T=384 (``none``
+   twice, ``full``, ``full`` with the frontend's: losses and BN
+   statistics bit-equal, gradients within twice the card's run-to-run
+   floor, ``full`` below ``none`` in memory), ``--pretrain`` for 3 steps
+   (its five metrics), ``AVSR_FUSED_STEM=1`` for 2 steps (the stem
+   kernels' launches) and the host syncs of steps 3-5 between two log
+   steps, none of them from the loop's code.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -1865,27 +1879,12 @@ TWINS = {"flash_attention": ("flash_attention_plain",
                        "pool_bwd_plain", "_batch_stats_plain")}
 
 
-def phase_training(dev, smi: str, fused_stem: bool = False):
-    """Full-width bf16 training through bench_train at its defaults:
-    its 2 warm-up steps, then 5 timed ones between which it sets the
-    kernels' counts to 0 and reads them: 24 a step for each flash kernel,
-    and with ``fused_stem`` (AVSR_FUSED_STEM=1) one a step for each of the
-    four stem-tail kernels, none without. Returns the timed run's launches
-    of each kernel and its record."""
+@contextlib.contextmanager
+def twin_calls():
+    """Within the block every call of a plain twin of the training kernels
+    (``TWINS``) is counted, by name, in the dict it yields."""
     import importlib
 
-    from avsr_tpu_torch.tools import bench_train
-
-    args = bench_train.parse_args(["--steps", "5"])
-    if fused_stem:
-        os.environ["AVSR_FUSED_STEM"] = "1"
-    state, batch = bench_train.setup(args)
-    layers = state.model.cfg.encoder.num_hidden_layers
-    watched = {n: p.detach().clone()
-               for n, p in state.model.named_parameters()
-               if n.endswith(("frontend3D.0.weight", "layers.0.attention"
-                              ".q_proj.weight", "output_layer.weight"))}
-    # every call of a plain twin is counted: none may run on this path
     mods = {m: importlib.import_module(f"avsr_tpu_torch.ops.kernels.{m}")
             for m in TWINS}
     calls = {name: 0 for names in TWINS.values() for name in names}
@@ -1901,11 +1900,40 @@ def phase_training(dev, smi: str, fused_stem: bool = False):
     for (m, name), fn in originals.items():
         setattr(mods[m], name, counted(name, fn))
     try:
-        with stem_layouts() as seen:
-            res = bench_train.measure(state, batch, args)
+        yield calls
     finally:
         for (m, name), fn in originals.items():
             setattr(mods[m], name, fn)
+
+
+def watched_params(model) -> dict:
+    """Copies of the stem's convolution, the first layer's query weight
+    and the decoder's output layer: training must change each."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()
+            if n.endswith(("frontend3D.0.weight",
+                           "layers.0.attention.q_proj.weight",
+                           "output_layer.weight"))}
+
+
+def phase_training(dev, smi: str, fused_stem: bool = False):
+    """Full-width bf16 training through bench_train at its defaults:
+    its 2 warm-up steps, then 5 timed ones between which it sets the
+    kernels' counts to 0 and reads them: 24 a step for each flash kernel,
+    and with ``fused_stem`` (AVSR_FUSED_STEM=1) one a step for each of the
+    four stem-tail kernels, none without. Returns the timed run's launches
+    of each kernel and its record."""
+    from avsr_tpu_torch.tools import bench_train
+
+    args = bench_train.parse_args(["--steps", "5"])
+    if fused_stem:
+        os.environ["AVSR_FUSED_STEM"] = "1"
+    state, batch = bench_train.setup(args)
+    layers = state.model.cfg.encoder.num_hidden_layers
+    watched = watched_params(state.model)
+    try:
+        with twin_calls() as calls, stem_layouts() as seen:
+            res = bench_train.measure(state, batch, args)
+    finally:
         os.environ.pop("AVSR_FUSED_STEM", None)
     per_step = res["launches_per_step"]
     what = " (AVSR_FUSED_STEM=1)" if fused_stem else ""
@@ -2057,6 +2085,22 @@ def write_toy_tokenizer(directory: str, units: int) -> None:
               encoding="utf-8") as f:
         f.write("\n".join(["<unk> 1"] + [f"{p} {i + 2}" for i, p in
                                          enumerate(names)]) + "\n")
+
+
+def write_reference_dir(ckpt: str, cfg, dev) -> str:
+    """A reference-format checkpoint directory of ``cfg``'s model with
+    seed-0 weights: config.json and pytorch_model.bin (``avsr.`` keys)."""
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.models.e2e import AVSRModel
+
+    os.makedirs(ckpt)
+    cfg.to_json(os.path.join(ckpt, "config.json"))
+    with torch.device(dev):
+        model = AVSRModel(cfg)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    torch.save({f"avsr.{k}": v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(ckpt, "pytorch_model.bin"))
+    return ckpt
 
 
 def check_mp4_writer(directory: str) -> None:
@@ -2226,9 +2270,7 @@ def phase_eval(dev, smi: str):
     import tempfile
 
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
-    from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import smooth_crops
-    from avsr_tpu_torch.models.e2e import AVSRModel
     from avsr_tpu_torch.ops import fbank
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
@@ -2269,16 +2311,7 @@ def phase_eval(dev, smi: str):
 
         check(tokenizer._DEFAULT_ASSET_DIRS[0] == os.environ["AVSR_SPM_DIR"],
               "the tokenizer was imported before AVSR_SPM_DIR was set")
-        ckpt = os.path.join(root, "ckpt")
-        os.makedirs(ckpt)
-        cfg.to_json(os.path.join(ckpt, "config.json"))
-        with torch.device(dev):
-            model = AVSRModel(cfg)
-        init_weights(model, torch.Generator(device=dev).manual_seed(0))
-        torch.save({f"avsr.{k}": v.cpu() for k, v in
-                    model.state_dict().items()},
-                   os.path.join(ckpt, "pytorch_model.bin"))
-        del model
+        ckpt = write_reference_dir(os.path.join(root, "ckpt"), cfg, dev)
         t0 = time.perf_counter()
         engine = pe.InferenceEngine(checkpoint_path=ckpt)
         engine.load_model()
@@ -2466,6 +2499,360 @@ def phase_eval(dev, smi: str):
     runs["eval"] = main
     return runs, seen
 
+TRAIN_CLI_ARGS = ["--synthetic_dataset", "--batch_size", "6",
+                  "--gradient_accumulation_steps", "2", "--save_steps", "3",
+                  "--eval_steps", "3", "--log_interval", "1",
+                  "--warmup_steps", "2", "--save_total_limit", "1",
+                  "--dataloader_num_workers", "4"]
+SYNC_STEPS = (3, 5)  # the steps watched by torch.cuda.set_sync_debug_mode
+
+
+@contextlib.contextmanager
+def loop_spy(sync_steps=None):
+    """Within the block, records what ``train/loop.run_training`` does:
+    ``train`` holds (state.step at entry, micro-batches) a train step,
+    ``evals`` counts eval steps, ``logs`` holds (prefix, step, metrics,
+    host time) a log line. With ``sync_steps`` (first, last), every call
+    that synchronises with the host is recorded in ``syncs`` from the
+    start of step ``first`` up to the metrics fetch after step ``last``
+    (``torch.cuda.set_sync_debug_mode("warn")``), as the innermost frame
+    of the port that made it (file:line) and the torch frame that warned.
+    """
+    import traceback
+    import warnings
+
+    from avsr_tpu_torch.train import loop, trainer
+
+    rec = {"train": [], "evals": 0, "logs": [], "syncs": []}
+    real = (trainer.train_step, trainer.eval_step, loop.MetricsLogger.log,
+            loop._fetch_mean)
+    watch = {}
+
+    def stop_watch():
+        if "cm" in watch:
+            torch.cuda.set_sync_debug_mode(0)
+            watch.pop("cm").__exit__(None, None, None)
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "/avsr_tpu_torch/" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        where = "outside the port"
+        if ours and ours[-1].filename.endswith("chip_smoke.py"):
+            where = f"chip_smoke.py:{ours[-1].lineno} (the watch itself)"
+        elif ours:
+            where = (f"{ours[-1].filename.split('/avsr_tpu_torch/')[-1]}:"
+                     f"{ours[-1].lineno}")
+        rec["syncs"].append((where, f"{os.path.basename(filename)}:{lineno}"))
+
+    def train_step(state, batch):
+        if sync_steps and state.step + 1 == sync_steps[0]:
+            watch["cm"] = warnings.catch_warnings()
+            watch["cm"].__enter__()
+            warnings.simplefilter("always")
+            warnings.showwarning = on_warning
+            torch.cuda.set_sync_debug_mode("warn")
+        v = batch["videos"]
+        rec["train"].append((state.step, v.shape[0] if v.dim() > 5 else 1))
+        return real[0](state, batch)
+
+    def eval_step(state, batch):
+        rec["evals"] += 1
+        return real[1](state, batch)
+
+    def log(self, step, metrics, prefix="train"):
+        rec["logs"].append((prefix, step, dict(metrics), time.perf_counter()))
+        return real[2](self, step, metrics, prefix)
+
+    def fetch_mean(window):
+        stop_watch()
+        return real[3](window)
+
+    trainer.train_step, trainer.eval_step = train_step, eval_step
+    loop.MetricsLogger.log, loop._fetch_mean = log, fetch_mean
+    try:
+        yield rec
+    finally:
+        stop_watch()
+        (trainer.train_step, trainer.eval_step, loop.MetricsLogger.log,
+         loop._fetch_mean) = real
+
+
+def _train_logs(rec) -> dict:
+    return {step: m for prefix, step, m, _ in rec["logs"] if prefix == "train"}
+
+
+def phase_remat(dev, smi: str):
+    """One bf16 forward and backward of the flagship at bench_train's
+    shape (B=6, T=384, the config's dropouts) from one state and one
+    batch, four ways: no remat, no remat again (the card's run-to-run
+    floor), ``scan_remat=full``, and ``full`` with ``frontend_remat``.
+    The losses and the BN running statistics must be bit-equal (the same
+    forward kernels on the same inputs, the same dropout draws replayed).
+    The card's backward is not deterministic (weight-gradient kernels that
+    sum with atomics: the two no-remat runs differ), so each remat
+    gradient must lie within twice that floor of the no-remat one, tensor
+    by tensor, plus 1e-2 of its largest entry (2.5 bf16 ulps); the
+    measured differences are printed. Peak memory above the start of the
+    step: ``full`` must be below no remat."""
+    import gc
+
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.tools import bench_train
+    from avsr_tpu_torch.train import trainer as T
+
+    state, batch = bench_train.setup(bench_train.parse_args(["--batch", "6"]))
+    model, enc = state.model, state.model.cfg.encoder
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    rng0 = state.rng.state()
+    runs = {}
+    for name, mode, front in (("none", "none", False),
+                              ("none again", "none", False),
+                              ("full", "full", False),
+                              ("full + frontend", "full", True)):
+        model.load_state_dict(start)
+        state.rng.load_state(rng0)
+        model.zero_grad(set_to_none=True)
+        enc.scan_remat, enc.frontend_remat = mode, front
+        pfa.flash_attention_fwd.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = T.loss_fn(model, batch, state.rng, True, "bfloat16")
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        # (the whole-batch modality dropout may leave a branch without
+        # a gradient; the same draw in every run)
+        runs[name] = (loss.detach().clone(),
+                      {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None},
+                      {n: b.clone() for n, b in model.named_buffers()}, peak)
+        print(f"# {smi}: remat {name}: loss {loss.item():.6f}, forward and "
+              f"backward {ms:.1f} ms, peak memory above the state "
+              f"{peak:.2f} GB, flash forward launches "
+              f"{pfa.flash_attention_fwd.launches}")
+    enc.scan_remat, enc.frontend_remat = "none", False
+    loss0, grads0, bufs0, peak0 = runs["none"]
+    floor = {n: (runs["none again"][1][n] - g).abs().max().item()
+             for n, g in grads0.items()}
+    for name in ("none again", "full", "full + frontend"):
+        loss, grads, bufs, peak = runs[name]
+        check(set(grads) == set(grads0),
+              f"remat {name}: other parameters have gradients")
+        err = {n: ((grads[n] - g).abs().max().item(),
+                   g.abs().max().item()) for n, g in grads0.items()}
+        worst = max(err, key=lambda n: err[n][0] / max(err[n][1], 1e-30))
+        over = [n for n, (e, top) in err.items()
+                if e > 2 * floor[n] + 1e-2 * top]
+        print(f"# remat {name} vs none: loss equal {torch.equal(loss, loss0)}"
+              f", largest gradient difference {err[worst][0]:.3e} = "
+              f"{err[worst][0] / max(err[worst][1], 1e-30):.3e} of the "
+              f"largest entry of {worst} (the no-remat runs' floor there "
+              f"{floor[worst]:.3e}); over the limit: {over}; BN statistics "
+              f"equal {all(torch.equal(bufs[n], b) for n, b in bufs0.items())}")
+        check(torch.equal(loss, loss0), f"remat {name}: the loss differs")
+        check(all(torch.equal(bufs[n], b) for n, b in bufs0.items()),
+              f"remat {name}: the BN running statistics differ")
+        check(not over, f"remat {name}: gradients of {over} differ")
+    check(runs["full"][3] < peak0, "remat full does not lower peak memory")
+    del state, batch, model, runs, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_train_cli(dev, smi: str):
+    """The training entry point at full width: ``cli/train.main`` on the
+    flagship configuration (24x1024 encoder, ResNet-18, 6x1024 decoder,
+    bf16 compute over fp32 masters), loaded from a reference-format
+    directory of seed-0 weights with the toy tokenizer, into a temporary
+    output directory deleted at the end:
+
+    1. fine-tuning at the JAX CLI's batch defaults (``TRAIN_CLI_ARGS``,
+       6 steps): 6 steps of 2 micro-batches, finite losses and gradient
+       norms, the watched parameters changed, 24 launches of each flash
+       kernel a micro-batch (the forward also per eval batch), no plain
+       twin called, only ``checkpoints/6`` left, ``best.json`` written;
+       prints the loop's wall samples/s over steps 2-6 (collation, the
+       step-3 eval and the save's queueing included) and peak memory;
+    2. the same command to 8 steps with ``--resume_from_checkpoint``:
+       starts at step 6, ends at 8;
+    3. remat at full width (``phase_remat``);
+    4. ``--pretrain`` for 3 steps from seed-0 random weights: finite
+       losses, the five metrics;
+    5. ``AVSR_FUSED_STEM=1`` for 2 steps: the stem kernels launch as in
+       phase 6, on channels-last frames;
+    6. 5 steps with a log at step 5 only, every host sync of steps 3-5
+       recorded (``loop_spy``): none may come from the loop's code."""
+    import gc
+    import tempfile
+
+    from avsr_tpu_torch.cli import train as cli
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
+    from avsr_tpu_torch.data import tokenizer
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import stem_fuse as psf
+    from avsr_tpu_torch.train.pretrain import METRICS
+
+    flash = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+             pfa.flash_attention_bwd_dkv)
+    stem = (psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
+            psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2)
+    assets = tokenizer._DEFAULT_ASSET_DIRS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        cfg = AVHubertAVSRConfig()
+        spm = os.path.join(root, "spm")
+        os.makedirs(spm)
+        write_toy_tokenizer(spm, cfg.odim - 2)
+        tokenizer._DEFAULT_ASSET_DIRS = (spm,)
+        ckpt = write_reference_dir(os.path.join(root, "ckpt"), cfg, dev)
+        layers = cfg.encoder.num_hidden_layers
+
+        def run(out, extra, **spy):
+            for fn in flash + stem:
+                fn.launches = 0
+            argv = (TRAIN_CLI_ARGS + ["--model_name_or_path", ckpt,
+                                      "--output_dir", os.path.join(root, out)]
+                    + extra)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with loop_spy(**spy) as rec, twin_calls() as calls, \
+                    stem_layouts() as seen:
+                state = cli.main(argv)
+            torch.cuda.synchronize()
+            rec.update(wall=time.perf_counter() - t0, twins=calls,
+                       seen=seen, peak=torch.cuda.max_memory_allocated() / 1e9,
+                       launches={fn.__name__: fn.launches
+                                 for fn in flash + stem})
+            return state, rec
+
+        try:
+            # 1. fine-tuning, 6 steps
+            state, rec = run("ft", ["--max_steps", "6"])
+            watched = watched_params(state.model)
+            logs = _train_logs(rec)
+            micro = sum(n for _, n in rec["train"])
+            times = {step: t for p, step, _, t in rec["logs"]
+                     if p == "train"}
+            eval3 = [t for p, step, _, t in rec["logs"]
+                     if p == "eval" and step == 3][0] - times[3]
+            sps = 5 * 12 / (times[6] - times[1])
+            print(f"# {smi}: phase 9 fine-tuning, 6 steps of 2 x 6 clips: "
+                  f"{rec['wall']:.1f} s in main (model load, 2 evals, 2 "
+                  f"saves); loop wall over steps 2-6 {times[6] - times[1]:.3f}"
+                  f" s -> {sps:.2f} samples/s (collation, the step-3 eval "
+                  f"of {eval3:.3f} s and the save's queueing included; "
+                  f"{5 * 12 / (times[6] - times[1] - eval3):.2f} samples/s "
+                  f"without the eval); peak memory {rec['peak']:.2f} GB; "
+                  f"launches {rec['launches']}; twin calls {rec['twins']}")
+            for step, m in sorted(logs.items()):
+                print(f"#   step {step}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in m.items()))
+            check(state.step == 6 and sorted(logs) == [1, 2, 3, 4, 5, 6]
+                  and [n for _, n in rec["train"]] == [2] * 6,
+                  f"phase 9: not 6 steps of 2 micro-batches ({rec['train']})")
+            check(all(math.isfinite(m["loss"]) and math.isfinite(
+                m["grad_norm"]) for m in logs.values()),
+                "phase 9: a loss or gradient norm is not finite")
+            start = torch.load(os.path.join(ckpt, "pytorch_model.bin"),
+                               weights_only=True)
+            for name, p in watched.items():
+                check(not torch.equal(start["avsr." + name], p.cpu()),
+                      f"phase 9: {name} did not change")
+            n = rec["launches"]
+            check(n["flash_attention_fwd"] == layers * (micro + rec["evals"])
+                  and n["flash_attention_bwd_dq"] == layers * micro
+                  and n["flash_attention_bwd_dkv"] == layers * micro,
+                  f"phase 9: flash launches {n} for {micro} micro-batches "
+                  f"and {rec['evals']} eval batches")
+            check(not any(rec["twins"].values()),
+                  f"phase 9: a plain twin ran ({rec['twins']})")
+            ck = os.path.join(root, "ft", "avsr_avhubert_ctcattn",
+                              "checkpoints")
+            check(sorted(os.listdir(ck)) == ["6", "best.json"],
+                  f"phase 9: checkpoints left {sorted(os.listdir(ck))}")
+            with open(os.path.join(ck, "best.json")) as f:
+                best = json.load(f)
+            check(best["step"] in (3, 6) and math.isfinite(best["loss"]),
+                  f"phase 9: best.json {best}")
+            del state, watched, start
+            gc.collect()
+
+            # 2. resume to step 8
+            state, rec = run("ft", ["--max_steps", "8",
+                                    "--resume_from_checkpoint"])
+            print(f"# phase 9 resume: steps {[s for s, _ in rec['train']]}"
+                  f" at entry, ended at {state.step}, {rec['wall']:.1f} s")
+            check([s for s, _ in rec["train"]] == [6, 7] and state.step == 8,
+                  "phase 9: the resumed run did not go from step 6 to 8")
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 3. remat at full width
+            phase_remat(dev, smi)
+
+            # 4. pretraining, 3 steps, from seed-0 random weights
+            state, rec = run("pt", ["--max_steps", "3", "--pretrain",
+                                    "--model_name_or_path", ""])
+            logs = _train_logs(rec)
+            for step, m in sorted(logs.items()):
+                print(f"# phase 9 pretrain step {step}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in m.items()))
+            check(state.step == 3 and sorted(logs) == [1, 2, 3]
+                  and all(set(m) == set(METRICS) | {"grad_norm"}
+                          and all(math.isfinite(v) for v in m.values())
+                          for m in logs.values()),
+                  "phase 9: pretraining did not log 3 finite steps of its "
+                  "five metrics")
+            del state
+            gc.collect()
+
+            # 5. the fused stem tail, 2 steps
+            os.environ["AVSR_FUSED_STEM"] = "1"
+            try:
+                state, rec = run("stem", ["--max_steps", "2"])
+            finally:
+                os.environ.pop("AVSR_FUSED_STEM", None)
+            n, micro = rec["launches"], sum(k for _, k in rec["train"])
+            print(f"# phase 9 AVSR_FUSED_STEM=1: {micro} micro-batches, "
+                  f"launches {n}, stem x channels-last {set(rec['seen'])}")
+            fwd = n["bn_prelu_pool_stats"], n["bn_prelu_pool_apply"]
+            bwd = n["bn_prelu_pool_bwd1"], n["bn_prelu_pool_bwd2"]
+            check(fwd == (micro, micro) and bwd[0] == bwd[1]
+                  and 0 < bwd[0] <= micro and rec["seen"]
+                  and all(rec["seen"]) and not any(rec["twins"].values()),
+                  f"phase 9: stem kernels {n} with AVSR_FUSED_STEM=1")
+            del state
+            gc.collect()
+
+            # 6. host syncs between two log steps
+            extra = ["--max_steps", "5", "--log_interval", "5",
+                     "--eval_steps", "100", "--save_steps", "100"]
+            state, rec = run("sync", extra, sync_steps=SYNC_STEPS)
+            where = {}
+            for loc, torch_loc in rec["syncs"]:
+                key = f"{loc} (torch {torch_loc})"
+                where[key] = where.get(key, 0) + 1
+            print(f"# phase 9 host syncs in steps {SYNC_STEPS[0]}-"
+                  f"{SYNC_STEPS[1]} (no log between), by the port's frame "
+                  f"that made them: {len(rec['syncs'])}: "
+                  + (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
+                     or "none"))
+            check(not any(k.startswith(("train/loop.py", "cli/train.py"))
+                          for k in where),
+                  f"phase 9: the loop's own code synchronised: {where}")
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            tokenizer._DEFAULT_ASSET_DIRS = assets
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2526,6 +2913,8 @@ def main() -> int:
     phase_train_parity(dev, fused_stem=True)
     print("# phase 8: the evaluation entry point at full width")
     eval_runs, eval_checked = phase_eval(dev, smi)
+    print("# phase 9: the training entry point at full width")
+    phase_train_cli(dev, smi)
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

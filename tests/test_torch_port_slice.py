@@ -203,7 +203,8 @@ def test_recognizer_defaults_match_jax():
 
 def test_port_imports_no_jax():
     """The serving path, the CTC scorer, the kernel wrappers (the fused stem
-    and decoder layer included), the trainer, bench_train and
+    and decoder layer included), the trainer, the training loop, CLI,
+    pretraining objective, datasets and data parallelism, bench_train and
     chip_smoke.py import nothing of the JAX package, JAX, flax or
     ml_dtypes."""
     code = ("import sys, avsr_tpu_torch.decode.recognizer, "
@@ -214,6 +215,9 @@ def test_port_imports_no_jax():
             "avsr_tpu_torch.ops.kernels.stem_fuse, "
             "avsr_tpu_torch.ops.kernels.decoder_layer, "
             "avsr_tpu_torch.train.trainer, "
+            "avsr_tpu_torch.cli.train, avsr_tpu_torch.train.loop, "
+            "avsr_tpu_torch.train.pretrain, avsr_tpu_torch.data.dataset, "
+            "avsr_tpu_torch.core.dist, "
             "avsr_tpu_torch.tools.bench_train, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('avsr_tpu', 'jax', 'flax', 'ml_dtypes')]; "

@@ -287,3 +287,60 @@ def gather_spy(monkeypatch):
 
     monkeypatch.setattr(beam_mod, "topk_gather_rows", spy)
     return calls
+
+
+class DummyTokenizer:
+    """``tests/test_pipeline.py``'s tokenizer without the JAX import: word
+    ids in [1, 25] from a hash that is the same in every process (spawned
+    collation workers import it by module name)."""
+
+    def tokenize(self, text):
+        return np.asarray(
+            [(sum(ord(c) * 31 ** i for i, c in enumerate(w)) % 25) + 1
+             for w in text.split()],
+            np.int32,
+        )
+
+
+def tiny_port_cfg():
+    """The tiny config of ``tests/torch_ref.py`` as the port's own config,
+    built without the JAX package (for subprocesses that must not import
+    it)."""
+    from avsr_tpu_torch.core.config import (AVHubertAVSRConfig,
+                                            AVHubertEncoderConfig)
+
+    return AVHubertAVSRConfig(
+        odim=61, adim=32, ddim=32, dheads=4, dunits=64, dlayers=2,
+        encoder=AVHubertEncoderConfig(
+            encoder_embed_dim=32, num_hidden_layers=2, num_attention_heads=2,
+            intermediate_size=64, num_conv_pos_embeddings=16,
+            num_conv_pos_embedding_groups=4, use_flash_attention=True),
+        decode_fused_attention=True)
+
+
+def loop_collators(subset="test", seed=0):
+    """(JAX, port) DataCollators with the same transforms and the dummy
+    tokenizer (the JAX package is imported here, not with this module)."""
+    from avsr_tpu.data import collate as jcollate
+    from avsr_tpu.data import transforms as jtr
+    from avsr_tpu_torch.data import collate as pcollate
+    from avsr_tpu_torch.data import transforms as ptr
+
+    return (jcollate.DataCollator(
+        text_transform=DummyTokenizer(),
+        video_transform=jtr.VideoTransform(subset),
+        audio_transform=jtr.AudioTransform(subset), seed=seed),
+        pcollate.DataCollator(
+            text_transform=DummyTokenizer(),
+            video_transform=ptr.VideoTransform(subset),
+            audio_transform=ptr.AudioTransform(subset), seed=seed))
+
+
+LOOP_BUCKETS = (6, 12)  # frame buckets of the loop tests (both packages)
+
+
+def loop_samples(n, seed=0):
+    """Synthetic samples of 4-6 frames: one 6-frame bucket."""
+    from avsr_tpu_torch.data.dataset import synthetic_samples
+
+    return list(synthetic_samples(n, seed=seed, min_frames=4, max_frames=6))
