@@ -9,8 +9,10 @@ the host (media decode, fbank, crops) and decoded in batches by the port's
 
     python -m avsr_tpu_torch.cli.evaluation --help
 
-Only the avsr_cocktail model type loads; auto_avsr and muavic_en stay in
-``--model_type``'s choices and raise ``NotImplementedError``.
+The avsr_cocktail (AV-HuBERT) and auto_avsr (conformer) model types load;
+muavic_en stays in ``--model_type``'s choices and raises
+``NotImplementedError``. ``--device`` (``cuda`` by default) is the port's
+own flag.
 """
 
 from __future__ import annotations
@@ -29,7 +31,11 @@ from avsr_tpu_torch.data import vtt
 from avsr_tpu_torch.data.collate import DataCollator
 from avsr_tpu_torch.data.norm_text import norm_string
 from avsr_tpu_torch.data.tokenizer import TextTransform
-from avsr_tpu_torch.data.transforms import AudioTransform, VideoTransform
+from avsr_tpu_torch.data.transforms import (
+    AudioTransform,
+    RawAudioTransform,
+    VideoTransform,
+)
 from avsr_tpu_torch.data.wer import wer
 from avsr_tpu_torch.frontends.cluster import (
     calculate_conversation_scores,
@@ -52,7 +58,8 @@ LRS2_SETS = [
 AVCOCKTAIL_SETS = [f"video_{i}" for i in range(0, 51)]
 CHUNK_TYPES = ["asd_chunk", "fixed_chunk", "gold_chunk"]
 # the ROADMAP items that port the other model types' loaders
-UNPORTED = {"auto_avsr": "A7", "muavic_en": "A8"}
+UNPORTED = {"muavic_en": "A8"}
+DEFAULT_DIRS = {"avsr_cocktail": "AVSRCocktail", "auto_avsr": "auto_avsr"}
 
 
 class InferenceEngine:
@@ -95,14 +102,17 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"model type {self.model_type!r} is not ported yet (ROADMAP "
                 f"{UNPORTED[self.model_type]}); use avsr_tpu.cli.evaluation")
-        path = self.checkpoint_path or os.path.join(self.cache_dir,
-                                                    "AVSRCocktail")
+        path = self.checkpoint_path or os.path.join(
+            self.cache_dir, DEFAULT_DIRS[self.model_type])
         if not os.path.exists(path):
             raise FileNotFoundError(
                 f"checkpoint {path} not found; pass --checkpoint_path pointing "
                 "to a local checkpoint (HF-style dir or .pth)"
             )
-        self._load_avsr_cocktail(path)
+        if self.model_type == "avsr_cocktail":
+            self._load_avsr_cocktail(path)
+        else:
+            self._load_auto_avsr(path)
 
     def _load_avsr_cocktail(self, path: str):
         """The JAX engine's defaults: bf16 decoder weights and K|V cache,
@@ -131,6 +141,44 @@ class InferenceEngine:
             max_decode_tokens=self.max_decode_tokens,
             video_wire=kw.get("video_wire", "delta"),
             encode_dtype=kw.get("encode_dtype", "float32"),
+            device=self.device,
+        )
+        self._decode_tokens = lambda toks: self.text_transform.post_process(
+            toks
+        ).replace("<eos>", "")
+
+    def _load_auto_avsr(self, path: str):
+        """The JAX engine's auto_avsr loader: ``ConformerAVSR`` built from
+        ``model_kwargs`` (``odim`` defaulting to the tokenizer's
+        vocabulary), the reference-format state dict at ``path`` loaded
+        strictly, float32 frames normalised on the host (the uint8 wire
+        codecs do not apply, so ``video_wire`` is dropped) and the raw
+        waveform, 640 samples a frame."""
+        from avsr_tpu_torch.core.weights import load_state_file
+        from avsr_tpu_torch.decode.recognizer import Recognizer
+        from avsr_tpu_torch.models.conformer import ConformerAVSR
+
+        self.text_transform = TextTransform()
+        self.collator = DataCollator(
+            text_transform=self.text_transform,
+            video_transform=VideoTransform("test"),
+            audio_transform=RawAudioTransform("test"),
+        )
+        self.model_kwargs.pop("video_wire", None)
+        enc_dtype = self.model_kwargs.pop("encode_dtype", "float32")
+        model = ConformerAVSR(
+            odim=self.model_kwargs.pop("odim", self.text_transform.vocab_size),
+            **self.model_kwargs,
+        )
+        load_state_file(model, path)
+        self.recognizer = Recognizer(
+            model=model,
+            cfg=model,  # gives sos/eos/blank/odim like the dataclass config
+            beam_size=self.beam_size,
+            audio_rate=640,
+            audio_dim=1,
+            max_decode_tokens=self.max_decode_tokens,
+            encode_dtype=enc_dtype,
             device=self.device,
         )
         self._decode_tokens = lambda toks: self.text_transform.post_process(
@@ -376,7 +424,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--model_type", type=str, default="avsr_cocktail",
         choices=["avsr_cocktail", "auto_avsr", "muavic_en"],
-        help="only avsr_cocktail is ported; the others raise",
+        help="muavic_en is not ported yet and raises",
     )
     parser.add_argument(
         "--dataset_name", type=str, default="lrs2", choices=["lrs2", "AVCocktail"]
@@ -407,6 +455,8 @@ def build_parser() -> argparse.ArgumentParser:
                              "math stays fp32")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--output_dir_name", type=str, default="output")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the model (cpu for the CPU)")
     return parser
 
 
@@ -429,6 +479,7 @@ def main():
         max_decode_tokens=args.max_decode_tokens,
         model_kwargs={"video_wire": args.video_wire,
                       "encode_dtype": args.encode_dtype},
+        device=args.device,
     )
     engine.load_model()
 

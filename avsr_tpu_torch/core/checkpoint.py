@@ -5,10 +5,12 @@ The port's own copy of the parts of ``avsr_tpu/core/checkpoint.py`` that
 ``tests/test_torch_port_ctc.py`` holds the copy equal to the original): the
 leaf transforms, the ``avsr_mapping`` table of (torch key, flax path,
 transform, collection) entries for the AV-HuBERT encoder, CTC head and
-transformer decoder of the released AVSRCocktail checkpoint, the key
-normalisation of released state dicts, ``flax_to_torch`` and the state-dict
-reader. Everything works on numpy arrays. The conformer, AV2Text and ASR
-mappings come with their model families.
+transformer decoder of the released AVSRCocktail checkpoint, the
+conformer family's tables (``conformer_avsr_mapping`` for auto_avsr,
+``conformer_asr_mapping`` for auto_asr / auto_vsr), the key normalisation
+of released state dicts, ``flax_to_torch`` and the state-dict reader.
+Everything works on numpy arrays. The AV2Text mapping comes with its model
+family.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def _conv2d(w):  # (O, I, kh, kw) -> (kh, kw, I, O)
 
 def _conv3d(w):  # (O, I, kt, kh, kw) -> (kt, kh, kw, I, O)
     return np.ascontiguousarray(np.transpose(w, (2, 3, 4, 1, 0)))
+
+
+def _conv1d(w):  # (O, I/g, K) -> (K, I/g, O)
+    return np.ascontiguousarray(np.transpose(w, (2, 1, 0)))
 
 
 def _copy(w):
@@ -227,6 +233,130 @@ def _decoder_entries(dt: str, df: Tuple[str, ...], dlayers: int):
     return m
 
 
+def _resnet2d_trunk_entries(tprefix: str, fprefix: Tuple[str, ...],
+                            prelu: bool = False):
+    out = []
+    for stage in range(1, 5):
+        for b in range(2):
+            has_ds = stage > 1 and b == 0
+            out += _resnet_block_entries(
+                f"{tprefix}.layer{stage}.{b}", fprefix + (f"layer{stage}_{b}",),
+                has_ds, prelu,
+            )
+    return out
+
+
+def _bn_entries(tprefix: str, fprefix: Tuple[str, ...]):
+    return [
+        (f"{tprefix}.weight", fprefix + ("scale",), _copy, "p"),
+        (f"{tprefix}.bias", fprefix + ("bias",), _copy, "p"),
+        (f"{tprefix}.running_mean", fprefix + ("mean",), _copy, "s"),
+        (f"{tprefix}.running_var", fprefix + ("var",), _copy, "s"),
+    ]
+
+
+def _conformer_encoder_entries(tp: str, fp: Tuple[str, ...], n_layers: int,
+                               input_layer: str):
+    """Mapping for one reference conformer Encoder (encoder.py:46)."""
+    m = []
+    if input_layer == "conv3d":
+        fr = fp + ("frontend",)
+        m += [
+            (f"{tp}.frontend.frontend3D.0.weight", fr + ("frontend_conv", "kernel"), _conv3d, "p"),
+        ]
+        m += _bn_entries(f"{tp}.frontend.frontend3D.1", fr + ("frontend_bn",))
+        m += _resnet2d_trunk_entries(f"{tp}.frontend.trunk", fr + ("trunk",))
+    elif input_layer == "conv1d":
+        fr = fp + ("frontend",)
+        m += [(f"{tp}.frontend.trunk.conv1.weight", fr + ("conv1", "kernel"), _conv1d, "p")]
+        m += _bn_entries(f"{tp}.frontend.trunk.bn1", fr + ("bn1",))
+        for stage in range(1, 5):
+            for b in range(2):
+                has_ds = stage > 1 and b == 0
+                btp = f"{tp}.frontend.trunk.layer{stage}.{b}"
+                bfp = fr + (f"layer{stage}_{b}",)
+                m += [
+                    (f"{btp}.conv1.weight", bfp + ("conv1", "kernel"), _conv1d, "p"),
+                    (f"{btp}.conv2.weight", bfp + ("conv2", "kernel"), _conv1d, "p"),
+                ]
+                m += _bn_entries(f"{btp}.bn1", bfp + ("bn1",))
+                m += _bn_entries(f"{btp}.bn2", bfp + ("bn2",))
+                if has_ds:
+                    m += [(f"{btp}.downsample.0.weight", bfp + ("downsample_conv", "kernel"), _conv1d, "p")]
+                    m += _bn_entries(f"{btp}.downsample.1", bfp + ("downsample_bn",))
+    m += _linear_entries(f"{tp}.embed.0", fp + ("embed",))
+    m += _ln_entries(f"{tp}.after_norm", fp + ("after_norm",))
+
+    # scanned conformer layers: per-layer tensors stack on axis 0
+    per_layer = []  # (torch suffix, flax suffix, transform, collection)
+    for proj in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        per_layer += [
+            (f"self_attn.{proj}.weight", ("self_attn", proj, "kernel"), _dense, "p"),
+            (f"self_attn.{proj}.bias", ("self_attn", proj, "bias"), _copy, "p"),
+        ]
+    per_layer += [
+        ("self_attn.linear_pos.weight", ("self_attn", "linear_pos", "kernel"), _dense, "p"),
+        ("self_attn.pos_bias_u", ("self_attn", "pos_bias_u"), _copy, "p"),
+        ("self_attn.pos_bias_v", ("self_attn", "pos_bias_v"), _copy, "p"),
+    ]
+    for ff in ("feed_forward", "feed_forward_macaron"):
+        for wname in ("w_1", "w_2"):
+            per_layer += [
+                (f"{ff}.{wname}.weight", (ff, wname, "kernel"), _dense, "p"),
+                (f"{ff}.{wname}.bias", (ff, wname, "bias"), _copy, "p"),
+            ]
+    for ln in ("norm_ff", "norm_mha", "norm_ff_macaron", "norm_conv", "norm_final"):
+        per_layer += [
+            (f"{ln}.weight", (ln, "scale"), _copy, "p"),
+            (f"{ln}.bias", (ln, "bias"), _copy, "p"),
+        ]
+    # reference spells pointwise conv 'pointwise_cov' (convolution.py:28,46)
+    for tc, fc, tr in (
+        ("pointwise_cov1", "pointwise_conv1", _conv1d),
+        ("depthwise_conv", "depthwise_conv", _conv1d),
+        ("pointwise_cov2", "pointwise_conv2", _conv1d),
+    ):
+        per_layer += [
+            (f"conv_module.{tc}.weight", ("conv_module", fc, "kernel"), tr, "p"),
+            (f"conv_module.{tc}.bias", ("conv_module", fc, "bias"), _copy, "p"),
+        ]
+    per_layer += [
+        ("conv_module.norm.weight", ("conv_module", "norm", "scale"), _copy, "p"),
+        ("conv_module.norm.bias", ("conv_module", "norm", "bias"), _copy, "p"),
+        ("conv_module.norm.running_mean", ("conv_module", "norm", "mean"), _copy, "s"),
+        ("conv_module.norm.running_var", ("conv_module", "norm", "var"), _copy, "s"),
+    ]
+    for tsuffix, fsuffix, transform, coll in per_layer:
+        keys = [f"{tp}.encoders.{i}.{tsuffix}" for i in range(n_layers)]
+        m.append((keys, fp + ("layers",) + fsuffix, transform, coll))
+    return m
+
+
+def conformer_avsr_mapping(n_layers: int = 12, dlayers: int = 6, prefix: str = ""):
+    """Mapping for the auto_avsr checkpoint (avsr_trlrwlrs2lrs3vox2avsp_base)."""
+    P = prefix
+    m = []
+    m += _conformer_encoder_entries(f"{P}encoder", ("encoder",), n_layers, "conv3d")
+    m += _conformer_encoder_entries(f"{P}aux_encoder", ("aux_encoder",), n_layers, "conv1d")
+    m += _linear_entries(f"{P}fusion.fc1", ("fusion", "fc1"))
+    m += _bn_entries(f"{P}fusion.bn1", ("fusion", "bn1"))
+    m += _linear_entries(f"{P}fusion.fc2", ("fusion", "fc2"))
+    m += _linear_entries(f"{P}ctc.ctc_lo", ("ctc_lo",))
+    m += _decoder_entries(f"{P}decoder", ("decoder",), dlayers)
+    return m
+
+
+def conformer_asr_mapping(n_layers: int = 12, dlayers: int = 6,
+                          input_layer: str = "conv1d", prefix: str = ""):
+    """Mapping for auto_asr (conv1d) / auto_vsr (conv3d) checkpoints."""
+    P = prefix
+    m = []
+    m += _conformer_encoder_entries(f"{P}encoder", ("encoder",), n_layers, input_layer)
+    m += _linear_entries(f"{P}ctc.ctc_lo", ("ctc_lo",))
+    m += _decoder_entries(f"{P}decoder", ("decoder",), dlayers)
+    return m
+
+
 # torch keys legitimately absent from the inference/fine-tune graph
 _IGNORABLE_SUFFIXES = (
     "num_batches_tracked",
@@ -256,6 +386,7 @@ def normalize_torch_keys(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 _INVERSE = {
     _dense: _dense,  # transpose is an involution
+    _conv1d: _conv1d,  # so is swapping the first and last axes
     _copy: _copy,
 }
 

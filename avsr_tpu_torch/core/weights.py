@@ -50,15 +50,24 @@ def load_released(model_dir: str, **overrides):
     else:
         cfg = AVHubertAVSRConfig()
     cfg = dataclasses.replace(cfg, **overrides)
+    model = AVSRModel(cfg)
+    load_state_file(model, model_dir, prefix="avsr.")
+    return cfg, model
+
+
+def load_state_file(model: nn.Module, path: str, prefix: str = "") -> None:
+    """Load a released state dict (``load_torch_state_dict``: a .pth/.bin,
+    a safetensors file or a directory holding one) into ``model`` strictly:
+    keys lose ``prefix``; the suffixes the JAX package's converter ignores
+    (``num_batches_tracked``...) are dropped; any other key left unused, or
+    any of the model's left unset, raises."""
     state = {}
-    for k, v in normalize_torch_keys(load_torch_state_dict(model_dir)).items():
+    for k, v in normalize_torch_keys(load_torch_state_dict(path)).items():
         if k.endswith(_IGNORABLE_SUFFIXES):
             continue
-        state[k.removeprefix("avsr.")] = torch.from_numpy(
+        state[k.removeprefix(prefix)] = torch.from_numpy(
             np.array(v, dtype=np.float32))
-    model = AVSRModel(cfg)
     model.load_state_dict(state, strict=True)
-    return cfg, model
 
 
 def _randn(shape, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -71,9 +80,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights (the JAX package's initialiser families):
     lecun-normal linear/conv kernels and zero biases, N(0, 1/sqrt(D))
     embeddings, unit norms, PReLU 0.25, weight-norm v ~ N(0, 0.02) and
-    g = 1, BN statistics (0, 1). Draws come from ``generator``, on the
-    generator's device, then move to the parameter's device."""
+    g = 1, BN statistics (0, 1), the conformer's rel-pos biases
+    xavier-uniform. Draws come from ``generator``, on the generator's
+    device, then move to the parameter's device."""
     from avsr_tpu_torch.models.avhubert import _WeightNormConv1d
+    from avsr_tpu_torch.models.conformer import RelPositionAttention
     from avsr_tpu_torch.models.resnet import BatchNorm
 
     for mod in model.modules():
@@ -97,4 +108,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.weight_v.copy_(_randn(mod.weight_v.shape, 0.02, generator))
             mod.weight_g.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, RelPositionAttention):
+            for w in (mod.pos_bias_u, mod.pos_bias_v):
+                limit = math.sqrt(6.0 / sum(w.shape))
+                w.copy_((torch.rand(w.shape, generator=generator,
+                                    device=generator.device) * 2 - 1) * limit)
     return model

@@ -2,11 +2,18 @@
 -> tokens.
 
 Counterpart of ``avsr_tpu/decode/recognizer.py`` on one device, with the
-same defaults (beam 3, ``ctc_weight=0.1``, unfused bookkeeping). Utterances
-are padded into static (batch, frames) buckets; uint8 crops travel to the
-device delta-coded (``data/wire.py``) and are decoded and normalised there;
-the encoder runs as one batch (in bf16 when ``encode_dtype="bfloat16"``,
-with every float weight and BN statistic cast); the beam decodes all
+same defaults (beam 3, ``ctc_weight=0.1``, unfused bookkeeping). It serves
+any model family with ``encode(audios, videos, lengths)``,
+``ctc_log_probs``, ``decoder_init`` and ``decoder_step``, and ``cfg``
+giving ``sos``, ``eos``, ``blank`` and ``odim`` (the AV-HuBERT model with
+its config; a conformer model is its own ``cfg``, as in the JAX package).
+Utterances are padded into static (batch, frames) buckets, the audio as
+``audio_rate`` rows of ``audio_dim`` a video frame (fbank features 1 x 104,
+or the raw waveform 640 x 1); uint8 crops travel to the device delta-coded
+(``data/wire.py``) and are decoded and normalised there, float32 frames
+(normalised on the host) as they are; the encoder runs as one batch (in
+bf16 when ``encode_dtype="bfloat16"``, on a copy of the model without its
+decoder, every float weight and BN statistic cast); the beam decodes all
 utterances of the batch together. ``mode="greedy"`` is greedy CTC. It runs
 on the card unless ``device`` says otherwise.
 """
@@ -21,16 +28,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data import wire
 from avsr_tpu_torch.decode.beam import (
     BeamSearchConfig,
     beam_search_batched,
     greedy_ctc,
 )
-from avsr_tpu_torch.models.e2e import AVSRModel
 from avsr_tpu_torch.ops.cpu import warm_exp
-from avsr_tpu_torch.ops.masks import make_non_pad_mask
 
 
 def pick_bucket(buckets: Sequence[int], n: int) -> int:
@@ -42,12 +46,13 @@ def pick_bucket(buckets: Sequence[int], n: int) -> int:
 
 @dataclass
 class Recognizer:
-    model: AVSRModel
-    cfg: AVHubertAVSRConfig
+    model: torch.nn.Module  # AVSRModel, ConformerAVSR
+    cfg: object  # AVHubertAVSRConfig, or the conformer model itself
     beam_size: int = 3
     ctc_weight: float = 0.1
     t_buckets: Sequence[int] = (96, 192, 288, 384)
-    # audio layout per video frame: fbank features (1 x 104)
+    # audio layout per video frame: fbank features (1 x 104) for the
+    # AV-HuBERT family, raw waveform (640 x 1) for the conformer family
     audio_rate: int = 1
     audio_dim: int = 104
     # self-KV buffer cap in tokens (None = frame-count-sized buffer)
@@ -59,8 +64,7 @@ class Recognizer:
     # the beam step's bookkeeping as one beam_update kernel launch
     fused_bookkeeping: bool = False
     device: str = "cuda"
-    _enc: torch.nn.Module = field(init=False, repr=False)
-    _ctc: torch.nn.Module = field(init=False, repr=False)
+    _encoder: torch.nn.Module = field(init=False, repr=False)
 
     def __post_init__(self):
         if self.encode_dtype not in ("float32", "bfloat16"):
@@ -71,14 +75,15 @@ class Recognizer:
         if self.device.type == "cpu":
             warm_exp()
         self.model = self.model.to(self.device).eval()
-        self._enc, self._ctc = self.model.encoder, self.model.ctc
+        self._encoder = self.model
         if self.encode_dtype == "bfloat16":
-            # a bf16 copy of the encoder and CTC head: every float weight
-            # and BN statistic is cast (fp32 statistics would re-promote
-            # the trunk's activations); the decoder keeps the fp32 weights
-            # and casts them itself to decoder_param_dtype
-            self._enc, self._ctc = (copy.deepcopy(m).to(torch.bfloat16)
-                                    for m in (self._enc, self._ctc))
+            # a bf16 copy of the model without its decoder (an empty module
+            # stands in): every float weight and BN statistic of the encoder
+            # side is cast (fp32 statistics would re-promote the trunk's
+            # activations); the decoder keeps the fp32 weights and casts
+            # them itself to its parameter dtype
+            memo = {id(self.model.decoder): torch.nn.Module()}
+            self._encoder = copy.deepcopy(self.model, memo).to(torch.bfloat16)
 
     @classmethod
     def from_pretrained(cls, model_dir: str, **kw) -> "Recognizer":
@@ -99,10 +104,8 @@ class Recognizer:
                 vid = wire.delta2_decode_video(vid)
             vid = (vid.float() / 255.0 - wire.VIDEO_MEAN) / wire.VIDEO_STD
         dt = getattr(torch, self.encode_dtype)
-        mask = make_non_pad_mask(lens, vid.shape[1])
-        feats = self._enc(aud.to(dt), vid.to(dt), mask)
-        ctc_logp = torch.log_softmax(self._ctc.ctc_lo(feats).float(), dim=-1)
-        return feats.float(), ctc_logp
+        feats = self._encoder.encode(aud.to(dt), vid.to(dt), lens)
+        return feats.float(), self._encoder.ctc_log_probs(feats)
 
     def beam_config(self) -> BeamSearchConfig:
         return BeamSearchConfig(

@@ -8,6 +8,10 @@ its state dict loads with ``load_state_dict(strict=True)``.
               + BN + PReLU + 3x3/s2/p1 max-pool per frame
   trunk: ResNet-18 (BasicBlock [2,2,2,2], PReLU) -> mean over H, W -> 512
 
+The trunk's activation is ``relu_type`` (``"prelu"``, the default and
+AV-HuBERT's; ``"relu"``; ``"swish"``, the conformer family's, whose blocks
+then hold no activation weights), as in the JAX package.
+
 The JAX package folds the temporal taps of the stem into input channels of
 a 2-D conv (a TPU layout workaround, exact since the temporal stride is 1);
 here the stem is the plain Conv3d. The stem tail follows the JAX default
@@ -113,18 +117,30 @@ def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
 
+def activation(relu_type: str, channels: int) -> nn.Module:
+    """The block activation of ``relu_type``: per-channel PReLU, ReLU or
+    swish (SiLU)."""
+    if relu_type == "prelu":
+        return nn.PReLU(channels)
+    if relu_type == "relu":
+        return nn.ReLU()
+    if relu_type == "swish":
+        return nn.SiLU()
+    raise ValueError(f"unknown relu_type {relu_type!r}")
+
+
 class BasicBlock(nn.Module):
     """ResNet-18 basic block: stride in conv1, 1x1-conv downsample."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, relu_type: str = "prelu"):
         super().__init__()
         self.conv1 = _conv3x3(inplanes, planes, stride)
         self.bn1 = BatchNorm(planes)
-        self.relu1 = nn.PReLU(planes)
+        self.relu1 = activation(relu_type, planes)
         self.conv2 = _conv3x3(planes, planes)
         self.bn2 = BatchNorm(planes)
-        self.relu2 = nn.PReLU(planes)
+        self.relu2 = activation(relu_type, planes)
         self.downsample = (
             nn.Sequential(
                 nn.Conv2d(inplanes, planes, 1, stride=stride, bias=False),
@@ -146,7 +162,7 @@ class BasicBlock(nn.Module):
 class ResNetTrunk(nn.Module):
     """ResNet-18 over (N, C, H, W) frames -> (N, 512) mean-pooled."""
 
-    def __init__(self, layers=(2, 2, 2, 2)):
+    def __init__(self, layers=(2, 2, 2, 2), relu_type: str = "prelu"):
         super().__init__()
         inplanes = 64
         for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
@@ -157,6 +173,7 @@ class ResNetTrunk(nn.Module):
                 mods.append(BasicBlock(
                     inplanes, planes, s,
                     downsample=b == 0 and (s != 1 or inplanes != planes),
+                    relu_type=relu_type,
                 ))
                 inplanes = planes
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))

@@ -127,7 +127,22 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    floor, ``full`` below ``none`` in memory), ``--pretrain`` for 3 steps
    (its five metrics), ``AVSR_FUSED_STEM=1`` for 2 steps (the stem
    kernels' launches) and the host syncs of steps 3-5 between two log
-   steps, none of them from the loop's code.
+   steps, none of them from the loop's code;
+10. runs the eval CLI's auto_avsr path (``phase_auto_avsr``): the
+   full-width ``ConformerAVSR()`` (two 12x768 conformer encoders, an
+   8192-wide fusion head, a 6x768 decoder, vocab 5049) of seed-0 weights,
+   saved as a reference-format .pth and loaded through
+   ``InferenceEngine(model_type="auto_avsr")``; ``eval_lrs2`` on 8 mp4 +
+   wav utterances of 2-15 s (a warm pass and a timed one; wall audio-s/s),
+   the encode and beam ms of a B=8 batch of 15 s utterances and the peak
+   memory; two short utterances through the card (kernels) and the CPU
+   (twins) in fp32, unfused, with fused bookkeeping (bit-equal to unfused
+   on the card) and with the decoder's fused layer: tokens equal,
+   features, CTC log-probs and scores within phase 5's limits; every card
+   run's launches of B2, B3, B5 (with B4's rows), B8 and B9 counted, no
+   twin called; then B2 and B9 checked and timed at the conformer
+   decoder's widths (C=768, 12 heads, fp32), B9 also at C=768 in bf16 and
+   C=1024 in fp32.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -366,19 +381,19 @@ def step_state(seed: int, i: int, dev, ties: bool, b: int = B, k: int = BEAM,
 
 
 def decode_case(g, dev, b: int, pos: int, caches: int = 1,
-                lanes: int = BEAM, kv_cap: int = KV_CAP):
+                lanes: int = BEAM, kv_cap: int = KV_CAP, c: int = 1024,
+                dtype=torch.bfloat16):
     """One ``decode_attention`` step's inputs at the serving widths: (b*K,
-    1024) bf16 queries scaled as dh**-0.5 does, ``caches`` distinct (b*K,
-    S, 2048) bf16 K|V caches (S = ``kv_cap``, 192), the step's row, and a
-    random ancestry's lane bias (B, K, S, J) with each lane its own
-    ancestor at the step; K = ``lanes`` (the beam, 3)."""
-    c = 1024
+    c=1024) bf16 queries scaled as dh**-0.5 does (dh = 64), ``caches``
+    distinct (b*K, S, 2c) bf16 K|V caches (S = ``kv_cap``, 192), the
+    step's row, and a random ancestry's lane bias (B, K, S, J) with each
+    lane its own ancestor at the step; K = ``lanes`` (the beam, 3). The
+    conformer's decoder: c=768 and fp32."""
     nl = b * lanes
-    q = (torch.randn(nl, c, generator=g, device=dev) * 0.125).to(
-        torch.bfloat16)
+    q = (torch.randn(nl, c, generator=g, device=dev) * 0.125).to(dtype)
     kvs = [torch.randn(nl, kv_cap, 2 * c, generator=g, device=dev).to(
-        torch.bfloat16) for _ in range(caches)]
-    row = torch.randn(nl, 2 * c, generator=g, device=dev).to(torch.bfloat16)
+        dtype) for _ in range(caches)]
+    row = torch.randn(nl, 2 * c, generator=g, device=dev).to(dtype)
     anc = torch.randint(0, lanes, (kv_cap, b, lanes), generator=g, device=dev)
     anc[min(pos, kv_cap - 1)] = torch.arange(lanes, device=dev)
     valid = (torch.arange(kv_cap, device=dev) <= pos)[:, None, None, None] & (
@@ -396,9 +411,11 @@ def rotating(fn, args):
 
 
 def layer_case(g, dev, b: int, pos: int, layers: int = 1, lanes: int = BEAM,
-               s_max: int = KV_CAP, s_enc: int = FRAMES + 2):
+               s_max: int = KV_CAP, s_enc: int = FRAMES + 2, c: int = 1024,
+               heads: int = 16, dtype=torch.bfloat16):
     """One ``decoder_layer_step``'s inputs at the serving widths: b*lanes
-    lanes (beam 3), C=1024, 16 heads, F=3072, bf16. ``layers`` decoder
+    lanes (beam 3), C=1024, 16 heads, F=3072, bf16 (the conformer's
+    decoder: C=768, 12 heads, fp32). ``layers`` decoder
     layers of random weights (N(0, 1/in) matrices, biases 0.02, LayerNorm
     scales around 1) as modules (``mods``) and packed (``packs``), each
     with its own (b*lanes, s_max=192, 2048) K|V cache (``kvs``) and (b,
@@ -409,9 +426,8 @@ def layer_case(g, dev, b: int, pos: int, layers: int = 1, lanes: int = BEAM,
     from avsr_tpu_torch.models.decoder import DecoderLayer
     from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
 
-    heads, c, f = 16, 1024, 3072
+    f = 3072
     nl = b * lanes
-    bf16 = torch.bfloat16
     case = dict(mods=[], packs=[], kvs=[], srcs=[])
     for _ in range(layers):
         layer = DecoderLayer(c, heads, f).to(dev)
@@ -425,15 +441,15 @@ def layer_case(g, dev, b: int, pos: int, layers: int = 1, lanes: int = BEAM,
                 else:
                     prm.normal_(0.0, prm.shape[1] ** -0.5, generator=g)
         case["mods"].append(layer)
-        case["packs"].append(pdl.pack_layer_params(layer, bf16))
+        case["packs"].append(pdl.pack_layer_params(layer, dtype))
         case["kvs"].append(torch.randn(nl, s_max, 2 * c, generator=g,
-                                       device=dev).to(bf16))
+                                       device=dev).to(dtype))
         case["srcs"].append(tuple(
-            torch.randn(b, s_enc, c, generator=g, device=dev).to(bf16)
+            torch.randn(b, s_enc, c, generator=g, device=dev).to(dtype)
             for _ in range(2)))
     case["mem_bias"] = torch.zeros(b, s_enc, device=dev)
     case["mem_bias"][1, -10:] = -1.0e30
-    case["x"] = torch.randn(nl, c, generator=g, device=dev).to(bf16)
+    case["x"] = torch.randn(nl, c, generator=g, device=dev).to(dtype)
     anc = torch.randint(0, lanes, (s_max, b, lanes), generator=g, device=dev)
     anc[min(pos, s_max - 1)] = torch.arange(lanes, device=dev)
     valid = (torch.arange(s_max, device=dev) <= pos)[:, None, None, None] & (
@@ -1879,17 +1895,26 @@ TWINS = {"flash_attention": ("flash_attention_plain",
                        "pool_bwd_plain", "_batch_stats_plain")}
 
 
+SERVING_TWINS = {"decode_attention": ("decode_attention_plain",),
+                 "topk": ("topk_plain", "row_gather_plain"),
+                 "row_gather": ("row_gather_plain",),
+                 "scan_logsumexp": ("cumlogsumexp_plain",),
+                 "beam_update": ("beam_update_plain",),
+                 "decoder_layer": ("decoder_layer_step_plain",)}
+
+
 @contextlib.contextmanager
-def twin_calls():
+def twin_calls(twins=TWINS):
     """Within the block every call of a plain twin of the training kernels
-    (``TWINS``) is counted, by name, in the dict it yields."""
+    (``TWINS``; the beam's are ``SERVING_TWINS``) is counted, by name, in
+    the dict it yields."""
     import importlib
 
     mods = {m: importlib.import_module(f"avsr_tpu_torch.ops.kernels.{m}")
-            for m in TWINS}
-    calls = {name: 0 for names in TWINS.values() for name in names}
+            for m in twins}
+    calls = {name: 0 for names in twins.values() for name in names}
     originals = {(m, name): getattr(mods[m], name)
-                 for m, names in TWINS.items() for name in names}
+                 for m, names in twins.items() for name in names}
 
     def counted(name, fn):
         def call(*a, **kw):
@@ -2854,6 +2879,399 @@ def phase_train_cli(dev, smi: str):
             tokenizer._DEFAULT_ASSET_DIRS = assets
 
 
+AUTO_UTTERANCES = 8  # phase 10's eval_lrs2 utterances: one engine batch
+AUTO_SHORT = (75, 60)  # (c)'s B=2 batch: 3 s and 2.4 s
+AUTO_DIM, AUTO_HEADS = 768, 12  # the conformer decoder's width and heads
+# (c)'s limits, phase 5's fp32 cuda-vs-cpu ones: CTC log-probs absolute,
+# beam scores relative, and the encoder features relative to their largest
+AUTO_CTC_TOL, AUTO_SCORE_TOL, AUTO_FEAT_TOL = 1e-3, 1e-4, 1e-3
+
+
+def conformer_width_times(dev, g):
+    """B2 and B9 at the conformer decoder's widths (C=768, 12 heads,
+    F=3072, fp32 weights and K|V cache, as the auto_avsr path serves them)
+    at B=8, beam 3, a 192-row cache, pos 250: one call each held against
+    its twin (B2's cache bit-equal and output within ``output_bound``; B9's
+    x_out and row within 1e-3 of their largest entry in fp32, 2e-2 in
+    bf16), then timed cold (rotating over six layers') beside the twin,
+    fused SDPA (B2) and the unfused layer step (B9). B9 also at C=768 in
+    bf16 and at C=1024 (16 heads) in fp32, to place its fp32 time against
+    phase 3's bf16 C=1024 one. Returns {name: (ms, twin ms, other ms,
+    bound)} at the conformer's widths in fp32."""
+    from avsr_tpu_torch.models.decoder import TransformerDecoder
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+
+    c, heads, f, pos, lanes = AUTO_DIM, AUTO_HEADS, 3072, 250, BEAM
+    nl = B * lanes
+    out = {}
+    q, kvs, row, lb = decode_case(g, dev, B, pos, caches=LAYERS, c=c,
+                                  dtype=torch.float32)
+    before = kvs[0].clone()
+    got, got_kv = pda.decode_attention(pos, q, kvs[0].clone(), lb, lanes,
+                                       heads, row)
+    want, want_kv = pda.decode_attention_plain(pos, q, before.clone(), lb,
+                                               lanes, heads, row)
+    bnd = pda.output_bound(pos, q, before, lb, lanes, heads, row)
+    diff = (got - want).abs()
+    check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
+          "decode_attention disagrees at C=768, 12 heads, fp32")
+
+    def step(kv):
+        return pda.decode_attention(pos, q, kv, lb, lanes, heads, row)
+
+    sdpa, backend = decode_sdpa_ms(q, kvs, lb, lanes, heads)
+    out["decode_attention"] = (
+        cuda_ms(rotating(step, kvs)),
+        cuda_ms(lambda: pda.decode_attention_plain(pos, q, kvs[0], lb, lanes,
+                                                   heads, row)),
+        sdpa, bound(nbytes(q, kvs[0], lb, row, q, row),
+                    4 * nl * lanes * KV_CAP * c, "fp32"))
+    print(f"# decode_attention at C=768, 12 heads, fp32, B={B}, pos {pos}: "
+          f"max_abs_err {diff.max().item():.3e} (within output_bound); "
+          f"SDPA backend {backend}")
+    del kvs
+
+    s_enc = FRAMES + 2
+    for cw, hw, dtype in ((c, heads, torch.float32), (c, heads, torch.bfloat16),
+                          (1024, 16, torch.float32)):
+        name = f"C={cw}, {hw} heads, {str(dtype)[6:]}"
+        case = layer_case(g, dev, B, pos, layers=LAYERS, s_enc=s_enc, c=cw,
+                          heads=hw, dtype=dtype)
+        args = (case["srcs"][0][0], case["srcs"][0][1], case["mem_bias"],
+                case["lb"], case["packs"][0], lanes, hw)
+        kv = case["kvs"][0]
+        got, got_kv = pdl.decoder_layer_step(pos, case["x"], kv.clone(),
+                                             *args)
+        want, want_kv = pdl.decoder_layer_step_plain(pos, case["x"],
+                                                     kv.clone(), *args)
+        r = min(pos, KV_CAP - 1)
+        e_x, e_row = _rel_err(got, want), _rel_err(got_kv[:, r],
+                                                   want_kv[:, r])
+        lim = 1e-3 if dtype == torch.float32 else 2e-2
+        check(e_x <= lim and e_row <= lim,
+              f"decoder_layer_step disagrees at {name}: x_out {e_x:.2e}, "
+              f"row {e_row:.2e}")
+        scratch = pdl.layer_scratch(nl, cw, f, dev)
+
+        def fused(i, case=case, scratch=scratch, hw=hw):
+            return pdl.decoder_layer_step(
+                pos, case["x"], case["kvs"][i], *case["srcs"][i],
+                case["mem_bias"], case["lb"], case["packs"][i], lanes, hw,
+                scratch=scratch)
+
+        dt = str(dtype)[6:]
+        dec = TransformerDecoder(VOCAB, cw, hw, f, layers=LAYERS,
+                                 cache_dtype=dt, param_dtype=dt).to(dev)
+        for i, mod in enumerate(case["mods"]):
+            dec.decoders[i].load_state_dict(mod.state_dict())
+        cache = dec.init_cache(torch.randn(B, s_enc, cw, generator=g,
+                                           device=dev), KV_CAP, lanes)
+        mask = (case["mem_bias"] == 0)[:, None, :]
+        with torch.inference_mode():
+            unfused = cuda_ms(rotating(
+                lambda i, dec=dec, cache=cache, mask=mask, case=case:
+                dec.layer_step(i, case["x"], pos, cache, mask, case["lb"],
+                               lanes), range(LAYERS)))
+        ms = cuda_ms(rotating(fused, range(LAYERS)))
+        plan, smem = pdl.card_plan(nl, lanes, hw, cw, f, KV_CAP, s_enc,
+                                   dtype, dtype, dev.index)
+        print(f"# decoder_layer_step at {name}, F=3072, B={B}, pos {pos}: "
+              f"x_out {e_x:.2e}, row {e_row:.2e} of their largest entry "
+              f"(limit {lim:g}); cold {ms:.4f} ms (grid {plan.grid}, "
+              f"{smem} B shared memory, item rows {plan.rows}, K slices "
+              f"{plan.slices}), the unfused layer step {unfused:.4f} ms")
+        if dtype == torch.float32 and cw == c:
+            packed = case["packs"][0]
+            out["decoder_layer_step"] = (
+                ms,
+                cuda_ms(lambda: pdl.decoder_layer_step_plain(
+                    pos, case["x"], kv, *args)),
+                unfused,
+                bound(sum(nbytes(t) for t in packed)
+                      + nbytes(case["x"], kv, *case["srcs"][0],
+                               case["mem_bias"], case["lb"], case["x"],
+                               kv[:, 0]),
+                      2 * nl * 12 * c * c
+                      + 4 * nl * c * (lanes * KV_CAP + s_enc), "fp32"))
+        del case, dec, cache, scratch, kv
+    for name, (ms, plain, other, bnd) in out.items():
+        what = "SDPA" if name == "decode_attention" else "unfused layer step"
+        print(f"# {name} C=768 fp32 B={B} cold: kernel {ms:.4f} ms, twin "
+              f"{plain:.4f} ms, {what} {other:.4f} ms; bound {bnd[0]:.6f} ms "
+              f"({bnd[1]})")
+    return out
+
+
+def phase_auto_avsr(dev, smi: str):
+    """The eval CLI's auto_avsr path at full width: ``ConformerAVSR()``
+    (two 12x768 conformer encoders over the Conv3d + swish ResNet-18 video
+    frontend and the raw-waveform ResNet-1D, an 8192-wide fusion head, a
+    6x768 decoder, vocabulary 5049 through ``model_kwargs``) of seed-0
+    weights, saved as a reference-format .pth and loaded through
+    ``InferenceEngine(model_type="auto_avsr")`` on the card, with a toy
+    tokenizer. (b) ``eval_lrs2`` on 8 utterances of 2-15 s as mp4 + wav
+    bytes (phase 8's kind), beam 3, ctc_weight 0.1, one warm pass and one
+    timed; the encode and beam ms of a B=8 batch of 15 s utterances; peak
+    memory. (c) two short utterances (3 s, 2.4 s) through the card's
+    Recognizer (kernels) and a CPU one (twins) on the same weights, fp32:
+    tokens equal, features, CTC log-probs and scores within phase 5's
+    limits. (d) the same on the card with ``fused_bookkeeping`` (bit-equal
+    to the unfused run) and with the decoder's fused layer (against the
+    CPU's fused layer, as (c)). (e) every card run's launches of B2, B3,
+    B5 (with B4's rows) and B8 or B9, counted from 0, and no twin called.
+    Returns the launches of the unfused and fused runs and B2's and B9's
+    times at C=768."""
+    import tempfile
+
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.data.synthetic import smooth_crops
+    from avsr_tpu_torch.decode.recognizer import Recognizer, pick_bucket
+    from avsr_tpu_torch.models.conformer import ConformerAVSR
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
+    from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    counters = (pda.decode_attention, ptk.topk_lastdim, ptk.topk_gather_rows,
+                prg.row_gather, psl.cumlogsumexp, pbu.beam_update,
+                pdl.decoder_layer_step)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        ptk.topk_lastdim.flat_launches = ptk.topk_lastdim.wide_launches = 0
+        pbu.beam_update.wide_launches = 0
+        pda.decode_attention.wide_launches = 0
+
+    def counts():
+        n = {fn.__name__: fn.launches for fn in counters}
+        n["topk_lastdim_flat"] = ptk.topk_lastdim.flat_launches
+        n["topk_lastdim"] -= n["topk_lastdim_flat"]
+        n["wide"] = (ptk.topk_lastdim.wide_launches
+                     + pbu.beam_update.wide_launches
+                     + pda.decode_attention.wide_launches)
+        return n
+
+    def check_launches(name, n, layers, fused=False, fused_layer=False):
+        """(e): the kernels of the path once a layer or twice a step, none
+        of the others, no wide path at beam 3."""
+        per_step = (n["decoder_layer_step"] if fused_layer
+                    else n["decode_attention"])
+        steps = per_step // layers
+        check(steps >= 1 and per_step == steps * layers
+              and n["topk_gather_rows"] == steps and n["row_gather"] == 0
+              and n["topk_lastdim"] >= steps
+              and n["cumlogsumexp"] >= 2 * steps and n["wide"] == 0
+              and (n["beam_update"] >= steps if fused
+                   else n["beam_update"] == 0)
+              and (fused or n["topk_lastdim_flat"] >= steps)
+              and (n["decode_attention"] == 0 if fused_layer
+                   else n["decoder_layer_step"] == 0),
+              f"{name}: the beam's kernels did not run as it does ({n})")
+        return steps
+
+    from avsr_tpu_torch.cli import evaluation as pe
+    from avsr_tpu_torch.data import media, tokenizer
+
+    assets = tokenizer._DEFAULT_ASSET_DIRS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_auto_") as root:
+        tokenizer._DEFAULT_ASSET_DIRS = (os.path.join(root, "spm"),)
+        os.makedirs(tokenizer._DEFAULT_ASSET_DIRS[0])
+        try:
+            write_toy_tokenizer(tokenizer._DEFAULT_ASSET_DIRS[0], VOCAB - 2)
+            # (a) seed-0 weights as a reference-format .pth, through the CLI
+            t0 = time.perf_counter()
+            with torch.device(dev):
+                model = ConformerAVSR(odim=VOCAB)
+            init_weights(model, torch.Generator(device=dev).manual_seed(0))
+            pth = os.path.join(root, "auto_avsr.pth")
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()},
+                       pth)
+            n_params = sum(p.numel() for p in model.parameters())
+            del model
+            t1 = time.perf_counter()
+            engine = pe.InferenceEngine("auto_avsr", checkpoint_path=pth,
+                                        batch_size=AUTO_UTTERANCES,
+                                        model_kwargs={"odim": VOCAB})
+            engine.load_model()
+            rec = engine.recognizer
+            model = rec.model
+            print(f"# phase 10: ConformerAVSR() of {n_params} parameters; "
+                  f".pth written in {t1 - t0:.1f} s, loaded through the "
+                  f"auto_avsr loader in {time.perf_counter() - t1:.1f} s")
+            dec = model.decoder
+            check(engine.device == "cuda" and rec.device.type == "cuda"
+                  and rec.beam_size == 3 and rec.ctc_weight == 0.1
+                  and not rec.fused_bookkeeping
+                  and (rec.audio_rate, rec.audio_dim) == (640, 1)
+                  and model.odim == VOCAB and dec.dim == AUTO_DIM
+                  and dec.heads == AUTO_HEADS and len(dec.decoders) == LAYERS
+                  and len(model.encoder.encoders) == 12
+                  and model.fusion.fc1.out_features == 8192,
+                  "phase 10: the engine is not the full-width auto_avsr "
+                  "model at the CLI's defaults")
+
+            # (b) eval_lrs2 on mp4 + wav bytes
+            rng = np.random.RandomState(10)
+            frames = np.round(rng.uniform(*EVAL_SECONDS, AUTO_UTTERANCES)
+                              * 25).astype(int)
+            frames[0] = FRAMES  # one 15 s utterance: the 384 bucket
+
+            def samples_of(lengths, name):
+                out = []
+                for i, n in enumerate(lengths):
+                    path = os.path.join(root, f"{name}{i}.mp4")
+                    media.save_video(path, smooth_crops(rng, n, 96)[..., 0])
+                    media.save_audio(path[:-4] + ".wav", (
+                        0.1 * rng.randn(n * 640)).astype(np.float32))
+                    with open(path, "rb") as f, open(path[:-4] + ".wav",
+                                                     "rb") as g:
+                        out.append({"video": f.read(), "audio": g.read(),
+                                    "label": " ".join(rng.choice(
+                                        EVAL_WORDS, rng.randint(2, 12)))})
+                return out
+
+            samples = samples_of(frames, "utt")
+            audio_s = float(frames.sum()) / 25.0
+            tokens, post = [], engine._decode_tokens
+
+            def decode_tokens(toks):
+                tokens.append(np.array(toks))
+                return post(toks)
+
+            engine._decode_tokens = decode_tokens
+            torch.cuda.reset_peak_memory_stats()
+            passes = []
+            with twin_calls(SERVING_TWINS) as calls:
+                for _ in range(2):  # a warm pass, then the timed one
+                    del tokens[:]
+                    torch.cuda.synchronize()
+                    reset()
+                    t0 = time.perf_counter()
+                    score = pe.eval_lrs2(engine, samples)
+                    wall = time.perf_counter() - t0
+                    passes.append(list(tokens))
+            main = counts()
+            check(not any(calls.values()),
+                  f"phase 10: a twin ran in eval_lrs2 ({calls})")
+            steps = check_launches("phase 10 eval_lrs2", main, LAYERS)
+            check(len(tokens) == AUTO_UTTERANCES and math.isfinite(score)
+                  and all(np.array_equal(a, b)
+                          for a, b in zip(*passes)),
+                  "phase 10: eval_lrs2's transcripts missing or unsteady")
+            print(f"# {smi}: phase 10 auto_avsr eval_lrs2: "
+                  f"{AUTO_UTTERANCES} utterances, {audio_s:.2f} audio-s in "
+                  f"{wall:.3f} s wall (after a warm pass; media decode and "
+                  f"collation included) -> {audio_s / wall:.2f} audio-s/s; "
+                  f"WER {score:.4f}; {steps} beam steps; launches {main}")
+
+            # the encode and beam of a B=8 batch of 15 s utterances (the
+            # shapes eval_lrs2's batch warmed: 8 rows of the 384 bucket)
+            vids = [rng.randn(FRAMES, 88, 88, 1).astype(np.float32)
+                    for _ in range(B)]
+            auds = [rng.randn(FRAMES * 640, 1).astype(np.float32)
+                    for _ in range(B)]
+            aud, vid, lens, _ = rec._pad_batch(auds, vids)
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            feats, ctc = rec.encode(aud, vid, lens)
+            torch.cuda.synchronize()
+            s1 = time.perf_counter()
+            _, yl, sc = rec.beam(feats, ctc, lens)
+            torch.cuda.synchronize()
+            s2 = time.perf_counter()
+            check(tuple(ctc.shape) == (B, pick_bucket(rec.t_buckets, FRAMES),
+                                       VOCAB)
+                  and torch.isfinite(ctc).all().item()
+                  and torch.isfinite(sc).all().item(),
+                  "phase 10: the B=8 batch's CTC log-probs or scores")
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            enc_ms, beam_ms = 1e3 * (s1 - s0), 1e3 * (s2 - s1)
+            print(f"# {smi}: phase 10 auto_avsr B={B} x {FRAMES} frames "
+                  f"(fp32 encode and decoder, beam 3, ctc_weight 0.1): "
+                  f"encode {enc_ms:.1f} ms, beam {beam_ms:.1f} ms "
+                  f"({int(yl.max().item())} tokens with sos/eos); peak "
+                  f"memory {peak:.2f} GB")
+            del feats, ctc, aud, vid, auds, vids
+
+            # (c) and (d): the card's kernels and the CPU's twins, fp32
+            feats_in = engine._features(samples_of(AUTO_SHORT, "short"))
+            auds = [np.asarray(a)[: n * 640] for a, _, n in feats_in]
+            vids = [np.asarray(v)[:n] for _, v, n in feats_in]
+            cpu_model = copy.deepcopy(model).cpu()
+            cpu = Recognizer(model=cpu_model, cfg=cpu_model, device="cpu",
+                             audio_rate=640, audio_dim=1,
+                             max_decode_tokens=rec.max_decode_tokens)
+
+            def run(r, fused=False, encoded=None):
+                """[feats, CTC log-probs, tokens, lengths, scores] on the
+                host; ``encoded``: the encode's outputs, reused."""
+                r.fused_bookkeeping = fused
+                aud, vid, lens, _ = r._pad_batch(auds, vids)
+                feats, ctc = encoded or r.encode(aud, vid, lens)
+                return [x.cpu() for x in (feats, ctc,
+                                          *r.beam(feats, ctc, lens))]
+
+            runs = {}
+            with twin_calls(SERVING_TWINS) as calls:
+                for name, fused, fused_layer in (
+                        ("unfused", False, False),
+                        ("fused bookkeeping", True, False),
+                        ("fused layer", False, True)):
+                    dec.fused_layer = fused_layer
+                    torch.cuda.synchronize()
+                    reset()
+                    runs[name] = run(rec, fused)
+                    torch.cuda.synchronize()
+                    runs[name].append(counts())
+                    check_launches(f"phase 10 {name}", runs[name][-1],
+                                   LAYERS, fused, fused_layer)
+                dec.fused_layer = False
+            check(not any(calls.values()),
+                  f"phase 10: a twin ran on the card ({calls})")
+            rec.fused_bookkeeping = False
+            u, fb = runs["unfused"], runs["fused bookkeeping"]
+            check(all(torch.equal(a, b) for a, b in zip(u[2:5], fb[2:5])),
+                  "phase 10: fused bookkeeping differs from unfused on the "
+                  "card")
+            cpu_out = run(cpu)
+            for name in ("unfused", "fused layer"):
+                cpu_model.decoder.fused_layer = name == "fused layer"
+                cu = runs[name]
+                cp = cpu_out if name == "unfused" else run(
+                    cpu, encoded=cpu_out[:2])
+                feat_err = _rel_err(cu[0], cp[0])
+                ctc_err = (cu[1] - cp[1]).abs().max().item()
+                score_err = ((cu[4] - cp[4]).abs()
+                             / cp[4].abs()).max().item()
+                same = torch.equal(cu[2], cp[2]) and torch.equal(cu[3], cp[3])
+                print(f"# phase 10 cuda vs cpu, {name}, fp32, B=2 x "
+                      f"{AUTO_SHORT} frames: features {feat_err:.3e} of "
+                      f"their largest (limit {AUTO_FEAT_TOL:g}), CTC "
+                      f"log-probs max_abs_err {ctc_err:.3e} (limit "
+                      f"{AUTO_CTC_TOL:g}), beam score rel_err "
+                      f"{score_err:.3e} (limit {AUTO_SCORE_TOL:g}), tokens "
+                      f"equal={same} (lengths {cu[3].tolist()}); tokens "
+                      f"equal to the card's unfused run: "
+                      f"{torch.equal(cu[2], u[2])}; launches {cu[-1]}")
+                check(feat_err <= AUTO_FEAT_TOL and ctc_err <= AUTO_CTC_TOL
+                      and score_err <= AUTO_SCORE_TOL and same,
+                      f"phase 10 {name}: cuda vs cpu")
+            launches = {"eval_lrs2": main, "fused bookkeeping": fb[-1],
+                        "fused layer": runs["fused layer"][-1]}
+            del cpu, cpu_model, runs, engine, rec, model, dec
+            torch.cuda.empty_cache()
+            times = conformer_width_times(dev, torch.Generator(
+                device=dev).manual_seed(10))
+        finally:
+            tokenizer._DEFAULT_ASSET_DIRS = assets
+    torch.cuda.empty_cache()
+    return launches, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2915,6 +3333,13 @@ def main() -> int:
     eval_runs, eval_checked = phase_eval(dev, smi)
     print("# phase 9: the training entry point at full width")
     phase_train_cli(dev, smi)
+    print("# phase 10: the eval CLI's auto_avsr path at full width")
+    t10 = time.perf_counter()
+    auto_launches, auto_times = phase_auto_avsr(dev, smi)
+    print(f"# phase 10 passed in {time.perf_counter() - t10:.1f} s")
+    print(f"# phase 10 launches: {json.dumps(auto_launches)}")
+    print(f"# phase 10 C=768 kernel ms (kernel, twin, SDPA or unfused "
+          f"step, bound): {json.dumps(auto_times)}")
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

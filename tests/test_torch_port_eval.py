@@ -38,9 +38,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from avsr_tpu.data import tokenizer as jtok  # noqa: E402
-from avsr_tpu.ops import fbank as jfbank  # noqa: E402
 from avsr_tpu_torch.data import tokenizer as ptok  # noqa: E402
-from avsr_tpu_torch.ops import fbank as pfbank  # noqa: E402
 from avsr_tpu_torch.ops.kernels import beam_update as pbu  # noqa: E402
 from avsr_tpu_torch.ops.kernels import topk as ptk  # noqa: E402
 from tests.test_torch_port_host import (  # noqa: E402
@@ -51,6 +49,7 @@ from tests.torch_port_common import (  # noqa: E402
     beam_step_case,
     gather_spy,
     jax_tiny_model,
+    pin_fbank_route,
     port_cfg,
     port_model,
     setup_torch,
@@ -548,14 +547,6 @@ def engines(assets):
     return _engines(assets, model_kwargs=dict(FP32))
 
 
-def _same_fbank_route():
-    """Both packages featurize by the same route (the native and numpy
-    routes differ by up to 1e-4, tests/test_fbank.py)."""
-    jax_route = "native" if jfbank._NATIVE is not None and jfbank.USE_NATIVE \
-        else "numpy"
-    assert pfbank.fbank_route() == jax_route
-
-
 def _lrs2_dataset(videos):
     labels = [b"HELLO WORLD", b"THE LAZY DOG", "A QUICK TEST", b"FOX"]
     ds = []
@@ -574,7 +565,7 @@ def test_eval_lrs2_matches_jax(engines, assets, tmp_path, monkeypatch):
     from avsr_tpu.cli import evaluation as je
     from avsr_tpu_torch.cli import evaluation as pe
 
-    _same_fbank_route()
+    pin_fbank_route(monkeypatch)
     jeng, peng = engines
     ds = _lrs2_dataset(assets["videos"])
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
@@ -591,7 +582,7 @@ def test_infer_video_matches_jax(engines, assets, tmp_path, monkeypatch,
                                  chunking):
     """A 2.4 s video in 1 s chunks: fixed windows over the audio's length,
     or the ASD scores' segments (two chunks of a 2 s active region)."""
-    _same_fbank_route()
+    pin_fbank_route(monkeypatch)
     jeng, peng = engines
     for eng in engines:
         monkeypatch.setattr(eng, "max_length", 1)
@@ -607,13 +598,13 @@ def test_infer_video_matches_jax(engines, assets, tmp_path, monkeypatch,
     assert len(got) >= 2
 
 
-def test_eval_avcocktail_matches_jax(engines, assets):
+def test_eval_avcocktail_matches_jax(engines, assets, monkeypatch):
     """Each chunk type's WER and the label's word count, on segments that
     the labels' span keeps and one that it drops."""
     from avsr_tpu.cli import evaluation as je
     from avsr_tpu_torch.cli import evaluation as pe
 
-    _same_fbank_route()
+    pin_fbank_route(monkeypatch)
     v = assets["videos"]
     video_ds = {
         "asd_chunk": [{"video": v[0], "start_time": 1.0, "end_time": 2.2},
@@ -633,13 +624,13 @@ def test_eval_avcocktail_matches_jax(engines, assets):
     assert got[1] == 5 and set(got[0]) == set(pe.CHUNK_TYPES)
 
 
-def test_mcorec_session_matches_jax(engines, assets, tmp_path):
+def test_mcorec_session_matches_jax(engines, assets, tmp_path, monkeypatch):
     """Speaker clustering (speaker_to_cluster.json) and each speaker's VTT
     of a two-speaker session."""
     pytest.importorskip("sklearn")
     import shutil
 
-    _same_fbank_route()
+    pin_fbank_route(monkeypatch)
     session = tmp_path / "session"
     session.mkdir()
     metadata = {}
@@ -678,14 +669,14 @@ def test_producer_error_names_the_segment(engines, capsys):
            "'start_time': 0.5}" in out
 
 
-def test_bf16_engine_matches_jax_on_a_pinned_input(assets):
+def test_bf16_engine_matches_jax_on_a_pinned_input(assets, monkeypatch):
     """The CLI's defaults, bf16 decoder weights and K|V cache, on both
     sides. Near-ties decide differently in the two frameworks' bf16
     roundings (ROADMAP C13): on these random tiny weights most fixtures'
     transcripts differ in bf16, while all agree in fp32
     (test_eval_lrs2_matches_jax). So the input is pinned to the 60-frame
     fixture, whose bf16 transcripts agree."""
-    _same_fbank_route()
+    pin_fbank_route(monkeypatch)
     jeng, peng = _engines(assets)
     for eng in (jeng, peng):
         cfg = eng.recognizer.cfg
@@ -695,7 +686,8 @@ def test_bf16_engine_matches_jax_on_a_pinned_input(assets):
 
 
 def test_build_parser_matches_jax():
-    """Every flag, default, type and choice of the JAX CLI."""
+    """Every flag, default, type and choice of the JAX CLI, plus the port's
+    ``--device``."""
     from avsr_tpu.cli.evaluation import build_parser as jax_parser
     from avsr_tpu_torch.cli.evaluation import build_parser
 
@@ -705,7 +697,11 @@ def test_build_parser_matches_jax():
                          a.nargs, a.const)
                 for a in parser._actions}
 
-    assert flags(build_parser()) == flags(jax_parser())
+    port = flags(build_parser())
+    # the port's own flag: the torch device, the card by default
+    assert port.pop("device") == (("--device",), "cuda", str, None, None,
+                                  None)
+    assert port == flags(jax_parser())
     args = build_parser().parse_args(["--beam_size", "22", "--set_id",
                                       "video_3", "--dataset_name",
                                       "AVCocktail"])
@@ -724,8 +720,7 @@ def test_engine_defaults_match_jax():
     assert pp["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("model_type,item", [("auto_avsr", "A7"),
-                                             ("muavic_en", "A8")])
+@pytest.mark.parametrize("model_type,item", [("muavic_en", "A8")])
 def test_unported_model_types_raise(model_type, item):
     from avsr_tpu_torch.cli.evaluation import InferenceEngine
 

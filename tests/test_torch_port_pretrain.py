@@ -25,7 +25,12 @@ from avsr_tpu_torch.ops import span_mask as pspan  # noqa: E402
 from avsr_tpu_torch.ops.dropout import DropoutRng  # noqa: E402
 from avsr_tpu_torch.train import pretrain as PP  # noqa: E402
 from avsr_tpu_torch.train import trainer as PT  # noqa: E402
-from tests.torch_port_common import port_cfg, setup_torch, tiny_cfg  # noqa: E402
+from tests.torch_port_common import (  # noqa: E402
+    pin_fbank_route,
+    port_cfg,
+    setup_torch,
+    tiny_cfg,
+)
 
 PCFG = dict(num_classes=11, final_dim=16)
 
@@ -72,15 +77,17 @@ def test_sample_pretrain_masks_matches_jax():
 
 @pytest.mark.parametrize("group_index,clusters", [(None, False), (3, False),
                                                   (1, True)])
-def test_pretrain_collator_matches_jax(group_index, clusters):
+def test_pretrain_collator_matches_jax(group_index, clusters, monkeypatch):
     """The same pretraining batch (the base collation, the masks, the
-    gather map, the proxy quantizer's or the dataset's targets)."""
+    gather map, the proxy quantizer's or the dataset's targets); the port
+    featurizes by the route the JAX package's loader took."""
     from avsr_tpu.data import collate as jcollate
     from avsr_tpu.data import transforms as jtr
     from avsr_tpu_torch.data import collate as pcollate
     from avsr_tpu_torch.data import dataset as pds
     from avsr_tpu_torch.data import transforms as ptr
 
+    pin_fbank_route(monkeypatch)
     samples = list(pds.synthetic_samples(3, seed=4, min_frames=6,
                                          max_frames=12))
     if clusters:

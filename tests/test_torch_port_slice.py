@@ -204,9 +204,11 @@ def test_recognizer_defaults_match_jax():
 def test_port_imports_no_jax():
     """The serving path, the CTC scorer, the kernel wrappers (the fused stem
     and decoder layer included), the trainer, the training loop, CLI,
-    pretraining objective, datasets and data parallelism, bench_train and
-    chip_smoke.py import nothing of the JAX package, JAX, flax or
-    ml_dtypes."""
+    pretraining objective, datasets and data parallelism, the conformer
+    family and ShuffleNetV2 with what the eval CLI's auto_avsr loader
+    imports (the conformer weight tables, the raw-waveform transform),
+    bench_train and chip_smoke.py import nothing of the JAX package, JAX,
+    flax or ml_dtypes."""
     code = ("import sys, avsr_tpu_torch.decode.recognizer, "
             "avsr_tpu_torch.core.weights, avsr_tpu_torch.decode.ctc_prefix, "
             "avsr_tpu_torch.ops.kernels.scan_logsumexp, "
@@ -218,6 +220,9 @@ def test_port_imports_no_jax():
             "avsr_tpu_torch.cli.train, avsr_tpu_torch.train.loop, "
             "avsr_tpu_torch.train.pretrain, avsr_tpu_torch.data.dataset, "
             "avsr_tpu_torch.core.dist, "
+            "avsr_tpu_torch.models.conformer, avsr_tpu_torch.core.checkpoint, "
+            "avsr_tpu_torch.data.transforms, avsr_tpu_torch.cli.evaluation, "
+            "avsr_tpu_torch.models.shufflenetv2, "
             "avsr_tpu_torch.tools.bench_train, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('avsr_tpu', 'jax', 'flax', 'ml_dtypes')]; "
@@ -227,11 +232,13 @@ def test_port_imports_no_jax():
 
 
 def test_bf16_encode_runs_on_cpu(recognizers, batch):
-    """bf16 encode: every encoder weight and BN statistic cast, fp32 out."""
+    """bf16 encode: every encoder weight and BN statistic cast (on a copy
+    of the model without its decoder; the model keeps fp32), fp32 out."""
     _, prec = recognizers
     rec = dataclasses.replace(prec, encode_dtype="bfloat16")
-    assert all(p.dtype == torch.bfloat16 for p in rec._enc.parameters())
-    assert all(b.dtype == torch.bfloat16 for b in rec._enc.buffers())
+    assert all(p.dtype == torch.bfloat16 for p in rec._encoder.parameters())
+    assert all(b.dtype == torch.bfloat16 for b in rec._encoder.buffers())
+    assert all(p.dtype == torch.float32 for p in rec.model.parameters())
     aud, vid, lens, _ = rec._pad_batch(*batch)
     assert aud.dtype == torch.bfloat16
     feats, ctc = rec.encode(aud, vid, lens)

@@ -318,9 +318,53 @@ def tiny_port_cfg():
         decode_fused_attention=True)
 
 
+def jax_fbank_native() -> bool:
+    """Whether the JAX package featurizes by its native library in this
+    process. Its loader builds the library in place with g++ at import and
+    falls back to numpy for the process's life where the build or the load
+    fails; under xdist six workers import it at once, and one that loads
+    another's half-written library falls back (ROADMAP C26). The numpy and
+    native routes differ by up to 1e-4 (tests/test_fbank.py)."""
+    from avsr_tpu.ops import fbank as jfbank
+
+    return jfbank._NATIVE is not None and jfbank.USE_NATIVE
+
+
+def pin_fbank_route(monkeypatch) -> str:
+    """Make the port featurize, in this process, by the route the JAX
+    package's loader took; returns it."""
+    from avsr_tpu_torch.ops import fbank as pfbank
+
+    native = jax_fbank_native()
+    monkeypatch.setattr(pfbank, "USE_NATIVE", native)
+    return "native" if native else "numpy"
+
+
+class RoutedAudioTransform:
+    """The port's audio transform, each call run with the port's fbank
+    route set to ``native`` (and set back after). It pickles, so the port's
+    spawned collation workers, which import the port afresh, featurize by
+    that route too."""
+
+    def __init__(self, inner, native: bool):
+        self.inner = inner
+        self.native = native
+
+    def __call__(self, *args, **kw):
+        from avsr_tpu_torch.ops import fbank as pfbank
+
+        saved, pfbank.USE_NATIVE = pfbank.USE_NATIVE, self.native
+        try:
+            return self.inner(*args, **kw)
+        finally:
+            pfbank.USE_NATIVE = saved
+
+
 def loop_collators(subset="test", seed=0):
     """(JAX, port) DataCollators with the same transforms and the dummy
-    tokenizer (the JAX package is imported here, not with this module)."""
+    tokenizer (the JAX package is imported here, not with this module); the
+    port's audio transform featurizes by the JAX package's route, in this
+    process and in spawned workers."""
     from avsr_tpu.data import collate as jcollate
     from avsr_tpu.data import transforms as jtr
     from avsr_tpu_torch.data import collate as pcollate
@@ -333,7 +377,9 @@ def loop_collators(subset="test", seed=0):
         pcollate.DataCollator(
             text_transform=DummyTokenizer(),
             video_transform=ptr.VideoTransform(subset),
-            audio_transform=ptr.AudioTransform(subset), seed=seed))
+            audio_transform=RoutedAudioTransform(
+                ptr.AudioTransform(subset), jax_fbank_native()),
+            seed=seed))
 
 
 LOOP_BUCKETS = (6, 12)  # frame buckets of the loop tests (both packages)
