@@ -9,10 +9,10 @@ the host (media decode, fbank, crops) and decoded in batches by the port's
 
     python -m avsr_tpu_torch.cli.evaluation --help
 
-The avsr_cocktail (AV-HuBERT) and auto_avsr (conformer) model types load;
-muavic_en stays in ``--model_type``'s choices and raises
-``NotImplementedError``. ``--device`` (``cuda`` by default) is the port's
-own flag.
+All three model types load: avsr_cocktail (AV-HuBERT with the joint
+CTC/attention beam), auto_avsr (the conformer family) and muavic_en (the
+MuAViC AV2Text model, attention-only beam through ``S2TGenerator``).
+``--device`` (``cuda`` by default) is the port's own flag.
 """
 
 from __future__ import annotations
@@ -57,9 +57,23 @@ LRS2_SETS = [
 ]
 AVCOCKTAIL_SETS = [f"video_{i}" for i in range(0, 51)]
 CHUNK_TYPES = ["asd_chunk", "fixed_chunk", "gold_chunk"]
-# the ROADMAP items that port the other model types' loaders
-UNPORTED = {"muavic_en": "A8"}
-DEFAULT_DIRS = {"avsr_cocktail": "AVSRCocktail", "auto_avsr": "auto_avsr"}
+DEFAULT_DIRS = {"avsr_cocktail": "AVSRCocktail", "auto_avsr": "auto_avsr",
+                "muavic_en": "AV-HuBERT-MuAViC-en"}
+
+
+def pad_features(feats, batch_size: int):
+    """Collated (audio, video, length) triples -> one fixed batch of
+    ``batch_size`` host arrays for the muavic generator; padding rows
+    decode one dummy frame."""
+    t_max = max(int(n) for _, _, n in feats)
+    auds = np.zeros((batch_size, t_max, 104), np.float32)
+    vids = np.zeros((batch_size, t_max, 88, 88, 1), np.float32)
+    lens = np.ones((batch_size,), np.int64)
+    for i, (a, v, n) in enumerate(feats):
+        auds[i, :n] = np.asarray(a)[:n]
+        vids[i, :n] = np.asarray(v)[:n]
+        lens[i] = n
+    return auds, vids, lens
 
 
 class InferenceEngine:
@@ -94,14 +108,12 @@ class InferenceEngine:
         self.max_decode_tokens = max_decode_tokens or None
         self.device = device
         self.recognizer = None
+        self.generator = None
+        self.tokenizer = None
         self.text_transform: Optional[TextTransform] = None
         self.collator: Optional[DataCollator] = None
 
     def load_model(self):
-        if self.model_type in UNPORTED:
-            raise NotImplementedError(
-                f"model type {self.model_type!r} is not ported yet (ROADMAP "
-                f"{UNPORTED[self.model_type]}); use avsr_tpu.cli.evaluation")
         path = self.checkpoint_path or os.path.join(
             self.cache_dir, DEFAULT_DIRS[self.model_type])
         if not os.path.exists(path):
@@ -111,8 +123,10 @@ class InferenceEngine:
             )
         if self.model_type == "avsr_cocktail":
             self._load_avsr_cocktail(path)
-        else:
+        elif self.model_type == "auto_avsr":
             self._load_auto_avsr(path)
+        else:
+            self._load_muavic(path)
 
     def _load_avsr_cocktail(self, path: str):
         """The JAX engine's defaults: bf16 decoder weights and K|V cache,
@@ -185,6 +199,38 @@ class InferenceEngine:
             toks
         ).replace("<eos>", "")
 
+    def _load_muavic(self, path: str):
+        """The JAX engine's muavic_en loader: ``AV2TextConfig`` from the
+        directory's ``config.json`` (its fields only), the state dict
+        (``model.``-prefixed keys) loaded strictly, the Speech2Text
+        tokenizer, float32 frames normalised on the host, fbank audio, and
+        the attention-only ``S2TGenerator``."""
+        import dataclasses
+
+        from avsr_tpu_torch.core.weights import load_state_file
+        from avsr_tpu_torch.data.s2t_tokenizer import Speech2TextTokenizer
+        from avsr_tpu_torch.decode.s2t_generate import S2TGenerator
+        from avsr_tpu_torch.models.av2text import AV2TextConfig, AV2TextModel
+
+        cfg_path = os.path.join(path, "config.json")
+        kw = {}
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                raw = json.load(f)
+            fields = {f.name for f in dataclasses.fields(AV2TextConfig)}
+            kw = {k: v for k, v in raw.items() if k in fields}
+        model = AV2TextModel(AV2TextConfig(**kw))
+        load_state_file(model, path, prefix="model.")
+        self.tokenizer = Speech2TextTokenizer.from_pretrained(path)
+        self.collator = DataCollator(
+            text_transform=None,
+            video_transform=VideoTransform("test"),
+            audio_transform=AudioTransform("test"),
+        )
+        self.generator = S2TGenerator(model, beam_size=self.beam_size,
+                                      device=self.device)
+        self.recognizer = None
+
     # ---------------- sample preparation ----------------
 
     def _prepare(self, sample: Dict) -> Dict:
@@ -236,7 +282,24 @@ class InferenceEngine:
 
     def infer_samples(self, samples: List[Dict]) -> List[str]:
         """Decode a list of segment samples; returns transcripts."""
-        return self._infer_samples_pipelined(samples)
+        if self.model_type != "muavic_en":
+            return self._infer_samples_pipelined(samples)
+        outputs = []
+        for lo in range(0, len(samples), self.batch_size):
+            chunk = samples[lo : lo + self.batch_size]
+            auds, vids, lens = pad_features(self._features(chunk),
+                                            self.batch_size)
+            try:
+                token_batches = self.generator.generate(auds, vids, lens)[
+                    : len(chunk)]
+            except Exception as e:
+                for s in chunk:
+                    print(f"Error during inference for "
+                          f"{self._segment_context(s)}")
+                raise e
+            outputs.extend(self.tokenizer.decode(t).upper()
+                           for t in token_batches)
+        return outputs
 
     def _infer_samples_pipelined(self, samples: List[Dict]) -> List[str]:
         """A producer thread collates and decodes chunks of ``batch_size``
@@ -424,7 +487,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--model_type", type=str, default="avsr_cocktail",
         choices=["avsr_cocktail", "auto_avsr", "muavic_en"],
-        help="muavic_en is not ported yet and raises",
     )
     parser.add_argument(
         "--dataset_name", type=str, default="lrs2", choices=["lrs2", "AVCocktail"]

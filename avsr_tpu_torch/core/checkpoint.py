@@ -7,10 +7,10 @@ leaf transforms, the ``avsr_mapping`` table of (torch key, flax path,
 transform, collection) entries for the AV-HuBERT encoder, CTC head and
 transformer decoder of the released AVSRCocktail checkpoint, the
 conformer family's tables (``conformer_avsr_mapping`` for auto_avsr,
-``conformer_asr_mapping`` for auto_asr / auto_vsr), the key normalisation
-of released state dicts, ``flax_to_torch`` and the state-dict reader.
-Everything works on numpy arrays. The AV2Text mapping comes with its model
-family.
+``conformer_asr_mapping`` for auto_asr / auto_vsr), the MuAViC table
+(``av2text_mapping``), the key normalisation of released state dicts,
+``flax_to_torch`` and the state-dict reader. Everything works on numpy
+arrays.
 """
 
 from __future__ import annotations
@@ -102,11 +102,14 @@ def _linear_entries(tprefix: str, fprefix: Tuple[str, ...]):
 
 
 def avhubert_encoder_entries(tp: str, enc: Tuple[str, ...], n_layers: int,
-                             fused_proj: bool = True):
+                             fused_proj: bool = True, prelu: bool = True):
     """Mapping for one AVHubertModel encoder (backbones/avhubert.py:200).
 
     tp: torch prefix for the encoder module (e.g. 'avsr.encoder' or
-    'model.encoder'); enc: flax path prefix.
+    'model.encoder'); enc: flax path prefix. ``prelu``: the video
+    frontend's activation is PReLU (``resnet_relu_type``), whose weights
+    the stem and the trunk's blocks hold; the JAX package's table always
+    lists them.
     """
     m = []
     # modality feature extractors
@@ -120,15 +123,16 @@ def avhubert_encoder_entries(tp: str, enc: Tuple[str, ...], n_layers: int,
         (f"{rtp}.frontend3D.1.bias", rn + ("frontend_bn", "bias"), _copy, "p"),
         (f"{rtp}.frontend3D.1.running_mean", rn + ("frontend_bn", "mean"), _copy, "s"),
         (f"{rtp}.frontend3D.1.running_var", rn + ("frontend_bn", "var"), _copy, "s"),
-        (f"{rtp}.frontend3D.2.weight", rn + ("frontend_prelu", "alpha"), _copy, "p"),
     ]
+    if prelu:
+        m += [(f"{rtp}.frontend3D.2.weight", rn + ("frontend_prelu", "alpha"), _copy, "p")]
     for stage in range(1, 5):
         for b in range(2):
             has_ds = stage > 1 and b == 0
             m += _resnet_block_entries(
                 f"{rtp}.trunk.layer{stage}.{b}",
                 rn + ("trunk", f"layer{stage}_{b}"),
-                has_ds,
+                has_ds, prelu,
             )
     # fusion + projection
     m += _ln_entries(f"{tp}.layer_norm", enc + ("fuse_norm",))
@@ -177,6 +181,7 @@ def avsr_mapping(cfg: AVHubertAVSRConfig, prefix: str = "avsr."):
     m += avhubert_encoder_entries(
         f"{P}encoder", ("encoder",), cfg.encoder.num_hidden_layers,
         fused_proj=cfg.encoder.fused_dim != cfg.encoder.encoder_embed_dim,
+        prelu=cfg.encoder.resnet_relu_type == "prelu",
     )
     # CTC head
     m += _linear_entries(f"{P}ctc.ctc_lo", ("ctc_lo",))
@@ -198,6 +203,7 @@ def pretrain_mapping(encoder_cfg, prefix: str = ""):
     m = avhubert_encoder_entries(
         f"{P}hubert", ("hubert",), encoder_cfg.num_hidden_layers,
         fused_proj=encoder_cfg.fused_dim != encoder_cfg.encoder_embed_dim,
+        prelu=encoder_cfg.resnet_relu_type == "prelu",
     )
     m += [(f"{P}mask_emb", ("mask_emb",), _copy, "p"),
           (f"{P}label_embs", ("label_embs",), _copy, "p")]
@@ -343,6 +349,34 @@ def conformer_avsr_mapping(n_layers: int = 12, dlayers: int = 6, prefix: str = "
     m += _linear_entries(f"{P}fusion.fc2", ("fusion", "fc2"))
     m += _linear_entries(f"{P}ctc.ctc_lo", ("ctc_lo",))
     m += _decoder_entries(f"{P}decoder", ("decoder",), dlayers)
+    return m
+
+
+def av2text_mapping(encoder_layers: int = 12, decoder_layers: int = 6,
+                    prefix: str = "model.", prelu: bool = True):
+    """Mapping for the MuAViC AV2Text checkpoint (avhubert_muavic family)."""
+    P = prefix
+    m = avhubert_encoder_entries(
+        f"{P}encoder", ("encoder",), encoder_layers, fused_proj=True,
+        prelu=prelu,
+    )
+    dt = f"{P}decoder"
+    df = ("decoder",)
+    m += [(f"{dt}.embed_tokens.weight", df + ("embed_tokens", "embedding"), _copy, "p")]
+    for i in range(decoder_layers):
+        lt = f"{dt}.layers.{i}"
+        lf = df + (f"blocks_{i}",)
+        for attn in ("self_attn", "encoder_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                m += [
+                    (f"{lt}.{attn}.{proj}.weight", lf + (attn, proj, "kernel"), _dense, "p"),
+                    (f"{lt}.{attn}.{proj}.bias", lf + (attn, proj, "bias"), _copy, "p"),
+                ]
+        for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm"):
+            m += _ln_entries(f"{lt}.{ln}", lf + (ln,))
+        m += _linear_entries(f"{lt}.fc1", lf + ("fc1",))
+        m += _linear_entries(f"{lt}.fc2", lf + ("fc2",))
+    m += _ln_entries(f"{dt}.layer_norm", df + ("layer_norm",))
     return m
 
 

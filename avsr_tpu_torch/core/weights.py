@@ -1,8 +1,9 @@
 """Weight bridge: JAX variables, released checkpoints and seeded weights.
 
 The port's module names are the reference checkpoint's key names (the torch
-side of ``core/checkpoint.avsr_mapping(cfg, prefix="")``, the port's copy of
-the JAX package's mapping), so every source of weights ends in
+side of ``core/checkpoint.avsr_mapping(cfg, prefix="")`` and of
+``av2text_mapping(prefix="")``, the port's copies of the JAX package's
+mappings), so every source of weights ends in
 ``load_state_dict(strict=True)``.
 """
 
@@ -20,6 +21,7 @@ from torch import nn
 
 from avsr_tpu_torch.core.checkpoint import (
     _IGNORABLE_SUFFIXES,
+    av2text_mapping,
     avsr_mapping,
     flax_to_torch,
     load_torch_state_dict,
@@ -32,6 +34,17 @@ def torch_state_from_jax(variables_np, cfg: AVHubertAVSRConfig
                          ) -> Dict[str, torch.Tensor]:
     """Flax variables (numpy or JAX arrays) -> the port's state dict."""
     state = flax_to_torch(variables_np, avsr_mapping(cfg, prefix=""))
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in state.items()}
+
+
+def av2text_state_from_jax(variables_np, cfg) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX ``AV2TextModel`` -> the state dict of the
+    port's ``models/av2text.AV2TextModel`` (``cfg``: its
+    ``AV2TextConfig``)."""
+    state = flax_to_torch(variables_np, av2text_mapping(
+        cfg.encoder_layers, cfg.decoder_layers, prefix="",
+        prelu=cfg.encoder_config().resnet_relu_type == "prelu"))
     return {k: torch.from_numpy(np.array(v, dtype=np.float32))
             for k, v in state.items()}
 

@@ -1,14 +1,24 @@
 """Batched joint CTC/attention beam search and greedy CTC.
 
-Counterpart of ``avsr_tpu/decode/beam.py`` (``beam_search_batched`` with
-``shared_src_kv=True`` and ``lazy_reorder=True``, and ``greedy_ctc``). The
-utterances of a batch decode together: beam slots are fixed tensors, the
-decoder runs incrementally over per-layer K|V caches that are never
-reshuffled (each lane's ancestry is resolved at attention time through an
-additive ``lane_bias``), ended hypotheses retire by masking, and the
-reference's end detection (e2e_asr_common.py:18) and forced final eos are
-kept. The step loop is a Python ``while``; its stop test reads one flag
-from the device per step.
+Counterpart of ``avsr_tpu/decode/beam.py`` (``beam_search_batched`` and
+``greedy_ctc``). The utterances of a batch decode together: beam slots are
+fixed tensors, the decoder runs incrementally over per-layer K|V caches,
+ended hypotheses retire by masking, and the reference's end detection
+(e2e_asr_common.py:18) and forced final eos are kept. The step loop is a
+Python ``while``; its stop test reads one flag from the device per step.
+
+Two switches keep the JAX names and defaults (both off), but the port
+serves only the two settings its decoders take, so they must agree
+(``beam_search_batched`` raises otherwise). Both on (the ``Recognizer``,
+as the JAX one): the decoder keeps the source K/V once an utterance
+(``decoder_init(memory, maxlen, beam)``) and never reshuffles its self
+caches; each lane's ancestry is resolved at attention time through an
+additive ``lane_bias`` (``decoder_step(y, pos, cache, mem_mask,
+lane_bias)``). Both off (``S2TGenerator``): the memory is repeated to B*K
+lanes (``decoder_init(memory, maxlen)``), the step takes no
+``lane_bias``, and the self caches (``self_k`` and ``self_v`` of a
+``_replace``-able cache, as ``S2TDecoderCache``) are gathered by each
+successor's parent after the selection.
 
 Scoring follows the reference's get_beam_search_decoder: decoder weight
 1 - ctc_weight, CTC prefix score (``decode/ctc_prefix.py``) weight
@@ -47,19 +57,36 @@ class BeamSearchConfig:
     # the bookkeeping after scoring as one beam_update kernel launch a step
     # instead of ~100 small ops; the same results bit for bit
     fused_bookkeeping: bool = False
+    # source K/V once an utterance, not repeated to its K lanes; and self
+    # caches never reshuffled, ancestry resolved through lane_bias. Set
+    # both or neither.
+    shared_src_kv: bool = False
+    lazy_reorder: bool = False
 
     @property
     def pre_beam_size(self) -> int:
         return int(1.5 * self.beam_size)  # the reference's pre_beam_ratio
 
 
+def reorder_cache(cache, prev: torch.Tensor):
+    """The eager path's self-cache reshuffle: lane (b, k) takes the self
+    K/V of lane (b, prev[b, k]). Finished lanes copy rows never read
+    again."""
+    b, k = prev.shape
+    flat_prev = (torch.arange(b, device=prev.device)[:, None] * k
+                 + prev).reshape(-1)
+    return cache._replace(self_k=cache.self_k.index_select(1, flat_prev),
+                          self_v=cache.self_v.index_select(1, flat_prev))
+
+
 def beam_search_batched(
     cfg: BeamSearchConfig,
-    decoder_step: Callable,  # (y (N,), pos, cache, mem_mask, lane_bias)
+    decoder_step: Callable,  # (y (N,), pos, cache, mem_mask[, lane_bias])
     #                          -> (logp (N, V), cache)
-    decoder_init: Callable,  # (memory (B,S,D), maxlen, beam) -> cache
+    decoder_init: Callable,  # (memory, maxlen[, beam]) -> cache
     feats: torch.Tensor,  # (B, S, D) encoder outputs (padded)
-    ctc_log_probs: torch.Tensor,  # (B, S, V) CTC log-softmax (padded)
+    ctc_log_probs: Optional[torch.Tensor],  # (B, S, V) CTC log-softmax
+    #                                         (padded); None without CTC
     xlens: torch.Tensor,  # (B,) true frame counts
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Decode a batch. Returns (yseqs (B, L), lengths (B,), scores (B,)).
@@ -79,11 +106,24 @@ def beam_search_batched(
     kv_len = (min(buf_len, cfg.max_decode_tokens) if cfg.max_decode_tokens
               else buf_len)
     kv_len = -(-kv_len // 64) * 64  # the JAX kernel's aligned buffer length
+    if cfg.shared_src_kv != cfg.lazy_reorder:
+        raise ValueError(
+            "shared_src_kv and lazy_reorder must agree: the shared-source "
+            "decoders step with a lane_bias and keep no self_k/self_v to "
+            "reorder, and the eager S2T decoder takes no lane_bias")
+    lazy = cfg.lazy_reorder
     xlens = xlens.to(dev)
     xlens_host = [int(x) for x in xlens.tolist()]
-    mem_mask = (torch.arange(s_max, device=dev)[None, :]
-                < xlens[:, None])[:, None, :]
-    cache = decoder_init(feats, kv_len, k)
+    if lazy:
+        # per-utterance memory; the decoder folds beam lanes into the
+        # cross-attention query axis
+        mem_mask = (torch.arange(s_max, device=dev)[None, :]
+                    < xlens[:, None])[:, None, :]
+        cache = decoder_init(feats, kv_len, k)
+    else:
+        mem_mask = (torch.arange(s_max, device=dev)[None, :]
+                    < xlens.repeat_interleave(k)[:, None])[:, None, :]
+        cache = decoder_init(feats.repeat_interleave(k, dim=0), kv_len)
 
     ar_k = torch.arange(k, device=dev)
     ar_b = torch.arange(b, device=dev)
@@ -99,8 +139,9 @@ def beam_search_batched(
     best_yseq = torch.full((b, buf_len), eos, dtype=torch.int64, device=dev)
     best_len = torch.zeros((b,), dtype=torch.int64, device=dev)
     stop = torch.zeros((b,), dtype=torch.bool, device=dev)
-    # anc[s, b, k]: the stored lane whose row s belongs to hypothesis (b, k)
-    anc = ar_k.expand(kv_len, b, k).clone()
+    # anc[s, b, k]: the stored lane whose row s belongs to hypothesis (b, k);
+    # one row the kernel gathers and nothing reads on the eager path
+    anc = ar_k.expand(kv_len if lazy else 1, b, k).clone()
     s_idx = torch.arange(kv_len, device=dev)
     n_pre = cfg.pre_beam_size
     n_cand = n_pre + 1  # + explicit eos slot
@@ -128,12 +169,17 @@ def beam_search_batched(
         lane_active = ~stop & (i < xlens)  # (B,)
 
         # 1. attention-decoder scores; this step's row is each lane's own
-        anc[min(i, kv_len - 1)] = ar_k
-        onehot = anc[..., None] == ar_k  # (S, B, K, J)
-        lane_bias = torch.where((s_idx <= i)[:, None, None, None] & onehot,
-                                0.0, NEG).permute(1, 2, 3, 0)  # (B, K, J, S)
-        dec_logp, cache = decoder_step(
-            yseq[..., i].reshape(n), i, cache, mem_mask, lane_bias)
+        if lazy:
+            anc[min(i, kv_len - 1)] = ar_k
+            onehot = anc[..., None] == ar_k  # (S, B, K, J)
+            lane_bias = torch.where(
+                (s_idx <= i)[:, None, None, None] & onehot, 0.0,
+                NEG).permute(1, 2, 3, 0)  # (B, K, J, S)
+            dec_logp, cache = decoder_step(
+                yseq[..., i].reshape(n), i, cache, mem_mask, lane_bias)
+        else:
+            dec_logp, cache = decoder_step(yseq[..., i].reshape(n), i, cache,
+                                           mem_mask)
         dec_logp = dec_logp.view(b, k, v)
 
         # 2. pre-beam on decoder scores, then CTC prefix scores of the
@@ -165,6 +211,8 @@ def beam_search_batched(
                 ctc_state = ctc_prefix.select_candidates(
                     ctc_state, upd["psi_sel"], r_cands, upd["prev"],
                     upd["slot"], upd["token"])
+            if not lazy:
+                cache = reorder_cache(cache, upd["prev"])
             yseq, score, alive, anc = (upd["yseq"], upd["score"],
                                        upd["alive"], upd["anc"])
             ended_best, ended_cnt = upd["ended_best"], upd["ended_cnt"]
@@ -191,12 +239,15 @@ def beam_search_batched(
             prev = top_idx // n_cand  # (B, K)
             token = torch.gather(cand_tokens.view(b, k * n_cand), 1, top_idx)
 
-            # 4. successors: hypotheses, ancestry (the caches stay put) and
-            # the CTC state
+            # 4. successors: hypotheses, ancestry (the caches stay put) or
+            # the self caches, and the CTC state
             new_yseq = torch.gather(yseq, 1,
                                     prev[..., None].expand(b, k, buf_len))
             new_yseq[..., i + 1] = token
-            anc = torch.gather(anc, 2, prev[None].expand(kv_len, b, k))
+            if lazy:
+                anc = torch.gather(anc, 2, prev[None].expand(kv_len, b, k))
+            else:
+                cache = reorder_cache(cache, prev)
             if use_ctc:
                 psi_sel = torch.gather(psi_all.view(b, k * n_cand), 1,
                                        top_idx)

@@ -113,6 +113,9 @@ class Recognizer:
             sos=self.cfg.sos, eos=self.cfg.eos, blank=self.cfg.blank,
             vocab=self.cfg.odim, max_decode_tokens=self.max_decode_tokens,
             fused_bookkeeping=self.fused_bookkeeping,
+            # both decoder families fold the beam lanes into the
+            # cross-attention query and resolve ancestry at attention time
+            shared_src_kv=True, lazy_reorder=True,
         )
 
     @torch.inference_mode()

@@ -174,9 +174,9 @@ class _AudioFeatures(nn.Module):
 
 
 class _VideoFeatures(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, relu_type: str = "prelu"):
         super().__init__()
-        self.resnet = ResEncoder()
+        self.resnet = ResEncoder(relu_type)
         self.proj = nn.Linear(512, dim)
 
 
@@ -189,13 +189,10 @@ class AVHubertModel(nn.Module):
 
     def __init__(self, cfg: AVHubertEncoderConfig):
         super().__init__()
-        if cfg.resnet_relu_type != "prelu":
-            raise NotImplementedError(
-                f"resnet_relu_type={cfg.resnet_relu_type!r}: only prelu")
         self.cfg = cfg
         d = cfg.encoder_embed_dim
         self.feature_extractor_audio = _AudioFeatures(cfg.audio_feat_dim, d)
-        self.feature_extractor_video = _VideoFeatures(d)
+        self.feature_extractor_video = _VideoFeatures(d, cfg.resnet_relu_type)
         self.layer_norm = nn.LayerNorm(cfg.fused_dim, eps=1e-5)
         if cfg.fused_dim != d:
             self.post_extract_proj = nn.Linear(cfg.fused_dim, d)

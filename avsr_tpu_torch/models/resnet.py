@@ -5,19 +5,21 @@ reference checkpoint (``frontend3D.{0,1,2}``, ``trunk.layer{s}.{b}``), so
 its state dict loads with ``load_state_dict(strict=True)``.
 
   frontend3D: Conv3d(1->64, k=(5,7,7), s=(1,2,2), p=(2,3,3), no bias)
-              + BN + PReLU + 3x3/s2/p1 max-pool per frame
-  trunk: ResNet-18 (BasicBlock [2,2,2,2], PReLU) -> mean over H, W -> 512
+              + BN + activation + 3x3/s2/p1 max-pool per frame
+  trunk: ResNet-18 (BasicBlock [2,2,2,2]) -> mean over H, W -> 512
 
-The trunk's activation is ``relu_type`` (``"prelu"``, the default and
-AV-HuBERT's; ``"relu"``; ``"swish"``, the conformer family's, whose blocks
-then hold no activation weights), as in the JAX package.
+The stem's and trunk's activation is ``relu_type`` (``"prelu"``, the
+default and AV-HuBERT's; ``"relu"``; ``"swish"``, the conformer family's,
+whose blocks then hold no activation weights), as in the JAX package.
 
 The JAX package folds the temporal taps of the stem into input channels of
 a 2-D conv (a TPU layout workaround, exact since the temporal stride is 1);
-here the stem is the plain Conv3d. The stem tail follows the JAX default
-``stem_fuse.lean_reference``; with the JAX package's switches
+here the stem is the plain Conv3d. The PReLU stem tail follows the JAX
+default ``stem_fuse.lean_reference``; with the JAX package's switches
 (``AVSR_FUSED_STEM=1`` in training, ``AVSR_FUSED_STEM_EVAL=1`` in eval) it
 runs the fused ``bn_prelu_pool`` (``ops/kernels/stem_fuse.py``) instead.
+With another activation the stem tail is flax ``nn.BatchNorm``, the
+activation and the max-pool, unfused whatever the switches say.
 The trunk's BatchNorms follow flax ``nn.BatchNorm`` in training
 (``train=True``).
 """
@@ -188,30 +190,32 @@ class ResNetTrunk(nn.Module):
 class ResEncoder(nn.Module):
     """Video frontend: (B, T, H, W, 1) frames -> (B, T, 512)."""
 
-    def __init__(self):
+    def __init__(self, relu_type: str = "prelu"):
         super().__init__()
+        self.relu_type = relu_type
+        prelu = relu_type == "prelu"
         self.frontend3D = nn.ModuleList([
             nn.Conv3d(1, 64, (5, 7, 7), stride=(1, 2, 2), padding=(2, 3, 3),
                       bias=False),
-            BatchNorm(64, folded=True),
-            nn.PReLU(64),
+            BatchNorm(64, folded=prelu),
+            activation(relu_type, 64),
         ])
-        self.trunk = ResNetTrunk()
+        self.trunk = ResNetTrunk(relu_type=relu_type)
 
     def forward(self, video: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
         b, t = video.shape[:2]
-        conv, bn, prelu = self.frontend3D
+        conv, bn, act = self.frontend3D
         x = conv(video.permute(0, 4, 1, 2, 3))  # (B, 64, T, H/2, W/2)
         c, h, w = x.shape[1], x.shape[3], x.shape[4]
         # fold time into batch (pure relayout: pooling never mixes frames)
         x = x.transpose(1, 2).reshape(b * t, c, h, w)
-        # the JAX package's switches of its fused stem tail
+        # the JAX package's switches of its fused stem tail, PReLU only
         switch = "AVSR_FUSED_STEM" if train else "AVSR_FUSED_STEM_EVAL"
-        if os.environ.get(switch, "0") == "1":
-            x = self._fused_tail(x, bn, prelu, train)
+        if self.relu_type == "prelu" and os.environ.get(switch, "0") == "1":
+            x = self._fused_tail(x, bn, act, train)
         else:
-            x = nn.functional.max_pool2d(prelu(bn(x, train)), 3, stride=2,
+            x = nn.functional.max_pool2d(act(bn(x, train)), 3, stride=2,
                                          padding=1)
         return self.trunk(x, train).view(b, t, -1)
 

@@ -18,9 +18,12 @@ no round of block barriers; a launch whose lists and item tile do not fit
 a block's shared memory raises.
 Both are bit-identical to the unfused step of ``decode/beam.py``: the same
 fp32 operations in the same order, each rounded on its own (no fused
-multiply-add), and selections that copy values. The port's beam always
-keeps the lazy-reorder ancestry, and has no length penalty (0 in every
-shipped configuration), so neither is an option here.
+multiply-add), and selections that copy values. The kernel always gathers
+the lazy-reorder ancestry it is given: the beam's eager path
+(``lazy_reorder=False``) hands it a one-row ancestry, ignores the one it
+writes and reorders its self caches by the returned ``prev``, so the JAX
+kernel's ``lazy`` switch is not needed here. The port has no length
+penalty (0 in every shipped configuration).
 
 Tokens, indices and counts are int64 and masks bool, the port's types.
 """

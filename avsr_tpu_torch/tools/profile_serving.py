@@ -24,8 +24,16 @@ slows the host, so wall times come from the untraced runs. The per-kernel
 table (``key_averages``, by device time) is written to ``--table``.
 
 With ``--fused-layer`` the decoder runs ``decode_fused_layer`` (one
-``decoder_layer_step`` launch a layer and step). Prints the card's
-nvidia-smi name and power limit, then one JSON object as the last line.
+``decoder_layer_step`` launch a layer and step).
+
+With ``--muavic`` it profiles ``chip_smoke.py`` phase 11's batch instead:
+``AV2TextConfig()`` (12x256 encoder, 6x256 decoder, vocab 10,000) with
+seed-0 weights through ``S2TGenerator`` at the eval CLI's defaults (fp32,
+beam 3, the eager beam) on 32 random 15 s utterances: the encode and the
+beam untraced, then one of each under ``torch.profiler`` as above.
+
+Prints the card's nvidia-smi name and power limit, then one JSON object
+as the last line.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 BATCH = 8
+MUAVIC_BATCH = 32
 FRAMES = 375
 REPEATS = 3
 KV_CAP = 192
@@ -76,6 +85,80 @@ def _device_busy_ms(prof) -> tuple:
     return total / 1e3, len(spans)
 
 
+def _trace(res: dict, runs, smi: str) -> list:
+    """Each of ``runs`` ((name, fn), its untraced times in ``res[name +
+    "_ms"]``) once under the profiler: traced wall, device busy time, op
+    count and idle shares into ``res``; returns the per-kernel tables."""
+    tables = []
+    for name, fn in runs:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, (wall,) = _timed(fn, 1)
+        busy, count = _device_busy_ms(prof)
+        res[f"{name}_traced_wall_ms"] = wall
+        res[f"{name}_device_busy_ms"] = busy
+        res[f"{name}_device_ops"] = count
+        res[f"{name}_idle_share_traced"] = 1 - busy / wall
+        res[f"{name}_idle_share_untraced"] = (
+            1 - busy / statistics.median(res[f"{name}_ms"]))
+        tables.append(f"==== {name}: traced wall {wall:.3f} ms, device busy "
+                      f"{busy:.3f} ms, {count} device ops ({smi})\n"
+                      + prof.key_averages().table(
+                          sort_by="self_device_time_total", row_limit=60))
+    return tables
+
+
+def _muavic(dev, smi: str) -> tuple:
+    """(results, profiler tables) of phase 11's B=32 batch."""
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.decode.s2t_generate import S2TGenerator
+    from avsr_tpu_torch.models.av2text import AV2TextConfig, AV2TextModel
+
+    with torch.device(dev):
+        model = AV2TextModel(AV2TextConfig())
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    gen = S2TGenerator(model, beam_size=3, device=str(dev))
+    rng = np.random.RandomState(0)
+    aud = torch.from_numpy(rng.randn(MUAVIC_BATCH, FRAMES, 104).astype(
+        np.float32)).to(dev)
+    vid = torch.from_numpy(rng.randn(MUAVIC_BATCH, FRAMES, 88, 88, 1).astype(
+        np.float32)).to(dev)
+    lens = np.full((MUAVIC_BATCH,), FRAMES)
+    res = {"card": smi, "model": "muavic_en AV2TextConfig()",
+           "batch": MUAVIC_BATCH, "frames": FRAMES}
+    feats = gen.encode(aud, vid, lens)
+    gen.beam(feats, lens)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    feats, res["encode_ms"] = _timed(lambda: gen.encode(aud, vid, lens),
+                                     REPEATS)
+    steps = []
+
+    def beam():
+        """The beam, its steps counted through the decoder's step."""
+        real = gen.model.decoder_step
+
+        def counted(*a):
+            steps[-1] += 1
+            return real(*a)
+
+        steps.append(0)
+        gen.model.decoder_step = counted
+        try:
+            return gen.beam(feats, lens)
+        finally:
+            del gen.model.decoder_step
+
+    _, res["beam_ms"] = _timed(beam, REPEATS)
+    res["beam_steps"] = steps[-1]
+    tables = _trace(res, (("encode", lambda: gen.encode(aud, vid, lens)),
+                          ("beam", beam)), smi)
+    res["beam_device_busy_ms_a_step"] = (res["beam_device_busy_ms"]
+                                         / steps[-1])
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, tables
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--table", default=None,
@@ -83,10 +166,30 @@ def main() -> None:
     ap.add_argument("--fused-layer", action="store_true",
                     help="decode_fused_layer: one decoder_layer_step a "
                          "layer and step")
+    ap.add_argument("--muavic", action="store_true",
+                    help="profile the muavic_en generator's B=32 batch")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: torch sees no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    if args.muavic:
+        res, tables = _muavic(dev, smi)
+    else:
+        res, tables = _flagship(dev, smi, args.fused_layer)
+    if args.table:
+        with open(args.table, "w") as f:
+            f.write("\n\n".join(tables) + "\n")
+    print(smi)
+    print(json.dumps(res))
 
+
+def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
+    """(results, profiler tables) of phase 4's serving batch."""
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data import wire
@@ -95,14 +198,11 @@ def main() -> None:
     from avsr_tpu_torch.decode.recognizer import Recognizer
     from avsr_tpu_torch.models.e2e import AVSRModel
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
     cfg = AVHubertAVSRConfig(decoder_cache_dtype="bfloat16",
                              decoder_param_dtype="bfloat16",
                              decode_fused_attention=True)
     cfg.encoder.use_flash_attention = True
-    cfg.decode_fused_layer = args.fused_layer
+    cfg.decode_fused_layer = fused_layer
     with torch.device(dev):
         model = AVSRModel(cfg)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
@@ -114,11 +214,8 @@ def main() -> None:
     rec.transcribe_batch(audio, video, mode="beam")  # warm-up
     rec.transcribe_batch(audio, video, mode="greedy")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
     res = {"card": smi, "batch": BATCH, "frames": FRAMES,
-           "fused_layer": args.fused_layer}
+           "fused_layer": fused_layer}
     n = REPEATS
     padded = np.zeros((BATCH, FRAMES + 2, 88, 88, 1), np.uint8)
     for i, v in enumerate(video):
@@ -146,31 +243,11 @@ def main() -> None:
         lambda: rec.transcribe_batch(audio, video, mode="beam"), n)
 
     torch.cuda.reset_peak_memory_stats()
-    tables = []
-    for name, fn in (("encode", lambda: rec.encode(aud, vid, lens)),
-                     ("beam", lambda: beam(False)),
-                     ("beam_fused", lambda: beam(True))):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, (wall,) = _timed(fn, 1)
-        busy, count = _device_busy_ms(prof)
-        res[f"{name}_traced_wall_ms"] = wall
-        res[f"{name}_device_busy_ms"] = busy
-        res[f"{name}_device_ops"] = count
-        res[f"{name}_idle_share_traced"] = 1 - busy / wall
-        res[f"{name}_idle_share_untraced"] = (
-            1 - busy / statistics.median(res[f"{name}_ms"]))
-        tables.append(f"==== {name}: traced wall {wall:.3f} ms, device busy "
-                      f"{busy:.3f} ms, {count} device ops ({smi})\n"
-                      + prof.key_averages().table(
-                          sort_by="self_device_time_total", row_limit=60))
+    tables = _trace(res, (("encode", lambda: rec.encode(aud, vid, lens)),
+                          ("beam", lambda: beam(False)),
+                          ("beam_fused", lambda: beam(True))), smi)
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if args.table:
-        with open(args.table, "w") as f:
-            f.write("\n\n".join(tables) + "\n")
-    print(smi)
-    print(json.dumps(res))
+    return res, tables
 
 
 if __name__ == "__main__":

@@ -142,7 +142,22 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    run's launches of B2, B3, B5 (with B4's rows), B8 and B9 counted, no
    twin called; then B2 and B9 checked and timed at the conformer
    decoder's widths (C=768, 12 heads, fp32), B9 also at C=768 in bf16 and
-   C=1024 in fp32.
+   C=1024 in fp32;
+11. runs the eval CLI's muavic_en path (``phase_muavic``): the full-width
+   ``AV2TextConfig()`` (a 12x256 AV-HuBERT encoder over the ResNet-18
+   PReLU frontend, a 6x256 Speech2Text decoder, vocab 10,000) of seed-0
+   weights as a reference-format directory, loaded through
+   ``InferenceEngine(model_type="muavic_en")`` at the CLI's defaults;
+   ``eval_lrs2`` on 8 mp4 + wav utterances of 2-15 s padded to the batch
+   of 32 (a warm pass and a timed one; wall audio-s/s), the encode and
+   beam ms of a B=32 batch of 15 s utterances and the peak memory; two
+   short utterances through the card (kernels) and the CPU (twins) in
+   fp32: tokens equal, features, step log-probs and scores within phase
+   5's limits, fused bookkeeping bit-equal to unfused on the card; every
+   card run's launches of B1, B5 and B8 counted, none of the other
+   kernels, no twin called; then B1 and B5 timed at this path's shapes
+   (N=32x4, T=375, fp32; (96, 10000) k=4) beside their twins, fp32 SDPA
+   and ``torch.topk``.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -2273,6 +2288,33 @@ def layer_checked(seen: dict):
         decoder_mod.decoder_layer_step = real
 
 
+def reset_launches(counters) -> None:
+    """Sets each kernel's launch counts, its wide and flat paths' too,
+    to 0."""
+    for fn in counters:
+        fn.launches = 0
+        for attr in ("wide_launches", "flat_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def read_launches(counters) -> dict:
+    """Each kernel's launches, with the flat top-k (``topk_lastdim_flat``)
+    and the wide paths (``<name>_wide``) apart from the others; ``wide``:
+    all the wide paths' launches."""
+    n = {}
+    for fn in counters:
+        name = fn.__name__
+        n[name] = fn.launches
+        for attr, key in (("wide_launches", "_wide"),
+                          ("flat_launches", "_flat")):
+            if hasattr(fn, attr):
+                n[name + key] = getattr(fn, attr)
+                n[name] -= n[name + key]
+    n["wide"] = sum(v for k, v in n.items() if k.endswith("_wide"))
+    return n
+
+
 def phase_eval(dev, smi: str):
     """The evaluation entry point at full width: ``avsr_tpu_torch.cli.
     evaluation.InferenceEngine`` at the CLI's defaults (beam 3, 32 segments
@@ -2308,23 +2350,6 @@ def phase_eval(dev, smi: str):
     counters = (pfa.flash_attention_fwd, pda.decode_attention,
                 ptk.topk_lastdim, ptk.topk_gather_rows, prg.row_gather,
                 psl.cumlogsumexp, pbu.beam_update)
-
-    def reset():
-        for fn in counters:
-            fn.launches = 0
-        ptk.topk_lastdim.flat_launches = ptk.topk_lastdim.wide_launches = 0
-        pbu.beam_update.wide_launches = 0
-        pda.decode_attention.wide_launches = 0
-
-    def counts():
-        """Each kernel's launches, the wide paths apart from the others."""
-        n = {fn.__name__: fn.launches for fn in counters}
-        n["topk_lastdim_flat"] = ptk.topk_lastdim.flat_launches
-        for fn in (ptk.topk_lastdim, pbu.beam_update, pda.decode_attention):
-            n[f"{fn.__name__}_wide"] = fn.wide_launches
-            n[fn.__name__] -= fn.wide_launches
-        n["topk_lastdim"] -= n["topk_lastdim_flat"]
-        return n
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as root:
         cfg = AVHubertAVSRConfig()
@@ -2387,11 +2412,11 @@ def phase_eval(dev, smi: str):
         for window in range(EVAL_WINDOWS + 1):  # the first is the warm-up
             del tokens[:]
             torch.cuda.synchronize()
-            reset()
+            reset_launches(counters)
             t0 = time.perf_counter()
             score = pe.eval_lrs2(engine, samples)
             wall = time.perf_counter() - t0
-            main = counts()
+            main = read_launches(counters)
             passes.append(list(tokens))
             if window:
                 walls.append(wall)
@@ -2447,7 +2472,7 @@ def phase_eval(dev, smi: str):
                     rec.beam_size, rec.fused_bookkeeping = beam, fused
                     del tokens[:]
                     torch.cuda.synchronize()
-                    reset()
+                    reset_launches(counters)
                     t0 = time.perf_counter()
                     with (twins_checked(seen) if checked
                           else contextlib.nullcontext()):
@@ -2461,7 +2486,8 @@ def phase_eval(dev, smi: str):
                                   zip(got[fused], run_tokens[name])),
                               f"{name}: the checked run's tokens differ")
                         continue
-                    runs[name], run_tokens[name] = counts(), got[fused]
+                    runs[name] = read_launches(counters)
+                    run_tokens[name] = got[fused]
                     print(f"# {name}: 2 x 3 s in "
                           f"{time.perf_counter() - t0:.3f} s; launches "
                           f"{runs[name]}")
@@ -2477,14 +2503,14 @@ def phase_eval(dev, smi: str):
                 rec.beam_size, rec.fused_bookkeeping = beam, False
                 del tokens[:]
                 torch.cuda.synchronize()
-                reset()
+                reset_launches(counters)
                 pdl.decoder_layer_step.launches = 0
                 t0 = time.perf_counter()
                 with layer_checked(seen):
                     out = engine.infer_samples(short)
                 torch.cuda.synchronize()
                 name = f"beam {beam} fused layer"
-                runs[name] = counts()
+                runs[name] = read_launches(counters)
                 runs[name]["decoder_layer_step"] = (
                     pdl.decoder_layer_step.launches)
                 same = all(np.array_equal(a, b) for a, b in
@@ -3039,22 +3065,6 @@ def phase_auto_avsr(dev, smi: str):
                 prg.row_gather, psl.cumlogsumexp, pbu.beam_update,
                 pdl.decoder_layer_step)
 
-    def reset():
-        for fn in counters:
-            fn.launches = 0
-        ptk.topk_lastdim.flat_launches = ptk.topk_lastdim.wide_launches = 0
-        pbu.beam_update.wide_launches = 0
-        pda.decode_attention.wide_launches = 0
-
-    def counts():
-        n = {fn.__name__: fn.launches for fn in counters}
-        n["topk_lastdim_flat"] = ptk.topk_lastdim.flat_launches
-        n["topk_lastdim"] -= n["topk_lastdim_flat"]
-        n["wide"] = (ptk.topk_lastdim.wide_launches
-                     + pbu.beam_update.wide_launches
-                     + pda.decode_attention.wide_launches)
-        return n
-
     def check_launches(name, n, layers, fused=False, fused_layer=False):
         """(e): the kernels of the path once a layer or twice a step, none
         of the others, no wide path at beam 3."""
@@ -3149,12 +3159,12 @@ def phase_auto_avsr(dev, smi: str):
                 for _ in range(2):  # a warm pass, then the timed one
                     del tokens[:]
                     torch.cuda.synchronize()
-                    reset()
+                    reset_launches(counters)
                     t0 = time.perf_counter()
                     score = pe.eval_lrs2(engine, samples)
                     wall = time.perf_counter() - t0
                     passes.append(list(tokens))
-            main = counts()
+            main = read_launches(counters)
             check(not any(calls.values()),
                   f"phase 10: a twin ran in eval_lrs2 ({calls})")
             steps = check_launches("phase 10 eval_lrs2", main, LAYERS)
@@ -3223,10 +3233,10 @@ def phase_auto_avsr(dev, smi: str):
                         ("fused layer", False, True)):
                     dec.fused_layer = fused_layer
                     torch.cuda.synchronize()
-                    reset()
+                    reset_launches(counters)
                     runs[name] = run(rec, fused)
                     torch.cuda.synchronize()
-                    runs[name].append(counts())
+                    runs[name].append(read_launches(counters))
                     check_launches(f"phase 10 {name}", runs[name][-1],
                                    LAYERS, fused, fused_layer)
                 dec.fused_layer = False
@@ -3268,6 +3278,372 @@ def phase_auto_avsr(dev, smi: str):
                 device=dev).manual_seed(10))
         finally:
             tokenizer._DEFAULT_ASSET_DIRS = assets
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+MUAVIC_UTTERANCES = 8  # phase 11's eval_lrs2 utterances, padded to MUAVIC_B
+MUAVIC_B = 32  # the CLI's batch_size: eval_lrs2's batch and (b)'s batch
+MUAVIC_VOCAB = 10000  # AV2TextConfig().vocab_size
+MUAVIC_SHORT = (75, 60)  # (c)'s B=2 batch: 3 s and 2.4 s
+MUAVIC_STEPS = 40  # (c)'s decoder steps fed seeded tokens
+# (c)'s limits, phase 5's fp32 cuda-vs-cpu ones: the encoder features
+# relative to their largest, step log-probs absolute (as CTC log-probs),
+# beam scores relative
+MUAVIC_FEAT_TOL, MUAVIC_LOGP_TOL, MUAVIC_SCORE_TOL = 1e-3, 1e-3, 1e-4
+
+
+def muavic_kernel_times(dev, g):
+    """(f): B1 at the AV2Text encoder's self-attention (N = 32 x 4 heads,
+    T = 375, D = 64, fp32, a ragged key bias) and B5 at the pre-beam's
+    (96, 10000) rows with k = 4, each held against its twin (B5 exactly)
+    and timed beside it, the one PyTorch call of the same function (fp32
+    fused SDPA; ``torch.topk``) and its bound. Returns {name: record}."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    heads, t, d = 4, FRAMES, 64
+    q, k, v, _, bias = _attention_inputs(g, dev, torch.float32, MUAVIC_B,
+                                         heads, t, d)
+    scale = d ** -0.5
+    got, lse = pfa.flash_attention_fwd(q, k, v, bias, scale)
+    want, want_lse = pfa.flash_attention_plain(q, k, v, bias, scale)
+    err = (got - want).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    check(err <= 1e-4 and lse_err <= 1e-4,
+          f"flash_attention_fwd disagrees at N={MUAVIC_B}x{heads}, T={t}, "
+          f"fp32: {err:.3e}, lse {lse_err:.3e}")
+    library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, 0.0)
+    out = {"flash_attention_fwd": dict(
+        shape=f"N={MUAVIC_B}x{heads}, T={t}, D={d}, fp32", max_abs_err=err,
+        ms=cuda_ms(lambda: pfa.flash_attention_fwd(q, k, v, bias, scale)),
+        plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(q, k, v, bias,
+                                                           scale)),
+        library_ms=library_ms, library=backend,
+        bound=bound(nbytes(q, k, v, bias, got, lse),
+                    4 * q.shape[0] * t * t * d, "fp32"))}
+    del q, k, v, bias, got, want
+
+    rows, kk = MUAVIC_B * BEAM, int(1.5 * BEAM)
+    x = torch.randn(rows, MUAVIC_VOCAB, generator=g, device=dev)
+    x[0, MUAVIC_VOCAB // 2] = x[0].amax()  # a tie with the row maximum
+    vals, ids = ptk.topk_lastdim(x, kk)
+    wv, wi = ptk.topk_plain(x, kk)
+    check(torch.equal(ids, wi) and torch.equal(vals, wv),
+          f"topk_lastdim disagrees at ({rows}, {MUAVIC_VOCAB}) k={kk}")
+    out["topk_lastdim"] = dict(
+        shape=f"({rows}, {MUAVIC_VOCAB}) k={kk}", max_abs_err=0.0,
+        ms=cuda_ms(lambda: ptk.topk_lastdim(x, kk)),
+        plain_ms=cuda_ms(lambda: ptk.topk_plain(x, kk)),
+        library_ms=cuda_ms(lambda: torch.topk(x, kk)), library="torch.topk",
+        # one comparison per element and round
+        bound=bound(nbytes(x, vals, ids), kk * x.numel(), "fp32"))
+    for name, r in out.items():
+        print(f"# phase 11 {name} at {r['shape']}: kernel {r['ms']:.4f} ms, "
+              f"twin {r['plain_ms']:.4f} ms, {r['library']} "
+              f"{r['library_ms']:.4f} ms, bound {r['bound'][0]:.6f} ms "
+              f"({r['bound'][1]}); max_abs_err {r['max_abs_err']:.3e}")
+    return out
+
+
+def write_muavic_dir(directory: str, dev) -> int:
+    """A reference-format MuAViC directory of ``AV2TextConfig()`` with
+    seed-0 weights: pytorch_model.bin (``model.`` keys, written by
+    ``torch.save``), config.json and a toy vocab.json of MUAVIC_VOCAB
+    pieces (the four specials, EVAL_WORDS, then fillers). Returns the
+    parameter count."""
+    import dataclasses
+
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.models.av2text import AV2TextConfig, AV2TextModel
+
+    os.makedirs(directory)
+    cfg = AV2TextConfig()
+    with torch.device(dev):
+        model = AV2TextModel(cfg)
+    init_weights(model, torch.Generator(device=dev).manual_seed(0))
+    torch.save({f"model.{k}": v.cpu() for k, v in model.state_dict().items()},
+               os.path.join(directory, "pytorch_model.bin"))
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f)
+    names = ["<s>", "<pad>", "</s>", "<unk>"] + [
+        "▁" + w for w in EVAL_WORDS]
+    names += [f"▁W{i}" for i in range(MUAVIC_VOCAB - len(names))]
+    with open(os.path.join(directory, "vocab.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({p: i for i, p in enumerate(names)}, f)
+    return sum(p.numel() for p in model.parameters())
+
+
+def phase_muavic(dev, smi: str):
+    """The eval CLI's muavic_en path at full width: ``AV2TextConfig()`` (a
+    12x256 AV-HuBERT encoder, 4 heads, FFN 2048, over the ResNet-18 PReLU
+    lip frontend; a 6x256 Speech2Text decoder, FFN 2048; vocabulary
+    10,000) of seed-0 weights as a reference-format directory, loaded
+    through ``InferenceEngine(model_type="muavic_en")`` on the card at
+    the CLI's defaults (beam 3, batch 32). (b) ``eval_lrs2`` on 8 mp4 +
+    wav utterances of 2-15 s (phase 8's kind), one warm pass and one
+    timed (wall audio-s/s); the encode and beam ms of a B=32 batch of
+    15 s utterances and the peak memory. (c) two short utterances through
+    the card's generator (kernels) and a CPU one (twins) on the same
+    weights, fp32, the decoder's eos row scaled by 0.3 so that the best
+    hypotheses run past the first step (their lengths must exceed 2):
+    tokens equal, encoder features, the decoder's step log-probs over 40
+    steps fed the same seeded tokens and the scores within phase 5's
+    limits. (d) the same on the card with
+    ``fused_bookkeeping``, bit-equal to the unfused run on the same
+    features. (e) every card run's launches counted from 0: B1 12 an
+    encode, B5's pre-beam and flat top-k once a step each, B8 once a step
+    in (d) only, none of the other kernels, no twin called. (f) B1 and B5
+    timed at this path's shapes (``muavic_kernel_times``). Returns the
+    launches and (f)'s records."""
+    import dataclasses
+    import tempfile
+
+    from avsr_tpu_torch.cli import evaluation as pe
+    from avsr_tpu_torch.data import media
+    from avsr_tpu_torch.data.synthetic import smooth_crops
+    from avsr_tpu_torch.decode.s2t_generate import S2TGenerator
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
+    from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    counters = (pfa.flash_attention_fwd, pda.decode_attention,
+                ptk.topk_lastdim, ptk.topk_gather_rows, prg.row_gather,
+                psl.cumlogsumexp, pbu.beam_update, pdl.decoder_layer_step)
+    twins = dict(SERVING_TWINS, flash_attention=("flash_attention_plain",))
+    steps_run = [0]
+
+    def reset():
+        reset_launches(counters)
+        steps_run[0] = 0
+
+    def counts():
+        return dict(read_launches(counters), steps=steps_run[0])
+
+    def check_launches(name, n, encodes, fused=False):
+        """(e): B1 12 an encode; the pre-beam top-k once a step, the flat
+        one (unfused) or B8 (fused) once a step; nothing else."""
+        steps = n["steps"]
+        check(steps >= 1 and n["flash_attention_fwd"] == 12 * encodes
+              and n["topk_lastdim"] == steps
+              and n["topk_lastdim_flat"] == (0 if fused else steps)
+              and n["beam_update"] == (steps if fused else 0)
+              and n["wide"] == 0
+              and all(n[k] == 0 for k in (
+                  "decode_attention", "decoder_layer_step", "cumlogsumexp",
+                  "row_gather", "topk_gather_rows")),
+              f"{name}: the path's kernels did not run as it does ({n})")
+        return steps
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_muavic_") as root:
+        # (a) seed-0 weights as a reference-format directory, the CLI
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "muavic")
+        n_params = write_muavic_dir(ckpt, dev)
+        t1 = time.perf_counter()
+        engine = pe.InferenceEngine("muavic_en", checkpoint_path=ckpt)
+        engine.load_model()
+        gen = engine.generator
+        model = gen.model
+        cfg = model.cfg
+        print(f"# phase 11: AV2TextConfig() of {n_params} parameters; "
+              f"directory written in {t1 - t0:.1f} s, loaded through the "
+              f"muavic_en loader in {time.perf_counter() - t1:.1f} s")
+        check(engine.device == "cuda" and gen.device.type == "cuda"
+              and engine.batch_size == MUAVIC_B
+              and gen.bcfg.beam_size == BEAM and gen.bcfg.ctc_weight == 0.0
+              and not gen.bcfg.fused_bookkeeping
+              and not gen.bcfg.shared_src_kv and not gen.bcfg.lazy_reorder
+              and cfg.vocab_size == MUAVIC_VOCAB and cfg.d_model == 256
+              and len(model.encoder.encoder.layers) == 12
+              and len(model.decoder.layers) == LAYERS
+              and model.decoder.layers[0].fc1.out_features == 2048
+              and next(model.parameters()).dtype == torch.float32,
+              "phase 11: the engine is not the full-width muavic_en model "
+              "at the CLI's defaults")
+        real_step = model.decoder_step
+
+        def counted_step(*a):
+            steps_run[0] += 1
+            return real_step(*a)
+
+        model.decoder_step = counted_step
+
+        # (b) eval_lrs2 on mp4 + wav bytes, padded to the CLI's batch
+        rng = np.random.RandomState(11)
+        frames = np.round(rng.uniform(*EVAL_SECONDS, MUAVIC_UTTERANCES)
+                          * 25).astype(int)
+        frames[0] = FRAMES  # one 15 s utterance
+
+        def samples_of(lengths, name):
+            out = []
+            for i, n in enumerate(lengths):
+                path = os.path.join(root, f"{name}{i}.mp4")
+                media.save_video(path, smooth_crops(rng, n, 96)[..., 0])
+                media.save_audio(path[:-4] + ".wav", (
+                    0.1 * rng.randn(n * 640)).astype(np.float32))
+                with open(path, "rb") as f, open(path[:-4] + ".wav",
+                                                 "rb") as g:
+                    out.append({"video": f.read(), "audio": g.read(),
+                                "label": " ".join(rng.choice(
+                                    EVAL_WORDS, rng.randint(2, 12)))})
+            return out
+
+        samples = samples_of(frames, "utt")
+        audio_s = float(frames.sum()) / 25.0
+        passes, infer = [], engine.infer_samples
+
+        def infer_samples(chunk):
+            passes.append(infer(chunk))
+            return passes[-1]
+
+        engine.infer_samples = infer_samples
+        torch.cuda.reset_peak_memory_stats()
+        with twin_calls(twins) as calls:
+            for _ in range(2):  # a warm pass, then the timed one
+                torch.cuda.synchronize()
+                reset()
+                t0 = time.perf_counter()
+                score = pe.eval_lrs2(engine, samples)
+                wall = time.perf_counter() - t0
+        main = counts()
+        check(not any(calls.values()),
+              f"phase 11: a twin ran in eval_lrs2 ({calls})")
+        steps = check_launches("phase 11 eval_lrs2", main, 1)
+        check(len(passes) == 2 and len(passes[-1]) == MUAVIC_UTTERANCES
+              and math.isfinite(score) and passes[0] == passes[1],
+              "phase 11: eval_lrs2's transcripts missing or unsteady")
+        print(f"# {smi}: phase 11 muavic_en eval_lrs2: {MUAVIC_UTTERANCES} "
+              f"utterances ({audio_s:.2f} audio-s) in a batch of {MUAVIC_B} "
+              f"in {wall:.3f} s wall (after a warm pass; media decode and "
+              f"collation included) -> {audio_s / wall:.2f} audio-s/s; WER "
+              f"{score:.4f}; {steps} beam steps; launches {main}")
+
+        # the encode and beam of a B=32 batch of 15 s utterances
+        auds = rng.randn(MUAVIC_B, FRAMES, 104).astype(np.float32)
+        vids = rng.randn(MUAVIC_B, FRAMES, 88, 88, 1).astype(np.float32)
+        lens = np.full((MUAVIC_B,), FRAMES)
+        aud, vid = (torch.from_numpy(x).to(dev) for x in (auds, vids))
+        reset()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        feats = gen.encode(aud, vid, lens)
+        torch.cuda.synchronize()
+        s1 = time.perf_counter()
+        _, yl, sc = gen.beam(feats, lens)
+        torch.cuda.synchronize()
+        s2 = time.perf_counter()
+        big = counts()
+        check_launches("phase 11 B=32 batch", big, 1)
+        check(tuple(feats.shape) == (MUAVIC_B, FRAMES, 256)
+              and torch.isfinite(feats).all().item()
+              and torch.isfinite(sc).all().item(),
+              "phase 11: the B=32 batch's features or scores")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        enc_ms, beam_ms = 1e3 * (s1 - s0), 1e3 * (s2 - s1)
+        print(f"# {smi}: phase 11 muavic_en B={MUAVIC_B} x {FRAMES} frames "
+              f"(fp32, beam 3, eager reorder): encode {enc_ms:.1f} ms, beam "
+              f"{beam_ms:.1f} ms over {big['steps']} steps "
+              f"({beam_ms / big['steps']:.3f} ms a step; "
+              f"{int(yl.max().item())} tokens with sos/eos); peak memory "
+              f"{peak:.2f} GB")
+        del feats, aud, vid, auds, vids
+
+        # (c) and (d): the card's kernels and the CPU's twins, fp32, with
+        # the eos row (also the start token's) scaled down as the CPU tests
+        # do: unscaled, the seed-0 decoder ends every hypothesis at its
+        # first step, and no later step's reorder or B8 lane is checked
+        with torch.no_grad():
+            model.decoder.embed_tokens.weight[cfg.eos_token_id] *= 0.3
+        auds, vids, lens = pe.pad_features(
+            engine._features(samples_of(MUAVIC_SHORT, "short")),
+            len(MUAVIC_SHORT))
+        del model.decoder_step
+        cpu = S2TGenerator(copy.deepcopy(model), device="cpu")
+        model.decoder_step = counted_step
+
+        def run(g, fused=False, memory=None):
+            """[features, yseqs, lengths, scores] on the host; ``memory``:
+            features on the generator's device, reused."""
+            g.bcfg = dataclasses.replace(g.bcfg, fused_bookkeeping=fused)
+            if memory is None:
+                memory = g.encode(auds, vids, lens)
+            return [x.cpu() for x in (memory, *g.beam(memory, lens))]
+
+        runs = {}
+        with twin_calls(twins) as calls:
+            torch.cuda.synchronize()
+            reset()
+            card_memory = gen.encode(auds, vids, lens)
+            for name, fused in (("unfused", False),
+                                ("fused bookkeeping", True)):
+                runs[name] = run(gen, fused, card_memory)
+                torch.cuda.synchronize()
+                runs[name].append(counts())
+                check_launches(f"phase 11 {name}", runs[name][-1],
+                               int(not fused), fused)
+                reset()
+        check(not any(calls.values()),
+              f"phase 11: a twin ran on the card ({calls})")
+        gen.bcfg = dataclasses.replace(gen.bcfg, fused_bookkeeping=False)
+        u, fb = runs["unfused"], runs["fused bookkeeping"]
+        check(all(torch.equal(a, b) for a, b in zip(u[:4], fb[:4])),
+              "phase 11: fused bookkeeping differs from unfused on the card")
+        cp = run(cpu)
+        feat_err = _rel_err(u[0], cp[0])
+        score_err = ((u[3] - cp[3]).abs() / cp[3].abs()).max().item()
+        same = torch.equal(u[1], cp[1]) and torch.equal(u[2], cp[2])
+
+        # the decoder's step log-probs over MUAVIC_STEPS steps fed the same
+        # seeded tokens, each side over its own encoder features
+        ys_fed = torch.from_numpy(rng.randint(3, MUAVIC_VOCAB, (
+            2, MUAVIC_STEPS)))
+        ys_fed[:, 0] = cfg.decoder_start_token_id
+
+        def step_logps(g, memory):
+            dev_ = g.device
+            ys = ys_fed.to(dev_)
+            mem = memory.to(dev_)
+            mask = (torch.arange(mem.shape[1], device=dev_)[None, :]
+                    < torch.as_tensor(lens, device=dev_)[:, None])[:, None]
+            maxlen = -(-(mem.shape[1] + 2) // 64) * 64
+            with torch.inference_mode():
+                cache = g.model.decoder_init(mem, maxlen)
+                out = []
+                for pos in range(MUAVIC_STEPS):
+                    logp, cache = g.model.decoder_step(ys[:, pos], pos,
+                                                       cache, mask)
+                    out.append(logp.cpu())
+            return torch.stack(out)
+
+        logp_err = (step_logps(gen, u[0])
+                    - step_logps(cpu, cp[0])).abs().max().item()
+        print(f"# phase 11 cuda vs cpu, fp32, B=2 x {MUAVIC_SHORT} frames: "
+              f"features {feat_err:.3e} of their largest (limit "
+              f"{MUAVIC_FEAT_TOL:g}), {MUAVIC_STEPS} steps' log-probs "
+              f"max_abs_err "
+              f"{logp_err:.3e} (limit {MUAVIC_LOGP_TOL:g}), beam score "
+              f"rel_err {score_err:.3e} (limit {MUAVIC_SCORE_TOL:g}), tokens "
+              f"equal={same} (lengths {u[2].tolist()}); fused bookkeeping "
+              f"bit-equal to unfused; launches unfused {u[-1]}, fused "
+              f"{fb[-1]}")
+        check(feat_err <= MUAVIC_FEAT_TOL and logp_err <= MUAVIC_LOGP_TOL
+              and score_err <= MUAVIC_SCORE_TOL and same,
+              "phase 11: cuda vs cpu")
+        check(u[2].min().item() > 2,
+              f"phase 11: (c)'s best hypotheses end at the first step "
+              f"(lengths {u[2].tolist()}), so later steps go unchecked")
+        launches = {"eval_lrs2": main, "B=32 batch": big,
+                    "fused bookkeeping": fb[-1]}
+        del cpu, runs, engine, gen, model, card_memory
+        torch.cuda.empty_cache()
+    times = muavic_kernel_times(dev,
+                                torch.Generator(device=dev).manual_seed(11))
     torch.cuda.empty_cache()
     return launches, times
 
@@ -3340,6 +3716,12 @@ def main() -> int:
     print(f"# phase 10 launches: {json.dumps(auto_launches)}")
     print(f"# phase 10 C=768 kernel ms (kernel, twin, SDPA or unfused "
           f"step, bound): {json.dumps(auto_times)}")
+    print("# phase 11: the eval CLI's muavic_en path at full width")
+    t11 = time.perf_counter()
+    muavic_launches, muavic_times = phase_muavic(dev, smi)
+    print(f"# phase 11 passed in {time.perf_counter() - t11:.1f} s")
+    print(f"# phase 11 launches: {json.dumps(muavic_launches)}")
+    print(f"# phase 11 kernel records: {json.dumps(muavic_times)}")
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

@@ -275,7 +275,8 @@ def test_beam_update_plain_equals_unfused_step():
     outs = []
     for fused in (False, True):
         cfg = BeamSearchConfig(ctc_weight=0.3, sos=v - 1, eos=v - 1, vocab=v,
-                               fused_bookkeeping=fused)
+                               fused_bookkeeping=fused, shared_src_kv=True,
+                               lazy_reorder=True)
         outs.append(beam_search_batched(cfg, step, lambda *a: None, feats,
                                         ctc, torch.tensor([12, 7, 10])))
     for a, b_ in zip(*outs):

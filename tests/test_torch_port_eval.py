@@ -720,14 +720,6 @@ def test_engine_defaults_match_jax():
     assert pp["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("model_type,item", [("muavic_en", "A8")])
-def test_unported_model_types_raise(model_type, item):
-    from avsr_tpu_torch.cli.evaluation import InferenceEngine
-
-    with pytest.raises(NotImplementedError, match=item):
-        InferenceEngine(model_type, device="cpu").load_model()
-
-
 def test_eval_path_imports_no_jax(assets):
     """Importing the CLI and running the engine (the tokenizer found
     through AVSR_SPM_DIR, two mp4s with their wav sidecars, media decode,
