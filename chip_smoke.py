@@ -158,6 +158,18 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    kernels, no twin called; then B1 and B5 timed at this path's shapes
    (N=32x4, T=375, fp32; (96, 10000) k=4) beside their twins, fp32 SDPA
    and ``torch.topk``.
+12. runs the offline video frontends (``phase_frontends``) at their
+   published widths on seeded random weights, fp32: RetinaFace ResNet-50
+   and MobileNet-0.25 and S3FD on 16 frames of 720x1280 (network device
+   ms, the host's decode + NMS ms, frames/s, 2 frames' raw outputs
+   against the CPU's), FAN on 16 faces (one box past the frame's edge;
+   heatmaps against the CPU's), ``LandmarksDetector`` over 100 frames
+   with the class head's face logit shifted so that two frames find no
+   face, ``VideoProcess`` over them (a synthetic mean face), the ASD model
+   on 8 tracks of 250 frames (one track against the CPU; the ported
+   ``segment_by_asd`` on its scores) and 3 ``ASDTrainer`` steps (one step
+   against the CPU's loss and gradient norm); every kernel's launch
+   count stays 0 and no twin runs.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -3648,6 +3660,385 @@ def phase_muavic(dev, smi: str):
     return launches, times
 
 
+FE_BATCH = 16  # LandmarksDetector's default batch: the detectors' frames
+FE_SIZE = (720, 1280)  # 720p frames (H, W)
+FE_CPU_FRAMES = 2  # frames (and faces' frames) held against the CPU
+FE_FACES = (8, 2)  # (c): frames, face boxes a frame
+FE_CHAIN = 100  # (d): 4 s at 25 fps
+FE_EMPTY = 2  # (d): frames the biased class head leaves without a face
+ASD_TRACKS, ASD_T, ASD_HW = 8, 250, 112  # (e): 10 s face tracks
+ASD_TRAIN = (4, 100)  # (f): tracks, frames
+ASD_STEPS = 3
+FE_TOL = 1e-4  # card vs CPU: of the largest output (conf: absolute)
+ASD_LOSS_TOL, ASD_GRAD_TOL = 1e-5, 1e-4  # (f): relative
+
+
+def seeded_frontend(module, seed: int, stem_gain: float = 1.0):
+    """Seeded random weights for a frontend network, the parity tests'
+    scheme (``tests/torch_port_common.seeded_variables``): fan-in scaled
+    conv and linear weights (``stem_gain`` on the convolutions of 3 input
+    channels, 1/64 for the detectors' pixel-scale frames), biases
+    N(0, 0.01), BN scales in [0.8, 1.2], shifts and running means
+    N(0, 0.01), running variances in [0.5, 1.5], S3FD's L2Norm scales in
+    [5, 10]; the GRUs keep torch's initialisation."""
+    from torch import nn
+
+    from avsr_tpu_torch.frontends.s3fd import L2Norm
+    from avsr_tpu_torch.models.resnet import BatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(t, std):
+        return torch.randn(t.shape, generator=g) * std
+
+    def rand(t):
+        return torch.rand(t.shape, generator=g)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
+                gain = stem_gain if (not isinstance(m, nn.Linear)
+                                     and m.in_channels == 3) else 1.0
+                m.weight.copy_(randn(m.weight,
+                                     gain / math.sqrt(m.weight[0].numel())))
+                if m.bias is not None:
+                    m.bias.copy_(randn(m.bias, 0.1))
+            elif isinstance(m, BatchNorm):
+                m.weight.copy_(0.8 + 0.4 * rand(m.weight))
+                m.bias.copy_(randn(m.bias, 0.1))
+                m.running_mean.copy_(randn(m.running_mean, 0.1))
+                m.running_var.copy_(0.5 + rand(m.running_var))
+            elif isinstance(m, L2Norm):
+                m.weight.copy_(5.0 + 5.0 * rand(m.weight))
+    return module
+
+
+def _host_ms(fn):
+    """(result, wall ms) of ``fn``, the card synchronised before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _detector_run(name, pred, cpu_pred, frames, mean, smi):
+    """One detector on the card: the network's device ms (CUDA events on
+    the frames uploaded less ``mean``), the wall ms of the network with
+    its upload and download and of the host's decode, score filter and
+    NMS, frames/s; the raw outputs of ``FE_CPU_FRAMES`` frames against
+    ``cpu_pred``'s."""
+    from avsr_tpu_torch.frontends import retinaface as prf
+
+    with torch.no_grad():
+        x = prf.upload_frames(frames, mean, pred.device)
+        net_ms = cuda_ms(lambda: pred.net(x), iters=2, warmup=1, repeats=3)
+        del x
+    raw, wall_net = _host_ms(lambda: pred.outputs(frames))
+    dets, wall_host = _host_ms(lambda: pred.decode(frames.shape[1:3], *raw))
+    conf = raw[1][..., 1]
+    over = (conf > pred.conf_thresh).sum(axis=1)
+    want = cpu_pred.outputs(frames[:FE_CPU_FRAMES])
+    errs = {}
+    for what, got, ref in zip(("loc", "conf", "ldm"), raw, want):
+        if not isinstance(ref, np.ndarray):
+            check(tuple(got) == tuple(ref), f"phase 12 {name}: source maps")
+            continue
+        ref = torch.from_numpy(ref)
+        got = torch.from_numpy(got[:FE_CPU_FRAMES])
+        errs[what] = ((got - ref).abs().max().item() if what == "conf"
+                      else _rel_err(got, ref))
+    n = len(frames)
+    print(f"# {smi}: phase 12 {name}, {n} frames of {frames.shape[1]}x"
+          f"{frames.shape[2]}: network {net_ms:.2f} ms device, "
+          f"{wall_net:.2f} ms wall with upload and download; host decode "
+          f"+ NMS {wall_host:.2f} ms ({over.min()}-{over.max()} anchors a "
+          f"frame over conf_thresh {pred.conf_thresh}, "
+          f"{sum(len(d) for d in dets)} detections >= {pred.threshold}); "
+          f"{n / (wall_net + wall_host) * 1e3:.2f} frames/s; cuda vs cpu on "
+          f"{FE_CPU_FRAMES} frames: {errs} (limit {FE_TOL:g} of the largest, "
+          f"conf absolute)")
+    check(all(e <= FE_TOL for e in errs.values()),
+          f"phase 12 {name}: cuda vs cpu {errs}")
+    return dict(net_ms=net_ms, wall_net_ms=wall_net, host_ms=wall_host,
+                frames_per_s=n / (wall_net + wall_host) * 1e3,
+                anchors_over=[int(over.min()), int(over.max())], err=errs)
+
+
+def _mean_face(directory: str, t: int, size, empty) -> tuple:
+    """(mean-face path, landmarks of ``t`` frames of ``size``): a
+    synthetic 68-point mean face on the 256 grid, its mouth near the
+    grid's centre (``tests/test_torch_port_frontends.mean_face_case``),
+    placed in each frame at twice its size with a slight drift; frames
+    ``empty`` have none."""
+    rng = np.random.RandomState(3)
+    face = np.stack([96 + 64 * rng.rand(68), 88 + 80 * rng.rand(68)], axis=1)
+    path = os.path.join(directory, "mean_face.npy")
+    np.save(path, face)
+    h, w = size
+    origin = np.array([w / 2 - 256.0, h / 2 - 256.0])
+    lms = [None if i in empty else (2.0 * face + origin + 0.5 * i
+                                    + rng.rand(68, 2)).astype(np.float32)
+           for i in range(t)]
+    return path, lms
+
+
+def phase_frontends(dev, smi: str) -> dict:
+    """The offline video frontends at full width on the card, fp32 (TF32
+    off), seeded random weights (``seeded_frontend``); no CUDA kernel of
+    the port runs here. (a) RetinaFace, ResNet-50 (the predictor's
+    default) and MobileNet-0.25: ``FE_BATCH`` BGR frames of 720x1280
+    through ``detect_batch``'s two stages, timed apart (the network on the
+    card, the decode and NMS on the host at the reference's settings,
+    which random weights load with most anchors), frames/s, and the raw
+    outputs of ``FE_CPU_FRAMES`` frames against the CPU's. (b) S3FD the
+    same way. (c) ``FANPredictor`` on ``FE_FACES`` face boxes, one frame's
+    past its edges (the padding path): ms, and one frame's heatmaps and
+    landmarks against the CPU's. (d) ``LandmarksDetector`` (RetinaFace
+    ResNet-50 + FAN) over ``FE_CHAIN`` frames, timed end to end, the
+    class head's face logit shifted so that exactly ``FE_EMPTY`` frames
+    find no face (``interpolate_landmarks`` fills them); then
+    ``VideoProcess`` over the same frames with landmarks of a synthetic
+    mean face (random FAN landmarks put the mouth out of the crop's
+    bounds): (FE_CHAIN, 96, 96) crops, timed. (e) ``ASDModel`` scores of
+    ``ASD_TRACKS`` tracks of ``ASD_T`` frames of 112x112 and 4x as many
+    MFCC frames: device ms, one track against the CPU, and the ported
+    ``segment_by_asd``/``asd_chunks`` on the card's scores. (f)
+    ``ASDTrainer`` for ``ASD_STEPS`` steps on ``ASD_TRAIN`` tracks x
+    frames: losses finite, parameters changed, ms a step; one step of one
+    track on the card and on the CPU from the same weights: loss and
+    gradient norm. (g) every kernel's launch count is 0 after the phase,
+    and no plain twin ran."""
+    import tempfile
+
+    from avsr_tpu_torch.frontends import asd as pasd
+    from avsr_tpu_torch.frontends import asd_trainer as pasdt
+    from avsr_tpu_torch.frontends import fan as pfan
+    from avsr_tpu_torch.frontends import retinaface as prf
+    from avsr_tpu_torch.frontends import s3fd as ps3
+    from avsr_tpu_torch.frontends import segmentation as pseg
+    from avsr_tpu_torch.frontends import video_process as pvp
+    from avsr_tpu_torch.ops.kernels import beam_update as pbu
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+    from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import row_gather as prg
+    from avsr_tpu_torch.ops.kernels import scan_logsumexp as psl
+    from avsr_tpu_torch.ops.kernels import stem_fuse as psf
+    from avsr_tpu_torch.ops.kernels import topk as ptk
+
+    counters = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+                pfa.flash_attention_bwd_dkv, pda.decode_attention,
+                ptk.topk_lastdim, ptk.topk_gather_rows, prg.row_gather,
+                psl.cumlogsumexp, pbu.beam_update, pdl.decoder_layer_step,
+                psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
+                psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2)
+    rng = np.random.RandomState(12)
+    frames = rng.randint(0, 256, (FE_BATCH,) + FE_SIZE + (3,), dtype=np.uint8)
+    res = {}
+    torch.cuda.synchronize()
+    reset_launches(counters)
+    with twin_calls(dict(TWINS, **SERVING_TWINS)) as calls:
+        # (a), (b): the detectors
+        dets = {}
+        for name, seed in (("resnet50", 1), ("mobilenet0.25", 2)):
+            cfg = prf.CFG_RE50 if name == "resnet50" else prf.CFG_MNET
+            state = seeded_frontend(prf.RetinaFaceNet(
+                name, cfg["out_channel"]), seed, 1 / 64).state_dict()
+            dets[name] = state
+            res[f"retinaface {name}"] = _detector_run(
+                f"(a) RetinaFace {name}",
+                prf.RetinaFacePredictor(state, backbone=name, device=dev),
+                prf.RetinaFacePredictor(state, backbone=name, device="cpu"),
+                frames, prf.BGR_MEAN, smi)
+        state = seeded_frontend(ps3.S3FDNet(), 3, 1 / 64).state_dict()
+        res["s3fd"] = _detector_run(
+            "(b) S3FD", ps3.S3FDPredictor(state, device=dev),
+            ps3.S3FDPredictor(state, device="cpu"), frames, ps3.RGB_MEAN, smi)
+        torch.cuda.empty_cache()
+
+        # (c) FAN on face boxes, one frame's past its left and top edges
+        fan_state = seeded_frontend(pfan.FAN(), 4).state_dict()
+        fan = pfan.FANPredictor(fan_state, device=dev)
+        nf, per = FE_FACES
+        h, w = FE_SIZE
+        boxes = [np.array([[w * (0.2 + 0.4 * j) + 7.3 * i, h * 0.3 + 5.1 * i,
+                            w * (0.2 + 0.4 * j) + 7.3 * i + 180.0,
+                            h * 0.3 + 5.1 * i + 220.0]
+                           for j in range(per)], np.float32) for i in range(nf)]
+        boxes[0][0] = [-60.5, -40.2, 120.7, 170.9]
+        fan(frames[0], boxes[0], rgb=False)  # warm-up
+        out, fan_ms = _host_ms(lambda: [fan(frames[i], boxes[i], rgb=False)
+                                        for i in range(nf)])
+        cpu_fan = pfan.FANPredictor(fan_state, device="cpu")
+        lm_cpu, _ = cpu_fan(frames[0], boxes[0], rgb=False)
+        patches, _ = fan._crop_faces(frames[0][..., ::-1], boxes[0])
+        with torch.no_grad():
+            x = torch.from_numpy(patches).float().div(255.0).permute(0, 3, 1, 2)
+            hm_card = fan.net(x.to(dev)).cpu()
+            hm_cpu = cpu_fan.net(x)
+        hm_err = _rel_err(hm_card, hm_cpu)
+        lm_err = float(np.abs(out[0][0] - lm_cpu).max())
+        print(f"# {smi}: phase 12 (c) FAN (2 modules, input 256) on "
+              f"{nf * per} faces over {nf} frames: {fan_ms:.2f} ms wall "
+              f"({fan_ms / (nf * per):.2f} ms a face; crops cut on the "
+              f"host, a frame's faces in one upload); cuda vs cpu, frame 0 "
+              f"(a box past the edge): heatmaps {hm_err:.3e} of the largest "
+              f"(limit {FE_TOL:g}), landmarks max {lm_err:.3e} px")
+        check(hm_err <= FE_TOL, "phase 12 (c): FAN heatmaps cuda vs cpu")
+        res["fan"] = dict(ms=fan_ms, faces=nf * per, heatmap_err=hm_err,
+                          landmark_err_px=lm_err)
+
+        # (d) the chain over FE_CHAIN frames
+        chain = rng.randint(0, 256, (FE_CHAIN,) + FE_SIZE + (3,),
+                            dtype=np.uint8)
+        det = prf.RetinaFacePredictor(dets["resnet50"], device=dev)
+        margins = []
+        for lo in range(0, FE_CHAIN, FE_BATCH):
+            conf = det.outputs(chain[lo:lo + FE_BATCH])[1].astype(np.float64)
+            margins.append(np.log(conf[..., 1]) - np.log(conf[..., 0]))
+        top = np.sort(np.concatenate(margins).max(axis=1))
+        shift = math.log(4.0) - 0.5 * (top[FE_EMPTY - 1] + top[FE_EMPTY])
+        with torch.no_grad():
+            for head in det.net.ClassHead:
+                head.conv1x1.bias[1::2] += shift  # the face logits
+        found, spent = [], {"detector": 0.0, "fan": 0.0}
+        detect_batch = det.detect_batch
+
+        def counted(chunk):
+            t = time.perf_counter()
+            out = detect_batch(chunk)
+            spent["detector"] += time.perf_counter() - t
+            found.extend(len(d) for d in out)
+            return out
+
+        def timed_fan(*args, **kw):
+            t = time.perf_counter()
+            out = fan(*args, **kw)
+            spent["fan"] += time.perf_counter() - t
+            return out
+
+        det.detect_batch = counted
+        ld = pvp.LandmarksDetector(det, timed_fan)
+        lms, chain_ms = _host_ms(lambda: ld(chain))
+        empty = [i for i, x in enumerate(lms) if x is None]
+        filled = pvp.interpolate_landmarks(lms)
+        print(f"# {smi}: phase 12 (d) LandmarksDetector (RetinaFace "
+              f"ResNet-50 + FAN) over {FE_CHAIN} frames of {h}x{w}: "
+              f"{chain_ms:.1f} ms wall, {FE_CHAIN / chain_ms * 1e3:.2f} "
+              f"frames/s (detector {spent['detector'] * 1e3:.1f} ms, FAN "
+              f"{spent['fan'] * 1e3:.1f} ms); the class head's face logit "
+              f"shifted by "
+              f"{shift:+.4f}: faces a frame {min(found)}-{max(found)} "
+              f"(FAN ran on {sum(found)}), frames {empty} without one, "
+              f"filled by interpolate_landmarks")
+        check(len(empty) == FE_EMPTY and all(x is not None for x in filled),
+              f"phase 12 (d): frames without a face {empty}")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_fe_") as tmp:
+            path, placed = _mean_face(tmp, FE_CHAIN, FE_SIZE, empty)
+            vp = pvp.VideoProcess(mean_face_path=path)
+            crops, vp_ms = _host_ms(lambda: vp(chain, placed))
+        print(f"# {smi}: phase 12 (d) VideoProcess over {FE_CHAIN} frames "
+              f"(synthetic mean face, frames {empty} interpolated): "
+              f"{vp_ms:.1f} ms, crops {None if crops is None else crops.shape}")
+        check(crops is not None and crops.shape == (FE_CHAIN, 96, 96),
+              "phase 12 (d): VideoProcess crops")
+        res["chain"] = dict(ms=chain_ms, frames=FE_CHAIN, shift=shift,
+                            detector_ms=spent["detector"] * 1e3,
+                            fan_ms=spent["fan"] * 1e3,
+                            faces=[min(found), max(found)], empty=empty,
+                            video_process_ms=vp_ms)
+        del chain, det, ld
+        torch.cuda.empty_cache()
+
+        # (e) ASD scores
+        asd_state = seeded_frontend(pasd.ASDModel(), 5).state_dict()
+        model = pasd.ASDModel()
+        model.load_state_dict(asd_state)
+        model.to(dev).eval()
+        audio = rng.randn(ASD_TRACKS, 4 * ASD_T, 13).astype(np.float32)
+        visual = (rng.rand(ASD_TRACKS, ASD_T, ASD_HW, ASD_HW) * 255).astype(
+            np.float32)
+        a, v = torch.from_numpy(audio).to(dev), torch.from_numpy(visual).to(dev)
+        with torch.no_grad():
+            asd_ms = cuda_ms(lambda: model(a, v), iters=2, warmup=1,
+                             repeats=3)
+            scores = model(a, v).cpu()
+        cpu_model = pasd.ASDModel()
+        cpu_model.load_state_dict(asd_state)
+        with torch.no_grad():
+            want = cpu_model.eval()(torch.from_numpy(audio[:1]),
+                                    torch.from_numpy(visual[:1]))
+        asd_err = _rel_err(scores[:1], want)
+        track = {str(i): float(s) for i, s in enumerate(scores[0])}
+        segments = pseg.segment_by_asd(track)
+        chunks = pseg.asd_chunks(track, max_length=10)
+        print(f"# {smi}: phase 12 (e) ASDModel, {ASD_TRACKS} tracks x "
+              f"{ASD_T} frames of {ASD_HW}x{ASD_HW} + {4 * ASD_T} MFCC "
+              f"frames: {asd_ms:.2f} ms device; cuda vs cpu, one track: "
+              f"{asd_err:.3e} of the largest score (limit {FE_TOL:g}); "
+              f"segment_by_asd on the card's scores of track 0: "
+              f"{len(segments)} segments, asd_chunks {len(chunks)}")
+        check(asd_err <= FE_TOL, "phase 12 (e): ASD scores cuda vs cpu")
+        check(isinstance(segments, list) and isinstance(chunks, list),
+              "phase 12 (e): segmentation")
+        res["asd"] = dict(ms=asd_ms, err=asd_err, segments=len(segments))
+        del a, v, model
+
+        # (f) ASD training
+        tb, tt = ASD_TRAIN
+        labels = rng.randint(0, 2, (tb, tt)).astype(np.int32)
+        batch = (rng.randn(tb, 4 * tt, 13).astype(np.float32),
+                 (rng.rand(tb, tt, ASD_HW, ASD_HW) * 255).astype(np.float32),
+                 labels)
+        trainer = pasdt.ASDTrainer(device=dev)
+        trainer.load_state_dict(asd_state)
+        before = trainer.model.model.visualEncoder.block1.s_3.weight.detach(
+            ).clone()
+        steps = []
+        for _ in range(ASD_STEPS):
+            m, ms = _host_ms(lambda: trainer.train_step(*batch, 1.3, 1e-3))
+            steps.append((m[0], ms))
+        changed = not torch.equal(
+            before, trainer.model.model.visualEncoder.block1.s_3.weight)
+
+        def one_step(device):
+            t = pasdt.ASDTrainer(device=device)
+            t.load_state_dict(asd_state)
+            loss = t.train_step(*(x[:1] for x in batch), 1.3, 1e-3)[0]
+            norm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                  for p in t.model.parameters())).item()
+            return loss, norm
+
+        (lc, nc), (lp, npu) = one_step(dev), one_step("cpu")
+        loss_err, norm_err = abs(lc - lp) / abs(lp), abs(nc - npu) / npu
+        print(f"# {smi}: phase 12 (f) ASDTrainer, {tb} tracks x {tt} "
+              f"frames: losses {[round(s[0], 6) for s in steps]}, "
+              f"{[round(s[1], 2) for s in steps]} ms a step (the first "
+              f"with cuDNN's warm-up), parameters changed={changed}; one "
+              f"step of one track cuda vs cpu: loss {lc:.7f} vs {lp:.7f} "
+              f"(rel {loss_err:.3e}, limit {ASD_LOSS_TOL:g}), gradient norm "
+              f"{nc:.6f} vs {npu:.6f} (rel {norm_err:.3e}, limit "
+              f"{ASD_GRAD_TOL:g})")
+        check(all(math.isfinite(s[0]) for s in steps) and changed,
+              "phase 12 (f): ASD training")
+        check(loss_err <= ASD_LOSS_TOL and norm_err <= ASD_GRAD_TOL,
+              "phase 12 (f): ASD step cuda vs cpu")
+        res["asd_train"] = dict(step_ms=[s[1] for s in steps],
+                                losses=[s[0] for s in steps],
+                                loss_err=loss_err, grad_norm_err=norm_err)
+        del trainer
+        torch.cuda.synchronize()
+    launched = read_launches(counters)
+    print(f"# phase 12 (g): kernel launches {launched}, twin calls "
+          f"{sum(calls.values())}")
+    check(not any(launched.values()), "phase 12 (g): a kernel ran")
+    check(not any(calls.values()), "phase 12 (g): a plain twin ran")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3722,6 +4113,11 @@ def main() -> int:
     print(f"# phase 11 passed in {time.perf_counter() - t11:.1f} s")
     print(f"# phase 11 launches: {json.dumps(muavic_launches)}")
     print(f"# phase 11 kernel records: {json.dumps(muavic_times)}")
+    print("# phase 12: the offline video frontends at full width")
+    t12 = time.perf_counter()
+    frontends = phase_frontends(dev, smi)
+    print(f"# {smi}: phase 12 passed in {time.perf_counter() - t12:.1f} s")
+    print(f"# {smi}: phase 12 results: {json.dumps(frontends)}")
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

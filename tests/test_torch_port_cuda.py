@@ -1009,3 +1009,75 @@ def test_decoder_layer_kernel_refuses_beyond_its_lanes(dev):
                                src, torch.zeros(1, 5, device=dev),
                                torch.zeros(1, lanes, 8, lanes, device=dev),
                                packed, lanes, heads)
+
+
+# ---------------------------------------------------------------- frontends
+
+
+def _frontend_case(name):
+    """(network, inputs) at small sizes, torch's seeded initialisation."""
+    from avsr_tpu_torch.frontends import asd as pasd
+    from avsr_tpu_torch.frontends import fan as pfan
+    from avsr_tpu_torch.frontends import retinaface as prf
+    from avsr_tpu_torch.frontends import s3fd as ps3
+
+    torch.manual_seed(0)
+    g = _gen(1)
+    if name == "asd":
+        return pasd.ASDModel(), (torch.randn(2, 40, 13, generator=g),
+                                 torch.rand(2, 10, 48, 48, generator=g) * 255)
+    net = {"retinaface_mobilenet": lambda: prf.RetinaFaceNet(
+               "mobilenet0.25", 64),
+           "retinaface_resnet50": lambda: prf.RetinaFaceNet("resnet50", 256),
+           "s3fd": ps3.S3FDNet, "fan": lambda: pfan.FAN(1)}[name]()
+    size = (64, 64) if name == "fan" else (100, 140)
+    return net, (torch.randn((2, 3) + size, generator=g),)
+
+
+@pytest.mark.parametrize("name", ["retinaface_mobilenet",
+                                  "retinaface_resnet50", "s3fd", "fan",
+                                  "asd"])
+def test_frontend_network_cuda_matches_cpu(dev, name):
+    """Each frontend network in eval mode on the card against the CPU,
+    fp32 (TF32 off): within 1e-4 of the largest output."""
+    net, inputs = _frontend_case(name)
+    net.eval()
+    with torch.no_grad():
+        want = net(*inputs)
+        got = net.to(dev)(*(x.to(dev) for x in inputs))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w in zip(got, want):
+        if torch.is_tensor(w):
+            torch.testing.assert_close(g.cpu(), w, rtol=0,
+                                       atol=1e-4 * w.abs().max().item())
+        else:
+            assert g == w
+
+
+def test_asd_train_step_cuda_matches_cpu(dev):
+    """One ``ASDTrainer`` step on the card against the CPU from the same
+    weights: loss within 1e-5 relative, gradient norm within 1e-4, and
+    the BN running statistics within 1e-5."""
+    import numpy as np
+
+    from avsr_tpu_torch.frontends import asd_trainer as pasdt
+
+    rng = np.random.RandomState(0)
+    batch = (rng.randn(2, 40, 13).astype(np.float32),
+             (rng.rand(2, 10, 48, 48) * 255).astype(np.float32),
+             rng.randint(0, 2, (2, 10)))
+    out = []
+    for device in ("cpu", dev):
+        trainer = pasdt.ASDTrainer(device=device)
+        loss = trainer.train_step(*batch, 1.3, 1e-3)[0]
+        norm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                              for p in trainer.model.parameters())).item()
+        stats = {k: v.cpu() for k, v in trainer.model.state_dict().items()
+                 if "running" in k}
+        out.append((loss, norm, stats))
+    (lc, nc, sc), (lg, ng, sg) = out
+    assert lg == pytest.approx(lc, rel=1e-5)
+    assert ng == pytest.approx(nc, rel=1e-4)
+    for k in sc:
+        torch.testing.assert_close(sg[k], sc[k], rtol=1e-5, atol=1e-5)

@@ -10,6 +10,7 @@ side keeps the JAX package's config; the port gets its own copy of it
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
@@ -390,3 +391,52 @@ def loop_samples(n, seed=0):
     from avsr_tpu_torch.data.dataset import synthetic_samples
 
     return list(synthetic_samples(n, seed=seed, min_frames=4, max_frames=6))
+
+
+def seeded_variables(net, seed: int, *args, stem_gain: float = 1.0,
+                     **kw) -> dict:
+    """Numpy-seeded flax variables of ``net`` in the shapes its ``init``
+    would give for ``args``; the kernels of 3 input channels (the stem's)
+    scaled by ``stem_gain`` (1/64 for the detectors' pixel-scale inputs,
+    whose BN statistics would otherwise not bound the activations)."""
+    import jax
+
+    shapes = jax.eval_shape(lambda k: net.init(k, *args, **kw),
+                            jax.random.PRNGKey(0))
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            x = rng.randn(*shape) / math.sqrt(np.prod(shape[:-1]))
+            x *= stem_gain if shape[-2] == 3 else 1.0
+        elif name == "scale":
+            x = 0.8 + 0.4 * rng.rand(*shape)
+        elif name == "var":
+            x = 0.5 + rng.rand(*shape)
+        elif name == "weight":  # S3FD's L2Norm scales
+            x = 5.0 + 5.0 * rng.rand(*shape)
+        else:  # biases, running means
+            x = 0.1 * rng.randn(*shape)
+        return x.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(
+        fill, {k: dict(v) for k, v in shapes.items()})
+
+
+def assert_same_tree(got: dict, want: dict, path=()):
+    """Equal keys at every level and bit-equal leaves."""
+    assert set(got) == set(want), (path, set(got) ^ set(want))
+    for k in want:
+        if isinstance(want[k], dict):
+            assert_same_tree(got[k], want[k], path + (k,))
+        else:
+            g, w = np.asarray(got[k]), np.asarray(want[k])
+            assert g.dtype == w.dtype and g.shape == w.shape, path + (k,)
+            np.testing.assert_array_equal(g, w, err_msg=str(path + (k,)))
+
+
+def close_to_largest(got, want, tol: float, what: str):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=tol * np.abs(want).max(), err_msg=what)
