@@ -96,21 +96,23 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
 }
 
-// Copies rows row0 .. row0 + kRows - 1 of a (t_len, D) bf16 matrix into a
-// padded shared tile, 16 bytes a copy, all threads of the block taking
-// part; rows at or past t_len become zeros, so they add nothing to a
-// product (and no NaN from stale memory).
-template <int D, int kRows>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int t_len) {
-  constexpr int kChunks = D / 8;
+// Copies rows row0 .. row0 + kRows - 1 of a (t_len, D) matrix of T (bf16
+// or fp32) into a shared tile of row stride kLd elements (the padded bf16
+// rows, D + 8, by default), 16 bytes a copy, all threads of the block
+// taking part; rows at or past t_len become zeros, so they add nothing to
+// a product (and no NaN from stale memory).
+template <int D, int kRows, int kLd = D + 8, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int row0,
+                                          int t_len) {
+  constexpr int kPer = 16 / sizeof(T);  // elements a copy
+  constexpr int kChunks = D / kPer;
   for (int e = threadIdx.x; e < kRows * kChunks; e += blockDim.x) {
     const int r = e / kChunks;
     const int c = e % kChunks;
     const int row = row0 + r;
     const bool ok = row < t_len;
-    const bf16* g = ok ? src + static_cast<size_t>(row) * D + c * 8 : src;
-    cp_async16(dst + r * (D + 8) + c * 8, g, ok);
+    const T* g = ok ? src + static_cast<size_t>(row) * D + c * kPer : src;
+    cp_async16(dst + r * kLd + c * kPer, g, ok);
   }
 }
 

@@ -10,10 +10,13 @@ it launches a hand-written kernel and counts the launch:
   with delta = rowsum(dO * O) computed in the kernel;
 - ``flash_attention_bwd_dkv``: ``csrc/flash_attention_bwd.cu``, (dk, dv).
 
-bf16 operands run on the tensor cores (``mma.sync``, ``csrc/mma_bf16.cuh``;
-the forward rounds the normalised probabilities to bf16 before P V, as
-the TPU kernel and the twin do); fp32 operands run on the CUDA cores in
-fp32, since the tensor cores would take them as TF32.
+The forward runs on the tensor cores in both dtypes (``mma.sync``): bf16
+as bf16 (``csrc/mma_bf16.cuh``; it rounds the normalised probabilities to
+bf16 before P V, as the TPU kernel and the twin do), fp32 in split TF32
+(each operand split into a TF32 high part and a TF32 remainder, three
+TF32 products a step into fp32 accumulators, ~2^-21 of a product lost),
+since one TF32 product keeps only ~3 decimal digits. The backward kernels
+run bf16 on the tensor cores and fp32 on the CUDA cores.
 
 ``FlashAttentionFn`` is the autograd function over them. Attention-prob
 dropout runs inside the kernels: each keep decision is drawn from
@@ -211,11 +214,10 @@ def _check(q, k, v, key_bias, *rest):
 
 def _aligned(*operands):
     """The operands, each copied into a fresh tensor (which the caching
-    allocator aligns) where a bf16 one does not start 16-byte aligned:
-    the bf16 kernels copy 16-byte chunks, and the TPU kernel takes any
+    allocator aligns) where one does not start 16-byte aligned: the
+    tensor-core kernels copy 16-byte chunks, and the TPU kernel takes any
     array."""
-    return tuple(x.clone() if x.dtype == torch.bfloat16 and x.data_ptr() % 16
-                 else x for x in operands)
+    return tuple(x.clone() if x.data_ptr() % 16 else x for x in operands)
 
 
 def _kernel_args(q, dropout_rate, dropout_seed, *operands):
@@ -225,9 +227,8 @@ def _kernel_args(q, dropout_rate, dropout_seed, *operands):
     n, t, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel takes head dims {HEAD_DIMS}; got {d}")
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
-                                         for x in (q, *operands)):
-        raise ValueError("the bf16 kernels copy 16-byte chunks: (N, T, D) "
+    if any(x.data_ptr() % 16 for x in (q, *operands)):
+        raise ValueError("the kernels copy 16-byte chunks: (N, T, D) "
                          "operands must start 16-byte aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"tensors on {q.device}, current device is "

@@ -16,8 +16,14 @@ training shape (N = 6*16 heads, T=384, D=64, bf16, dropout 0.1) and the
 serving shape (N = 8*16, no dropout), holds the forward, dq and dkv
 against their plain twins (error relative to the largest entry, and the
 share of elements equal bit for bit) and times them with
-``chip_smoke.cuda_ms``. The registers and spills of each D=64 kernel come
-from its ``-Xptxas -v`` report. Needs a CUDA device and ``nvcc``.
+``chip_smoke.cuda_ms``; then the fp32 forward at the muavic encoder's
+shape (N = 32*4, T=375) and the flagship eval's (N = 32*16, T=384), held
+against the twin and timed beside fp32 SDPA with its bounds
+(``chip_smoke.fp32_flash_record``), and the fp32 backward kernels at the
+training shape with dropout 0.1 and the muavic shape without
+(``chip_smoke.fp32_bwd_times``). The registers and spills of each D=64
+kernel come from its ``-Xptxas -v`` report. Needs a CUDA device and
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -95,8 +101,8 @@ def registers(library: Path) -> list[str]:
         if m:
             entry = m.group(1)
             continue
-        k = entry and re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_mma)"
-                                r"ILi64ELb(\d)", entry)
+        k = entry and re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_"
+                                r"(?:mma|tf32|simt))ILi64ELb(\d)", entry)
         if k and ("registers" in line or "spill stores" in line):
             out.append(f"{k.group(1)} dropout={k.group(2)}: "
                        + line.split(":", 1)[-1].strip())
@@ -151,6 +157,18 @@ def run(name: str) -> None:
         print(f"# [{name}] B={b} rate={rate} ms: "
               + ", ".join(f"{key} {val:.4f}" for key, val in ms.items()),
               flush=True)
+    g = torch.Generator(device=dev).manual_seed(8)
+    for b, heads, t in ((32, 4, 375), (32, 16, 384)):
+        r = cs.fp32_flash_record(dev, g, b, heads, t)
+        print(f"# [{name}] fp32 forward {r['shape']}: kernel {r['ms']:.4f} "
+              f"ms, SDPA {r['library_ms']:.4f} ms, max_abs_err "
+              f"{r['max_abs_err']:.3e}, lse {r['lse_err']:.3e}", flush=True)
+    for b, heads, t, rate in ((6, 16, 384, 0.1), (32, 4, 375, 0.0)):
+        for key, (ms, _, lib, _) in cs.fp32_bwd_times(dev, g, b, heads, t,
+                                                       rate).items():
+            print(f"# [{name}] fp32 {key} N={b}x{heads}, T={t}, dropout "
+                  f"{rate}: kernel {ms:.4f} ms, SDPA backward {lib:.4f} ms",
+                  flush=True)
 
 
 def drive(argv: list[str], module: str, sources, prepare_fn, run_fn,

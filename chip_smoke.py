@@ -20,14 +20,15 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    bit for bit against the twin's, two backward calls held bit for bit
    against each other, the bf16 forward's share of outputs bit-equal to
    the twin's printed, and the cost of the dropout draw (each kernel
-   timed without it); the flash kernels' library call is PyTorch's fused
-   SDPA as a user calls it (4-D (B, H, T, D), the key bias as a (B, 1, 1,
-   T) mask, ``dropout_p`` at the kernels' rate, forward and backward),
-   each backend of ``SDPA_BACKENDS`` forced in turn with ``sdpa_kernel``
-   and the fastest kept, its name printed; ``decode_attention`` checked at
-   B=8 and B=32 at pos 0, 100, 191 and 250 (bf16 and unrounded outputs
-   within ``output_bound`` of the twin's, ROADMAP C27) and timed at pos 250
-   warm (one
+   timed without it), and the fp32 backward kernels timed beside fp32
+   SDPA's backward (``fp32_bwd_times``); the flash kernels' library call
+   is PyTorch's fused SDPA as a user calls it (4-D (B, H, T, D), the key
+   bias as a (B, 1, 1, T) mask, ``dropout_p`` at the kernels' rate,
+   forward and backward), each backend of ``SDPA_BACKENDS`` forced in
+   turn with ``sdpa_kernel`` and the fastest kept, its name printed;
+   ``decode_attention`` checked at B=8 and B=32 at pos 0, 100, 191 and
+   250 (bf16 and unrounded outputs within ``output_bound`` of the twin's,
+   ROADMAP C27) and timed at pos 250 warm (one
    cache) and cold (rotating over the six decoder layers' caches, which
    the L2 cannot hold; the record's time), with fused SDPA on strided
    views of the cache as its library call (and the row write's own copy
@@ -114,6 +115,12 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    same beams a third way, with the decoder's fused layer
    (``decode_fused_layer``), every ``decoder_layer_step`` call held
    against its twin and its launches checked (once a layer and step);
+   then the fp32 flash forward that the default fp32 encode runs, at its
+   shape (N = 32*16, T=384, D=64, a ragged key bias), held against its
+   twin (out and lse within 1e-4) and timed beside fp32 SDPA with its
+   split-TF32 and CUDA-core bounds (``fp32_flash_record``; the record
+   ``flash_attention_fwd_fp32``, its launches those of the last
+   ``eval_lrs2`` pass);
 9. runs the training entry point, ``avsr_tpu_torch.cli.train.main``, on
    the flagship config loaded from a reference-format directory of seed-0
    weights with the toy tokenizer (``phase_train_cli``): 6 fine-tuning
@@ -157,7 +164,7 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    card run's launches of B1, B5 and B8 counted, none of the other
    kernels, no twin called; then B1 and B5 timed at this path's shapes
    (N=32x4, T=375, fp32; (96, 10000) k=4) beside their twins, fp32 SDPA
-   and ``torch.topk``.
+   and ``torch.topk``, and the fp32 backward kernels at N=32x4 timed.
 12. runs the offline video frontends (``phase_frontends``) at their
    published widths on seeded random weights, fp32: RetinaFace ResNet-50
    and MobileNet-0.25 and S3FD on 16 frames of 720x1280 (network device
@@ -184,7 +191,8 @@ and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
 beam of 22 for the wide paths (unfused for ``decode_attention_wide`` and
 ``topk_lastdim_wide``, fused for ``beam_update_wide``), whose
 ``max_abs_err`` also covers phase 8's checked beams (and
-``decoder_layer_step``'s its fused-layer beams). The last
+``decoder_layer_step``'s its fused-layer beams), and phase 8's last
+``eval_lrs2`` pass for ``flash_attention_fwd_fp32``. The last
 line is ``{"ok": true, "device": {...}}``. Without
 CUDA it exits non-zero at once.
 """
@@ -222,10 +230,11 @@ EVAL_KV = 128  # their K|V cache rows: EVAL_T + 2 rounded up to 64
 EVAL_POS = 74  # the last step of a 75-frame utterance
 
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
-# bytes/s, and operations/s by operand type (dense tensor-core bf16, fp32
-# outside the tensor cores)
+# bytes/s, and operations/s by operand type (dense tensor-core bf16 and
+# TF32, fp32 outside the tensor cores); a split-TF32 product is three
+# TF32 products, so its bound takes three times the operations at "tf32"
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}
 # PyTorch's fused attention backends tried as the flash kernels' yardstick
 SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
 # above the H100's highest SM clock (1.98 GHz): a spin of 2x the host's
@@ -1054,6 +1063,93 @@ def _attention_inputs(g, dev, dtype, b, heads, t, d):
     return q, k, v, do, bias.repeat_interleave(heads, 0).contiguous()
 
 
+def fp32_flash_record(dev, g, b: int, heads: int, t: int, d: int = 64):
+    """B1 in fp32 at an encoder's self-attention (N = b x heads, T = t,
+    D = d, ``_attention_inputs``' ragged key bias): the split-TF32 kernel
+    held against its twin (out and lse within 1e-4) and timed beside it
+    and fp32 fused SDPA, the one PyTorch call of the same function. Two
+    bounds: the kernel's own (``bound``: three TF32 products a step at the
+    TF32 peak) and the function's on the CUDA cores (``bound_fp32``).
+    Returns the record."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    q, k, v, _, bias = _attention_inputs(g, dev, torch.float32, b, heads, t,
+                                         d)
+    scale = d ** -0.5
+    got, lse = pfa.flash_attention_fwd(q, k, v, bias, scale)
+    want, want_lse = pfa.flash_attention_plain(q, k, v, bias, scale)
+    err = (got - want).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    shape = f"N={b}x{heads}, T={t}, D={d}, fp32"
+    check(err <= 1e-4 and lse_err <= 1e-4,
+          f"flash_attention_fwd disagrees at {shape}: {err:.3e}, lse "
+          f"{lse_err:.3e}")
+    library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, 0.0)
+    ops = 4 * b * heads * t * t * d  # q.k and p.v
+    io = nbytes(q, k, v, bias, got, lse)
+    r = dict(
+        source="avsr_tpu_torch/csrc/flash_attention.cu",
+        replaces="avsr_tpu/ops/pallas/flash_attention.py:296",
+        shape=shape, max_abs_err=err, lse_err=lse_err,
+        ms=cuda_ms(lambda: pfa.flash_attention_fwd(q, k, v, bias, scale)),
+        plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(q, k, v, bias,
+                                                           scale)),
+        library_ms=library_ms, library=backend,
+        bound=bound(io, 3 * ops, "tf32"), bound_fp32=bound(io, ops, "fp32"))
+    print(f"# flash_attention_fwd fp32 at {shape}: kernel {r['ms']:.4f} ms, "
+          f"twin {r['plain_ms']:.4f} ms, SDPA {backend} {library_ms:.4f} ms; "
+          f"bound split-TF32 {r['bound'][0]:.6f} ms ({r['bound'][1]}), "
+          f"CUDA cores {r['bound_fp32'][0]:.6f} ms; max_abs_err {err:.3e}, "
+          f"lse {lse_err:.3e}")
+    return r
+
+
+def fp32_bwd_times(dev, g, b: int, heads: int, t: int, rate: float,
+                   d: int = 64) -> dict:
+    """B6 in fp32 (the CUDA-core dq and dkv kernels), timed at an
+    encoder's self-attention beside the twin (dQ, dK and dV in one call),
+    fp32 fused SDPA's backward at the same dropout rate and each kernel's
+    bound at the fp32 peak. Printed; returns {name: (ms, twin ms, SDPA
+    ms, bound ms)}."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    q, k, v, do, bias = _attention_inputs(g, dev, torch.float32, b, heads,
+                                          t, d)
+    scale, seed = d ** -0.5, ((20261018, 5) if rate else None)
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, rate, seed)
+    dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse,
+                                           scale, rate, seed)
+    dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
+                                         scale, rate, seed)
+    library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, rate,
+                                        do)
+    plain_ms = cuda_ms(lambda: pfa.flash_attention_bwd_plain(
+        q, k, v, bias, out, do, lse, scale, dropout_rate=rate,
+        dropout_seed=seed))
+    flops = 2 * b * heads * t * t * d  # one (T x T x D) product
+    times = {
+        # S and dP recomputed, dS K
+        "flash_attention_bwd_dq": (cuda_ms(
+            lambda: pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse,
+                                               scale, rate, seed)),
+            bound(nbytes(q, k, v, out, do, bias, lse, dq, delta), 3 * flops,
+                  "fp32")),
+        # S and dP recomputed, P~^T dO and dS^T Q
+        "flash_attention_bwd_dkv": (cuda_ms(
+            lambda: pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse,
+                                                delta, scale, rate, seed)),
+            bound(nbytes(q, k, v, do, bias, lse, delta, dk, dv), 4 * flops,
+                  "fp32"))}
+    res = {}
+    for name, (ms, bd) in times.items():
+        res[name] = (ms, plain_ms, library_ms, bd[0])
+        print(f"# {name} fp32 at N={b}x{heads}, T={t}, D={d}, dropout "
+              f"{rate}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA "
+              f"backward {backend} {library_ms:.4f} ms, bound {bd[0]:.6f} "
+              f"ms ({bd[1]})")
+    return res
+
+
 def phase_train_kernels(dev):
     """The flash forward with in-kernel dropout and the two backward
     kernels at the training shapes (N = 6*16, T=384, D=64); returns their
@@ -1218,6 +1314,7 @@ def phase_train_kernels(dev):
         print(f"# {name} (training shape, bf16) without dropout: {ms:.4f} "
               f"ms; the dropout draw costs {records[name]['ms'] - ms:.4f} "
               f"ms")
+    fp32_bwd_times(dev, g, TRAIN_BATCH, heads, t, rate)
     return records
 
 
@@ -3310,31 +3407,14 @@ def muavic_kernel_times(dev, g):
     T = 375, D = 64, fp32, a ragged key bias) and B5 at the pre-beam's
     (96, 10000) rows with k = 4, each held against its twin (B5 exactly)
     and timed beside it, the one PyTorch call of the same function (fp32
-    fused SDPA; ``torch.topk``) and its bound. Returns {name: record}."""
-    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    fused SDPA; ``torch.topk``) and its bound (``fp32_flash_record``);
+    the fp32 backward kernels (B6) at the same shape, timed
+    (``fp32_bwd_times``). Returns {name: record}."""
     from avsr_tpu_torch.ops.kernels import topk as ptk
 
-    heads, t, d = 4, FRAMES, 64
-    q, k, v, _, bias = _attention_inputs(g, dev, torch.float32, MUAVIC_B,
-                                         heads, t, d)
-    scale = d ** -0.5
-    got, lse = pfa.flash_attention_fwd(q, k, v, bias, scale)
-    want, want_lse = pfa.flash_attention_plain(q, k, v, bias, scale)
-    err = (got - want).abs().max().item()
-    lse_err = (lse - want_lse).abs().max().item()
-    check(err <= 1e-4 and lse_err <= 1e-4,
-          f"flash_attention_fwd disagrees at N={MUAVIC_B}x{heads}, T={t}, "
-          f"fp32: {err:.3e}, lse {lse_err:.3e}")
-    library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, 0.0)
-    out = {"flash_attention_fwd": dict(
-        shape=f"N={MUAVIC_B}x{heads}, T={t}, D={d}, fp32", max_abs_err=err,
-        ms=cuda_ms(lambda: pfa.flash_attention_fwd(q, k, v, bias, scale)),
-        plain_ms=cuda_ms(lambda: pfa.flash_attention_plain(q, k, v, bias,
-                                                           scale)),
-        library_ms=library_ms, library=backend,
-        bound=bound(nbytes(q, k, v, bias, got, lse),
-                    4 * q.shape[0] * t * t * d, "fp32"))}
-    del q, k, v, bias, got, want
+    out = {"flash_attention_fwd": fp32_flash_record(dev, g, MUAVIC_B, 4,
+                                                    FRAMES)}
+    fp32_bwd_times(dev, g, MUAVIC_B, 4, FRAMES, 0.0)
 
     rows, kk = MUAVIC_B * BEAM, int(1.5 * BEAM)
     x = torch.randn(rows, MUAVIC_VOCAB, generator=g, device=dev)
@@ -4098,6 +4178,10 @@ def main() -> int:
     phase_train_parity(dev, fused_stem=True)
     print("# phase 8: the evaluation entry point at full width")
     eval_runs, eval_checked = phase_eval(dev, smi)
+    # B1 in fp32 where phase 8's default fp32 encode runs it: B=32
+    # utterances x 16 heads at the 384-frame bucket
+    records["flash_attention_fwd_fp32"] = fp32_flash_record(
+        dev, torch.Generator(device=dev).manual_seed(8), EVAL_B, 16, T_PAD)
     print("# phase 9: the training entry point at full width")
     phase_train_cli(dev, smi)
     print("# phase 10: the eval CLI's auto_avsr path at full width")
@@ -4136,6 +4220,9 @@ def main() -> int:
         "beam_update_wide"]
     main_path["decode_attention_wide"] = eval_runs["beam 22"][
         "decode_attention_wide"]
+    # the fp32 forward's: phase 8's last eval_lrs2 pass (fp32 encode)
+    main_path["flash_attention_fwd_fp32"] = eval_runs["eval"][
+        "flash_attention_fwd"]
     # their errors over phase 3's cases and phase 8's checked beams
     for name, entry in eval_checked.items():
         if name in records:

@@ -654,7 +654,18 @@ def test_flash_bf16_kernels_refuse_misaligned_operands(dev):
     array: an operand that starts off a 16-byte boundary (a ``flat[1:]``
     view) is copied to an aligned tensor first, so the forward, dq and
     dkv equal the aligned operands' bit for bit, one launch each."""
-    q, k, v, bias, do = _attn_case(dev, 2, 64, 32, torch.bfloat16, 1)
+    _misaligned_operands_are_copied(dev, torch.bfloat16)
+
+
+def test_flash_fp32_kernels_refuse_misaligned_operands(dev):
+    """The same for fp32 operands: the split-TF32 forward copies 16-byte
+    chunks too, so a ``flat[1:]`` view (4 bytes off) is copied first and
+    every output equals the aligned operands' bit for bit."""
+    _misaligned_operands_are_copied(dev, torch.float32)
+
+
+def _misaligned_operands_are_copied(dev, dtype):
+    q, k, v, bias, do = _attn_case(dev, 2, 64, 32, dtype, 1)
 
     def shifted(x):
         flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
@@ -681,6 +692,72 @@ def test_flash_bf16_kernels_refuse_misaligned_operands(dev):
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
     assert torch.equal(got_dq, want_dq)
     assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("tt,d", [(100, 16), (77, 32), (200, 64), (130, 128)])
+def test_flash_fp32_forward_at_every_head_dim(dev, rate, tt, d):
+    """The split-TF32 forward at every head dim the wrapper takes, T not a
+    multiple of the 64-key tile, ragged keys with a row of one valid key,
+    with and without dropout: out within 1e-4 of its largest entry, lse
+    within 1e-4 of the twin's; that row is its key's value row times
+    the key's keep bit; two launches bit-identical."""
+    q, k, v, bias, _ = _attn_case(dev, 6, tt, d, torch.float32, tt + d)
+    seed = (13, 17) if rate else None
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, d ** -0.5, rate, seed)
+    again = pfa.flash_attention_fwd(q, k, v, bias, d ** -0.5, rate, seed)
+    want, want_lse = pfa.flash_attention_plain(q, k, v, bias, d ** -0.5,
+                                               dropout_rate=rate,
+                                               dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    top = want.abs().max()
+    assert (out - want).abs().max() <= 1e-4 * top
+    assert (lse - want_lse).abs().max() <= 1e-4
+    keep = (pfa.dropout_keep_mask_plain(seed, 6, tt, rate, dev)[3, :, 0]
+            if rate else torch.ones(tt, dtype=torch.bool, device=dev))
+    _, inv_keep = pfa.dropout_threshold(rate) if rate else (0, 1.0)
+    one = v[3, 0] * (keep.float() * inv_keep)[:, None]
+    assert (out[3] - one).abs().max() <= 1e-4 * top
+
+
+def test_flash_fp32_forward_single_key_rows(dev):
+    """Rows whose one valid key lies in the first, a middle or the last,
+    partial tile (T = 130): every earlier tile holds only -1e30 scores,
+    which the first valid key's rescale wipes out, so out is that key's
+    value row and lse its score."""
+    n, tt, d = 4, 130, 64
+    q, k, v, _, _ = _attn_case(dev, n, tt, d, torch.float32, 2)
+    keys = torch.tensor([0, 63, 64, 129], device=dev)
+    bias = torch.full((n, tt), NEG, device=dev)
+    bias[torch.arange(n), keys] = 0.0
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.125)
+    torch.cuda.synchronize()
+    rows = torch.arange(n, device=dev)
+    top = v.abs().max()
+    assert (out - v[rows, keys][:, None]).abs().max() <= 1e-4 * top
+    score = torch.einsum("ntd,nd->nt", q, k[rows, keys]) * 0.125
+    assert (lse - score).abs().max() <= 1e-4 * score.abs().max()
+
+
+def test_flash_fp32_forward_at_the_muavic_shape(dev):
+    """The muavic encoder's self-attention (N = 32 x 4 heads, T = 375, D =
+    64) with a ragged key bias a 4-head utterance: out and lse within
+    1e-4 of the twin's."""
+    b, heads, tt, d = 32, 4, 375, 64
+    g = _gen(375)
+    q, k, v = (torch.randn(b * heads, tt, d, generator=g).to(dev)
+               for _ in range(3))
+    lens = torch.full((b,), tt)
+    lens[::5] = 200
+    lens[1::7] = 1
+    bias = torch.where(torch.arange(tt)[None] < lens[:, None], 0.0, NEG)
+    bias = bias.repeat_interleave(heads, 0).to(dev)
+    out, lse = pfa.flash_attention_fwd(q, k, v, bias, d ** -0.5)
+    want, want_lse = pfa.flash_attention_plain(q, k, v, bias, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (lse - want_lse).abs().max() <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -440,3 +440,25 @@ def close_to_largest(got, want, tol: float, what: str):
     want = np.asarray(want)
     np.testing.assert_allclose(np.asarray(got), want, rtol=0,
                                atol=tol * np.abs(want).max(), err_msg=what)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of finite fp32 values, by integer rounding of
+    their bits: to nearest with ties away from zero, keeping 10 mantissa
+    bits (add 0x1000 to the magnitude's bits, then clear the low 13)."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 values truncated to TF32: the low 13 bits cleared."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) as the fp32 flash kernel splits each operand: hi = x
+    rounded to TF32 (``tf32_rna``), lo = x - hi (exact in fp32)
+    truncated to TF32."""
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
