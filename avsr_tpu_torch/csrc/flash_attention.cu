@@ -50,7 +50,8 @@
 // TF32, and a b ~ hi_a hi_b + hi_a lo_b + lo_a hi_b, three
 // `mma.sync.m16n8k8` tf32 products into one fp32 accumulator (the two
 // small terms first), dropping lo_a lo_b and lo's cut bits (~2^-21 of the
-// product), as CUTLASS's OpMultiplyAddFastF32 does. Three products a step
+// product), as CUTLASS's OpMultiplyAddFastF32 does (mma_tf32.cuh, which
+// the fp32 backward shares). Three products a step
 // at the 495 TFLOP/s TF32 peak bound it at 0.0279 ms (muavic) and 0.1171
 // ms (flagship eval): the bound this kernel is held to. In practice the
 // CUDA cores' work bounds it, not the tensor cores: per 64-key tile a
@@ -90,6 +91,7 @@
 // four scores. As in the TPU kernel, l sums the undropped p.
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -309,67 +311,9 @@ struct F32Layout {
   static constexpr int kMinBlocks = D <= 64 ? kF32MinBlocks : 1;
 };
 
-// x = hi + lo as TF32 values (the low 13 bits zero): hi = x rounded as
-// cvt.rna.tf32.f32 rounds a finite x (to nearest, ties away from zero:
-// half the dropped range added to the magnitude's bits, then cleared),
-// lo = x - hi (exact in fp32) truncated. Integer operations, not the cvt:
-// with the cvt the kernel took 18-24% longer on the H100 (PERF.md). lo
-// truncated, not rounded: one operation fewer (4% of the kernel's time),
-// and a NaN x stays a NaN in lo, where rounding carries an all-ones NaN
-// into the sign bit.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi))) & 0xffffe000u;
-}
-
-// d += a b (m16n8k8, tf32 operands, fp32 accumulators). Fragments (PTX
-// ISA, "Matrix Fragments for mma.m16n8k8", .tf32), g = lane >> 2, c =
-// lane & 3: A a0 = (g, c), a1 = (g+8, c), a2 = (g, c+4), a3 = (g+8, c+4);
-// B b0 = (k = c, n = g), b1 = (k = c+4, n = g); C/D as for m16n8k16.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in split TF32, from a's split fragments and b's fp32 values:
-// lo_a hi_b and hi_a lo_b first, then hi_a hi_b
-__device__ __forceinline__ void mma_split(float (&d)[4],
-                                          const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4], float b0,
-                                          float b1) {
-  uint32_t h0, l0, h1, l1;
-  split_tf32(b0, h0, l0);
-  split_tf32(b1, h1, l1);
-  mma_tf32(d, alo, h0, h1);
-  mma_tf32(d, ahi, l0, l1);
-  mma_tf32(d, ahi, h0, h1);
-}
-
-// the A fragment's four fp32 values, split
-__device__ __forceinline__ void split_a(uint32_t (&hi)[4], uint32_t (&lo)[4],
-                                        float a0, float a1, float a2,
-                                        float a3) {
-  split_tf32(a0, hi[0], lo[0]);
-  split_tf32(a1, hi[1], lo[1]);
-  split_tf32(a2, hi[2], lo[2]);
-  split_tf32(a3, hi[3], lo[3]);
-}
-
-template <int kVec>
-__device__ __forceinline__ void load_vec(float (&x)[kVec], const float* p) {
-  if constexpr (kVec == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-  } else {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    x[0] = f.x, x[1] = f.y;
-  }
-}
+using avsr::tf32::load_vec;
+using avsr::tf32::mma_split;
+using avsr::tf32::split_a;
 
 template <int D, bool kDrop>
 __global__ void __launch_bounds__(kThreadsF32, F32Layout<D>::kMinBlocks)

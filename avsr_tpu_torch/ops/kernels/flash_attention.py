@@ -16,7 +16,8 @@ bf16 before P V, as the TPU kernel and the twin do), fp32 in split TF32
 (each operand split into a TF32 high part and a TF32 remainder, three
 TF32 products a step into fp32 accumulators, ~2^-21 of a product lost),
 since one TF32 product keeps only ~3 decimal digits. The backward kernels
-run bf16 on the tensor cores and fp32 on the CUDA cores.
+do the same: bf16 as bf16, fp32 in split TF32 (``csrc/mma_tf32.cuh``,
+which all three fp32 kernels share).
 
 ``FlashAttentionFn`` is the autograd function over them. Attention-prob
 dropout runs inside the kernels: each keep decision is drawn from
@@ -289,7 +290,17 @@ def flash_attention_bwd_dq(q, k, v, key_bias, out, do, lse,
                            scale: float = 1.0, dropout_rate: float = 0.0,
                            dropout_seed: Optional[Sequence[int]] = None):
     """(dq (N, T, D) in q's dtype, delta (N, T) fp32): the query gradient
-    and delta = rowsum(dO * O), which ``flash_attention_bwd_dkv`` takes."""
+    and delta = rowsum(dO * O), which ``flash_attention_bwd_dkv`` takes.
+
+    On the card: ``flash_bwd_dq_mma`` (bf16) or ``flash_bwd_dq_tf32``
+    (fp32), the counterpart of the TPU kernels ``_resident_bwd_kernel`` and
+    ``_flash_bwd_dq_kernel``. One block of four warps per (head, 64-query
+    tile) recomputes S = Q K^T and dP = dO V^T over streamed key tiles and
+    adds dS K, on the tensor cores; in fp32 each product is three TF32
+    products of the operands' split halves. Bound: its three T x T x D
+    products, at the tensor cores' peak for the type (fp32: three TF32
+    products each, 0.033 ms at N = 96, T = 384, D = 64); the integer and
+    exp work of the splits and the probabilities is what holds it there."""
     _check(q, k, v, key_bias, out, do, lse)
     if q.device.type == "cpu":
         warm_exp()
@@ -324,7 +335,15 @@ def flash_attention_bwd_dkv(q, k, v, key_bias, do, lse, delta,
                             scale: float = 1.0, dropout_rate: float = 0.0,
                             dropout_seed: Optional[Sequence[int]] = None):
     """(dk, dv), each (N, T, D) in the operand dtype, given the row
-    statistics lse and delta of the forward and ``flash_attention_bwd_dq``."""
+    statistics lse and delta of the forward and ``flash_attention_bwd_dq``.
+
+    On the card: ``flash_bwd_dkv_mma`` (bf16) or ``flash_bwd_dkv_tf32``
+    (fp32), the counterpart of ``_resident_bwd_kernel`` and
+    ``_flash_bwd_dkv_kernel``. One block of four warps per (head, 64-key
+    tile) recomputes S^T and dP^T over streamed query tiles (with their
+    lse and delta) and adds P~^T dO and dS^T Q, on the tensor cores; in
+    fp32 in split TF32, as dq. Bound: four T x T x D products (fp32:
+    0.044 ms at N = 96, T = 384, D = 64)."""
     _check(q, k, v, key_bias, do, lse, delta)
     if q.device.type == "cpu":
         warm_exp()

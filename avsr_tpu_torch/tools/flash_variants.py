@@ -21,7 +21,7 @@ shape (N = 32*4, T=375) and the flagship eval's (N = 32*16, T=384), held
 against the twin and timed beside fp32 SDPA with its bounds
 (``chip_smoke.fp32_flash_record``), and the fp32 backward kernels at the
 training shape with dropout 0.1 and the muavic shape without
-(``chip_smoke.fp32_bwd_times``). The registers and spills of each D=64
+(``chip_smoke.fp32_bwd_records``). The registers and spills of each flash
 kernel come from its ``-Xptxas -v`` report. Needs a CUDA device and
 ``nvcc``.
 """
@@ -36,8 +36,8 @@ from pathlib import Path
 
 from avsr_tpu_torch.ops.kernels import _build
 
-SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "runtime.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "mma_tf32.cuh",
+           "runtime.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "flash_variants"
 
@@ -102,9 +102,9 @@ def registers(library: Path) -> list[str]:
             entry = m.group(1)
             continue
         k = entry and re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_"
-                                r"(?:mma|tf32|simt))ILi64ELb(\d)", entry)
+                                r"(?:mma|tf32|simt))ILi(\d+)ELb(\d)", entry)
         if k and ("registers" in line or "spill stores" in line):
-            out.append(f"{k.group(1)} dropout={k.group(2)}: "
+            out.append(f"{k.group(1)} D={k.group(2)} dropout={k.group(3)}: "
                        + line.split(":", 1)[-1].strip())
     return out
 
@@ -164,11 +164,11 @@ def run(name: str) -> None:
               f"ms, SDPA {r['library_ms']:.4f} ms, max_abs_err "
               f"{r['max_abs_err']:.3e}, lse {r['lse_err']:.3e}", flush=True)
     for b, heads, t, rate in ((6, 16, 384, 0.1), (32, 4, 375, 0.0)):
-        for key, (ms, _, lib, _) in cs.fp32_bwd_times(dev, g, b, heads, t,
-                                                       rate).items():
-            print(f"# [{name}] fp32 {key} N={b}x{heads}, T={t}, dropout "
-                  f"{rate}: kernel {ms:.4f} ms, SDPA backward {lib:.4f} ms",
-                  flush=True)
+        for key, r in cs.fp32_bwd_records(dev, g, b, heads, t,
+                                          rate).items():
+            print(f"# [{name}] {key} {r['shape']}: kernel {r['ms']:.4f} ms, "
+                  f"SDPA backward {r['library_ms']:.4f} ms, max_abs_err "
+                  f"{r['max_abs_err']:.3e}", flush=True)
 
 
 def drive(argv: list[str], module: str, sources, prepare_fn, run_fn,

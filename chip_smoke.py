@@ -20,10 +20,13 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    bit for bit against the twin's, two backward calls held bit for bit
    against each other, the bf16 forward's share of outputs bit-equal to
    the twin's printed, and the cost of the dropout draw (each kernel
-   timed without it), and the fp32 backward kernels timed beside fp32
-   SDPA's backward (``fp32_bwd_times``); the flash kernels' library call
-   is PyTorch's fused SDPA as a user calls it (4-D (B, H, T, D), the key
-   bias as a (B, 1, 1, T) mask, ``dropout_p`` at the kernels' rate,
+   timed without it), and the fp32 backward kernels (split TF32) at the
+   training shape with dropout held against the twin and timed beside
+   fp32 SDPA's backward (``fp32_bwd_records``: the records
+   ``flash_attention_bwd_dq_fp32`` and ``_dkv_fp32``); the flash
+   kernels' library call is PyTorch's fused SDPA as a user calls it (4-D
+   (B, H, T, D), the key bias as a (B, 1, 1, T) mask, ``dropout_p`` at the
+   kernels' rate,
    forward and backward), each backend of ``SDPA_BACKENDS`` forced in
    turn with ``sdpa_kernel`` and the fastest kept, its name printed;
    ``decode_attention`` checked at B=8 and B=32 at pos 0, 100, 191 and
@@ -94,7 +97,10 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    the timed steps and read just after (24 a step for each of the three
    flash kernels, no plain twin called), finite loss and gradient norm,
    parameters changed; prints s/step, samples/s, MFU and peak memory;
-   then again with ``AVSR_FUSED_STEM=1`` (each stem kernel once a step);
+   then again with ``AVSR_FUSED_STEM=1`` (each stem kernel once a step),
+   and with ``--fp32`` (fp32 fine-tuning: fp32 compute, the same checks,
+   its flash backward on the split-TF32 kernels; its MFU printed over the
+   bf16 peak, as bench_train computes it);
 7. takes one fp32 ``train_step`` of the same full-width weights on the
    card (kernels) and on the CPU (twins), B=2, T=32 with one utterance
    shorter, dropout off, TF32 off, and compares the losses, the gradient
@@ -164,7 +170,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    card run's launches of B1, B5 and B8 counted, none of the other
    kernels, no twin called; then B1 and B5 timed at this path's shapes
    (N=32x4, T=375, fp32; (96, 10000) k=4) beside their twins, fp32 SDPA
-   and ``torch.topk``, and the fp32 backward kernels at N=32x4 timed.
+   and ``torch.topk``, and the fp32 backward kernels at N=32x4 checked
+   and timed.
 12. runs the offline video frontends (``phase_frontends``) at their
    published widths on seeded random weights, fp32: RetinaFace ResNet-50
    and MobileNet-0.25 and S3FD on 16 frames of 720x1280 (network device
@@ -187,6 +194,8 @@ pre-beam top-k's launch, ``topk_gather_rows``, whose launches count in
 ``topk_lastdim``'s too), the fused run for ``beam_update``, which
 only the fused bookkeeping runs, the fused-layer run for
 ``decoder_layer_step``, phase 6's timed steps for the three flash kernels
+(its fp32 run's for ``flash_attention_bwd_dq_fp32`` and
+``flash_attention_bwd_dkv_fp32``)
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
 beam of 22 for the wide paths (unfused for ``decode_attention_wide`` and
 ``topk_lastdim_wide``, fused for ``beam_update_wide``), whose
@@ -1104,13 +1113,19 @@ def fp32_flash_record(dev, g, b: int, heads: int, t: int, d: int = 64):
     return r
 
 
-def fp32_bwd_times(dev, g, b: int, heads: int, t: int, rate: float,
-                   d: int = 64) -> dict:
-    """B6 in fp32 (the CUDA-core dq and dkv kernels), timed at an
-    encoder's self-attention beside the twin (dQ, dK and dV in one call),
-    fp32 fused SDPA's backward at the same dropout rate and each kernel's
-    bound at the fp32 peak. Printed; returns {name: (ms, twin ms, SDPA
-    ms, bound ms)}."""
+def fp32_bwd_records(dev, g, b: int, heads: int, t: int, rate: float,
+                     d: int = 64) -> dict:
+    """B6 in fp32 (the split-TF32 dq and dkv kernels) at an encoder's
+    self-attention (N = b x heads, T = t, D = d, ``_attention_inputs``'
+    ragged key bias, attention dropout ``rate``): dq, dk and dv held
+    against the twin within 1e-4 of each one's largest entry, then each
+    kernel timed beside the twin (dQ, dK and dV in one call) and fp32
+    fused SDPA's backward at the same dropout rate (all three gradients,
+    the one PyTorch call of the same function). Two bounds, as the fp32
+    forward's: the kernels' own (``bound``: three TF32 products a step at
+    the TF32 peak) and the function's on the CUDA cores
+    (``bound_fp32``). Returns {"flash_attention_bwd_dq_fp32": record,
+    "flash_attention_bwd_dkv_fp32": record}."""
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 
     q, k, v, do, bias = _attention_inputs(g, dev, torch.float32, b, heads,
@@ -1121,32 +1136,52 @@ def fp32_bwd_times(dev, g, b: int, heads: int, t: int, rate: float,
                                            scale, rate, seed)
     dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta,
                                          scale, rate, seed)
+    wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do, lse, scale,
+                                          dropout_rate=rate,
+                                          dropout_seed=seed)
+    shape = f"N={b}x{heads}, T={t}, D={d}, fp32, dropout {rate}"
+    errs = {}
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), wants):
+        errs[name] = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        check(errs[name] <= 1e-4 * top,
+              f"flash backward fp32 {name} disagrees at {shape}: "
+              f"{errs[name]:.3e} (limit 1e-4 x {top:.3f})")
     library_ms, backend = fused_sdpa_ms(q, k, v, bias, heads, scale, rate,
                                         do)
     plain_ms = cuda_ms(lambda: pfa.flash_attention_bwd_plain(
         q, k, v, bias, out, do, lse, scale, dropout_rate=rate,
         dropout_seed=seed))
     flops = 2 * b * heads * t * t * d  # one (T x T x D) product
-    times = {
-        # S and dP recomputed, dS K
-        "flash_attention_bwd_dq": (cuda_ms(
-            lambda: pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse,
-                                               scale, rate, seed)),
-            bound(nbytes(q, k, v, out, do, bias, lse, dq, delta), 3 * flops,
-                  "fp32")),
-        # S and dP recomputed, P~^T dO and dS^T Q
-        "flash_attention_bwd_dkv": (cuda_ms(
-            lambda: pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse,
-                                                delta, scale, rate, seed)),
-            bound(nbytes(q, k, v, do, bias, lse, delta, dk, dv), 4 * flops,
-                  "fp32"))}
+    common = dict(source="avsr_tpu_torch/csrc/flash_attention_bwd.cu",
+                  replaces="avsr_tpu/ops/pallas/flash_attention.py:335",
+                  shape=shape, plain_ms=plain_ms, library_ms=library_ms,
+                  library=backend)
+    # dq: S and dP recomputed, dS K; q, k, v, O, dO, bias, lse read, dq
+    # and delta written. dkv: S and dP recomputed, P~^T dO and dS^T Q;
+    # q, k, v, dO, bias, lse, delta read, dk and dv written
+    io = {"dq": nbytes(q, k, v, out, do, bias, lse, dq, delta),
+          "dkv": nbytes(q, k, v, do, bias, lse, delta, dk, dv)}
+    products = {"dq": 3, "dkv": 4}
+    calls = {"dq": lambda: pfa.flash_attention_bwd_dq(
+                 q, k, v, bias, out, do, lse, scale, rate, seed),
+             "dkv": lambda: pfa.flash_attention_bwd_dkv(
+                 q, k, v, bias, do, lse, delta, scale, rate, seed)}
     res = {}
-    for name, (ms, bd) in times.items():
-        res[name] = (ms, plain_ms, library_ms, bd[0])
-        print(f"# {name} fp32 at N={b}x{heads}, T={t}, D={d}, dropout "
-              f"{rate}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, SDPA "
-              f"backward {backend} {library_ms:.4f} ms, bound {bd[0]:.6f} "
-              f"ms ({bd[1]})")
+    for key in ("dq", "dkv"):
+        r = dict(common,
+                 max_abs_err=(errs["dq"] if key == "dq"
+                              else max(errs["dk"], errs["dv"])),
+                 ms=cuda_ms(calls[key]),
+                 bound=bound(io[key], 3 * products[key] * flops, "tf32"),
+                 bound_fp32=bound(io[key], products[key] * flops, "fp32"))
+        name = f"flash_attention_bwd_{key}"
+        res[f"{name}_fp32"] = r
+        print(f"# {name} fp32 at {shape}: kernel {r['ms']:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, SDPA backward {backend} "
+              f"{library_ms:.4f} ms; bound split-TF32 {r['bound'][0]:.6f} "
+              f"ms ({r['bound'][1]}), CUDA cores {r['bound_fp32'][0]:.6f} "
+              f"ms; max_abs_err {r['max_abs_err']:.3e}")
     return res
 
 
@@ -1314,7 +1349,8 @@ def phase_train_kernels(dev):
         print(f"# {name} (training shape, bf16) without dropout: {ms:.4f} "
               f"ms; the dropout draw costs {records[name]['ms'] - ms:.4f} "
               f"ms")
-    fp32_bwd_times(dev, g, TRAIN_BATCH, heads, t, rate)
+    # B6 in fp32, where fp32 fine-tuning runs it: the same shape, dropout
+    records.update(fp32_bwd_records(dev, g, TRAIN_BATCH, heads, t, rate))
     return records
 
 
@@ -2064,16 +2100,20 @@ def watched_params(model) -> dict:
                            "output_layer.weight"))}
 
 
-def phase_training(dev, smi: str, fused_stem: bool = False):
-    """Full-width bf16 training through bench_train at its defaults:
-    its 2 warm-up steps, then 5 timed ones between which it sets the
-    kernels' counts to 0 and reads them: 24 a step for each flash kernel,
-    and with ``fused_stem`` (AVSR_FUSED_STEM=1) one a step for each of the
-    four stem-tail kernels, none without. Returns the timed run's launches
-    of each kernel and its record."""
+def phase_training(dev, smi: str, fused_stem: bool = False,
+                   fp32: bool = False):
+    """Full-width training through bench_train at its defaults (bf16
+    compute over fp32 masters; with ``fp32`` fp32 compute, fp32
+    fine-tuning, whose flash backward runs the split-TF32 kernels): its 2
+    warm-up steps, then 5 timed ones between which it sets the kernels'
+    counts to 0 and reads them: 24 a step for each flash kernel, and with
+    ``fused_stem`` (AVSR_FUSED_STEM=1) one a step for each of the four
+    stem-tail kernels, none without. Returns the timed run's launches of
+    each kernel and its record."""
     from avsr_tpu_torch.tools import bench_train
 
-    args = bench_train.parse_args(["--steps", "5"])
+    args = bench_train.parse_args(["--steps", "5"]
+                                  + (["--fp32"] if fp32 else []))
     if fused_stem:
         os.environ["AVSR_FUSED_STEM"] = "1"
     state, batch = bench_train.setup(args)
@@ -2085,14 +2125,17 @@ def phase_training(dev, smi: str, fused_stem: bool = False):
     finally:
         os.environ.pop("AVSR_FUSED_STEM", None)
     per_step = res["launches_per_step"]
-    what = " (AVSR_FUSED_STEM=1)" if fused_stem else ""
+    what = (" (AVSR_FUSED_STEM=1)" if fused_stem else "") + (
+        " (fp32 compute)" if fp32 else "")
     print(f"# {smi}: train step{what} {res['sec_per_step'] * 1e3:.1f} ms -> "
           f"{res['samples_per_sec']:.2f} samples/s, {res['step_tflops']:.2f} "
-          f"TFLOP a step, MFU {res['mfu']:.4f}, peak memory "
-          f"{res['peak_mem_gb']:.2f} GB; loss {res['loss']:.4f}, grad_norm "
-          f"{res['grad_norm']:.4f}; launches a step {per_step}; twin calls "
-          f"{calls}")
+          f"TFLOP a step, MFU {res['mfu']:.4f} (over the bf16 peak), peak "
+          f"memory {res['peak_mem_gb']:.2f} GB; loss {res['loss']:.4f}, "
+          f"grad_norm {res['grad_norm']:.4f}; launches a step {per_step}; "
+          f"twin calls {calls}")
     print("# bench_train " + json.dumps(res))
+    check(res["compute_dtype"] == ("float32" if fp32 else "bfloat16"),
+          f"trained in {res['compute_dtype']}")
     check(np.isfinite(res["loss"]) and np.isfinite(res["grad_norm"]),
           "training loss or gradient norm not finite")
     for name, before in watched.items():
@@ -3408,13 +3451,13 @@ def muavic_kernel_times(dev, g):
     (96, 10000) rows with k = 4, each held against its twin (B5 exactly)
     and timed beside it, the one PyTorch call of the same function (fp32
     fused SDPA; ``torch.topk``) and its bound (``fp32_flash_record``);
-    the fp32 backward kernels (B6) at the same shape, timed
-    (``fp32_bwd_times``). Returns {name: record}."""
+    the fp32 backward kernels (B6) at the same shape, checked and timed
+    (``fp32_bwd_records``, printed). Returns {name: record}."""
     from avsr_tpu_torch.ops.kernels import topk as ptk
 
     out = {"flash_attention_fwd": fp32_flash_record(dev, g, MUAVIC_B, 4,
                                                     FRAMES)}
-    fp32_bwd_times(dev, g, MUAVIC_B, 4, FRAMES, 0.0)
+    fp32_bwd_records(dev, g, MUAVIC_B, 4, FRAMES, 0.0)
 
     rows, kk = MUAVIC_B * BEAM, int(1.5 * BEAM)
     x = torch.randn(rows, MUAVIC_VOCAB, generator=g, device=dev)
@@ -4165,13 +4208,21 @@ def main() -> int:
     runs = phase_serving(dev, smi)
     print("# phase 5: full-width slice parity, cuda vs cpu")
     phase_parity(dev)
-    print("# phase 6: full-width training, bf16, B=6, 384 frames")
+    print("# phase 6: full-width training, bf16 and fp32, B=6, 384 frames")
     train_launches, plain_res = phase_training(dev, smi)
     stem_launches, stem_res = phase_training(dev, smi, fused_stem=True)
     print(f"# {smi}: training with AVSR_FUSED_STEM=1 vs without: "
           f"{stem_res['sec_per_step'] * 1e3:.1f} vs "
           f"{plain_res['sec_per_step'] * 1e3:.1f} ms a step, peak memory "
           f"{stem_res['peak_mem_gb']:.2f} vs {plain_res['peak_mem_gb']:.2f} "
+          f"GB")
+    fp32_launches, fp32_res = phase_training(dev, smi, fp32=True)
+    print(f"# {smi}: fp32 fine-tuning vs bf16 training: "
+          f"{fp32_res['sec_per_step'] * 1e3:.1f} vs "
+          f"{plain_res['sec_per_step'] * 1e3:.1f} ms a step, "
+          f"{fp32_res['samples_per_sec']:.2f} vs "
+          f"{plain_res['samples_per_sec']:.2f} samples/s, peak memory "
+          f"{fp32_res['peak_mem_gb']:.2f} vs {plain_res['peak_mem_gb']:.2f} "
           f"GB")
     print("# phase 7: full-width train-step parity, cuda vs cpu")
     phase_train_parity(dev)
@@ -4212,6 +4263,9 @@ def main() -> int:
     main_path["decoder_layer_step"] = runs[
         "beam ctc_weight=0.1, fused layer and stem"]["decoder_layer_step"]
     main_path.update(train_launches)
+    # the fp32 backward's: phase 6's fp32 run
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        main_path[f"{name}_fp32"] = fp32_launches[name]
     main_path.update({k: v for k, v in stem_launches.items()
                       if k.startswith("bn_prelu_pool")})
     # C28's kernels: phase 8's beam of 22, unfused (top-k) and fused

@@ -579,7 +579,8 @@ def _attn_case(dev, n, tt, d, dtype, seed):
     g = _gen(seed)
     q, k, v, do = (torch.randn(n, tt, d, generator=g).to(dtype)
                    for _ in range(4))
-    lens = torch.tensor([tt, tt - 9, tt // 2, 1, tt, 7])[:n].clamp_min(1)
+    lens = torch.tensor([tt, tt - 9, tt // 2, 1, tt, 7]).repeat(
+        (n + 5) // 6)[:n].clamp_min(1)
     bias = torch.where(torch.arange(tt)[None] < lens[:, None], 0.0, NEG)
     return [x.to(dev) for x in (q, k, v, bias, do)]
 
@@ -617,12 +618,13 @@ def test_flash_bwd_kernels_match_plain(dev, dtype, tol, tt, d, rate):
         assert (got.float() - want.float()).abs().max() <= tol * scale
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_flash_bwd_kernels_are_deterministic(dev, rate):
-    """Two bf16 backward calls on the same inputs and seed give the same
-    bits: every dQ, dK, dV element is written by one block, with no
-    atomics."""
-    q, k, v, bias, do = _attn_case(dev, 6, 384, 64, torch.bfloat16, 5)
+def test_flash_bwd_kernels_are_deterministic(dev, rate, dtype):
+    """Two backward calls (bf16, and fp32 in split TF32) on the same
+    inputs and seed give the same bits: every dQ, dK, dV element is
+    written by one block, with no atomics."""
+    q, k, v, bias, do = _attn_case(dev, 6, 384, 64, dtype, 5)
     seed = (7, 8) if rate else None
     out, lse = pfa.flash_attention_fwd(q, k, v, bias, 0.125, rate, seed)
     first = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse, 0.125, rate,
@@ -658,9 +660,9 @@ def test_flash_bf16_kernels_refuse_misaligned_operands(dev):
 
 
 def test_flash_fp32_kernels_refuse_misaligned_operands(dev):
-    """The same for fp32 operands: the split-TF32 forward copies 16-byte
-    chunks too, so a ``flat[1:]`` view (4 bytes off) is copied first and
-    every output equals the aligned operands' bit for bit."""
+    """The same for fp32 operands: the split-TF32 forward, dq and dkv copy
+    16-byte chunks too, so a ``flat[1:]`` view (4 bytes off) is copied
+    first and every output equals the aligned operands' bit for bit."""
     _misaligned_operands_are_copied(dev, torch.float32)
 
 
@@ -692,6 +694,40 @@ def _misaligned_operands_are_copied(dev, dtype):
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
     assert torch.equal(got_dq, want_dq)
     assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,tt,d", [(6, 100, 16), (6, 77, 32), (6, 200, 64),
+                                    (6, 130, 128), (128, 375, 64)])
+def test_flash_fp32_backward_at_every_head_dim(dev, rate, n, tt, d):
+    """The split-TF32 dq and dkv at every head dim the wrapper takes, T
+    not a multiple of any tile, ragged keys with a head of one valid key,
+    and at the muavic encoder's shape (N = 32x4, T = 375), with and
+    without dropout: dq, dk and dv within 1e-4 of the twin's largest
+    entry, delta within 1e-5 of its largest; the dk and dv rows of keys
+    past a head's length exactly zero; two calls bit-identical."""
+    q, k, v, bias, do = _attn_case(dev, n, tt, d, torch.float32, tt + d)
+    seed = (19, 23) if rate else None
+    sc = d ** -0.5
+    out, lse = pfa.flash_attention_plain(q, k, v, bias, sc,
+                                         dropout_rate=rate, dropout_seed=seed)
+    dq, delta = pfa.flash_attention_bwd_dq(q, k, v, bias, out, do, lse, sc,
+                                           rate, seed)
+    dk, dv = pfa.flash_attention_bwd_dkv(q, k, v, bias, do, lse, delta, sc,
+                                         rate, seed)
+    again = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse, sc, rate,
+                                    seed)
+    wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do, lse, sc,
+                                          dropout_rate=rate,
+                                          dropout_seed=seed)
+    want_delta = pfa.attention_delta_plain(out, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    assert (delta - want_delta).abs().max() <= 1e-5 * want_delta.abs().max()
+    for got, want in zip((dq, dk, dv), wants):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    masked = bias < 0
+    assert (dk[masked] == 0).all() and (dv[masked] == 0).all()
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

@@ -1,4 +1,4 @@
-"""The fp32 flash forward's split-TF32 arithmetic, emulated on the CPU.
+"""The fp32 flash kernels' split-TF32 arithmetic, emulated on the CPU.
 
 ``csrc/flash_attention.cu`` ``flash_fwd_tf32`` forms every product on the
 tensor cores in split TF32: each operand x = hi + lo with hi = x rounded
@@ -10,6 +10,15 @@ runs only on the card (tests/test_torch_port_cuda.py, chip_smoke.py);
 here the same arithmetic, in torch on the CPU, is held against the JAX
 ``flash_attention`` (Pallas, interpret mode) and the port's fp32 twin
 within 1e-5 of the largest output, a tenth of the card's 1e-4.
+
+``csrc/flash_attention_bwd.cu`` ``flash_bwd_dq_tf32`` and
+``flash_bwd_dkv_tf32`` form the backward's products the same way: dq over
+32-key tiles (16 at D = 128) recomputes S = Q K^T and dP = dO V^T, forms
+dS = P o (dP o M - delta) with the exact exp and adds dS K; dkv over
+32-query tiles (16 at D = 128) recomputes S^T = K Q^T and dP^T = V dO^T
+and adds P~^T dO and dS^T Q. Their emulation is held against ``jax.vjp``
+of the JAX kernel and the twin within 1e-5 of each gradient's largest
+entry.
 """
 
 import re
@@ -34,8 +43,18 @@ TILE = 64  # the kernel's keys a streamed tile at D <= 64 (kKeysF32)
 def tile(d: int) -> int:
     """Keys a tile at head dim d (``F32Layout::kKeys``)."""
     return TILE if d <= 64 else TILE // 2
-SOURCE = Path(pfa.__file__).resolve().parents[2] / "csrc" / \
-    "flash_attention.cu"
+CSRC = Path(pfa.__file__).resolve().parents[2] / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+HELPERS = CSRC / "mma_tf32.cuh"  # the split-TF32 helpers of all three
+DQ_TILE = 32  # keys a dq tile at D <= 64 (kDqKeysF32)
+DKV_TILE = 32  # queries a dkv tile at D <= 64 (kDkvQueriesF32)
+
+
+def bwd_tiles(d: int) -> tuple[int, int]:
+    """(keys a dq tile, queries a dkv tile) at head dim d
+    (``BwdF32::kDqCols``, ``kDkvCols``)."""
+    return (DQ_TILE, DKV_TILE) if d <= 64 else (DQ_TILE // 2, DKV_TILE // 2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,6 +93,41 @@ def split_tf32_attention(q, k, v, bias, scale, mask=None):
         o = o * alpha[..., None] + split_mm(p, v[:, sl])
     l = l.clamp_min(1e-30)
     return o * (1.0 / l)[..., None], m + torch.log(l)
+
+
+def split_tf32_backward(q, k, v, bias, out, do, lse, scale, mask=None):
+    """(dq, dk, dv, delta) with the backward kernels' arithmetic, given
+    the forward's out and lse: delta = rowsum(dO o O); dq over key tiles
+    (S = Q K^T and dP = dO V^T in split TF32, P = exp(S scale + bias -
+    lse), dS = P o (dP o M - delta), dQ += dS K in split TF32), times
+    scale; dk and dv over query tiles (S^T = K Q^T and dP^T = V dO^T,
+    dV += P~^T dO and dK += dS^T Q, each in split TF32), dk times scale."""
+    n, tt, d = q.shape
+    dq_cols, dkv_cols = bwd_tiles(d)
+    delta = (do * out).sum(-1)
+    dq = torch.zeros(n, tt, d)
+    for k0 in range(0, tt, dq_cols):
+        sl = slice(k0, min(k0 + dq_cols, tt))
+        s = split_mm(q, k[:, sl].transpose(1, 2))
+        p = torch.exp(s * scale + bias[:, None, sl] - lse[..., None])
+        dp = split_mm(do, v[:, sl].transpose(1, 2))
+        if mask is not None:
+            dp = dp * mask[:, :, sl]
+        dq = dq + split_mm(p * (dp - delta[..., None]), k[:, sl])
+    dk = torch.zeros(n, tt, d)
+    dv = torch.zeros(n, tt, d)
+    for q0 in range(0, tt, dkv_cols):
+        sl = slice(q0, min(q0 + dkv_cols, tt))
+        st = split_mm(k, q[:, sl].transpose(1, 2))  # (keys, queries)
+        p = torch.exp(st * scale + bias[..., None] - lse[:, None, sl])
+        dpt = split_mm(v, do[:, sl].transpose(1, 2))
+        pm = p
+        if mask is not None:
+            m = mask[:, sl].transpose(1, 2)
+            pm, dpt = p * m, dpt * m
+        dv = dv + split_mm(pm, do[:, sl])
+        dk = dk + split_mm(p * (dpt - delta[:, None, sl]), q[:, sl])
+    return dq * scale, dk * scale, dv, delta
 
 
 def _case(d: int, with_mask: bool):
@@ -191,15 +245,126 @@ def test_fp32_forward_source_is_the_emulated_design():
     them) and multiplies with m16n8k8 tf32 mma.sync, the two small
     products before hi hi."""
     src = SOURCE.read_text()
+    helpers = HELPERS.read_text()
     assert "flash_fwd_simt" not in src
+    assert '#include "mma_tf32.cuh"' in src
     assert re.search(rf"constexpr int kKeysF32 = {TILE};", src)
     assert "kKeys = D <= 64 ? kKeysF32 : kKeysF32 / 2;" in src
-    split = re.search(r"void split_tf32\(.*?\n}\n", src, re.S).group(0)
+    split = re.search(r"void split_tf32\(.*?\n}\n", helpers, re.S).group(0)
     assert "hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in split
     assert re.search(r"lo = __float_as_uint\(__fsub_rn\(x, __uint_as_float"
                      r"\(hi\)\)\) & 0xffffe000u;", split)
-    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
-    body = re.search(r"void mma_split\(.*?\n}\n", src, re.S).group(0)
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in helpers
+    body = re.search(r"void mma_split\(.*?\n}\n", helpers, re.S).group(0)
     order = re.findall(r"mma_tf32\(d, (\w+), (\w+), (\w+)\)", body)
     assert order == [("alo", "h0", "h1"), ("ahi", "l0", "l1"),
                      ("ahi", "h0", "h1")]
+
+
+def _jax_vjp(q, k, v, bias, mask, w, scale):
+    """out and (dq, dk, dv) of the JAX ``flash_attention`` (interpret
+    mode) for the cotangent w."""
+    from avsr_tpu.ops.pallas.flash_attention import flash_attention
+
+    def f(q, k, v):
+        return flash_attention(
+            q, k, v, jnp.asarray(bias), scale=scale, interpret=True,
+            dropout_mask=None if mask is None else jnp.asarray(mask))
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(w))]
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_split_tf32_backward_matches_jax_and_twin(d, with_mask):
+    """The backward kernels' emulated arithmetic at N=4, T=375 (not a
+    multiple of any tile) with ragged keys and a row of one key, with and
+    without an explicit pre-scaled dropout mask, fed the emulated
+    forward's out and lse as the card feeds them: dq, dk and dv against
+    ``jax.vjp`` of the JAX ``flash_attention`` (interpret mode) and
+    against ``flash_attention_bwd_plain`` on the same out and lse, each
+    within 1e-5 of the gradient's largest entry; delta against the
+    twin's. On the head of one valid key P is 1, so dS = dP o M - delta
+    and the exact dq and dk are 0: every fp32 evaluation returns the
+    rounding of that difference there (the JAX kernel's up to 1.5e-5 of
+    the largest entry, the twin's 1.2e-5), so that head's dq and dk are
+    held to zero within 2e-5 of the largest entry instead."""
+    q, k, v, bias, mask = _case(d, with_mask)
+    w = np.random.RandomState(d + 1).randn(*q.shape).astype(np.float32)
+    scale = d ** -0.5
+    tm = None if mask is None else t(mask)
+    out, lse = split_tf32_attention(t(q), t(k), t(v), t(bias), scale, tm)
+    got = split_tf32_backward(t(q), t(k), t(v), t(bias), out, t(w), lse,
+                              scale, tm)
+    _, want_jax = _jax_vjp(q, k, v, bias, mask, w, scale)
+    twin = pfa.flash_attention_bwd_plain(t(q), t(k), t(v), t(bias), out,
+                                         t(w), lse, scale, dropout_mask=tm)
+    for name, g, wj, wt in zip(("dq", "dk", "dv"), got, want_jax, twin):
+        top = np.abs(wj).max()
+        heads = slice(None) if name == "dv" else slice(0, 3)
+        np.testing.assert_allclose(g[heads].numpy(), wj[heads], rtol=0,
+                                   atol=1e-5 * top, err_msg=f"{name} vs JAX")
+        np.testing.assert_allclose(g[heads].numpy(), wt[heads].numpy(),
+                                   rtol=0, atol=1e-5 * top,
+                                   err_msg=f"{name} vs twin")
+        if name != "dv":
+            assert g[3].abs().max() <= 2e-5 * top, name
+    np.testing.assert_allclose(got[3].numpy(),
+                               pfa.attention_delta_plain(out, t(w)).numpy(),
+                               rtol=0, atol=1e-6 * got[3].abs().max().item())
+
+
+def test_one_tf32_product_would_miss_the_backward_limit(monkeypatch):
+    """As for the forward: with one TF32 product a step the emulated
+    backward lies past the card's 1e-4 of the largest gradient from the
+    twin, so the limits tell the split from plain TF32."""
+    q, k, v, bias, _ = _case(64, False)
+    w = np.random.RandomState(65).randn(*q.shape).astype(np.float32)
+    out, lse = pfa.flash_attention_plain(t(q), t(k), t(v), t(bias), 0.125)
+    monkeypatch.setattr(sys.modules[__name__], "split_mm",
+                        lambda a, b: tf32_rna(a) @ tf32_rna(b))
+    got = split_tf32_backward(t(q), t(k), t(v), t(bias), out, t(w), lse,
+                              0.125)
+    twin = pfa.flash_attention_bwd_plain(t(q), t(k), t(v), t(bias), out,
+                                         t(w), lse, 0.125)
+    assert any((g - wt).abs().max() > 1e-4 * wt.abs().max()
+               for g, wt in zip(got, twin))
+
+
+def test_fp32_backward_source_is_the_emulated_design():
+    """The kernels the backward emulation stands for: the CUDA-core
+    kernels and their launcher are gone; fp32 dq and dkv split as the
+    forward does (``split_tf32`` and ``split_a`` of mma_tf32.cuh) and
+    multiply with ``mma_split_rows``, which sums each accumulator's three
+    TF32 products in ``mma_split``'s order (the two small products before
+    hi hi), over the emulated tiles (32 keys, 32 queries; half at D =
+    128), with the exact expf; the only fp32 launch is ``launch_tf32``."""
+    src = BWD_SOURCE.read_text()
+    helpers = HELPERS.read_text()
+    assert "_simt" not in src and "launch_simt" not in src
+    assert '#include "mma_tf32.cuh"' in src
+    for name in ("split_tf32", "split_a", "mma_split_rows"):
+        assert f"using avsr::tf32::{name};" in src
+    assert "mma.sync" not in src.split("fp32, tensor cores")[1]
+    rows = re.search(r"void mma_split_rows\(.*?\n}\n", helpers,
+                     re.S).group(0)
+    order = re.findall(r"mma_tf32\(d\[i\], (\w+), (\w+)\[i\]\[0\], "
+                       r"(\w+)\[i\]\[1\]\)", rows)
+    assert order == [("alo", "bhi", "bhi"), ("ahi", "blo", "blo"),
+                     ("ahi", "bhi", "bhi")]
+    assert re.search(rf"constexpr int kDqKeysF32 = {DQ_TILE};", src)
+    assert re.search(rf"constexpr int kDkvQueriesF32 = {DKV_TILE};", src)
+    assert "kDqCols = D <= 64 ? kDqKeysF32 : kDqKeysF32 / 2;" in src
+    assert re.search(r"kDkvCols =\s+D <= 64 \? kDkvQueriesF32 : "
+                     r"kDkvQueriesF32 / 2;", src)
+    for kernel in ("flash_bwd_dq_tf32", "flash_bwd_dkv_tf32"):
+        body = re.search(rf"\s{kernel}\(.*?\n}}\n", src, re.S).group(0)
+        assert "mma_abt_f32" in body and "mma_xb_f32" in body
+        assert "prob_f32" in body
+    prob = re.search(r"float prob_f32\(.*?\n}\n", src, re.S).group(0)
+    assert "expf(" in prob and "exp2_approx" not in prob
+    for helper in ("mma_abt_f32", "mma_xb_f32"):
+        body = re.search(rf"void {helper}\(.*?\n}}\n", src, re.S).group(0)
+        assert "mma_split_rows<" in body and "split_tf32(" in body
+    assert "launch_tf32<kDkv, D, true>" in src
