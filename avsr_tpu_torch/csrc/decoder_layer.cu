@@ -49,13 +49,15 @@
 // its slice for every lane in shared memory (16-byte cp.async, each block
 // starting at its own offset, since all of them read the same rows), in
 // stages of up to max_ks columns; its 8 warps split each stage's 32-column
-// chunks. bf16 weights run on the tensor cores: mma.sync m16n8k16 with 16
-// lanes of the operand as the A operand and 8 weight rows as the B
-// operand, the weights loaded straight from global memory 16 bytes a lane
-// (a lane's 8 consecutive k feed two products, the same k permutation on
-// both operands) and issued before the block waits for its operand stage;
-// fp32 weights run on the CUDA cores (no TF32). The warps' sums are added
-// in a fixed order. With S > 1 each item writes its partial and the last
+// chunks. The weights run on the tensor cores: 16 lanes of the operand as
+// the A operand and 8 weight rows as the B operand, the weights loaded
+// straight from global memory 16 bytes a lane and issued before the block
+// waits for its operand stage, the same k permutation on both operands;
+// bf16 on mma.sync m16n8k16 (a lane's 8 consecutive k feed two products),
+// fp32 in split TF32 on mma.sync m16n8k8 (mma_tf32.cuh: x = hi + lo,
+// three tf32 products, ~2^-21 of a product dropped; a lane's 8
+// consecutive k feed four products), not as one TF32 product, which keeps
+// ~3 decimal digits. The warps' sums are added in a fixed order. With S > 1 each item writes its partial and the last
 // block of a row group to arrive (a counter) sums the slices in slice order
 // and applies the epilogue: deterministic, no atomics on values. The
 // LayerNorms are computed once per row and column unit by the grid's warps
@@ -65,9 +67,11 @@
 //
 // The attention phases take one (utterance, head) a block: its keys and
 // values staged in shared memory with cp.async, all issued at once where
-// they fit; with a bf16 cache and 64-wide heads q.k and P.V on the tensor
-// cores (the queries as up to four 8-wide operands: kMaxLanes = 32 lanes
-// an utterance), else on the CUDA cores. Where the scores of every lane's
+// they fit; with 64-wide heads q.k and P.V on the tensor cores (the keys
+// and the values as the A operand, the queries and P as up to four 8-wide
+// B operands: kMaxLanes = 32 lanes an utterance), bf16 caches on
+// m16n8k16, fp32 caches in split TF32 on m16n8k8; else on the CUDA
+// cores. Where the scores of every lane's
 // rows do not fit a block's shared memory (beams above 16 over a full
 // 192-row cache), the attention takes two passes over tiles of its rows:
 // the statistics first, then the same scores again, p and P.V.
@@ -87,6 +91,7 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -101,6 +106,10 @@ constexpr int kMaxN = 96;          // lanes of one pass over an item
 constexpr int kMTiles = kMaxN / 16;
 constexpr int kMaxKsBytes = 2048;  // a bf16 operand stage's bytes a lane
 constexpr int kBatch = 2;          // chunks of weights loaded at once a warp
+// the same for fp32 weights: the same 16-byte loads in flight a lane (one
+// 32-column chunk is two a row tile); two chunks spilled registers and
+// took 10% longer on the H100 (PERF.md)
+constexpr int kBatchF32 = 1;
 constexpr int kMaxLanes = 32;      // beam lanes K of one utterance
 constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
 constexpr int kStageBytes = 163840;  // an attention stage's keys and values
@@ -166,16 +175,17 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // a shared-memory operand row's elements for a stage of `cols` columns:
 // bf16 rows 64 bytes past a multiple of 128 (the 8 rows of a 16-byte load
-// phase hit distinct banks); fp32 rows a 16-byte pad
+// phase hit distinct banks); fp32 rows a 16-byte pad (rows g, g + 1 of a
+// phase 4 banks apart, each lane's 16 bytes 8 floats from the next's)
 template <typename TW>
 __host__ __device__ constexpr int act_ld(int cols) {
   return sizeof(TW) == 2 ? cdiv(cols, 64) * 64 + 32 : cols + 4;
 }
 
-// the most K columns of an operand stage: kMaxKsBytes of bf16 a lane, or a
-// quarter of that in fp32 (whose warps' sums do not alias the operand)
+// the most K columns of an operand stage: kMaxKsBytes a lane (the warps'
+// sums alias the stage)
 __host__ __device__ constexpr int max_ks(int wsize) {
-  return wsize == 2 ? kMaxKsBytes / 2 : kMaxKsBytes / 8;
+  return kMaxKsBytes / wsize;
 }
 
 // the 16 bytes at p, read once (not kept in L1)
@@ -349,6 +359,32 @@ __device__ __forceinline__ void warp_chunks(int cols, int* c0, int* c1) {
   *c1 = min(*c0 + per, chunks);
 }
 
+// A warp's mma accumulators (lanes mt * 16 + .. x rows nt * 8 + .., the C
+// fragment of m16n8k16 and m16n8k8) into wres[warp][lane][row], once
+// every warp has read the operand stage that wres aliases
+__device__ __forceinline__ void warp_sums(
+    const float (&acc)[kMTiles][kMaxRowTiles][4], int mt_n, int rt, int nn,
+    int nn16, float* wres) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int rows = rt * 8;
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+    if (mt >= mt_n) break;
+#pragma unroll
+    for (int nt = 0; nt < kMaxRowTiles; ++nt) {
+      if (nt >= rt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int nl = mt * 16 + gq + (e >> 1) * 8;
+        const int r = nt * 8 + 2 * t + (e & 1);
+        if (nl < nn) wres[(warp * nn16 + nl) * rows + r] = acc[mt][nt][e];
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // One item's products over the operand stages of [k0, k1), bf16 on the
 // tensor cores: the warp's sums over its chunks of every stage, lanes
 // n0..n0+nn-1 x rows o0..o0+rt*8-1, land in wres[warp][lane][row] (which
@@ -359,7 +395,7 @@ __device__ void item_products(const bf16* __restrict__ w, int out, int in,
                               int o0, int rt, int k0, int k1, int nn,
                               bf16* act, float* wres, int nn16,
                               Stage stage) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int lane = threadIdx.x % 32;
   const int gq = lane >> 2, t = lane & 3;
   const int mt_n = nn16 / 16;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -424,36 +460,44 @@ __device__ void item_products(const bf16* __restrict__ w, int out, int in,
     }
     __syncthreads();  // every warp has read the stage
   }
-  const int rows = rt * 8;
-#pragma unroll
-  for (int mt = 0; mt < kMTiles; ++mt) {
-    if (mt >= mt_n) break;
-#pragma unroll
-    for (int nt = 0; nt < kMaxRowTiles; ++nt) {
-      if (nt >= rt) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int nl = mt * 16 + gq + (e >> 1) * 8;
-        const int r = nt * 8 + 2 * t + (e & 1);
-        if (nl < nn) wres[(warp * nn16 + nl) * rows + r] = acc[mt][nt][e];
-      }
-    }
-  }
-  __syncthreads();
+  warp_sums(acc, mt_n, rt, nn, nn16, wres);
 }
 
-// The same on the CUDA cores for fp32 weights: a lane a column of each
-// 32-column chunk, up to 32 lanes' sums in registers, one warp sum each,
-// added into wres (after act, zeroed here).
+// The same for fp32 weights, on the tensor cores in split TF32
+// (mma_tf32.cuh): mma.sync m16n8k8 tf32, 16 lanes of the operand as the A
+// operand and 8 weight rows as the B operand, each value x = hi + lo and
+// three products (lo_a hi_b, hi_a lo_b, hi_a hi_b) into the fp32
+// accumulators. The k permutation: lane (g, t) holds physical k
+// 8t..8t+7 of a 32-column chunk, of its weight row g (two 16-byte loads
+// straight from global memory, issued before the block waits for its
+// operand stage) and of its operand rows g and g + 8 (two 16-byte shared
+// loads a row); the chunk's four k8 products p = 2h + j take physical k
+// 8t + 4h + 2j as logical k = t and 8t + 4h + 2j + 1 as k = t + 4, on both
+// operands, so every column enters one product once and no value is
+// shuffled. A weight value is split once and serves every m-tile; an
+// operand value once and serves every row tile (mma_split_rows, the three
+// terms each issued across the row tiles). Stage rows of w32 + 4 floats:
+// the 8 lanes of a 16-byte load phase read rows g, g + 1 at k 8t (+4),
+// banks 4g + 8t.. (mod 32), all distinct. Not inlined into its six GEMV
+// phases: inlined, nvcc took 1.7x as long on this file, the build's
+// longest step, for a kernel 3.5% faster (PERF.md).
 template <typename Stage>
-__device__ void item_products(const float* __restrict__ w, int out, int in,
+__device__ __noinline__ void item_products(const float* __restrict__ w,
+                                           int out, int in,
                               int o0, int rt, int k0, int k1, int nn,
                               float* act, float* wres, int nn16,
                               Stage stage) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rows = rt * 8;
-  for (int e = threadIdx.x; e < kWarps * nn16 * rows; e += kThreads)
-    wres[e] = 0.f;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, t = lane & 3;
+  const int mt_n = nn16 / 16;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  float acc[kMTiles][kMaxRowTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kMaxRowTiles; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const int most = max_ks(4);
   for (int kb = k0; kb < k1; kb += most) {
     const int ke = min(kb + most, k1);
@@ -461,47 +505,86 @@ __device__ void item_products(const float* __restrict__ w, int out, int in,
     const int ld = act_ld<float>(w32);
     int c0, c1;
     warp_chunks(ke - kb, &c0, &c1);
+    // the weights of chunks c0 .. c0 + kBatchF32 - 1 of the warp, for
+    // every 8-row tile: lane (g, t) holds k 8t..8t+3 (h = 0) and
+    // 8t+4..8t+7 (h = 1) of row g (ke is a multiple of 8: each 4 lie all
+    // below it or all past it)
+    uint4 wv[kBatchF32][kMaxRowTiles][2];
+    auto load_w = [&](int cb) {
+#pragma unroll
+      for (int u = 0; u < kBatchF32; ++u)
+#pragma unroll
+        for (int nt = 0; nt < kMaxRowTiles; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = o0 + nt * 8 + gq;
+            const int col = kb + (cb + u) * 32 + 8 * t + 4 * h;
+            wv[u][nt][h] =
+                cb + u < c1 && nt < rt && row < out && col < ke
+                    ? ld_stream(w + static_cast<size_t>(row) * in + col)
+                    : zero;
+          }
+    };
+    load_w(c0);  // in flight while the block stages the operand
     stage(act, ld, kb, ke, w32);
-    for (int rr = 0; rr < rows; ++rr) {
-      const int row = o0 + rr;
-      if (row >= out) break;  // uniform over the warp
-      const float* wrow = w + static_cast<size_t>(row) * in + kb;
-      for (int nb = 0; nb < nn; nb += 32) {
-        float acc[32];
+    for (int cb = c0; cb < c1; cb += kBatchF32) {
+      if (cb != c0) load_w(cb);
 #pragma unroll
-        for (int q = 0; q < 32; ++q) acc[q] = 0.f;
-        for (int cc = c0; cc < c1; ++cc) {
-          const int k = cc * 32 + lane;
-          const float wv = kb + k < ke ? wrow[k] : 0.f;
+      for (int u = 0; u < kBatchF32; ++u) {
+        if (cb + u >= c1) break;  // uniform over the warp
+        const float* arow = act + gq * ld + (cb + u) * 32 + 8 * t;
 #pragma unroll
-          for (int q = 0; q < 32; ++q)
-            if (nb + q < nn) acc[q] = fmaf(act[(nb + q) * ld + k], wv, acc[q]);
-        }
-        float mine = 0.f;
+        for (int h = 0; h < 2; ++h) {
+          // the weights of products 2h and 2h + 1, split once for every
+          // m-tile: (k = t, t + 4) of product 2h + j are .x/.y (j = 0)
+          // and .z/.w (j = 1)
+          uint32_t bhi[2][kMaxRowTiles][2], blo[2][kMaxRowTiles][2];
 #pragma unroll
-        for (int q = 0; q < 32; ++q) {
-          if (nb + q < nn) {
-            const float s = avsr::warp_sum(acc[q]);
-            if (lane == q) mine = s;
+          for (int nt = 0; nt < kMaxRowTiles; ++nt) {
+            const uint4 v = wv[u][nt][h];
+            avsr::tf32::split_tf32(__uint_as_float(v.x), bhi[0][nt][0],
+                                   blo[0][nt][0]);
+            avsr::tf32::split_tf32(__uint_as_float(v.y), bhi[0][nt][1],
+                                   blo[0][nt][1]);
+            avsr::tf32::split_tf32(__uint_as_float(v.z), bhi[1][nt][0],
+                                   blo[1][nt][0]);
+            avsr::tf32::split_tf32(__uint_as_float(v.w), bhi[1][nt][1],
+                                   blo[1][nt][1]);
+          }
+#pragma unroll
+          for (int mt = 0; mt < kMTiles; ++mt) {
+            if (mt >= mt_n) break;
+            // rows g and g + 8 of the m-tile at physical k 8t + 4h ..
+            const float4 r0 =
+                *reinterpret_cast<const float4*>(arow + mt * 16 * ld + 4 * h);
+            const float4 r8 = *reinterpret_cast<const float4*>(
+                arow + (mt * 16 + 8) * ld + 4 * h);
+            uint32_t ahi[4], alo[4];
+            avsr::tf32::split_a(ahi, alo, r0.x, r8.x, r0.y, r8.y);
+            avsr::tf32::mma_split_rows<kMaxRowTiles>(acc[mt], ahi, alo,
+                                                     bhi[0], blo[0], rt);
+            avsr::tf32::split_a(ahi, alo, r0.z, r8.z, r0.w, r8.w);
+            avsr::tf32::mma_split_rows<kMaxRowTiles>(acc[mt], ahi, alo,
+                                                     bhi[1], blo[1], rt);
           }
         }
-        if (nb + lane < nn) wres[(warp * nn16 + nb + lane) * rows + rr] += mine;
       }
     }
     __syncthreads();  // every warp has read the stage
   }
+  warp_sums(acc, mt_n, rt, nn, nn16, wres);
 }
 
-// The GEMV region of a block's shared memory: the operand stage and the
-// warps' sums (aliased on the tensor-core path) of one pass of up to kMaxN
-// lanes, whatever the lanes in all
+// The GEMV region of a block's shared memory: the operand stage of one
+// pass of up to kMaxN lanes, whatever the lanes in all, which the warps'
+// sums alias
 __host__ __device__ inline size_t gemv_bytes(int n, int wsize) {
   const size_t nn16 = cdiv(n < kMaxN ? n : kMaxN, 16) * 16;
   const int ks = max_ks(wsize);
   const size_t act =
       nn16 * (wsize == 2 ? act_ld<bf16>(ks) : act_ld<float>(ks)) * wsize;
   const size_t wres = sizeof(float) * kWarps * nn16 * kMaxRows;
-  const size_t body = wsize == 2 ? (act > wres ? act : wres) : act + wres;
+  const size_t body = act > wres ? act : wres;
   return (body + 15) / 16 * 16;
 }
 
@@ -519,7 +602,6 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
                            unsigned char* smem, Load load, Epi epi,
                            Step step, float* xres = nullptr, int c = 0,
                            float* gst = nullptr) {
-  constexpr bool kMma = sizeof(TW) == 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int ks = g.ks, rows = g.rows, rt = rows / 8;
   __shared__ int last;
@@ -546,9 +628,7 @@ __device__ void gemv_phase(const Gemv<TW>& g, int n, float* part,
     for (int n0 = 0; n0 < n; n0 += kMaxN) {
       const int nn = min(kMaxN, n - n0), nn16 = cdiv(nn, 16) * 16;
       TW* act = reinterpret_cast<TW*>(smem);
-      float* wres = kMma ? reinterpret_cast<float*>(smem)
-                         : reinterpret_cast<float*>(
-                               act + nn16 * act_ld<TW>(max_ks(sizeof(TW))));
+      float* wres = reinterpret_cast<float*>(smem);
       item_products(g.w, g.out, g.in, o0, rt, k0, k1, nn, act, wres, nn16,
                     [&](TW* a, int ld, int kb, int ke, int w32) {
                       load(a, ld, n0, nn, kb, ke, w32);
@@ -698,25 +778,30 @@ __host__ __device__ inline AttnLayout attn_layout(int lanes, int dh,
 // tiles: the tile's scores and their statistics folded into the joint
 // (max, shifted sum) in tile order; then each tile's keys, bias and values
 // again, the same scores (the same products in the same order), p and
-// P.V. With a bf16 cache and dh = kMmaDh, q.k and P.V run on the tensor
-// cores (mma.sync m16n8k16, the queries as up to kMaxLanes / 8 8-wide
+// P.V. With dh = kMmaDh, q.k and P.V run on the tensor cores: with a bf16
+// cache mma.sync m16n8k16, the queries as up to kMaxLanes / 8 8-wide
 // operands fed by the same ldmatrix'd keys and transposed values, P exact
-// in bf16 since it is rounded already; the P.V's warps take (16 head dims,
-// every other 16 rows) and the two row halves add in order), as
-// decode_attention.cu does; otherwise on the CUDA cores, a thread a
-// (query, 16-byte chunk) of the P.V summing the rows in order. The
-// softmax's statistics are taken by all warps over row ranges and combined
-// in warp order. step(k) marks the steps in a trace.
+// in bf16 since it is rounded already, as decode_attention.cu does; with
+// an fp32 cache mma.sync m16n8k8 in split TF32 (mma_tf32.cuh), the same
+// roles, keys, values, queries and P each split hi + lo at use; either
+// way the P.V's warps take (16 head dims, every other 16 rows) with more
+// than one query tile and the two row halves add in order, and with one
+// each warp's rows, its partials added in warp order. Otherwise on the
+// CUDA cores, a thread a (query, 16-byte chunk) of the P.V summing the
+// rows in order. The softmax's statistics are taken by all warps over row
+// ranges and combined in warp order (expf, exact). step(k) marks the
+// steps in a trace.
 template <typename TC, typename Out, typename Step>
 __device__ void attend(int lanes, int rows, int dh, float* smf,
                        const AttnLayout& lay, const Rows<TC>& rw, bool fresh,
                        Out out, Step step) {
   constexpr int kVec = 16 / sizeof(TC);
-  constexpr bool kMmaType = sizeof(TC) == 2;
+  constexpr bool kBf16 = sizeof(TC) == 2;
   constexpr int kQTiles = kMaxLanes / 8;  // query tiles of the mma path
-  const bool mma = kMmaType && dh == kMmaDh;
+  const bool mma = dh == kMmaDh;
   const int tid = threadIdx.x, warp = tid / 32, lane_id = tid % 32;
-  const int gq = lane_id >> 2, cq = 2 * (lane_id & 3);
+  const int gq = lane_id >> 2, cq = 2 * (lane_id & 3), c4 = lane_id & 3;
+  const int nq = cdiv(lanes, 8);  // query tiles
   const int cpr = dh / kVec;          // threads per row, a power of two
   const int groups = kThreads / cpr;  // rows in flight
   const int chunk = tid % cpr, grp = tid / cpr;
@@ -765,7 +850,7 @@ __device__ void attend(int lanes, int rows, int dh, float* smf,
   // rounded to bf16 as qs holds them
   constexpr int kQb = kMmaDh / 2 + 4;
   uint32_t* qb = reinterpret_cast<uint32_t*>(smf + lay.kn);
-  if (mma) {
+  if (mma && kBf16) {
     for (int e = tid; e < lanes * kMmaDh / 2; e += kThreads) {
       const int kq = e / (kMmaDh / 2), d = 2 * (e % (kMmaDh / 2));
       qb[kq * kQb + d / 2] =
@@ -775,7 +860,68 @@ __device__ void attend(int lanes, int rows, int dh, float* smf,
   }
   // the scores of the nr rows in kbuf added into theirs at `at` (the bias)
   auto scores = [&](float* at, int nr) {
-    if (mma) {
+    if (mma && !kBf16) {
+      // fp32: S = K q^T in split TF32, a warp's 16 rows at a time, every
+      // query tile from the same split K fragments (mma_split_rows); the
+      // GEMV's k permutation over each 32 of the head's dims: lane (g, c)
+      // reads dims 8c..8c+7 of rows g and g + 8 (16-byte loads, rows of
+      // dh + 4 floats: conflict-free) and of its query g, product p
+      // taking dims 8c + 2p and 8c + 2p + 1 as k = c and c + 4
+      const float* kf = reinterpret_cast<const float*>(kbuf);
+      for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
+        float acc[kQTiles][4];
+#pragma unroll
+        for (int nt = 0; nt < kQTiles; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < kMmaDh / 32; ++hf) {
+          const float* k0 = kf + (t16 + gq) * ld + 32 * hf + 8 * c4;
+          float r0[8], r8[8];
+#pragma unroll
+          for (int i = 0; i < 8; i += 4) {
+            const float4 x0 = *reinterpret_cast<const float4*>(k0 + i);
+            const float4 x8 =
+                *reinterpret_cast<const float4*>(k0 + 8 * ld + i);
+            r0[i] = x0.x, r0[i + 1] = x0.y, r0[i + 2] = x0.z,
+            r0[i + 3] = x0.w;
+            r8[i] = x8.x, r8[i + 1] = x8.y, r8[i + 2] = x8.z,
+            r8[i + 3] = x8.w;
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            uint32_t ahi[4], alo[4], bhi[kQTiles][2], blo[kQTiles][2];
+            avsr::tf32::split_a(ahi, alo, r0[2 * p], r8[2 * p],
+                                r0[2 * p + 1], r8[2 * p + 1]);
+#pragma unroll
+            for (int nt = 0; nt < kQTiles; ++nt) {
+              const int kq = nt * 8 + gq;
+              const float2 q =
+                  kq < lanes ? *reinterpret_cast<const float2*>(
+                                   qs + kq * dh + 32 * hf + 8 * c4 + 2 * p)
+                             : make_float2(0.f, 0.f);
+              avsr::tf32::split_tf32(q.x, bhi[nt][0], blo[nt][0]);
+              avsr::tf32::split_tf32(q.y, bhi[nt][1], blo[nt][1]);
+            }
+            avsr::tf32::mma_split_rows<kQTiles>(acc, ahi, alo, bhi, blo,
+                                                nq);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < kQTiles; ++nt) {
+          if (nt >= nq) break;  // uniform over the block
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = t16 + gq + (e >> 1) * 8;
+            const int kq = nt * 8 + cq + (e & 1);
+            if (kq < lanes && row < nr) {
+              float* sp = at + kq * stride + row;
+              *sp = __fadd_rn(acc[nt][e], *sp);
+            }
+          }
+        }
+      }
+    } else if (mma) {
       // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T for
       // every query tile from the same K fragments
       for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
@@ -946,7 +1092,64 @@ __device__ void attend(int lanes, int rows, int dh, float* smf,
     }
     __syncthreads();
     const float* pt = one ? sc + r0 : sc;
-    if (mma && one_tile) {
+    const float* vf = reinterpret_cast<const float*>(vbuf);
+    // fp32: P's split pair (rows r, r + 1 of query kq; zeros past the
+    // lanes and the rows, whose V rows are zeros too)
+    auto p_split = [&](int kq, int r, uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+      const bool live = kq < lanes;
+      avsr::tf32::split_tf32(live && r < nr ? pt[kq * stride + r] : 0.f,
+                             hi[0], lo[0]);
+      avsr::tf32::split_tf32(live && r + 1 < nr ? pt[kq * stride + r + 1]
+                                                : 0.f,
+                             hi[1], lo[1]);
+    };
+    if (mma && !kBf16 && one_tile) {
+      // fp32, out^T (dh x 8 queries) = V^T P^T in split TF32, a warp's 16
+      // rows at a time as two k8 steps; a step's k = c and c + 4 are rows
+      // 2c and 2c + 1 (V^T's A fragment then reads banks 8c + g + ..:
+      // conflict-free), P's pair split once for the four head slices,
+      // each term issued across them
+      for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
+#pragma unroll
+        for (int s8 = 0; s8 < 16; s8 += 8) {
+          const int r = t16 + s8 + 2 * c4;
+          uint32_t bhi[2], blo[2], ahi[4][4], alo[4][4];
+          p_split(gq, r, bhi, blo);
+#pragma unroll
+          for (int m4 = 0; m4 < 4; ++m4) {
+            const float* v = vf + r * ld + m4 * 16 + gq;
+            avsr::tf32::split_a(ahi[m4], alo[m4], v[0], v[8], v[ld],
+                                v[ld + 8]);
+          }
+#pragma unroll
+          for (int m4 = 0; m4 < 4; ++m4)
+            avsr::tf32::mma_tf32(oacc[m4], alo[m4], bhi[0], bhi[1]);
+#pragma unroll
+          for (int m4 = 0; m4 < 4; ++m4)
+            avsr::tf32::mma_tf32(oacc[m4], ahi[m4], blo[0], blo[1]);
+#pragma unroll
+          for (int m4 = 0; m4 < 4; ++m4)
+            avsr::tf32::mma_tf32(oacc[m4], ahi[m4], bhi[0], bhi[1]);
+        }
+      }
+    } else if (mma && !kBf16) {
+      // fp32, warp (mt, half): head dims 16 mt.. of every query tile over
+      // the tile's row groups half, half + 2, ...; V^T's split fragment
+      // shared by the query tiles (mma_split_rows)
+      for (int t16 = half * 16; t16 < nr; t16 += 32) {
+#pragma unroll
+        for (int s8 = 0; s8 < 16; s8 += 8) {
+          const int r = t16 + s8 + 2 * c4;
+          const float* v = vf + r * ld + mt * 16 + gq;
+          uint32_t ahi[4], alo[4], bhi[4][2], blo[4][2];
+          avsr::tf32::split_a(ahi, alo, v[0], v[8], v[ld], v[ld + 8]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) p_split(nt * 8 + gq, r, bhi[nt],
+                                                 blo[nt]);
+          avsr::tf32::mma_split_rows<4>(oacc, ahi, alo, bhi, blo, nq);
+        }
+      }
+    } else if (mma && one_tile) {
       // out^T (dh x 8 queries) = V^T P^T, a warp's 16 rows at a time
       for (int t16 = warp * 16; t16 < nr; t16 += kWarps * 16) {
         auto p = [&](int row) {
@@ -1060,9 +1263,9 @@ __device__ void attend(int lanes, int rows, int dh, float* smf,
   step(4);
 }
 
-// shared-memory bytes of one block: the GEMV operand stage and the warps'
-// sums (aliased on the tensor-core path), or the attention scratch and its
-// key and value stages (the plan's, through avsr_decoder_layer_config)
+// shared-memory bytes of one block: the GEMV operand stage (which the
+// warps' sums alias), or the attention scratch and its key and value
+// stages (the plan's, through avsr_decoder_layer_config)
 __host__ __device__ inline size_t smem_bytes(int n, int lanes, int dh,
                                              int s_dec, int s_enc, int wsize,
                                              int csize) {

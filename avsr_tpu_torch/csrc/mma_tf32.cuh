@@ -1,6 +1,8 @@
-// Split-TF32 building blocks of the fp32 flash-attention kernels (sm_90a):
-// the forward `flash_fwd_tf32` (flash_attention.cu) and the backward pair
-// `flash_bwd_dq_tf32` / `flash_bwd_dkv_tf32` (flash_attention_bwd.cu).
+// Split-TF32 building blocks of the fp32 tensor-core kernels (sm_90a):
+// the flash-attention forward `flash_fwd_tf32` (flash_attention.cu), the
+// backward pair `flash_bwd_dq_tf32` / `flash_bwd_dkv_tf32`
+// (flash_attention_bwd.cu) and the one-launch decoder layer's fp32 GEMVs
+// and attention products (decoder_layer.cu).
 //
 // A TF32 product keeps ~3 decimal digits, so each fp32 operand is split,
 // x = hi + lo, with hi = x rounded to TF32 and lo = x - hi truncated to
@@ -56,22 +58,27 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
   mma_tf32(d, ahi, h0, h1);
 }
 
-// d[i] += a b_i in split TF32 for kN accumulators d[0 .. kN - 1] that
-// share one split A operand, given each b_i split: bhi[i] / blo[i] hold
-// its k = c and c + 4 halves. Each accumulator sums lo_a hi_b, hi_a lo_b
-// and hi_a hi_b in mma_split's order, so its bits are mma_split's, but
-// each term is issued across the kN accumulators before the next term:
-// no mma waits on the one issued just before it.
+// d[i] += a b_i in split TF32 for the first n (default kN) of kN
+// accumulators d[0 .. kN - 1] that share one split A operand, given each
+// b_i split: bhi[i] / blo[i] hold its k = c and c + 4 halves. Each
+// accumulator sums lo_a hi_b, hi_a lo_b and hi_a hi_b in mma_split's
+// order, so its bits are mma_split's, but each term is issued across the
+// accumulators before the next term: no mma waits on the one issued just
+// before it. n, where given, is uniform over the warp.
 template <int kN>
 __device__ __forceinline__ void mma_split_rows(
     float (*d)[4], const uint32_t (&ahi)[4], const uint32_t (&alo)[4],
-    const uint32_t (&bhi)[kN][2], const uint32_t (&blo)[kN][2]) {
+    const uint32_t (&bhi)[kN][2], const uint32_t (&blo)[kN][2],
+    int n = kN) {
 #pragma unroll
-  for (int i = 0; i < kN; ++i) mma_tf32(d[i], alo, bhi[i][0], bhi[i][1]);
+  for (int i = 0; i < kN; ++i)
+    if (i < n) mma_tf32(d[i], alo, bhi[i][0], bhi[i][1]);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) mma_tf32(d[i], ahi, blo[i][0], blo[i][1]);
+  for (int i = 0; i < kN; ++i)
+    if (i < n) mma_tf32(d[i], ahi, blo[i][0], blo[i][1]);
 #pragma unroll
-  for (int i = 0; i < kN; ++i) mma_tf32(d[i], ahi, bhi[i][0], bhi[i][1]);
+  for (int i = 0; i < kN; ++i)
+    if (i < n) mma_tf32(d[i], ahi, bhi[i][0], bhi[i][1]);
 }
 
 // the A fragment's four fp32 values, split

@@ -172,13 +172,14 @@ def run(name: str) -> None:
 
 
 def drive(argv: list[str], module: str, sources, prepare_fn, run_fn,
-          out: Path) -> int:
+          out: Path, flags: tuple = ()) -> int:
     """A variants tool's command line: with ``--build NAME`` or ``--run
     NAME`` one variant in this process; else every variant of ``argv``
     (read by ``parse`` against ``sources``, written by ``prepare_fn``)
     built at once, each in a process of its own, then each run in a
-    process of its own (``python -m module --run NAME``, which calls
-    ``run_fn``). Returns the exit code: 2 without variants."""
+    process of its own (``python -m module --run NAME`` and the tool's
+    own ``flags``, which calls ``run_fn``). Returns the exit code: 2
+    without variants."""
     if len(argv) == 2 and argv[0] in ("--build", "--run"):
         if argv[0] == "--build":
             use(out / argv[1])
@@ -199,8 +200,8 @@ def drive(argv: list[str], module: str, sources, prepare_fn, run_fn,
     print(f"# builds (exit codes): {rcs}", flush=True)
     for name, rc in rcs.items():
         if rc == 0:
-            subprocess.run([sys.executable, "-m", module, "--run", name],
-                           cwd=ROOT, check=False)
+            subprocess.run([sys.executable, "-m", module, "--run", name,
+                            *flags], cwd=ROOT, check=False)
     return 0 if all(rc == 0 for rc in rcs.values()) else 1
 
 

@@ -1,7 +1,8 @@
 """Times variants of the one-launch decoder layer (B9) on the card.
 
-    python -m avsr_tpu_torch.tools.layer_variants base \\
-        upto3=decoder_layer.cu:stop=3 sub6=decoder_layer.cu:kTraceSub=6 \\
+    python -m avsr_tpu_torch.tools.layer_variants [--dtype float32] \\
+        [--width 768] base upto3=decoder_layer.cu:stop=3 \\
+        sub6=decoder_layer.cu:kTraceSub=6 \\
         parent@build/parent/avsr_tpu_torch/csrc
 
 Each argument is a variant, read as ``flash_variants`` reads it: ``NAME``,
@@ -16,14 +17,18 @@ source, under ``build/layer_variants/NAME/``; then each runs in a process
 of its own, which loads its library and its wrapper's
 ``decoder_layer_step``, prints the kernel's registers and spills (each
 instantiation, from its ``-Xptxas -v`` report) and, at B=8 and B=32 (24
-and 96 lanes; ``chip_smoke.layer_case``: C=1024, F=3072, S=192, 377
-source rows, bf16) at pos 250:
+and 96 lanes; ``chip_smoke.layer_case``: F=3072, S=192, 377 source rows;
+C=1024 with 16 heads, or with ``--width 768`` 12 heads, the conformer
+decoder's; weights, caches and the unfused step in bf16, or in
+``--dtype float32``) at pos 250:
 
-- holds it against this checkout's twin (x_out relative to its largest
-  entry) and counts its launches a call;
+- holds it against this checkout's twin (x_out and the written row
+  relative to their largest entry; limit 2e-5 in fp32, 2e-2 in bf16, the
+  card tests') and counts its launches a call;
 - times it warm (one layer's weights and caches) and cold (rotating over
   six layers', which the 50 MB L2 cannot hold), and the unfused layer
-  step (``TransformerDecoder.layer_step``) the same two ways;
+  step (``TransformerDecoder.layer_step``) the same two ways, beside the
+  kernel's bound (``chip_smoke.layer_bound``);
 - where the wrapper takes a ``trace``, prints each phase's work and the
   grid sync after it (``phase_table``: medians over six cold calls of the
   kernel's per-block global-timer marks).
@@ -43,6 +48,7 @@ Times are ``chip_smoke.cuda_ms``. Needs a CUDA device and ``nvcc``.
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import inspect
 import re
@@ -55,11 +61,22 @@ from avsr_tpu_torch.tools import flash_variants as fv
 
 # the layer kernel, and decode_attention for the unfused step it is timed
 # against
-SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "runtime.cu",
-           "decoder_layer.cu", "decode_attention.cu")
+SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "mma_tf32.cuh",
+           "runtime.cu", "decoder_layer.cu", "decode_attention.cu")
 WRAPPER = "decoder_layer.py"
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "layer_variants"
+HEADS = {1024: 16, 768: 12}  # the flagship's and the conformer's decoders
+LIMITS = {"bfloat16": 2e-2, "float32": 2e-5}  # x_out and row vs the twin
+
+
+def options(argv: list[str]):
+    """(the case's dtype and width, the variants' arguments) of a command
+    line: ``--dtype`` and ``--width`` anywhere, the rest for ``drive``."""
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--dtype", choices=sorted(LIMITS), default="bfloat16")
+    p.add_argument("--width", type=int, choices=sorted(HEADS), default=1024)
+    return p.parse_known_args(argv)
 
 
 def cut(text: str, phase: int) -> str:
@@ -178,7 +195,7 @@ def phase_table(torch, step, mod, sub: int) -> str:
     return text
 
 
-def run(name: str) -> None:
+def run(name: str, dtype: str = "bfloat16", width: int = 1024) -> None:
     import torch
 
     cs = fv.chip_smoke()
@@ -204,9 +221,14 @@ def run(name: str) -> None:
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(4)
-    lanes, heads, c, f, pos = cs.BEAM, 16, 1024, 3072, 250
+    lanes, heads, c, f, pos = cs.BEAM, HEADS[width], width, 3072, 250
+    dt, lim = getattr(torch, dtype), LIMITS[dtype]
+    print(f"# [{name}] C={c}, {heads} heads, F={f}, {dtype}, beam {lanes}, "
+          f"S={cs.KV_CAP}, {cs.FRAMES + 2} source rows, pos {pos}",
+          flush=True)
     for b in (cs.B, 32):
-        case = cs.layer_case(g, dev, b, pos, layers=cs.LAYERS)
+        case = cs.layer_case(g, dev, b, pos, layers=cs.LAYERS, c=c,
+                             heads=heads, dtype=dt)
         scratch = mod.layer_scratch(b * lanes, c, f, dev)
 
         def step(i, case=case, scratch=scratch, **kw):
@@ -216,20 +238,21 @@ def run(name: str) -> None:
                 scratch=scratch, **kw)
 
         # the twin reads the cache as it was before the kernel wrote the row
-        want, _ = ref.decoder_layer_step_plain(
+        want, want_kv = ref.decoder_layer_step_plain(
             pos, case["x"], case["kvs"][0].clone(), *case["srcs"][0],
             case["mem_bias"], case["lb"], case["packs"][0], lanes, heads)
+        row = min(pos, cs.KV_CAP - 1)
         before = mod.decoder_layer_step.launches
-        got, _ = step(0)
+        got, got_kv = step(0)
         launches = mod.decoder_layer_step.launches - before
         torch.cuda.synchronize()
-        err = ((got.float() - want.float()).abs().max()
-               / want.float().abs().max()).item()
+        err = cs._rel_err(got, want)
+        err_row = cs._rel_err(got_kv[:, row], want_kv[:, row])
+        held = "within" if max(err, err_row) <= lim else "OVER"
         warm = cs.cuda_ms(lambda: step(0))
         cold = cs.cuda_ms(cs.rotating(step, range(cs.LAYERS)))
         dec = TransformerDecoder(cs.VOCAB, c, heads, f, layers=cs.LAYERS,
-                                 cache_dtype="bfloat16",
-                                 param_dtype="bfloat16").to(dev)
+                                 cache_dtype=dtype, param_dtype=dtype).to(dev)
         for i, layer in enumerate(case["mods"]):
             dec.decoders[i].load_state_dict(layer.state_dict())
         cache = dec.init_cache(torch.randn(b, cs.FRAMES + 2, c, generator=g,
@@ -242,10 +265,21 @@ def run(name: str) -> None:
 
             u_warm = cs.cuda_ms(lambda: unfused(0))
             u_cold = cs.cuda_ms(cs.rotating(unfused, range(cs.LAYERS)))
+        bnd = cs.layer_bound(case, lanes,
+                             "bf16" if dtype == "bfloat16" else "fp32")
+        if hasattr(mod, "card_plan"):
+            plan, smem = mod.card_plan(b * lanes, lanes, heads, c, f,
+                                       cs.KV_CAP, cs.FRAMES + 2, dt, dt,
+                                       dev.index)
+            print(f"# [{name}] B={b}: grid {plan.grid}, {smem} B shared "
+                  f"memory a block, item rows {plan.rows}, K slices "
+                  f"{plan.slices}", flush=True)
         print(f"# [{name}] decoder_layer_step B={b}: warm {warm:.4f} ms, "
               f"cold {cold:.4f} ms, {launches} launch(es) a call, x_out "
-              f"{err:.2e} of its largest entry; unfused layer step warm "
-              f"{u_warm:.4f} ms, cold {u_cold:.4f} ms", flush=True)
+              f"{err:.2e}, row {err_row:.2e} of their largest entry "
+              f"({held} {lim:g}); unfused layer step warm {u_warm:.4f} ms, "
+              f"cold {u_cold:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})",
+              flush=True)
         if "trace" in inspect.signature(mod.decoder_layer_step).parameters:
             sub = trace_sub(variant / "csrc" / "decoder_layer.cu")
             print(f"# [{name}] B={b} "
@@ -254,7 +288,10 @@ def run(name: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    rc = fv.drive(argv, __spec__.name, SOURCES, prepare, run, OUT)
+    opts, rest = options(argv)
+    rc = fv.drive(rest, __spec__.name, SOURCES, prepare,
+                  lambda name: run(name, opts.dtype, opts.width), OUT,
+                  ("--dtype", opts.dtype, "--width", str(opts.width)))
     if rc == 2:
         print(__doc__)
     return rc

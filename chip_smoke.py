@@ -147,15 +147,18 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    saved as a reference-format .pth and loaded through
    ``InferenceEngine(model_type="auto_avsr")``; ``eval_lrs2`` on 8 mp4 +
    wav utterances of 2-15 s (a warm pass and a timed one; wall audio-s/s),
-   the encode and beam ms of a B=8 batch of 15 s utterances and the peak
-   memory; two short utterances through the card (kernels) and the CPU
-   (twins) in fp32, unfused, with fused bookkeeping (bit-equal to unfused
-   on the card) and with the decoder's fused layer: tokens equal,
-   features, CTC log-probs and scores within phase 5's limits; every card
-   run's launches of B2, B3, B5 (with B4's rows), B8 and B9 counted, no
-   twin called; then B2 and B9 checked and timed at the conformer
-   decoder's widths (C=768, 12 heads, fp32), B9 also at C=768 in bf16 and
-   C=1024 in fp32;
+   the encode ms of a B=8 batch of 15 s utterances, its beam ms with the
+   decoder's layers unfused and fused (``decode_fused_layer``: B9 in fp32
+   once a layer and step) and the peak memory; two short utterances
+   through the card (kernels) and the CPU (twins) in fp32, unfused, with
+   fused bookkeeping (bit-equal to unfused on the card) and with the
+   decoder's fused layer: tokens equal, features, CTC log-probs and scores
+   within phase 5's limits; every card run's launches of B2, B3, B5 (with
+   B4's rows), B8 and B9 counted, no twin called; then B2 and B9 checked
+   and timed at the conformer decoder's widths (C=768, 12 heads, fp32; B9
+   within 2e-5 of its twin, the record ``decoder_layer_step_fp32`` beside
+   the unfused layer step), B9 also at C=768 in bf16 and C=1024 in fp32,
+   each beside its bound;
 11. runs the eval CLI's muavic_en path (``phase_muavic``): the full-width
    ``AV2TextConfig()`` (a 12x256 AV-HuBERT encoder over the ResNet-18
    PReLU frontend, a 6x256 Speech2Text decoder, vocab 10,000) of seed-0
@@ -193,7 +196,9 @@ apart; ``row_gather`` 0, since the beam gathers the CTC rows in its
 pre-beam top-k's launch, ``topk_gather_rows``, whose launches count in
 ``topk_lastdim``'s too), the fused run for ``beam_update``, which
 only the fused bookkeeping runs, the fused-layer run for
-``decoder_layer_step``, phase 6's timed steps for the three flash kernels
+``decoder_layer_step``, phase 10's B=8 fused-layer beam for
+``decoder_layer_step_fp32``, phase 6's timed steps for the three flash
+kernels
 (its fp32 run's for ``flash_attention_bwd_dq_fp32`` and
 ``flash_attention_bwd_dkv_fp32``)
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
@@ -502,6 +507,22 @@ def layer_case(g, dev, b: int, pos: int, layers: int = 1, lanes: int = BEAM,
     case["lb"] = torch.where(valid.permute(1, 2, 0, 3), 0.0,
                              -1.0e30).contiguous()
     return case
+
+
+def layer_bound(case, lanes: int, kind: str):
+    """B9's bound on ``layer_case`` inputs at pos >= the cache's rows: the
+    packed weights (14 C^2 elements where F = 4C, 12 C^2 where F = 3C),
+    x, the whole K|V cache, the source K/V and the biases read once, x_out
+    and the row written; products 2 N FLOPs a weight-matrix element plus
+    q.k and p.v over the cache and the source rows, at ``kind``'s peak."""
+    packed, kv = case["packs"][0], case["kvs"][0]
+    nl, s_max, c2 = kv.shape
+    s_enc = case["srcs"][0][0].shape[1]
+    mats = sum(packed[i].numel() for i in (2, 4, 6, 8, 10, 12))
+    return bound(sum(nbytes(t) for t in packed)
+                 + nbytes(case["x"], kv, *case["srcs"][0], case["mem_bias"],
+                          case["lb"], case["x"], kv[:, 0]),
+                 2 * nl * mats + 2 * nl * c2 * (lanes * s_max + s_enc), kind)
 
 
 def scan_case(g, dev, t: int, c: int):
@@ -1669,15 +1690,7 @@ def layer_kernel_record(dev, g):
             unfused_warm = cuda_ms(lambda: unfused(0))
             unfused_cold = cuda_ms(rotating(unfused, range(LAYERS)))
         packed, kv = case["packs"][0], case["kvs"][0]
-        # the weights, x, the whole cache, the source K/V and the biases
-        # read once; x_out and the row written. Products: 2 N FLOPs a
-        # weight element, and q.k, p.v over the cache and the source rows
-        bnd = bound(sum(nbytes(t) for t in packed)
-                    + nbytes(case["x"], kv, *case["srcs"][0],
-                             case["mem_bias"], case["lb"], case["x"],
-                             kv[:, 0]),
-                    2 * nl * 12 * c * c
-                    + 4 * nl * c * (lanes * s_max + s_enc), "bf16")
+        bnd = layer_bound(case, lanes, "bf16")
         plan, smem = pdl.card_plan(nl, lanes, heads, c, f, s_max, s_enc,
                                    torch.bfloat16, torch.bfloat16, dev.index)
         print(f"# decoder_layer_step B={b} ({nl} lanes, one launch of "
@@ -3070,12 +3083,13 @@ def conformer_width_times(dev, g):
     F=3072, fp32 weights and K|V cache, as the auto_avsr path serves them)
     at B=8, beam 3, a 192-row cache, pos 250: one call each held against
     its twin (B2's cache bit-equal and output within ``output_bound``; B9's
-    x_out and row within 1e-3 of their largest entry in fp32, 2e-2 in
-    bf16), then timed cold (rotating over six layers') beside the twin,
-    fused SDPA (B2) and the unfused layer step (B9). B9 also at C=768 in
-    bf16 and at C=1024 (16 heads) in fp32, to place its fp32 time against
-    phase 3's bf16 C=1024 one. Returns {name: (ms, twin ms, other ms,
-    bound)} at the conformer's widths in fp32."""
+    x_out and row within 2e-5 of their largest entry in fp32, the card
+    tests' limit, 2e-2 in bf16), then timed cold (rotating over six
+    layers') beside the twin, fused SDPA (B2) and the unfused layer step
+    (B9), with the bound (``layer_bound``). B9 also at C=768 in bf16 and at
+    C=1024 (16 heads) in fp32, to place its fp32 time against phase 3's
+    bf16 C=1024 one. Returns ({name: (ms, twin ms, other ms, bound)} at the
+    conformer's widths in fp32, B9's fp32 record there)."""
     from avsr_tpu_torch.models.decoder import TransformerDecoder
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
     from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
@@ -3126,7 +3140,8 @@ def conformer_width_times(dev, g):
         r = min(pos, KV_CAP - 1)
         e_x, e_row = _rel_err(got, want), _rel_err(got_kv[:, r],
                                                    want_kv[:, r])
-        lim = 1e-3 if dtype == torch.float32 else 2e-2
+        abs_err = (got.float() - want.float()).abs().max().item()
+        lim = 2e-5 if dtype == torch.float32 else 2e-2
         check(e_x <= lim and e_row <= lim,
               f"decoder_layer_step disagrees at {name}: x_out {e_x:.2e}, "
               f"row {e_row:.2e}")
@@ -3154,31 +3169,31 @@ def conformer_width_times(dev, g):
         ms = cuda_ms(rotating(fused, range(LAYERS)))
         plan, smem = pdl.card_plan(nl, lanes, hw, cw, f, KV_CAP, s_enc,
                                    dtype, dtype, dev.index)
+        bnd = layer_bound(case, lanes,
+                          "fp32" if dtype == torch.float32 else "bf16")
         print(f"# decoder_layer_step at {name}, F=3072, B={B}, pos {pos}: "
               f"x_out {e_x:.2e}, row {e_row:.2e} of their largest entry "
               f"(limit {lim:g}); cold {ms:.4f} ms (grid {plan.grid}, "
               f"{smem} B shared memory, item rows {plan.rows}, K slices "
-              f"{plan.slices}), the unfused layer step {unfused:.4f} ms")
+              f"{plan.slices}), the unfused layer step {unfused:.4f} ms; "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]})")
         if dtype == torch.float32 and cw == c:
-            packed = case["packs"][0]
-            out["decoder_layer_step"] = (
-                ms,
-                cuda_ms(lambda: pdl.decoder_layer_step_plain(
-                    pos, case["x"], kv, *args)),
-                unfused,
-                bound(sum(nbytes(t) for t in packed)
-                      + nbytes(case["x"], kv, *case["srcs"][0],
-                               case["mem_bias"], case["lb"], case["x"],
-                               kv[:, 0]),
-                      2 * nl * 12 * c * c
-                      + 4 * nl * c * (lanes * KV_CAP + s_enc), "fp32"))
+            plain = cuda_ms(lambda: pdl.decoder_layer_step_plain(
+                pos, case["x"], kv, *args))
+            out["decoder_layer_step"] = (ms, plain, unfused, bnd)
+            record = dict(
+                source="avsr_tpu_torch/csrc/decoder_layer.cu",
+                replaces="avsr_tpu/ops/pallas/decoder_layer.py:81",
+                max_abs_err=abs_err, ms=ms, plain_ms=plain,
+                library_ms=None,  # no one call runs a decoder layer's step
+                bound=bnd, unfused_ms=unfused)
         del case, dec, cache, scratch, kv
     for name, (ms, plain, other, bnd) in out.items():
         what = "SDPA" if name == "decode_attention" else "unfused layer step"
         print(f"# {name} C=768 fp32 B={B} cold: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms, {what} {other:.4f} ms; bound {bnd[0]:.6f} ms "
               f"({bnd[1]})")
-    return out
+    return out, record
 
 
 def phase_auto_avsr(dev, smi: str):
@@ -3341,23 +3356,47 @@ def phase_auto_avsr(dev, smi: str):
             s0 = time.perf_counter()
             feats, ctc = rec.encode(aud, vid, lens)
             torch.cuda.synchronize()
-            s1 = time.perf_counter()
-            _, yl, sc = rec.beam(feats, ctc, lens)
-            torch.cuda.synchronize()
-            s2 = time.perf_counter()
+            enc_ms = 1e3 * (time.perf_counter() - s0)
+            # the beam with the decoder's layers unfused (the CLI's
+            # default) and fused (decode_fused_layer: B9 once a layer and
+            # step), launches counted, no twin called
+            beams = {}
+            with twin_calls(SERVING_TWINS) as calls:
+                for fused_layer in (False, True):
+                    dec.fused_layer = fused_layer
+                    reset_launches(counters)
+                    torch.cuda.synchronize()
+                    s1 = time.perf_counter()
+                    _, yl, sc = rec.beam(feats, ctc, lens)
+                    torch.cuda.synchronize()
+                    beams[fused_layer] = (1e3 * (time.perf_counter() - s1),
+                                          read_launches(counters), yl, sc)
+                dec.fused_layer = False
+            check(not any(calls.values()),
+                  f"phase 10: a twin ran in the B={B} beams ({calls})")
+            for fused_layer, (_, n, yl, sc) in beams.items():
+                check_launches(f"phase 10 B={B} beam, fused layer "
+                               f"{fused_layer}", n, LAYERS,
+                               fused_layer=fused_layer)
+                check(torch.isfinite(sc).all().item(),
+                      f"phase 10: the B={B} beam's scores (fused layer "
+                      f"{fused_layer})")
             check(tuple(ctc.shape) == (B, pick_bucket(rec.t_buckets, FRAMES),
                                        VOCAB)
-                  and torch.isfinite(ctc).all().item()
-                  and torch.isfinite(sc).all().item(),
-                  "phase 10: the B=8 batch's CTC log-probs or scores")
+                  and torch.isfinite(ctc).all().item(),
+                  "phase 10: the B=8 batch's CTC log-probs")
             peak = torch.cuda.max_memory_allocated() / 1e9
-            enc_ms, beam_ms = 1e3 * (s1 - s0), 1e3 * (s2 - s1)
+            beam_ms, _, yl, _ = beams[False]
+            fused_ms, fused_n, fyl, _ = beams[True]
             print(f"# {smi}: phase 10 auto_avsr B={B} x {FRAMES} frames "
                   f"(fp32 encode and decoder, beam 3, ctc_weight 0.1): "
                   f"encode {enc_ms:.1f} ms, beam {beam_ms:.1f} ms "
-                  f"({int(yl.max().item())} tokens with sos/eos); peak "
-                  f"memory {peak:.2f} GB")
-            del feats, ctc, aud, vid, auds, vids
+                  f"({int(yl.max().item())} tokens with sos/eos); with the "
+                  f"fused layer (decode_fused_layer) beam {fused_ms:.1f} ms "
+                  f"({int(fyl.max().item())} tokens, "
+                  f"{fused_n['decoder_layer_step']} decoder_layer_step "
+                  f"launches); peak memory {peak:.2f} GB")
+            del feats, ctc, aud, vid, auds, vids, beams
 
             # (c) and (d): the card's kernels and the CPU's twins, fp32
             feats_in = engine._features(samples_of(AUTO_SHORT, "short"))
@@ -3423,15 +3462,16 @@ def phase_auto_avsr(dev, smi: str):
                       and score_err <= AUTO_SCORE_TOL and same,
                       f"phase 10 {name}: cuda vs cpu")
             launches = {"eval_lrs2": main, "fused bookkeeping": fb[-1],
-                        "fused layer": runs["fused layer"][-1]}
+                        "fused layer": runs["fused layer"][-1],
+                        f"B={B} fused layer beam": fused_n}
             del cpu, cpu_model, runs, engine, rec, model, dec
             torch.cuda.empty_cache()
-            times = conformer_width_times(dev, torch.Generator(
+            times, record = conformer_width_times(dev, torch.Generator(
                 device=dev).manual_seed(10))
         finally:
             tokenizer._DEFAULT_ASSET_DIRS = assets
     torch.cuda.empty_cache()
-    return launches, times
+    return launches, times, record
 
 
 MUAVIC_UTTERANCES = 8  # phase 11's eval_lrs2 utterances, padded to MUAVIC_B
@@ -4237,7 +4277,8 @@ def main() -> int:
     phase_train_cli(dev, smi)
     print("# phase 10: the eval CLI's auto_avsr path at full width")
     t10 = time.perf_counter()
-    auto_launches, auto_times = phase_auto_avsr(dev, smi)
+    auto_launches, auto_times, records["decoder_layer_step_fp32"] = (
+        phase_auto_avsr(dev, smi))
     print(f"# phase 10 passed in {time.perf_counter() - t10:.1f} s")
     print(f"# phase 10 launches: {json.dumps(auto_launches)}")
     print(f"# phase 10 C=768 kernel ms (kernel, twin, SDPA or unfused "
@@ -4262,6 +4303,9 @@ def main() -> int:
     main_path["beam_update"] = runs["beam ctc_weight=0.1 fused"]["beam_update"]
     main_path["decoder_layer_step"] = runs[
         "beam ctc_weight=0.1, fused layer and stem"]["decoder_layer_step"]
+    # B9 in fp32: phase 10's B=8 fused-layer beam
+    main_path["decoder_layer_step_fp32"] = auto_launches[
+        f"B={B} fused layer beam"]["decoder_layer_step"]
     main_path.update(train_launches)
     # the fp32 backward's: phase 6's fp32 run
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -4286,7 +4330,9 @@ def main() -> int:
                     replaces=r["replaces"], launches=main_path[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                    bound_by=r["bound"][1], library_ms=r["library_ms"])
+                    bound_by=r["bound"][1], library_ms=r["library_ms"],
+                    **({"unfused_ms": r["unfused_ms"]}
+                       if "unfused_ms" in r else {}))
                for name, r in records.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

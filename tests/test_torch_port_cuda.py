@@ -999,6 +999,7 @@ def _layer(c, heads, f, seed):
 @pytest.mark.parametrize("b,k,c,heads,f", [(3, 3, 128, 2, 256),
                                            (8, 3, 1024, 16, 3072),
                                            (32, 3, 1024, 16, 3072),
+                                           (8, 3, 768, 12, 3072),
                                            (2, 5, 32, 4, 64),
                                            (13, 3, 64, 1, 128)])
 def test_decoder_layer_kernel_matches_plain(dev, pos, pdtype, cdtype, tol, b,
@@ -1009,8 +1010,9 @@ def test_decoder_layer_kernel_matches_plain(dev, pos, pdtype, cdtype, tol, b,
     past pos masked on every lane): x_out and the written row within tol x
     |max|; the rest of the cache untouched; at pos >= S row S-1 is the one
     written. One launch per call at every batch, 96 lanes (B=32, K=3)
-    and 39 included; two calls give bit-equal outputs; the block's shared
-    memory, as the kernel reports it, within 227 KB."""
+    and 39 included, the flagship decoder's widths and the conformer's
+    (C=768, 12 heads, F=4C); two calls give bit-equal outputs; the
+    block's shared memory, as the kernel reports it, within 227 KB."""
     s, s_enc = 16, 11
     n = b * k
     g = _gen(pos + c)

@@ -8,9 +8,12 @@ weight element exactly once and for filling the grid at the serving shapes,
 with the kernel's limits pinned below (its shared memory and grid come from
 the kernel on the card, where tests/test_torch_port_cuda.py checks them).
 The kernel's arithmetic (bf16 operands, fp32 sums
-by 32-column chunk, the warps' and the slices' partials added in order,
-LayerNorm statistics combined over row groups) is emulated in torch and
-held against the plain twin and the JAX Pallas kernel in interpret mode.
+by 32-column chunk; fp32 operands in split TF32, product by product in the
+kernel's k permutation; the warps' and the slices' partials added in
+order, LayerNorm statistics combined over row groups) is emulated in torch
+and held against the plain twin and the JAX Pallas kernel in interpret
+mode (tests/test_torch_port_layer_fp32.py holds the fp32 path at more
+widths and lane counts).
 The kernel itself runs on the card (tests/test_torch_port_cuda.py,
 chip_smoke.py).
 """
@@ -24,14 +27,14 @@ import torch  # noqa: E402
 
 from avsr_tpu_torch.ops.kernels import _build  # noqa: E402
 from avsr_tpu_torch.ops.kernels import decoder_layer as pdl  # noqa: E402
-from tests.torch_port_common import setup_torch, t  # noqa: E402
+from tests.torch_port_common import setup_torch, split_tf32, t  # noqa: E402
 
 NEG = -1.0e30
 # the kernel's limits (csrc/decoder_layer.cu): rows of a GEMV item (8 x
-# kMaxRowTiles), a stage's K columns (kMaxKsBytes of bf16 a lane, a quarter
-# of that in fp32) and its warps
+# kMaxRowTiles), a stage's K columns (kMaxKsBytes a lane in either dtype)
+# and its warps
 MAX_ROWS = 32
-MAX_KS = {2: 1024, 4: 256}
+MAX_KS = {2: 1024, 4: 512}
 WARPS = 8
 
 
@@ -50,10 +53,10 @@ def test_constants_are_the_sources():
                  f"constexpr int kMaxRowTiles = {MAX_ROWS // 8};",
                  "constexpr int kMaxRows = 8 * kMaxRowTiles;",
                  f"constexpr int kMaxKsBytes = {2 * MAX_KS[2]};",
-                 "return wsize == 2 ? kMaxKsBytes / 2 : kMaxKsBytes / 8;",
+                 "return kMaxKsBytes / wsize;",
                  "constexpr int kMaxSmem = 232448;"):
         assert line in src, line
-    assert MAX_KS[4] == 2 * MAX_KS[2] // 8
+    assert 4 * MAX_KS[4] == 2 * MAX_KS[2]  # kMaxKsBytes a lane in both
 
 
 def _walk(plan, gemv):
@@ -144,13 +147,44 @@ def test_scratch_matches_the_plan():
 # -------------------------------------------------- the kernel's arithmetic
 
 
-def emulate_gemv(h, w, bias, ks, wsize):
+def tf32_column(p: int, k: int) -> int:
+    """The fp32 GEMV's k permutation: the physical column, within a
+    32-column chunk, that logical k (0-7) of the chunk's k8 product p (0-3)
+    takes on both operands (lane t reads columns 8t..8t+7; product 2h + j
+    takes 8t + 4h + 2j as k = t and the next as k = t + 4)."""
+    return 8 * (k % 4) + 2 * p + k // 4
+
+
+TF32_COLUMNS = [[tf32_column(p, k) for k in range(8)] for p in range(4)]
+
+
+def tf32_chunks(acc, h, w, products=split_tf32):
+    """A warp's products over the 32-column chunks of h (N, K') and w (O,
+    K'), zeros past K', added into acc in the kernel's order: each chunk's
+    four k8 products in turn, each as lo_h hi_w, hi_h lo_w, then hi_h hi_w
+    (``mma_split``'s order; ``products`` splits an operand into (hi,
+    lo))."""
+    pad = -h.shape[1] % 32
+    h = torch.nn.functional.pad(h, (0, pad))
+    w = torch.nn.functional.pad(w, (0, pad))
+    hh, hl = products(h)
+    wh, wl = products(w)
+    for c0 in range(0, h.shape[1], 32):
+        for cols in TF32_COLUMNS:
+            i = [c0 + k for k in cols]
+            acc = acc + hl[:, i] @ wh[:, i].T
+            acc = acc + hh[:, i] @ wl[:, i].T
+            acc = acc + hh[:, i] @ wh[:, i].T
+    return acc
+
+
+def emulate_gemv(h, w, bias, ks, wsize, products=split_tf32):
     """The kernel's GEMV in torch: h (N, K) and w (O, K) hold values of the
     weight dtype in fp32. Each K slice of ``ks`` columns is staged
     ``MAX_KS`` columns at a time; each stage's 32-column chunks split over
-    the 8 warps; a warp's fp32 sum runs over its chunks of every stage; the
-    warps' sums are added in order, then the slices' in order, then the
-    bias."""
+    the 8 warps; a warp's fp32 sum runs over its chunks of every stage
+    (bf16: the chunks' products; fp32: ``tf32_chunks``); the warps' sums
+    are added in order, then the slices' in order, then the bias."""
     out, k_in = w.shape
     most = MAX_KS[wsize]
     total = torch.zeros(h.shape[0], out)
@@ -163,7 +197,10 @@ def emulate_gemv(h, w, bias, ks, wsize):
             for wi in range(WARPS):
                 c0 = min(ke, kb + wi * per * 32)
                 c1 = min(ke, c0 + per * 32)
-                if c1 > c0:
+                if c1 > c0 and wsize == 4:
+                    warps[wi] = tf32_chunks(warps[wi], h[:, c0:c1],
+                                            w[:, c0:c1], products)
+                elif c1 > c0:
                     warps[wi] = warps[wi] + h[:, c0:c1] @ w[:, c0:c1].T
         part = torch.zeros(h.shape[0], out)
         for wp in warps:
@@ -222,7 +259,61 @@ def test_grouped_layernorm_holds_at_an_offset(groups, spread):
     assert err <= 8 * twin_err + 1e-5, (err, twin_err)
 
 
-def emulate_attention(q, keys, values, bias, cur, vn, tile, kd):
+MMA_DH = 64  # csrc/decoder_layer.cu kMmaDh: the heads attended on mma
+DH_COLUMNS = [32 * hf + tf32_column(p, k) for hf in range(MMA_DH // 32)
+              for p in range(4) for k in range(8)]
+
+
+def split_scores(q, keys, products):
+    """q.k as the fp32 kernel forms it: K (..., R, dh) as the A operand,
+    q (..., K, dh) as B, in split TF32, the k8 products over each 32 of
+    the head's dims in the GEMV's permutation, in turn."""
+    kh, kl = products(keys)
+    qh, ql = products(q)
+    acc = torch.zeros(*q.shape[:-1], keys.shape[-2])
+    for i in range(0, MMA_DH, 8):
+        d = DH_COLUMNS[i:i + 8]
+        for a, b in ((kl, qh), (kh, ql), (kh, qh)):
+            acc = acc + torch.einsum("...kd,...rd->...kr", b[..., d],
+                                     a[..., d])
+    return acc
+
+
+def split_pv(p, values, tile, r_all, products):
+    """P.V as the fp32 kernel forms it: V^T (16 dims x 8 rows) as the A
+    operand, P as B, in split TF32 over k8 steps of 8 consecutive rows;
+    with one query tile (<= 8 lanes) each of the 8 warps takes the 16-row
+    groups warp, warp + 8, ... of every tile and the warps' sums add in
+    warp order; with more, two row halves (groups h, h + 2, ...), the
+    second half's sum added to the first's."""
+    ph, pl = products(p)
+    vh, vl = products(values)
+    lanes = p.shape[-2]
+    groups, first, step = ((8, 16, 128) if lanes <= 8 else (2, 16, 32))
+    tiles = [(r0, min(r0 + tile, r_all)) for r0 in range(0, r_all, tile)]
+    parts = []
+    for w in range(groups):
+        acc = torch.zeros(*p.shape[:-1], values.shape[-1])
+        for r0, r1 in tiles:
+            for t16 in range(w * first, r1 - r0, step):
+                for s8 in (0, 8):
+                    i = list(range(r0 + t16 + s8, min(r0 + t16 + s8 + 8, r1)))
+                    if not i:
+                        continue
+                    for a, b in ((vl, ph), (vh, pl), (vh, ph)):
+                        acc = acc + torch.einsum(
+                            "...kr,...rd->...kd", b[..., i], a[..., i, :])
+        parts.append(acc)
+    if groups == 2:
+        return parts[0] + parts[1]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def emulate_attention(q, keys, values, bias, cur, vn, tile, kd,
+                      products=split_tf32):
     """The kernel's ``attend`` over R stored rows (fp32 tensors (..., K,
     dh) queries, (..., R, dh) keys and values, (..., K, R) bias; with the
     fresh score ``cur`` (..., K) and value ``vn`` (..., K, dh), or None):
@@ -230,9 +321,15 @@ def emulate_attention(q, keys, values, bias, cur, vn, tile, kd):
     each pass's statistics taken by 8 warps over even row ranges and folded
     into the joint (max, shifted sum) in warp (and tile) order, starting
     from the fresh score; p and the fresh row's share rounded to ``kd``;
-    P.V in fp32, tile by tile."""
+    P.V in fp32, tile by tile. With an fp32 cache and 64-wide heads q.k
+    and P.V as the kernel's split-TF32 mma path forms them
+    (``split_scores``, ``split_pv``; ``products`` splits an operand)."""
     r_all = keys.shape[-2]
-    scores = torch.einsum("...kd,...rd->...kr", q, keys) + bias
+    mma = kd == torch.float32 and q.shape[-1] == MMA_DH
+    if mma:
+        scores = split_scores(q, keys, products) + bias
+    else:
+        scores = torch.einsum("...kd,...rd->...kr", q, keys) + bias
     m = cur if cur is not None else torch.full(q.shape[:-1], float("-inf"))
     den = torch.ones_like(m) if cur is not None else torch.zeros_like(m)
     spans = ([(0, r_all)] if r_all <= tile else
@@ -253,11 +350,14 @@ def emulate_attention(q, keys, values, bias, cur, vn, tile, kd):
             m = mm
     den = den.clamp_min(1e-30)
     p = (torch.exp(scores - m[..., None]) / den[..., None]).to(kd).float()
-    out = torch.zeros(*q.shape)
-    for r0, r1 in ([(r0, min(r0 + tile, r_all))
-                    for r0 in range(0, r_all, tile)] or [(0, 0)]):
-        out = out + torch.einsum("...kr,...rd->...kd", p[..., r0:r1],
-                                 values[..., r0:r1, :])
+    if mma:
+        out = split_pv(p, values, tile, r_all, products)
+    else:
+        out = torch.zeros(*q.shape)
+        for r0, r1 in ([(r0, min(r0 + tile, r_all))
+                        for r0 in range(0, r_all, tile)] or [(0, 0)]):
+            out = out + torch.einsum("...kr,...rd->...kd", p[..., r0:r1],
+                                     values[..., r0:r1, :])
     if cur is not None:
         pc = (torch.exp(cur - m) / den).to(kd).float()
         out = out + pc[..., None] * vn
@@ -265,8 +365,9 @@ def emulate_attention(q, keys, values, bias, cur, vn, tile, kd):
 
 
 def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
-                  packed, lanes, heads, plan, tile=None):
-    """``decoder_layer_step`` with the kernel's GEMVs and LayerNorms;
+                  packed, lanes, heads, plan, tile=None, products=split_tf32):
+    """``decoder_layer_step`` with the kernel's GEMVs (fp32 ones split by
+    ``products``) and LayerNorms;
     the attention as the twin's (the kernel's takes the same rounding
     points, its fp32 sums in other orders), or, with ``tile``, in the
     kernel's order (``emulate_attention``: the rows s < min(pos, S) of
@@ -278,7 +379,7 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
     wd, kd = packed.w_qkv.dtype, kv_cache.dtype
     wsize = torch.empty(0, dtype=wd).element_size()
     def gemv(i, h, w, bias):
-        return emulate_gemv(h, w, bias, plan.ks[i], wsize)
+        return emulate_gemv(h, w, bias, plan.ks[i], wsize, products)
 
     p = [v.float() for v in packed]
     (ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w_q2, b_q2, w_out2, b_out2,
@@ -303,7 +404,7 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
             b, 1, lanes, lanes * s_lim)
         o = emulate_attention(q.permute(0, 2, 1, 3), rows[..., 0, :],
                               rows[..., 1, :], bias, cur,
-                              v_new.permute(0, 2, 1, 3), tile, kd)
+                              v_new.permute(0, 2, 1, 3), tile, kd, products)
         o = o.permute(0, 2, 1, 3)
     else:
         scores = torch.einsum("bkhd,bjshd->bhkjs", q, kv[:, :, :, 0])
@@ -328,7 +429,7 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
         o2 = emulate_attention(
             q2.permute(0, 2, 1, 3), sk.permute(0, 2, 1, 3),
             sv.permute(0, 2, 1, 3), mem_bias[:, None, None, :], None, None,
-            tile, kd).permute(0, 2, 1, 3)
+            tile, kd, products).permute(0, 2, 1, 3)
     else:
         s2 = torch.einsum("bkhd,bshd->bhks", q2, sk) + mem_bias[:, None,
                                                                  None, :]
@@ -347,15 +448,16 @@ def emulate_layer(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
 BE, KE, SE, S_ENC, CE, HE, FE = 3, 3, 16, 11, 128, 2, 256
 
 
-def _case(pos, seed, dtype, lanes=KE):
+def _case(pos, seed, dtype, lanes=KE, c=CE, heads=HE, f=FE):
     """A layer of random weights (LN scales around 1) and one step's
-    inputs at C=128, F=256, two 64-wide heads, B=3, K=3 (or ``lanes``):
-    the beam's contract (rows past pos masked on every lane, this step's
-    row each lane's own), utterance 1's last 3 source rows padded."""
+    inputs at C=128, F=256, two 64-wide heads (or ``c``, ``heads``,
+    ``f``), B=3, K=3 (or ``lanes``): the beam's contract (rows past pos
+    masked on every lane, this step's row each lane's own), utterance 1's
+    last 3 source rows padded."""
     from avsr_tpu_torch.models.decoder import DecoderLayer
 
     rng = np.random.RandomState(seed)
-    layer = DecoderLayer(CE, HE, FE)
+    layer = DecoderLayer(c, heads, f)
     with torch.no_grad():
         for name, prm in layer.named_parameters():
             if "norm" in name:
@@ -365,9 +467,9 @@ def _case(pos, seed, dtype, lanes=KE):
                 prm.copy_(t(rng.randn(*prm.shape) / np.sqrt(prm.shape[-1])))
     packed = pdl.pack_layer_params(layer, dtype)
     n = BE * lanes
-    x = t(rng.randn(n, CE)).to(dtype)
-    kv = t(rng.randn(n, SE, 2 * CE)).to(dtype)
-    src_k, src_v = (t(rng.randn(BE, S_ENC, CE)).to(dtype) for _ in range(2))
+    x = t(rng.randn(n, c)).to(dtype)
+    kv = t(rng.randn(n, SE, 2 * c)).to(dtype)
+    src_k, src_v = (t(rng.randn(BE, S_ENC, c)).to(dtype) for _ in range(2))
     mem_bias = torch.zeros(BE, S_ENC)
     mem_bias[1, -3:] = NEG
     anc = rng.randint(0, lanes, size=(SE, BE, lanes))
@@ -378,7 +480,7 @@ def _case(pos, seed, dtype, lanes=KE):
     return layer, packed, (x, kv, src_k, src_v, mem_bias, lane_bias.float())
 
 
-def _jax_step(pos, layer, args, dtype, lanes=KE):
+def _jax_step(pos, layer, args, dtype, lanes=KE, heads=HE):
     from avsr_tpu.ops.pallas import decoder_layer as jdl
 
     tree = {}
@@ -399,7 +501,7 @@ def _jax_step(pos, layer, args, dtype, lanes=KE):
     out, cache = jdl.decoder_layer_step(
         jnp.asarray(pos, jnp.int32), x.astype(jd), kv.astype(jd),
         src_k.astype(jd), src_v.astype(jd), mem_bias, lane_bias,
-        jdl.pack_layer_params(tree, jd), lanes=lanes, heads=HE,
+        jdl.pack_layer_params(tree, jd), lanes=lanes, heads=heads,
         interpret=True)
     return (np.asarray(out.astype(jnp.float32)),
             np.asarray(cache.astype(jnp.float32))[:, min(pos, SE - 1)])
@@ -428,9 +530,9 @@ def test_kernel_arithmetic_matches_plain_and_jax(pos, dtype, tol, items):
     """The emulated kernel (its items as planned over 1 block: 32 rows, and
     over 132: 8 rows, or forced to rows of 8-32 with 2-8 K slices) against
     the twin and JAX's ``decoder_layer_step`` (interpret): x_out and the
-    written row within tol x |max| (fp32 2e-5: sums in another order; bf16
-    2e-2: a bf16 ulp of the rounded operands), as the card holds the
-    kernel. At pos = S+3 all S stored rows and the fresh one are
+    written row within tol x |max| (fp32 2e-5: split TF32, ~2^-21 of a
+    product dropped, and sums in another order; bf16 2e-2: a bf16 ulp of
+    the rounded operands), as the card holds the kernel. At pos = S+3 all S stored rows and the fresh one are
     attended."""
     layer, packed, args = _case(pos, pos + 1, dtype)
     plan = _plan(items)

@@ -236,6 +236,51 @@ def test_layer_variant_register_report():
     assert "spill stores" in lines[1]
 
 
+def test_layer_variant_options_reach_every_run(monkeypatch):
+    """``--dtype`` and ``--width`` are read anywhere on the command line
+    (bf16 at C=1024 by default; the two decoders' widths only), the rest
+    goes to the variants, and each variant's run process gets both."""
+    from avsr_tpu_torch.tools import layer_variants as lv
+
+    opts, rest = lv.options(["--dtype", "float32", "base", "--width", "768",
+                             "parent@build/parent/avsr_tpu_torch/csrc"])
+    assert (opts.dtype, opts.width) == ("float32", 768)
+    assert rest == ["base", "parent@build/parent/avsr_tpu_torch/csrc"]
+    opts, rest = lv.options(["--run", "base"])
+    assert (opts.dtype, opts.width, rest) == ("bfloat16", 1024,
+                                              ["--run", "base"])
+    assert lv.HEADS == {1024: 16, 768: 12}
+    assert lv.LIMITS == {"bfloat16": 2e-2, "float32": 2e-5}
+    for bad in (["--width", "512"], ["--dtype", "float16"]):
+        with pytest.raises(SystemExit):
+            lv.options(bad)
+    runs, built = [], []
+
+    class Proc:
+        def __init__(self, cmd, cwd):
+            built.append(cmd)
+
+        def wait(self):
+            return 0
+
+    monkeypatch.setattr(fv.subprocess, "Popen", Proc)
+    monkeypatch.setattr(fv.subprocess, "run",
+                        lambda cmd, cwd, check: runs.append(cmd))
+    monkeypatch.setattr(lv, "prepare", lambda *a: None)
+    assert lv.main(["base", "--dtype", "float32", "--width", "768",
+                    "sub1=decoder_layer.cu:kTraceSub=1"]) == 0
+    assert [c[-2:] for c in built] == [["--build", "base"],
+                                       ["--build", "sub1"]]
+    assert [c[3:] for c in runs] == [
+        ["--run", name, "--dtype", "float32", "--width", "768"]
+        for name in ("base", "sub1")]
+    seen = []
+    monkeypatch.setattr(lv, "run", lambda *a: seen.append(a))
+    assert lv.main(["--run", "base", "--dtype", "float32", "--width",
+                    "768"]) == 0
+    assert seen == [("base", "float32", 768)]
+
+
 def test_layer_trace_tables():
     """Phase work is the median block's end minus start, the barrier the
     last arrival to the first departure; a step's time is after its
