@@ -15,7 +15,13 @@
 // element (every lane's query meets every stored row). At B=8 there are
 // only B*H = 128 (utterance, head) pairs: one block a pair leaves the SMs
 // few loads in flight, and the time is the loads' latency, not the card's
-// rate.
+// rate. An fp32 cache (the conformer decoder's C=768: 28 MB a layer at
+// B=8) is bound the same way; on the CUDA cores its q.k and P.V took ~27
+// of its 39 us there, on the tensor cores in split TF32 (three tf32
+// products a step, 3x the FLOPs, still ~30x under the bytes) they do not.
+// Its copies then run at ~1.75 TB/s (256-byte head slices of 6 KB rows);
+// a ring of four half-length stages, to put the V tiles in flight beside
+// the K tiles, only slowed the K tiles (PERF.md).
 //
 // Design: the rows of one (b, h) are split over a thread-block cluster of G
 // blocks (grid (H*G, B, query groups), cluster (G, 1, 1), launched with
@@ -62,23 +68,34 @@
 // p that round the other way, which decode_attention.output_bound counts
 // (ROADMAP C27). fp32 caches keep expf and IEEE-exact division (div_rn).
 //
-// Products: with a bf16 cache and dh = 64 (the model's heads) q.k and P.V
-// run on the tensor cores, mma.sync m16n8k16 with the group's queries as
-// ceil(lanes / 8) 8-wide operands (kNt tiles, a template: 1, 2, 4 or 8,
-// their B fragments bf16 pairs in shared memory): S (16 rows x 8 queries) =
-// K q^T from ldmatrix rows, every K fragment feeding every query tile;
-// out^T (dh x 8) = V^T P^T from transposed ldmatrix, P exact in bf16 since
-// it is rounded already (the softmax leaves each pair of rows' p as the
-// bf16 pair the B operand loads), warp w taking head dims 16 (w % 4)..+15
-// of every query tile over one half of the tile's 16-row groups, the two
-// halves' partials added in order. The softmax's elementwise passes keep four rows
-// in flight a thread; eight warps a block, two blocks an SM where the plan
-// fits. Otherwise (fp32 caches, other head widths) a row's Dh slice is
-// read by gw (the next power of two >= its 16-byte chunks) adjacent
-// threads, one query after another against the queries in shared memory,
-// a shuffle over the gw threads summing a score; the P.V gives each thread
-// (query, 16-byte chunk) outputs, which it accumulates over the tile's
-// rows in shared memory.
+// Products: with dh = 64 (every model's heads) q.k and P.V run on the
+// tensor cores, with the group's queries as ceil(lanes / 8) 8-wide
+// operands (kNt tiles, a template: 1, 2, 4 or 8): S (16 rows x 8 queries)
+// = K q^T, every K fragment feeding every query tile; out^T (dh x 8) =
+// V^T P^T, warp w taking head dims 16 (w % 4)..+15 of every query tile
+// over one half of the tile's 16-row groups, the two halves' partials
+// added in order. A bf16 cache takes mma.sync m16n8k16: the queries' B
+// fragments bf16 pairs in shared memory, K from ldmatrix rows, V^T from
+// transposed ldmatrix, P exact in bf16 since it is rounded already (the
+// softmax leaves each pair of rows' p as the bf16 pair the B operand
+// loads). An fp32 cache takes m16n8k8 in split TF32 (mma_tf32.cuh: x = hi
+// + lo, three tf32 products a step, lo hi, hi lo, hi hi, ~2^-21 of a
+// product dropped, never one TF32 product): the queries split once into
+// their B fragments in shared memory (one 16-byte load a lane, a query
+// tile and a k-step); q.k takes lane (g, c) dims 8c..8c+7 of each 32 of
+// rows g and g + 8 (two 16-byte loads, rows of dh + 4 floats:
+// conflict-free), product p of the 32 taking dims 8c + 2p and the next as
+// k = c and c + 4, each K fragment split once for every query tile
+// (mma_split_rows); P.V takes rows 2c and 2c + 1 of each 8 as k = c and
+// c + 4 (V^T's fragment reads banks 8c + g: conflict-free), V^T's
+// fragment split once for every query tile, P's pair split at use. The
+// softmax's elementwise passes keep four rows in flight a thread; eight
+// warps a block, two blocks an SM where the plan fits. Otherwise (other
+// head widths) a row's Dh slice is read by gw (the next power of two >=
+// its 16-byte chunks) adjacent threads, one query after another against
+// the queries in shared memory, a shuffle over the gw threads summing a
+// score; the P.V gives each thread (query, 16-byte chunk) outputs, which
+// it accumulates over the tile's rows in shared memory.
 //
 // The numbered phase comments of the kernel are where the variants tool
 // (tools/decode_variants.py) cuts a copy of it short, to time the phases
@@ -91,6 +108,7 @@
 
 #include "common.cuh"
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -101,7 +119,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTileLanes = 8;  // queries of one mma operand tile
 constexpr int kGroupLanes = 64;  // queries of one block: 8 operand tiles
 constexpr int kMaxCluster = 8;
-constexpr int kMmaDh = 64;  // the head width whose bf16 products use mma
+constexpr int kMmaDh = 64;  // the head width whose products use mma
 constexpr int kMaxSmem = 232448;  // 227 KB, the opt-in limit of a block
 constexpr unsigned kFull = 0xffffffffu;
 // the mma path's P.V gives warp w head dims 16 (w % 4).. of row half w / 4
@@ -123,30 +141,42 @@ __device__ __forceinline__ void load_chunk(const TC* p, float* out) {
     out[i] = avsr::to_float(e[i]);
 }
 
+// 32-bit words of the queries in shared memory: (lanes, dh) fp32 values,
+// or on the split-TF32 path (an fp32 cache, dh = kMmaDh) each 8-query
+// tile's split B fragments, hi and lo of (8, dh) values
+__host__ __device__ inline size_t query_words(int lanes, int dh, int esize) {
+  return esize == 4 && dh == kMmaDh
+             ? 2 * static_cast<size_t>((lanes + kTileLanes - 1) /
+                                       kTileLanes * kTileLanes) * dh
+             : static_cast<size_t>(lanes) * dh;
+}
+
 // shared-memory bytes of one block: two stage buffers of tile rows rounded
 // up to 16, each row dh elements and a 16-byte pad; the fp32 scores of
 // `chunk` rows for each of the group's `lanes` queries (rounded up to 4
-// floats); the local and joint (m, l) per query; the queries and the
-// rank's partial outputs, (lanes, dh) each. The launch plan computes the
-// same.
+// floats); the local and joint (m, l) per query; the queries
+// (query_words) and the rank's partial outputs (lanes, dh). The launch
+// plan computes the same.
 __host__ __device__ inline size_t smem_bytes(int lanes, int dh, int esize,
                                              int chunk, int tile) {
   const size_t scores = (static_cast<size_t>(lanes) * chunk + 3) / 4 * 4;
   return 2 * static_cast<size_t>((tile + 15) & ~15) * (dh * esize + 16) +
          sizeof(float) * (scores + 4 * static_cast<size_t>(lanes) +
-                          2 * static_cast<size_t>(lanes) * dh);
+                          query_words(lanes, dh, esize) +
+                          static_cast<size_t>(lanes) * dh);
 }
 
-// exp(x) of the softmax: on the mma path __expf (ex2.approx, a few fp32 ulps
-// off; p is rounded to bf16 after it, 2^16 fp32 ulps a step), else expf
+// exp(x) of the softmax: on the bf16 mma path __expf (ex2.approx, a few
+// fp32 ulps off; p is rounded to bf16 after it, 2^16 fp32 ulps a step),
+// else expf
 template <bool kFast>
 __device__ __forceinline__ float soft_exp(float x) {
   return kFast ? __expf(x) : expf(x);
 }
 
 // kNt: query tiles of 8 of the mma path (the group's lanes <= 8 kNt).
-// kMma: a bf16 cache with dh = kMmaDh, whose q.k and P.V run on the tensor
-// cores.
+// kMma: dh = kMmaDh, whose q.k and P.V run on the tensor cores: a bf16
+// cache on m16n8k16 (kBf), an fp32 one in split TF32 on m16n8k8 (kTf).
 template <typename TQ, typename TC, int kNt, bool kMma>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const TQ* __restrict__ q, TC* cache,
@@ -156,6 +186,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                             int rows_per_rank, int tile, int chunk,
                             int group_lanes) {
   constexpr int kVec = 16 / sizeof(TC);  // elements per 16-byte chunk
+  constexpr bool kBf = kMma && sizeof(TC) == 2;
+  constexpr bool kTf = kMma && sizeof(TC) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int g = static_cast<int>(cluster.num_blocks());
@@ -195,7 +227,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   const size_t lane0 = static_cast<size_t>(b) * lanes;
   // mma fragment coordinates: row (or query) gq, column pair cq
   const int gq = lane_id >> 2;
-  const int cq = 2 * (lane_id & 3);
+  const int c4 = lane_id & 3;
+  const int cq = 2 * c4;
+  const int nqt = (nq + kTileLanes - 1) / kTileLanes;  // the query tiles
   // the mma P.V's share: head dims 16 mt..16 mt + 15, row groups half,
   // half + 2, ...
   const int mt = warp & 3, half = warp >> 2;
@@ -205,17 +239,39 @@ __global__ void __launch_bounds__(kThreads, 2)
       stage + 2 * static_cast<size_t>(tile_rows) * ld);  // (lanes, chunk)
   float* stat = sc + (group_lanes * chunk + 3) / 4 * 4;  // (2, lanes): m, l
   float* joint = stat + 2 * group_lanes;  // (2, lanes): m, p's factor
-  float* qs = joint + 2 * group_lanes;    // (lanes, dh): the queries
-  float* part = qs + group_lanes * dh;    // (lanes, dh): this rank's P.V
-  // the mma path's queries: bf16 pairs, rows of kQb words (a 16-byte pad:
-  // the 8 queries of a fragment hit distinct banks)
+  float* qs = joint + 2 * group_lanes;    // the queries (query_words)
+  // (lanes, dh): this rank's P.V
+  float* part = qs + query_words(group_lanes, dh, sizeof(TC));
+  // the bf16 mma path's queries: bf16 pairs, rows of kQb words (a 16-byte
+  // pad: the 8 queries of a fragment hit distinct banks)
   constexpr int kQb = kMmaDh / 2 + 4;
   uint32_t* qb = reinterpret_cast<uint32_t*>(qs);
+  // the split-TF32 path's: qf[(8 nt + s) * 32 + lane] holds lane (g, c)'s
+  // B fragment of k-step s = 4 hf + p of query tile nt (query 8 nt + g,
+  // dims 32 hf + 8 c + 2 p and the next): (hi, hi, lo, lo)
+  uint4* qf = reinterpret_cast<uint4*>(qs);
 
   // 1. the queries, rounded to the cache dtype, in shared memory (on the
-  // mma path as bf16 pairs, eight dims a thread in 16-byte loads); the
-  // rank's (m, l) start empty
-  if constexpr (kMma) {
+  // bf16 mma path as bf16 pairs, eight dims a thread in 16-byte loads; on
+  // the split-TF32 path as their split B fragments, zeros past the
+  // group's queries); the rank's (m, l) start empty
+  if constexpr (kTf) {
+    for (int e = tid; e < nqt * kTileLanes * kMmaDh / 2; e += kThreads) {
+      const int ln = e & 31, st = (e >> 5) & 7, nt = e >> 8;
+      const int kq = nt * kTileLanes + (ln >> 2);
+      const int d = 32 * (st >> 2) + 8 * (ln & 3) + 2 * (st & 3);
+      float x0 = 0.f, x1 = 0.f;
+      if (kq < nq) {
+        const TQ* qp = q + (lane0 + kq0 + kq) * c_dim + h * dh + d;
+        x0 = avsr::to_float(qp[0]);
+        x1 = avsr::to_float(qp[1]);
+      }
+      uint4 f;
+      avsr::tf32::split_tf32(x0, f.x, f.z);
+      avsr::tf32::split_tf32(x1, f.y, f.w);
+      qf[e] = f;
+    }
+  } else if constexpr (kBf) {
     constexpr int kQv = 16 / sizeof(TQ);  // q elements a 16-byte load
     for (int e = tid; e < group_lanes * dh / 8; e += kThreads) {
       const int kq = e / (dh / 8), d = (e - kq * (dh / 8)) * 8;
@@ -360,7 +416,58 @@ __global__ void __launch_bounds__(kThreads, 2)
         *sp = acc + __ldg(lane_bias + (lane0 + kq0 + kq) * s_max * lanes +
                           r_begin + base + row);
     };
-    if constexpr (kMma) {
+    if constexpr (kTf) {
+      // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T in
+      // split TF32, each K fragment split once for every query tile
+      const float* kf = reinterpret_cast<const float*>(buf);
+      for (int t16 = warp * 16; t16 < n; t16 += kWarps * 16) {
+        float acc[kNt][4];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+        for (int hf = 0; hf < kMmaDh / 32; ++hf) {
+          const float* k0 = kf + (t16 + gq) * ld + 32 * hf + 8 * c4;
+          float r0[8], r8[8];
+#pragma unroll
+          for (int i = 0; i < 8; i += 4) {
+            const float4 x0 = *reinterpret_cast<const float4*>(k0 + i);
+            const float4 x8 =
+                *reinterpret_cast<const float4*>(k0 + 8 * ld + i);
+            r0[i] = x0.x, r0[i + 1] = x0.y, r0[i + 2] = x0.z,
+            r0[i + 3] = x0.w;
+            r8[i] = x8.x, r8[i + 1] = x8.y, r8[i + 2] = x8.z,
+            r8[i + 3] = x8.w;
+          }
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            uint32_t ahi[4], alo[4], bhi[kNt][2], blo[kNt][2];
+            avsr::tf32::split_a(ahi, alo, r0[2 * p], r8[2 * p],
+                                r0[2 * p + 1], r8[2 * p + 1]);
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              const uint4 f =
+                  nt < nqt ? qf[(nt * 8 + 4 * hf + p) * 32 + lane_id]
+                           : make_uint4(0u, 0u, 0u, 0u);
+              bhi[nt][0] = f.x, bhi[nt][1] = f.y;
+              blo[nt][0] = f.z, blo[nt][1] = f.w;
+            }
+            avsr::tf32::mma_split_rows<kNt>(acc, ahi, alo, bhi, blo, nqt);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          if (nt >= nqt) break;  // uniform over the block
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = t16 + gq + (e >> 1) * 8;
+            const int kq = nt * kTileLanes + cq + (e & 1);
+            if (kq < nq && row < n) put(kq, row, acc[nt][e]);
+          }
+        }
+      }
+    } else if constexpr (kBf) {
       // a warp's 16 rows at a time: S (16 rows x 8 queries) = K q^T for
       // every query tile from the same K fragments
       for (int t16 = warp * 16; t16 < n; t16 += kWarps * 16) {
@@ -417,10 +524,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // the (max, shifted sum) of the chunk's n rows per query, folded into
   // the rank's (m, l) in chunk order, four rows in flight a lane
-  // (independent chains, summed in a fixed order); on the mma path with
-  // every row's scores held, each score becomes its exp(s - m_rank)
+  // (independent chains, summed in a fixed order); on the bf16 mma path
+  // with every row's scores held, each score becomes its exp(s - m_rank)
   auto fold = [&](int n) {
-    const bool keep = kMma && staged;
+    const bool keep = kBf && staged;
     for (int kq = warp; kq < nq; kq += kWarps) {
       float* srow = sc + kq * chunk;
       float m4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
@@ -436,7 +543,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int u = 0; u < 4; ++u)
           if (e + 32 * u < n) {
-            const float x = soft_exp<kMma>(srow[e + 32 * u] - safe);
+            const float x = soft_exp<kBf>(srow[e + 32 * u] - safe);
             if (keep) srow[e + 32 * u] = x;
             s4[u] += x;
           }
@@ -462,8 +569,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 
   // 4. the joint softmax's statistics: the ranks' (m, l) per query,
-  // combined over the cluster in rank order; p's factor: 1 / den, or, on
-  // the mma path with every row's exp held, exp(m_rank - m) / den
+  // combined over the cluster in rank order; p's factor: den, or, on the
+  // bf16 mma path, 1 / den or, with every row's exp held, exp(m_rank - m)
+  // / den
   cluster.sync();
   if (tid < nq) {
     float ms[kMaxCluster], ls[kMaxCluster];  // all loads in flight at once
@@ -483,7 +591,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     den = fmaxf(den, 1e-30f);
     joint[tid] = m;
     joint[group_lanes + tid] =
-        !kMma    ? den
+        !kBf     ? den
         : staged ? soft_exp<true>(fmaxf(stat[tid], -3.0e38f) - m) / den
                  : 1.f / den;
   }
@@ -511,15 +619,15 @@ __global__ void __launch_bounds__(kThreads, 2)
         issue(li + 2);
       }
     }
-    // p of the chunk's rows, four units a thread at a time: on the mma path
-    // a unit is a (query, even row) pair, p = the held exp times p's
+    // p of the chunk's rows, four units a thread at a time: on the bf16 mma
+    // path a unit is a (query, even row) pair, p = the held exp times p's
     // factor, or exp(s - m) times 1 / den, the pair's two p rounded to
     // bf16 into one 32-bit word in the even row's place (the P.V's B
     // operand as it loads; a pair past the chunk's rows takes 0); else a
     // (query, row), p = div_rn(expf(s - m), den) (IEEE's division wherever
     // p is normal, with no slow path for the masked rows' p = 0)
     if (nrc > 0) {
-      constexpr int kRows = kMma ? 2 : 1;  // rows a unit
+      constexpr int kRows = kBf ? 2 : 1;  // rows a unit
       const int per_q = (nrc + kRows - 1) / kRows;
       const int total = nq * per_q;
       int kq = tid / per_q, lu = tid - kq * per_q;
@@ -533,7 +641,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int lr = kRows * lu;
           pp[u] = sc + (ok ? kq * chunk + lr : 0);
           two[u] = lr + 1 < nrc;
-          const float m = ok && !(kMma && staged) ? joint[kq] : 0.f;
+          const float m = ok && !(kBf && staged) ? joint[kq] : 0.f;
 #pragma unroll
           for (int i = 0; i < kRows; ++i)
             x[u][i] = ok && (i == 0 || two[u]) ? pp[u][i] - m : -INFINITY;
@@ -543,7 +651,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           if (e + u * kThreads >= total) continue;
-          if constexpr (kMma) {
+          if constexpr (kBf) {
             float p[2];
 #pragma unroll
             for (int i = 0; i < 2; ++i)
@@ -568,7 +676,36 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int n = min(tile, my_rows - base);
       const float* pt = sc + (t % tpc) * tile;
       write_row(buf, base, n, 1);
-      if constexpr (kMma) {
+      if constexpr (kTf) {
+        // out^T (dh x 8 queries) = V^T P^T in split TF32: warp (mt, half)
+        // takes head dims 16 mt..16 mt + 15 of every query tile over the
+        // row groups of its half, each 16 rows as two k8 steps whose k = c
+        // and c + 4 are rows 2c and 2c + 1; V^T's fragment split once for
+        // every query tile, P's pair split at use, zero past the tile's
+        // rows (whose V rows are zeros too)
+        const float* vf =
+            reinterpret_cast<const float*>(buf) + mt * 16 + gq;
+        for (int t16 = half * 16; t16 < n; t16 += 32) {
+#pragma unroll
+          for (int s8 = 0; s8 < 16; s8 += 8) {
+            const int r = t16 + s8 + 2 * c4;
+            const float* v = vf + r * ld;
+            uint32_t ahi[4], alo[4], bhi[kNt][2], blo[kNt][2];
+            avsr::tf32::split_a(ahi, alo, v[0], v[8], v[ld], v[ld + 8]);
+#pragma unroll
+            for (int nt = 0; nt < kNt; ++nt) {
+              const int kq = nt * kTileLanes + gq;
+              const float* pr = pt + kq * chunk + r;
+              const bool live = nt < nqt && kq < nq;
+              avsr::tf32::split_tf32(live && r < n ? pr[0] : 0.f, bhi[nt][0],
+                                     blo[nt][0]);
+              avsr::tf32::split_tf32(live && r + 1 < n ? pr[1] : 0.f,
+                                     bhi[nt][1], blo[nt][1]);
+            }
+            avsr::tf32::mma_split_rows<kNt>(oacc, ahi, alo, bhi, blo, nqt);
+          }
+        }
+      } else if constexpr (kBf) {
         // out^T (dh x 8 queries) = V^T P^T: warp (mt, half) takes head
         // dims 16 mt..16 mt + 15 of every query tile over the row groups
         // of its half; V^T by transposed ldmatrix, P^T (exact in bf16: p
@@ -744,24 +881,25 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
   return cudaGetLastError();
 }
 
+// mma: the tensor-core instances where the heads are kMmaDh wide; else the
+// CUDA-core instance at any head width
 template <typename TQ, typename TC>
 cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
                          const void* kv_row, void* out, int b, int lanes,
                          int heads, int dh, int s_max, int pos, int cluster,
                          int rows_per_rank, int tile, int chunk,
-                         int group_lanes, int smem, cudaStream_t stream) {
+                         int group_lanes, int smem, bool mma,
+                         cudaStream_t stream) {
 #define AVSR_DECODE_LAUNCH(NT, MMA)                                          \
   launch_typed<TQ, TC, NT, MMA>(q, cache, lane_bias, kv_row, out, b, lanes,  \
                                 heads, dh, s_max, pos, cluster,             \
                                 rows_per_rank, tile, chunk, group_lanes, smem, \
                                 stream)
-  if constexpr (sizeof(TC) == 2) {
-    if (dh == kMmaDh) {
-      if (group_lanes <= kTileLanes) return AVSR_DECODE_LAUNCH(1, true);
-      if (group_lanes <= 2 * kTileLanes) return AVSR_DECODE_LAUNCH(2, true);
-      if (group_lanes <= 4 * kTileLanes) return AVSR_DECODE_LAUNCH(4, true);
-      return AVSR_DECODE_LAUNCH(8, true);
-    }
+  if (mma && dh == kMmaDh) {  // bf16 on m16n8k16, fp32 in split TF32
+    if (group_lanes <= kTileLanes) return AVSR_DECODE_LAUNCH(1, true);
+    if (group_lanes <= 2 * kTileLanes) return AVSR_DECODE_LAUNCH(2, true);
+    if (group_lanes <= 4 * kTileLanes) return AVSR_DECODE_LAUNCH(4, true);
+    return AVSR_DECODE_LAUNCH(8, true);
   }
   return AVSR_DECODE_LAUNCH(1, false);
 #undef AVSR_DECODE_LAUNCH
@@ -777,7 +915,9 @@ cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
 // [r*rows_per_rank, (r+1)*rows_per_rank) of the lanes*(pos_c+1) prefix,
 // in tiles of `tile` rows, the scores of `chunk` rows at once (all of the
 // rank's, or a multiple of the tile); query groups of `group_lanes` lanes; `smem` bytes of
-// dynamic shared memory.
+// dynamic shared memory. cuda_cores != 0 launches the CUDA-core instance
+// even where the heads take the tensor cores (the yardstick that the
+// tensor-core instances are timed against).
 extern "C" int avsr_decode_attention(const void* q, void* cache,
                                      const float* lane_bias, const void* kv_row,
                                      void* out, int b, int lanes, int heads,
@@ -785,7 +925,7 @@ extern "C" int avsr_decode_attention(const void* q, void* cache,
                                      int cache_dtype, int cluster,
                                      int rows_per_rank, int tile, int chunk,
                                      int group_lanes, int smem,
-                                     void* stream) {
+                                     int cuda_cores, void* stream) {
   if (b <= 0 || b > 65535 || lanes <= 0 || heads <= 0 || dh <= 0 ||
       s_max <= 0 || pos < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -795,7 +935,7 @@ extern "C" int avsr_decode_attention(const void* q, void* cache,
 #define AVSR_DECODE_TYPED(TQ, TC)                                           \
   launch_lanes<TQ, TC>(q, cache, lane_bias, kv_row, out, b, lanes, heads,  \
                        dh, s_max, pos, cluster, rows_per_rank, tile, chunk, \
-                       group_lanes, smem, s)
+                       group_lanes, smem, cuda_cores == 0, s)
   if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
     err = AVSR_DECODE_TYPED(bf16, bf16);
   else if (q_dtype == avsr::kFloat32 && cache_dtype == avsr::kFloat32)

@@ -9,7 +9,9 @@ plan (``launch_plan``: cluster size, rows a rank, tile, shared memory)
 computed here. One launch reads each (utterance, head)'s prefix once for
 up to ``GROUP_LANES`` beam lanes (their queries as up to eight 8-lane mma
 operands); ``wide_launches`` counts the launches beyond ``MAX_LANES``
-lanes (one operand tile: beams of 9 and more).
+lanes (one operand tile: beams of 9 and more), ``tf32_launches`` those
+of an fp32 cache with ``MMA_DH``-wide heads, whose q.k and P.V run in
+split TF32 on the tensor cores.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ THREADS = 256
 WARPS = THREADS // 32
 CLUSTER_SIZES = (2, 4, 8)
 # G=2: the fastest of G = 1, 2, 4, 8 at B=8 (H=16) for one query tile; at
-# B=32 G=1 is (tools/decode_variants.py on the H100): where the (utterance,
-# head) pairs fill the card's SMS SMs twice over, one block a pair
+# B=32 G=1 is with a bf16 cache (tools/decode_variants.py on the H100):
+# where the (utterance, head) pairs fill the card's SMS SMs twice over, one
+# block a pair. An fp32 cache's rows, twice as long, keep G=2 there (split
+# TF32 at C=768, B=32: 0.0707 ms cold against G=1's 0.0756)
 CLUSTER = 2
 SMS = 132  # the H100's SMs
 STAGE_BYTES = 48 * 1024
@@ -42,6 +46,7 @@ PAIR_TILE = 64  # the least tile of a two-blocks-an-SM plan
 TWO_PASS_TILE = 128  # the tile of a two-pass plan
 MAX_LANES = 8  # csrc/decode_attention.cu kTileLanes: one mma query tile
 GROUP_LANES = 64  # csrc/decode_attention.cu kGroupLanes: a block's queries
+MMA_DH = 64  # csrc/decode_attention.cu kMmaDh: the heads whose products use mma
 
 
 def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
@@ -148,16 +153,27 @@ class Plan(NamedTuple):
                 for r in range(rows.start, rows.stop, self.chunk)]
 
 
+def query_words(lanes: int, dh: int, esize: int) -> int:
+    """32-bit words of the queries in a block's shared memory
+    (``query_words`` of the CUDA source): (lanes, dh) fp32 values, or with
+    an fp32 cache and MMA_DH-wide heads (split TF32) the hi and lo B
+    fragments of whole 8-query tiles."""
+    if esize == 4 and dh == MMA_DH:
+        return 2 * -(-lanes // MAX_LANES) * MAX_LANES * dh
+    return lanes * dh
+
+
 def smem_bytes(lanes: int, dh: int, esize: int, chunk: int,
                tile: int) -> int:
     """Shared memory of one block (``smem_bytes`` of the CUDA source): two
     stage buffers of ``tile`` rows rounded up to 16, a row dh cache
     elements and a 16-byte pad; fp32 scores (lanes, chunk), rounded up to
-    4 floats; the local and the joint (m, l) per query; the queries and
-    the rank's partial outputs, (lanes, dh) each. ``lanes``: a query
-    group's."""
+    4 floats; the local and the joint (m, l) per query; the queries
+    (``query_words``) and the rank's partial outputs (lanes, dh).
+    ``lanes``: a query group's."""
     return (2 * -(-tile // 16) * 16 * (dh * esize + 16)
-            + 4 * (-(-lanes * chunk // 4) * 4 + 4 * lanes + 2 * lanes * dh))
+            + 4 * (-(-lanes * chunk // 4) * 4 + 4 * lanes
+                   + query_words(lanes, dh, esize) + lanes * dh))
 
 
 def _tiles(budget: int, lanes: int, dh: int, esize: int, rpr: int,
@@ -178,19 +194,20 @@ def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
                 pos: int, esize: int, cluster: int | None = None) -> Plan:
     """The kernel's launch for one step. Lanes beyond GROUP_LANES split
     into even query groups. ``cluster`` forces G (1, 2, 4 or 8; the
-    variants tool sweeps it); by default CLUSTER (1 for one query tile
-    where B*H pairs fill the card twice), raised while a rank's scores
-    would not fit one pass. A one-pass layout within PAIR_SMEM (two
-    blocks an SM, a tile of at least PAIR_TILE rows) at the least G that
-    gives one comes first (at 22 lanes over a 192-row cache G=8 two an
-    SM measured 0.18 ms at B=8 against G=2's 0.27 one an SM), else within
-    SMEM_MAX; where no G gives one, the largest G's rank holds the scores
-    of a chunk of its rows at a time and takes them twice. Raises
-    ValueError where no plan fits."""
+    variants tool sweeps it); by default CLUSTER (1 for one query tile of
+    a bf16 cache where B*H pairs fill the card twice), raised while a
+    rank's scores would not fit one pass. A one-pass layout within
+    PAIR_SMEM (two blocks an SM, a tile of at least PAIR_TILE rows) at the
+    least G that gives one comes first (at 22 lanes over a 192-row cache
+    G=8 two an SM measured 0.18 ms at B=8 against G=2's 0.27 one an SM),
+    else within SMEM_MAX; where no G gives one, the largest G's rank holds
+    the scores of a chunk of its rows at a time and takes them twice.
+    Raises ValueError where no plan fits."""
     rows = lanes * (min(pos, s_max - 1) + 1)
     groups = -(-lanes // GROUP_LANES)
     gl = -(-lanes // groups)
-    least = 1 if lanes <= MAX_LANES and b * heads >= 2 * SMS else CLUSTER
+    least = (1 if esize == 2 and lanes <= MAX_LANES and b * heads >= 2 * SMS
+             else CLUSTER)
     sizes = (cluster,) if cluster else tuple(
         g for g in (1, *CLUSTER_SIZES) if g >= least)
 
@@ -254,7 +271,11 @@ def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
 
 
 def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
-            cluster=None, plan=None):
+            cluster=None, plan=None, cuda_cores=False):
+    """Launches the kernel; ``cluster`` forces G, ``plan`` the whole launch.
+    ``cuda_cores`` takes the CUDA-core instance even where the heads are
+    MMA_DH wide (the yardstick of the tensor-core instances; the decoder
+    never sets it)."""
     n, s_max, c2 = kv_cache.shape
     dh = c2 // 2 // heads
     esize = kv_cache.element_size()
@@ -271,7 +292,7 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
                            esize, cluster)
     fn = _build.function(
         "avsr_decode_attention",
-        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 14 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 15 + (ctypes.c_void_p,),
     )
     kv_row = kv_row.to(kv_cache.dtype)
     if kv_row.data_ptr() % 16:  # the kernel copies it 16 bytes at a time
@@ -284,10 +305,13 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
              s_max, int(pos), _build.dtype_code(q.dtype),
              _build.dtype_code(kv_cache.dtype), plan.cluster,
              plan.rows_per_rank, plan.tile, plan.chunk, plan.group_lanes,
-             plan.smem, torch.cuda.current_stream(q.device).cuda_stream)
+             plan.smem, int(cuda_cores),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)
     decode_attention.launches += 1
     decode_attention.wide_launches += lanes > MAX_LANES
+    decode_attention.tf32_launches += (esize == 4 and dh == MMA_DH
+                                       and not cuda_cores)
     return out, kv_cache
 
 
@@ -315,3 +339,4 @@ def decode_attention(pos: int, q, kv_cache, lane_bias, lanes: int,
 
 decode_attention.launches = 0
 decode_attention.wide_launches = 0
+decode_attention.tf32_launches = 0

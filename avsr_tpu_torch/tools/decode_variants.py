@@ -1,6 +1,6 @@
 """Times variants of the beam's per-step kernels on the card.
 
-    python -m avsr_tpu_torch.tools.decode_variants base \\
+    python -m avsr_tpu_torch.tools.decode_variants [--dtype float32] base \\
         cols4=scan_logsumexp.cu:kCols=4 upto3=decode_attention.cu:stop=3 \\
         parent@build/parent/avsr_tpu_torch/csrc
 
@@ -15,16 +15,22 @@ once, one ``nvcc`` per source, under ``build/decode_variants/NAME/``; then
 each runs in a process of its own, which loads its library and
 ``decode_attention`` and ``cumlogsumexp`` from its wrappers and:
 
-- ``decode_attention`` at each of SHAPES (``chip_smoke.decode_case``):
-  beam 3 at pos 250 (the whole 192-row cache read) at B=8 and B=32, beam
-  22 at phase 8's shape at B=8 and B=32 and over the serving cache at
-  B=8: holds it against this checkout's twin (the cache bit-exact, out's
-  max abs error), then times it warm (one cache) and cold (rotating over
-  six caches, as the six decoder layers read them), at every cluster
-  size G of CLUSTERS where the wrapper has a launch plan (so this tool
-  picks G; and, where the plan keeps two blocks an SM, the one-block-an-SM
-  plan of the largest tile beside it), else as the wrapper launches it;
-  the first variant, named ``base``, prints fused SDPA's time beside;
+- ``decode_attention`` at each of SHAPES (``chip_smoke.decode_case``, a
+  bf16 cache at C=1024, 16 heads): beam 3 at pos 250 (the whole 192-row
+  cache read) at B=8 and B=32, beam 22 at phase 8's shape at B=8 and B=32
+  and over the serving cache at B=8; with ``--dtype float32`` at each of
+  FP32_SHAPES instead (fp32 q and cache: the conformer decoder's C=768,
+  12 heads at B=8 and B=32, the flagship's C=1024, 16 heads at B=8, and
+  22 lanes at phase 8's shape): holds it against this checkout's twin
+  (the cache bit-exact, out's max abs error and its largest ratio to
+  ``output_bound``), then times it warm (one cache) and cold (rotating
+  over six caches, as the six decoder layers read them), at every
+  cluster size G of CLUSTERS where the wrapper has a launch plan (so this
+  tool picks G; and, where the plan keeps two blocks an SM, the
+  one-block-an-SM plan of the largest tile beside it), else as the
+  wrapper launches it; the first variant, named ``base``, prints fused
+  SDPA's time beside, and the bound (``chip_smoke.decode_bound``: with
+  an fp32 cache at split TF32's three tf32 products a multiply-add);
 - ``cumlogsumexp`` at (384, 96) and (384, 384) (``chip_smoke.scan_case``),
   against this checkout's twin, and timed.
 
@@ -36,11 +42,15 @@ statistics, 6 p and the warps' P.V, 7 the rank's partial. Such a variant's outpu
 all the same.
 
 Times are ``chip_smoke.cuda_ms``; registers and spills of each kernel come
-from its ``-Xptxas -v`` report. Needs a CUDA device and ``nvcc``.
+from its ``-Xptxas -v`` report. The wrapper's launch counters
+(``launches``, ``wide_launches`` and, where it has one,
+``tf32_launches``) are printed after each case's first call. Needs a
+CUDA device and ``nvcc``.
 """
 
 from __future__ import annotations
 
+import argparse
 import importlib.util
 import inspect
 import re
@@ -51,8 +61,8 @@ from pathlib import Path
 from avsr_tpu_torch.ops.kernels import _build
 from avsr_tpu_torch.tools import flash_variants as fv
 
-SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "runtime.cu",
-           "decode_attention.cu", "scan_logsumexp.cu")
+SOURCES = ("common.cuh", "philox.cuh", "mma_bf16.cuh", "mma_tf32.cuh",
+           "runtime.cu", "decode_attention.cu", "scan_logsumexp.cu")
 WRAPPERS = ("decode_attention", "scan_logsumexp")
 CLUSTERS = (1, 2, 4, 8)
 # (lanes, B, pos, cache rows) timed: beam 3 over the serving cache at B=8
@@ -60,6 +70,11 @@ CLUSTERS = (1, 2, 4, 8)
 # and over the serving cache at B=8
 SHAPES = ((3, 8, 250, 192), (3, 32, 250, 192), (22, 8, 74, 128),
           (22, 32, 74, 128), (22, 8, 250, 192))
+# (C, heads, lanes, B, pos, cache rows) timed with an fp32 cache: the
+# conformer decoder's (the eval CLI's auto_avsr beam) at B=8 and B=32, the
+# flagship's in fp32 at B=8, and 22 lanes at phase 8's shape
+FP32_SHAPES = ((768, 12, 3, 8, 250, 192), (768, 12, 3, 32, 250, 192),
+               (1024, 16, 3, 8, 250, 192), (1024, 16, 22, 8, 74, 128))
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "decode_variants"
 
@@ -136,34 +151,43 @@ def registers(log: str) -> list[str]:
     return out
 
 
-def plans(pda, b, lanes, heads, kv_cap, pos):
+def plans(pda, b, lanes, heads, kv_cap, pos, esize=2):
     """(label, plan) of each launch timed: as wrapped (a wrapper with no
     plans, or a parent's beyond its one-tile lanes), else every G of
     CLUSTERS with the wrapper's plan and, where it differs, the one-block-
-    an-SM plan of the largest tile."""
+    an-SM plan of the largest tile. The heads are 64 wide; ``esize``: the
+    cache's bytes an element."""
     if not hasattr(pda, "launch_plan") or (
             lanes > pda.MAX_LANES and not hasattr(pda, "GROUP_LANES")):
         return [("launch as wrapped", None)]
     out = []
     for g in CLUSTERS:
-        plan = pda.launch_plan(b, lanes, heads, 64, kv_cap, pos, 2, g)
+        plan = pda.launch_plan(b, lanes, heads, 64, kv_cap, pos, esize, g)
         out.append((f"G={g} tile {plan.tile} chunk "
                     f"{getattr(plan, 'chunk', plan.rows_per_rank)} smem "
                     f"{plan.smem}", plan))
         if hasattr(pda, "_tiles") and plan.chunk == plan.rows_per_rank:
-            big = pda._tiles(pda.SMEM_MAX, plan.group_lanes, 64, 2,
+            big = pda._tiles(pda.SMEM_MAX, plan.group_lanes, 64, esize,
                              plan.rows_per_rank, 1)
             if big and big[0] != plan.tile:
                 tile, chunk = big
                 alt = plan._replace(tile=tile, chunk=chunk,
                                     smem=pda.smem_bytes(plan.group_lanes, 64,
-                                                        2, chunk, tile))
+                                                        esize, chunk, tile))
                 out.append((f"G={g} tile {tile} chunk {chunk} smem "
                             f"{alt.smem} (one block an SM)", alt))
     return out
 
 
-def run(name: str) -> None:
+def counts(pda) -> str:
+    """The wrapper's launch counters, those it has."""
+    fn = pda.decode_attention
+    return ", ".join(f"{attr} {getattr(fn, attr)}"
+                     for attr in ("launches", "wide_launches",
+                                  "tf32_launches") if hasattr(fn, attr))
+
+
+def run(name: str, dtype: str = "bfloat16") -> None:
     import torch
 
     cs = fv.chip_smoke()
@@ -181,15 +205,21 @@ def run(name: str) -> None:
     psl = wrapper(variant, "scan_logsumexp")
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(2)
-    heads = 16
+    dt = getattr(torch, dtype)
     takes_plan = "plan" in inspect.signature(pda._launch).parameters
-    for lanes, b, pos, kv_cap in SHAPES:
+    shapes = (FP32_SHAPES if dt == torch.float32 else
+              [(1024, 16, *shape) for shape in SHAPES])
+    for c, heads, lanes, b, pos, kv_cap in shapes:
         q, kvs, row, lb = cs.decode_case(g, dev, b, pos, caches=cs.LAYERS,
-                                         lanes=lanes, kv_cap=kv_cap)
+                                         lanes=lanes, kv_cap=kv_cap, c=c,
+                                         dtype=dt)
         want, want_kv = ref_da.decode_attention_plain(
             pos, q, kvs[0].clone(), lb, lanes, heads, row)
-        for what, plan in plans(pda, b, lanes, heads, kv_cap, pos):
-            def step(kv, plan=plan, q=q, row=row, lb=lb):
+        bnd = ref_da.output_bound(pos, q, kvs[0], lb, lanes, heads, row)
+        where = f"{lanes} lanes C={c} H={heads} B={b} S={kv_cap} pos {pos}"
+        for what, plan in plans(pda, b, lanes, heads, kv_cap, pos,
+                                q.element_size()):
+            def step(kv, plan=plan, q=q, row=row, lb=lb, heads=heads):
                 if plan is None:
                     return pda.decode_attention(pos, q, kv, lb, lanes, heads,
                                                 row)
@@ -203,18 +233,25 @@ def run(name: str) -> None:
             kv = kvs[0].clone()
             got, _ = step(kv)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            ratio = (diff / bnd).max().item()
             same = torch.equal(kv, want_kv)
+            launched = counts(pda)
             warm = cs.cuda_ms(lambda: step(kvs[0]))
             cold = cs.cuda_ms(cs.rotating(step, kvs))
-            print(f"# [{name}] decode_attention {lanes} lanes B={b} "
-                  f"S={kv_cap} pos {pos} {what}: warm {warm:.4f} ms, cold "
-                  f"{cold:.4f} ms, max_abs_err {err:.3e}, cache equal "
-                  f"{same}", flush=True)
+            print(f"# [{name}] decode_attention {where} {what}: warm "
+                  f"{warm:.4f} ms, cold {cold:.4f} ms, max_abs_err "
+                  f"{err:.3e} ({ratio:.3f} of output_bound), cache equal "
+                  f"{same}; counters after the first call: {launched}",
+                  flush=True)
         if name == "base":
             ms, backend = cs.decode_sdpa_ms(q, kvs, lb, lanes, heads)
-            print(f"# [{name}] SDPA {lanes} lanes B={b} S={kv_cap} pos "
-                  f"{pos}: {ms:.4f} ms ({backend})", flush=True)
+            bnd_ms, by = cs.decode_bound(
+                q, kvs[0], lb, row, lanes, pos,
+                "tf32" if dt == torch.float32 else "bf16")
+            print(f"# [{name}] SDPA {where}: {ms:.4f} ms ({backend}); "
+                  f"bound {bnd_ms:.6f} ms ({by})", flush=True)
         del q, kvs, row, lb
     for t, c in ((cs.T_PAD, 96), (cs.T_PAD, 384)):
         x = cs.scan_case(g, dev, t, c)
@@ -230,7 +267,13 @@ def run(name: str) -> None:
 
 
 def main(argv: list[str]) -> int:
-    rc = fv.drive(argv, __spec__.name, SOURCES, prepare, run, OUT)
+    p = argparse.ArgumentParser(add_help=False)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16")
+    opts, rest = p.parse_known_args(argv)
+    rc = fv.drive(rest, __spec__.name, SOURCES, prepare,
+                  lambda name: run(name, opts.dtype), OUT,
+                  ("--dtype", opts.dtype))
     if rc == 2:
         print(__doc__)
     return rc

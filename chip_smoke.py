@@ -373,6 +373,21 @@ def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
 
+def decode_bound(q, kv, lb, row, lanes: int, pos: int, kind: str):
+    """B2's bound on ``decode_case`` inputs: q, the bias and the step's row
+    read, out and the row written, and the K|V rows the step attends
+    (positions 0..min(pos, S-1) of every lane) read once; q.k and p.v over
+    those rows for every lane's query, 2 FLOPs a multiply-add, at
+    ``kind``'s peak (``"tf32"``: three products a multiply-add, split
+    TF32)."""
+    nl, s_max, c2 = kv.shape
+    rows = min(pos, s_max - 1) + 1
+    ops = 2 * nl * lanes * rows * c2
+    return bound(nbytes(q, lb, row, q, row) + kv[:, :rows].numel()
+                 * kv.element_size(), 3 * ops if kind == "tf32" else ops,
+                 kind)
+
+
 # beam_update's constants in the beam: the decoder's and the CTC weight at
 # ctc_weight=0.1, the dead-lane score, end detection's threshold and window
 BEAM_UPDATE_KW = dict(w_dec=0.9, w_ctc=0.1, eos=EOS, neg=-1.0e30,
@@ -572,6 +587,59 @@ def decode_sdpa_ms(q, kvs, lb, lanes: int, heads: int):
     return fastest_sdpa_ms(
         make, "on the decode step",
         f"B={b}, H={heads}, K={lanes}, J*S={lanes * s_max}, dh={dh}, cold")
+
+
+TF32_LANES = (1, 3, 8, 10, 22)  # one to three query tiles
+TF32_POS = (0, 5, KV_CAP - 1, 250)  # pos 250: the whole cache, row S-1
+
+
+def tf32_decode_check(dev, g) -> float:
+    """B2's split-TF32 instance (an fp32 cache with 64-wide heads) against
+    its twin at the conformer decoder's widths (C=768, 12 heads; the eval
+    CLI's auto_avsr beam) and at the flagship's in fp32 (C=1024, 16 heads),
+    B=8, over a 192-row cache, at each of TF32_LANES and TF32_POS (C=1024:
+    beam 3 and 22 lanes): the cache bit-equal to the twin's after the row
+    write, out within ``output_bound`` (ROADMAP C27) element by element,
+    one launch each, counted in ``tf32_launches``. Returns the largest
+    absolute error."""
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+
+    fn = pda.decode_attention
+    errs, ratios = [], {}
+    for c, heads, lane_set in ((AUTO_DIM, AUTO_HEADS, TF32_LANES),
+                               (1024, 16, (BEAM, 22))):
+        for lanes in lane_set:
+            for pos in TF32_POS:
+                q, (kv,), row, lb = decode_case(g, dev, B, pos, lanes=lanes,
+                                                c=c, dtype=torch.float32)
+                before = kv.clone()
+                counts = (fn.launches, fn.tf32_launches)
+                got, got_kv = pda.decode_attention(pos, q, kv, lb, lanes,
+                                                   heads, row)
+                torch.cuda.synchronize()
+                check((fn.launches - counts[0], fn.tf32_launches - counts[1])
+                      == (1, 1), f"decode_attention fp32 at C={c}, "
+                      f"{lanes} lanes, pos {pos}: not one tf32 launch")
+                want, want_kv = pda.decode_attention_plain(
+                    pos, q, before.clone(), lb, lanes, heads, row)
+                bnd = pda.output_bound(pos, q, before, lb, lanes, heads, row)
+                diff = (got - want).abs()
+                check(got_kv is kv and torch.equal(got_kv, want_kv),
+                      f"decode_attention fp32 cache differs at C={c}, "
+                      f"{lanes} lanes, pos {pos}")
+                check(bool((diff <= bnd).all()),
+                      f"decode_attention fp32 beyond its output bound at "
+                      f"C={c}, {lanes} lanes, pos {pos}")
+                errs.append(diff.max().item())
+                ratios[c, lanes, pos] = (diff / bnd).max().item()
+    worst = max(ratios, key=ratios.get)
+    print(f"# decode_attention fp32 (split TF32) max_abs_err={max(errs):.3e}"
+          f" at C=768 x {TF32_LANES} lanes and C=1024 x 3, 22 lanes, pos "
+          f"{TF32_POS}, B={B}: caches bit-equal, {len(ratios)} tf32 "
+          f"launches; the largest difference over its output bound "
+          f"{ratios[worst]:.4f} (C={worst[0]}, {worst[1]} lanes, pos "
+          f"{worst[2]})")
+    return max(errs)
 
 
 def phase_kernels(dev):
@@ -1994,11 +2062,14 @@ def phase_parity(dev):
     (the plain twins, unfused), in fp32 and at the serving precision (bf16
     encode, bf16 decoder weights and K|V cache); then in fp32 with
     decode_fused_layer and AVSR_FUSED_STEM_EVAL=1 on both sides (the
-    kernels on the card, their twins on the CPU)."""
+    kernels on the card, their twins on the CPU). The fp32 unfused run's
+    decode_attention launches (C=1024, 16 heads) all take the split-TF32
+    instance."""
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import synthetic_batch
     from avsr_tpu_torch.decode.recognizer import Recognizer
     from avsr_tpu_torch.models.e2e import AVSRModel
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
 
     audio, video = synthetic_batch(np.random.RandomState(1), (64, 50))
     # (dtype, CTC log-prob abs bound, beam-score relative bound). bf16
@@ -2024,6 +2095,7 @@ def phase_parity(dev):
                                    device=dev, fused_bookkeeping=True, **kw),
                 "cpu": Recognizer(model=cpu_model, device="cpu", **kw)}
         out = {}
+        reset_launches((pda.decode_attention,))
         for name, rec in recs.items():
             aud, vid, ln, _ = rec._pad_batch(audio, video)
             feats, ctc = rec.encode(aud, vid, ln)
@@ -2058,6 +2130,13 @@ def phase_parity(dev):
         if dtype == "float32":
             check(same_beam and same_greedy,
                   f"fp32{what} tokens: cuda vs cpu")
+        fn = pda.decode_attention
+        print(f"# slice parity {dtype}{what}: {fn.launches} decode_attention "
+              f"launches on the card, {fn.tf32_launches} in split TF32")
+        tf32 = dtype == "float32" and not fused
+        check(fn.tf32_launches == fn.launches > 0 if tf32
+              else fn.tf32_launches == 0,
+              f"{dtype}{what}: decode_attention's split-TF32 launches")
 
 
 TWINS = {"flash_attention": ("flash_attention_plain",
@@ -2454,11 +2533,11 @@ def layer_checked(seen: dict):
 
 
 def reset_launches(counters) -> None:
-    """Sets each kernel's launch counts, its wide and flat paths' too,
-    to 0."""
+    """Sets each kernel's launch counts, its wide, flat and split-TF32
+    paths' too, to 0."""
     for fn in counters:
         fn.launches = 0
-        for attr in ("wide_launches", "flat_launches"):
+        for attr in ("wide_launches", "flat_launches", "tf32_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -2466,7 +2545,8 @@ def reset_launches(counters) -> None:
 def read_launches(counters) -> dict:
     """Each kernel's launches, with the flat top-k (``topk_lastdim_flat``)
     and the wide paths (``<name>_wide``) apart from the others; ``wide``:
-    all the wide paths' launches."""
+    all the wide paths' launches. ``<name>_tf32``: of all the kernel's
+    launches, those of its split-TF32 instance (B2 with an fp32 cache)."""
     n = {}
     for fn in counters:
         name = fn.__name__
@@ -2476,6 +2556,8 @@ def read_launches(counters) -> dict:
             if hasattr(fn, attr):
                 n[name + key] = getattr(fn, attr)
                 n[name] -= n[name + key]
+        if hasattr(fn, "tf32_launches"):
+            n[name + "_tf32"] = fn.tf32_launches
     n["wide"] = sum(v for k, v in n.items() if k.endswith("_wide"))
     return n
 
@@ -3078,52 +3160,113 @@ AUTO_DIM, AUTO_HEADS = 768, 12  # the conformer decoder's width and heads
 AUTO_CTC_TOL, AUTO_SCORE_TOL, AUTO_FEAT_TOL = 1e-3, 1e-4, 1e-3
 
 
+# B2's fp32 rows timed (C, heads, B, lanes, cache rows, pos): the
+# conformer decoder's at B=8 (the record) and B=32, the flagship's in fp32,
+# and 22 lanes at phase 8's shape
+FP32_DECODE_ROWS = ((AUTO_DIM, AUTO_HEADS, B, BEAM, KV_CAP, 250),
+                    (AUTO_DIM, AUTO_HEADS, 32, BEAM, KV_CAP, 250),
+                    (1024, 16, B, BEAM, KV_CAP, 250),
+                    (1024, 16, B, 22, EVAL_KV, EVAL_POS))
+
+
+def fp32_decode_times(dev, g) -> dict:
+    """B2 with an fp32 cache at each of FP32_DECODE_ROWS: one call held
+    against the twin (cache bit-equal, out within ``output_bound``), and
+    one of the CUDA-core instance (``cuda_cores``: the parent's design,
+    the yardstick) as well; then both timed cold (rotating over six
+    layers' caches) in turns, kernel, CUDA cores, CUDA cores, kernel,
+    beside fused SDPA, the twin (the first row) and the bounds
+    (``decode_bound``: split TF32 and the CUDA cores' fp32). Returns
+    {(C, B, lanes): row}."""
+    from avsr_tpu_torch.ops.kernels import decode_attention as pda
+
+    rows = {}
+    for i, (c, heads, b, lanes, s_max, pos) in enumerate(FP32_DECODE_ROWS):
+        q, kvs, row, lb = decode_case(g, dev, b, pos, caches=LAYERS, c=c,
+                                      lanes=lanes, kv_cap=s_max,
+                                      dtype=torch.float32)
+        before = kvs[0].clone()
+        want, want_kv = pda.decode_attention_plain(pos, q, before.clone(),
+                                                   lb, lanes, heads, row)
+        bnd = pda.output_bound(pos, q, before, lb, lanes, heads, row)
+        errs = []
+        for simt in (False, True):
+            got, got_kv = pda._launch(pos, q, before.clone(), lb, lanes,
+                                      heads, row, cuda_cores=simt)
+            diff = (got - want).abs()
+            check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
+                  f"decode_attention disagrees at C={c}, {heads} heads, "
+                  f"fp32, B={b}, {lanes} lanes (CUDA cores: {simt})")
+            errs.append(diff.max().item())
+
+        def step(kv, q=q, row=row, lb=lb, heads=heads, lanes=lanes,
+                 pos=pos):
+            return pda.decode_attention(pos, q, kv, lb, lanes, heads, row)
+
+        def simt(kv, q=q, row=row, lb=lb, heads=heads, lanes=lanes,
+                 pos=pos):
+            return pda._launch(pos, q, kv, lb, lanes, heads, row,
+                               cuda_cores=True)
+
+        turns = [cuda_ms(rotating(fn, kvs)) for fn in (step, simt, simt,
+                                                         step)]
+        sdpa, backend = decode_sdpa_ms(q, kvs, lb, lanes, heads)
+        plain = (cuda_ms(lambda: pda.decode_attention_plain(
+            pos, q, kvs[0], lb, lanes, heads, row)) if i == 0 else None)
+        plan = pda.launch_plan(b, lanes, heads, c // heads, s_max, pos, 4)
+        r = dict(ms=min(turns[0], turns[3]), ms_turns=(turns[0], turns[3]),
+                 cuda_cores_ms=min(turns[1], turns[2]),
+                 cuda_cores_turns=(turns[1], turns[2]), library_ms=sdpa,
+                 library=backend, plain_ms=plain, max_abs_err=errs[0],
+                 cuda_cores_err=errs[1],
+                 bound=decode_bound(q, kvs[0], lb, row, lanes, pos, "tf32"),
+                 bound_fp32=decode_bound(q, kvs[0], lb, row, lanes, pos,
+                                         "fp32"))
+        print(f"# decode_attention fp32 at C={c}, {heads} heads, B={b}, "
+              f"{lanes} lanes, S={s_max}, pos {pos}, cold (G={plan.cluster},"
+              f" tile {plan.tile}, {plan.smem} B shared memory): split TF32 "
+              f"{turns[0]:.4f} / {turns[3]:.4f} ms, the CUDA-core instance "
+              f"{turns[1]:.4f} / {turns[2]:.4f} ms, SDPA ({backend}) "
+              f"{sdpa:.4f} ms" + (f", twin {plain:.4f} ms" if plain else "")
+              + f"; bound {r['bound'][0]:.6f} ms ({r['bound'][1]}; CUDA "
+              f"cores {r['bound_fp32'][0]:.6f}); max_abs_err {errs[0]:.3e} "
+              f"(CUDA cores {errs[1]:.3e}) within output_bound")
+        rows[c, b, lanes] = r
+        del q, kvs, before
+    return rows
+
+
 def conformer_width_times(dev, g):
     """B2 and B9 at the conformer decoder's widths (C=768, 12 heads,
     F=3072, fp32 weights and K|V cache, as the auto_avsr path serves them)
-    at B=8, beam 3, a 192-row cache, pos 250: one call each held against
-    its twin (B2's cache bit-equal and output within ``output_bound``; B9's
-    x_out and row within 2e-5 of their largest entry in fp32, the card
-    tests' limit, 2e-2 in bf16), then timed cold (rotating over six
-    layers') beside the twin, fused SDPA (B2) and the unfused layer step
-    (B9), with the bound (``layer_bound``). B9 also at C=768 in bf16 and at
+    at B=8, beam 3, a 192-row cache, pos 250: B2's rows
+    (``fp32_decode_times``; also at B=32, at C=1024 and at 22 lanes),
+    then B9 held against its twin (x_out and row within 2e-5 of their
+    largest entry in fp32, the card tests' limit, 2e-2 in bf16), timed
+    cold (rotating over six layers') beside the twin and the unfused layer
+    step, with the bound (``layer_bound``). B9 also at C=768 in bf16 and at
     C=1024 (16 heads) in fp32, to place its fp32 time against phase 3's
     bf16 C=1024 one. Returns ({name: (ms, twin ms, other ms, bound)} at the
-    conformer's widths in fp32, B9's fp32 record there)."""
+    conformer's widths in fp32, the records ``decoder_layer_step_fp32``
+    and ``decode_attention_fp32``)."""
     from avsr_tpu_torch.models.decoder import TransformerDecoder
-    from avsr_tpu_torch.ops.kernels import decode_attention as pda
     from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
 
     c, heads, f, pos, lanes = AUTO_DIM, AUTO_HEADS, 3072, 250, BEAM
     nl = B * lanes
-    out = {}
-    q, kvs, row, lb = decode_case(g, dev, B, pos, caches=LAYERS, c=c,
-                                  dtype=torch.float32)
-    before = kvs[0].clone()
-    got, got_kv = pda.decode_attention(pos, q, kvs[0].clone(), lb, lanes,
-                                       heads, row)
-    want, want_kv = pda.decode_attention_plain(pos, q, before.clone(), lb,
-                                               lanes, heads, row)
-    bnd = pda.output_bound(pos, q, before, lb, lanes, heads, row)
-    diff = (got - want).abs()
-    check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
-          "decode_attention disagrees at C=768, 12 heads, fp32")
-
-    def step(kv):
-        return pda.decode_attention(pos, q, kv, lb, lanes, heads, row)
-
-    sdpa, backend = decode_sdpa_ms(q, kvs, lb, lanes, heads)
-    out["decode_attention"] = (
-        cuda_ms(rotating(step, kvs)),
-        cuda_ms(lambda: pda.decode_attention_plain(pos, q, kvs[0], lb, lanes,
-                                                   heads, row)),
-        sdpa, bound(nbytes(q, kvs[0], lb, row, q, row),
-                    4 * nl * lanes * KV_CAP * c, "fp32"))
-    print(f"# decode_attention at C=768, 12 heads, fp32, B={B}, pos {pos}: "
-          f"max_abs_err {diff.max().item():.3e} (within output_bound); "
-          f"SDPA backend {backend}")
-    del kvs
-
+    out, records = {}, {}
+    b2 = fp32_decode_times(dev, g)
+    r = b2[c, B, lanes]
+    out["decode_attention"] = (r["ms"], r["plain_ms"], r["library_ms"],
+                               r["bound"])
+    records["decode_attention_fp32"] = dict(
+        source="avsr_tpu_torch/csrc/decode_attention.cu",
+        replaces="avsr_tpu/ops/pallas/decode_attention.py:222",
+        shape=f"C={c}, {heads} heads, B={B}, beam {lanes}, S={KV_CAP}, pos "
+              f"{pos}, fp32, cold",
+        rows={f"C={cw}, B={bw}, {lw} lanes": {
+            k: v for k, v in row.items() if k != "plain_ms"}
+            for (cw, bw, lw), row in b2.items()}, **r)
     s_enc = FRAMES + 2
     for cw, hw, dtype in ((c, heads, torch.float32), (c, heads, torch.bfloat16),
                           (1024, 16, torch.float32)):
@@ -3181,7 +3324,7 @@ def conformer_width_times(dev, g):
             plain = cuda_ms(lambda: pdl.decoder_layer_step_plain(
                 pos, case["x"], kv, *args))
             out["decoder_layer_step"] = (ms, plain, unfused, bnd)
-            record = dict(
+            records["decoder_layer_step_fp32"] = dict(
                 source="avsr_tpu_torch/csrc/decoder_layer.cu",
                 replaces="avsr_tpu/ops/pallas/decoder_layer.py:81",
                 max_abs_err=abs_err, ms=ms, plain_ms=plain,
@@ -3193,7 +3336,7 @@ def conformer_width_times(dev, g):
         print(f"# {name} C=768 fp32 B={B} cold: kernel {ms:.4f} ms, twin "
               f"{plain:.4f} ms, {what} {other:.4f} ms; bound {bnd[0]:.6f} ms "
               f"({bnd[1]})")
-    return out, record
+    return out, records
 
 
 def phase_auto_avsr(dev, smi: str):
@@ -3246,7 +3389,10 @@ def phase_auto_avsr(dev, smi: str):
                    else n["beam_update"] == 0)
               and (fused or n["topk_lastdim_flat"] >= steps)
               and (n["decode_attention"] == 0 if fused_layer
-                   else n["decoder_layer_step"] == 0),
+                   else n["decoder_layer_step"] == 0)
+              # the fp32 cache's B2 launches: every one in split TF32
+              and n["decode_attention_tf32"] == (
+                  n["decode_attention"] + n["decode_attention_wide"]),
               f"{name}: the beam's kernels did not run as it does ({n})")
         return steps
 
@@ -3386,12 +3532,14 @@ def phase_auto_avsr(dev, smi: str):
                   and torch.isfinite(ctc).all().item(),
                   "phase 10: the B=8 batch's CTC log-probs")
             peak = torch.cuda.max_memory_allocated() / 1e9
-            beam_ms, _, yl, _ = beams[False]
+            beam_ms, beam_n, yl, _ = beams[False]
             fused_ms, fused_n, fyl, _ = beams[True]
             print(f"# {smi}: phase 10 auto_avsr B={B} x {FRAMES} frames "
                   f"(fp32 encode and decoder, beam 3, ctc_weight 0.1): "
                   f"encode {enc_ms:.1f} ms, beam {beam_ms:.1f} ms "
-                  f"({int(yl.max().item())} tokens with sos/eos); with the "
+                  f"({int(yl.max().item())} tokens with sos/eos; "
+                  f"{beam_n['decode_attention_tf32']} "
+                  f"decode_attention launches, all split TF32); with the "
                   f"fused layer (decode_fused_layer) beam {fused_ms:.1f} ms "
                   f"({int(fyl.max().item())} tokens, "
                   f"{fused_n['decoder_layer_step']} decoder_layer_step "
@@ -3463,15 +3611,16 @@ def phase_auto_avsr(dev, smi: str):
                       f"phase 10 {name}: cuda vs cpu")
             launches = {"eval_lrs2": main, "fused bookkeeping": fb[-1],
                         "fused layer": runs["fused layer"][-1],
-                        f"B={B} fused layer beam": fused_n}
+                        f"B={B} fused layer beam": fused_n,
+                        f"B={B} beam": beam_n}
             del cpu, cpu_model, runs, engine, rec, model, dec
             torch.cuda.empty_cache()
-            times, record = conformer_width_times(dev, torch.Generator(
+            times, records = conformer_width_times(dev, torch.Generator(
                 device=dev).manual_seed(10))
         finally:
             tokenizer._DEFAULT_ASSET_DIRS = assets
     torch.cuda.empty_cache()
-    return launches, times, record
+    return launches, times, records
 
 
 MUAVIC_UTTERANCES = 8  # phase 11's eval_lrs2 utterances, padded to MUAVIC_B
@@ -4237,6 +4386,8 @@ def main() -> int:
     print("# phase 3: kernels vs plain twins at the serving and training "
           "shapes")
     records = phase_kernels(dev)
+    tf32_err = tf32_decode_check(dev, torch.Generator(device=dev).manual_seed(
+        21))
     serving_fwd = records["flash_attention_fwd"]
     print(f"# flash_attention_fwd at the serving shape (B=8, no dropout): "
           f"kernel {serving_fwd['ms']:.4f} ms, plain "
@@ -4277,8 +4428,8 @@ def main() -> int:
     phase_train_cli(dev, smi)
     print("# phase 10: the eval CLI's auto_avsr path at full width")
     t10 = time.perf_counter()
-    auto_launches, auto_times, records["decoder_layer_step_fp32"] = (
-        phase_auto_avsr(dev, smi))
+    auto_launches, auto_times, auto_records = phase_auto_avsr(dev, smi)
+    records.update(auto_records)
     print(f"# phase 10 passed in {time.perf_counter() - t10:.1f} s")
     print(f"# phase 10 launches: {json.dumps(auto_launches)}")
     print(f"# phase 10 C=768 kernel ms (kernel, twin, SDPA or unfused "
@@ -4306,6 +4457,12 @@ def main() -> int:
     # B9 in fp32: phase 10's B=8 fused-layer beam
     main_path["decoder_layer_step_fp32"] = auto_launches[
         f"B={B} fused layer beam"]["decoder_layer_step"]
+    # B2 in fp32 (split TF32): phase 10's B=8 beam, unfused (the CLI's
+    # default), every launch in split TF32; its error over phase 3's cases
+    main_path["decode_attention_fp32"] = auto_launches[f"B={B} beam"][
+        "decode_attention_tf32"]
+    records["decode_attention_fp32"]["max_abs_err"] = max(
+        records["decode_attention_fp32"]["max_abs_err"], tf32_err)
     main_path.update(train_launches)
     # the fp32 backward's: phase 6's fp32 run
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
@@ -4331,8 +4488,8 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"],
-                    **({"unfused_ms": r["unfused_ms"]}
-                       if "unfused_ms" in r else {}))
+                    **{k: r[k] for k in ("unfused_ms", "cuda_cores_ms")
+                       if k in r})
                for name, r in records.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -386,6 +386,104 @@ def test_decode_kernel_two_passes(dev, lanes, cluster, chunk, cdtype):
     assert bool((diff <= bnd).all()), float((diff / bnd).max())
 
 
+# B2's fp32 instance: q.k and P.V in split TF32 on the tensor cores, with
+# the model's 64-wide heads
+
+
+def _tf32_case(lanes, pos, b, c, heads, qdtype, seed):
+    """An fp32 cache's decode step at the conformer's (C=768, 12 heads) or
+    the flagship's (C=1024, 16 heads) widths over a 192-row cache, the
+    queries scaled as the decoder scales them."""
+    from torch_port_common import decode_case
+
+    q, kv, row, bias = (torch.from_numpy(x).contiguous() for x in decode_case(
+        seed, b=b, k=lanes, s_max=192, heads=heads, dh=c // heads, pos=pos,
+        q_scale=0.125))
+    return q.to(qdtype), kv, row, bias
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8, 10, 22])
+@pytest.mark.parametrize("pos", [0, 5, 191, 250])
+@pytest.mark.parametrize("c,heads", [(768, 12), (1024, 16)])
+def test_decode_tf32_kernel_within_the_output_bound(dev, lanes, pos, c,
+                                                    heads):
+    """An fp32 cache with dh = 64 at 1-22 lanes (one to three query
+    tiles), B=2, over a 192-row cache, at the launch plan's cluster size:
+    the cache the twin's bit for bit after the row write (pos >= S clamped
+    to S-1), out within ``output_bound`` (ROADMAP C27) of the twin's with
+    q in fp32 and in bf16, one launch each, counted in ``tf32_launches``
+    (and in ``wide_launches`` beyond 8 lanes)."""
+    for qdtype in (torch.float32, torch.bfloat16):
+        q, kv, row, bias = _tf32_case(lanes, pos, 2, c, heads, qdtype,
+                                      lanes + pos)
+        want, want_kv = pda.decode_attention_plain(pos, q, kv.clone(), bias,
+                                                   lanes, heads, row)
+        bnd = pda.output_bound(pos, q, kv, bias, lanes, heads, row)
+        fn = pda.decode_attention
+        before = (fn.launches, fn.tf32_launches, fn.wide_launches)
+        kv_d = kv.to(dev)
+        got, got_kv = pda.decode_attention(pos, q.to(dev), kv_d,
+                                           bias.to(dev), lanes, heads,
+                                           row.to(dev))
+        torch.cuda.synchronize()
+        assert got_kv is kv_d
+        assert (fn.launches - before[0], fn.tf32_launches - before[1],
+                fn.wide_launches - before[2]) == (1, 1, int(lanes > 8))
+        assert torch.equal(got_kv.cpu(), want_kv)
+        diff = (got.float().cpu() - want.float()).abs()
+        assert bool((diff <= bnd).all()), float((diff / bnd).max())
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("lanes", [3, 22])
+def test_decode_tf32_kernel_every_cluster_size(dev, cluster, lanes):
+    """Each cluster size G, forced, at C=768 with 12 heads, B=8 and an
+    fp32 cache, pos 0, 5, 191 and 250: cache bit-exact, out within
+    ``output_bound`` of the twin, one tf32 launch each."""
+    for pos in (0, 5, 191, 250):
+        q, kv, row, bias = _tf32_case(lanes, pos, 8, 768, 12, torch.float32,
+                                      cluster + pos)
+        want, want_kv = pda.decode_attention_plain(pos, q, kv.clone(), bias,
+                                                   lanes, 12, row)
+        bnd = pda.output_bound(pos, q, kv, bias, lanes, 12, row)
+        kv_d = kv.to(dev)
+        before = pda.decode_attention.tf32_launches
+        got, _ = pda._launch(pos, q.to(dev), kv_d, bias.to(dev), lanes, 12,
+                             row.to(dev), cluster)
+        torch.cuda.synchronize()
+        assert pda.decode_attention.tf32_launches == before + 1
+        assert torch.equal(kv_d.cpu(), want_kv)
+        diff = (got.cpu() - want).abs()
+        assert bool((diff <= bnd).all()), float((diff / bnd).max())
+
+
+def test_decode_fp32_counts_only_the_tf32_heads(dev):
+    """Heads other than 64 wide take the CUDA-core instance:
+    ``tf32_launches`` does not move for dh = 32 or 128, nor for a bf16
+    cache, nor where ``cuda_cores`` forces that instance at dh = 64 (the
+    yardstick chip_smoke times), whose output stays within
+    ``output_bound`` of the twin."""
+    for dh, dtype, simt in ((32, torch.float32, False),
+                            (128, torch.float32, False),
+                            (64, torch.bfloat16, False),
+                            (64, torch.float32, True)):
+        q, kv, row, bias = _tf32_case(3, 37, 2, 4 * dh, 4, dtype, dh)
+        kv, row = kv.to(dtype), row.to(dtype)
+        want, want_kv = pda.decode_attention_plain(37, q, kv.clone(), bias,
+                                                   3, 4, row)
+        bnd = pda.output_bound(37, q, kv, bias, 3, 4, row)
+        before = pda.decode_attention.tf32_launches
+        kv_d = kv.to(dev)
+        got, _ = pda._launch(37, q.to(dev), kv_d, bias.to(dev), 3, 4,
+                             row.to(dev), cuda_cores=simt)
+        torch.cuda.synchronize()
+        assert pda.decode_attention.tf32_launches == before
+        assert torch.equal(kv_d.cpu(), want_kv)
+        if dtype == torch.float32:
+            diff = (got.cpu() - want).abs()
+            assert bool((diff <= bnd).all()), float((diff / bnd).max())
+
+
 @pytest.mark.parametrize("rows,v,k", [(44, 5049, 32), (44, 5049, 33),
                                       (8, 726, 22), (8, 726, 33),
                                       (3, 100, 100), (5, 1025, 64)])
