@@ -304,10 +304,10 @@ class InferenceEngine:
     def _infer_samples_pipelined(self, samples: List[Dict]) -> List[str]:
         """A producer thread collates and decodes chunks of ``batch_size``
         segments into a queue of depth 2; this thread copies each result to
-        the host and detokenizes it. The beam syncs with the host at every
-        step (``Recognizer.transcribe_batch_async``), so the producer's
-        collation of the next chunk overlaps only the host work left after
-        a chunk's decode. An error in the producer reaches this thread,
+        the host and detokenizes it. The beam syncs with the host once
+        every ``STOP_EVERY`` steps (``Recognizer.transcribe_batch_async``),
+        so the producer's collation of the next chunk overlaps only the
+        host work left after a chunk's decode. An error in the producer reaches this thread,
         which names the chunk's segments and raises it.
         """
         chunks = [

@@ -145,7 +145,8 @@ struct Ptrs {
 };
 
 struct Dims {
-  int i, b, k, sp, l, s, eos, m_end, use_ctc;
+  int i;  // the step: read from `step` in device memory as the kernel starts
+  int b, k, sp, l, s, eos, m_end, use_ctc;
   float w_dec, w_ctc, neg, d_end;
   int items;  // the wide kernel's columns or ancestry rows a block
 };
@@ -163,7 +164,11 @@ __device__ __forceinline__ long long pick(const long long (&v)[KM], int j) {
 // KM: the most hypotheses the instantiation holds in registers (K <= KM)
 template <int KM>
 __global__ void __launch_bounds__(kThreads)
-    beam_update_kernel(const Ptrs p, const Dims d) {
+    beam_update_kernel(const Ptrs p, const Dims dims,
+                       const int* __restrict__ step) {
+  // the step from device memory (a captured launch reads each replay's)
+  Dims d = dims;
+  d.i = max(__ldg(step), 0);
   __shared__ float cand_w[kMaxCand];
   __shared__ long long cand_tok[kMaxCand];
   __shared__ float cand_psi[kMaxCand];
@@ -549,7 +554,11 @@ __device__ __forceinline__ void load_chunk(Chunk& x, const Cands a,
 }
 
 __global__ void __launch_bounds__(kWideThreads)
-    beam_update_wide_kernel(const Ptrs p, const Dims d) {
+    beam_update_wide_kernel(const Ptrs p, const Dims dims,
+                            const int* __restrict__ step) {
+  // the step from device memory (a captured launch reads each replay's)
+  Dims d = dims;
+  d.i = max(__ldg(step), 0);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float step_best_s;
   __shared__ int best_slot_s, better_s, n_ended_s;
@@ -959,9 +968,10 @@ __global__ void __launch_bounds__(kWideThreads)
 }  // namespace
 
 // ptrs: the 17 inputs then the 14 outputs of beam_update.py, in that
-// order (the CTC inputs 0 when use_ctc is 0).
-extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
-                                int sp, int l, int s, int eos, int m_end,
+// order (the CTC inputs 0 when use_ctc is 0); step: the step i, one int32
+// in device memory, read by the kernel (a graph's replays each read theirs).
+extern "C" int avsr_beam_update(void* const* ptrs, const int* step, int b,
+                                int k, int sp, int l, int s, int eos, int m_end,
                                 int use_ctc, float w_dec, float w_ctc,
                                 float neg, float d_end, void* stream) {
   if (b <= 0 || k <= 0 || sp <= 0 || l <= 0 || s <= 0 || m_end < 0 ||
@@ -970,7 +980,8 @@ extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
   static_assert(sizeof(Ptrs) == 31 * sizeof(void*), "Ptrs layout");
   Ptrs p;
   memcpy(&p, ptrs, sizeof(Ptrs));
-  Dims d{i, b, k, sp, l, s, eos, m_end, use_ctc,
+  if (step == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Dims d{0, b, k, sp, l, s, eos, m_end, use_ctc,
          w_dec, w_ctc, neg, d_end, kWideItems};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k > kMaxK || k * (sp + 1) > kMaxCand) {
@@ -993,7 +1004,7 @@ extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     beam_update_wide_kernel<<<dim3(b, static_cast<unsigned>(g)),
-                              kWideThreads, smem, st>>>(p, d);
+                              kWideThreads, smem, st>>>(p, d, step);
     return static_cast<int>(cudaGetLastError());
   }
   // blocks an utterance: every column and ancestry row an item
@@ -1002,9 +1013,9 @@ extern "C" int avsr_beam_update(void* const* ptrs, int i, int b, int k,
   if (g > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b, static_cast<unsigned>(g));
   if (k <= 4)
-    beam_update_kernel<4><<<grid, kThreads, 0, st>>>(p, d);
+    beam_update_kernel<4><<<grid, kThreads, 0, st>>>(p, d, step);
   else
-    beam_update_kernel<kMaxK><<<grid, kThreads, 0, st>>>(p, d);
+    beam_update_kernel<kMaxK><<<grid, kThreads, 0, st>>>(p, d, step);
   return static_cast<int>(cudaGetLastError());
 }
 

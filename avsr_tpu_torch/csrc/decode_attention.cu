@@ -26,9 +26,13 @@
 // Design: the rows of one (b, h) are split over a thread-block cluster of G
 // blocks (grid (H*G, B, query groups), cluster (G, 1, 1), launched with
 // cudaLaunchKernelEx so that G is chosen at run time by the caller's launch
-// plan). Rank r takes a contiguous chunk of the prefix's K*(pos_c+1) rows,
-// row r = (s, j) = s * K + j (position s of stored lane j; pos_c =
-// min(pos, S-1)), and reads it once for all the lanes' queries of its group (every lane up to kGroupLanes = 64 of them: beams of
+// plan). The plan is sized for all K*S rows and is the same at every step:
+// the step pos is read from device memory, as the TPU kernel reads it from
+// SMEM, so one launch captured in a CUDA graph serves every replay. Rank r
+// takes a contiguous chunk of the prefix's K*(pos_c+1) live rows (an even
+// share, a multiple of 4), row r = (s, j) = s * K + j (position s of
+// stored lane j; pos_c = min(pos, S-1)), and reads it once for all the
+// lanes' queries of its group (every lane up to kGroupLanes = 64 of them: beams of
 // up to 64 read the prefix once; more lanes split into even query groups,
 // each a grid slice that reads the prefix again). It issues its chunk's
 // loads with cp.async, the bias 4 bytes a copy (in the rows' (s, j) order
@@ -182,8 +186,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const TQ* __restrict__ q, TC* cache,
                             const float* __restrict__ lane_bias,
                             const TC* __restrict__ kv_row, TQ* __restrict__ out,
-                            int lanes, int heads, int dh, int s_max, int pos,
-                            int rows_per_rank, int tile, int chunk,
+                            const int* __restrict__ step, int lanes,
+                            int heads, int dh, int s_max, int tile, int chunk,
                             int group_lanes) {
   constexpr int kVec = 16 / sizeof(TC);  // elements per 16-byte chunk
   constexpr bool kBf = kMma && sizeof(TC) == 2;
@@ -202,9 +206,12 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int lane_id = tid % 32;
   const int c_dim = heads * dh;
   const int c2 = 2 * c_dim;
-  const int pos_c = min(pos, s_max - 1);
+  // the step from device memory (a captured launch reads each replay's);
+  // its live rows split evenly over the cluster, a multiple of 4 a rank
+  const int pos_c = min(max(__ldg(step), 0), s_max - 1);
   const int s_lim = pos_c + 1;
   const int rows = lanes * s_lim;  // row r = (s, j): s = r / lanes
+  const int rows_per_rank = (rows + 4 * g - 1) / (4 * g) * 4;
   const int r_begin = min(rank * rows_per_rank, rows);
   const int my_rows = min(r_begin + rows_per_rank, rows) - r_begin;
   const int n_tiles = (my_rows + tile - 1) / tile;
@@ -833,12 +840,12 @@ cudaError_t raise_smem_limit(K kernel, int smem) {
 
 template <typename TQ, typename TC, int kNt, bool kMma>
 cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
-                         const void* kv_row, void* out, int b, int lanes,
-                         int heads, int dh, int s_max, int pos, int cluster,
-                         int rows_per_rank, int tile, int chunk,
+                         const void* kv_row, void* out, const int* step,
+                         int b, int lanes, int heads, int dh, int s_max,
+                         int cluster, int rows_per_rank, int tile, int chunk,
                          int group_lanes, int smem, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(TC);
-  const int rows = lanes * (min(pos, s_max - 1) + 1);
+  const int rows = lanes * s_max;  // the most rows of any step
   const int groups = (lanes + group_lanes - 1) / group_lanes;
   // 1-32 16-byte chunks a row, 16-byte aligned; a plan that covers every
   // row and query lane with the shared memory it states, chunks of whole
@@ -875,8 +882,8 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const TQ*>(q), static_cast<TC*>(cache),
-      lane_bias, static_cast<const TC*>(kv_row), static_cast<TQ*>(out), lanes,
-      heads, dh, s_max, pos, rows_per_rank, tile, chunk, group_lanes);
+      lane_bias, static_cast<const TC*>(kv_row), static_cast<TQ*>(out), step,
+      lanes, heads, dh, s_max, tile, chunk, group_lanes);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -885,14 +892,14 @@ cudaError_t launch_typed(const void* q, void* cache, const float* lane_bias,
 // CUDA-core instance at any head width
 template <typename TQ, typename TC>
 cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
-                         const void* kv_row, void* out, int b, int lanes,
-                         int heads, int dh, int s_max, int pos, int cluster,
-                         int rows_per_rank, int tile, int chunk,
+                         const void* kv_row, void* out, const int* step,
+                         int b, int lanes, int heads, int dh, int s_max,
+                         int cluster, int rows_per_rank, int tile, int chunk,
                          int group_lanes, int smem, bool mma,
                          cudaStream_t stream) {
-#define AVSR_DECODE_LAUNCH(NT, MMA)                                          \
-  launch_typed<TQ, TC, NT, MMA>(q, cache, lane_bias, kv_row, out, b, lanes,  \
-                                heads, dh, s_max, pos, cluster,             \
+#define AVSR_DECODE_LAUNCH(NT, MMA)                                           \
+  launch_typed<TQ, TC, NT, MMA>(q, cache, lane_bias, kv_row, out, step, b,    \
+                                lanes, heads, dh, s_max, cluster,            \
                                 rows_per_rank, tile, chunk, group_lanes, smem, \
                                 stream)
   if (mma && dh == kMmaDh) {  // bf16 on m16n8k16, fp32 in split TF32
@@ -910,31 +917,35 @@ cudaError_t launch_lanes(const void* q, void* cache, const float* lane_bias,
 // q, out: (b*lanes, heads*dh) dtype q_dtype; cache: (b*lanes, s_max,
 // 2*heads*dh) dtype cache_dtype, updated in place at row min(pos, s_max-1);
 // kv_row: (b*lanes, 2*heads*dh) cache_dtype; lane_bias: (b, lanes, s_max,
-// lanes) fp32. The launch plan (ops/kernels/decode_attention.py
-// `launch_plan`): `cluster` blocks of one (b, h), rank r taking rows
-// [r*rows_per_rank, (r+1)*rows_per_rank) of the lanes*(pos_c+1) prefix,
-// in tiles of `tile` rows, the scores of `chunk` rows at once (all of the
-// rank's, or a multiple of the tile); query groups of `group_lanes` lanes; `smem` bytes of
-// dynamic shared memory. cuda_cores != 0 launches the CUDA-core instance
+// lanes) fp32; step: pos, one int32 in device memory, which the kernel
+// reads (a graph's replays each read theirs). The launch plan
+// (ops/kernels/decode_attention.py `launch_plan`), the same at every
+// step: `cluster` blocks of one (b, h), rows_per_rank rows a rank enough
+// for all lanes*s_max rows (the kernel splits the step's lanes*(pos_c+1)
+// live rows evenly, 4 a rank at a time), in tiles of `tile` rows, the
+// scores of `chunk` rows at once (all of the rank's, or a multiple of the
+// tile); query groups of `group_lanes` lanes; `smem` bytes of dynamic
+// shared memory. cuda_cores != 0 launches the CUDA-core instance
 // even where the heads take the tensor cores (the yardstick that the
 // tensor-core instances are timed against).
 extern "C" int avsr_decode_attention(const void* q, void* cache,
                                      const float* lane_bias, const void* kv_row,
-                                     void* out, int b, int lanes, int heads,
-                                     int dh, int s_max, int pos, int q_dtype,
+                                     void* out, const int* step, int b,
+                                     int lanes, int heads, int dh, int s_max,
+                                     int q_dtype,
                                      int cache_dtype, int cluster,
                                      int rows_per_rank, int tile, int chunk,
                                      int group_lanes, int smem,
                                      int cuda_cores, void* stream) {
   if (b <= 0 || b > 65535 || lanes <= 0 || heads <= 0 || dh <= 0 ||
-      s_max <= 0 || pos < 0)
+      s_max <= 0 || step == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   cudaError_t err;
 #define AVSR_DECODE_TYPED(TQ, TC)                                           \
-  launch_lanes<TQ, TC>(q, cache, lane_bias, kv_row, out, b, lanes, heads,  \
-                       dh, s_max, pos, cluster, rows_per_rank, tile, chunk, \
+  launch_lanes<TQ, TC>(q, cache, lane_bias, kv_row, out, step, b, lanes,   \
+                       heads, dh, s_max, cluster, rows_per_rank, tile, chunk, \
                        group_lanes, smem, cuda_cores == 0, s)
   if (q_dtype == avsr::kBFloat16 && cache_dtype == avsr::kBFloat16)
     err = AVSR_DECODE_TYPED(bf16, bf16);

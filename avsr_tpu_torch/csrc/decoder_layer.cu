@@ -160,7 +160,10 @@ struct Args {
   // start of every phase and its arrival at the phase's end, then the
   // steps of phase kTraceSub
   unsigned long long* trace;
-  int n, lanes, heads, dh, c, f, s_dec, s_enc, pos;
+  // the step pos, one int32 in device memory: read as the kernel starts
+  // (a launch captured in a CUDA graph reads each replay's)
+  const int* step;
+  int n, lanes, heads, dh, c, f, s_dec, s_enc;
   int rows[kGemvs];     // rows of an item of QKV, out, q2, out2, W1, W2
   int ks[kGemvs];       // their K slices' columns
   float scale;  // dh^-0.5 rounded to fp32
@@ -1330,7 +1333,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const size_t gtid = static_cast<size_t>(blockIdx.x) * kThreads + tid;
   const size_t gstride = static_cast<size_t>(gridDim.x) * kThreads;
-  const int s_lim = min(a.pos, s_dec);  // the cache rows attended
+  const int pos = max(__ldg(a.step), 0);
+  const int s_lim = min(pos, s_dec);  // the cache rows attended
   // attention scratch (attn_layout): q (lanes, dh), fresh k and v and
   // their scores, then attend's own
   float* smf = reinterpret_cast<float*>(smem);
@@ -1512,7 +1516,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         a.out[i] = avsr::from_float<TW>(__fadd_rn(__ldcg(a.xres + i), v));
       },
       steps(10));
-  const int row_c = min(a.pos, s_dec - 1);
+  const int row_c = min(pos, s_dec - 1);
   const int c2 = 2 * c;
   for (size_t e = gtid; e < static_cast<size_t>(n) * c2; e += gstride) {
     const size_t ln = e / c2, col = e % c2;
@@ -1616,6 +1620,7 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   a.counters = static_cast<int*>(ptrs[27]);
   a.out = static_cast<TW*>(ptrs[28]);
   a.trace = static_cast<unsigned long long*>(ptrs[29]);
+  a.step = static_cast<const int*>(ptrs[30]);
   a.n = dims[0];
   a.lanes = dims[1];
   a.heads = dims[2];
@@ -1624,11 +1629,10 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   a.f = dims[5];
   a.s_dec = dims[6];
   a.s_enc = dims[7];
-  a.pos = dims[8];
-  const int grid = dims[9];
+  const int grid = dims[8];
   for (int i = 0; i < kGemvs; ++i) {
-    a.rows[i] = dims[10 + i];
-    a.ks[i] = dims[10 + kGemvs + i];
+    a.rows[i] = dims[9 + i];
+    a.ks[i] = dims[9 + kGemvs + i];
   }
   a.scale = scale;
   constexpr int kVec = 16 / sizeof(TC);
@@ -1636,7 +1640,7 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   if (a.n <= 0 || a.lanes <= 0 || a.lanes > kMaxLanes || a.n % a.lanes ||
       a.heads * a.dh != a.c || a.c % 8 || a.f % 8 || a.dh % kVec ||
       cpr > 32 || (cpr & (cpr - 1)) || a.s_dec <= 0 || a.s_enc <= 0 ||
-      a.pos < 0)
+      a.step == nullptr)
     return cudaErrorInvalidValue;
   for (int i = 0; i < kGemvs; ++i) {
     if (a.ks[i] < 32 || a.ks[i] % 32 || a.rows[i] < 8 ||
@@ -1657,10 +1661,20 @@ cudaError_t launch_typed(void* const* ptrs, const int* dims, float scale,
   cudaError_t err = cooperative_grid(kernel, smem, &most);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > most) return cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel),
-                                     dim3(grid), dim3(kThreads), args, smem,
-                                     stream);
+  // cudaLaunchKernelEx with the cooperative attribute, which a stream
+  // capture records as a cooperative kernel node (the beam's device loop
+  // replays it in a CUDA graph)
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
 }  // namespace
@@ -1686,15 +1700,16 @@ extern "C" int avsr_decoder_layer_config(int param_dtype, int cache_dtype,
   return static_cast<int>(err);
 }
 
-// ptrs (host array of 30 device pointers): x, kv, src_k, src_v, mem_bias,
+// ptrs (host array of 31 device pointers): x, kv, src_k, src_v, mem_bias,
 // lane_bias, the 14 packed parameters (ln_w, ln_b, w_qkv, b_qkv, w_out,
 // b_out, w_q2, b_q2, w_out2, b_out2, w_1, b_1, w_2, b_2), then the scratch
 // xres (N*C fp32), qkv (N*3C fp32), q2 (N*C fp32), opnd (N*max(C,F)) and
 // lnop (N*C) in param_dtype, stats (fp32), part (fp32), counters (int32,
 // zero), the output (N, C), and a trace (null, or int64 (grid, 2 * kPhases
 // + kSteps): each block's global timer at the start and end of each phase,
-// then at the steps of phase kTraceSub). dims: n, lanes, heads, dh, c, f,
-// s_dec, s_enc, pos, grid, then the rows of an item of the six GEMVs (QKV,
+// then at the steps of phase kTraceSub), and the step pos (one int32,
+// which the kernel reads). dims: n, lanes, heads, dh, c, f,
+// s_dec, s_enc, grid, then the rows of an item of the six GEMVs (QKV,
 // out, q2, out2, W1, W2) and their K slices' columns; scale: dh^-0.5 in
 // fp32. x, the parameters and the output are in param_dtype; kv, src_k and
 // src_v in cache_dtype.

@@ -14,8 +14,11 @@ or the raw waveform 640 x 1); uint8 crops travel to the device delta-coded
 (normalised on the host) as they are; the encoder runs as one batch (in
 bf16 when ``encode_dtype="bfloat16"``, on a copy of the model without its
 decoder, every float weight and BN statistic cast); the beam decodes all
-utterances of the batch together. ``mode="greedy"`` is greedy CTC. It runs
-on the card unless ``device`` says otherwise.
+utterances of the batch together, reading its stop flag once every
+``device_loop.STOP_EVERY`` steps and on the card replaying those steps as
+a CUDA graph (``device_loop=False`` is the host loop, a read every
+step). ``mode="greedy"`` is greedy CTC. It runs on the card unless
+``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -63,6 +66,10 @@ class Recognizer:
     video_wire: str = "delta"
     # the beam step's bookkeeping as one beam_update kernel launch
     fused_bookkeeping: bool = False
+    # the beam's device loop (decode/device_loop.py): a stop read every
+    # STOP_EVERY steps, the steps between as one CUDA graph replay on the
+    # card; False runs the host loop (a read every step, no graph)
+    device_loop: bool = True
     device: str = "cuda"
     _encoder: torch.nn.Module = field(init=False, repr=False)
 
@@ -124,7 +131,8 @@ class Recognizer:
         (yseqs (B, L), lengths (B,), scores (B,)) on the device."""
         m = self.model
         return beam_search_batched(self.beam_config(), m.decoder_step,
-                                   m.decoder_init, feats, ctc_logp, lens)
+                                   m.decoder_init, feats, ctc_logp, lens,
+                                   device_loop=self.device_loop)
 
     # ---------------- host-side batching ----------------
 
@@ -164,8 +172,8 @@ class Recognizer:
 
         The JAX package's counterpart returns as soon as the work is
         dispatched. Here the beam loop reads its stop flag from the device
-        at every step, so the decode has run when this returns; only the
-        copy to the host is left for ``result()``. The call sets the
+        once every ``STOP_EVERY`` steps, so the decode has run when this
+        returns; only the copy to the host is left for ``result()``. The call sets the
         current CUDA device to the recognizer's, so a thread other than
         the one that built it can call it."""
         if mode not in ("beam", "greedy"):

@@ -6,9 +6,11 @@ batched beam of ``decode/beam.py`` with attention-only scoring
 JAX defaults: the memory repeated to B*K lanes, the self caches gathered
 by each successor's parent after the selection. sos is
 ``decoder_start_token_id``, eos ``eos_token_id``; the self-K/V buffer is
-the frame count plus 2, rounded up to 64 (no cap). Runs under
-``torch.inference_mode()`` on ``device`` (the card unless the caller asks
-for the CPU).
+the frame count plus 2, rounded up to 64 (no cap). The beam runs in its
+device loop (a stop read every ``STOP_EVERY`` steps, the steps between as
+one CUDA graph replay on the card) unless ``device_loop=False`` asks for
+the host loop. Runs under ``torch.inference_mode()`` on ``device`` (the
+card unless the caller asks for the CPU).
 """
 
 from __future__ import annotations
@@ -25,9 +27,10 @@ from avsr_tpu_torch.ops.cpu import warm_exp
 
 class S2TGenerator:
     def __init__(self, model: AV2TextModel, beam_size: int = 3,
-                 device: str = "cuda"):
+                 device: str = "cuda", device_loop: bool = True):
         cfg = model.cfg
         self.device = torch.device(device)
+        self.device_loop = device_loop
         if self.device.type == "cpu":
             warm_exp()
         self.model = model.to(self.device).eval()
@@ -56,7 +59,7 @@ class S2TGenerator:
         m = self.model
         return beam_search_batched(
             self.bcfg, m.decoder_step, m.decoder_init, memory, None,
-            torch.as_tensor(lengths, device=self.device).long())
+            torch.as_tensor(lengths).long(), device_loop=self.device_loop)
 
     def generate(self, audios, videos, lengths) -> List[np.ndarray]:
         """Returns per-utterance token ids (sos/eos stripped)."""

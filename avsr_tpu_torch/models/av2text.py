@@ -30,6 +30,7 @@ from torch.nn import functional as F
 
 from avsr_tpu_torch.core.config import AVHubertEncoderConfig
 from avsr_tpu_torch.models.avhubert import AVHubertModel
+from avsr_tpu_torch.ops.kernels._build import device_step
 from avsr_tpu_torch.ops.masks import make_non_pad_mask
 
 NEG_INF = torch.finfo(torch.float32).min
@@ -148,14 +149,17 @@ class S2TDecoderLayer(nn.Module):
         x = x + self.encoder_attn(h, memory, memory_mask)
         return x + self._ffn(self.final_layer_norm(x))
 
-    def step(self, x_t, pos: int, self_k, self_v, src_k, src_v, memory_mask):
+    def step(self, x_t, pos, self_k, self_v, src_k, src_v, memory_mask):
         """x_t (N, 1, D); self_k and self_v (N, maxlen, H, Dh), whose row
-        ``pos`` this writes in place; src_k and src_v (N, S, H, Dh)."""
+        ``pos`` (a (1,) int64 tensor on the device, clamped into the
+        buffer as the JAX step's dynamic update is) this writes in place;
+        src_k and src_v (N, S, H, Dh)."""
         maxlen = self_k.shape[1]
         h = self.self_attn_layer_norm(x_t)
         k_t, v_t = self.self_attn.project_kv(h)
-        self_k[:, pos] = k_t[:, 0]
-        self_v[:, pos] = v_t[:, 0]
+        row = pos.clamp_max(maxlen - 1)
+        self_k.index_copy_(1, row, k_t)
+        self_v.index_copy_(1, row, v_t)
         causal = (torch.arange(maxlen, device=x_t.device) <= pos)
         causal = causal[None, None, :].expand(x_t.shape[0], 1, maxlen)
         x = x_t + self.self_attn.attend(h, self_k, self_v, causal)
@@ -218,13 +222,18 @@ class S2TDecoder(nn.Module):
             memory.new_zeros(shape), memory.new_zeros(shape),
             torch.stack([k for k, _ in src]), torch.stack([v for _, v in src]))
 
-    def step(self, y_t, pos: int, cache: S2TDecoderCache, memory_mask=None):
-        """One token a lane: y_t (N,) -> (log-probs (N, V) fp32, cache)."""
+    def step(self, y_t, pos, cache: S2TDecoderCache, memory_mask=None):
+        """One token a lane: y_t (N,) -> (log-probs (N, V) fp32, cache).
+        ``pos``: the step, a one-element int tensor on the device (the
+        beam's device loop) or an int; every use of it stays on the
+        device."""
         c = self.cfg
+        pos = device_step(pos, y_t.device).long()  # (1,)
         x = self.embed_tokens(y_t)[:, None, :] * self.embed_scale
         # the JAX step's dynamic slice clamps the row into the table
-        row = min(pos + c.pad_token_id + 1, self.pos_table.shape[0] - 1)
-        x = x + self.pos_table[row]
+        row = (pos + c.pad_token_id + 1).clamp_max(
+            self.pos_table.shape[0] - 1)
+        x = x + self.pos_table.index_select(0, row)
         for i, layer in enumerate(self.layers):
             x = layer.step(x, pos, cache.self_k[i], cache.self_v[i],
                            cache.src_k[i], cache.src_v[i], memory_mask)
@@ -250,7 +259,7 @@ class AV2TextModel(nn.Module):
     def decoder_init(self, memory, maxlen: int) -> S2TDecoderCache:
         return self.decoder.init_cache(memory, maxlen)
 
-    def decoder_step(self, y_t, pos: int, cache, memory_mask=None):
+    def decoder_step(self, y_t, pos, cache, memory_mask=None):
         return self.decoder.step(y_t, pos, cache, memory_mask)
 
     def forward(self, audios, videos, decoder_input_ids, lengths=None):

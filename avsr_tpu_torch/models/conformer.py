@@ -400,7 +400,7 @@ class _ConformerE2E(nn.Module):
                      beam: int = 1) -> DecoderCache:
         return self.decoder.init_cache(memory, maxlen, beam)
 
-    def decoder_step(self, y_t, pos: int, cache: DecoderCache,
+    def decoder_step(self, y_t, pos, cache: DecoderCache,
                      memory_mask=None, lane_bias=None):
         return self.decoder.step(y_t, pos, cache, memory_mask, lane_bias)
 

@@ -31,6 +31,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
+from avsr_tpu_torch.ops.kernels._build import device_step
 from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
 from avsr_tpu_torch.ops.kernels.decoder_layer import NEG_INF as PAD_BIAS
 from avsr_tpu_torch.ops.kernels.decoder_layer import (
@@ -286,7 +287,7 @@ class TransformerDecoder(nn.Module):
         out = out.transpose(1, 2).reshape(x.shape)
         return F.linear(out, p.w_out_src, p.b_out_src)
 
-    def layer_step(self, i: int, x, pos: int, cache: DecoderCache,
+    def layer_step(self, i: int, x, pos, cache: DecoderCache,
                    memory_mask, bias_ksj, lanes: int):
         """Layer i of the unfused step: LN, QKV, ``decode_attention``
         (which writes the row), out-projection, cross-attention, FFN."""
@@ -305,7 +306,7 @@ class TransformerDecoder(nn.Module):
         hf = F.relu(F.linear(_ln(x, p.norm3), p.w_1, p.b_1))
         return x + F.linear(hf, p.w_2, p.b_2)
 
-    def _fused_layers(self, x, pos: int, cache: DecoderCache, memory_mask,
+    def _fused_layers(self, x, pos, cache: DecoderCache, memory_mask,
                       bias_ksj, lanes: int):
         """Every layer as one ``decoder_layer_step`` launch; padded source
         rows get the additive -1e30 bias."""
@@ -322,20 +323,25 @@ class TransformerDecoder(nn.Module):
                                       self.heads, scratch=cache.scratch)
         return x
 
-    def step(self, y_t: torch.Tensor, pos: int, cache: DecoderCache,
+    def step(self, y_t: torch.Tensor, pos, cache: DecoderCache,
              memory_mask: Optional[torch.Tensor],
              lane_bias: torch.Tensor):
         """One decode step for N = B*K lanes: returns (log-probs (N, V) fp32,
-        cache). ``lane_bias`` (B, K, J, S): 0 where stored lane j at
-        position s is an ancestor of lane k (s <= pos), -1e30 elsewhere.
-        The self K|V buffers in ``cache`` are updated in place."""
+        cache). ``pos``: the step, a one-element int tensor on the device
+        (the beam's device loop: the kernels read it there, and the
+        positional row is picked there) or an int. ``lane_bias`` (B, K, J,
+        S): 0 where stored lane j at position s is an ancestor of lane k
+        (s <= pos), -1e30 elsewhere. The self K|V buffers in ``cache`` are
+        updated in place."""
         if lane_bias is None:
             raise ValueError("the decode step needs the lazy-reorder "
                              "lane_bias (B, K, J, S)")
         c = self.dim
         lanes = lane_bias.shape[1]
         bias_ksj = lane_bias.transpose(2, 3).contiguous()  # kernel layout
-        pe = cache.pe[min(pos, cache.pe.shape[0] - 1)]
+        row = device_step(pos, y_t.device).long().clamp_max(
+            cache.pe.shape[0] - 1)
+        pe = cache.pe.index_select(0, row)  # (1, C), clamped on the device
         x = self.embed[0](y_t) * math.sqrt(c) + pe
         x = x.to(self.param_dtype)
         if self.fused_layer:

@@ -100,6 +100,6 @@ class AVSRModel(nn.Module):
                      beam: int = 1) -> DecoderCache:
         return self.decoder.init_cache(memory, maxlen, beam)
 
-    def decoder_step(self, y_t, pos: int, cache: DecoderCache,
+    def decoder_step(self, y_t, pos, cache: DecoderCache,
                      memory_mask=None, lane_bias=None):
         return self.decoder.step(y_t, pos, cache, memory_mask, lane_bias)

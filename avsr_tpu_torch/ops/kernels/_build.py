@@ -45,6 +45,27 @@ def dtype_code(dtype) -> int:
     return DTYPE_CODES[name]
 
 
+def device_step(pos, device):
+    """A decode step as the kernels read it: a (1,) int32 tensor on
+    ``device``, which a kernel reads from device memory (as the TPU kernels
+    read theirs from SMEM), so that a captured launch reads each replay's
+    step. An int (the tools', the tests') becomes one; a tensor must hold
+    one int32 or int64 on ``device`` and is not read on the host."""
+    import torch
+
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"a step is one int32 or int64, got {pos.dtype} "
+                             f"{tuple(pos.shape)}")
+        if pos.device != torch.device(device):
+            raise ValueError(f"step on {pos.device}, tensors on {device}")
+        return pos.reshape(1).to(torch.int32)
+    if int(pos) < 0:
+        raise ValueError(f"pos must be >= 0, got {pos}")
+    # a fill on the device: no copy from the host, which would wait
+    return torch.full((1,), int(pos), dtype=torch.int32, device=device)
+
+
 def _sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 

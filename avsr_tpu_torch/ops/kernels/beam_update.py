@@ -26,6 +26,8 @@ kernel's ``lazy`` switch is not needed here. The port has no length
 penalty (0 in every shipped configuration).
 
 Tokens, indices and counts are int64 and masks bool, the port's types.
+The step ``i`` is read on the device, as the TPU kernel reads it from
+SMEM, so a launch captured in a CUDA graph reads each replay's step.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ _OUT = ("token", "prev", "slot", "psi_sel", "score", "alive", "yseq", "anc",
         "stop")
 
 
-def beam_update_plain(i: int, xlens, dec_top, dec_eos, psi_cand, psi_eos,
+def beam_update_plain(i, xlens, dec_top, dec_eos, psi_cand, psi_eos,
                       ctc_s, part_ids, score, alive, stop, yseq, anc,
                       ended_best, ended_cnt, best_score, best_yseq, best_len,
                       *, w_dec: float, w_ctc: float, eos: int, neg: float,
@@ -53,11 +55,13 @@ def beam_update_plain(i: int, xlens, dec_top, dec_eos, psi_cand, psi_eos,
     """The TPU kernel's body in its own formulation: iterated (max, lowest
     flat index, mask) top-k, one-hot sum-selects for the token and psi,
     beam-axis gathers, retirement, best tracking and end detection. With
-    ``psi_cand`` None the CTC term is left out."""
+    ``psi_cand`` None the CTC term is left out. ``i``: the step, an int or
+    a one-element tensor on the inputs' device, never read on the host."""
     b, k, sp = part_ids.shape
     c = sp + 1  # pre-beam tokens + the explicit eos slot
     ll = yseq.shape[2]
     dev = part_ids.device
+    i = _build.device_step(i, dev).long()  # (1,)
     lane_active = ~stop & (i < xlens)  # (B,)
     forced = i >= xlens - 1  # (B,)
 
@@ -141,9 +145,9 @@ def beam_update_plain(i: int, xlens, dec_top, dec_eos, psi_cand, psi_eos,
     count = torch.zeros_like(best_len)
     for mm in range(m_end):
         j = i - mm - 2
-        jc = max(j, 0)
-        ok = (j >= 0) & (ended_cnt_out[:, jc] > 0)
-        worse = (ended_best_out[:, jc] - best_score_out) < d_end
+        jc = j.clamp_min(0).expand(b)[:, None]
+        ok = (j >= 0) & (ended_cnt_out.gather(1, jc)[:, 0] > 0)
+        worse = (ended_best_out.gather(1, jc)[:, 0] - best_score_out) < d_end
         count = count + (ok & worse).long()
     newly = (count >= m_end) | ~alive_out.any(dim=1)
     stop_out = stop | (newly & lane_active)
@@ -160,6 +164,7 @@ def _launch(i, ins, use_ctc, w_dec, w_ctc, eos, neg, d_end, m_end):
     b, k, sp = part_ids.shape
     ll = yseq.shape[2]
     dev = part_ids.device
+    step = _build.device_step(i, dev)
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"tensor on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -183,10 +188,11 @@ def _launch(i, ins, use_ctc, w_dec, w_ctc, eos, neg, d_end, m_end):
     ptrs += [outs[name].data_ptr() for name in _OUT]
     fn = _build.function(
         "avsr_beam_update",
-        (ctypes.c_void_p,) + (ctypes.c_int,) * 9 + (ctypes.c_float,) * 4
+        (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 8 + (ctypes.c_float,) * 4
         + (ctypes.c_void_p,),
     )
-    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs), i, b, k, sp, ll,
+    err = fn((ctypes.c_void_p * len(ptrs))(*ptrs), step.data_ptr(), b, k, sp,
+             ll,
              anc.shape[0], eos, m_end, int(use_ctc), w_dec, w_ctc, neg,
              d_end, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("beam_update", err)
@@ -195,11 +201,13 @@ def _launch(i, ins, use_ctc, w_dec, w_ctc, eos, neg, d_end, m_end):
     return outs
 
 
-def beam_update(i: int, xlens, dec_top, dec_eos, psi_cand, psi_eos, ctc_s,
+def beam_update(i, xlens, dec_top, dec_eos, psi_cand, psi_eos, ctc_s,
                 part_ids, score, alive, stop, yseq, anc, ended_best,
                 ended_cnt, best_score, best_yseq, best_len, *, w_dec: float,
                 w_ctc: float, eos: int, neg: float, d_end: float, m_end: int):
-    """One fused bookkeeping update of beam step ``i``.
+    """One fused bookkeeping update of beam step ``i``: a one-element int32
+    or int64 tensor on the inputs' device, which the kernel reads there
+    (the beam's device loop), or an int (made into one).
 
     Shapes: xlens (B,), dec_top (B, K, S'), dec_eos (B, K), psi_cand
     (B, K, S') / psi_eos (B, K) / ctc_s (B, K) or all three None (no CTC

@@ -6,7 +6,11 @@ dispatches on the tensors' device: on the CPU it runs
 ``decode_attention_plain``, on a CUDA device it launches
 ``csrc/decode_attention.cu`` over thread-block clusters, with the launch
 plan (``launch_plan``: cluster size, rows a rank, tile, shared memory)
-computed here. One launch reads each (utterance, head)'s prefix once for
+computed here. The step ``pos`` is read on the device, as the TPU kernel
+reads it from SMEM (so a launch captured in a CUDA graph reads each
+replay's step): the plan is fixed at the cache's S rows and the kernel
+splits the step's live rows over the cluster itself. One launch reads
+each (utterance, head)'s prefix once for
 up to ``GROUP_LANES`` beam lanes (their queries as up to eight 8-lane mma
 operands); ``wide_launches`` counts the launches beyond ``MAX_LANES``
 lanes (one operand tile: beams of 9 and more), ``tf32_launches`` those
@@ -49,7 +53,14 @@ GROUP_LANES = 64  # csrc/decode_attention.cu kGroupLanes: a block's queries
 MMA_DH = 64  # csrc/decode_attention.cu kMmaDh: the heads whose products use mma
 
 
-def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
+def _row(pos, kv_cache):
+    """The written row min(pos, S-1) as a (1,) int64 tensor on the cache's
+    device; ``pos`` an int or a one-element tensor, not read on the host."""
+    return _build.device_step(pos, kv_cache.device).long().clamp_max(
+        kv_cache.shape[1] - 1)
+
+
+def decode_attention_plain(pos, q, kv_cache, lane_bias, lanes: int,
                            heads: int, kv_row):
     """Plain torch twin. Writes ``kv_row`` into row min(pos, S-1) of
     ``kv_cache`` in place, then attends with the TPU kernel's rounding
@@ -59,7 +70,8 @@ def decode_attention_plain(pos: int, q, kv_cache, lane_bias, lanes: int,
     c = c2 // 2
     b = n // lanes
     dh = c // heads
-    kv_cache[:, min(pos, s_max - 1)] = kv_row.to(kv_cache.dtype)
+    kv_cache.index_copy_(1, _row(pos, kv_cache),
+                         kv_row.to(kv_cache.dtype)[:, None])
     kv = kv_cache.view(b, lanes, s_max, 2, heads, dh).float()
     qq = q.to(kv_cache.dtype).float().view(b, lanes, heads, dh)
     scores = torch.einsum("bkhd,bjshd->bhkjs", qq, kv[:, :, :, 0])
@@ -82,7 +94,7 @@ def _ulp(x, dtype):
     return torch.where(x > 0, torch.exp2(e - (bits - 1)), torch.zeros_like(x))
 
 
-def output_bound(pos: int, q, kv_cache, lane_bias, lanes: int, heads: int,
+def output_bound(pos, q, kv_cache, lane_bias, lanes: int, heads: int,
                  kv_row):
     """Per output element (N, C), how far two fp32 evaluations of
     ``decode_attention`` may lie apart with the TPU kernel's rounding
@@ -102,7 +114,7 @@ def output_bound(pos: int, q, kv_cache, lane_bias, lanes: int, heads: int,
     dh = c // heads
     cd = kv_cache.dtype
     kv = kv_cache.clone()
-    kv[:, min(pos, s_max - 1)] = kv_row.to(cd)
+    kv.index_copy_(1, _row(pos, kv), kv_row.to(cd)[:, None])
     kv = kv.view(b, lanes, s_max, 2, heads, dh).float()
     qq = q.to(cd).float().view(b, lanes, heads, dh)
     scores = torch.einsum("bkhd,bjshd->bhkjs", qq, kv[:, :, :, 0])
@@ -124,14 +136,15 @@ def output_bound(pos: int, q, kv_cache, lane_bias, lanes: int, heads: int,
 class Plan(NamedTuple):
     """A launch of the kernel: ``cluster`` blocks share one (utterance,
     head); rank r takes rows [r * rows_per_rank, (r + 1) * rows_per_rank)
-    (a multiple of 4) of the ``rows`` = lanes * (min(pos, S-1) + 1) rows
-    of the prefix, row r = s * lanes + j (position s of stored lane j),
-    in tiles of ``tile`` rows (two stage buffers), holding the scores of
-    ``chunk`` rows at once: one pass where ``chunk`` is
-    ``rows_per_rank``, else two over chunks of whole tiles, the second
-    taking the scores again; query groups of ``group_lanes`` lanes,
-    ``groups`` of them (the grid's third axis), each reading the prefix
-    once; ``smem`` bytes of dynamic shared memory."""
+    (a multiple of 4) of the ``rows`` rows of the prefix, row r = s *
+    lanes + j (position s of stored lane j), in tiles of ``tile`` rows
+    (two stage buffers), holding the scores of ``chunk`` rows at once: one
+    pass where ``chunk`` is ``rows_per_rank``, else two over chunks of
+    whole tiles, the second taking the scores again; query groups of
+    ``group_lanes`` lanes, ``groups`` of them (the grid's third axis),
+    each reading the prefix once; ``smem`` bytes of dynamic shared memory.
+    ``launch_plan`` sizes it for all ``lanes`` * S rows; the kernel reads
+    the step on the device and splits its live rows as ``at(pos)`` does."""
     cluster: int
     rows_per_rank: int
     tile: int
@@ -141,6 +154,17 @@ class Plan(NamedTuple):
     chunk: int
     group_lanes: int
     groups: int
+    lanes: int = 0
+    s_max: int = 0
+
+    def at(self, pos: int) -> "Plan":
+        """The launch as the kernel runs step ``pos``: the prefix's
+        lanes * (min(pos, S-1) + 1) live rows, rank r taking
+        ceil(rows / 4G) * 4 of them (each rank's bias 16-byte aligned),
+        with the launch's tile, chunk and shared memory."""
+        rows = self.lanes * (min(pos, self.s_max - 1) + 1)
+        return self._replace(rows=rows, rows_per_rank=-(-rows // (
+            4 * self.cluster)) * 4)
 
     def rank_rows(self, rank: int) -> range:
         begin = min(rank * self.rows_per_rank, self.rows)
@@ -189,10 +213,12 @@ def _tiles(budget: int, lanes: int, dh: int, esize: int, rpr: int,
     return None
 
 
-@functools.lru_cache(maxsize=4096)
+@functools.lru_cache(maxsize=1024)
 def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
-                pos: int, esize: int, cluster: int | None = None) -> Plan:
-    """The kernel's launch for one step. Lanes beyond GROUP_LANES split
+                esize: int, cluster: int | None = None) -> Plan:
+    """The kernel's launch for every step over an S = ``s_max``-row cache:
+    sized for its lanes * S rows, whatever the step (the kernel splits a
+    step's live rows itself, ``Plan.at``). Lanes beyond GROUP_LANES split
     into even query groups. ``cluster`` forces G (1, 2, 4 or 8; the
     variants tool sweeps it); by default CLUSTER (1 for one query tile of
     a bf16 cache where B*H pairs fill the card twice), raised while a
@@ -203,7 +229,7 @@ def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
     else within SMEM_MAX; where no G gives one, the largest G's rank holds
     the scores of a chunk of its rows at a time and takes them twice.
     Raises ValueError where no plan fits."""
-    rows = lanes * (min(pos, s_max - 1) + 1)
+    rows = lanes * s_max
     groups = -(-lanes // GROUP_LANES)
     gl = -(-lanes // groups)
     least = (1 if esize == 2 and lanes <= MAX_LANES and b * heads >= 2 * SMS
@@ -217,7 +243,7 @@ def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
     def plan(g, tile, chunk):
         rpr = rank_rows(g)
         return Plan(g, rpr, tile, smem_bytes(gl, dh, esize, chunk, tile),
-                    (heads * g, b), rows, chunk, gl, groups)
+                    (heads * g, b), rows, chunk, gl, groups, lanes, s_max)
 
     for budget, pair in ((PAIR_SMEM, True), (SMEM_MAX, False)):
         for g in sizes:
@@ -237,7 +263,7 @@ def launch_plan(b: int, lanes: int, heads: int, dh: int, s_max: int,
             return plan(g, tile, chunk)
     raise ValueError(f"no launch of decode_attention fits {SMEM_MAX} bytes "
                      f"of shared memory: lanes={lanes}, dh={dh}, "
-                     f"s_max={s_max}, pos={pos}, cluster={cluster}")
+                     f"s_max={s_max}, cluster={cluster}")
 
 
 def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
@@ -260,8 +286,6 @@ def _check(pos, q, kv_cache, lane_bias, lanes, heads, kv_row):
         raise ValueError(f"lane_bias must be fp32 ({b}, {lanes}, {s_max}, "
                          f"{lanes}), got {lane_bias.dtype} "
                          f"{tuple(lane_bias.shape)}")
-    if int(pos) < 0:
-        raise ValueError(f"pos must be >= 0, got {pos}")
     devs = {x.device for x in (q, kv_cache, lane_bias, kv_row)}
     if len(devs) != 1:
         raise ValueError(f"inputs span devices {devs}")
@@ -288,11 +312,12 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
     if kv_cache.data_ptr() % 16:
         raise ValueError("kv_cache must be 16-byte aligned")
     if plan is None:
-        plan = launch_plan(n // lanes, lanes, heads, dh, s_max, int(pos),
-                           esize, cluster)
+        plan = launch_plan(n // lanes, lanes, heads, dh, s_max, esize,
+                           cluster)
+    step = _build.device_step(pos, q.device)
     fn = _build.function(
         "avsr_decode_attention",
-        (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 15 + (ctypes.c_void_p,),
+        (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 14 + (ctypes.c_void_p,),
     )
     kv_row = kv_row.to(kv_cache.dtype)
     if kv_row.data_ptr() % 16:  # the kernel copies it 16 bytes at a time
@@ -301,8 +326,8 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
         q = q.clone()
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), kv_cache.data_ptr(), lane_bias.data_ptr(),
-             kv_row.data_ptr(), out.data_ptr(), n // lanes, lanes, heads, dh,
-             s_max, int(pos), _build.dtype_code(q.dtype),
+             kv_row.data_ptr(), out.data_ptr(), step.data_ptr(), n // lanes,
+             lanes, heads, dh, s_max, _build.dtype_code(q.dtype),
              _build.dtype_code(kv_cache.dtype), plan.cluster,
              plan.rows_per_rank, plan.tile, plan.chunk, plan.group_lanes,
              plan.smem, int(cuda_cores),
@@ -315,11 +340,13 @@ def _launch(pos, q, kv_cache, lane_bias, lanes, heads, kv_row,
     return out, kv_cache
 
 
-def decode_attention(pos: int, q, kv_cache, lane_bias, lanes: int,
+def decode_attention(pos, q, kv_cache, lane_bias, lanes: int,
                      heads: int, kv_row):
     """One decode step's self-attention for all N = B*lanes beam lanes.
 
-    pos: the step's position (int); q (N, C) queries pre-scaled by
+    pos: the step's position, a one-element int32 or int64 tensor on the
+    inputs' device (the kernel reads it there; the wrapper does not) or an
+    int (made into one); q (N, C) queries pre-scaled by
     dh**-0.5; kv_cache (N, S, 2C) fused K|V; lane_bias (B, K, S, J) fp32,
     0 where stored lane j at position s is an ancestor of lane k and
     -1e30 elsewhere, including every s > pos on every lane (the kernel

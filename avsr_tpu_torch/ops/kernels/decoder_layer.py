@@ -25,7 +25,9 @@ rounded to the cache dtype before P.V.
 The step's own K|V row enters the self-attention from the QKV product. While
 pos < S the stale cache row at pos is masked; at pos >= S (a capped cache)
 all S stored rows are attended, the stale row S-1 included, plus the fresh
-row. The fresh row is then written at min(pos, S-1), in place.
+row. The fresh row is then written at min(pos, S-1), in place. The step
+pos is read on the device, as the TPU kernel reads it from SMEM, so a
+launch captured in a CUDA graph reads each replay's step.
 """
 
 from __future__ import annotations
@@ -83,11 +85,13 @@ def pack_layer_params(layer, dtype) -> PackedLayer:
     return PackedLayer(*(t.detach().to(dtype).contiguous() for t in parts))
 
 
-def decoder_layer_step_plain(pos: int, x, kv_cache, src_k, src_v, mem_bias,
+def decoder_layer_step_plain(pos, x, kv_cache, src_k, src_v, mem_bias,
                              lane_bias, packed: PackedLayer, lanes: int,
                              heads: int):
     """Plain torch twin (see the module docstring for its rounding points).
-    Reads every stored row, as the TPU kernel does."""
+    Reads every stored row, as the TPU kernel does. ``pos``: an int or a
+    one-element tensor on the inputs' device, not read on the host."""
+    step = _build.device_step(pos, x.device).long()  # (1,)
     n, s_max, c2 = kv_cache.shape
     c = c2 // 2
     b = n // lanes
@@ -121,8 +125,9 @@ def decoder_layer_step_plain(pos: int, x, kv_cache, src_k, src_v, mem_bias,
     # scores over (stored lane j, row s); the stale row at pos < S masked
     scores = torch.einsum("bkhd,bjshd->bhkjs", q, kv[:, :, :, 0])
     scores = scores + lane_bias.to(cd).permute(0, 1, 3, 2)[:, None]
-    if pos < s_max:
-        scores[..., pos] += NEG_INF
+    stale = ((torch.arange(s_max, device=x.device) == step)
+             & (step < s_max))  # (S,): the stale row at pos < S
+    scores = torch.where(stale, scores + NEG_INF, scores)
     cur = torch.einsum("bkhd,bkhd->bhk", k_new, q)
     flat = scores.reshape(b, heads, lanes, lanes * s_max)
     m = torch.maximum(flat.amax(dim=-1), cur)
@@ -149,7 +154,7 @@ def decoder_layer_step_plain(pos: int, x, kv_cache, src_k, src_v, mem_bias,
     hid = torch.relu(dense(ln(xf, 2), w_1, b_1))
     xf = xf + dense(hid, w_2, b_2)
     row = torch.cat([k_new, v_new], dim=2).reshape(n, 2 * c)
-    kv_cache[:, min(pos, s_max - 1)] = row.to(kd)
+    kv_cache.index_copy_(1, step.clamp_max(s_max - 1), row.to(kd)[:, None])
     return xf.to(x.dtype), kv_cache
 
 
@@ -182,8 +187,6 @@ def _check(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
         raise ValueError(f"lane_bias must be fp32 ({b}, {lanes}, {s_max}, "
                          f"{lanes}), got {lane_bias.dtype} "
                          f"{tuple(lane_bias.shape)}")
-    if int(pos) < 0:
-        raise ValueError(f"pos must be >= 0, got {pos}")
     tensors = (x, kv_cache, src_k, src_v, mem_bias, lane_bias, *packed)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("inputs span devices")
@@ -351,16 +354,17 @@ def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
         (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
          ctypes.c_int, ctypes.c_void_p),
     )
+    step = _build.device_step(pos, dev)
     if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
         x = x.clone()
     out = torch.empty_like(x)
     tensors = (x, kv_cache, src_k, src_v, mem_bias, lane_bias, *packed,
                *scratch, out)
-    ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
+    ptrs = (ctypes.c_void_p * (len(tensors) + 2))(
         *(t.data_ptr() for t in tensors),
-        0 if trace is None else trace.data_ptr())
-    dims = (ctypes.c_int * 22)(
-        n, lanes, heads, c // heads, c, f, s_max, src_k.shape[1], int(pos),
+        0 if trace is None else trace.data_ptr(), step.data_ptr())
+    dims = (ctypes.c_int * 21)(
+        n, lanes, heads, c // heads, c, f, s_max, src_k.shape[1],
         plan.grid, *plan.rows, *plan.ks)
     scale = (c // heads) ** -0.5  # ctypes.c_float rounds it to fp32
     err = fn(ctypes.addressof(ptrs), ctypes.addressof(dims), scale,
@@ -371,13 +375,15 @@ def _launch(pos, x, kv_cache, src_k, src_v, mem_bias, lane_bias,
     return out, kv_cache
 
 
-def decoder_layer_step(pos: int, x, kv_cache, src_k, src_v, mem_bias,
+def decoder_layer_step(pos, x, kv_cache, src_k, src_v, mem_bias,
                        lane_bias, packed: PackedLayer, lanes: int,
                        heads: int, scratch: Scratch | None = None,
                        trace=None):
     """One decoder layer's decode step for all N = B*lanes beam lanes.
 
-    pos: the step's position; x (N, C) the residual stream in the
+    pos: the step's position, a one-element int32 or int64 tensor on the
+    inputs' device (the kernel reads it there; the wrapper does not) or an
+    int (made into one); x (N, C) the residual stream in the
     parameter dtype; kv_cache (N, S, 2C) fused K|V in the cache dtype;
     src_k, src_v (B, S_enc, C) the layer's source keys and values (heads
     packed) in the cache dtype; mem_bias (B, S_enc) fp32, 0 for a valid

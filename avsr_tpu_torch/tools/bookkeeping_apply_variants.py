@@ -139,12 +139,13 @@ def run(name: str) -> None:
     outs = []
     for b in BATCHES:
         st = cs.step_state(5, 200, dev, True, b)
-        got = pbu.beam_update(200, *st.values(), **kw)
+        at = dv.step_arg(pbu, 200, dev)
+        got = pbu.beam_update(at, *st.values(), **kw)
         want = ref_bu.beam_update_plain(200, *st.values(), **kw)
         torch.cuda.synchronize()
         exact = all(torch.equal(got[k], w) for k, w in want.items())
         outs += list(got.values())
-        ms = cs.cuda_ms(lambda: pbu.beam_update(200, *st.values(), **kw))
+        ms = cs.cuda_ms(lambda: pbu.beam_update(at, *st.values(), **kw))
         bnd = cs.bound(cs.nbytes(*st.values(), *got.values()),
                        b * cs.BEAM * (cs.PRE_BEAM + 1) * (5 + cs.BEAM),
                        "fp32")
@@ -159,12 +160,13 @@ def run(name: str) -> None:
     outs = []
     for b, k, sp, t, rows in WIDE:
         st = cs.step_state(5, 40, dev, True, b, k, sp, t, rows)
-        got = pbu.beam_update(40, *st.values(), **kw)
+        at = dv.step_arg(pbu, 40, dev)
+        got = pbu.beam_update(at, *st.values(), **kw)
         want = ref_bu.beam_update_plain(40, *st.values(), **kw)
         torch.cuda.synchronize()
         exact = all(torch.equal(got[key], w) for key, w in want.items())
         outs += list(got.values())
-        ms = cs.cuda_ms(lambda: pbu.beam_update(40, *st.values(), **kw))
+        ms = cs.cuda_ms(lambda: pbu.beam_update(at, *st.values(), **kw))
         bnd = cs.bound(cs.nbytes(*st.values(), *got.values()),
                        b * k * (sp + 1) * (5 + k), "fp32")
         print(f"# [{name}] beam_update wide B={b}, K={k}, S'={sp}, "

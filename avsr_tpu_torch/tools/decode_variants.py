@@ -3,6 +3,9 @@
     python -m avsr_tpu_torch.tools.decode_variants [--dtype float32] base \\
         cols4=scan_logsumexp.cu:kCols=4 upto3=decode_attention.cu:stop=3 \\
         parent@build/parent/avsr_tpu_torch/csrc
+    python -m avsr_tpu_torch.tools.decode_variants --sweep \\
+        parent@build/parent/avsr_tpu_torch/csrc base again \\
+        parent2@build/parent/avsr_tpu_torch/csrc
 
 Each argument is a variant, read as ``flash_variants`` reads it: ``NAME``,
 ``NAME=FILE:CONST=VALUE[,...]`` (the named ``constexpr int`` of one of
@@ -33,6 +36,17 @@ each runs in a process of its own, which loads its library and
   an fp32 cache at split TF32's three tf32 products a multiply-add);
 - ``cumlogsumexp`` at (384, 96) and (384, 384) (``chip_smoke.scan_case``),
   against this checkout's twin, and timed.
+
+With ``--sweep``, instead: ``decode_attention`` as each variant's wrapper
+launches it by default, at each of SWEEP (a bf16 cache at C=1024, 16
+heads, and an fp32 one at C=768, 12 heads; beam 3 at B=8 and B=32, and 22
+lanes at B=8; a 192-row cache) and each step of SWEEP_POS, checked against
+this checkout's twin and timed cold: the launch plan fixed at the cache's
+S rows with the step read on the card (this checkout), or sized for the
+step's rows (a parent whose wrapper takes the step as an int); the step
+goes to a wrapper that reads it on the card as a tensor made once, so the
+timed calls make no fill launch. Run the variants in the order parent,
+change, change, parent to see the card's drift.
 
 ``decode_attention.cu:stop=N`` cuts the variant's copy of the decode
 kernel short before its phase comment ``// N.`` (``cut``), so that the
@@ -75,6 +89,12 @@ SHAPES = ((3, 8, 250, 192), (3, 32, 250, 192), (22, 8, 74, 128),
 # flagship's in fp32 at B=8, and 22 lanes at phase 8's shape
 FP32_SHAPES = ((768, 12, 3, 8, 250, 192), (768, 12, 3, 32, 250, 192),
                (1024, 16, 3, 8, 250, 192), (1024, 16, 22, 8, 74, 128))
+# --sweep: (dtype, C, heads, lanes, B) over a 192-row cache, at SWEEP_POS
+SWEEP = tuple((dt, c, h, lanes, b)
+              for dt, c, h in (("bfloat16", 1024, 16), ("float32", 768, 12))
+              for lanes, b in ((3, 8), (3, 32), (22, 8)))
+SWEEP_POS = (0, 95, 191, 250)
+SWEEP_S = 192
 ROOT = _build.PKG_DIR.parent
 OUT = ROOT / "build" / "decode_variants"
 
@@ -162,7 +182,9 @@ def plans(pda, b, lanes, heads, kv_cap, pos, esize=2):
         return [("launch as wrapped", None)]
     out = []
     for g in CLUSTERS:
-        plan = pda.launch_plan(b, lanes, heads, 64, kv_cap, pos, esize, g)
+        plan = (pda.launch_plan(b, lanes, heads, 64, kv_cap, pos, esize, g)
+                if takes_pos(pda) else
+                pda.launch_plan(b, lanes, heads, 64, kv_cap, esize, g))
         out.append((f"G={g} tile {plan.tile} chunk "
                     f"{getattr(plan, 'chunk', plan.rows_per_rank)} smem "
                     f"{plan.smem}", plan))
@@ -179,6 +201,60 @@ def plans(pda, b, lanes, heads, kv_cap, pos, esize=2):
     return out
 
 
+def takes_pos(pda) -> bool:
+    """Whether the wrapper's launch plan is sized for the step (a parent's,
+    which takes it as an int) rather than fixed at the cache's rows."""
+    return "pos" in inspect.signature(pda.launch_plan).parameters
+
+
+def step_arg(mod, pos: int, dev):
+    """The step as a wrapper module takes it: one int32 on the card, made
+    once, where its kernel reads the step there (this checkout's, through
+    ``_build.device_step``), else the int (a parent's)."""
+    import torch
+
+    if "device_step" not in inspect.getsource(mod):
+        return pos
+    return torch.full((1,), pos, dtype=torch.int32, device=dev)
+
+
+def sweep(name: str, pda, ref_da, cs, dev, g) -> None:
+    """``--sweep``: each of SWEEP at each of SWEEP_POS as the wrapper
+    launches it, against the twin, timed cold."""
+    import torch
+
+    for dt, c, heads, lanes, b in SWEEP:
+        dtype = getattr(torch, dt)
+        for pos in SWEEP_POS:
+            q, kvs, row, lb = cs.decode_case(g, dev, b, pos,
+                                             caches=cs.LAYERS, lanes=lanes,
+                                             kv_cap=SWEEP_S, c=c, dtype=dtype)
+            at = step_arg(pda, pos, dev)
+            want, want_kv = ref_da.decode_attention_plain(
+                pos, q, kvs[0].clone(), lb, lanes, heads, row)
+            bnd = ref_da.output_bound(pos, q, kvs[0], lb, lanes, heads, row)
+            kv = kvs[0].clone()
+            got, _ = pda.decode_attention(at, q, kv, lb, lanes, heads, row)
+            torch.cuda.synchronize()
+            ratio = ((got.float() - want.float()).abs() / bnd).max().item()
+            same = torch.equal(kv, want_kv)
+            esize = q.element_size()
+            plan = (pda.launch_plan(b, lanes, heads, 64, SWEEP_S, pos, esize)
+                    if takes_pos(pda) else pda.launch_plan(
+                        b, lanes, heads, 64, SWEEP_S, esize).at(pos))
+            cold = cs.cuda_ms(cs.rotating(
+                lambda kv: pda.decode_attention(at, q, kv, lb, lanes, heads,
+                                                row), kvs))
+            print(f"# [{name}] sweep {dt} C={c} H={heads} {lanes} lanes "
+                  f"B={b} S={SWEEP_S} pos {pos}: cold {cold:.4f} ms (G="
+                  f"{plan.cluster}, rows a rank {plan.rows_per_rank}, tile "
+                  f"{plan.tile}, smem {plan.smem}; plan "
+                  f"{'sized for the step' if takes_pos(pda) else 'fixed'}),"
+                  f" {ratio:.3f} of output_bound, cache equal {same}",
+                  flush=True)
+            del q, kvs, row, lb, kv
+
+
 def counts(pda) -> str:
     """The wrapper's launch counters, those it has."""
     fn = pda.decode_attention
@@ -187,7 +263,7 @@ def counts(pda) -> str:
                                   "tf32_launches") if hasattr(fn, attr))
 
 
-def run(name: str, dtype: str = "bfloat16") -> None:
+def run(name: str, dtype: str = "bfloat16", sweeping: bool = False) -> None:
     import torch
 
     cs = fv.chip_smoke()
@@ -206,6 +282,9 @@ def run(name: str, dtype: str = "bfloat16") -> None:
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(2)
     dt = getattr(torch, dtype)
+    if sweeping:
+        sweep(name, pda, ref_da, cs, dev, g)
+        return
     takes_plan = "plan" in inspect.signature(pda._launch).parameters
     shapes = (FP32_SHAPES if dt == torch.float32 else
               [(1024, 16, *shape) for shape in SHAPES])
@@ -217,17 +296,18 @@ def run(name: str, dtype: str = "bfloat16") -> None:
             pos, q, kvs[0].clone(), lb, lanes, heads, row)
         bnd = ref_da.output_bound(pos, q, kvs[0], lb, lanes, heads, row)
         where = f"{lanes} lanes C={c} H={heads} B={b} S={kv_cap} pos {pos}"
+        at = step_arg(pda, pos, dev)
         for what, plan in plans(pda, b, lanes, heads, kv_cap, pos,
                                 q.element_size()):
             def step(kv, plan=plan, q=q, row=row, lb=lb, heads=heads):
                 if plan is None:
-                    return pda.decode_attention(pos, q, kv, lb, lanes, heads,
+                    return pda.decode_attention(at, q, kv, lb, lanes, heads,
                                                 row)
                 if takes_plan:
-                    return pda._launch(pos, q, kv, lb, lanes, heads, row,
+                    return pda._launch(at, q, kv, lb, lanes, heads, row,
                                        plan=plan)
                 # a parent's wrapper forces G alone
-                return pda._launch(pos, q, kv, lb, lanes, heads, row,
+                return pda._launch(at, q, kv, lb, lanes, heads, row,
                                    plan.cluster)
 
             kv = kvs[0].clone()
@@ -270,10 +350,12 @@ def main(argv: list[str]) -> int:
     p = argparse.ArgumentParser(add_help=False)
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16")
+    p.add_argument("--sweep", action="store_true")
     opts, rest = p.parse_known_args(argv)
     rc = fv.drive(rest, __spec__.name, SOURCES, prepare,
-                  lambda name: run(name, opts.dtype), OUT,
-                  ("--dtype", opts.dtype))
+                  lambda name: run(name, opts.dtype, opts.sweep), OUT,
+                  ("--dtype", opts.dtype) + (("--sweep",) if opts.sweep
+                                             else ()))
     if rc == 2:
         print(__doc__)
     return rc

@@ -214,10 +214,11 @@ def run(name: str, dtype: str = "bfloat16", width: int = 1024) -> None:
     # the unfused step through the variant's own decode_attention wrapper,
     # whose C interface is its library's
     from avsr_tpu_torch.models import decoder as decoder_mod
+    from avsr_tpu_torch.ops.kernels import decode_attention as da_mod
 
     if (variant / "py" / "decode_attention.py").exists():
-        decoder_mod.decode_attention = dv.wrapper(
-            variant, "decode_attention").decode_attention
+        da_mod = dv.wrapper(variant, "decode_attention")
+        decoder_mod.decode_attention = da_mod.decode_attention
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(4)
@@ -230,10 +231,11 @@ def run(name: str, dtype: str = "bfloat16", width: int = 1024) -> None:
         case = cs.layer_case(g, dev, b, pos, layers=cs.LAYERS, c=c,
                              heads=heads, dtype=dt)
         scratch = mod.layer_scratch(b * lanes, c, f, dev)
+        at = dv.step_arg(mod, pos, dev)
 
         def step(i, case=case, scratch=scratch, **kw):
             return mod.decoder_layer_step(
-                pos, case["x"], case["kvs"][i], *case["srcs"][i],
+                at, case["x"], case["kvs"][i], *case["srcs"][i],
                 case["mem_bias"], case["lb"], case["packs"][i], lanes, heads,
                 scratch=scratch, **kw)
 
@@ -259,8 +261,12 @@ def run(name: str, dtype: str = "bfloat16", width: int = 1024) -> None:
                                            device=dev), cs.KV_CAP, lanes)
         mask = (case["mem_bias"] == 0)[:, None, :]
         with torch.inference_mode():
+            # this checkout's decoder and the variant's decode_attention:
+            # the step as that wrapper takes it
+            at_da = dv.step_arg(da_mod, pos, dev)
+
             def unfused(i, cache=cache, mask=mask, case=case):
-                return dec.layer_step(i, case["x"], pos, cache, mask,
+                return dec.layer_step(i, case["x"], at_da, cache, mask,
                                       case["lb"], lanes)
 
             u_warm = cs.cuda_ms(lambda: unfused(0))

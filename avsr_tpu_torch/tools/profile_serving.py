@@ -14,14 +14,21 @@ untraced runs on the device-synchronised host clock:
   (padding, wire encode, upload);
 - greedy CTC on the device, and ``transcribe_batch`` in greedy mode;
 - encode; the beam with its bookkeeping unfused (the default) and fused
-  (``fused_bookkeeping``, one ``beam_update`` launch a step); and
-  ``transcribe_batch`` in beam mode, unfused;
+  (``fused_bookkeeping``, one ``beam_update`` launch a step), each in its
+  device loop (the default: the stop flag read every k steps, the steps
+  between replayed as one CUDA graph, captured in the warm-up) and the
+  unfused one in the host loop too (``device_loop=False``: a read and
+  ~370 launches from the host every step); and ``transcribe_batch`` in
+  beam mode, unfused;
 
 and one encode and one beam of each kind under ``torch.profiler``: device
-busy time (the union of the CUDA op intervals), op count, and the idle
-share of the traced window and of the median untraced run. The profiler
-slows the host, so wall times come from the untraced runs. The per-kernel
-table (``key_averages``, by device time) is written to ``--table``.
+busy time (the union of the CUDA op intervals, the replayed graphs'
+kernels included), op count, and the idle share of the traced window and
+of the median untraced run. The profiler slows the host, so wall times
+come from the untraced runs. ``loop``: the device loop's steps, host
+reads, replays and the capture ms of its graphs (``beam_search_batched.
+last_run``). The per-kernel table (``key_averages``, by device time) is
+written to ``--table``.
 
 With ``--fused-layer`` the decoder runs ``decode_fused_layer`` (one
 ``decoder_layer_step`` launch a layer and step).
@@ -30,7 +37,8 @@ With ``--muavic`` it profiles ``chip_smoke.py`` phase 11's batch instead:
 ``AV2TextConfig()`` (12x256 encoder, 6x256 decoder, vocab 10,000) with
 seed-0 weights through ``S2TGenerator`` at the eval CLI's defaults (fp32,
 beam 3, the eager beam) on 32 random 15 s utterances: the encode and the
-beam untraced, then one of each under ``torch.profiler`` as above.
+beam (device loop; and the host loop, untraced) untraced, then one of each
+under ``torch.profiler`` as above.
 
 Prints the card's nvidia-smi name and power limit, then one JSON object
 as the last line.
@@ -112,6 +120,7 @@ def _trace(res: dict, runs, smi: str) -> list:
 def _muavic(dev, smi: str) -> tuple:
     """(results, profiler tables) of phase 11's B=32 batch."""
     from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.decode.beam import beam_search_batched
     from avsr_tpu_torch.decode.s2t_generate import S2TGenerator
     from avsr_tpu_torch.models.av2text import AV2TextConfig, AV2TextModel
 
@@ -128,33 +137,23 @@ def _muavic(dev, smi: str) -> tuple:
     res = {"card": smi, "model": "muavic_en AV2TextConfig()",
            "batch": MUAVIC_BATCH, "frames": FRAMES}
     feats = gen.encode(aud, vid, lens)
-    gen.beam(feats, lens)  # warm-up
+    gen.beam(feats, lens)  # warm-up: the kernels, the loop's graphs
     torch.cuda.reset_peak_memory_stats()
     feats, res["encode_ms"] = _timed(lambda: gen.encode(aud, vid, lens),
                                      REPEATS)
-    steps = []
 
-    def beam():
-        """The beam, its steps counted through the decoder's step."""
-        real = gen.model.decoder_step
-
-        def counted(*a):
-            steps[-1] += 1
-            return real(*a)
-
-        steps.append(0)
-        gen.model.decoder_step = counted
-        try:
-            return gen.beam(feats, lens)
-        finally:
-            del gen.model.decoder_step
+    def beam(device_loop: bool = True):
+        gen.device_loop = device_loop
+        return gen.beam(feats, lens)
 
     _, res["beam_ms"] = _timed(beam, REPEATS)
-    res["beam_steps"] = steps[-1]
+    res["loop"] = dict(beam_search_batched.last_run)
+    _, res["beam_host_loop_ms"] = _timed(lambda: beam(False), REPEATS)
+    steps = res["loop"]["steps"]
+    res["beam_steps"] = steps
     tables = _trace(res, (("encode", lambda: gen.encode(aud, vid, lens)),
                           ("beam", beam)), smi)
-    res["beam_device_busy_ms_a_step"] = (res["beam_device_busy_ms"]
-                                         / steps[-1])
+    res["beam_device_busy_ms_a_step"] = res["beam_device_busy_ms"] / steps
     res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res, tables
 
@@ -194,7 +193,7 @@ def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data import wire
     from avsr_tpu_torch.data.synthetic import synthetic_batch
-    from avsr_tpu_torch.decode.beam import greedy_ctc
+    from avsr_tpu_torch.decode.beam import beam_search_batched, greedy_ctc
     from avsr_tpu_torch.decode.recognizer import Recognizer
     from avsr_tpu_torch.models.e2e import AVSRModel
 
@@ -230,15 +229,18 @@ def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
     _, res["transcribe_greedy_ms"] = _timed(
         lambda: rec.transcribe_batch(audio, video, mode="greedy"), n)
 
-    def beam(fused: bool):
-        rec.fused_bookkeeping = fused
+    def beam(fused: bool, device_loop: bool = True):
+        rec.fused_bookkeeping, rec.device_loop = fused, device_loop
         return rec.beam(feats, ctc, lens)
 
-    beam(True)  # warm-up
-    (_, ylen, _), res["beam_ms"] = _timed(lambda: beam(False), n)
+    beam(True)  # warm-up: the fused bookkeeping's graphs
+    _, res["beam_ms"] = _timed(lambda: beam(False), n)
+    res["loop"] = dict(beam_search_batched.last_run)
     _, res["beam_fused_ms"] = _timed(lambda: beam(True), n)
-    res["beam_steps"] = int(ylen.max().item()) - 2
-    rec.fused_bookkeeping = False
+    res["loop_fused"] = dict(beam_search_batched.last_run)
+    _, res["beam_host_loop_ms"] = _timed(lambda: beam(False, False), n)
+    res["beam_steps"] = res["loop"]["steps"]
+    rec.fused_bookkeeping, rec.device_loop = False, True
     _, res["transcribe_beam_ms"] = _timed(
         lambda: rec.transcribe_batch(audio, video, mode="beam"), n)
 

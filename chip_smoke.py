@@ -369,6 +369,13 @@ def bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dstep(n: int) -> torch.Tensor:
+    """A decode step as the beam keeps it: one int32 on the card, which the
+    kernels read there (an int given to a wrapper becomes one too, by a
+    fill launch that timed calls leave out)."""
+    return torch.full((1,), n, dtype=torch.int32, device="cuda")
+
+
 def nbytes(*tensors) -> int:
     return sum(x.numel() * x.element_size() for x in tensors if x is not None)
 
@@ -614,8 +621,8 @@ def tf32_decode_check(dev, g) -> float:
                                                 c=c, dtype=torch.float32)
                 before = kv.clone()
                 counts = (fn.launches, fn.tf32_launches)
-                got, got_kv = pda.decode_attention(pos, q, kv, lb, lanes,
-                                                   heads, row)
+                got, got_kv = pda.decode_attention(dstep(pos), q, kv, lb,
+                                                   lanes, heads, row)
                 torch.cuda.synchronize()
                 check((fn.launches - counts[0], fn.tf32_launches - counts[1])
                       == (1, 1), f"decode_attention fp32 at C={c}, "
@@ -709,12 +716,12 @@ def phase_kernels(dev):
         for pos in (0, 100, KV_CAP - 1, 250):
             q, (kv,), row, lb = decode_case(g, dev, b, pos)
             kv_plain = kv.clone()
-            got, got_kv = pda.decode_attention(pos, q, kv, lb, lanes, heads,
-                                               row)
+            got, got_kv = pda.decode_attention(dstep(pos), q, kv, lb, lanes,
+                                               heads, row)
             want, want_kv = pda.decode_attention_plain(pos, q, kv_plain, lb,
                                                        lanes, heads, row)
-            got32, _ = pda.decode_attention(pos, q.float(), kv.clone(), lb,
-                                            lanes, heads, row)
+            got32, _ = pda.decode_attention(dstep(pos), q.float(), kv.clone(),
+                                            lb, lanes, heads, row)
             want32, _ = pda.decode_attention_plain(pos, q.float(), kv.clone(),
                                                    lb, lanes, heads, row)
             torch.cuda.synchronize()
@@ -750,10 +757,11 @@ def phase_kernels(dev):
     for b in (B, 32):
         pos = 250
         q, kvs, row, lb = decode_case(g, dev, b, pos, caches=LAYERS)
-        plan = pda.launch_plan(b, lanes, heads, 64, KV_CAP, pos, 2)
+        plan = pda.launch_plan(b, lanes, heads, 64, KV_CAP, 2)
+        at = dstep(pos)
 
-        def step(kv, q=q, row=row, lb=lb):
-            return pda.decode_attention(pos, q, kv, lb, lanes, heads, row)
+        def step(kv, q=q, row=row, lb=lb, at=at):
+            return pda.decode_attention(at, q, kv, lb, lanes, heads, row)
 
         warm = cuda_ms(lambda: step(kvs[0]))
         cold = cuda_ms(rotating(step, kvs))
@@ -940,27 +948,30 @@ def phase_kernels(dev):
     kw = BEAM_UPDATE_KW
     for b in (B, 32):
         for seed, i, ties in ((1, 40, False), (2, 40, True), (3, 200, True),
-                              (4, FRAMES - 1, False)):
+                              (4, FRAMES - 1, False), (6, 0, False),
+                              (7, KV_CAP - 1, True), (8, 250, False)):
             st = step_state(seed, i, dev, ties, b)
             if i == FRAMES - 1:
                 st["xlens"][:] = FRAMES  # every lane takes its forced step
-            got = pbu.beam_update(i, *st.values(), **kw)
+            got = pbu.beam_update(dstep(i), *st.values(), **kw)
             want = pbu.beam_update_plain(i, *st.values(), **kw)
             torch.cuda.synchronize()
             for name, w in want.items():
                 check(torch.equal(got[name], w), f"beam_update {name} differs "
                       f"at B={b}, step {i}, ties={ties}")
-    print("# beam_update exact at B=8 and B=32 (4 step states each: ties, "
-          "forced last step)")
+    print("# beam_update exact at B=8 and B=32 (7 step states each, the step "
+          "read on the card: steps 0, 40, 191, 200, 250 and the forced last "
+          "step 374, ties)")
     floor = cuda_ms(lambda: torch.cuda._sleep(1))
     for b in (32, B):
         st = step_state(5, 200, dev, True, b)
-        out = pbu.beam_update(200, *st.values(), **kw)
+        at = dstep(200)
+        out = pbu.beam_update(at, *st.values(), **kw)
         records["beam_update"] = dict(
             source="avsr_tpu_torch/csrc/beam_update.cu",
             replaces="avsr_tpu/ops/pallas/beam_update.py:35",
             max_abs_err=0.0,
-            ms=cuda_ms(lambda: pbu.beam_update(200, *st.values(), **kw)),
+            ms=cuda_ms(lambda: pbu.beam_update(at, *st.values(), **kw)),
             plain_ms=cuda_ms(lambda: pbu.beam_update_plain(
                 200, *st.values(), **kw)),
             library_ms=None,  # no one call does the step's bookkeeping
@@ -1015,8 +1026,8 @@ def wide_kernel_records(dev, g):
                                             kv_cap=kv_cap)
             kv_plain = kv.clone()
             before = pda.decode_attention.wide_launches
-            got, got_kv = pda.decode_attention(pos, q, kv, lb, wide_beam, 16,
-                                               row)
+            got, got_kv = pda.decode_attention(dstep(pos), q, kv, lb,
+                                               wide_beam, 16, row)
             want, want_kv = pda.decode_attention_plain(
                 pos, q, kv_plain.clone(), lb, wide_beam, 16, row)
             bnd = pda.output_bound(pos, q, kv_plain, lb, wide_beam, 16, row)
@@ -1039,17 +1050,18 @@ def wide_kernel_records(dev, g):
                            (EVAL_B, EVAL_POS, EVAL_KV)):
         q, kvs, row, lb = decode_case(g, dev, b, pos, caches=LAYERS,
                                       lanes=wide_beam, kv_cap=kv_cap)
-        out, _ = pda.decode_attention(pos, q, kvs[0], lb, wide_beam, 16, row)
+        at = dstep(pos)
+        out, _ = pda.decode_attention(at, q, kvs[0], lb, wide_beam, 16, row)
         library_ms, backend = decode_sdpa_ms(q, kvs, lb, wide_beam, 16)
         # the kernel reads the pos + 1 rows of the prefix, no more
         used = (min(pos, kv_cap - 1) + 1) / kv_cap
-        plan = pda.launch_plan(b, wide_beam, 16, 64, kv_cap, pos, 2)
+        plan = pda.launch_plan(b, wide_beam, 16, 64, kv_cap, 2).at(pos)
         r = dict(
             source="avsr_tpu_torch/csrc/decode_attention.cu",
             replaces="avsr_tpu/ops/pallas/decode_attention.py:222",
             max_abs_err=max(errs),
             ms=cuda_ms(rotating(lambda kv: pda.decode_attention(
-                pos, q, kv, lb, wide_beam, 16, row), kvs)),
+                at, q, kv, lb, wide_beam, 16, row), kvs)),
             plain_ms=cuda_ms(lambda: pda.decode_attention_plain(
                 pos, q, kvs[0], lb, wide_beam, 16, row)),
             library_ms=library_ms,
@@ -1116,7 +1128,7 @@ def wide_kernel_records(dev, g):
                 if i == last - 1:
                     st["xlens"][:] = last
                 before = pbu.beam_update.wide_launches
-                got = pbu.beam_update(i, *st.values(), **kw)
+                got = pbu.beam_update(dstep(i), *st.values(), **kw)
                 want = pbu.beam_update_plain(i, *st.values(), **kw)
                 torch.cuda.synchronize()
                 check(pbu.beam_update.wide_launches == before + 1,
@@ -1127,12 +1139,13 @@ def wide_kernel_records(dev, g):
                           f"differs at B={b}, K={k}, S'={sp}, L={t + 2}, "
                           f"step {i}, ties={ties}")
             st = step_state(5, 40, dev, True, b, k, sp, t, kv_cap)
-            out = pbu.beam_update(40, *st.values(), **kw)
+            at = dstep(40)
+            out = pbu.beam_update(at, *st.values(), **kw)
             r = dict(
                 source="avsr_tpu_torch/csrc/beam_update.cu",
                 replaces="avsr_tpu/ops/pallas/beam_update.py:35",
                 max_abs_err=0.0,
-                ms=cuda_ms(lambda: pbu.beam_update(40, *st.values(), **kw)),
+                ms=cuda_ms(lambda: pbu.beam_update(at, *st.values(), **kw)),
                 plain_ms=cuda_ms(lambda: pbu.beam_update_plain(
                     40, *st.values(), **kw)),
                 library_ms=None,
@@ -1699,10 +1712,10 @@ def layer_kernel_record(dev, g):
             args = (case["x"], kv, *case["srcs"][0], case["mem_bias"],
                     case["lb"], case["packs"][0], lanes, heads)
             before = pdl.decoder_layer_step.launches
-            got, got_kv = pdl.decoder_layer_step(pos, *args)
+            got, got_kv = pdl.decoder_layer_step(dstep(pos), *args)
             launches = pdl.decoder_layer_step.launches - before
             again, _ = pdl.decoder_layer_step(
-                pos, case["x"], kv_again, *args[2:])
+                dstep(pos), case["x"], kv_again, *args[2:])
             want, want_kv = pdl.decoder_layer_step_plain(
                 pos, case["x"], kv_plain, *args[2:])
             torch.cuda.synchronize()
@@ -1724,6 +1737,29 @@ def layer_kernel_record(dev, g):
             check(e_x <= 2e-2 and e_row <= 2e-2,
                   f"decoder_layer_step disagrees at B={b}, pos={pos}")
             del case, kv, kv_plain, kv_again
+            if b != B:
+                continue
+            # the fp32 instance (split TF32; the conformer decoder's C=768,
+            # 12 heads) at the same device step: x_out and the row within
+            # 2e-5 of their largest entry, as phase 10 holds it
+            case = layer_case(g, dev, b, pos, c=AUTO_DIM, heads=AUTO_HEADS,
+                              dtype=torch.float32)
+            kv = case["kvs"][0]
+            args = (*case["srcs"][0], case["mem_bias"], case["lb"],
+                    case["packs"][0], lanes, AUTO_HEADS)
+            got, got_kv = pdl.decoder_layer_step(dstep(pos), case["x"],
+                                                 kv.clone(), *args)
+            want, want_kv = pdl.decoder_layer_step_plain(pos, case["x"],
+                                                         kv.clone(), *args)
+            row = min(pos, s_max - 1)
+            e_x, e_row = _rel_err(got, want), _rel_err(got_kv[:, row],
+                                                       want_kv[:, row])
+            print(f"# decoder_layer_step fp32 C={AUTO_DIM} B={b} pos={pos}: "
+                  f"x_out {e_x:.2e}, row {e_row:.2e} of their largest entry "
+                  f"(limit 2e-5)")
+            check(e_x <= 2e-5 and e_row <= 2e-5,
+                  f"decoder_layer_step fp32 disagrees at pos={pos}")
+            del case, kv
         # timed at pos=250 (every cache row read), the scratch made once as
         # the decoder's cache keeps it: warm (one layer's weights and
         # caches) and cold (rotating over six layers', ~150 MB at B=8,
@@ -1731,12 +1767,13 @@ def layer_kernel_record(dev, g):
         # unfused step of the same layers (decode_attention and ~15 eager
         # ops) on the decoder's own cache, warm and cold alike
         pos = 250
+        at = dstep(pos)
         case = layer_case(g, dev, b, pos, layers=LAYERS)
         scratch = pdl.layer_scratch(nl, c, f, dev)
 
-        def fused(i, case=case, scratch=scratch):
+        def fused(i, case=case, scratch=scratch, at=at):
             return pdl.decoder_layer_step(
-                pos, case["x"], case["kvs"][i], *case["srcs"][i],
+                at, case["x"], case["kvs"][i], *case["srcs"][i],
                 case["mem_bias"], case["lb"], case["packs"][i], lanes, heads,
                 scratch=scratch)
 
@@ -1751,8 +1788,8 @@ def layer_kernel_record(dev, g):
             torch.randn(b, s_enc, c, generator=g, device=dev), s_max, lanes)
         mask = (case["mem_bias"] == 0)[:, None, :]
         with torch.inference_mode():
-            def unfused(i, cache=cache, mask=mask, case=case):
-                return dec.layer_step(i, case["x"], pos, cache, mask,
+            def unfused(i, cache=cache, mask=mask, case=case, at=at):
+                return dec.layer_step(i, case["x"], at, cache, mask,
                                       case["lb"], lanes)
 
             unfused_warm = cuda_ms(lambda: unfused(0))
@@ -1807,9 +1844,10 @@ def wide_layer_check(dev, g):
         args = (case["x"], kv, *case["srcs"][0], case["mem_bias"],
                 case["lb"], case["packs"][0], lanes, heads)
         before = pdl.decoder_layer_step.launches
-        got, got_kv = pdl.decoder_layer_step(pos, *args)
+        got, got_kv = pdl.decoder_layer_step(dstep(pos), *args)
         launches = pdl.decoder_layer_step.launches - before
-        again, _ = pdl.decoder_layer_step(pos, case["x"], kv_again, *args[2:])
+        again, _ = pdl.decoder_layer_step(dstep(pos), case["x"], kv_again,
+                                          *args[2:])
         want, _ = pdl.decoder_layer_step_plain(pos, case["x"], kv_plain,
                                                *args[2:])
         torch.cuda.synchronize()
@@ -1827,13 +1865,14 @@ def wide_layer_check(dev, g):
               f"decoder_layer_step at {lanes} lanes disagrees at pos={pos}")
         del case, kv, kv_plain, kv_again
     pos = EVAL_POS
+    at = dstep(pos)
     case = layer_case(g, dev, b, pos, layers=LAYERS, lanes=lanes,
                       s_max=s_max, s_enc=s_enc)
     scratch = pdl.layer_scratch(nl, c, f, dev)
 
     def fused(i):
         return pdl.decoder_layer_step(
-            pos, case["x"], case["kvs"][i], *case["srcs"][i],
+            at, case["x"], case["kvs"][i], *case["srcs"][i],
             case["mem_bias"], case["lb"], case["packs"][i], lanes, heads,
             scratch=scratch)
 
@@ -1893,6 +1932,7 @@ def phase_serving(dev, gpu_name: str):
     counts of each run."""
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import synthetic_batch
+    from avsr_tpu_torch.decode.beam import beam_search_batched
     from avsr_tpu_torch.decode.recognizer import Recognizer
     from avsr_tpu_torch.models.e2e import AVSRModel
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
@@ -1939,8 +1979,10 @@ def phase_serving(dev, gpu_name: str):
         for toks in out:
             check(toks.ndim == 1 and ((toks >= 0) & (toks < cfg.odim)).all(),
                   f"{name}: token ids out of range")
+        loop = ("" if mode != "beam" else
+                f"; the beam's device loop {beam_search_batched.last_run}")
         print(f"# {name}: transcribe_batch {1e3 * wall:.1f} ms -> "
-              f"{audio_s / wall:.1f} audio-s/s; launches {launches}")
+              f"{audio_s / wall:.1f} audio-s/s; launches {launches}{loop}")
         check(launches["flash_attention_fwd"] >= layers,
               f"{name}: flash_attention_fwd not launched once per layer")
         return launches, wall
@@ -2034,6 +2076,20 @@ def phase_serving(dev, gpu_name: str):
           f"{steps} vs {runs[default]['decode_attention'] // cfg.dlayers} "
           f"steps; tokens equal to the default's: "
           f"{torch.equal(fy, yseqs) and torch.equal(fl, ylens)}")
+    # the device loop against the host loop on the same features: the
+    # default beam, fused bookkeeping and the fused layer's
+    rec.fused_bookkeeping = False
+    runs["loops"] = {"default": loop_compare(
+        f"phase 4 beam B={B} ctc_weight=0.1", looped(
+            rec, lambda: rec.beam(feats, ctc, lens)), gpu_name)}
+    rec.fused_bookkeeping = True
+    runs["loops"]["fused bookkeeping"] = loop_compare(
+        f"phase 4 beam B={B} ctc_weight=0.1 fused bookkeeping", looped(
+            rec, lambda: rec.beam(feats, ctc, lens)), gpu_name)
+    rec.fused_bookkeeping = False
+    runs["loops"]["fused layer"] = loop_compare(
+        f"phase 4 beam B={B} ctc_weight=0.1 fused layer", looped(
+            frec, lambda: frec.beam(feats, ctc, lens)), gpu_name)
     return runs
 
 
@@ -2054,6 +2110,66 @@ def _stage_times(rec, audio, video):
           (B, FRAMES + 2, rec.cfg.odim), "CTC log-probs malformed")
     return (yseqs, ylens, scores, 1e3 * (s1 - s0), 1e3 * (s2 - s1), feats,
             ctc, lens)
+
+
+def looped(obj, run):
+    """``loop_compare``'s beam: ``run()`` with ``obj.device_loop`` (a
+    Recognizer's or an S2TGenerator's) set for the call."""
+    def beam(device_loop):
+        obj.device_loop = device_loop
+        try:
+            return run()
+        finally:
+            obj.device_loop = True
+    return beam
+
+
+def loop_compare(name: str, beam, smi: str) -> dict:
+    """The beam through its device loop (the default: the stop flag read
+    every k steps, the steps between as one CUDA graph replay) and through
+    the host loop (``device_loop=False``: a read every step, no graph) on
+    the same inputs. ``beam(device_loop)`` runs it and returns (yseqs,
+    lengths, scores). A warm device-loop run first (it captures a new
+    shape's graphs), then each loop once, the card synchronised around it.
+    Checks tokens and lengths equal, scores within 1e-5 relative, the
+    device loop's host reads ceil(steps / k) with no capture and at least
+    one replay, the host loop's a read a step; prints both walls, the
+    graphs' capture ms, the replays, the reads and the largest score
+    difference. Returns the numbers."""
+    from avsr_tpu_torch.decode.beam import beam_search_batched as bsb
+
+    beam(True)
+    torch.cuda.synchronize()
+    walls, outs, stats = {}, {}, {}
+    for device_loop in (True, False):
+        t0 = time.perf_counter()
+        outs[device_loop] = beam(device_loop)
+        torch.cuda.synchronize()
+        walls[device_loop] = 1e3 * (time.perf_counter() - t0)
+        stats[device_loop] = dict(bsb.last_run)
+    (dy, dl, ds), (hy, hl, hs) = outs[True], outs[False]
+    d, h = stats[True], stats[False]
+    rel = ((ds - hs).abs() / hs.abs().clamp_min(1e-30)).max().item()
+    k = d["stop_every"]
+    print(f"# {smi}: {name}: device loop {walls[True]:.1f} ms wall ({d['steps']} "
+          f"steps, k={k}: {d['reads']} host reads, {d['replays']} graph "
+          f"replays; capture of its graphs {d['graph_capture_ms']:.1f} ms, "
+          f"once a shape), host loop {walls[False]:.1f} ms wall "
+          f"({h['steps']} steps, {h['reads']} host reads); tokens and "
+          f"lengths equal: {torch.equal(dy, hy) and torch.equal(dl, hl)}, "
+          f"largest score difference {rel:.3e} relative "
+          f"(bit-equal: {torch.equal(ds, hs)})")
+    check(d["graphs"] and d["replays"] >= 1 and d["captures"] == 0
+          and d["reads"] == math.ceil(d["steps"] / k)
+          and not h["graphs"] and h["reads"] == h["steps"]
+          and h["steps"] <= d["steps"] < h["steps"] + k,
+          f"{name}: the loops' steps, reads or replays ({d}, {h})")
+    check(torch.equal(dy, hy) and torch.equal(dl, hl) and rel <= 1e-5,
+          f"{name}: the device loop's tokens, lengths or scores differ from "
+          f"the host loop's")
+    return dict(device_ms=walls[True], host_ms=walls[False],
+                capture_ms=d["graph_capture_ms"], replays=d["replays"],
+                reads=d["reads"], steps=d["steps"], k=k, score_rel=rel)
 
 
 def phase_parity(dev):
@@ -2509,7 +2625,7 @@ def layer_checked(seen: dict):
         want, want_kv = pdl.decoder_layer_step_plain(
             pos, x, before, src_k, src_v, mem_bias, lane_bias, packed, lanes,
             heads)
-        row = min(pos, kv.shape[1] - 1)
+        row = min(int(pos), kv.shape[1] - 1)  # the host loop: a read is fine
         rest = torch.arange(kv.shape[1], device=kv.device) != row
         e_x, e_row = _rel_err(got, want), _rel_err(got_kv[:, row],
                                                    want_kv[:, row])
@@ -2703,6 +2819,15 @@ def phase_eval(dev, smi: str):
         check(len(want) == len(tokens) and all(
             np.array_equal(w, t) for w, t in zip(want, tokens)),
             "phase 8: the engine's tokens are not transcribe_batch's")
+        # the engine's batch (32 rows of the 384-frame bucket) through both
+        # loops
+        aud, vid, lens8, _ = rec._pad_batch(auds, vids,
+                                            batch_pad=engine.batch_size)
+        feats8, ctc8 = rec.encode(aud, vid, lens8)
+        loops = loop_compare(
+            f"phase 8 eval batch B={engine.batch_size} beam 3", looped(
+                rec, lambda: rec.beam(feats8, ctc8, lens8)), smi)
+        del aud, vid, feats8, ctc8
 
         # beams of 22 and 10 on two 3 s utterances, unfused and fused;
         # then again with every kernel call held against its twin
@@ -2717,6 +2842,8 @@ def phase_eval(dev, smi: str):
                 got = {}
                 for fused in (False, True):
                     rec.beam_size, rec.fused_bookkeeping = beam, fused
+                    # a checked run sees every launch: the host loop
+                    rec.device_loop = not checked
                     del tokens[:]
                     torch.cuda.synchronize()
                     reset_launches(counters)
@@ -2741,10 +2868,12 @@ def phase_eval(dev, smi: str):
                 check(all(np.array_equal(a, b)
                           for a, b in zip(got[False], got[True])),
                       f"beam {beam}: fused and unfused tokens differ")
+        rec.device_loop = True
         # the same beams a third way: the decoder's fused layer
         # (decode_fused_layer) on the same seed-0 weights, every
         # decoder_layer_step call held against its twin (ROADMAP C30)
         rec.model.decoder.fused_layer = True
+        rec.device_loop = False  # every layer step checked: the host loop
         try:
             for beam in (22, 10):
                 rec.beam_size, rec.fused_bookkeeping = beam, False
@@ -2774,6 +2903,7 @@ def phase_eval(dev, smi: str):
                       f"layer and step ({n})")
         finally:
             rec.model.decoder.fused_layer = False
+            rec.device_loop = True
         rec.beam_size, rec.fused_bookkeeping = 3, False
         for name, entry in sorted(seen.items()):
             print(f"# beams 22 and 10 checked against the twins: {name} "
@@ -2795,6 +2925,7 @@ def phase_eval(dev, smi: str):
             "phase 8: a wide path was not checked against its twin")
         del os.environ["AVSR_SPM_DIR"]
     runs["eval"] = main
+    runs["loops"] = loops
     return runs, seen
 
 TRAIN_CLI_ARGS = ["--synthetic_dataset", "--batch_size", "6",
@@ -3191,8 +3322,8 @@ def fp32_decode_times(dev, g) -> dict:
         bnd = pda.output_bound(pos, q, before, lb, lanes, heads, row)
         errs = []
         for simt in (False, True):
-            got, got_kv = pda._launch(pos, q, before.clone(), lb, lanes,
-                                      heads, row, cuda_cores=simt)
+            got, got_kv = pda._launch(dstep(pos), q, before.clone(), lb,
+                                      lanes, heads, row, cuda_cores=simt)
             diff = (got - want).abs()
             check(torch.equal(got_kv, want_kv) and bool((diff <= bnd).all()),
                   f"decode_attention disagrees at C={c}, {heads} heads, "
@@ -3200,12 +3331,12 @@ def fp32_decode_times(dev, g) -> dict:
             errs.append(diff.max().item())
 
         def step(kv, q=q, row=row, lb=lb, heads=heads, lanes=lanes,
-                 pos=pos):
-            return pda.decode_attention(pos, q, kv, lb, lanes, heads, row)
+                 at=dstep(pos)):
+            return pda.decode_attention(at, q, kv, lb, lanes, heads, row)
 
         def simt(kv, q=q, row=row, lb=lb, heads=heads, lanes=lanes,
-                 pos=pos):
-            return pda._launch(pos, q, kv, lb, lanes, heads, row,
+                 at=dstep(pos)):
+            return pda._launch(at, q, kv, lb, lanes, heads, row,
                                cuda_cores=True)
 
         turns = [cuda_ms(rotating(fn, kvs)) for fn in (step, simt, simt,
@@ -3213,7 +3344,7 @@ def fp32_decode_times(dev, g) -> dict:
         sdpa, backend = decode_sdpa_ms(q, kvs, lb, lanes, heads)
         plain = (cuda_ms(lambda: pda.decode_attention_plain(
             pos, q, kvs[0], lb, lanes, heads, row)) if i == 0 else None)
-        plan = pda.launch_plan(b, lanes, heads, c // heads, s_max, pos, 4)
+        plan = pda.launch_plan(b, lanes, heads, c // heads, s_max, 4)
         r = dict(ms=min(turns[0], turns[3]), ms_turns=(turns[0], turns[3]),
                  cuda_cores_ms=min(turns[1], turns[2]),
                  cuda_cores_turns=(turns[1], turns[2]), library_ms=sdpa,
@@ -3276,8 +3407,8 @@ def conformer_width_times(dev, g):
         args = (case["srcs"][0][0], case["srcs"][0][1], case["mem_bias"],
                 case["lb"], case["packs"][0], lanes, hw)
         kv = case["kvs"][0]
-        got, got_kv = pdl.decoder_layer_step(pos, case["x"], kv.clone(),
-                                             *args)
+        got, got_kv = pdl.decoder_layer_step(dstep(pos), case["x"],
+                                             kv.clone(), *args)
         want, want_kv = pdl.decoder_layer_step_plain(pos, case["x"],
                                                      kv.clone(), *args)
         r = min(pos, KV_CAP - 1)
@@ -3290,9 +3421,9 @@ def conformer_width_times(dev, g):
               f"row {e_row:.2e}")
         scratch = pdl.layer_scratch(nl, cw, f, dev)
 
-        def fused(i, case=case, scratch=scratch, hw=hw):
+        def fused(i, case=case, scratch=scratch, hw=hw, at=dstep(pos)):
             return pdl.decoder_layer_step(
-                pos, case["x"], case["kvs"][i], *case["srcs"][i],
+                at, case["x"], case["kvs"][i], *case["srcs"][i],
                 case["mem_bias"], case["lb"], case["packs"][i], lanes, hw,
                 scratch=scratch)
 
@@ -3306,9 +3437,10 @@ def conformer_width_times(dev, g):
         mask = (case["mem_bias"] == 0)[:, None, :]
         with torch.inference_mode():
             unfused = cuda_ms(rotating(
-                lambda i, dec=dec, cache=cache, mask=mask, case=case:
-                dec.layer_step(i, case["x"], pos, cache, mask, case["lb"],
-                               lanes), range(LAYERS)))
+                lambda i, dec=dec, cache=cache, mask=mask, case=case,
+                at=dstep(pos): dec.layer_step(i, case["x"], at, cache, mask,
+                                              case["lb"], lanes),
+                range(LAYERS)))
         ms = cuda_ms(rotating(fused, range(LAYERS)))
         plan, smem = pdl.card_plan(nl, lanes, hw, cw, f, KV_CAP, s_enc,
                                    dtype, dtype, dev.index)
@@ -3506,10 +3638,16 @@ def phase_auto_avsr(dev, smi: str):
             # the beam with the decoder's layers unfused (the CLI's
             # default) and fused (decode_fused_layer: B9 once a layer and
             # step), launches counted, no twin called
-            beams = {}
+            beams, loops = {}, {}
             with twin_calls(SERVING_TWINS) as calls:
                 for fused_layer in (False, True):
                     dec.fused_layer = fused_layer
+                    # the device loop against the host loop (a warm run
+                    # first captures the shape's graphs)
+                    loops[fused_layer] = loop_compare(
+                        f"phase 10 auto_avsr beam B={B}, fused layer "
+                        f"{fused_layer}", looped(
+                            rec, lambda: rec.beam(feats, ctc, lens)), smi)
                     reset_launches(counters)
                     torch.cuda.synchronize()
                     s1 = time.perf_counter()
@@ -3727,6 +3865,7 @@ def phase_muavic(dev, smi: str):
     from avsr_tpu_torch.cli import evaluation as pe
     from avsr_tpu_torch.data import media
     from avsr_tpu_torch.data.synthetic import smooth_crops
+    from avsr_tpu_torch.decode.beam import beam_search_batched
     from avsr_tpu_torch.decode.s2t_generate import S2TGenerator
     from avsr_tpu_torch.ops.kernels import beam_update as pbu
     from avsr_tpu_torch.ops.kernels import decode_attention as pda
@@ -3790,13 +3929,16 @@ def phase_muavic(dev, smi: str):
               and next(model.parameters()).dtype == torch.float32,
               "phase 11: the engine is not the full-width muavic_en model "
               "at the CLI's defaults")
-        real_step = model.decoder_step
+        # the card's beam steps, as its loop reports them (replays do not
+        # call decoder_step)
+        real_beam = gen.beam
 
-        def counted_step(*a):
-            steps_run[0] += 1
-            return real_step(*a)
+        def counted_beam(*a, **kw):
+            out = real_beam(*a, **kw)
+            steps_run[0] += beam_search_batched.last_run["steps"]
+            return out
 
-        model.decoder_step = counted_step
+        gen.beam = counted_beam
 
         # (b) eval_lrs2 on mp4 + wav bytes, padded to the CLI's batch
         rng = np.random.RandomState(11)
@@ -3853,6 +3995,9 @@ def phase_muavic(dev, smi: str):
         vids = rng.randn(MUAVIC_B, FRAMES, 88, 88, 1).astype(np.float32)
         lens = np.full((MUAVIC_B,), FRAMES)
         aud, vid = (torch.from_numpy(x).to(dev) for x in (auds, vids))
+        feats = gen.encode(aud, vid, lens)
+        loops = loop_compare(f"phase 11 muavic beam B={MUAVIC_B}", looped(
+            gen, lambda: real_beam(feats, lens)), smi)
         reset()
         torch.cuda.synchronize()
         s0 = time.perf_counter()
@@ -3887,9 +4032,7 @@ def phase_muavic(dev, smi: str):
         auds, vids, lens = pe.pad_features(
             engine._features(samples_of(MUAVIC_SHORT, "short")),
             len(MUAVIC_SHORT))
-        del model.decoder_step
         cpu = S2TGenerator(copy.deepcopy(model), device="cpu")
-        model.decoder_step = counted_step
 
         def run(g, fused=False, memory=None):
             """[features, yseqs, lengths, scores] on the host; ``memory``:
@@ -3963,7 +4106,7 @@ def phase_muavic(dev, smi: str):
               f"phase 11: (c)'s best hypotheses end at the first step "
               f"(lengths {u[2].tolist()}), so later steps go unchecked")
         launches = {"eval_lrs2": main, "B=32 batch": big,
-                    "fused bookkeeping": fb[-1]}
+                    "fused bookkeeping": fb[-1], "loops": loops}
         del cpu, runs, engine, gen, model, card_memory
         torch.cuda.empty_cache()
     times = muavic_kernel_times(dev,

@@ -367,7 +367,7 @@ def test_decode_kernel_two_passes(dev, lanes, cluster, chunk, cdtype):
         q_scale=0.125))
     kv, row = kv.to(cdtype), row.to(cdtype)
     esize = kv.element_size()
-    plan = pda.launch_plan(b, lanes, heads, 64, 192, pos, esize, cluster)
+    plan = pda.launch_plan(b, lanes, heads, 64, 192, esize, cluster)
     tile = min(chunk, plan.rows_per_rank)
     plan = plan._replace(tile=tile, chunk=chunk,
                          smem=pda.smem_bytes(plan.group_lanes, 64, esize,
@@ -1294,3 +1294,172 @@ def test_asd_train_step_cuda_matches_cpu(dev):
     assert ng == pytest.approx(nc, rel=1e-4)
     for k in sc:
         torch.testing.assert_close(sg[k], sc[k], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ the beam's device loop
+
+
+def _captured(fn):
+    """fn() run once on a side stream (the kernel built, its shared memory
+    raised), then captured in a CUDA graph: (graph, its outputs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def _decode_inputs(pos, b=2, k=3, s=192, heads=16, dtype=torch.bfloat16):
+    from torch_port_common import decode_case
+
+    q, kv, row, bias = (torch.from_numpy(x).contiguous() for x in decode_case(
+        pos, b=b, k=k, s_max=s, heads=heads, dh=64, pos=pos, q_scale=0.125))
+    return q.to(dtype), kv.to(dtype), row.to(dtype), bias
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_reads_the_step_in_a_graph(dev, dtype):
+    """B2 captured once at step 0, then replayed with its step (one int32 on
+    the card), its cache and its bias set for pos 0, 191 and 250 (pos >= S
+    writes row S-1): each replay's cache equal to the twin's and its output
+    within ``output_bound``, the launch plan the same at every step."""
+    heads = 16
+    st = [x.to(dev) for x in _decode_inputs(0, dtype=dtype)]
+    step = torch.zeros(1, dtype=torch.int32, device=dev)
+    graph, (out, kv) = _captured(lambda: pda.decode_attention(
+        step, st[0], st[1], st[3], 3, heads, st[2]))
+    for pos in (0, 191, 250):
+        q, kv0, row, bias = _decode_inputs(pos, dtype=dtype)
+        for d, x in zip(st, (q, kv0, row, bias)):
+            d.copy_(x)
+        step.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        want, want_kv = pda.decode_attention_plain(pos, q, kv0.clone(), bias,
+                                                   3, heads, row)
+        bnd = pda.output_bound(pos, q, kv0, bias, 3, heads, row)
+        assert torch.equal(kv.cpu(), want_kv), pos
+        assert bool(((out.float().cpu() - want.float()).abs() <= bnd).all())
+
+
+def test_bookkeeping_kernel_reads_the_step_in_a_graph(dev):
+    """B8 (narrow and wide) captured once, replayed at steps 4, 9 and 19 of
+    ``beam_step_case`` states: every output equal to the twin's."""
+    kw = dict(w_dec=0.9, w_ctc=0.1, eos=49, neg=NEG, d_end=-10.0, m_end=3)
+    for k, sp in ((3, 4), (10, 15)):
+        case = beam_step_case(0, 4, k=k, sp=sp)
+        st = {n: torch.from_numpy(v).to(dev) for n, v in case.items()}
+        step = torch.zeros(1, dtype=torch.int32, device=dev)
+        graph, out = _captured(lambda: pbu.beam_update(step, *st.values(),
+                                                       **kw))
+        for i in (4, 9, 19):
+            case = beam_step_case(i, i, k=k, sp=sp)
+            for n, v in case.items():
+                st[n].copy_(torch.from_numpy(v))
+            step.fill_(i)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = pbu.beam_update_plain(
+                i, *(torch.from_numpy(v) for v in case.values()), **kw)
+            for n, w in want.items():
+                assert torch.equal(out[n].cpu(), w), (k, i, n)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)])
+def test_layer_kernel_reads_the_step_in_a_graph(dev, dtype, tol):
+    """B9 (a cooperative launch) captured once, replayed at pos 0, 7 and 20
+    over a 16-row cache (pos >= S: every stored row plus the fresh one, row
+    S-1 written), its grid-sync counters zero again after each replay: x_out
+    and the written row within tol of their largest entry."""
+    b, k, c, heads, f, s, s_enc = 2, 3, 256, 4, 512, 16, 11
+    packed = pdl.PackedLayer(*(p.to(dev) for p in pdl.pack_layer_params(
+        _layer(c, heads, f, 0), dtype)))
+    scratch = pdl.layer_scratch(b * k, c, f, dev)
+
+    def inputs(pos):
+        g = _gen(pos)
+        x = torch.randn(b * k, c, generator=g).to(dtype)
+        kv = torch.randn(b * k, s, 2 * c, generator=g).to(dtype)
+        src = torch.randn(b, s_enc, c, generator=g).to(dtype)
+        anc = torch.randint(0, k, (s, b, k), generator=g)
+        anc[min(pos, s - 1)] = torch.arange(k)
+        valid = (torch.arange(s) <= pos)[:, None, None, None] & (
+            anc[..., None] == torch.arange(k))
+        bias = torch.where(valid.permute(1, 2, 0, 3), 0.0, NEG).contiguous()
+        return x, kv, src, torch.zeros(b, s_enc), bias
+
+    st = [t.to(dev) for t in inputs(0)]
+    step = torch.zeros(1, dtype=torch.int32, device=dev)
+    graph, (out, kv) = _captured(lambda: pdl.decoder_layer_step(
+        step, st[0], st[1], st[2], st[2], st[3], st[4], packed, k, heads,
+        scratch=scratch))
+    for pos in (0, 7, 20):
+        host = inputs(pos)
+        for d, x in zip(st, host):
+            d.copy_(x)
+        step.fill_(pos)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not scratch.counters.any()
+        x, kv0, src, mem_bias, bias = host
+        want, want_kv = pdl.decoder_layer_step_plain(
+            pos, x, kv0.clone(), src, src, mem_bias, bias,
+            pdl.PackedLayer(*(p.cpu() for p in packed)), k, heads)
+        row = min(pos, s - 1)
+        for got, w in ((out, want), (kv[:, row], want_kv[:, row])):
+            err = (got.float().cpu() - w.float()).abs().max()
+            assert err <= tol * w.float().abs().max(), (pos, err)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_device_loop_matches_host_loop(dev, fused):
+    """The tiny flagship model's beam on the card through its device loop
+    (CUDA graphs) and its host loop: the same tokens, lengths and scores,
+    ceil(steps / k) host reads, and the same launches of every kernel (the
+    replays add the launches their capture made); a second batch of the
+    shape replays without a capture."""
+    from torch_port_common import tiny_port_cfg
+
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.decode import beam as pbeam
+    from avsr_tpu_torch.decode import device_loop
+    from avsr_tpu_torch.decode.recognizer import Recognizer
+    from avsr_tpu_torch.models.e2e import AVSRModel
+
+    cfg = tiny_port_cfg()
+    model = AVSRModel(cfg)
+    init_weights(model, torch.Generator().manual_seed(0))
+    rec = Recognizer(model=model, cfg=cfg, device="cuda", beam_size=3,
+                     t_buckets=(24,), max_decode_tokens=16,
+                     fused_bookkeeping=fused)
+    bcfg = rec.beam_config()
+    g = _gen(1)
+    feats = torch.randn(3, 24, 32, generator=g).to(dev)
+    ctc = torch.log_softmax(torch.randn(3, 24, cfg.odim, generator=g),
+                            -1).to(dev)
+    lens = torch.tensor([24, 13, 17], device=dev)
+    runs = {}
+    for device_loop_on in (True, False, True):
+        before = device_loop.launch_counts()
+        out = pbeam.beam_search_batched(
+            bcfg, model.decoder_step, model.decoder_init, feats, ctc, lens,
+            device_loop=device_loop_on, stop_every=5)
+        torch.cuda.synchronize()
+        after = device_loop.launch_counts()
+        stats = dict(pbeam.beam_search_batched.last_run)
+        launched = {key: n - before[key] for key, n in after.items()}
+        runs.setdefault(device_loop_on, []).append((out, stats, launched))
+    (out, stats, launched), (again, stats2, _) = runs[True]
+    host_out, host_stats, host_launched = runs[False][0]
+    for a, b_, c_ in zip(out, host_out, again):
+        assert torch.equal(a, b_) and torch.equal(a, c_)
+    assert stats["steps"] == host_stats["steps"] == 24
+    assert stats["reads"] == 5 and host_stats["reads"] == 24
+    assert stats["captures"] >= 1 and stats2["captures"] == 0
+    assert stats2["replays"] == stats["replays"] >= 1
+    assert launched == host_launched

@@ -44,7 +44,8 @@ def test_plan_constants_are_the_kernels():
 
 @pytest.mark.parametrize("lanes", [*range(1, 9), 9, 22, 40, 64, 100])
 def test_plan_covers_every_row_once(lanes):
-    """For every S, pos (pos >= S clamps to S-1), batch and cache dtype:
+    """For every S, batch and cache dtype one launch, and at every pos
+    (pos >= S clamps to S-1) the kernel's even split of its live rows:
     each (j, s <= pos_c) row lies in exactly one rank and, within it, in
     exactly one chunk, row pos_c of each lane has exactly one owner, every
     lane lies in one query group of at most GROUP_LANES, the grid is
@@ -53,30 +54,35 @@ def test_plan_covers_every_row_once(lanes):
     KB."""
     heads, dh = 16, 64
     for s_max in (1, 64, 192, 1000):
-        for pos in (0, 1, s_max - 1, s_max + 58):
-            pos_c = min(pos, s_max - 1)
-            rows = lanes * (pos_c + 1)
-            for b, esize in ((8, 2), (32, 2), (8, 4), (1, 4)):
-                plan = pda.launch_plan(b, lanes, heads, dh, s_max, pos, esize)
+        for b, esize in ((8, 2), (32, 2), (8, 4), (1, 4)):
+            # one launch for every step: sized for all lanes * S rows
+            plan = pda.launch_plan(b, lanes, heads, dh, s_max, esize)
+            assert plan.rows == lanes * s_max
+            for pos in (0, 1, s_max - 1, s_max + 58):
+                pos_c = min(pos, s_max - 1)
+                rows = lanes * (pos_c + 1)
+                live = plan.at(pos)  # the kernel's split of the live rows
                 assert plan.cluster in (1, *pda.CLUSTER_SIZES)
                 assert plan.grid == (heads * plan.cluster, b)
                 assert plan.grid[0] % plan.cluster == 0
-                assert plan.rows == rows
+                assert live.rows == rows
                 assert plan.group_lanes <= pda.GROUP_LANES
                 assert (plan.groups - 1) * plan.group_lanes < lanes <= (
                     plan.groups * plan.group_lanes)
+                assert live.rows_per_rank % 4 == 0
+                assert live.rows_per_rank <= plan.rows_per_rank
                 owner = np.zeros(rows, int)
                 for r in range(plan.cluster):
-                    got = plan.rank_rows(r)
-                    assert len(got) <= plan.rows_per_rank
+                    got = live.rank_rows(r)
+                    assert len(got) <= live.rows_per_rank
                     owner[list(got)] += 1
-                    chunks = plan.rank_chunks(r)
+                    chunks = live.rank_chunks(r)
                     assert sum(len(ch) for ch in chunks) == len(got)
                     assert all(len(ch) <= plan.chunk for ch in chunks)
                 assert (owner == 1).all()
                 for j in range(lanes):  # row (pos_c, j) = pos_c * K + j
                     holders = [r for r in range(plan.cluster)
-                               if pos_c * lanes + j in plan.rank_rows(r)]
+                               if pos_c * lanes + j in live.rank_rows(r)]
                     assert len(holders) == 1
                 assert 1 <= plan.tile <= plan.rows_per_rank
                 assert plan.rows_per_rank % 4 == 0
@@ -98,28 +104,28 @@ def test_plan_fills_the_card_and_can_be_forced():
     takes two passes over chunks of whole tiles."""
     assert pda.CLUSTER == 2
     for b in (1, 2, 4, 8, 16, 32):
-        assert pda.launch_plan(b, 3, 16, 64, 192, 250, 2).cluster == (
+        assert pda.launch_plan(b, 3, 16, 64, 192, 2).cluster == (
             1 if b * 16 >= 2 * pda.SMS else 2)
     for g in (1, 2, 4, 8):
-        plan = pda.launch_plan(8, 3, 16, 64, 192, 250, 2, g)
+        plan = pda.launch_plan(8, 3, 16, 64, 192, 2, g)
         assert plan.cluster == g and plan.grid == (16 * g, 8)
     # the serving chunk fits one stage buffer: K and V loads go out at once
-    plan = pda.launch_plan(8, 3, 16, 64, 192, 250, 2)
+    plan = pda.launch_plan(8, 3, 16, 64, 192, 2)
     assert plan.tile == plan.rows_per_rank == plan.chunk == 288
     assert plan.smem <= pda.PAIR_SMEM
-    # phase 8's beam of 22 (B=32, S=128, pos 74): one pass, two blocks an
-    # SM, in tiles; a rank's rows a multiple of 4 (its bias copied 16
-    # bytes at a time)
-    plan = pda.launch_plan(32, 22, 16, 64, 128, 74, 2)
-    assert plan.chunk == plan.rows_per_rank == 828
-    assert pda.PAIR_TILE <= plan.tile < 828 and plan.smem <= pda.PAIR_SMEM
+    # phase 8's beam of 22 (B=32, S=128): one pass over all 2816 rows at
+    # G=4, two blocks an SM, in tiles; a rank's rows a multiple of 4 (its
+    # bias copied 16 bytes at a time), at pos 74 an even share of 1650
+    plan = pda.launch_plan(32, 22, 16, 64, 128, 2)
+    assert plan.cluster == 4 and plan.chunk == plan.rows_per_rank == 704
+    assert pda.PAIR_TILE <= plan.tile < 704 and plan.smem <= pda.PAIR_SMEM
+    assert plan.at(74).rows == 1650 and plan.at(74).rows_per_rank == 416
     # a long cache tiles the chunk instead
-    plan = pda.launch_plan(8, 8, 16, 128, 1000, 999, 4)
+    plan = pda.launch_plan(8, 8, 16, 128, 1000, 4)
     assert plan.tile < plan.rows_per_rank
     # beam 64 over a full 192-row cache, and a cache too long for any G:
     # two passes
-    for args in ((32, 64, 16, 64, 192, 250, 2),
-                 (1, 8, 1, 128, 200000, 199999, 4)):
+    for args in ((32, 64, 16, 64, 192, 2), (1, 8, 1, 128, 200000, 4)):
         plan = pda.launch_plan(*args)
         assert plan.cluster == 8 and plan.chunk < plan.rows_per_rank
         assert plan.chunk % plan.tile == 0 and plan.smem <= pda.SMEM_MAX
@@ -191,8 +197,9 @@ def test_split_arithmetic_matches_plain_and_jax(pos, cluster, cache_dtype):
     q, kv, row, bias = decode_case(pos, b, k, s_max, heads, dh, pos,
                                    q_scale=dh ** -0.5)
     cd = getattr(torch, cache_dtype)
-    plan = pda.launch_plan(b, k, heads, dh, s_max, pos,
-                           torch.empty(0, dtype=cd).element_size(), cluster)
+    plan = pda.launch_plan(b, k, heads, dh, s_max,
+                           torch.empty(0, dtype=cd).element_size(),
+                           cluster).at(pos)
     if pos == 0:
         assert sum(len(plan.rank_rows(r)) == 0
                    for r in range(plan.cluster)) >= plan.cluster - k

@@ -151,7 +151,7 @@ def test_split_tf32_decode_matches_plain_and_jax(pos, lanes, c, heads):
     (its cluster size, tiles and chunks); JAX's cache after the row write
     the twin's bit for bit."""
     q, kv, row, bias = _case(pos, lanes, c, heads, lanes + pos + c)
-    plan = pda.launch_plan(1, lanes, heads, 64, S_MAX, pos, 4)
+    plan = pda.launch_plan(1, lanes, heads, 64, S_MAX, 4).at(pos)
     got = emulate_tf32(pos, t(q), t(kv), t(bias), lanes, heads, t(row),
                        plan)
     want, want_kv = pda.decode_attention_plain(pos, t(q), t(kv).clone(),
@@ -172,7 +172,7 @@ def test_split_tf32_decode_at_forced_clusters(cluster):
     several tiles) and G=8 (short ranks, some with one tile), 22 lanes at
     pos 191: within ``output_bound`` of the twin."""
     q, kv, row, bias = _case(191, 22, 768, 12, cluster)
-    plan = pda.launch_plan(1, 22, 12, 64, S_MAX, 191, 4, cluster)
+    plan = pda.launch_plan(1, 22, 12, 64, S_MAX, 4, cluster).at(191)
     assert plan.cluster == cluster
     got = emulate_tf32(191, t(q), t(kv), t(bias), 22, 12, t(row), plan)
     want, _ = pda.decode_attention_plain(191, t(q), t(kv), t(bias), 22, 12,
@@ -190,7 +190,7 @@ def test_one_tf32_product_would_miss_the_bound():
         return tf32_rna(x), torch.zeros_like(x)
 
     q, kv, row, bias = _case(250, 3, 768, 12, 7)
-    plan = pda.launch_plan(1, 3, 12, 64, S_MAX, 250, 4)
+    plan = pda.launch_plan(1, 3, 12, 64, S_MAX, 4).at(250)
     want, _ = pda.decode_attention_plain(250, t(q), t(kv), t(bias), 3, 12,
                                          t(row))
     bound = pda.output_bound(250, t(q), t(kv), t(bias), 3, 12, t(row))
@@ -210,7 +210,7 @@ def test_fp32_plan_fits_shared_memory(lanes, b, pos, s_max, c, heads):
     8-query tiles) and fits a block's shared memory; beam 3 and 22 lanes
     take one pass with two blocks an SM (beam 3: G=2 at B=8 and B=32
     alike, two stage buffers of 192 rows)."""
-    plan = pda.launch_plan(b, lanes, heads, 64, s_max, pos, 4)
+    plan = pda.launch_plan(b, lanes, heads, 64, s_max, 4)
     tiles = -(-plan.group_lanes // pda.MAX_LANES)
     assert pda.query_words(plan.group_lanes, 64, 4) == 2 * tiles * 8 * 64
     assert plan.smem == pda.smem_bytes(plan.group_lanes, 64, 4, plan.chunk,

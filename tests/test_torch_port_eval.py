@@ -393,7 +393,7 @@ def test_decode_tiled_arithmetic_within_the_output_bound(pos, lanes,
 
     q, kv, row, bias = decode_case(pos + lanes, b=2, k=lanes, pos=pos)
     q, kv, row, bias = t(q), t(kv).to(cache_dtype), t(row), t(bias)
-    plan = pda.launch_plan(2, lanes, 4, 32, 64, pos, kv.element_size())
+    plan = pda.launch_plan(2, lanes, 4, 32, 64, kv.element_size()).at(pos)
     assert plan.groups == (2 if lanes > pda.GROUP_LANES else 1)
     if chunk and plan.rows_per_rank > chunk:
         plan = plan._replace(tile=chunk, chunk=chunk)

@@ -102,7 +102,7 @@ def test_decode_variant_sources_and_wrappers(tmp_path, monkeypatch, fname,
         pkg = fv._build.PKG_DIR / "ops" / "kernels" / f"{mod}.py"
         assert (out / "py" / f"{mod}.py").read_text() == pkg.read_text()
     assert dv.wrapper(out, "decode_attention").launch_plan(
-        8, 3, 16, 64, 192, 250, 2).cluster == 2
+        8, 3, 16, 64, 192, 2).cluster == 2
 
     old = tmp_path / "parent" / "avsr_tpu_torch"
     (old / "csrc").mkdir(parents=True)
