@@ -28,6 +28,11 @@ all S stored rows are attended, the stale row S-1 included, plus the fresh
 row. The fresh row is then written at min(pos, S-1), in place. The step
 pos is read on the device, as the TPU kernel reads it from SMEM, so a
 launch captured in a CUDA graph reads each replay's step.
+
+SELFCHECK-EXEMPT: opt-in path (``cfg.decode_fused_layer``, default off),
+as the JAX package's ``decoder_layer.py`` is exempt from its self-check;
+``chip_smoke.py`` phase 3 holds the kernel against its twin at the
+serving widths.
 """
 
 from __future__ import annotations

@@ -217,28 +217,18 @@ def trace(state: T.TrainState, batch, sec_per_step: float,
           path: str) -> dict:
     """One step under torch.profiler: device busy ms, op count, idle
     shares, the top device operations; the table to ``path``."""
-    from torch.profiler import ProfilerActivity, profile
+    from avsr_tpu_torch.tools import trace as tr
 
-    from avsr_tpu_torch.tools.profile_serving import _device_busy_ms
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        T.train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    busy, count = _device_busy_ms(prof)
-    rows = sorted(prof.key_averages(),
-                  key=lambda e: e.self_device_time_total, reverse=True)
+    _, wall, summary, prof = tr.profiled(lambda: T.train_step(state, batch))
+    busy = summary.busy_ms
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=80) + "\n")
     return {"traced_wall_ms": wall, "device_busy_ms": busy,
-            "device_ops": count, "idle_share_traced": 1 - busy / wall,
+            "device_ops": summary.events,
+            "idle_share_traced": 1 - busy / wall,
             "idle_share_untraced": 1 - busy / (1e3 * sec_per_step),
-            "top_device_ms": {e.key: e.self_device_time_total / 1e3
-                              for e in rows[:10]}}
+            "top_device_ms": {name: ms for name, ms, _ in summary.top(10)}}
 
 
 def main(argv=None) -> None:

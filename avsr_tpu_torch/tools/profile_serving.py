@@ -49,13 +49,12 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+
+from avsr_tpu_torch.tools import trace
 
 BATCH = 8
 MUAVIC_BATCH = 32
@@ -76,34 +75,14 @@ def _timed(fn, repeats: int):
     return out, times
 
 
-def _device_busy_ms(prof) -> tuple:
-    """(ms covered by at least one CUDA kernel or copy, number of them)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    total, cur_start, cur_end = 0, None, None
-    for start, end in spans:
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    if cur_end is not None:
-        total += cur_end - cur_start
-    return total / 1e3, len(spans)
-
-
 def _trace(res: dict, runs, smi: str) -> list:
     """Each of ``runs`` ((name, fn), its untraced times in ``res[name +
     "_ms"]``) once under the profiler: traced wall, device busy time, op
     count and idle shares into ``res``; returns the per-kernel tables."""
     tables = []
     for name, fn in runs:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, (wall,) = _timed(fn, 1)
-        busy, count = _device_busy_ms(prof)
+        _, wall, summary, prof = trace.profiled(fn)
+        busy, count = summary.busy_ms, summary.events
         res[f"{name}_traced_wall_ms"] = wall
         res[f"{name}_device_busy_ms"] = busy
         res[f"{name}_device_ops"] = count
@@ -170,9 +149,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: torch sees no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = trace.card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -187,13 +164,17 @@ def main() -> None:
     print(json.dumps(res))
 
 
-def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
-    """(results, profiler tables) of phase 4's serving batch."""
+def flagship_recognizer(dev, fused_layer: bool = False,
+                        frames: int = FRAMES,
+                        encode_dtype: str = "bfloat16",
+                        fused_bookkeeping: bool = False):
+    """The serving ``Recognizer`` of ``chip_smoke.py`` phase 4: the
+    flagship model with seed-0 weights, bf16 decoder weights and K|V
+    cache, fused decode attention, flash attention in the encoder, one
+    frame bucket of ``frames`` + 2, the 192-token cap and the delta2 wire;
+    ``decode_fused_layer`` with ``fused_layer``."""
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
     from avsr_tpu_torch.core.weights import init_weights
-    from avsr_tpu_torch.data import wire
-    from avsr_tpu_torch.data.synthetic import synthetic_batch
-    from avsr_tpu_torch.decode.beam import beam_search_batched, greedy_ctc
     from avsr_tpu_torch.decode.recognizer import Recognizer
     from avsr_tpu_torch.models.e2e import AVSRModel
 
@@ -205,10 +186,19 @@ def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
     with torch.device(dev):
         model = AVSRModel(cfg)
     init_weights(model, torch.Generator(device=dev).manual_seed(0))
-    rec = Recognizer(model=model, cfg=cfg, device=dev,
-                     t_buckets=(FRAMES + 2,), max_decode_tokens=KV_CAP,
-                     encode_dtype="bfloat16", video_wire="delta2")
+    return Recognizer(model=model, cfg=cfg, device=dev,
+                      t_buckets=(frames + 2,), max_decode_tokens=KV_CAP,
+                      encode_dtype=encode_dtype, video_wire="delta2",
+                      fused_bookkeeping=fused_bookkeeping)
 
+
+def _flagship(dev, smi: str, fused_layer: bool) -> tuple:
+    """(results, profiler tables) of phase 4's serving batch."""
+    from avsr_tpu_torch.data import wire
+    from avsr_tpu_torch.data.synthetic import synthetic_batch
+    from avsr_tpu_torch.decode.beam import beam_search_batched, greedy_ctc
+
+    rec = flagship_recognizer(dev, fused_layer)
     audio, video = synthetic_batch(np.random.RandomState(0), [FRAMES] * BATCH)
     rec.transcribe_batch(audio, video, mode="beam")  # warm-up
     rec.transcribe_batch(audio, video, mode="greedy")

@@ -186,7 +186,16 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    on 8 tracks of 250 frames (one track against the CPU; the ported
    ``segment_by_asd`` on its scores) and 3 ``ASDTrainer`` steps (one step
    against the CPU's loss and gradient norm); every kernel's launch
-   count stays 0 and no twin runs.
+   count stays 0 and no twin runs;
+13. runs the port's tools (``phase_tools``): the kernel self-check
+   (``ops/kernels/selfcheck.py``, the JAX self-check's cases: serving
+   kernels and training kernels, each against its twin), the flagship's
+   loss through ``dryrun.entry()`` (finite, its ms), a short
+   ``tools/bench_data`` soak on the flagship (``TOOLS_SOAK``: device
+   demand, host supply by workers and fbank route, end to end) and the
+   trace parser (``tools/trace.py``) over one traced training step at
+   ``bench_train``'s defaults (the three flash kernels by name, 24
+   launches a step each, as their wrappers counted).
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -4494,6 +4503,94 @@ def phase_frontends(dev, smi: str) -> dict:
     return res
 
 
+# the short soak: 2 x 2 clips a step and 4 workers keep the phase near
+# 90 s; the model is the flagship at full width
+TOOLS_SOAK = ["--steps", "20", "--clips", "12", "--host_batches", "5",
+              "--workers", "4", "--batch", "2"]
+
+
+def phase_tools(dev, smi: str) -> dict:
+    """The port's tools at full width (``phase_tools``): the kernel
+    self-check (``ops/kernels/selfcheck.py``: the serving and training
+    checks at the JAX self-check's shapes, kernels against twins),
+    ``dryrun.entry()`` once (the flagship's loss at b=1, t=8, l=6: finite,
+    its ms), a short ``tools/bench_data`` soak on the flagship (its three
+    phases' numbers printed as they come) and the trace parser
+    (``tools/trace.py``) over one traced training step at
+    ``bench_train``'s defaults: device lanes found, and the three flash
+    kernels by their wrappers' names, 24 launches a step each, equal to
+    the wrappers' counts in that step. Returns the phase's numbers."""
+    from avsr_tpu_torch import dryrun
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import selfcheck
+    from avsr_tpu_torch.tools import bench_data, bench_train, profile_train
+
+    res = {}
+    t0 = time.perf_counter()
+    selfcheck.check_serving_kernels(dev)
+    torch.cuda.synchronize()
+    res["selfcheck_serving_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    selfcheck.check_train_kernels(dev)
+    torch.cuda.synchronize()
+    res["selfcheck_train_s"] = time.perf_counter() - t0
+    print(f"# {smi}: selfcheck serving kernels OK in "
+          f"{res['selfcheck_serving_s']:.1f} s, training kernels OK in "
+          f"{res['selfcheck_train_s']:.1f} s")
+
+    fn, args = dryrun.entry("cuda")
+    loss = fn(*args).item()
+    check(math.isfinite(loss), f"dryrun.entry(): loss {loss}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args).item()
+    res["entry_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["entry_loss"] = loss
+    del fn, args
+    print(f"# {smi}: dryrun.entry() flagship loss {loss:.4f} in "
+          f"{res['entry_ms']:.1f} ms (b=1, t=8, l=6)")
+
+    soak = bench_data.main(TOOLS_SOAK)
+    rates = [soak["device_demand_samples_per_s"],
+             soak["end_to_end_samples_per_s"]] + [
+        row["samples_per_s"] for row in soak["host_supply"]]
+    check(all(math.isfinite(r) and r > 0 for r in rates),
+          f"bench_data: rates {rates}")
+    res["bench_data"] = soak
+
+    args = bench_train.parse_args([])
+    state, batch = bench_train.setup(args)
+    flash = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+             pfa.flash_attention_bwd_dkv)
+    reset_launches(flash)
+    untraced, traced, summary = profile_train.profile_steps(state, batch, 1)
+    counts = read_launches(flash)
+    layers = state.model.cfg.encoder.num_hidden_layers
+    wrappers = {fn.__name__: counts[fn.__name__] / (bench_train.WARMUP + 2)
+                for fn in flash}
+    print(f"# {smi}: traced train step: device busy {summary.busy_ms:.3f} "
+          f"ms, self {summary.total_ms:.3f} ms, {summary.events} device "
+          f"events on {summary.lanes} streams; untraced wall "
+          f"{untraced:.3f} ms (idle {1 - summary.busy_ms / untraced:.1%}), "
+          f"traced {traced:.3f}")
+    print("# trace kernels " + json.dumps(summary.kernels))
+    print("# trace sources " + json.dumps(
+        dict(sorted(summary.sources.items(), key=lambda kv: -kv[1])[:12])))
+    print("# trace top ops " + json.dumps(summary.top(8)))
+    check(summary.lanes >= 1 and summary.events > 0,
+          "the trace parser found no device events")
+    for fn in flash:
+        name = fn.__name__
+        got = summary.kernels.get(name, [0.0, 0])[1]
+        check(got == layers == wrappers[name],
+              f"trace: {name} {got} launches a step, the wrapper counted "
+              f"{wrappers[name]}, the encoder has {layers} layers")
+    res["trace"] = {"busy_ms": summary.busy_ms, "self_ms": summary.total_ms,
+                    "untraced_wall_ms": untraced, "traced_wall_ms": traced,
+                    "kernels": summary.kernels}
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4588,6 +4685,11 @@ def main() -> int:
     frontends = phase_frontends(dev, smi)
     print(f"# {smi}: phase 12 passed in {time.perf_counter() - t12:.1f} s")
     print(f"# {smi}: phase 12 results: {json.dumps(frontends)}")
+    print("# phase 13: the tools: selfcheck, entry, bench_data, the trace")
+    t13 = time.perf_counter()
+    tools = phase_tools(dev, smi)
+    print(f"# {smi}: phase 13 passed in {time.perf_counter() - t13:.1f} s")
+    print(f"# {smi}: phase 13 results: {json.dumps(tools)}")
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

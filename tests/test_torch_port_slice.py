@@ -207,8 +207,10 @@ def test_port_imports_no_jax():
     pretraining objective, datasets and data parallelism, the conformer
     family and ShuffleNetV2 with what the eval CLI's auto_avsr loader
     imports (the conformer weight tables, the raw-waveform transform),
-    bench_train and chip_smoke.py import nothing of the JAX package, JAX,
-    flax or ml_dtypes."""
+    bench_train, the tools (the kernel self-check, kernel_smoke, the trace
+    parser, profile_train, profile_decode, bench_data), the dry run and
+    chip_smoke.py import nothing of the JAX package, JAX, flax or
+    ml_dtypes."""
     code = ("import sys, avsr_tpu_torch.decode.recognizer, "
             "avsr_tpu_torch.core.weights, avsr_tpu_torch.decode.ctc_prefix, "
             "avsr_tpu_torch.ops.kernels.scan_logsumexp, "
@@ -223,7 +225,13 @@ def test_port_imports_no_jax():
             "avsr_tpu_torch.models.conformer, avsr_tpu_torch.core.checkpoint, "
             "avsr_tpu_torch.data.transforms, avsr_tpu_torch.cli.evaluation, "
             "avsr_tpu_torch.models.shufflenetv2, "
-            "avsr_tpu_torch.tools.bench_train, chip_smoke; "
+            "avsr_tpu_torch.tools.bench_train, "
+            "avsr_tpu_torch.ops.kernels.selfcheck, "
+            "avsr_tpu_torch.tools.kernel_smoke, avsr_tpu_torch.tools.trace, "
+            "avsr_tpu_torch.tools.profile_train, "
+            "avsr_tpu_torch.tools.profile_decode, "
+            "avsr_tpu_torch.tools.bench_data, avsr_tpu_torch.dryrun, "
+            "chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('avsr_tpu', 'jax', 'flax', 'ml_dtypes')]; "
             "assert not bad, bad")

@@ -1,10 +1,20 @@
-"""The port's kernel-variant tool on the CPU: how it reads variants and
-writes their sources (building and timing them needs the card)."""
+"""The port's tools on the CPU: how the kernel-variant tools read
+variants and write their sources (building and timing them needs the
+card); the trace parser on synthetic traces, against the JAX package's
+``tools/profile_train.parse_trace``; the card-only tools' refusal without
+a card; ``dryrun.entry`` against the JAX model's loss, the multi-process
+dry run, and ``bench_data`` at a tiny config."""
 
+import gzip
 import importlib.util
+import json
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 from avsr_tpu_torch.tools import flash_variants as fv
@@ -464,3 +474,332 @@ def test_bookkeeping_apply_variant_arguments_and_sources(tmp_path,
     assert bv.phase_ns(marks) == [100.0, 200.0, 200.0]
     assert len(bv.PHASES) + 1 == int(re.search(
         r"constexpr int kMarks = (\d+);", src).group(1))
+
+
+# ------------------------------------------------------------ trace parser
+
+REPO = Path(__file__).resolve().parents[1]
+FLASH = "void (anonymous namespace)::flash_fwd_mma<64>(__nv_bfloat16 const*)"
+# device events: (name, stream, start, duration) in µs; on stream 7 "k2"
+# nests in "k1", stream 8 overlaps stream 7
+DEVICE = [("k1", 7, 0.0, 10.0), ("k2", 7, 2.0, 3.0), (FLASH, 7, 20.0, 5.0),
+          ("k3", 8, 8.0, 6.0), ("Memcpy HtoD (Pageable -> Device)", 8, 30.0,
+                                2.0)]
+
+
+def _torch_trace():
+    """A torch.profiler Chrome trace of DEVICE with its host side: the main
+    thread's port frames (one torch frame between), the runtime launches,
+    two forward ops of one sequence number (the later made the autograd
+    node), and the autograd thread's backward node launching k3;
+    the memcpy has no launch, and a user annotation spans the device."""
+    host, bwd = (100, 100), (100, 200)
+
+    def x(cat, name, lane, ts, dur, **args):
+        return {"ph": "X", "cat": cat, "name": name, "pid": lane[0],
+                "tid": lane[1], "ts": ts, "dur": dur, "args": args}
+
+    ev = [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0,
+           "args": {"name": "python"}}]
+    for i, (name, stream, ts, dur) in enumerate(DEVICE):
+        cat = "gpu_memcpy" if name.startswith("Memcpy") else "kernel"
+        corr = {} if cat == "gpu_memcpy" else {"correlation": i + 1}
+        ev.append(x(cat, name, (0, stream), ts, dur, stream=stream, **corr))
+    ev += [
+        x("gpu_user_annotation", "train_step", (0, 7), 0.0, 40.0),
+        x("python_function", "avsr_tpu_torch/models/e2e.py(10): forward",
+          host, -50.0, 100.0),
+        x("python_function", "torch/nn/modules/module.py(1): _call_impl",
+          host, -40.0, 30.0),
+        x("python_function", "avsr_tpu_torch/ops/kernels/flash_attention.py"
+          "(254): flash_attention_fwd", host, 10.0, 5.0),
+        x("python_function", "avsr_tpu_torch/models/avhubert.py(5): "
+          "forward", host, -48.0, 4.0),
+        x("cpu_op", "aten::view", host, -47.0, 1.0, **{
+            "Sequence number": 5, "Fwd thread id": 0}),
+        x("cpu_op", "aten::mm", host, -12.0, 4.0, **{
+            "Sequence number": 5, "Fwd thread id": 0}),
+        x("cuda_runtime", "cudaLaunchKernel", host, -30.0, 1.0,
+          correlation=1),
+        x("cuda_runtime", "cudaLaunchKernel", host, -20.0, 1.0,
+          correlation=2),
+        x("cuda_runtime", "cudaLaunchKernel", host, 12.0, 1.0,
+          correlation=3),
+        x("cpu_op", "autograd::engine::evaluate_function: MmBackward0", bwd,
+          60.0, 10.0, **{"Sequence number": 5, "Fwd thread id": 1}),
+        x("cuda_runtime", "cudaLaunchKernel", bwd, 62.0, 1.0,
+          correlation=4),
+    ]
+    return ev
+
+
+def test_trace_self_times_busy_and_sources():
+    """Self time lane by lane (k1 10 - its child k2's 3), the busy union
+    over both streams ([0, 14] + [20, 25] + [30, 32] = 21 µs), the
+    annotation span left out, the port kernel named by its wrapper, and
+    each op charged to the port module that launched it: the innermost
+    port frame at the launch (the torch frame between does not count),
+    the backward node's launch to the module of the last forward op of
+    its sequence number, and a copy
+    with no launch to ``other``."""
+    from avsr_tpu_torch.tools import trace
+
+    s = trace.summarize(_torch_trace())
+    assert {k: v[0] * 1e3 for k, v in s.ops.items()} == pytest.approx(
+        {"k1": 7.0, "k2": 3.0, FLASH: 5.0, "k3": 6.0,
+         "Memcpy HtoD (Pageable -> Device)": 2.0})
+    assert all(v[1] == 1 for v in s.ops.values())
+    assert s.busy_ms * 1e3 == pytest.approx(21.0)
+    assert s.total_ms * 1e3 == pytest.approx(23.0)
+    assert (s.events, s.lanes) == (5, 2)
+    assert s.kernels == {"flash_attention_fwd": [pytest.approx(0.005), 1.0]}
+    assert {k: v * 1e3 for k, v in s.sources.items()} == pytest.approx(
+        {"models/e2e.py": 10.0, "ops/kernels/flash_attention.py": 5.0,
+         "models/e2e.py backward": 6.0, "other": 2.0})
+    assert s.op_sources["k3"] == "models/e2e.py backward"
+    assert s.op_sources[FLASH] == "ops/kernels/flash_attention.py"
+    # library kernels that share a port kernel's bare name are not the
+    # port's: they sit in a named namespace, or in none
+    names = ("void at::native::(anonymous namespace)::apply_kernel<float>"
+             "(float*)", "void cub::stats_kernel<int>(int*)", "bwd1_kernel(",
+             "void (anonymous namespace)::apply_kernel_v2<float>(float*)")
+    ev = _torch_trace() + [
+        {"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 9,
+         "ts": 40.0 + 2 * i, "dur": 1.0, "args": {"stream": 9}}
+        for i, name in enumerate(names)]
+    lib = trace.summarize(ev)
+    assert set(lib.ops) == set(s.ops) | set(names)
+    assert lib.kernels == s.kernels
+    two = trace.summarize(_torch_trace() + [
+        dict(e, ts=e["ts"] + 1000.0) for e in _torch_trace()
+        if e["ph"] == "X"], steps=2)
+    assert two.ops["k1"] == [pytest.approx(0.007), 1.0]
+    assert two.busy_ms == pytest.approx(s.busy_ms)
+
+
+def _jax_parse_trace():
+    spec = importlib.util.spec_from_file_location(
+        "jax_profile_train", REPO / "tools" / "profile_train.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.parse_trace
+
+
+def test_trace_matches_the_jax_parser(tmp_path):
+    """DEVICE in the JAX trace's layout (a TPU process with two op lanes,
+    a step lane and a module lane, and a host process) through the JAX
+    package's ``parse_trace`` gives the same per-op self times and
+    counts as the port's parser on the torch layout."""
+    from avsr_tpu_torch.tools import trace
+
+    ev = [{"ph": "M", "name": "process_name", "pid": 1,
+           "args": {"name": "/device:TPU:0"}},
+          {"ph": "M", "name": "process_name", "pid": 2,
+           "args": {"name": "/host:CPU"}},
+          {"ph": "M", "name": "thread_name", "pid": 1, "tid": 9,
+           "args": {"name": "Steps"}},
+          {"ph": "M", "name": "thread_name", "pid": 1, "tid": 10,
+           "args": {"name": "XLA Modules"}}]
+    for tid in (7, 8):
+        ev.append({"ph": "M", "name": "thread_name", "pid": 1, "tid": tid,
+                   "args": {"name": "XLA Ops"}})
+    for name, stream, ts, dur in DEVICE:
+        ev.append({"ph": "X", "name": name, "pid": 1, "tid": stream,
+                   "ts": ts, "dur": dur})
+    ev += [{"ph": "X", "name": "step 0", "pid": 1, "tid": 9, "ts": 0.0,
+            "dur": 40.0},
+           {"ph": "X", "name": "jit_step", "pid": 1, "tid": 10, "ts": 0.0,
+            "dur": 40.0},
+           {"ph": "X", "name": "host op", "pid": 2, "tid": 1, "ts": 0.0,
+            "dur": 40.0}]
+    d = tmp_path / "plugins" / "profile" / "run"
+    d.mkdir(parents=True)
+    with gzip.open(d / "host.trace.json.gz", "wt") as f:
+        json.dump({"traceEvents": ev}, f)
+    per_op, n_op, total, _ = _jax_parse_trace()(str(tmp_path), 1)
+    s = trace.summarize(_torch_trace())
+    assert {k: v[0] for k, v in s.ops.items()} == pytest.approx(
+        dict(per_op))
+    assert {k: v[1] for k, v in s.ops.items()} == dict(n_op)
+    assert s.total_ms == pytest.approx(total)
+
+
+def test_trace_names_every_cuda_kernel_by_its_wrapper():
+    """``trace.KERNELS`` holds exactly the ``__global__`` functions of
+    ``csrc/*.cu``, each mapped to a wrapper that counts its launches."""
+    import importlib
+
+    from avsr_tpu_torch.tools import trace
+
+    found = set()
+    for src in (REPO / "avsr_tpu_torch" / "csrc").glob("*.cu"):
+        text = src.read_text()
+        found |= set(re.findall(
+            r"__global__\s+(?:void\s+)?(?:__launch_bounds__\((?:[^()]|"
+            r"\([^()]*\))*\)\s+)?(?:void\s+)?(\w+)\s*\(", text))
+        # the parser knows them by the file-level anonymous namespace
+        for at in (m.start() for m in re.finditer(r"__global__", text)):
+            assert text.rfind("\nnamespace {\n", 0, at) > text.rfind(
+                "\n}  // namespace", 0, at), (src.name, at)
+            assert "\n}  // namespace" in text[at:], (src.name, at)
+    assert found == set(trace.KERNELS)
+    for wrapper in set(trace.KERNELS.values()):
+        mods = [importlib.import_module(f"avsr_tpu_torch.ops.kernels.{m}")
+                for m in ("flash_attention", "decode_attention",
+                          "decoder_layer", "beam_update", "row_gather",
+                          "scan_logsumexp", "topk", "stem_fuse")]
+        fns = [getattr(m, wrapper) for m in mods if hasattr(m, wrapper)]
+        assert len(fns) == 1 and hasattr(fns[0], "launches"), wrapper
+
+
+def test_trace_of_a_cpu_profile():
+    """A real torch.profiler run (the CPU, Python stacks on) exports and
+    parses: no device events, so no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from avsr_tpu_torch.tools import trace
+
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True) as prof:
+        torch.ones(4).sum()
+    ev = trace.events_of(prof)
+    assert any(e.get("cat") == "cpu_op" for e in ev)
+    s = trace.summarize(ev)
+    assert (s.events, s.busy_ms, s.ops, s.sources) == (0, 0.0, {}, {})
+
+
+# -------------------------------------------- tools that need the card
+
+
+@pytest.mark.parametrize("tool", ["kernel_smoke", "profile_train",
+                                  "profile_decode", "bench_data"])
+def test_card_tools_refuse_to_run_without_a_card(tool):
+    """Without CUDA each card tool exits non-zero and says so; none falls
+    back to the CPU."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"avsr_tpu_torch.tools.{tool}"],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr, out.stderr[-2000:]
+    assert "OK" not in out.stdout
+
+
+# ------------------------------------------------------------- dry run
+
+
+def test_entry_loss_matches_jax():
+    """``dryrun.entry`` on the CPU at the tiny config (``TINY_KW``): its
+    seed-0 weights (the explicit argument) cross to JAX through the JAX
+    package's ``torch_to_flax``, and the loss of the entry's b=1, t=8,
+    l=6 inputs is within 2e-4 of JAX ``model.apply(...).loss`` on the
+    same arrays."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from avsr_tpu.core.checkpoint import torch_to_flax
+    from avsr_tpu.models.e2e import AVSRModel
+    from avsr_tpu_torch import dryrun
+    from tests.torch_port_common import port_cfg, setup_torch, tiny_cfg
+
+    setup_torch()
+    cfg = tiny_cfg()
+    cfg.encoder.use_flash_attention = False
+    fn, args = dryrun.entry("cpu", port_cfg(cfg))
+    variables = torch_to_flax({k: v.numpy() for k, v in args[0].items()},
+                              cfg, prefix="")
+    inputs = [a.numpy() for a in args[1:]]
+    assert [x.shape for x in inputs] == [(1, 8, 88, 88, 1), (1, 8, 104),
+                                         (1, 6), (1,), (1,)]
+    want = jax.jit(lambda v, *a: AVSRModel(cfg).apply(v, *a).loss)(
+        variables, *(jnp.asarray(x.astype(np.int32) if x.dtype == np.int64
+                                 else x) for x in inputs))
+    with torch.no_grad():
+        got = fn(*args).item()
+    np.testing.assert_allclose(got, float(want), rtol=2e-4)
+
+
+def test_dryrun_multichip_two_processes():
+    """``dryrun_multichip(2)`` in a fresh process: two ranks over gloo take
+    one data-parallel train step and decode one utterance each; rank 0
+    prints the mesh, the loss and gradient norm, and both token lists'
+    lengths; no JAX is loaded."""
+    code = ("import sys; from avsr_tpu_torch.dryrun import dryrun_multichip;"
+            " dryrun_multichip(2); bad = [m for m in sys.modules if "
+            "m.split('.')[0] in ('jax', 'avsr_tpu')]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()[-2:]
+    assert re.fullmatch(r"dryrun_multichip\(2\): mesh=\{'data': 2, "
+                        r"'model': 1\} loss=\d+\.\d{4} grad_norm=\d+\.\d{4}",
+                        lines[0]), lines
+    assert re.fullmatch(r"dryrun_multichip\(2\): decode mesh=.* beam decode "
+                        r"ok \(lens=\[\d+, \d+\]\)", lines[1]), lines
+
+
+# ------------------------------------------------------------ bench_data
+
+
+def _json_keys(path: Path) -> set:
+    """The keys of the dict literal the script passes to json.dumps."""
+    import ast
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                == "dumps" and isinstance(node.args[0], ast.Dict)):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError(f"no json.dumps of a dict literal in {path}")
+
+
+def test_bench_data_tiny_on_the_cpu(monkeypatch, capsys, tmp_path):
+    """``bench_data.main`` at the tiny config on the CPU, one worker, 2
+    soak steps, over a pool of 3 clips of 12-20 frames in 16-frame
+    buckets (the 3-10 s clips and their 256-frame buckets take ~1 min
+    there): the printed record has the root script's keys, every rate
+    is positive and finite, the host-supply rows cover threads with the
+    native fbank on and off and a spawn process, and the pool's directory
+    is removed."""
+    import torch
+
+    from avsr_tpu_torch.data import media
+    from avsr_tpu_torch.tools import bench_data
+    from avsr_tpu_torch.train import loop
+    from tests.torch_port_common import tiny_port_cfg
+
+    def short_pool(root, n_clips, seed=0):
+        rng = np.random.RandomState(seed)
+        samples = []
+        for i in range(n_clips):
+            frames = int(rng.randint(12, 20))
+            path = os.path.join(root, f"clip_{i:03d}.mp4")
+            media.save_video(path, rng.randint(0, 256, (frames, 96, 96))
+                             .astype(np.uint8))
+            media.save_audio(path[:-4] + ".wav",
+                             (rng.randn(frames * 640) * 0.1)
+                             .astype(np.float32))
+            samples.append({"video": path, "label": "THE QUICK BROWN FOX"})
+        return samples
+
+    monkeypatch.setattr(bench_data, "build_fixture_pool", short_pool)
+    monkeypatch.setattr(loop, "T_BUCKETS", (16, 128))
+    torch.set_num_threads(2)
+    rec = bench_data.main(["--steps", "2", "--batch", "1", "--grad_accum",
+                           "2", "--clips", "3", "--workers", "1",
+                           "--host_batches", "1"], tiny_port_cfg(), "cpu",
+                          root=str(tmp_path))
+    assert not list(tmp_path.iterdir())  # the pool's directory is gone
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == rec
+    assert _json_keys(REPO / "bench_data.py") <= set(rec)
+    rows = rec["host_supply"]
+    assert {(r["native_fbank"], r["workers"], r["processes"]) for r in rows
+            } >= {(False, 0, False), (False, 1, False)}
+    assert any(r["processes"] for r in rows)
+    rates = [rec["device_demand_samples_per_s"],
+             rec["end_to_end_samples_per_s"]] + [
+        r["samples_per_s"] for r in rows]
+    assert all(np.isfinite(r) and r > 0 for r in rates)
+    assert rec["device"] == "cpu" and rec["card"] is None
