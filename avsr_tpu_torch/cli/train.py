@@ -3,13 +3,19 @@
 
     python -m avsr_tpu_torch.cli.train --synthetic_dataset --max_steps 8 ...
     torchrun --nproc_per_node N -m avsr_tpu_torch.cli.train ...
+    torchrun --nproc_per_node 4 -m avsr_tpu_torch.cli.train \
+        --data_parallel 2 --model_parallel 2 ...
 
 Joint CTC/attention fine-tuning (or with ``--pretrain`` AV-HuBERT
 masked-prediction pretraining) through ``train/loop.run_training``, on
-``cuda`` unless ``--device cpu``; under ``torchrun`` data-parallel over
-the processes, one card each (``core/dist.py``; ``--multihost`` asks for
-that environment, ``--data_parallel`` must equal the world size, and
-``--model_parallel`` > 1 is not ported yet). ``--synthetic_dataset``
+``cuda`` unless ``--device cpu``; under ``torchrun`` over the processes,
+one card each (``core/dist.py``; ``--multihost`` asks for that
+environment), laid out as ``--data_parallel`` x ``--model_parallel``
+(their product is the world size; the data size defaults to the world
+over the model size): each model group of ``--model_parallel`` ranks
+runs the JAX package's Megatron layout on one shard of the batch
+(``core/tensor_parallel.py``), the global batch is ``--batch_size`` x
+the data size. ``--synthetic_dataset``
 trains on deterministic synthetic samples without network or media
 backends. ``--model_name_or_path`` loads a reference-format directory
 (``config.json`` and the state dict), which also sets the model config.
@@ -57,9 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="forward/backward dtype over fp32 master weights")
     p.add_argument("--data_parallel", type=int, default=None,
                    help="data-parallel size (default: the torchrun world "
-                        "size)")
+                        "size over --model_parallel)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="tensor parallelism: not ported yet (1 only)")
+                   help="tensor-parallel size: attention heads and FFN "
+                        "columns split over this many ranks (Megatron "
+                        "layout)")
     p.add_argument("--multihost", action="store_true", default=False,
                    help="train over the processes torchrun describes in "
                         "the environment (each reads its own data shards)")
@@ -147,7 +155,7 @@ def main(argv=None):
     if args.synthetic_dataset:
         from avsr_tpu_torch.data.dataset import synthetic_samples
 
-        n = (args.batch_size * dist.world_size()
+        n = (args.batch_size * dist.data_size()
              * args.gradient_accumulation_steps * (args.max_steps + 1))
         train_samples = shard_for_host(synthetic_samples(n, seed=0))
         valid_fn = lambda: synthetic_samples(  # noqa: E731
@@ -190,7 +198,8 @@ def main(argv=None):
         valid_collator = PretrainCollator(valid_collator, pretrain_cfg)
 
     if main_rank:
-        print(f"Data parallel: {dist.world_size()} process(es); device "
+        mesh = {"data": dist.data_size(), "model": dist.model_size()}
+        print(f"Mesh: {mesh}; {dist.world_size()} process(es); device "
               f"{device}")
 
     loop_cfg = LoopConfig(

@@ -149,6 +149,7 @@ __global__ void __launch_bounds__(kThreadsMma, kFwdMinBlocks)
   bf16* vs = ks + 2 * kKeysMma * kLd;     // 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * kRowsMma;
@@ -241,7 +242,7 @@ __global__ void __launch_bounds__(kThreadsMma, kFwdMinBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       uint32_t keep = 0xfu;
-      if (kDrop) keep = mm::keep_bits_qk(n, wrow, k0 + j * 8, lane, drop);
+      if (kDrop) keep = mm::keep_bits_qk(head, wrow, k0 + j * 8, lane, drop);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = expf(__fsub_rn(s[j][e], m[e >> 1]));
@@ -330,6 +331,7 @@ __global__ void __launch_bounds__(kThreadsF32, F32Layout<D>::kMinBlocks)
   float* vs = ks + 2 * L::kKeys * L::kLdK;         // 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -431,7 +433,7 @@ __global__ void __launch_bounds__(kThreadsF32, F32Layout<D>::kMinBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       if (kDrop) {
-        const uint32_t keep = mm::keep_bits_qk(n, wrow, k0 + 8 * j, lane,
+        const uint32_t keep = mm::keep_bits_qk(head, wrow, k0 + 8 * j, lane,
                                                drop);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -549,7 +551,9 @@ cudaError_t launch(int n, int t, int d, cudaStream_t s, const void* q,
 // q, k, v, out: (n, t, d) contiguous, dtype `dtype`, 16-byte aligned;
 // bias, lse: (n, t) fp32. dropout != 0: drop at the Philox draw of
 // (seed0, seed1), keeping an element iff its bits are below `threshold`,
-// and scale kept ones by `inv_keep`. Both dtypes run on the tensor cores:
+// and scale kept ones by `inv_keep`; row n draws as head
+// (n / heads_local) * heads_total + head_base + n % heads_local (1, 1, 0:
+// as head n). Both dtypes run on the tensor cores:
 // bf16 as bf16, fp32 in split TF32.
 extern "C" int avsr_flash_attention_fwd(const void* q, const void* k,
                                         const void* v, const float* bias,
@@ -557,10 +561,16 @@ extern "C" int avsr_flash_attention_fwd(const void* q, const void* k,
                                         int d, float scale, int dropout,
                                         uint32_t threshold, float inv_keep,
                                         uint32_t seed0, uint32_t seed1,
-                                        int dtype, void* stream) {
+                                        int heads_local, int heads_total,
+                                        int head_base, int dtype,
+                                        void* stream) {
   if (n <= 0 || t <= 0 || n > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const avsr::DropArgs drop{threshold, inv_keep, seed0, seed1};
+  if (heads_local < 1 || head_base < 0 ||
+      head_base + heads_local > heads_total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const avsr::DropArgs drop{threshold,   inv_keep,    seed0,    seed1,
+                            heads_local, heads_total, head_base};
   cudaError_t err;
   if (dtype == avsr::kFloat32)
     err = launch<false>(n, t, d, s, q, k, v, bias, out, lse, scale,

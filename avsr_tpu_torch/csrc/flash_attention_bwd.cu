@@ -179,6 +179,7 @@ __global__ void __launch_bounds__(kThreadsMma, kDqMinBlocks)
   bf16* vs = ks + 2 * kN * kLd;     // 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * kRowsMma;
@@ -239,7 +240,7 @@ __global__ void __launch_bounds__(kThreadsMma, kDqMinBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       uint32_t keep = 0xfu;
-      if (kDrop) keep = mm::keep_bits_qk(n, wrow, k0 + j * 8, lane, drop);
+      if (kDrop) keep = mm::keep_bits_qk(head, wrow, k0 + j * 8, lane, drop);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = k0 + j * 8 + 2 * (lane & 3) + e;
@@ -300,6 +301,7 @@ __global__ void __launch_bounds__(kThreadsMma, kDkvMinBlocks)
   bf16* dos = qs + 2 * kN * kLd;   // 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int key0 = blockIdx.x * kRowsMma;
@@ -356,7 +358,7 @@ __global__ void __launch_bounds__(kThreadsMma, kDkvMinBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       uint32_t keep = 0xfu;
-      if (kDrop) keep = mm::keep_bits_kq(n, wkey, q0 + j * 8, lane, drop);
+      if (kDrop) keep = mm::keep_bits_kq(head, wkey, q0 + j * 8, lane, drop);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qi = q0 + j * 8 + 2 * (lane & 3) + e;
@@ -586,6 +588,7 @@ __global__ void __launch_bounds__(kThreadsF32, BwdF32<D>::kDqBlocks)
   float* vs = ks + 2 * kN * kLd;                   // 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -656,7 +659,7 @@ __global__ void __launch_bounds__(kThreadsF32, BwdF32<D>::kDqBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       uint32_t keep = 0xfu;
-      if (kDrop) keep = mm::keep_bits_qk(n, wrow, k0 + 8 * j, lane, drop);
+      if (kDrop) keep = mm::keep_bits_qk(head, wrow, k0 + 8 * j, lane, drop);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int key = k0 + 8 * j + 2 * c + e;
@@ -703,6 +706,7 @@ __global__ void __launch_bounds__(kThreadsF32, BwdF32<D>::kDkvBlocks)
   float* dls = ls + 2 * kN;                        // delta, 2 stages
 
   const int n = blockIdx.y;
+  const uint32_t head = drop.head(n);  // the row's dropout counter
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -761,7 +765,7 @@ __global__ void __launch_bounds__(kThreadsF32, BwdF32<D>::kDkvBlocks)
 #pragma unroll
     for (int j = 0; j < kTiles; ++j) {
       uint32_t keep = 0xfu;
-      if (kDrop) keep = mm::keep_bits_kq(n, wkey, q0 + 8 * j, lane, drop);
+      if (kDrop) keep = mm::keep_bits_kq(head, wkey, q0 + 8 * j, lane, drop);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = 8 * j + 2 * c + e;
@@ -915,6 +919,11 @@ int launch(const Args& a, int d, int dtype, void* stream) {
   return static_cast<int>(err);
 }
 
+bool head_map_ok(int heads_local, int heads_total, int head_base) {
+  return heads_local >= 1 && head_base >= 0 &&
+         head_base + heads_local <= heads_total;
+}
+
 }  // namespace
 
 // q, k, v, o, dout, dq: (n, t, d) contiguous, dtype `dtype`, 16-byte
@@ -924,9 +933,14 @@ extern "C" int avsr_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const float* bias,
     const void* o, const void* dout, const float* lse, void* dq, float* delta,
     int n, int t, int d, float scale, int dropout, uint32_t threshold,
-    float inv_keep, uint32_t seed0, uint32_t seed1, int dtype, void* stream) {
+    float inv_keep, uint32_t seed0, uint32_t seed1, int heads_local,
+    int heads_total, int head_base, int dtype, void* stream) {
+  if (!head_map_ok(heads_local, heads_total, head_base))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, bias, o, dout, lse, nullptr, dq, delta, n, t, scale,
-               dropout != 0, {threshold, inv_keep, seed0, seed1}};
+               dropout != 0,
+               {threshold, inv_keep, seed0, seed1, heads_local, heads_total,
+                head_base}};
   return launch<false>(a, d, dtype, stream);
 }
 
@@ -938,8 +952,13 @@ extern "C" int avsr_flash_attention_bwd_dkv(
     const void* dout, const float* lse, const float* delta, void* dk,
     void* dv, int n, int t, int d, float scale, int dropout,
     uint32_t threshold, float inv_keep, uint32_t seed0, uint32_t seed1,
-    int dtype, void* stream) {
+    int heads_local, int heads_total, int head_base, int dtype,
+    void* stream) {
+  if (!head_map_ok(heads_local, heads_total, head_base))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, bias, nullptr, dout, lse, delta, dk, dv, n, t, scale,
-               dropout != 0, {threshold, inv_keep, seed0, seed1}};
+               dropout != 0,
+               {threshold, inv_keep, seed0, seed1, heads_local, heads_total,
+                head_base}};
   return launch<true>(a, d, dtype, stream);
 }

@@ -178,21 +178,21 @@ __device__ __forceinline__ void mma_xb(float (&out)[D / 8][4],
 // Keep bits of one m16n8 fragment whose rows are queries and columns keys
 // (forward, dq). Element (head n, query i, key j) is kept iff word j & 3
 // of Philox4x32-10 at counter (j >> 2, i, n, 0) is below the threshold
-// (philox.cuh). A lane holds keys c, c+1 of rows g and g+8, which lie in
+// (philox.cuh); `head` is the row's n, DropArgs::head of its row. A lane holds keys c, c+1 of rows g and g+8, which lie in
 // one 4-key group, and so does its partner lane ^ 1: the even lane draws
 // the group for row g, the odd lane for row g+8, and one shuffle swaps
 // the halves each needs, so every word is drawn once. `q0` is the
 // fragment's first query, `k0` its first key (a multiple of 8).
 // Returns bits 0/1 = (row g, keys c/c+1), bits 2/3 = (row g+8, keys c/c+1).
-__device__ __forceinline__ uint32_t keep_bits_qk(int n, int q0, int k0,
-                                                 int lane,
+__device__ __forceinline__ uint32_t keep_bits_qk(uint32_t head, int q0,
+                                                 int k0, int lane,
                                                  const DropArgs& a) {
   const bool odd = lane & 1;
   const int row = q0 + (lane >> 2) + (odd ? 8 : 0);
   const int group = (k0 >> 2) + ((lane & 3) >> 1);
   const Philox4 w =
       philox4x32_10(static_cast<uint32_t>(group), static_cast<uint32_t>(row),
-                    static_cast<uint32_t>(n), 0u, a.seed0, a.seed1);
+                    head, 0u, a.seed0, a.seed1);
   const uint32_t lo = (w.x[0] < a.threshold) | ((w.x[1] < a.threshold) << 1);
   const uint32_t hi = (w.x[2] < a.threshold) | ((w.x[3] < a.threshold) << 1);
   // even lane: keys c, c+1 are words 0, 1; odd lane: words 2, 3
@@ -207,13 +207,12 @@ __device__ __forceinline__ uint32_t keep_bits_qk(int n, int q0, int k0,
 // with four shuffles. `k0` is the fragment's first key (a multiple of 16),
 // `q0` its first query. Bits as in keep_bits_qk with rows = keys:
 // bits 0/1 = (key g, queries c/c+1), bits 2/3 = (key g+8, queries c/c+1).
-__device__ __forceinline__ uint32_t keep_bits_kq(int n, int k0, int q0,
-                                                 int lane,
+__device__ __forceinline__ uint32_t keep_bits_kq(uint32_t head, int k0,
+                                                 int q0, int lane,
                                                  const DropArgs& a) {
   const Philox4 w = philox4x32_10(
       static_cast<uint32_t>((k0 >> 2) + (lane >> 3)),
-      static_cast<uint32_t>(q0 + (lane & 7)), static_cast<uint32_t>(n), 0u,
-      a.seed0, a.seed1);
+      static_cast<uint32_t>(q0 + (lane & 7)), head, 0u, a.seed0, a.seed1);
   uint32_t nib = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i) nib |= (w.x[i] < a.threshold ? 1u : 0u) << i;

@@ -2,7 +2,8 @@
 //
 // Philox4x32-10 (Salmon, Moraes, Dror, Shaw, SC'11; the constants of
 // Random123 and cuRAND). The keep decision of attention element (head n,
-// query row i, key column j) is word (j & 3) of
+// query row i, key column j; n is the row's global head, DropArgs::head)
+// is word (j & 3) of
 //   Philox4x32-10(counter = (j >> 2, i, n, 0), key = (seed0, seed1))
 // kept iff that word is below `threshold` = round(keep * 2^32). The counter
 // is the element's absolute position, so the forward and both backward
@@ -44,27 +45,16 @@ struct DropArgs {
   uint32_t threshold;  // keep iff bits < threshold
   float inv_keep;      // fp32(1 / keep): the pre-scale of a kept element
   uint32_t seed0, seed1;
-};
+  // head map: rows n = (batch, local head) of a call that holds heads
+  // head_base .. head_base + heads_local - 1 of heads_total (a tensor-
+  // parallel rank's heads) draw at the counter of their global head;
+  // (1, 1, 0) is the identity
+  int heads_local, heads_total, head_base;
 
-// Fills keep[r][c] (row stride `ld` bytes) for the rows x cols tile whose
-// top-left element is (query row0, key col0) of head n: 1 = kept. col0 and
-// cols are multiples of 4, so each Philox call fills four neighbours.
-// Every thread of the block takes part; the caller synchronises.
-__device__ __forceinline__ void fill_keep_tile(uint8_t* keep, int ld, int rows,
-                                               int cols, int n, int row0,
-                                               int col0, const DropArgs& a) {
-  const int groups = cols / 4;
-  for (int e = threadIdx.x; e < rows * groups; e += blockDim.x) {
-    const int r = e / groups;
-    const int g = e % groups;
-    const Philox4 b = philox4x32_10(
-        static_cast<uint32_t>((col0 >> 2) + g),
-        static_cast<uint32_t>(row0 + r), static_cast<uint32_t>(n), 0u, a.seed0,
-        a.seed1);
-    uint8_t* dst = keep + r * ld + 4 * g;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) dst[w] = b.x[w] < a.threshold ? 1 : 0;
+  __device__ __forceinline__ uint32_t head(int n) const {
+    return static_cast<uint32_t>((n / heads_local) * heads_total +
+                                 head_base + n % heads_local);
   }
-}
+};
 
 }  // namespace avsr

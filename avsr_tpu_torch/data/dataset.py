@@ -191,16 +191,16 @@ class InterfererPool:
 
 def shard_for_host(dataset, process_index: Optional[int] = None,
                    process_count: Optional[int] = None):
-    """Give each rank a distinct set of shards (per-rank tar sharding,
-    reference train.py:82-85 with dispatch_batches=False). Rank and world
-    size default to ``torch.distributed``'s (0 and 1 without a process
-    group)."""
+    """Give each data rank a distinct set of shards (per-rank tar sharding,
+    reference train.py:82-85 with dispatch_batches=False). Index and count
+    default to ``core/dist``'s data rank and size (0 and 1 without a
+    process group): the ranks of one model group read the same shard."""
     from avsr_tpu_torch.core import dist
 
     if process_index is None:
-        process_index = dist.rank()
+        process_index = dist.data_rank()
     if process_count is None:
-        process_count = dist.world_size()
+        process_count = dist.data_size()
     if process_count == 1:
         return dataset
     if hasattr(dataset, "shard"):

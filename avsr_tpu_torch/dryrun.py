@@ -9,16 +9,16 @@ Counterpart of the root ``__graft_entry__.py``:
   argument (a state dict, through ``torch.func.functional_call``), seeded
   random weights from seed 0; ``cfg`` replaces the flagship config.
 - ``dryrun_multichip(n)`` starts n CPU processes joined over ``gloo``
-  through ``core/dist.py`` (a data axis of n, one sample a rank). They run
-  one full data-parallel train step of a tiny config (loss, gradients
-  all-reduced, clipping, AdamW) on a global batch of n clips of 4 frames
-  and 3 labels, check step 1 and a finite loss, and rank 0 prints the
-  mesh, the loss and the gradient norm; then each rank decodes its share
-  of n utterances with beam 2, and rank 0 gathers the token lists and
-  prints their lengths. The JAX dry run also runs a tensor-parallel leg
-  (``model_par=2`` from n = 4); the port has no tensor parallelism yet
-  (``core/dist.py``), so its mesh is always ``model: 1`` and no such leg
-  runs.
+  through ``core/dist.py``, laid out as the JAX dry run lays n devices
+  out: a model axis of 2 when n is even and at least 4 (tensor
+  parallelism, ``core/tensor_parallel.py``), else 1, and a data axis of
+  the rest. They run one full train step of a tiny config (loss,
+  gradients all-reduced, clipping, AdamW) on a global batch of n clips of
+  4 frames and 3 labels, each data rank on its share, check step 1 and a
+  finite loss, and rank 0 prints the mesh, the loss and the gradient
+  norm; then each rank loads the gathered weights into an unsharded model
+  and decodes its share of n utterances with beam 2 (a data axis of n),
+  and rank 0 gathers the token lists and prints their lengths.
 
     python -m avsr_tpu_torch.dryrun [N]
 
@@ -88,11 +88,14 @@ def _rank(rank: int, n: int, port: int, out) -> None:
                       MASTER_ADDR="localhost", MASTER_PORT=str(port))
     torch.set_num_threads(1)
     from avsr_tpu_torch.core import dist
+    from avsr_tpu_torch.core import tensor_parallel as tp
     from avsr_tpu_torch.decode.recognizer import Recognizer
+    from avsr_tpu_torch.models.e2e import AVSRModel
     from avsr_tpu_torch.train import trainer as T
 
     lines = []
-    dist.init("cpu", data_parallel=n)
+    model_par = 2 if n % 2 == 0 and n >= 4 else 1
+    dist.init("cpu", data_parallel=n // model_par, model_parallel=model_par)
     try:
         cfg = tiny_config()
         b, t, l = n, 4, 3
@@ -104,7 +107,9 @@ def _rank(rank: int, n: int, port: int, out) -> None:
             "video_lengths": np.full((b,), t),
             "label_lengths": np.full((b,), l),
         }
-        shard = {k: v[rank:rank + 1] for k, v in batch.items()}
+        per = n // dist.data_size()
+        d = dist.data_rank()
+        shard = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
         state = T.init_state(cfg, T.TrainConfig(warmup_steps=2,
                                                 max_steps=10),
                              seed=0, device="cpu")
@@ -112,11 +117,16 @@ def _rank(rank: int, n: int, port: int, out) -> None:
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         if state.step != 1 or not np.isfinite(loss):
             raise RuntimeError(f"rank {rank}: step {state.step}, loss {loss}")
-        mesh = {"data": dist.world_size(), "model": 1}
+        mesh = {"data": dist.data_size(), "model": dist.model_size()}
         lines.append(f"dryrun_multichip({n}): mesh={mesh} loss={loss:.4f} "
                      f"grad_norm={norm:.4f}")
 
-        rec = Recognizer(model=state.model, cfg=cfg, beam_size=2,
+        # serving weights whole on every rank (the train state may hold
+        # tensor-parallel slices); the decode mesh is a data axis of n
+        model = AVSRModel(cfg)
+        model.load_state_dict(tp.full_state_dict(state.model))
+        mesh = {"data": n, "model": 1}
+        rec = Recognizer(model=model, cfg=cfg, beam_size=2,
                          t_buckets=(8,), device="cpu")
         rng = np.random.RandomState(1)
         feats_a = [rng.randn(t, 104).astype(np.float32) for _ in range(n)]
@@ -145,8 +155,9 @@ def _free_port() -> int:
 
 
 def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> None:
-    """One data-parallel train step and a beam-2 decode over ``n_devices``
-    CPU processes (``gloo``); raises if a rank fails or hangs."""
+    """One train step (data x model as the JAX dry run lays the devices
+    out) and a beam-2 decode over ``n_devices`` CPU processes (``gloo``);
+    raises if a rank fails or hangs."""
     import multiprocessing as mp
     import queue
 

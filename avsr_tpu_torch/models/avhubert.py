@@ -28,9 +28,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from avsr_tpu_torch.core import tensor_parallel as tp
 from avsr_tpu_torch.core.config import AVHubertEncoderConfig
 from avsr_tpu_torch.models import remat
 from avsr_tpu_torch.models.resnet import ResEncoder
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels.flash_attention import mha_flash
 
@@ -76,45 +78,72 @@ class ConvPositionalEmbedding(nn.Module):
 
 class EncoderSelfAttention(nn.Module):
     """Wav2vec2-style MHA, scores scaled by d_k**-0.5, biased projections;
-    attention-prob dropout at ``dropout`` inside the flash kernels."""
+    attention-prob dropout at ``dropout`` inside the flash kernels. After
+    ``shard_`` it runs its model rank's heads: q/k/v split by columns,
+    ``out_proj`` by rows (``core/tensor_parallel.py``), the dropout drawn
+    at those heads' place among all of them."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.dropout = dropout
+        self.model_shard = (0, 1)  # (model rank, model size)
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
         self.v_proj = nn.Linear(dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
+    def shard_(self, rank: int, size: int) -> None:
+        if self.heads % size:
+            raise ValueError(f"{self.heads} heads over {size} model ranks")
+        for lin in (self.q_proj, self.k_proj, self.v_proj):
+            tp.shard_linear_(lin, 0, rank, size)
+        tp.shard_linear_(self.out_proj, 1, rank, size)
+        self.model_shard = (rank, size)
+
     def forward(self, x: torch.Tensor, padding_mask: Optional[torch.Tensor],
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         b, t, d = x.shape
-        dk = d // self.heads
-        q, k, v = (remat.mark(p(x).view(b, t, self.heads, dk), name)
+        rank, size = self.model_shard
+        h, dk = self.heads // size, d // self.heads
+        if size > 1:
+            x = tp.copy_to_model(x)
+        q, k, v = (remat.mark(p(x).view(b, t, h, dk), name)
                    for p, name in ((self.q_proj, "enc_q"),
                                    (self.k_proj, "enc_k"),
                                    (self.v_proj, "enc_v")))
         rate, seed = 0.0, None
         if rng is not None and self.dropout > 0.0:
             rate, seed = self.dropout, rng.flash_seed()
+            if size > 1:  # key the draw by the global head
+                seed = (*seed, h, self.heads, rank * h)
         out = mha_flash(q, k, v, padding_mask, scale=dk ** -0.5,
                         dropout_rate=rate, dropout_seed=seed)
-        return self.out_proj(out.reshape(b, t, d))
+        return tp.linear(self.out_proj, out.reshape(b, t, h * dk))
 
 
 class FeedForward(nn.Module):
     def __init__(self, dim: int, units: int, activation_dropout: float = 0.0):
         super().__init__()
         self.activation_dropout = activation_dropout
+        self.model_shard = (0, 1)
         self.intermediate_dense = nn.Linear(dim, units)
         self.output_dense = nn.Linear(units, dim)
 
+    def shard_(self, rank: int, size: int) -> None:
+        tp.shard_linear_(self.intermediate_dense, 0, rank, size)
+        tp.shard_linear_(self.output_dense, 1, rank, size)
+        self.model_shard = (rank, size)
+
     def forward(self, x: torch.Tensor,
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        rank, size = self.model_shard
+        if size > 1:
+            x = tp.copy_to_model(x)
         h = F.gelu(remat.mark(self.intermediate_dense(x), "enc_ffn_pre"))
-        h = remat.mark(dropout(h, self.activation_dropout, rng), "enc_ffn_act")
-        return self.output_dense(h)
+        h = remat.mark(dropout(h, self.activation_dropout, rng,
+                               shard=(-1, rank, size)), "enc_ffn_act")
+        return tp.linear(self.output_dense, h)
 
 
 class EncoderLayer(nn.Module):
@@ -185,7 +214,8 @@ class AVHubertModel(nn.Module):
     (B,T) True = valid | None) -> (B, T, D) features. ``train=True`` needs
     ``rng``: batch-statistics BatchNorm in the frontend, every dropout of
     the config, and the whole-batch modality dropout (one draw per call, so
-    the whole batch drops a modality together, as the reference does)."""
+    the whole batch drops a modality together, as the reference does). On
+    the CPU its first call warms torch's exp (``ops/cpu.warm_exp``)."""
 
     def __init__(self, cfg: AVHubertEncoderConfig):
         super().__init__()
@@ -206,6 +236,8 @@ class AVHubertModel(nn.Module):
         c = self.cfg
         if train and rng is None:
             raise ValueError("train=True needs a DropoutRng")
+        if (audio if audio is not None else video).device.type == "cpu":
+            warm_exp()  # a caller of the modules themselves (ROADMAP C21)
         rng = rng if train else None
         feats_a = feats_v = None
         if audio is not None:

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from avsr_tpu_torch.core import tensor_parallel as tp
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.kernels._build import device_step
 from avsr_tpu_torch.ops.kernels.decode_attention import decode_attention
@@ -61,25 +62,44 @@ def sinusoidal_pe(maxlen: int, d_model: int, device=None) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     """ESPnet MHA: scores / sqrt(d_k), biased projections, masked weights
-    zeroed after the softmax, attention dropout."""
+    zeroed after the softmax, attention dropout. After ``shard_`` (the
+    training forward only) it runs its model rank's heads:
+    ``linear_q/k/v`` split by columns, ``linear_out`` by rows
+    (``core/tensor_parallel.py``)."""
 
     def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.dropout = dropout
+        self.model_shard = (0, 1)  # (model rank, model size)
         self.linear_q = nn.Linear(dim, dim)
         self.linear_k = nn.Linear(dim, dim)
         self.linear_v = nn.Linear(dim, dim)
         self.linear_out = nn.Linear(dim, dim)
+
+    def shard_(self, rank: int, size: int) -> None:
+        if self.heads % size:
+            raise ValueError(f"{self.heads} heads over {size} model ranks")
+        for lin in (self.linear_q, self.linear_k, self.linear_v):
+            tp.shard_linear_(lin, 0, rank, size)
+        tp.shard_linear_(self.linear_out, 1, rank, size)
+        self.model_shard = (rank, size)
 
     def forward(self, query, key, value, mask: Optional[torch.Tensor],
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         """query (B, Tq, D), key/value (B, Tk, D), mask (B, Tq | 1, Tk)
         True = keep."""
         b, tq, d = query.shape
-        h, dk = self.heads, d // self.heads
+        rank, size = self.model_shard
+        h, dk = self.heads // size, d // self.heads
+        if size > 1:  # one copy for each distinct input
+            copies = {}
+            for x in (query, key, value):
+                if id(x) not in copies:
+                    copies[id(x)] = tp.copy_to_model(x)
+            query, key, value = (copies[id(x)] for x in (query, key, value))
 
-        def split(x):  # (B, T, D) -> (B, H, T, Dh)
+        def split(x):  # (B, T, h * Dh) -> (B, h, T, Dh)
             return x.view(b, -1, h, dk).transpose(1, 2)
 
         q = split(self.linear_q(query))
@@ -93,9 +113,9 @@ class MultiHeadAttention(nn.Module):
             attn = attn.masked_fill(~m, 0.0)
         else:
             attn = torch.softmax(scores.float(), dim=-1).to(query.dtype)
-        attn = dropout(attn, self.dropout, rng)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, tq, d)
-        return self.linear_out(out)
+        attn = dropout(attn, self.dropout, rng, shard=(1, rank, size))
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, tq, h * dk)
+        return tp.linear(self.linear_out, out)
 
 
 class _FeedForward(nn.Module):
@@ -107,18 +127,26 @@ class _FeedForward(nn.Module):
 
 class DecoderLayer(nn.Module):
     """Pre-LN block (reference decoder_layer.py:16): self-attention, source
-    attention and a ReLU FFN, each with dropout before its residual."""
+    attention and a ReLU FFN, each with dropout before its residual. After
+    ``shard_`` the FFN runs its model rank's columns (``w_1`` split by
+    columns, ``w_2`` by rows)."""
 
     def __init__(self, dim: int, heads: int, units: int, dropout: float = 0.0,
                  attn_dropout: float = 0.0):
         super().__init__()
         self.dropout = dropout
+        self.model_shard = (0, 1)
         self.self_attn = MultiHeadAttention(dim, heads, attn_dropout)
         self.src_attn = MultiHeadAttention(dim, heads, attn_dropout)
         self.feed_forward = _FeedForward(dim, units)
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def shard_(self, rank: int, size: int) -> None:
+        tp.shard_linear_(self.feed_forward.w_1, 0, rank, size)
+        tp.shard_linear_(self.feed_forward.w_2, 1, rank, size)
+        self.model_shard = (rank, size)
 
     def forward(self, x, tgt_mask, memory, memory_mask,
                 rng: Optional[DropoutRng] = None):
@@ -129,8 +157,13 @@ class DecoderLayer(nn.Module):
         x = x + dropout(self.src_attn(h, memory, memory, memory_mask, rng),
                         self.dropout, rng)
         ff = self.feed_forward
-        h = dropout(F.relu(ff.w_1(self.norm3(x))), self.dropout, rng)
-        return x + dropout(ff.w_2(h), self.dropout, rng)
+        rank, size = self.model_shard
+        h = self.norm3(x)
+        if size > 1:
+            h = tp.copy_to_model(h)
+        h = dropout(F.relu(ff.w_1(h)), self.dropout, rng,
+                    shard=(-1, rank, size))
+        return x + dropout(tp.linear(ff.w_2, h), self.dropout, rng)
 
 
 @dataclass
@@ -224,6 +257,10 @@ class TransformerDecoder(nn.Module):
         """Source K/V from per-utterance memory (B, S_enc, D), zeroed
         (B*beam, maxlen, 2C) self K|V buffers, weights cast (or, on the
         fused-layer path, packed) once."""
+        if self.decoders[0].model_shard[1] > 1:
+            raise ValueError("the decode step runs an unsharded decoder: "
+                             "load tensor_parallel.full_state_dict of a "
+                             "sharded model into an unsharded one")
         b, s_enc, _ = memory.shape
         h, dh = self.heads, self.dim // self.heads
         pd, cd = self.param_dtype, self.cache_dtype

@@ -18,6 +18,7 @@ from torch import nn
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.models.avhubert import AVHubertModel
 from avsr_tpu_torch.models.decoder import DecoderCache, TransformerDecoder
+from avsr_tpu_torch.ops.cpu import warm_exp
 from avsr_tpu_torch.ops.ctc import ctc_loss, label_smoothing_loss, th_accuracy
 from avsr_tpu_torch.ops.dropout import DropoutRng, dropout
 from avsr_tpu_torch.ops.masks import (add_sos_eos, make_non_pad_mask,
@@ -67,6 +68,8 @@ class AVSRModel(nn.Module):
         ``train=True`` needs ``rng`` (dropouts, modality dropout) and
         updates the BatchNorm running statistics."""
         c = self.cfg
+        if videos.device.type == "cpu":
+            warm_exp()  # a caller of the modules themselves (ROADMAP C21)
         pad_mask = make_non_pad_mask(video_lengths, videos.shape[1])
         x = self.encoder(audios, videos, pad_mask, train, rng)
         rng = rng if train else None

@@ -57,8 +57,9 @@ class BatchNorm(nn.Module):
     statistics read at the activation dtype, the result kept in fp32; not
     in the recompute of a rematerialised frontend. Under data parallelism
     the batch statistics are the global batch's, as under pjit: the fp32
-    sums, sums of squares and counts are all-reduced with a differentiable
-    sum (``core/dist.all_reduce_sum``).
+    sums, sums of squares and counts are all-reduced over the data group
+    (a model group holds one batch) with a differentiable sum
+    (``core/dist.all_reduce_sum``).
     """
 
     momentum = 0.9  # flax convention: weight of the old running average
@@ -84,7 +85,7 @@ class BatchNorm(nn.Module):
                     + shift.to(x.dtype).view(shape))
         axes = [0] + list(range(2, x.dim()))
         xa = x.float()
-        if dist.world_size() > 1:
+        if dist.data_size() > 1:
             count = xa.new_full((xa.shape[1],), xa.numel() // xa.shape[1])
             sums = dist.all_reduce_sum(torch.stack(
                 [xa.sum(dim=axes), (xa * xa).sum(dim=axes), count]))
@@ -222,19 +223,14 @@ class ResEncoder(nn.Module):
     @staticmethod
     def _fused_tail(x, bn: BatchNorm, prelu: nn.PReLU, train: bool):
         """BN + PReLU + max-pool as ``bn_prelu_pool`` (the TPU kernel's
-        semantics: z in fp32, cast once after the pool); the running
-        averages update as in ``BatchNorm``."""
+        semantics: z in fp32, cast once after the pool; under data
+        parallelism the global batch's statistics, as in ``BatchNorm``);
+        the running averages update as in ``BatchNorm``."""
         if not train:
             return bn_prelu_pool(x, bn.weight, bn.bias, prelu.weight,
                                  eps=bn.eps, train=False,
                                  running_mean=bn.running_mean,
                                  running_var=bn.running_var)
-        if dist.world_size() > 1:
-            # the kernels' channel sums are per rank (ROADMAP A15)
-            raise NotImplementedError(
-                "AVSR_FUSED_STEM=1 under data parallelism: the fused stem "
-                "tail's batch statistics and bwd1's channel reductions are "
-                "not all-reduced yet (ROADMAP A15); unset the switch")
         out, mean, var = bn_prelu_pool(x, bn.weight, bn.bias, prelu.weight,
                                        eps=bn.eps, train=True)
         bn._update(x.dtype, mean, var)

@@ -6,10 +6,11 @@ trainer creates from a seed and owns: masks from a generator on the
 activations' device, and the few scalars (the two seed words of each
 flash-attention call, the whole-batch modality draw) from a host
 generator, so that no draw makes the host wait for the card. Under data
-parallelism (``rank`` > 0) the masks and flash seeds differ between
-ranks, as the JAX package's do over the shards of one global batch,
-while the whole-batch modality draw comes from a third generator seeded
-alike on every rank: one draw over the global batch, as in JAX. The JAX
+parallelism (``rank``, the data rank, > 0) the masks and flash seeds
+differ between ranks, as the JAX package's do over the shards of one
+global batch, while the ranks of one model group, which hold one shard,
+draw alike; the whole-batch modality draw comes from a third generator
+seeded alike on every rank: one draw over the global batch, as in JAX. The JAX
 package draws from ``jax.random`` keys; the two never give the same
 numbers, so the parity tests run with every rate at 0 or hand both sides
 the same explicit mask.
@@ -53,14 +54,23 @@ class DropoutRng:
         self.shared.set_state(state["shared"])
 
 
-def dropout(x: torch.Tensor, rate: float,
-            rng: Optional[DropoutRng]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng],
+            shard: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate and scale the kept
     entries by 1 / (1 - rate) in x's dtype; the identity without ``rng``
-    (eval) or at rate 0."""
+    (eval) or at rate 0. ``shard`` = (dim, rank, size): x is slice ``rank``
+    of ``size`` along ``dim`` of a wider activation (a tensor-parallel
+    block's); the mask is drawn at the wider shape and sliced, so every
+    model rank takes the generator's draw of one model size."""
     if rng is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=rng.gen, device=x.device) < keep
+    shape = list(x.shape)
+    if shard is not None:
+        dim, rank, size = shard
+        shape[dim] *= size
+    mask = torch.rand(shape, generator=rng.gen, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(dim, rank * x.shape[dim], x.shape[dim])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))

@@ -24,7 +24,10 @@ dropout runs inside the kernels: each keep decision is drawn from
 Philox4x32-10 keyed by the two seed words, at the counter of the element's
 absolute (head, query row, key column), so the forward and both backward
 kernels draw the same bits whatever their tiling, and nothing of size
-(N, T, T) is stored. ``dropout_keep_mask_plain`` computes the same bits in
+(N, T, T) is stored. A seed may carry a head map after its two words
+(``_head_map``): a tensor-parallel rank's rows then draw at their heads'
+place among all of them, as one call over every head would.
+``dropout_keep_mask_plain`` computes the same bits in
 torch integer ops; on the CPU the twins use it, so the CPU and the card
 drop the same entries for one seed. The plain twins also take an
 explicit pre-scaled mask (``dropout_mask``, entries 0 or 1/keep), the JAX
@@ -62,8 +65,22 @@ def dropout_threshold(rate: float) -> tuple[int, float]:
 
 
 def _seed_words(seed: Sequence[int]) -> tuple[int, int]:
-    s0, s1 = (int(s) & _U32 for s in seed)
+    s0, s1 = (int(s) & _U32 for s in seed[:2])
     return s0, s1
+
+
+def _head_map(seed: Sequence[int]) -> tuple[int, int, int]:
+    """(heads here, heads in all, first head) of a dropout seed: its words
+    after the two seed words, which place a call's rows among the heads of
+    a wider one (a tensor-parallel rank's heads among all of them); (1, 1,
+    0), the identity, without them."""
+    if len(seed) == 2:
+        return 1, 1, 0
+    local, total, base = (int(x) for x in seed[2:])
+    if local < 1 or base < 0 or base + local > total:
+        raise ValueError(f"head map ({local}, {total}, {base}): the rows' "
+                         f"heads must lie among the call's")
+    return local, total, base
 
 
 def _mulhilo(a: torch.Tensor, m: int):
@@ -89,11 +106,16 @@ def philox4x32_10(c: list, k0: int, k1: int) -> list:
 def dropout_keep_mask_plain(seed: Sequence[int], n: int, t: int, rate: float,
                             device=None) -> torch.Tensor:
     """(n, t, t) bool keep mask, bit for bit the kernels' draw: element
-    (head h, query i, key j) is word ``j & 3`` of Philox4x32-10 at counter
+    (row n, query i, key j) is word ``j & 3`` of Philox4x32-10 at counter
     (j >> 2, i, h, 0) under key (seed[0], seed[1]), kept iff below
-    ``dropout_threshold(rate)[0]``."""
+    ``dropout_threshold(rate)[0]``. The head h is the row n itself, or,
+    with a head map in ``seed`` (local, total, base; ``_head_map``), row n
+    of a call whose rows are (batch, local head) taken as head ``base`` +
+    n % local of ``total`` heads: h = (n // local) * total + base + n %
+    local."""
     thr, _ = dropout_threshold(rate)
     k0, k1 = _seed_words(seed)
+    local, total, base = _head_map(seed)
     groups = (t + 3) // 4
 
     def ar(m):
@@ -101,7 +123,9 @@ def dropout_keep_mask_plain(seed: Sequence[int], n: int, t: int, rate: float,
 
     c0 = ar(groups).view(1, 1, groups).expand(n, t, groups)
     c1 = ar(t).view(1, t, 1).expand(n, t, groups)
-    c2 = ar(n).view(n, 1, 1).expand(n, t, groups)
+    rows = ar(n)
+    heads = (rows // local) * total + base + rows % local
+    c2 = heads.view(n, 1, 1).expand(n, t, groups)
     words = philox4x32_10([c0, c1, c2, torch.zeros_like(c0)], k0, k1)
     bits = torch.stack(words, dim=-1).reshape(n, t, groups * 4)[..., :t]
     return bits < thr
@@ -224,7 +248,7 @@ def _aligned(*operands):
 def _kernel_args(q, dropout_rate, dropout_seed, *operands):
     """Checks the card-side operands (q and the other (N, T, D) tensors
     ``operands``); returns the dropout arguments (rate flag, uint32
-    threshold, 1/keep, seed words)."""
+    threshold, 1/keep, seed words, head map)."""
     n, t, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel takes head dims {HEAD_DIMS}; got {d}")
@@ -238,12 +262,13 @@ def _kernel_args(q, dropout_rate, dropout_seed, *operands):
         if dropout_seed is None:
             raise ValueError("dropout_rate needs dropout_seed")
         thr, inv_keep = dropout_threshold(dropout_rate)
-        return (1, thr, inv_keep, *_seed_words(dropout_seed))
-    return (0, 0, 1.0, 0, 0)
+        return (1, thr, inv_keep, *_seed_words(dropout_seed),
+                *_head_map(dropout_seed))
+    return (0, 0, 1.0, 0, 0, 1, 1, 0)
 
 
 _DROP_ARGTYPES = (ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
-                  ctypes.c_uint32, ctypes.c_uint32)
+                  ctypes.c_uint32, ctypes.c_uint32) + (ctypes.c_int,) * 3
 _SIZE_ARGTYPES = (ctypes.c_int,) * 3 + (ctypes.c_float,)
 
 
@@ -429,7 +454,9 @@ def mha_flash(q, k, v, padding_mask: Optional[torch.Tensor], scale: float,
     padding, with any padded frames of ``padding_mask`` (B, T, True =
     valid), enters as a -1e30 key bias. With ``dropout_rate`` > 0 the
     attention probabilities are dropped inside the kernels at the draw of
-    ``dropout_seed`` (two uint32 words) over the padded (B*H, T', T')."""
+    ``dropout_seed`` (two uint32 words, and optionally a head map: these
+    H heads are heads base..base+H-1 of ``total``, ``_head_map``) over the
+    padded (B*H, T', T')."""
     b, t, h, dh = q.shape
     pad = (-t) % block
     if pad:

@@ -3,7 +3,8 @@
 Counterpart of ``avsr_tpu/ops/pallas/stem_fuse.py`` (``bn_prelu_pool``)
 over (N, C, H, W) frames, H and W even. ``bn_prelu_pool`` dispatches on the
 device: CPU tensors run the plain twins (``bn_prelu_pool_plain``,
-``bn_prelu_pool_bwd_plain``), CUDA tensors launch the four kernels of
+``bn_prelu_pool_bwd1_plain``, ``bn_prelu_pool_bwd2_plain``), CUDA tensors
+launch the four kernels of
 ``csrc/stem_fuse.cu``, each counting its launches. The kernels read and
 write channels-last frames (``torch.channels_last``): the layout of the
 stem's Conv3d output on the card, which ``ResEncoder`` folds into frames as
@@ -21,7 +22,10 @@ a view, and the TPU kernel's NHWC.
 
 Training normalises with the batch statistics (biased variance
 E[x^2] - mean^2, not clamped) and returns them, without gradient, for the
-running averages; the backward saves x alone and recomputes the rest. The
+running averages; the backward saves x alone and recomputes the rest.
+Under data parallelism the statistics are the global batch's: the stats'
+sums and bwd1's sums are all-reduced over the data group (``core/dist``)
+between the kernels, on either device. The
 parameter gradients come back in the dtypes the parameters arrived in.
 Eval normalises with the running statistics. Arithmetic runs in fp32; on
 the CPU a float64 input keeps fp32 statistics and folded g, b, as the
@@ -31,10 +35,12 @@ JAX package's ``lean_reference`` does, and is otherwise float64.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 from torch.nn import functional as F
 
+from avsr_tpu_torch.core import dist
 from avsr_tpu_torch.ops.kernels import _build
 
 
@@ -126,12 +132,16 @@ def bn_prelu_pool_bwd1_plain(x, scale, bias, alpha, mean, rstd, dout):
     return dz.to(x.dtype), dgamma, dbeta, dalpha
 
 
-def bn_prelu_pool_bwd2_plain(x, scale, mean, rstd, dz, dgamma, dbeta):
+def bn_prelu_pool_bwd2_plain(x, scale, mean, rstd, dz, dgamma, dbeta,
+                             count: Optional[float] = None):
     """Plain torch twin of ``bn_prelu_pool_bwd2``: dx = scale * rstd *
-    (dz - dbeta/M - xhat dgamma/M) in x's dtype, dz in x's dtype."""
+    (dz - dbeta/M - xhat dgamma/M) in x's dtype, dz in x's dtype; M is
+    ``count``, the frames' positions (N H W) unless the statistics span
+    more (data parallelism: the global batch's, with dgamma and dbeta its
+    sums)."""
     cd = _compute_dtype(x)
     n, _, h, w = x.shape
-    m = float(n * h * w)
+    m = float(n * h * w) if count is None else float(count)
     rstd = _ch(rstd, cd)
     xhat = (x.to(cd) - _ch(mean, cd)) * rstd
     dx = _ch(scale, cd) * rstd * (
@@ -278,32 +288,61 @@ def _check(x, *params):
         raise ValueError(f"no bn_prelu_pool for device {x.device}")
 
 
+def _global_sums(rows, count=None):
+    """(rows, count) summed over the data group in one collective, count
+    (a number of positions) optional; as they are on one rank."""
+    if dist.data_size() == 1:
+        return rows, count
+    flat = [torch.stack([r.float() for r in rows]).reshape(-1)]
+    if count is not None:
+        flat.append(rows[0].new_full((1,), count, dtype=torch.float32))
+    packed = dist.all_reduce_(torch.cat(flat))
+    k = len(rows) * rows[0].numel()
+    return (list(packed[:k].view(len(rows), -1)),
+            None if count is None else packed[k])
+
+
 def _train_forward(x, scale, bias, alpha, eps):
-    """(out, mean, var, rstd) of the training forward on either device."""
-    if x.device.type == "cpu":
-        out, mean, var = bn_prelu_pool_plain(x, scale, bias, alpha, eps=eps,
-                                             train=True)
-        return out, mean, var, torch.rsqrt(var + eps)
+    """(out, mean, var, rstd, count) of the training forward on either
+    device: the channel sums (the stats kernel, or the twin's), summed
+    over the data group with the count of positions, the statistics from
+    them, then the apply (kernel or twin)."""
     n, _, h, w = x.shape
-    s, q = bn_prelu_pool_stats(x)
-    m = float(n * h * w)
+    if x.device.type == "cpu":
+        xa = x.float()
+        sums = [xa.sum(dim=(0, 2, 3)), (xa * xa).sum(dim=(0, 2, 3))]
+    else:
+        sums = list(bn_prelu_pool_stats(x))
+    (s, q), m = _global_sums(sums, float(n * h * w))
     mean = s / m
     var = q / m - mean * mean
     rstd = torch.rsqrt(var + eps)
-    return (bn_prelu_pool_apply(x, _pack(mean, rstd, scale, bias, alpha)),
-            mean, var, rstd)
+    if x.device.type == "cpu":
+        out = bn_prelu_pool_plain(x, scale, bias, alpha, eps=eps, train=False,
+                                  running_mean=mean, running_var=var)
+    else:
+        out = bn_prelu_pool_apply(x, _pack(mean, rstd, scale, bias, alpha))
+    return out, mean, var, rstd, m
 
 
 class BnPreluPoolFn(torch.autograd.Function):
     """Training-mode ``bn_prelu_pool``, differentiable in x, scale, bias and
     alpha; the batch mean and var are returned without gradient. Saves x
     and the (C,) statistics; the backward recomputes z, y and the pool's
-    routing."""
+    routing. Under data parallelism the statistics are the global
+    batch's (the stats kernel's sums and the count all-reduced over the
+    data group before the apply), and bwd1's sums of dz and dz * xhat are
+    all-reduced before bwd2, so dx is the gradient of every rank's loss,
+    as the unfused ``BatchNorm``'s ``all_reduce_sum`` gives it; the
+    gradients of scale, bias and alpha stay this rank's, as the unfused
+    path's do, and the trainer's mean over ranks finishes them."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, alpha, eps):
-        out, mean, var, rstd = _train_forward(x, scale, bias, alpha, eps)
+        out, mean, var, rstd, count = _train_forward(x, scale, bias, alpha,
+                                                     eps)
         ctx.save_for_backward(x, scale, bias, alpha, mean, rstd)
+        ctx.count = count
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -312,17 +351,21 @@ class BnPreluPoolFn(torch.autograd.Function):
         x, scale, bias, alpha, mean, rstd = ctx.saved_tensors
         dout = dout.to(x.dtype)
         if x.device.type == "cpu":
-            dx, dgamma, dbeta, dalpha = bn_prelu_pool_bwd_plain(
+            dz, dgamma, dbeta, dalpha = bn_prelu_pool_bwd1_plain(
                 x, scale, bias, alpha, mean, rstd, dout)
         else:
-            n, _, h, w = x.shape
-            m = float(n * h * w)
             dz, red = bn_prelu_pool_bwd1(
                 x, _pack(mean, rstd, scale, bias, alpha),
                 dout.contiguous(memory_format=CL))
             dbeta, dgamma, dalpha = red[0], red[1], red[2]
-            p2 = _pack(mean, rstd, scale.float() * rstd, dbeta / m,
-                       dgamma / m)
+        (g_beta, g_gamma), _ = _global_sums([dbeta, dgamma])
+        m = ctx.count
+        if x.device.type == "cpu":
+            dx = bn_prelu_pool_bwd2_plain(x, scale, mean, rstd, dz, g_gamma,
+                                          g_beta, count=m)
+        else:
+            p2 = _pack(mean, rstd, scale.float() * rstd, g_beta / m,
+                       g_gamma / m)
             dx = bn_prelu_pool_bwd2(x, p2, dz)
         return (dx, dgamma.to(scale.dtype), dbeta.to(bias.dtype),
                 dalpha.to(alpha.dtype), None)

@@ -7,9 +7,11 @@ optimizer state written in the background, and resume from the latest
 checkpoint (with the reference's ``ignore_data_skip=True``: the data
 stream restarts).
 
-Under data parallelism (``core/dist.py``) each rank collates
+Under data parallelism (``core/dist.py``) each data rank collates
 ``batch_size`` samples of its own share of the stream, so the global
-batch is ``batch_size`` x world size, and rank 0 alone logs and writes.
+batch is ``batch_size`` x the data size; under tensor parallelism the
+ranks of one model group take the same samples. Rank 0 alone logs and
+writes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from avsr_tpu_torch.core import dist
+from avsr_tpu_torch.core import tensor_parallel as tp
 from avsr_tpu_torch.data.dataset import shard_for_host
 from avsr_tpu_torch.train import trainer as T
 
@@ -178,7 +181,8 @@ def device_prefetch(batches: Iterator[Dict], device,
 
 def param_summary(model: torch.nn.Module) -> str:
     """Parameter counts per top-level module and the total (the reference
-    prints a torchsummary of the model at startup, script/train.py:256)."""
+    prints a torchsummary of the model at startup, script/train.py:256);
+    this rank's slices under tensor parallelism."""
     counts: Dict[str, int] = {}
     for name, p in model.named_parameters():
         top = name.split(".")[0]
@@ -276,7 +280,7 @@ def run_training(
     state = T.init_state(model_cfg, tcfg, seed=loop_cfg.seed, device=device,
                          pretrain_cfg=pretrain_cfg)
     if pretrained_variables is not None:
-        state.model.load_state_dict(pretrained_variables, strict=True)
+        tp.load_full_state_dict(state.model, pretrained_variables)
     if main:
         print("Model parameters:\n" + param_summary(state.model))
 

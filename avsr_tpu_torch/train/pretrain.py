@@ -102,7 +102,8 @@ def grad_multiply(x: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def _global_count(c: torch.Tensor) -> torch.Tensor:
-    """A position count over the global batch (no gradient)."""
+    """A position count over the global batch (no gradient): summed over
+    the data group, whose ranks hold the batch's shards."""
     return dist.all_reduce_sum(c.detach().float())
 
 
@@ -156,7 +157,7 @@ class AVHubertPretrainModel(nn.Module):
         tgt_logp = logp.gather(-1, targets[..., None].long())[..., 0]
         m_sel = mask_any & valid
         u_sel = ~mask_any & valid
-        world = dist.world_size()
+        world = dist.data_size()
         m_cnt = _global_count(m_sel.sum()).clamp_min(1)
         u_cnt = _global_count(u_sel.sum()).clamp_min(1)
         zero = tgt_logp.new_zeros(())

@@ -16,14 +16,27 @@ fp32 where JAX does not. BatchNorm reads its running statistics at the
 compute dtype and keeps them in fp32.
 
 Every random draw comes from the ``DropoutRng`` the state owns, seeded at
-``init_state`` (with the rank's offset under data parallelism).
+``init_state`` (with the data rank's offset under data parallelism).
 
-Data parallelism (``core/dist.py``, one process a card): each rank runs
-its shard of the global batch, and ``train_step`` all-reduces the mean of
-the gradients and of the metrics once a step, after the micro-batches and
-before the global norm and clipping; the frontend's BatchNorms take
-global batch statistics. Both losses are batch means over equal shards,
-so the step is the JAX package's step over the global batch.
+Data parallelism (``core/dist.py``, one process a card): each data rank
+runs its shard of the global batch, and ``train_step`` all-reduces the
+mean of the gradients and of the metrics over the data group once a step,
+after the micro-batches and before the global norm and clipping; the
+frontend's BatchNorms take global batch statistics. Both losses are batch
+means over equal shards, so the step is the JAX package's step over the
+global batch.
+
+Tensor parallelism (``core/tensor_parallel.py``, the JAX package's
+Megatron layout over the 'model' axis): ``init_state`` slices the model
+for its model rank before it makes the optimizer, so each rank keeps its
+slice of the split weights and of their AdamW moments. The ranks of one
+model group take the same batch (``train_step`` and ``eval_step``
+broadcast the first rank's over the group: a collator's own state, as an
+interferer pool's, may differ between the processes) and draw the same
+dropout masks, so their replicated parameters get equal gradients; the global norm sums the
+squares of the slices over the model group and counts each replicated
+tensor once. Checkpoints hold the full tensors, gathered before rank 0
+writes and sliced on restore, so they load at any model size.
 
 A batch with a ``targets`` field is a pretraining batch
 (``train/pretrain.py``): the model is then ``AVHubertPretrainModel`` and
@@ -45,6 +58,7 @@ import torch.distributed as tdist
 from torch.func import functional_call
 
 from avsr_tpu_torch.core import dist
+from avsr_tpu_torch.core import tensor_parallel as tp
 from avsr_tpu_torch.core.checkpoint import avsr_mapping, pretrain_mapping
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data.wire import VIDEO_MEAN, VIDEO_STD
@@ -153,7 +167,9 @@ def init_state(model_cfg: AVHubertAVSRConfig, train_cfg: TrainConfig,
     """The training state: ``model`` (moved to ``device``) or a new one
     with seeded random weights (``AVSRModel``, or with ``pretrain_cfg``
     the pretraining model over ``model_cfg.encoder``), the optimizer, its
-    schedule, and the run's ``DropoutRng`` from ``seed`` at this rank."""
+    schedule, and the run's ``DropoutRng`` from ``seed`` at this data
+    rank. Under tensor parallelism the model (made or given, full) is
+    sliced for this model rank first."""
     device = torch.device(device)
     if device.type == "cpu":
         warm_exp()
@@ -172,10 +188,11 @@ def init_state(model_cfg: AVHubertAVSRConfig, train_cfg: TrainConfig,
             with torch.device(device):
                 model = AVSRModel(model_cfg)
             init_weights(model, gen)
-    model = model.to(device)
+    model = tp.shard_model_(model.to(device), dist.model_rank(),
+                            dist.model_size())
     opt, sched = make_optimizer(model, train_cfg)
     return TrainState(train_cfg, model, opt, sched,
-                      DropoutRng(seed + 1, device, rank=dist.rank()))
+                      DropoutRng(seed + 1, device, rank=dist.data_rank()))
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
@@ -229,10 +246,22 @@ def loss_fn(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
     return out.loss, metrics
 
 
-def _global_norm(tensors) -> torch.Tensor:
+def _global_norm(named) -> torch.Tensor:
+    """The norm of every (name, gradient) together; under tensor
+    parallelism the slices' squares are summed over the model group and
+    each replicated tensor counts once."""
     # sums of squares, not linalg.vector_norm: on the CPU the latter
     # accumulates fp32 with ~1e-4 relative error at 5 M elements (C18)
-    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+    def sq(ts):
+        return torch.stack([t.float().pow(2).sum() for t in ts]).sum()
+
+    if dist.model_size() == 1:
+        return sq([g for _, g in named]).sqrt()
+    split = [tp.shard_dim(n, g.dim()) is not None for n, g in named]
+    sliced = dist.all_reduce_(sq([g for (_, g), s in zip(named, split) if s]),
+                              "model")
+    whole = sq([g for (_, g), s in zip(named, split) if not s])
+    return (whole + sliced).sqrt()
 
 
 def train_step(state: TrainState,
@@ -242,8 +271,10 @@ def train_step(state: TrainState,
     gradient is the mean over the A micro-batches, which run in order and
     thread the BatchNorm statistics; the metrics are their means.
     ``grad_norm`` is the global norm before clipping. Returns device
-    tensors (no host sync)."""
+    tensors (no host sync). Under tensor parallelism every rank of a
+    model group steps on its first rank's batch."""
     model, opt, cfg = state.model, state.optimizer, state.cfg
+    dist.broadcast_(list(batch.values()), "model")
     accum = batch["videos"].dim() > 5
     micro = ([{k: v[i] for k, v in batch.items()}
               for i in range(batch["videos"].shape[0])] if accum else [batch])
@@ -253,17 +284,18 @@ def train_step(state: TrainState,
         loss, m = loss_fn(model, mb, state.rng, True, cfg.compute_dtype)
         loss.backward()
         sums = m if sums is None else {k: sums[k] + m[k] for k in m}
-    params = [p for p in model.parameters() if p.grad is not None]
+    named = [(n, p.grad) for n, p in model.named_parameters()
+             if p.grad is not None]
+    grads = [g for _, g in named]
     if accum:
-        for p in params:
-            p.grad.div_(len(micro))
+        for g in grads:
+            g.div_(len(micro))
     metrics = {k: v / len(micro) for k, v in sums.items()}
-    grads = [p.grad for p in params]
-    if dist.world_size() > 1:
+    if dist.data_size() > 1:
         # the global batch's gradient and metrics: one collective a step
         vals = list(metrics.values())
         dist.all_reduce_mean_(grads + vals)
-    norm = _global_norm(grads)
+    norm = _global_norm(named)
     # optax clip_by_global_norm: g / norm * max_norm once norm >= max_norm
     clip = norm >= cfg.max_grad_norm
     for g in grads:
@@ -277,34 +309,68 @@ def train_step(state: TrainState,
 
 def eval_step(state: TrainState,
               batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    dist.broadcast_(list(batch.values()), "model")
     with torch.no_grad():
         return loss_fn(state.model, batch, None, False,
                        state.cfg.compute_dtype)[1]
 
 
+def _optimizer_names(state: TrainState) -> List[str]:
+    """The parameter names in the order of the optimizer's state dict."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
+def _optimizer_state(state: TrainState, sd: Dict, slice_: bool) -> Dict:
+    """The optimizer state dict ``sd`` with each sliced parameter's AdamW
+    moments gathered to the full tensor (``slice_=False``: this rank's
+    optimizer's state dict) or sliced for this model rank (``slice_=True``:
+    a full one)."""
+    if dist.model_size() == 1:
+        return sd
+    names = _optimizer_names(state)
+    out = dict(sd, state=dict(sd["state"]))
+    for i, st in sd["state"].items():
+        d = tp.shard_dim(names[i], st["exp_avg"].dim())
+        if d is None:
+            continue
+        out["state"][i] = {
+            k: (v if k not in ("exp_avg", "exp_avg_sq") else
+                tp.chunk(v, d, dist.model_rank(), dist.model_size()).clone()
+                if slice_ else tp.gather(v, d))
+            for k, v in st.items()}
+    return out
+
+
 def save_checkpoint(path: str, state: TrainState) -> None:
     """Blocking save of the model, optimizer, schedule, step and the
-    random generators' states."""
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "scheduler": state.scheduler.state_dict(),
-                "step": state.step, "rng": state.rng.state()}, path)
+    random generators' states; the full tensors under tensor parallelism
+    (every rank calls it, rank 0 writes)."""
+    tree = {"model": tp.full_state_dict(state.model),
+            "optimizer": _optimizer_state(
+                state, state.optimizer.state_dict(), slice_=False),
+            "scheduler": state.scheduler.state_dict(),
+            "step": state.step, "rng": state.rng.state()}
+    if dist.is_main():
+        torch.save(tree, path)
 
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a ``save_checkpoint`` file, or a ``CheckpointManager`` step's,
-    into ``state`` (same model config and device) and return it. Each
-    rank takes its own generators' states."""
+    into ``state`` (same model config and device, any model size) and
+    return it. Each data rank takes its own generators' states."""
     ck = torch.load(path, map_location=state.rng.device, weights_only=True)
-    state.model.load_state_dict(ck["model"], strict=True)
-    state.optimizer.load_state_dict(ck["optimizer"])
+    tp.load_full_state_dict(state.model, ck["model"])
+    state.optimizer.load_state_dict(
+        _optimizer_state(state, ck["optimizer"], slice_=True))
     state.scheduler.load_state_dict(ck["scheduler"])
     rng = ck["rng"]
-    if isinstance(rng, list):  # a CheckpointManager step: one a rank
-        if len(rng) != dist.world_size():
+    if isinstance(rng, list):  # a CheckpointManager step: one a data rank
+        if len(rng) != dist.data_size():
             raise ValueError(f"{path} holds the generators of {len(rng)} "
-                             f"ranks, not {dist.world_size()}")
-        rng = rng[dist.rank()]
+                             f"data ranks, not {dist.data_size()}")
+        rng = rng[dist.data_rank()]
     state.rng.load_state({k: v.cpu() for k, v in rng.items()})
     state.step = ck["step"]
     return state
@@ -329,8 +395,9 @@ class CheckpointManager:
     into a temporary directory, renames it into place and prunes the
     oldest steps. One save is in flight at a time: the next ``save``,
     ``wait`` or ``close`` joins it and raises what it raised. Under data
-    parallelism rank 0 writes (every rank's generator states gathered to
-    it) and every rank restores.
+    and tensor parallelism rank 0 writes (every data rank's generator
+    states and the tensor-parallel slices, model and AdamW moments,
+    gathered to it) and every rank restores.
     """
 
     FILE = "state.pt"
@@ -371,11 +438,15 @@ class CheckpointManager:
         if dist.world_size() > 1:
             rngs = [None] * dist.world_size()
             tdist.all_gather_object(rngs, state.rng.state())
+            # a model group's ranks draw alike: keep its first rank's
+            rngs = rngs[::dist.model_size()]
+        model = tp.full_state_dict(state.model)
+        optimizer = _optimizer_state(state, state.optimizer.state_dict(),
+                                     slice_=False)
         if not dist.is_main():
             return
         tree = self._host_copy({
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": model, "optimizer": optimizer,
             "scheduler": state.scheduler.state_dict(),
             "step": state.step})
         tree["rng"] = rngs

@@ -195,7 +195,31 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    demand, host supply by workers and fbank route, end to end) and the
    trace parser (``tools/trace.py``) over one traced training step at
    ``bench_train``'s defaults (the three flash kernels by name, 24
-   launches a step each, as their wrappers counted).
+   launches a step each, as their wrappers counted);
+14. runs tensor parallelism (A12) and the fused stem under data
+   parallelism (A15) as two ranks on one card (``phase_parallel``): B1 and
+   B6 on a tensor-parallel rank's rows with a head-mapped dropout draw
+   (``tp_head_map_check``: the forward's keep mask bit for bit the full
+   16-head draw's rows of heads 8-15, out, dq, dk and dv within phase 3's
+   limits of their twins); then the flagship (dropout off, seed-14
+   weights, one B=6 batch of 384 frames, two shorter, cuDNN's
+   deterministic algorithms) in one process, two fp32 steps plain, two
+   with ``AVSR_FUSED_STEM=1`` and two plain with the audio 2^-20 relative
+   off (the step's conditioning, ROADMAP C42), and in two spawned
+   processes on ``cuda:0``, each a rank of a ``gloo`` group made before
+   ``core/dist.init`` (NCCL refuses two ranks on one device; gloo stages
+   each collective through the host): (a) data 1 x model 2, the two fp32
+   steps' loss, CTC and attention losses within 1e-4 relative of the
+   one-process run on every rank, the gradient norm and each part's
+   within the larger of 1e-4 and 3 times what the perturbed audio moves
+   them by (``TP_LIMITS``, ``TP_FLOOR_FACTOR``), B1, B6 dq and B6 dkv 24
+   launches a step on each rank at N = 6 x 8 rows, no stem kernel and no
+   twin; then bf16 compute, each rank's ms a step and peak memory printed
+   (two ranks share one card: not a scaling figure); (b) data 2 x model
+   1 with ``AVSR_FUSED_STEM=1``, B=3 a rank, the fused one-process run's
+   four metrics and each part's gradient norm within 1e-4, each of the
+   four stem kernels once a step on each rank, no twin. A rank that fails
+   fails the phase.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -2383,6 +2407,18 @@ def phase_training(dev, smi: str, fused_stem: bool = False,
     return launches, res
 
 
+def param_group(name: str) -> str:
+    """The part of ``AVSRModel`` a parameter belongs to: the video
+    frontend, its projection, the audio projection, the fusion, the
+    transformer, the CTC head, the decoder."""
+    parts = name.split(".")
+    if parts[0] != "encoder":
+        return parts[0]
+    if parts[1].startswith("feature_extractor"):
+        return ".".join(parts[1:3])
+    return "transformer" if parts[1] == "encoder" else "fusion"
+
+
 def phase_train_parity(dev, fused_stem: bool = False):
     """One fp32 train_step of the same full-width weights on the card
     (kernels) and on the CPU (twins): B=2, T=32 with the second utterance
@@ -2409,15 +2445,6 @@ def phase_train_parity(dev, fused_stem: bool = False):
                                   label_lengths=[12, 9],
                                   vocab=min(5000, cfg.odim - 1))
 
-    def group(name):  # the video frontend, its projection, the audio
-        # projection, the fusion, the transformer, the CTC head, the decoder
-        parts = name.split(".")
-        if parts[0] != "encoder":
-            return parts[0]
-        if parts[1].startswith("feature_extractor"):
-            return ".".join(parts[1:3])
-        return "transformer" if parts[1] == "encoder" else "fusion"
-
     out = {}
     if fused_stem:
         os.environ["AVSR_FUSED_STEM"] = "1"
@@ -2431,7 +2458,7 @@ def phase_train_parity(dev, fused_stem: bool = False):
         clip = max(m["grad_norm"] / state.cfg.max_grad_norm, 1.0)
         sq = {}
         for name, p in state.model.named_parameters():
-            sq[group(name)] = sq.get(group(name), 0.0) + float(
+            sq[param_group(name)] = sq.get(param_group(name), 0.0) + float(
                 p.grad.double().pow(2).sum())
         out[str(where)] = (m, {k: v ** 0.5 * clip for k, v in sq.items()})
         print(f"# train_step on {where}: {time.perf_counter() - t0:.1f} s")
@@ -4591,6 +4618,430 @@ def phase_tools(dev, smi: str) -> dict:
     return res
 
 
+# ------------------------------------------------------------ phase 14
+
+TP_SEED = 14
+TP_LENGTHS = ([384, 384, 352, 384, 300, 384], [48, 40, 48, 30, 48, 48])
+TP_STEPS = 2  # fp32 steps held against the one-process run
+TP_TIMED = 3  # bf16 steps timed on each rank
+# relative limits against the one-process run. At these random weights
+# the CTC loss makes the step's gradient ill-conditioned (ROADMAP C42: the
+# audio input 2^-20 relative off moves the one-process gradient norm by
+# ~1e-4, the decoder's by 1e-9), so the tensor-parallel run's gradient
+# norm, and each part's, is held to the larger of 1e-4 and TP_FLOOR_FACTOR
+# times what that perturbation moves it by in the same run
+TP_LIMITS = {"loss": 1e-4, "loss_ctc": 1e-4, "loss_att": 1e-4,
+             "grad_norm": 1e-4}
+TP_FLOOR_FACTOR = 3.0
+TP_PERTURB = 2.0 ** -20  # the audio's relative offset for the floor
+STEM_KERNELS = ("bn_prelu_pool_stats", "bn_prelu_pool_apply",
+                "bn_prelu_pool_bwd1", "bn_prelu_pool_bwd2")
+
+
+def tp_head_map_check(dev) -> float:
+    """B1 and B6 on a tensor-parallel rank's rows (the second half of 16
+    heads, N = 6*8, T=384, D=64, dropout 0.1): the forward's keep mask,
+    read out as phase 3 reads it, is bit for bit the full 16-head draw's
+    rows of those heads; out, dq, dk and dv against the twins with the
+    same head-mapped seed, within phase 3's limits (fp32 1e-4, bf16 2e-2
+    of the largest entry). Returns the largest error over the limit."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    heads, local, t, d = TRAIN_HEADS // TRAIN_BATCH, 8, T_PAD, 64
+    n = TRAIN_BATCH * local
+    rate, seed = 0.1, (20261018, 5)
+    mapped = (*seed, local, heads, heads - local)
+    full = pfa.dropout_keep_mask_plain(seed, TRAIN_BATCH * heads, t, rate,
+                                       dev)
+    want = full.view(TRAIN_BATCH, heads, t, t)[:, heads - local:].reshape(
+        n, t, t)
+    check(torch.equal(want, pfa.dropout_keep_mask_plain(mapped, n, t, rate,
+                                                        dev)),
+          "the twin's head-mapped draw is not the full draw's rows")
+    worst = 0.0
+    g = torch.Generator(device=dev).manual_seed(TP_SEED)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        z = torch.zeros(n, t, d, device=dev, dtype=dtype)
+        zb = torch.zeros(n, t, device=dev)
+        cols = []
+        for j0 in range(0, t, d):
+            vb = torch.zeros(n, t, d, device=dev)
+            vb[:, j0:j0 + d, :d] = torch.eye(d, device=dev) * t
+            cols.append(pfa.flash_attention_fwd(z, z, vb.to(dtype), zb, 1.0,
+                                                rate, mapped)[0].float())
+        kept = torch.cat(cols, dim=2) > 0.5
+        check(torch.equal(kept, want),
+              f"flash dropout mask with a head map differs ({dtype})")
+        q, k, v, do, bias = _attention_inputs(g, dev, dtype, TRAIN_BATCH,
+                                              local, t, d)
+        scale = d ** -0.5
+        out, lse = pfa.flash_attention_fwd(q, k, v, bias, scale, rate,
+                                           mapped)
+        dq, dk, dv = pfa.flash_attention_bwd(q, k, v, bias, out, do, lse,
+                                             scale, rate, mapped)
+        w_out, _ = pfa.flash_attention_plain(q, k, v, bias, scale,
+                                             dropout_rate=rate,
+                                             dropout_seed=mapped)
+        wants = pfa.flash_attention_bwd_plain(q, k, v, bias, out, do, lse,
+                                              scale, dropout_rate=rate,
+                                              dropout_seed=mapped)
+        for name, got, w in zip(("out", "dq", "dk", "dv"),
+                                (out, dq, dk, dv), (w_out, *wants)):
+            e = (got.float() - w.float()).abs().max().item()
+            lim = tol * w.float().abs().max().item()
+            check(e <= lim, f"flash {name} with a head map ({dtype}): "
+                            f"{e:.3e} > {lim:.3e}")
+            worst = max(worst, e / lim)
+    print(f"# phase 14: B1/B6 with a head map (heads {heads - local}-"
+          f"{heads - 1} of {heads}, N={n}): keep mask bit for bit the full "
+          f"draw's, outputs within {worst:.3f} of phase 3's limits")
+    return worst
+
+
+def tp_config():
+    """The flagship config with every dropout off."""
+    from avsr_tpu_torch.core.config import AVHubertAVSRConfig
+
+    cfg = AVHubertAVSRConfig(dropout_rate=0.0,
+                             transformer_attn_dropout_rate=0.0)
+    e = cfg.encoder
+    e.hidden_dropout = e.attention_dropout = e.activation_dropout = 0.0
+    e.dropout_input = e.modality_dropout = 0.0
+    return cfg
+
+
+def tp_state(dev):
+    """A fp32 train state of the flagship on seed-``TP_SEED`` weights, lr
+    1e-4 from the first step, sliced for this rank's model group (whole
+    in one process)."""
+    from avsr_tpu_torch.core.weights import init_weights
+    from avsr_tpu_torch.models.e2e import AVSRModel
+    from avsr_tpu_torch.train import trainer as T
+
+    cfg = tp_config()
+    with torch.device(dev):
+        model = AVSRModel(cfg)
+    init_weights(model, torch.Generator(device=dev).manual_seed(TP_SEED))
+    # no warm-up: the first step updates, so the second tests the update
+    return T.init_state(cfg, T.TrainConfig(compute_dtype="float32",
+                                           warmup_steps=0),
+                        seed=TP_SEED, device=dev, model=model)
+
+
+def tp_batch(dev):
+    """B=6 synthetic clips of 384 frames (two shorter) and 48 labels."""
+    from avsr_tpu_torch.data.synthetic import synthetic_train_batch
+    from avsr_tpu_torch.train import trainer as T
+
+    frames, labels = TP_LENGTHS
+    return T.to_device(synthetic_train_batch(
+        np.random.RandomState(TP_SEED), TRAIN_BATCH, max(frames),
+        max(labels), video_lengths=frames, label_lengths=labels,
+        vocab=5000), dev)
+
+
+def tp_steps(state, batch, steps: int, groups=None) -> list:
+    """The metrics of ``steps`` train steps; with ``groups`` (a dict) also
+    the first step's gradient norm by ``param_group``, before clipping,
+    over the gathered gradients (a collective under tensor parallelism)."""
+    from avsr_tpu_torch.core import tensor_parallel as tp
+    from avsr_tpu_torch.train import trainer as T
+
+    out = []
+    for i in range(steps):
+        m = {k: v.item() for k, v in T.train_step(state, batch).items()}
+        if groups is not None and i == 0:
+            grads = tp.gather_state_dict(
+                {n: p.grad for n, p in state.model.named_parameters()})
+            # train_step clipped the gradients in place: undo its factor
+            clip = max(m["grad_norm"] / state.cfg.max_grad_norm, 1.0)
+            sq = {}
+            for n, g in grads.items():
+                sq[param_group(n)] = sq.get(param_group(n), 0.0) + float(
+                    g.double().pow(2).sum())
+            groups.update({k: v ** 0.5 * clip for k, v in sq.items()})
+        out.append(m)
+    return out
+
+
+@contextlib.contextmanager
+def flash_rows():
+    """Yields the list of N (rows: batch x heads) of every flash attention
+    call ``mha_flash`` makes in the block."""
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    rows, real = [], pfa.flash_attention
+
+    def spy(q, *args, **kwargs):
+        rows.append(q.shape[0])
+        return real(q, *args, **kwargs)
+
+    pfa.flash_attention = spy
+    try:
+        yield rows
+    finally:
+        pfa.flash_attention = real
+
+
+def _tp_counters():
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+    from avsr_tpu_torch.ops.kernels import stem_fuse as psf
+
+    return ((pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
+             pfa.flash_attention_bwd_dkv)
+            + tuple(getattr(psf, name) for name in STEM_KERNELS))
+
+
+def _tp_rank(rank: int, port: int, out) -> None:
+    """One of phase 14's two ranks on ``cuda:0``: a ``gloo`` group made
+    here, then ``core/dist.init``. (a) data 1 x model 2: ``TP_STEPS`` fp32
+    steps on the whole batch (metrics, launches, the flash calls' rows,
+    twin calls), then bf16 compute: a warm-up step and ``TP_TIMED`` timed
+    ones (ms a step, peak memory). (b) data 2 x model 1 with
+    ``AVSR_FUSED_STEM=1``: ``TP_STEPS`` fp32 steps on this rank's half.
+    Puts (rank, results or the traceback) on ``out``."""
+    import dataclasses
+    import traceback
+
+    import torch.distributed as tdist
+
+    res = None
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        dev = torch.device("cuda:0")
+        torch.cuda.set_device(dev)
+        tdist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                                 f"{port}", rank=rank, world_size=2)
+        from avsr_tpu_torch.core import dist
+
+        dist.init(str(dev), data_parallel=1, model_parallel=2)
+        counters = _tp_counters()
+        batch = tp_batch(dev)
+        res = {}
+        state = tp_state(dev)
+        reset_launches(counters)
+        groups = {}
+        with twin_calls() as calls, flash_rows() as rows:
+            metrics = tp_steps(state, batch, TP_STEPS, groups)
+        res["tp"] = dict(metrics=metrics, launches=read_launches(counters),
+                         twins=dict(calls), rows=sorted(set(rows)),
+                         groups=groups,
+                         layout=(dist.data_size(), dist.model_size()))
+        state.cfg = dataclasses.replace(state.cfg, compute_dtype="bfloat16")
+        tp_steps(state, batch, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        bf16 = tp_steps(state, batch, TP_TIMED)
+        res["tp_bf16"] = dict(
+            ms=1e3 * (time.perf_counter() - t0) / TP_TIMED,
+            peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+            finite=all(math.isfinite(m[k]) for m in bf16 for k in m))
+        del state
+        torch.cuda.empty_cache()
+
+        dist.set_layout(2, 1)
+        half = TRAIN_BATCH // 2
+        mine = {k: v[rank * half:(rank + 1) * half] for k, v in batch.items()}
+        os.environ["AVSR_FUSED_STEM"] = "1"
+        state = tp_state(dev)
+        reset_launches(counters)
+        groups = {}
+        with twin_calls() as calls:
+            metrics = tp_steps(state, mine, TP_STEPS, groups)
+        res["stem"] = dict(metrics=metrics, launches=read_launches(counters),
+                           twins=dict(calls), groups=groups,
+                           layout=(dist.data_size(), dist.model_size()))
+        tdist.barrier()
+    except BaseException:
+        res = traceback.format_exc()
+    finally:
+        out.put((rank, res))
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+
+def phase_parallel(dev, smi: str) -> dict:
+    """Tensor parallelism (A12) and the fused stem under data parallelism
+    (A15) at full width, as two ranks on one card (``phase_parallel``):
+    the head-mapped dropout of B1 and B6 (``tp_head_map_check``); the
+    one-process references (``TP_STEPS`` fp32 steps of the flagship,
+    dropout off, on seed-``TP_SEED`` weights and one B=6 batch of 384
+    frames, plain, with ``AVSR_FUSED_STEM=1``, and plain with the audio
+    ``TP_PERTURB`` relative off, cuDNN deterministic); then two spawned
+    ranks on ``cuda:0`` in a ``gloo`` group (``_tp_rank``; NCCL refuses
+    two ranks on one device, and gloo stages each collective through the
+    host). Checks: (a) data 1 x model 2 gives each step's losses within
+    ``TP_LIMITS`` of the one-process run, and its gradient norm and each
+    part's within the larger of 1e-4 and ``TP_FLOOR_FACTOR`` times what
+    the perturbed audio moves them by; B1, B6 dq and B6 dkv launch 24
+    times a step on each rank at N = 6 x 8 rows, no twin runs; its bf16
+    steps are finite; (b) data 2 x model 1 with the fused stem (B=3 a
+    rank) gives the fused one-process run's metrics within ``TP_LIMITS``
+    and each part's gradient norm within 1e-4, and each of the four stem
+    kernels launches once a step on each rank. Prints each rank's bf16 ms
+    a step and peak memory: two ranks share one card, so these are not a
+    scaling figure. Returns the phase's numbers."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    from avsr_tpu_torch.ops.kernels import flash_attention as pfa
+
+    res = {"head_map_err_over_limit": tp_head_map_check(dev)}
+    batch = tp_batch(dev)
+    # the references, with cuDNN's deterministic algorithms as the ranks
+    # run: plain, with the fused stem, and plain with the audio
+    # TP_PERTURB relative off (the step's conditioning: the floor that
+    # scales the tensor-parallel gradient norms' limits)
+    ref, groups = {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, stem in (("tp", False), ("stem", True),
+                           ("perturbed", False)):
+            if stem:
+                os.environ["AVSR_FUSED_STEM"] = "1"
+            b = batch
+            if name == "perturbed":
+                b = dict(batch, audios=batch["audios"] * (1 + TP_PERTURB))
+            try:
+                state = tp_state(dev)
+                groups[name] = {}
+                ref[name] = tp_steps(state, b, TP_STEPS, groups[name])
+            finally:
+                os.environ.pop("AVSR_FUSED_STEM", None)
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del batch, b
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a - b)
+
+    floor = {k: max(rel(m[k], w[k]) for m, w in zip(ref["perturbed"],
+                                                    ref["tp"]))
+             for k in TP_LIMITS}
+    floor_parts = {k: rel(v, groups["tp"][k])
+                   for k, v in groups["perturbed"].items()}
+    res["floor_perturbed"] = floor
+    res["floor_perturbed_parts"] = floor_parts
+    # the limits: the stem's run is held to TP_LIMITS; the tensor-parallel
+    # run's gradient norm and each part's to the floor-scaled limit
+    limits = {"stem": dict(TP_LIMITS), "tp": dict(
+        TP_LIMITS, grad_norm=max(TP_LIMITS["grad_norm"],
+                                 TP_FLOOR_FACTOR * floor["grad_norm"]))}
+    part_limits = {"stem": {k: 1e-4 for k in floor_parts},
+                   "tp": {k: max(1e-4, TP_FLOOR_FACTOR * v)
+                          for k, v in floor_parts.items()}}
+    res["limits"] = limits
+    print(f"# {smi}: phase 14 one-process run with the audio {TP_PERTURB:g} "
+          f"relative off: {json.dumps(floor)}; |grad| by part: "
+          f"{json.dumps(floor_parts)}")
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_tp_rank, args=(r, port, out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    ranks, t0 = {}, time.perf_counter()
+    try:
+        while len(ranks) < len(procs):
+            try:
+                rank, got = out.get(timeout=5)
+                ranks[rank] = got
+                continue
+            except queue.Empty:
+                pass
+            # a rank that died without a word, or one that hangs
+            gone = [r for r, p in enumerate(procs)
+                    if r not in ranks and not p.is_alive()]
+            check(not gone, f"phase 14: ranks {gone} exited with codes "
+                            f"{[procs[r].exitcode for r in gone]}")
+            check(time.perf_counter() - t0 < 600, f"phase 14: ranks "
+                  f"{sorted({0, 1} - set(ranks))} sent nothing in 600 s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in (0, 1):
+        got = ranks.get(r)
+        check(isinstance(got, dict), f"phase 14 rank {r} failed:\n{got}")
+        check(procs[r].exitcode == 0, f"phase 14 rank {r} exit code "
+                                      f"{procs[r].exitcode}")
+    for case in ("tp", "stem"):
+        got = ranks[0][case]
+        print(f"# {smi}: phase 14 {case} rank 0 against one process, by "
+              f"step: " + json.dumps({k: [rel(m[k], w[k]) for m, w in zip(
+                  got["metrics"], ref[case])] for k in ref[case][0]})
+              + "; |grad| by part (step 1): " + json.dumps(
+                  {k: rel(v, groups[case][k])
+                   for k, v in got["groups"].items()}))
+    layers = tp_config().encoder.num_hidden_layers
+    flash = [fn.__name__ for fn in (pfa.flash_attention_fwd,
+                                    pfa.flash_attention_bwd_dq,
+                                    pfa.flash_attention_bwd_dkv)]
+    worst = {}
+    for case, layout in (("tp", (1, 2)), ("stem", (2, 1))):
+        for r in (0, 1):
+            got = ranks[r][case]
+            check(tuple(got["layout"]) == layout,
+                  f"phase 14 {case}: layout {got['layout']}")
+            check(not any(got["twins"].values()),
+                  f"phase 14 {case} rank {r}: a plain twin ran on the card:"
+                  f" {got['twins']}")
+            for i, (m, want) in enumerate(zip(got["metrics"], ref[case])):
+                for k, lim in limits[case].items():
+                    d = rel(m[k], want[k])
+                    worst[(case, k)] = max(worst.get((case, k), 0.0), d)
+                    check(d <= lim, f"phase 14 {case} rank {r} step {i} "
+                                    f"{k}: {m[k]} vs {want[k]} one-process "
+                                    f"({d:.2e}, limit {lim:g})")
+            for part, lim in part_limits[case].items():
+                d = rel(got["groups"][part], groups[case][part])
+                check(d <= lim, f"phase 14 {case} rank {r}: the gradient "
+                                f"norm of {part} {d:.2e} off the "
+                                f"one-process run's (limit {lim:.2e})")
+            n = got["launches"]
+            if case == "tp":
+                check(all(n[f] == layers * TP_STEPS for f in flash),
+                      f"phase 14 tp rank {r}: flash launches {n}")
+                check(got["rows"] == [TRAIN_BATCH * 8],
+                      f"phase 14 tp rank {r}: flash rows {got['rows']}")
+                check(all(n[k] == 0 for k in STEM_KERNELS),
+                      f"phase 14 tp rank {r}: stem kernels ran: {n}")
+            else:
+                check(all(n[k] == TP_STEPS for k in STEM_KERNELS),
+                      f"phase 14 stem rank {r}: stem launches {n}")
+        check(ranks[0][case]["metrics"] == ranks[1][case]["metrics"],
+              f"phase 14 {case}: the ranks' metrics differ")
+    for r in (0, 1):
+        b = ranks[r]["tp_bf16"]
+        check(b["finite"], f"phase 14 rank {r}: bf16 step not finite")
+        print(f"# {smi}: phase 14 data 1 x model 2, bf16, B=6, 384 frames, "
+              f"rank {r} of 2 sharing one card: {b['ms']:.1f} ms a step, "
+              f"peak memory {b['peak_gb']:.2f} GB (not a scaling figure)")
+    res["worst_rel"] = {f"{c} {k}": v for (c, k), v in worst.items()}
+    res["launches"] = {c: ranks[0][c]["launches"] for c in ("tp", "stem")}
+    res["bf16_ms"] = [ranks[r]["tp_bf16"]["ms"] for r in (0, 1)]
+    res["bf16_peak_gb"] = [ranks[r]["tp_bf16"]["peak_gb"] for r in (0, 1)]
+    res["reference"] = {k: ref[k] for k in ("tp", "stem")}
+    print(f"# {smi}: phase 14 worst relative difference from the one-process "
+          f"run (limits {json.dumps(limits)}): "
+          f"{json.dumps(res['worst_rel'])}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4690,6 +5141,12 @@ def main() -> int:
     tools = phase_tools(dev, smi)
     print(f"# {smi}: phase 13 passed in {time.perf_counter() - t13:.1f} s")
     print(f"# {smi}: phase 13 results: {json.dumps(tools)}")
+    print("# phase 14: tensor parallelism and the fused stem under data "
+          "parallelism, two ranks on one card")
+    t14 = time.perf_counter()
+    parallel = phase_parallel(dev, smi)
+    print(f"# {smi}: phase 14 passed in {time.perf_counter() - t14:.1f} s")
+    print(f"# {smi}: phase 14 results: {json.dumps(parallel)}")
     print(f"# all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     # launches: each kernel's count in the run of its path (the fused

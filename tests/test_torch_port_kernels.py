@@ -826,6 +826,39 @@ def test_cpu_route_warms_exp_first(route, monkeypatch):
     assert cpu.warm_exp.cache_info().misses == 1
 
 
+@pytest.mark.parametrize("entry", ["encoder", "model"])
+def test_cpu_modules_warm_exp_first(entry):
+    """A caller that reaches an exp through the model's modules themselves,
+    not through a wrapper or an entry point, warms torch's CPU exp before
+    the first module runs, once a process (ROADMAP C21):
+    ``AVHubertModel.forward`` and ``AVSRModel.forward`` on the CPU."""
+    from avsr_tpu_torch.models.e2e import AVSRModel
+    from avsr_tpu_torch.ops import cpu
+    from tests.torch_port_common import tiny_port_cfg
+
+    model = AVSRModel(tiny_port_cfg()).eval()
+    seen = []
+    model.encoder.feature_extractor_audio.proj.register_forward_pre_hook(
+        lambda *_: seen.append(cpu.warm_exp.cache_info().currsize))
+    rng = np.random.RandomState(0)
+    video = t(rng.randn(1, 4, 88, 88, 1).astype(np.float32))
+    audio = t(rng.randn(1, 4, 104).astype(np.float32))
+    lengths = torch.tensor([4])
+    if entry == "encoder":
+        def call():
+            return model.encoder(audio, video)
+    else:
+        def call():
+            return model(video, audio, torch.tensor([[3, 4]]), lengths,
+                         torch.tensor([2]))
+    cpu.warm_exp.cache_clear()
+    with torch.no_grad():
+        call()
+        call()
+    assert seen == [1, 1]
+    assert cpu.warm_exp.cache_info().misses == 1
+
+
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "k",
                                   "scan_dtype", "gather_index_dtype",
                                   "gather_rank", "update_shape",

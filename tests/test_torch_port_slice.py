@@ -204,7 +204,7 @@ def test_recognizer_defaults_match_jax():
 def test_port_imports_no_jax():
     """The serving path, the CTC scorer, the kernel wrappers (the fused stem
     and decoder layer included), the trainer, the training loop, CLI,
-    pretraining objective, datasets and data parallelism, the conformer
+    pretraining objective, datasets, data and tensor parallelism, the conformer
     family and ShuffleNetV2 with what the eval CLI's auto_avsr loader
     imports (the conformer weight tables, the raw-waveform transform),
     bench_train, the tools (the kernel self-check, kernel_smoke, the trace
@@ -221,7 +221,7 @@ def test_port_imports_no_jax():
             "avsr_tpu_torch.train.trainer, "
             "avsr_tpu_torch.cli.train, avsr_tpu_torch.train.loop, "
             "avsr_tpu_torch.train.pretrain, avsr_tpu_torch.data.dataset, "
-            "avsr_tpu_torch.core.dist, "
+            "avsr_tpu_torch.core.dist, avsr_tpu_torch.core.tensor_parallel, "
             "avsr_tpu_torch.models.conformer, avsr_tpu_torch.core.checkpoint, "
             "avsr_tpu_torch.data.transforms, avsr_tpu_torch.cli.evaluation, "
             "avsr_tpu_torch.models.shufflenetv2, "
