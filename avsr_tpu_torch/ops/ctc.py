@@ -2,12 +2,13 @@
 
 - CTC: torch.nn.CTCLoss(reduction='sum', zero_infinity=True) divided by the
   batch size (reference ctc.py:64-73): the mean of the per-sample NLL with
-  non-finite samples zeroed. The per-sample NLL comes from
-  ``F.ctc_loss(reduction="none", zero_infinity=True)``, which also gives an
-  infeasible sample a zero gradient (without it that gradient is NaN); as
-  in the JAX package, a sample whose alignment is infeasible
-  (T < L + repeats) is zeroed by an explicit rule as well, so both packages
-  zero the same samples.
+  non-finite samples zeroed. The per-sample NLL and its gradient come from
+  ``ops/kernels/ctc_loss.ctc_loss`` (``csrc/ctc_loss.cu`` on the card, its
+  plain twin on the CPU), which reads the lengths on the device, zeroes a
+  sample whose alignment is infeasible (T < L + repeats) or whose NLL is
+  not finite, gives it a zero gradient, as the JAX package does, and
+  normalises its recursions so that the fp32 gradient stays near float64
+  at any T.
 - Label smoothing: KLDiv(log_softmax(x), smoothed one-hot) summed over
   non-padding positions, normalised by the batch size (reference
   label_smoothing_loss.py:13-62, normalize_length=False).
@@ -18,7 +19,8 @@ from __future__ import annotations
 import math
 
 import torch
-from torch.nn import functional as F
+
+from avsr_tpu_torch.ops.kernels import ctc_loss as pctc
 
 
 def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
@@ -28,19 +30,9 @@ def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
 
     logits (B, T, V) unnormalised; labels (B, L) padded with any value
     outside the valid region."""
-    b, t, _ = logits.shape
-    l = labels.shape[1]
-    pos = torch.arange(l, device=labels.device)[None, :]
-    labels = torch.where(pos < label_lengths[:, None], labels, 0)
-    logp = torch.log_softmax(logits.float(), dim=-1).transpose(0, 1)
-    per_seq = F.ctc_loss(logp, labels, logit_lengths, label_lengths,
-                         blank=blank_id, reduction="none",
-                         zero_infinity=True)
-    valid = pos[:, : l - 1] < (label_lengths[:, None] - 1)
-    repeats = ((labels[:, 1:] == labels[:, :-1]) & valid).sum(-1)
-    feasible = logit_lengths >= label_lengths + repeats
-    per_seq = torch.where(torch.isfinite(per_seq) & feasible, per_seq, 0.0)
-    return per_seq.sum() / b
+    per_seq = pctc.ctc_loss(logits.float(), logit_lengths, labels,
+                            label_lengths, blank=blank_id)
+    return per_seq.sum() / logits.shape[0]
 
 
 def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,

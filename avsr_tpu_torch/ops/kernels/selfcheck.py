@@ -26,7 +26,12 @@ mismatch, build or launch failure raises; a failed case raises
   0.7 and a keep pattern equal to the twin's Philox draw (read out of the
   kernel with q = k = 0 and V = T x identity blocks), the output and the
   three gradients within 1e-4 (fp32) or 2e-2 (bf16) of the twin's largest
-  entry.
+  entry; then the CTC loss (``ctc_loss_fwd``, ``ctc_loss_bwd``; no JAX
+  check, as it has no Pallas kernel) at B=4, T=120, V=41, L=20 with a
+  shorter, an infeasible and a repeated-label sample, given the twins'
+  log-probs: deterministic, keep equal, the NLL within 1e-6 relative and
+  the gradient within 1e-6 of the twin's largest entry, the infeasible
+  sample 0.
 
 The step of ``beam_update`` and ``decode_attention`` goes in as the
 (1,) int32 device tensor that the beam's device loop hands them.
@@ -46,6 +51,7 @@ import torch
 
 from avsr_tpu_torch.ops.kernels import _build
 from avsr_tpu_torch.ops.kernels import beam_update as pbu
+from avsr_tpu_torch.ops.kernels import ctc_loss as pcl
 from avsr_tpu_torch.ops.kernels import decode_attention as pda
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 from avsr_tpu_torch.ops.kernels import row_gather as prg
@@ -61,6 +67,9 @@ BEAM_KW = dict(w_dec=0.9, w_ctc=0.1, eos=5048, neg=-1.0e30, d_end=-10.0,
                m_end=3)
 FLASH = dict(n=16, d=64, rate=0.3, seed=(123, 456), lengths=(256, 640))
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the CTC loss's case: both sides run the recursions in float64
+CTC = dict(b=4, t=120, v=41, l=20, seed=25)
+CTC_TOL = 1e-6
 LINEAR_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
@@ -379,9 +388,53 @@ def check_flash(t: int, dtype, rng: np.random.RandomState,
         _near_largest(kernel, f"{case} {name}", g, want, tol)
 
 
+def ctc_inputs() -> tuple:
+    """Logits (B, T, V) of std 2, labels (B, L) with a run of three
+    equal labels, padded with -1, and the lengths: sample 1 shorter,
+    sample 2 infeasible (T = L - 1)."""
+    b, t, v, l = CTC["b"], CTC["t"], CTC["v"], CTC["l"]
+    rng = np.random.RandomState(CTC["seed"])
+    logits = (rng.randn(b, t, v) * 2).astype(np.float32)
+    labels = rng.randint(1, v, (b, l))
+    labels[:, 4:7] = labels[:, 4:5]
+    llen, lablen = np.full(b, t), np.full(b, l)
+    llen[1], lablen[1], llen[2] = t - 30, l - 5, l - 1
+    labels[np.arange(l)[None, :] >= lablen[:, None]] = -1
+    return logits, llen, labels, lablen
+
+
+def check_ctc_loss(device="cuda") -> None:
+    """The CTC loss's two kernels against the twins on the same
+    log-probs."""
+    logits, llen, labels, lablen = (_t(a, device) for a in ctc_inputs())
+    case = "B={b} T={t} V={v} L={l}".format(**CTC)
+    logp = torch.log_softmax(logits, -1)
+    w = torch.linspace(0.5, 1.5, CTC["b"], device=device)
+    runs = []
+    for _ in range(2):
+        nll, keep, alpha, beta = pcl.ctc_loss_fwd(logp, labels, llen, lablen)
+        runs.append((nll, keep, pcl.ctc_loss_bwd(
+            logp, alpha, beta, labels, llen, lablen, keep, w)))
+    (nll, keep, grad), again = runs
+    _equal("ctc_loss_fwd", case + " determinism", again[0], nll)
+    _equal("ctc_loss_bwd", case + " determinism", again[2], grad)
+    want = pcl.ctc_fwd_plain(logp, labels, llen, lablen)
+    _equal("ctc_loss_fwd", case + " keep", keep, want[1])
+    _close("ctc_loss_fwd", case + " nll", nll, want[0], CTC_TOL, 0.0)
+    if nll[2].item() != 0.0:
+        raise _fail("ctc_loss_fwd", case, "the infeasible sample's NLL is "
+                    "not 0")
+    if grad[2].any():
+        raise _fail("ctc_loss_bwd", case, "the infeasible sample's "
+                    "gradient is not 0")
+    want_g = pcl.ctc_bwd_plain(logp, want[2], want[3], labels, llen, lablen,
+                               want[1], w)
+    _near_largest("ctc_loss_bwd", case + " gradient", grad, want_g, CTC_TOL)
+
+
 def check_train_kernels(device="cuda") -> None:
     """The training stem tail, then flash attention with dropout at the
-    JAX check's lengths, in fp32 and in bf16."""
+    JAX check's lengths, in fp32 and in bf16, then the CTC loss."""
     check_stem_fuse(True, device)
     rng = np.random.RandomState(7)
     for t in FLASH["lengths"]:
@@ -389,3 +442,4 @@ def check_train_kernels(device="cuda") -> None:
         for dtype in (torch.float32, torch.bfloat16):
             rng.set_state(state)  # both types see the JAX check's draws
             check_flash(t, dtype, rng, device)
+    check_ctc_loss(device)

@@ -30,8 +30,8 @@ model FLOPs), ``mfu`` (those FLOPs
 over the step time and the H100 SXM dense bf16 peak, 989 TFLOP/s; null on
 the CPU), ``loss``, ``grad_norm`` (of the last step), ``peak_mem_gb``
 (null on the CPU) and the kernels' launches per timed step (the three
-flash kernels, and the four of the fused stem tail, which run when
-``AVSR_FUSED_STEM=1`` is set, the JAX package's switch). With
+flash kernels, the CTC loss's two, and the four of the fused stem tail,
+which run when ``AVSR_FUSED_STEM=1`` is set, the JAX package's switch). With
 ``--trace`` (card only) one more step runs under ``torch.profiler``: the
 record gains the device's busy time (the union of the CUDA op intervals),
 its idle share of the traced step and of the untraced step time, and the
@@ -51,6 +51,7 @@ import torch
 from avsr_tpu_torch.core.config import AVHubertAVSRConfig
 from avsr_tpu_torch.data.synthetic import synthetic_train_batch
 from avsr_tpu_torch.models import remat
+from avsr_tpu_torch.ops.kernels import ctc_loss as pcl
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
 from avsr_tpu_torch.ops.kernels import stem_fuse as psf
 from avsr_tpu_torch.train import trainer as T
@@ -62,7 +63,8 @@ FLASH = (pfa.flash_attention_fwd, pfa.flash_attention_bwd_dq,
          pfa.flash_attention_bwd_dkv)
 STEM = (psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
         psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2)
-KERNELS = FLASH + STEM
+CTC = (pcl.ctc_loss_fwd, pcl.ctc_loss_bwd)
+KERNELS = FLASH + STEM + CTC
 
 
 def parse_args(argv=None) -> argparse.Namespace:

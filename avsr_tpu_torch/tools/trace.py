@@ -58,6 +58,8 @@ KERNELS = {
     "apply_kernel": "bn_prelu_pool_apply",
     "bwd1_kernel": "bn_prelu_pool_bwd1",
     "bwd2_kernel": "bn_prelu_pool_bwd2",
+    "ctc_forward_kernel": "ctc_loss_fwd",
+    "ctc_grad_kernel": "ctc_loss_bwd",
 }
 _KERNEL_NAME = re.compile(r"^(?:void )?\(anonymous namespace\)::("
                           + "|".join(KERNELS) + r")[<(]")

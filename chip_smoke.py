@@ -7,7 +7,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the kernels (one nvcc per source, all at once), with the time;
-3. holds each of the thirteen kernels, and the pre-beam top-k that
+3. holds each of the thirteen kernels, the CTC loss's two, and the
+   pre-beam top-k that
    gathers the CTC candidate rows in its launch (``topk_gather_rows``),
    against its plain PyTorch twin, with
    a stated limit, and times the kernel, the twin and, where one PyTorch
@@ -62,7 +63,14 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    weights and caches; the record's time) beside the unfused layer step;
    and at 22 lanes, B=32 (704 lanes, phase 8's fused beam of 22: a 128-row
    cache, 98 source rows) at pos 0, 37, 74 and 130, checked the same way
-   and timed at pos 74;
+   and timed at pos 74; the CTC loss (``csrc/ctc_loss.cu``, replacing
+   the JAX package's ``optax.ctc_loss``, no Pallas kernel) at the
+   training shape B=6, T=384, V=5049, L=48 (the record) and B=24, with
+   one utterance shorter, one infeasible and a run of repeated labels:
+   NLL and gradient against the fp32 twin on the card and against the
+   float64 twin, ``F.ctc_loss``'s fp32 gradient error printed beside
+   them, two calls bit-equal, forward and backward timed beside the
+   twin and ``F.ctc_loss`` (``ctc_loss_record``);
    as information, the eager composition the stem kernels replace, and
    ``bn_prelu_pool`` on channels-last and on NCHW x; the paths that beams
    above the fast kernels' limits take (ROADMAP C28), each exact against
@@ -95,7 +103,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    masters, the config's dropouts, attention dropout 0.1 in the kernels):
    2 warm-up steps and 5 timed ones, launch counts set to 0 just before
    the timed steps and read just after (24 a step for each of the three
-   flash kernels, no plain twin called), finite loss and gradient norm,
+   flash kernels, one a step for each of the CTC loss's two kernels, no
+   plain twin called), finite loss and gradient norm,
    parameters changed; prints s/step, samples/s, MFU and peak memory;
    then again with ``AVSR_FUSED_STEM=1`` (each stem kernel once a step),
    and with ``--fp32`` (fp32 fine-tuning: fp32 compute, the same checks,
@@ -140,7 +149,8 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    floor, ``full`` below ``none`` in memory), ``--pretrain`` for 3 steps
    (its five metrics), ``AVSR_FUSED_STEM=1`` for 2 steps (the stem
    kernels' launches) and the host syncs of steps 3-5 between two log
-   steps, none of them from the loop's code;
+   steps: none at all, from anywhere (the CTC loss reads its lengths on
+   the card);
 10. runs the eval CLI's auto_avsr path (``phase_auto_avsr``): the
    full-width ``ConformerAVSR()`` (two 12x768 conformer encoders, an
    8192-wide fusion head, a 6x768 decoder, vocab 5049) of seed-0 weights,
@@ -218,8 +228,9 @@ Builds the port's CUDA kernels from ``avsr_tpu_torch/csrc`` and then, on
    (two ranks share one card: not a scaling figure); (b) data 2 x model
    1 with ``AVSR_FUSED_STEM=1``, B=3 a rank, the fused one-process run's
    four metrics and each part's gradient norm within 1e-4, each of the
-   four stem kernels once a step on each rank, no twin. A rank that fails
-   fails the phase.
+   four stem kernels once a step on each rank, no twin; prints the
+   perturbed-audio floor and the TP gradient norm's difference beside a
+   flat 1e-4 (ROADMAP C42). A rank that fails fails the phase.
 
 Any failure exits non-zero before the last line. The line before the last
 holds the per-kernel JSON record: ``launches`` is the count from the run of
@@ -231,7 +242,8 @@ pre-beam top-k's launch, ``topk_gather_rows``, whose launches count in
 only the fused bookkeeping runs, the fused-layer run for
 ``decoder_layer_step``, phase 10's B=8 fused-layer beam for
 ``decoder_layer_step_fp32``, phase 6's timed steps for the three flash
-kernels
+kernels and for ``ctc_loss`` (its forward's and backward's launches
+together)
 (its fp32 run's for ``flash_attention_bwd_dq_fp32`` and
 ``flash_attention_bwd_dkv_fp32``)
 and its ``AVSR_FUSED_STEM=1`` run's for the four stem kernels, phase 8's
@@ -1489,6 +1501,141 @@ def phase_train_kernels(dev):
     return records
 
 
+CTC_LABELS = 48  # bench_train's default labels a clip
+CTC_BATCHES = (TRAIN_BATCH, 24)  # bench_train's default batch and B=24
+# the CTC loss's limits: the kernel against its fp32 twin (both run the
+# recursions in float64; the fp32 exps differ by an ulp or two): the NLL
+# relative, the gradient of its largest entry; the kernel and the twin
+# against the float64 twin, the gradient's relative L2
+CTC_TWIN_TOL, CTC_F64_TOL = 1e-6, 1e-5
+
+
+def ctc_case(dev, b: int, seed: int):
+    """CTC inputs at the training shape: fp32 logits (b, T_PAD, VOCAB) of
+    std 1, labels (b, CTC_LABELS) of ids in [1, VOCAB - 1) with a run of
+    three equal labels, padded with -1; sample 1 shorter (300 frames, 40
+    labels), sample 2 infeasible (40 frames < 48 labels)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logits = torch.randn(b, T_PAD, VOCAB, generator=g, device=dev)
+    labels = torch.randint(1, VOCAB - 1, (b, CTC_LABELS), generator=g,
+                           device=dev)
+    labels[:, 10:13] = labels[:, 10:11]
+    llen = torch.full((b,), T_PAD, device=dev)
+    lablen = torch.full((b,), CTC_LABELS, device=dev)
+    llen[1], lablen[1], llen[2] = 300, 40, 40
+    pad = torch.arange(CTC_LABELS, device=dev)[None, :] >= lablen[:, None]
+    return logits, llen, labels.masked_fill(pad, -1), lablen
+
+
+def ctc_loss_record(dev, b: int):
+    """The CTC loss (``csrc/ctc_loss.cu``, forward and backward) at the
+    training shape (``ctc_case``): the per-sample NLL and the logits'
+    gradient of the batch mean against the fp32 twin on the card
+    (``CTC_TWIN_TOL``) and against the float64 twin (``CTC_F64_TOL``),
+    the infeasible sample exactly 0, two calls bit-equal; ``F.ctc_loss``'s
+    fp32 gradient (what the port ran before) against the float64 twin,
+    printed. Times the port's loss, forward and backward from the logits
+    (log-softmax, the two kernels), each kernel alone, the twin, and
+    ``F.ctc_loss`` forward and backward (the library call: its CUDA
+    lengths read on the host, as the port ran it). The bound: the logits
+    read and the gradient written once (the recursions' operations are
+    negligible); the forward is a chain of T dependent frame steps, whose
+    time is printed a step."""
+    from torch.nn import functional as F
+
+    from avsr_tpu_torch.ops.kernels import ctc_loss as pcl
+
+    logits, llen, labels, lablen = ctc_case(dev, b, 25 + b)
+    x = logits.clone().requires_grad_()
+
+    def run(fn, xx):
+        nll = fn(xx, llen, labels, lablen)
+        (g,) = torch.autograd.grad(nll.sum() / b, xx)
+        return nll.detach(), g
+
+    def library(xx):
+        lp = torch.log_softmax(xx, -1).transpose(0, 1)
+        nll = F.ctc_loss(lp, labels.clamp_min(0), llen, lablen,
+                         reduction="none", zero_infinity=True)
+        (g,) = torch.autograd.grad(nll.sum() / b, xx)
+        return nll.detach(), g
+
+    got, got_g = run(pcl.ctc_loss, x)
+    again, again_g = run(pcl.ctc_loss, x)
+    twin, twin_g = run(pcl.ctc_loss_plain, x)
+    x64 = logits.double().requires_grad_()
+    ref, ref_g = run(pcl.ctc_loss_plain, x64)
+    lib, lib_g = library(x)
+    torch.cuda.synchronize()
+
+    def rel_l2(a, want):
+        return ((a.double() - want).norm() / want.norm()).item()
+
+    ok = ref > 0
+    errs = dict(
+        nll_vs_twin=((got - twin).abs() / twin.abs().clamp_min(1e-30))[
+            ok].max().item(),
+        grad_vs_twin=_rel_err(got_g, twin_g),
+        nll_vs_f64=((got.double() - ref).abs() / ref)[ok].max().item(),
+        grad_vs_f64=rel_l2(got_g, ref_g),
+        twin_grad_vs_f64=rel_l2(twin_g, ref_g),
+        library_grad_vs_f64=rel_l2(lib_g, ref_g),
+        library_nll_vs_f64=((lib.double() - ref).abs() / ref)[ok].max()
+        .item())
+    print(f"# ctc_loss B={b} (T={T_PAD}, V={VOCAB}, L={CTC_LABELS}; NLL "
+          f"{ref[ok].mean().item():.1f} a sample): " + json.dumps(errs))
+    check(torch.equal(got, again) and torch.equal(got_g, again_g),
+          f"ctc_loss B={b}: two calls differ")
+    check(got[2] == 0 and ref[2] == 0 and not got_g[2].any(),
+          f"ctc_loss B={b}: the infeasible sample is not zero")
+    check(not got_g[1, 300:].any(),
+          f"ctc_loss B={b}: frames past a length have a gradient")
+    check(bool(ok.sum() == b - 1), f"ctc_loss B={b}: feasible NLLs {ref}")
+    check(errs["nll_vs_twin"] <= CTC_TWIN_TOL
+          and errs["grad_vs_twin"] <= CTC_TWIN_TOL,
+          f"ctc_loss B={b}: kernel vs twin {errs}")
+    check(errs["nll_vs_f64"] <= CTC_TWIN_TOL
+          and errs["grad_vs_f64"] <= CTC_F64_TOL
+          and errs["twin_grad_vs_f64"] <= CTC_F64_TOL,
+          f"ctc_loss B={b}: kernel or twin vs float64 {errs}")
+
+    logp = torch.log_softmax(logits, -1)
+    nll, keep, alpha, beta = pcl.ctc_loss_fwd(logp, labels, llen, lablen)
+    ones = torch.full_like(nll, 1.0 / b)
+    fwd_ms = cuda_ms(lambda: pcl.ctc_loss_fwd(logp, labels, llen, lablen))
+    bwd_ms = cuda_ms(lambda: pcl.ctc_loss_bwd(logp, alpha, beta, labels,
+                                              llen, lablen, keep, ones))
+    rec = dict(
+        source="avsr_tpu_torch/csrc/ctc_loss.cu",
+        replaces="avsr_tpu/ops/ctc.py:35 (optax.ctc_loss, no Pallas kernel)",
+        max_abs_err=(got_g - twin_g).abs().max().item(),
+        ms=cuda_ms(lambda: run(pcl.ctc_loss, x)),
+        plain_ms=cuda_ms(lambda: run(pcl.ctc_loss_plain, x), iters=1,
+                         warmup=1, repeats=3),
+        library_ms=cuda_ms(lambda: library(x)),
+        library="F.ctc_loss",
+        fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+        # the logits read and the gradient written, once each
+        bound=bound(nbytes(logits, got_g, labels, llen, lablen), 0.0,
+                    "fp32"),
+        grad_rel_l2_vs_f64=errs["grad_vs_f64"],
+        library_grad_rel_l2_vs_f64=errs["library_grad_vs_f64"])
+    print(f"# ctc_loss B={b}: forward and backward {rec['ms']:.4f} ms "
+          f"(forward kernel {fwd_ms:.4f} ms, {1e3 * fwd_ms / T_PAD:.3f} us "
+          f"a frame step of its chain; backward kernel {bwd_ms:.4f} ms), "
+          f"twin {rec['plain_ms']:.4f} ms, F.ctc_loss {rec['library_ms']:.4f}"
+          f" ms, bound {rec['bound'][0]:.6f} ms ({rec['bound'][1]})")
+    return rec
+
+
+def ctc_loss_records(dev) -> dict:
+    """``ctc_loss_record`` at B=6 (the record) and B=24 (printed)."""
+    recs = {b: ctc_loss_record(dev, b) for b in CTC_BATCHES}
+    print(f"# ctc_loss at B=24: " + json.dumps(
+        {k: v for k, v in recs[24].items() if k != "source"}))
+    return {"ctc_loss": recs[TRAIN_BATCH]}
+
+
 def _stem_inputs(g, dev, n, dtype, ties=False):
     """The stem tail's input (n, 64, 44, 44) in ``dtype``, its fp32 scale,
     bias and alpha, and a cotangent (n, 64, 22, 22), both channels-last as
@@ -2293,7 +2440,8 @@ TWINS = {"flash_attention": ("flash_attention_plain",
                              "dropout_keep_mask_plain"),
          "stem_fuse": ("bn_prelu_pool_plain", "bn_prelu_pool_bwd_plain",
                        "bn_prelu_pool_bwd1_plain", "bn_prelu_pool_bwd2_plain",
-                       "pool_bwd_plain", "_batch_stats_plain")}
+                       "pool_bwd_plain", "_batch_stats_plain"),
+         "ctc_loss": ("ctc_fwd_plain", "ctc_bwd_plain")}
 
 
 SERVING_TWINS = {"decode_attention": ("decode_attention_plain",),
@@ -2391,6 +2539,10 @@ def phase_training(dev, smi: str, fused_stem: bool = False,
                  "flash_attention_bwd_dkv"):
         check(per_step[name] == layers,
               f"{name}: {per_step[name]} launches a step, not {layers}")
+    # the CTC loss: one forward and one backward a micro-batch
+    for name in ("ctc_loss_fwd", "ctc_loss_bwd"):
+        check(per_step[name] == args.accum,
+              f"{name}: {per_step[name]} launches a step, not {args.accum}")
     fwd = per_step["bn_prelu_pool_stats"], per_step["bn_prelu_pool_apply"]
     bwd = per_step["bn_prelu_pool_bwd1"], per_step["bn_prelu_pool_bwd2"]
     if fused_stem:
@@ -2981,14 +3133,17 @@ def loop_spy(sync_steps=None):
     that synchronises with the host is recorded in ``syncs`` from the
     start of step ``first`` up to the metrics fetch after step ``last``
     (``torch.cuda.set_sync_debug_mode("warn")``), as the innermost frame
-    of the port that made it (file:line) and the torch frame that warned.
+    of the port that made it (file:line, or "outside the port") and the
+    torch frame that warned; a warning raised inside the spy's own call
+    that turns the watch on is not a sync of the step and goes to
+    ``watch`` (with its message) instead.
     """
     import traceback
     import warnings
 
     from avsr_tpu_torch.train import loop, trainer
 
-    rec = {"train": [], "evals": 0, "logs": [], "syncs": []}
+    rec = {"train": [], "evals": 0, "logs": [], "syncs": [], "watch": []}
     real = (trainer.train_step, trainer.eval_step, loop.MetricsLogger.log,
             loop._fetch_mean)
     watch = {}
@@ -3003,13 +3158,16 @@ def loop_spy(sync_steps=None):
         ours = [f for f in traceback.extract_stack()[:-1]
                 if "/avsr_tpu_torch/" in f.filename
                 or f.filename.endswith("chip_smoke.py")]
-        where = "outside the port"
+        torch_at = f"{os.path.basename(filename)}:{lineno}"
         if ours and ours[-1].filename.endswith("chip_smoke.py"):
-            where = f"chip_smoke.py:{ours[-1].lineno} (the watch itself)"
-        elif ours:
+            rec["watch"].append((f"chip_smoke.py:{ours[-1].lineno}",
+                                 torch_at, str(message)[:200]))
+            return
+        where = "outside the port"
+        if ours:
             where = (f"{ours[-1].filename.split('/avsr_tpu_torch/')[-1]}:"
                      f"{ours[-1].lineno}")
-        rec["syncs"].append((where, f"{os.path.basename(filename)}:{lineno}"))
+        rec["syncs"].append((where, torch_at))
 
     def train_step(state, batch):
         if sync_steps and state.step + 1 == sync_steps[0]:
@@ -3152,13 +3310,16 @@ def phase_train_cli(dev, smi: str):
     5. ``AVSR_FUSED_STEM=1`` for 2 steps: the stem kernels launch as in
        phase 6, on channels-last frames;
     6. 5 steps with a log at step 5 only, every host sync of steps 3-5
-       recorded (``loop_spy``): none may come from the loop's code."""
+       recorded (``loop_spy``): there must be none, from anywhere.
+    Step 1 also counts the CTC loss's kernels: one forward a micro-batch
+    and eval batch, one backward a micro-batch."""
     import gc
     import tempfile
 
     from avsr_tpu_torch.cli import train as cli
     from avsr_tpu_torch.core.config import AVHubertAVSRConfig
     from avsr_tpu_torch.data import tokenizer
+    from avsr_tpu_torch.ops.kernels import ctc_loss as pcl
     from avsr_tpu_torch.ops.kernels import flash_attention as pfa
     from avsr_tpu_torch.ops.kernels import stem_fuse as psf
     from avsr_tpu_torch.train.pretrain import METRICS
@@ -3167,6 +3328,7 @@ def phase_train_cli(dev, smi: str):
              pfa.flash_attention_bwd_dkv)
     stem = (psf.bn_prelu_pool_stats, psf.bn_prelu_pool_apply,
             psf.bn_prelu_pool_bwd1, psf.bn_prelu_pool_bwd2)
+    ctc = (pcl.ctc_loss_fwd, pcl.ctc_loss_bwd)
     assets = tokenizer._DEFAULT_ASSET_DIRS
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
         cfg = AVHubertAVSRConfig()
@@ -3178,7 +3340,7 @@ def phase_train_cli(dev, smi: str):
         layers = cfg.encoder.num_hidden_layers
 
         def run(out, extra, **spy):
-            for fn in flash + stem:
+            for fn in flash + stem + ctc:
                 fn.launches = 0
             argv = (TRAIN_CLI_ARGS + ["--model_name_or_path", ckpt,
                                       "--output_dir", os.path.join(root, out)]
@@ -3193,7 +3355,7 @@ def phase_train_cli(dev, smi: str):
             rec.update(wall=time.perf_counter() - t0, twins=calls,
                        seen=seen, peak=torch.cuda.max_memory_allocated() / 1e9,
                        launches={fn.__name__: fn.launches
-                                 for fn in flash + stem})
+                                 for fn in flash + stem + ctc})
             return state, rec
 
         try:
@@ -3234,6 +3396,10 @@ def phase_train_cli(dev, smi: str):
                   and n["flash_attention_bwd_dq"] == layers * micro
                   and n["flash_attention_bwd_dkv"] == layers * micro,
                   f"phase 9: flash launches {n} for {micro} micro-batches "
+                  f"and {rec['evals']} eval batches")
+            check(n["ctc_loss_fwd"] == micro + rec["evals"]
+                  and n["ctc_loss_bwd"] == micro,
+                  f"phase 9: CTC launches {n} for {micro} micro-batches "
                   f"and {rec['evals']} eval batches")
             check(not any(rec["twins"].values()),
                   f"phase 9: a plain twin ran ({rec['twins']})")
@@ -3304,14 +3470,16 @@ def phase_train_cli(dev, smi: str):
             for loc, torch_loc in rec["syncs"]:
                 key = f"{loc} (torch {torch_loc})"
                 where[key] = where.get(key, 0) + 1
-            print(f"# phase 9 host syncs in steps {SYNC_STEPS[0]}-"
+            print(f"# {smi}: phase 9 host syncs in steps {SYNC_STEPS[0]}-"
                   f"{SYNC_STEPS[1]} (no log between), by the port's frame "
                   f"that made them: {len(rec['syncs'])}: "
                   + (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
-                     or "none"))
-            check(not any(k.startswith(("train/loop.py", "cli/train.py"))
-                          for k in where),
-                  f"phase 9: the loop's own code synchronised: {where}")
+                     or "none")
+                  + f"; the watch's own warnings: {rec['watch']}")
+            # none at all: the step, the loss included, queues ahead
+            check(not rec["syncs"],
+                  f"phase 9: {len(rec['syncs'])} host syncs between two "
+                  f"log steps: {where}")
             del state
             gc.collect()
             torch.cuda.empty_cache()
@@ -5039,6 +5207,16 @@ def phase_parallel(dev, smi: str) -> dict:
     print(f"# {smi}: phase 14 worst relative difference from the one-process "
           f"run (limits {json.dumps(limits)}): "
           f"{json.dumps(res['worst_rel'])}")
+    # ROADMAP C42: the step's conditioning with the CTC kernel, against a
+    # flat 1e-4 on the tensor-parallel gradient norm
+    c42 = dict(floor_grad_norm=floor["grad_norm"],
+               floor_parts_max=max(floor_parts.values()),
+               tp_grad_norm=worst[("tp", "grad_norm")],
+               three_floors_within_1e_4=bool(
+                   TP_FLOOR_FACTOR * floor["grad_norm"] <= 1e-4),
+               tp_within_1e_4=bool(worst[("tp", "grad_norm")] <= 1e-4))
+    res["c42"] = c42
+    print(f"# {smi}: phase 14 C42 with the CTC kernel: " + json.dumps(c42))
     return res
 
 
@@ -5086,6 +5264,7 @@ def main() -> int:
           f"{serving_fwd['library_ms']:.4f} ms ({serving_fwd['library']})")
     records.update(phase_train_kernels(dev))
     records.update(phase_fuse_kernels(dev))
+    records.update(ctc_loss_records(dev))
     print("# phase 4: full-width serving, bf16, B=8, 375 frames")
     runs = phase_serving(dev, smi)
     print("# phase 5: full-width slice parity, cuda vs cpu")
@@ -5166,6 +5345,10 @@ def main() -> int:
     records["decode_attention_fp32"]["max_abs_err"] = max(
         records["decode_attention_fp32"]["max_abs_err"], tf32_err)
     main_path.update(train_launches)
+    # the CTC loss's record: its forward and backward kernels' launches in
+    # phase 6's timed steps
+    main_path["ctc_loss"] = (train_launches["ctc_loss_fwd"]
+                             + train_launches["ctc_loss_bwd"])
     # the fp32 backward's: phase 6's fp32 run
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         main_path[f"{name}_fp32"] = fp32_launches[name]
@@ -5190,7 +5373,8 @@ def main() -> int:
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                     bound_by=r["bound"][1], library_ms=r["library_ms"],
-                    **{k: r[k] for k in ("unfused_ms", "cuda_cores_ms")
+                    **{k: r[k] for k in ("unfused_ms", "cuda_cores_ms",
+                                         "fwd_ms", "bwd_ms")
                        if k in r})
                for name, r in records.items()]
     print(json.dumps({"kernels": kernels}))

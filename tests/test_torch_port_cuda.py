@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from avsr_tpu_torch.ops.kernels import beam_update as pbu
+from avsr_tpu_torch.ops.kernels import ctc_loss as pcl
 from avsr_tpu_torch.ops.kernels import decode_attention as pda
 from avsr_tpu_torch.ops.kernels import decoder_layer as pdl
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa
@@ -1463,3 +1464,80 @@ def test_device_loop_matches_host_loop(dev, fused):
     assert stats["captures"] >= 1 and stats2["captures"] == 0
     assert stats2["replays"] == stats["replays"] >= 1
     assert launched == host_launched
+
+
+def _ctc_case(b, tt, v, l, seed):
+    """Logits (B, T, V) of std 2, labels (B, L) with runs of repeats,
+    padded with -1 and with ids past V; sample 1 shorter, sample 2
+    infeasible (T = L - 1), the last with no labels."""
+    g = _gen(seed)
+    logits = torch.randn(b, tt, v, generator=g) * 2
+    labels = torch.randint(1, v, (b, l), generator=g)
+    if l > 4:
+        labels[:, 2:5] = labels[:, 2:3]
+    llen = torch.full((b,), tt)
+    lablen = torch.full((b,), l)
+    llen[1], lablen[1] = tt - tt // 3, max(0, l - 3)
+    llen[2] = max(1, l - 1)
+    lablen[-1] = 0
+    pad = torch.arange(l)[None, :] >= lablen[:, None]
+    labels = torch.where(pad, torch.where(torch.arange(b)[:, None] % 2 == 0,
+                                          -1, v + 7), labels)
+    return logits, llen, labels, lablen
+
+
+@pytest.mark.parametrize("b,tt,v,l,blank", [(6, 384, 5049, 48, 0),
+                                            (4, 300, 37, 130, 0),
+                                            (4, 33, 9, 5, 4)])
+def test_ctc_loss_kernel_matches_plain(dev, b, tt, v, l, blank):
+    """The kernels given the CPU twins' log-probs: the per-sample NLL
+    within 1e-6 relative, alpha, beta and the logits' gradient within 1e-6
+    of their largest entries (both run the recursions in float64; the fp32
+    exps differ by an ulp or two), keep equal. Then the loss from the
+    logits through autograd against the twin on the card (the same
+    log-softmax): the same limits, the infeasible sample's NLL and
+    gradient exactly 0, frames past a length exactly 0, two calls
+    bit-equal. L=130 holds 261 states, three chunks of a block's
+    threads."""
+    logits, llen, labels, lablen = _ctc_case(b, tt, v, l, tt)
+    w = torch.linspace(0.5, 1.5, b)
+    logp = torch.log_softmax(logits, -1)
+    want = pcl.ctc_fwd_plain(logp, labels, llen, lablen, blank)
+    want_g = pcl.ctc_bwd_plain(logp, *want[2:], labels, llen, lablen,
+                               want[1], w, blank)
+    d = [x.to(dev) for x in (logp, labels, llen, lablen)]
+    got = pcl.ctc_loss_fwd(*d, blank)
+    got_g = pcl.ctc_loss_bwd(d[0], *got[2:], *d[1:], got[1], w.to(dev),
+                             blank)
+    torch.cuda.synchronize()
+    got, got_g = [x.cpu() for x in got], got_g.cpu()
+    live = torch.arange(tt)[None, :, None] < llen[:, None, None]
+    states = torch.arange(2 * l + 1)[None, None, :] < (2 * lablen + 1)[
+        :, None, None]
+    assert torch.equal(got[1], want[1])
+    assert ((got[0] - want[0]).abs() <= 1e-6 * want[0].abs()).all()
+    for a, b_ in zip(got[2:], want[2:]):
+        m = live & states & torch.isfinite(b_)
+        assert torch.equal(torch.isfinite(a) & live & states, m)
+        assert (a - b_)[m].abs().max() <= 1e-6 * b_[m].abs().max()
+    assert (got_g - want_g).abs().max() <= 1e-6 * want_g.abs().max()
+
+    x = logits.to(dev).requires_grad_()
+    want = pcl.ctc_loss_plain(x, *(y.to(dev) for y in (llen, labels,
+                                                        lablen)), blank)
+    (want_g,) = torch.autograd.grad((want * w.to(dev)).sum(), x)
+    runs = []
+    for _ in range(2):
+        got = pcl.ctc_loss(x, *(y.to(dev) for y in (llen, labels, lablen)),
+                           blank)
+        (got_g,) = torch.autograd.grad((got * w.to(dev)).sum(), x)
+        torch.cuda.synchronize()
+        runs.append((got.cpu(), got_g.cpu()))
+    (got, got_g), (again, again_g) = runs
+    want, want_g = want.detach().cpu(), want_g.cpu()
+    assert torch.equal(got, again) and torch.equal(got_g, again_g)
+    assert got[2] == 0 and want[2] == 0 and not got_g[2].any()
+    assert (got[[0, 1, -1]] > 0).all()
+    assert ((got - want).abs() <= 1e-6 * want.abs()).all()
+    assert (got_g - want_g).abs().max() <= 1e-6 * want_g.abs().max()
+    assert not got_g[1, llen[1]:].any()

@@ -20,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from avsr_tpu_torch.ops.kernels import beam_update as pbu  # noqa: E402
+from avsr_tpu_torch.ops.kernels import ctc_loss as pcl  # noqa: E402
 from avsr_tpu_torch.ops.kernels import decode_attention as pda  # noqa: E402
 from avsr_tpu_torch.ops.kernels import flash_attention as pfa  # noqa: E402
 from avsr_tpu_torch.ops.kernels import row_gather as prg  # noqa: E402
@@ -249,6 +250,8 @@ PERTURBED = {
                                "flash"),
     "flash_attention_bwd_dkv": (pfa, "flash_attention_bwd_dkv", _second,
                                 1e-2, "flash"),
+    "ctc_loss_fwd": (pcl, "ctc_loss_fwd", _first, 1e-3, "ctc"),
+    "ctc_loss_bwd": (pcl, "ctc_loss_bwd", lambda o, d: o + d, 1e-3, "ctc"),
 }
 
 
@@ -259,14 +262,16 @@ CASES = [(k, False) for k in sorted(PERTURBED)] + [("bn_prelu_pool", True)]
 def test_a_perturbed_kernel_fails_its_check(kernel, train, serving,
                                             monkeypatch):
     """One wrapper's result moved by a small amount (a top-k value by
-    1e-3, a scan by 1e-3, an attention output or gradient by 1e-2): its
-    check raises AssertionError naming that kernel, and the unperturbed
-    check passes. The stem tail is moved in eval and in training."""
+    1e-3, a scan by 1e-3, an attention output or gradient by 1e-2, the
+    CTC loss's NLL or gradient by 1e-3): its check raises AssertionError
+    naming that kernel, and the unperturbed check passes. The stem tail
+    is moved in eval and in training."""
     module, name, how, delta, check = PERTURBED[kernel]
     run = {
         "stem": lambda: sc.check_stem_fuse(train, "cpu"),
         "flash": lambda: sc.check_flash(256, torch.float32,
                                         np.random.RandomState(7), "cpu"),
+        "ctc": lambda: sc.check_ctc_loss("cpu"),
     }.get(check) or (lambda: getattr(sc, f"check_{check}")(serving, "cpu"))
     run()
     if how is None:  # the stem: eval returns out, training (out, m, v)

@@ -647,7 +647,8 @@ def test_trace_names_every_cuda_kernel_by_its_wrapper():
         mods = [importlib.import_module(f"avsr_tpu_torch.ops.kernels.{m}")
                 for m in ("flash_attention", "decode_attention",
                           "decoder_layer", "beam_update", "row_gather",
-                          "scan_logsumexp", "topk", "stem_fuse")]
+                          "scan_logsumexp", "topk", "stem_fuse",
+                          "ctc_loss")]
         fns = [getattr(m, wrapper) for m in mods if hasattr(m, wrapper)]
         assert len(fns) == 1 and hasattr(fns[0], "launches"), wrapper
 

@@ -103,12 +103,21 @@ def runs(tmp_path_factory):
     """Every rank's results by case, the JAX step's metrics, and the
     one-process port steps on the global batch: plain and with the fused
     stem (one step), with every dropout on and with dropout and remat (two
-    steps, the worker's seeds)."""
+    steps, the worker's seeds).
+
+    The port's steps in this process run at one thread, as each rank does
+    (``tests/torch_tp_worker.py``), for the whole module: the step's fp32
+    sums round differently at another thread count, and the first AdamW
+    update carries that, through the tiny video frontend's ill-conditioned
+    gradient (ROADMAP C16), into the second step's metrics at ~1e-4, which
+    is not the tensor-parallel layout's doing."""
     from avsr_tpu_torch.core.weights import init_weights
     from avsr_tpu_torch.data.synthetic import synthetic_train_batch
     from avsr_tpu_torch.models.e2e import AVSRModel
 
     setup_torch()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     out = tmp_path_factory.mktemp("tp")
     model = AVSRModel(no_dropout_cfg())
     init_weights(model, torch.Generator().manual_seed(0))
@@ -152,7 +161,8 @@ def runs(tmp_path_factory):
     state = fresh_state(out)
     one["tp_skew"] = [{k: v.item() for k, v in PT.train_step(state, b).items()}
                       for b in res["tp_skew"][0]["collated"]]
-    return res, jax_metrics, one, out, batch
+    yield res, jax_metrics, one, out, batch
+    torch.set_num_threads(threads)
 
 
 def test_split_rule_matches_param_partition_spec():
